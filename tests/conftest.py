@@ -39,3 +39,11 @@ try:
     )
 except ImportError:  # pragma: no cover - optional dev dep
     pass
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (skips without one; run on the GPU "
+        "machine with -m gpu)",
+    )
