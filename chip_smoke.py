@@ -10,8 +10,9 @@ cuts qwen3-14b's depth, never its width). Phases:
    random inputs, held against its plain PyTorch version on the card:
    filter scores (B1, B3) and the selection made from them must be
    bit-equal; the bf16 gathers (B2, B4) must agree within
-   |Δ| ≤ 2e-2 + 2e-2·|ref| (a couple of bf16 ulps at |v|≈1: both sides
-   compute in f32 from the same bf16 inputs and round the output once).
+   |Δ| ≤ 1e-3 + 1.6e-2·|ref| (two bf16 ulps: both sides compute in f32
+   from the same bf16 inputs and round the output once, so they differ
+   by one ulp at most; ``repro_torch.kernels.gather_within_tolerance``).
    Then each kernel, its plain version and one PyTorch call computing
    the same function where one exists (SDPA over the gathered
    survivors, timed only) are timed with CUDA events.
@@ -19,7 +20,11 @@ cuts qwen3-14b's depth, never its width). Phases:
    decode logits with the kernels against the same model with the
    plain versions swapped in, on the same card (only layer 2 is sparse
    there, and its selection is bit-exact, so the logits differ by the
-   gathers' rounding alone).
+   gathers' rounding alone, amplified by the bf16 layers above it):
+   ‖Δ‖/‖ref‖ ≤ 2.5e-3. ``tests/test_torch_smoke.py`` runs this check on
+   the CPU: every gather output one ulp off passes, a softmax scale off
+   by 10 % or a mask admitting one more key fails. Faults smaller than
+   that are phase 2's to catch.
 4. Serving qwen3-14b at full width (random weights from a seed) through
    ``ServeLoop``: 8 requests of 2048-token prompts sharing a 256-token
    system prompt, 32 greedy tokens each, 8 slots, max_len 4096,
@@ -27,10 +32,15 @@ cuts qwen3-14b's depth, never its width). Phases:
    read just after; every kernel must have launched, every request
    drained and every logit been finite. The same requests are served
    again (now hitting the prefix cache) and must give the same streams.
-5. The kernels again, on the live pool of a sparse layer.
+5. The kernels again, compared and timed on the live pool of a sparse
+   layer after serving.
+6. One more drain of fresh prompts on the same engine under
+   ``torch.profiler``: the share of the wall time the device was busy
+   and the largest device items.
 
 The line before last is a JSON object listing each kernel's launches,
-error and times; the last line is ``{"ok": true, "device": ...}``.
+error and times (those of the live pool; ``random`` holds phase 2's);
+the last line is ``{"ok": true, "device": ...}``.
 Any failure exits non-zero before printing either.
 """
 
@@ -51,7 +61,8 @@ SRC = os.path.join(HERE, "src")
 H100_BYTES_PER_S = 3.35e12        # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12          # dense tensor-core peak
 H100_INT8_OPS = 1979e12           # dense tensor-core peak
-GATHER_TOL = 2e-2
+SMALL_REL_TOL = 2.5e-3
+SYSTEM_LEN = 256                  # shared system prompt of the serve phase
 #: the card the script drives (a CPU rehearsal of its logic may swap it)
 DEV = "cuda"
 
@@ -204,7 +215,7 @@ def quantized_q(q):
     return q16.bit_plane(4).contiguous(), q16.scale.contiguous()
 
 
-def check_case(case, label, results, timing=True):
+def check_case(case, label, results):
     """Hold B1–B4 against their plain versions on ``case``; time them."""
     import torch
     import torch.nn.functional as F
@@ -212,6 +223,7 @@ def check_case(case, label, results, timing=True):
     from repro_torch.core.energon_attention import (
         _prefill_diag_blocks, decode_live_budget,
     )
+    from repro_torch.kernels import gather_within_tolerance
     from repro_torch.kernels import mpmrf_decode as dk
     from repro_torch.kernels import mpmrf_prefill as pk
     from repro_torch.kernels import ops
@@ -251,11 +263,10 @@ def check_case(case, label, results, timing=True):
     b2p = lambda: dk.paged_decode_gather_attention_plain(
         c.q_dec, c.k_pages, c.v_pages, idx, val, c.bt, c.cl, key_block=c.bk)
     out, ref = b2().float(), b2p().float()
-    err = (out - ref).abs()
-    need(bool((err <= GATHER_TOL + GATHER_TOL * ref.abs()).all()),
-         f"{label} B2 off by {err.max().item():.3e}")
+    err = (out - ref).abs().max().item()
+    need(gather_within_tolerance(out, ref), f"{label} B2 off by {err:.3e}")
     results["paged_decode_gather_attention"].append(
-        dict(err=err.max().item()))
+        dict(err=err, ref_rms=ref.pow(2).mean().sqrt().item()))
 
     # --- B3 + prefill selection -------------------------------------------
     qpp, qps = quantized_q(c.q_pre)
@@ -289,16 +300,15 @@ def check_case(case, label, results, timing=True):
         c.q_pre, c.qpos, c.k_pages, c.v_pages, pidx, pval, c.bt,
         query_block=c.bq, key_block=c.bk)
     out, ref = b4().float(), b4p().float()
-    err = (out - ref).abs()
-    need(bool((err <= GATHER_TOL + GATHER_TOL * ref.abs()).all()),
-         f"{label} B4 off by {err.max().item():.3e}")
+    err = (out - ref).abs().max().item()
+    need(gather_within_tolerance(out, ref), f"{label} B4 off by {err:.3e}")
     results["paged_prefill_gather_attention"].append(
-        dict(err=err.max().item()))
+        dict(err=err, ref_rms=ref.pow(2).mean().sqrt().item()))
+    r2 = results["paged_decode_gather_attention"][-1]
+    r4 = results["paged_prefill_gather_attention"][-1]
     log(f"[kernels:{label}] B1/B3 bit-equal (scores and selection); "
-        f"B2/B4 max |err| {results['paged_decode_gather_attention'][-1]['err']:.3e}"
-        f" / {results['paged_prefill_gather_attention'][-1]['err']:.3e}")
-    if not timing:
-        return
+        f"B2 max |err| {r2['err']:.3e} (rms |ref| {r2['ref_rms']:.3e}), "
+        f"B4 max |err| {r4['err']:.3e} (rms |ref| {r4['ref_rms']:.3e})")
 
     # --- yardsticks: SDPA over the gathered survivors (timed only) -------
     pages = torch.gather(c.bt.long(), 1, idx.long())
@@ -437,16 +447,20 @@ def small_reference_check():
         for m, n, f in saved:
             setattr(m, n, f)
     need(bool(torch.isfinite(fast).all()), "small model: non-finite logits")
-    err = (fast - plain).abs().max().item()
-    scale = plain.abs().max().item()
+    diff = fast - plain
+    err = diff.abs().max().item()
+    rel = (diff.norm() / plain.norm()).item()
     log(f"[small] serve-smoke bf16 logits, kernels vs plain versions: "
-        f"max |err| {err:.3e} of max |logit| {scale:.3e}")
-    need(err <= 5e-2 * max(scale, 1.0),
-         f"small model logits differ by {err:.3e}")
+        f"max |err| {err:.3e}, ‖err‖/‖ref‖ {rel:.3e} (max |logit| "
+        f"{plain.abs().max().item():.3e}, rms "
+        f"{plain.pow(2).mean().sqrt().item():.3e})")
+    need(rel <= SMALL_REL_TOL,
+         f"small model logits differ by {rel:.3e} of their norm")
 
 
 def serve_full_width(cfg, *, seed=0, n_req=8, prompt_len=2048,
-                     system_len=256, new_tokens=32, max_len=4096, chunk=128):
+                     system_len=SYSTEM_LEN, new_tokens=32, max_len=4096,
+                     chunk=128):
     import numpy as np
     import torch
 
@@ -568,6 +582,57 @@ def live_pool_case(engine, prompts, layer):
     )
 
 
+def profile_drain(engine, system, *, seed=1, n_req=8, prompt_len=2048,
+                  new_tokens=16):
+    """Serve fresh prompts (the same system prompt, new bodies) on
+    ``engine`` under ``torch.profiler``: device time by kernel, and the
+    share of the drain's wall time the device was busy."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime import Request
+
+    vocab = engine.model.cfg.vocab_size
+    rng = np.random.default_rng(seed)
+    m = engine.metrics
+    pf0, dec0 = m.prefill_time, m.decode_time
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        for i in range(n_req):
+            body = rng.integers(1, vocab - 1, size=prompt_len - len(system))
+            engine.submit(Request(uid=1000 + i, prompt=system + body.tolist(),
+                                  max_new_tokens=new_tokens))
+        t0 = time.perf_counter()
+        engine.run_until_drained()
+        sync()
+        wall = time.perf_counter() - t0
+    # device time = the kernels' and copies' own intervals (op rows of
+    # key_averages() also carry the device time of what they launch)
+    per_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            calls, us = per_kernel.get(e.name, (0, 0.0))
+            per_kernel[e.name] = (calls + 1, us + e.time_range.elapsed_us())
+    busy_us = sum(us for _, us in per_kernel.values())
+    need(busy_us > 0, "the profiler saw no device time")
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:12]
+    out = dict(wall_s=wall, prefill_s=m.prefill_time - pf0,
+               decode_s=m.decode_time - dec0, device_busy_s=busy_us / 1e6,
+               idle_share=1 - busy_us / 1e6 / wall,
+               top=[dict(name=k[:90], calls=c, device_ms=us / 1e3)
+                    for k, (c, us) in top])
+    log(f"[profile] {n_req} fresh prompts of {prompt_len} tokens, "
+        f"{new_tokens} new each: wall {wall:.3f} s (prefill "
+        f"{out['prefill_s']:.3f} s, decode {out['decode_s']:.3f} s), "
+        f"device busy {out['device_busy_s']:.3f} s, idle "
+        f"{out['idle_share']:.1%} (under the profiler)")
+    for r in out["top"]:
+        log(f"[profile] {r['device_ms']:10.2f} ms  x{r['calls']:<6d} "
+            f"{r['name']}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=40,
@@ -619,20 +684,21 @@ def main(argv=None) -> int:
     engine, prompts, run1, launches = serve_full_width(cfg)
     layer = engine.model.cfg.energon.min_prune_layer
     check_case(live_pool_case(engine, prompts, layer), f"live-layer{layer}",
-               results, timing=False)
+               results)
+    prof = profile_drain(engine, prompts[0][:SYSTEM_LEN])
 
+    timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name, meta in KERNELS.items():
-        timed = results[name][0]
+        rand, live = results[name]
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=launches[name],
-            max_abs_err=max(r["err"] for r in results[name]),
-            ms=timed["ms"], plain_ms=timed["plain_ms"],
-            bound_ms=timed["bound_ms"], bound_by=timed["bound_by"],
-            library_ms=timed["library_ms"],
+            max_abs_err=max(rand["err"], live["err"]),
+            **{k: live[k] for k in timed_keys},
+            random={k: rand[k] for k in ("err",) + timed_keys},
         ))
-    log(json.dumps({"serve": run1, "card": smi}))
+    log(json.dumps({"serve": run1, "profile": prof, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

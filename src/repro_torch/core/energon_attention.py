@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -198,6 +198,46 @@ def _fused_prefill_engaged(
         and cfg.decode_key_block > 0
         and n_k % cfg.decode_key_block == 0
     )
+
+
+def paged_serving_faults(
+    cfg: EnergonConfig, *, group: int, cache_len: int, chunk: int
+) -> List[str]:
+    """Why serving ``chunk``-token prefill chunks (``group`` query heads
+    per KV head) against ``cache_len``-row paged caches would fail mid-run
+    in this slice: sparse layers that miss the fused kernels' engagement
+    rules raise, and the dense prefix layers refuse masks past
+    ``chunk_threshold``. Empty when every layer can run."""
+    rows = group * chunk
+    faults = []
+    if (cfg.impl == "dense" or cfg.min_prune_layer > 0) \
+            and rows * cache_len > cfg.chunk_threshold:
+        faults.append(
+            f"dense layers would mask {rows} folded rows × {cache_len} "
+            f"keys, past chunk_threshold={cfg.chunk_threshold}: lower the "
+            "prefill chunk or max_len")
+    if cfg.impl == "dense":
+        return faults
+    if cfg.impl != "pallas":
+        return faults + [f"impl={cfg.impl!r} is not ported yet (this "
+                         "slice serves impl='pallas')"]
+    if not cfg.filter_cache_engages(cache_len):
+        threshold = cfg.filter_cache_min_len
+        faults.append(
+            f"filter planes are resident only from "
+            f"{FILTER_CACHE_AUTO_MIN_LEN if threshold is None else threshold}"
+            f" cache rows (max_len {cache_len}): raise max_len or set "
+            "filter_cache_min_len")
+    if cfg.key_block != cfg.decode_key_block:
+        faults.append(f"key_block {cfg.key_block} must equal "
+                      f"decode_key_block {cfg.decode_key_block}")
+    if rows % cfg.query_block:
+        faults.append(f"query_block {cfg.query_block} must divide the "
+                      f"{rows} folded chunk rows (G={group} × chunk "
+                      f"{chunk})")
+    if len(cfg.round_bits) != 2 or not cfg.reuse_partial:
+        faults.append("the fused kernels take two rounds with reuse_partial")
+    return faults
 
 
 def energon_paged_prefill_attention(

@@ -14,4 +14,20 @@ scores``                                  mpmrf_paged_prefill_filter_
 ``mpmrf_prefill.paged_prefill_gather_     B4 ``mpmrf_prefill.py::
 attention``                               paged_prefill_gather_attention``
 ========================================  =============================
+
+The filter kernels (B1, B3) equal their plain versions bit for bit. The
+bf16 gathers (B2, B4) and their plain versions both compute in f32 from
+the same bf16 inputs and round the output once, so an element differs
+by at most one bf16 ulp (≤ 2⁻⁷·|v|): :func:`gather_within_tolerance`
+allows two, plus a floor for outputs near 0.
 """
+
+GATHER_ATOL = 1e-3
+GATHER_RTOL = 1.6e-2
+
+
+def gather_within_tolerance(out, ref) -> bool:
+    """|out − ref| ≤ GATHER_ATOL + GATHER_RTOL·|ref| everywhere."""
+    out, ref = out.float(), ref.float()
+    return bool(((out - ref).abs()
+                 <= GATHER_ATOL + GATHER_RTOL * ref.abs()).all())

@@ -6,6 +6,9 @@ requests at full width (random weights from ``--seed``) through the
 fused paged kernels and reports prefill and decode throughput and
 latency percentiles. ``--smoke`` uses the reduced widths; ``--layers``
 cuts depth only; ``--device cpu`` runs the kernels' plain versions.
+``--max-len`` and ``--prefill-chunk`` default to shapes on which every
+layer runs (4096 / 128 at full width, 128 / 64 at smoke widths);
+``ServeLoop`` refuses shapes that would leave the fused kernels.
 """
 
 from __future__ import annotations
@@ -26,9 +29,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--batch-slots", type=int, default=4)
-    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--max-len", type=int, default=None)
     ap.add_argument("--prompt-len", type=int, default=8)
-    ap.add_argument("--prefill-chunk", type=int, default=64)
+    ap.add_argument("--prefill-chunk", type=int, default=None)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--scheduler", choices=("hybrid", "sync"),
                     default="hybrid")
@@ -50,6 +53,10 @@ def main(argv=None):
     from repro_torch.runtime import Request, ServeLoop, attention_cache_bytes
 
     device = resolve_device(args.device)
+    if args.max_len is None:
+        args.max_len = 128 if args.smoke else 4096
+    if args.prefill_chunk is None:
+        args.prefill_chunk = 64 if args.smoke else 128
     cfg = get_serve_config(args.arch, smoke=args.smoke)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)

@@ -39,6 +39,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.energon_attention import paged_serving_faults
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.runtime.paged_cache import PageAllocator, PagedLayout
 from repro_torch.runtime.pending import PendingQueue
@@ -202,6 +203,16 @@ class ServeLoop:
         self.eos = eos_token
         self.seed = seed
         self.prefill_chunk = max(1, min(prefill_chunk, max_len))
+        cfg = model.cfg
+        faults = paged_serving_faults(
+            cfg.energon, group=cfg.num_heads // cfg.num_kv_heads,
+            cache_len=rows, chunk=self.prefill_chunk,
+        )
+        if faults:
+            raise ValueError(
+                f"max_len {max_len} / prefill_chunk {prefill_chunk} would "
+                "leave the paged serving path: " + "; ".join(faults)
+            )
         if scheduler not in ("hybrid", "sync"):
             raise ValueError(
                 f"scheduler must be 'hybrid' or 'sync', got {scheduler!r}"

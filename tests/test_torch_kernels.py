@@ -2,14 +2,17 @@
 the reference's Pallas kernels in interpret mode, on the same numpy
 inputs: the filter scores (B1, B3) bit for bit, the survivor gathers
 (B2, B4) at fp32 atol = rtol = 1e-5 (the two sum the same products in
-different orders)."""
+different orders). Last, the bf16 tolerance the card holds B2/B4 to is
+shown to pass a reordering of the same sums and to fail wrong kernels."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.kernels import mpmrf_decode as jdec
 from repro.kernels import mpmrf_prefill as jpre
+from repro_torch.kernels import gather_within_tolerance
 from repro_torch.kernels import mpmrf_decode as tdec
 from repro_torch.kernels import mpmrf_prefill as tpre
 from tests._torch_port import n, t
@@ -118,3 +121,54 @@ def test_b4_paged_prefill_gather_matches_pallas():
     )
     np.testing.assert_allclose(n(out), n(ref), atol=1e-5, rtol=1e-5)
     assert not n(out)[3].any()           # sentinel rows attend nothing
+
+
+def _b2_bf16(rng, variant):
+    q, k, v, table, idx, val = _gather_operands(rng, G, (BH, 3))
+    cl = np.array([40, 50, 5, 33], np.int32)
+    idx[:, 0], val[:, 0] = cl // BK, 1   # the page holding key ``cl``
+    q, k, v = (t(x, torch.bfloat16) for x in (q, k, v))
+    idx, val, table, cl = t(idx), t(val), t(table), t(cl)
+    ref = tdec.paged_decode_gather_attention(q, k, v, idx, val, table, cl,
+                                             key_block=BK)
+    kw = dict(key_block=BK)
+    if variant == "scale+2%":
+        kw["scale"] = 1.02 / D ** 0.5
+    elif variant == "mask+1":              # the length mask lets key cl in
+        cl = cl + 1
+    return tdec.paged_decode_gather_attention(q, k, v, idx, val, table, cl,
+                                              **kw), ref
+
+
+def _b4_bf16(rng, variant):
+    q, k, v, table, idx, val = _gather_operands(rng, N_Q, (BH, N_Q // BQ, 3))
+    qpos = _qpos(rng)
+    # each query block's first slot: the page of its last row's next key
+    last = qpos.reshape(BH, N_Q // BQ, BQ)[..., -1]
+    idx[..., 0], val[..., 0] = np.minimum((last + 1) // BK, MB - 1), 1
+    q, k, v = (t(x, torch.bfloat16) for x in (q, k, v))
+    idx, val, table, qpos = t(idx), t(val), t(table), t(qpos)
+    kw = dict(query_block=BQ, key_block=BK)
+    ref = tpre.paged_prefill_gather_attention(q, qpos, k, v, idx, val, table,
+                                              **kw)
+    if variant == "scale+2%":
+        kw["scale"] = 1.02 / D ** 0.5
+    elif variant == "mask+1":              # the causal mask lets kpos+1 in
+        qpos = qpos + 1
+    return tpre.paged_prefill_gather_attention(q, qpos, k, v, idx, val,
+                                               table, **kw), ref
+
+
+@pytest.mark.parametrize("kernel", ["B2", "B4"])
+@pytest.mark.parametrize("variant, within", [
+    ("one ulp", True), ("scale+2%", False), ("mask+1", False)])
+def test_gather_tolerance_separates_rounding_from_faults(kernel, variant,
+                                                         within):
+    """Every element one bf16 ulp further from 0 (the most that rounding
+    the f32 result differently can do) passes; a softmax scale off by
+    2 % or a mask that admits one more key fails."""
+    make = _b2_bf16 if kernel == "B2" else _b4_bf16
+    out, ref = make(np.random.default_rng(6), variant)
+    if variant == "one ulp":
+        out = (ref.view(torch.int16) + 1).view(torch.bfloat16)
+    assert gather_within_tolerance(out, ref) is within
