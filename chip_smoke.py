@@ -38,8 +38,37 @@ cuts qwen3-14b's depth, never its width). Phases:
    ``torch.profiler``: the share of the wall time the device was busy
    and the largest device items.
 
-The line before last is a JSON object listing each kernel's launches,
-error and times (those of the live pool; ``random`` holds phase 2's);
+Then full-sequence scoring (``LMModel.apply`` / ``loss``, impl
+"pallas": B9 → Eq. 3 + top-B → B10 in the sparse layers) on the same
+model object and weights, once the serving engine is released:
+
+7. B9–B11 on random bf16 q/k/v at the scoring path's shapes ([160,
+   2048, 128]: 4 sequences × 40 heads; query block 128, key block 64,
+   budget 8; B11 in 128 × 128 tiles), and once more with the queries'
+   second half at q_offset 1024: B9's scores and the survivor table
+   bit-equal to the plain versions', B10 and B11 within the gather
+   tolerance, B10 with every causal block a survivor against B11. Each
+   kernel, its plain version and its library call (SDPA over the
+   gathered survivors for B10, causal SDPA for B11) timed.
+8. The serve-smoke model in bf16: ``apply`` logits through B9 + B10 vs
+   the plain versions swapped in, ‖Δ‖/‖ref‖ ≤ 2.5e-3.
+9. ``LMModel.loss`` over 4 sequences of 2048 tokens at full width,
+   launch counts zeroed just before and read just after: B9 and B10
+   once per sparse layer (layers 2–39), B11 and B1–B4 never; the loss
+   and every logit of a following ``apply`` finite. Wall time, tokens/s
+   and peak device memory are printed; one more ``loss`` call under
+   ``torch.profiler`` gives its device time by kernel and idle share.
+10. Phase 7's checks and times again on the q/k/v that layer 2 handed
+    the kernels in phase 9, and the sparse pair (B9 + selection + B10)
+    timed against B11 on them (a measurement, not a claimed speedup).
+11. ``ops.energon_block_attention`` forward and backward at a small size:
+    the forward equals its composition, the gradients autograd through
+    the plain block-sparse attention.
+
+The line before last is a JSON object listing each kernel's launches
+(B1–B4 in phase 4, B9–B11 in phase 9), error and times (those of the
+live pool or the captured layer; ``random`` holds phase 2's or 7's);
+the scoring results are on the line before it;
 the last line is ``{"ok": true, "device": ...}``.
 Any failure exits non-zero before printing either.
 """
@@ -48,6 +77,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -79,7 +109,19 @@ KERNELS = {
     "paged_prefill_gather_attention": dict(
         id="B4", source="src/repro_torch/kernels/csrc/mpmrf_prefill.cu",
         replaces="src/repro/kernels/mpmrf_prefill.py:502"),
+    "mpmrf_filter_scores": dict(
+        id="B9", source="src/repro_torch/kernels/csrc/mpmrf_filter.cu",
+        replaces="src/repro/kernels/mpmrf_filter.py:74"),
+    "block_sparse_attention": dict(
+        id="B10",
+        source="src/repro_torch/kernels/csrc/block_sparse_attention.cu",
+        replaces="src/repro/kernels/block_sparse_attention.py:92"),
+    "flash_attention": dict(
+        id="B11", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:82"),
 }
+SERVE_KERNELS = tuple(KERNELS)[:4]        # B1–B4: the paged serving path
+SCORE_KERNELS = tuple(KERNELS)[4:]        # B9–B11: full-sequence scoring
 
 
 class SmokeFailure(RuntimeError):
@@ -206,6 +248,13 @@ def make_case(q_dec, cl, q_pre, qpos, k_pool, v_pool, codes, scales, table,
         bt=_head_offset_table(table, heads, num_pages),
         batch=batch, heads=heads, bk=bk, bq=bq, ratio=ratio,
     )
+
+
+def bound(nbytes, ops, peak):
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the operands' peak rate (ms)."""
+    tb, to = nbytes / H100_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def quantized_q(q):
@@ -361,10 +410,6 @@ def check_case(case, label, results):
                 + 2 * pidx.numel() * 4 + n_pvalid * c.bk * d * 2 * 2)
     b4_flops = n_pvalid * c.bq * c.bk * d * 2 * 2
 
-    def bound(nbytes, ops, peak):
-        tb, to = nbytes / H100_BYTES_PER_S * 1e3, ops / peak * 1e3
-        return (tb, "bytes") if tb >= to else (to, "operations")
-
     for name, fn, plain, lib, nbytes, ops_n, peak in (
         ("mpmrf_paged_filter_scores", b1, b1p, None, b1_bytes, b1_ops,
          H100_INT8_OPS),
@@ -385,6 +430,171 @@ def check_case(case, label, results):
         log(f"[time:{label}] {KERNELS[name]['id']} {name}: "
             f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
             f"{lib_txt}, bound {r['bound_ms']:.4f} by {r['bound_by']})")
+
+
+# ---------------------------------------------------------------------------
+# the full-sequence kernels (B9–B11) on one layer's [B·H, n, d] operands
+# ---------------------------------------------------------------------------
+
+
+def causal_pairs(n_q, n_k, q_offset):
+    """(query, key) pairs the causal mask admits: row i sees keys
+    0 .. q_offset + i (at most n_k)."""
+    import torch
+
+    rows = torch.arange(n_q) + q_offset
+    return int(torch.clamp(rows + 1, 0, n_k).sum())
+
+
+def survivor_pairs(idx, val, bq, bk, q_offset):
+    """Causally admitted (query, key) pairs inside the valid survivor
+    tiles of a ``[bh, n_qb, B]`` table."""
+    import torch
+
+    n_qb = idx.shape[1]
+    qpos = (q_offset + torch.arange(n_qb, device=idx.device)[:, None] * bq
+            + torch.arange(bq, device=idx.device))             # [n_qb, bq]
+    seen = torch.clamp(qpos[None, :, None, :] - idx.long()[..., None] * bk
+                       + 1, 0, bk)                            # [bh,n_qb,B,bq]
+    return int((seen.sum(-1) * val).sum())
+
+
+def check_full_sequence(q, k, v, label, results, *, bq, bk, ratio,
+                        q_offset=0, timed=True):
+    """Hold B9–B11 against their plain versions on q ``[bh, n_q, d]``,
+    k/v ``[bh, n_k, d]`` (bf16): B9's scores and the survivor table made
+    from them bit-equal; B10 and B11 within the gather tolerance; B10
+    with every causal block a survivor (ρ ≤ 1) against B11. With
+    ``timed``, each kernel, its plain version and its library call are
+    timed and bounded from this case's data."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import block_sparse_attention as bsa
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gather_within_tolerance
+    from repro_torch.kernels import mpmrf_filter as fk
+    from repro_torch.kernels import ops
+
+    bh, n_q, d = q.shape
+    n_k = k.shape[1]
+    n_qb, n_kb = n_q // bq, n_k // bk
+    budget = max(1, math.ceil(n_kb / ratio))
+    fa_block = 128                        # B11's tile (the reference's default)
+
+    # --- B9 + selection ---------------------------------------------------
+    qp, kmsb, krem, qs, ks = ops.full_sequence_planes(q, k)
+    fkw = dict(shift=2, query_block=bq, key_block=bk, causal=True,
+               q_offset=q_offset)
+    b9 = lambda: fk.mpmrf_filter_scores(qp, kmsb, krem, qs, **fkw)
+    b9p = lambda: fk.mpmrf_filter_scores_plain(qp, kmsb, krem, qs, **fkw)
+    s0, s1 = b9()
+    r0, r1 = b9p()
+    sync()
+    need(torch.equal(s0, r0) and torch.equal(s1, r1),
+         f"{label} B9 scores differ from the plain version")
+    skw = dict(block_budget=budget, query_block=bq, key_block=bk)
+    idx, val = ops.select_from_scores(s0, s1, ks, **skw)
+    ridx, rval = ops.select_from_scores(r0, r1, ks, **skw)
+    need(torch.equal(idx, ridx) and torch.equal(val, rval),
+         f"{label} B9 selection differs")
+    entry = {"mpmrf_filter_scores": dict(label=label, err=0.0)}
+
+    # --- B10, B11, and B10 over every causal block --------------------------
+    akw = dict(query_block=bq, key_block=bk, causal=True, q_offset=q_offset)
+    b10 = lambda: bsa.block_sparse_attention(q, k, v, idx, val, **akw)
+    b10p = lambda: bsa.block_sparse_attention_plain(q, k, v, idx, val, **akw)
+    b11 = lambda: fa.flash_attention(q, k, v, causal=True, q_offset=q_offset,
+                                     block_q=fa_block, block_k=fa_block)
+    b11p = lambda: fa.flash_attention_plain(q, k, v, causal=True,
+                                            q_offset=q_offset)
+    dense = b11().float()
+    for name, fn, plain in (("block_sparse_attention", b10, b10p),
+                            ("flash_attention", None, b11p)):
+        out = dense if fn is None else fn().float()
+        ref = plain().float()
+        err = (out - ref).abs().max().item()
+        need(gather_within_tolerance(out, ref),
+             f"{label} {KERNELS[name]['id']} off by {err:.3e}")
+        entry[name] = dict(label=label, err=err,
+                           ref_rms=ref.pow(2).mean().sqrt().item())
+    all_idx = torch.arange(n_kb, device=DEV, dtype=torch.int32).expand(
+        bh, n_qb, n_kb).contiguous()
+    every = bsa.block_sparse_attention(q, k, v, all_idx,
+                                       torch.ones_like(all_idx), **akw)
+    keep_all_err = (every.float() - dense).abs().max().item()
+    need(gather_within_tolerance(every.float(), dense),
+         f"{label} B10 over every causal block differs from B11 by "
+         f"{keep_all_err:.3e}")
+    kept = int(val.sum())
+    causal_tiles = bh * sum(
+        1 for i in range(n_qb) for j in range(n_kb)
+        if j * bk <= q_offset + i * bq + bq - 1)
+    log(f"[full-seq:{label}] bh {bh}, n_q {n_q}, n_k {n_k}, d {d}, "
+        f"q_offset {q_offset}: B9 bit-equal (scores and selection; "
+        f"{kept} survivor tiles of {causal_tiles} causal, budget "
+        f"{budget}); B10 max |err| "
+        f"{entry['block_sparse_attention']['err']:.3e} (rms |ref| "
+        f"{entry['block_sparse_attention']['ref_rms']:.3e}), B11 max |err| "
+        f"{entry['flash_attention']['err']:.3e}; B10 over every causal "
+        f"block vs B11 max |err| {keep_all_err:.3e}")
+    for name, e in entry.items():
+        results[name].append(e)
+    if not timed:
+        return None
+
+    # --- yardsticks (timed only) ---------------------------------------------
+    rows = torch.arange(bh, device=DEV)[:, None, None]
+    kg = k.view(bh, n_kb, bk, d)[rows, idx.long()].reshape(bh * n_qb, 1, -1, d)
+    vg = v.view(bh, n_kb, bk, d)[rows, idx.long()].reshape(bh * n_qb, 1, -1, d)
+    qpos = (q_offset + torch.arange(n_qb, device=DEV)[:, None] * bq
+            + torch.arange(bq, device=DEV))                  # [n_qb, bq]
+    kpos = (idx.long()[..., None] * bk
+            + torch.arange(bk, device=DEV)).reshape(bh, n_qb, 1, -1)
+    slot_ok = (val[..., None] > 0).expand(-1, -1, -1, bk).reshape(
+        bh, n_qb, 1, -1)
+    mask = (slot_ok & (kpos <= qpos[None, :, :, None])).reshape(
+        bh * n_qb, 1, bq, -1)
+    qr = q.reshape(bh * n_qb, 1, bq, d)
+    sdpa_sparse = lambda: F.scaled_dot_product_attention(qr, kg, vg,
+                                                         attn_mask=mask)
+    sdpa_dense = None
+    if q_offset == 0 and n_q == n_k:
+        sdpa_dense = lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True)
+
+    # --- bounds from this case's data ----------------------------------------
+    pairs = causal_pairs(n_q, n_k, q_offset) * bh
+    b9_bytes = 3 * q.numel() + qs.numel() * 4 + 2 * s0.numel() * 4
+    b9_ops = pairs * d * 2 * 2            # two rounds of multiply-add
+    b10_bytes = (q.numel() * 2 * 2 + 2 * idx.numel() * 4
+                 + kept * bk * d * 2 * 2)
+    b10_flops = survivor_pairs(idx, val, bq, bk, q_offset) * d * 2 * 2
+    b11_bytes = (q.numel() + k.numel() + v.numel() + q.numel()) * 2
+    b11_flops = pairs * d * 2 * 2
+
+    timing = {}
+    for name, fn, plain, lib, nbytes, ops_n, peak in (
+        ("mpmrf_filter_scores", b9, b9p, None, b9_bytes, b9_ops,
+         H100_INT8_OPS),
+        ("block_sparse_attention", b10, b10p, sdpa_sparse, b10_bytes,
+         b10_flops, H100_BF16_FLOPS),
+        ("flash_attention", b11, b11p, sdpa_dense, b11_bytes, b11_flops,
+         H100_BF16_FLOPS),
+    ):
+        r = entry[name]
+        r["ms"] = time_ms(fn, iters=10)
+        r["plain_ms"] = time_ms(plain, iters=3, warmup=1)
+        r["library_ms"] = time_ms(lib, iters=10) if lib is not None else None
+        r["bound_ms"], r["bound_by"] = bound(nbytes, ops_n, peak)
+        lib_txt = ("n/a" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f}")
+        log(f"[time:{label}] {KERNELS[name]['id']} {name}: "
+            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+            f"{lib_txt}, bound {r['bound_ms']:.4f} by {r['bound_by']})")
+        timing[name] = r["ms"]
+    return dict(survivor_tiles=kept, causal_tiles=causal_tiles,
+                budget=budget, ms=timing)
 
 
 # ---------------------------------------------------------------------------
@@ -523,8 +733,9 @@ def serve_full_width(cfg, *, seed=0, n_req=8, prompt_len=2048,
     need(all(len(r.tokens_out) == new_tokens for r in done),
          f"a request stopped short of {new_tokens} tokens")
     need(m.nonfinite_logits == 0, f"{m.nonfinite_logits} non-finite logits")
-    for name, n in launches.items():
-        need(n > 0, f"kernel {name} never launched on the serving path")
+    for name in SERVE_KERNELS:
+        need(launches[name] > 0,
+             f"kernel {name} never launched on the serving path")
     streams1 = {r.uid: list(r.tokens_out) for r in done}
 
     pf_tok, pf_time = m.prefill_tokens, m.prefill_time
@@ -588,7 +799,6 @@ def profile_drain(engine, system, *, seed=1, n_req=8, prompt_len=2048,
     ``engine`` under ``torch.profiler``: device time by kernel, and the
     share of the drain's wall time the device was busy."""
     import numpy as np
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.runtime import Request
@@ -607,21 +817,9 @@ def profile_drain(engine, system, *, seed=1, n_req=8, prompt_len=2048,
         engine.run_until_drained()
         sync()
         wall = time.perf_counter() - t0
-    # device time = the kernels' and copies' own intervals (op rows of
-    # key_averages() also carry the device time of what they launch)
-    per_kernel = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            calls, us = per_kernel.get(e.name, (0, 0.0))
-            per_kernel[e.name] = (calls + 1, us + e.time_range.elapsed_us())
-    busy_us = sum(us for _, us in per_kernel.values())
-    need(busy_us > 0, "the profiler saw no device time")
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:12]
+    split = device_split(prof, wall)
     out = dict(wall_s=wall, prefill_s=m.prefill_time - pf0,
-               decode_s=m.decode_time - dec0, device_busy_s=busy_us / 1e6,
-               idle_share=1 - busy_us / 1e6 / wall,
-               top=[dict(name=k[:90], calls=c, device_ms=us / 1e3)
-                    for k, (c, us) in top])
+               decode_s=m.decode_time - dec0, **split)
     log(f"[profile] {n_req} fresh prompts of {prompt_len} tokens, "
         f"{new_tokens} new each: wall {wall:.3f} s (prefill "
         f"{out['prefill_s']:.3f} s, decode {out['decode_s']:.3f} s), "
@@ -631,6 +829,231 @@ def profile_drain(engine, system, *, seed=1, n_req=8, prompt_len=2048,
         log(f"[profile] {r['device_ms']:10.2f} ms  x{r['calls']:<6d} "
             f"{r['name']}")
     return out
+
+
+def device_split(prof, wall, top=12):
+    """Device time by kernel from a ``torch.profiler`` run: the kernels'
+    and copies' own intervals (op rows of key_averages() also carry the
+    device time of what they launch), their sum, and the share of
+    ``wall`` seconds the device sat idle."""
+    from torch.autograd import DeviceType
+
+    per_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            calls, us = per_kernel.get(e.name, (0, 0.0))
+            per_kernel[e.name] = (calls + 1, us + e.time_range.elapsed_us())
+    busy_us = sum(us for _, us in per_kernel.values())
+    need(busy_us > 0, "the profiler saw no device time")
+    items = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:top]
+    return dict(device_busy_s=busy_us / 1e6,
+                idle_share=1 - busy_us / 1e6 / wall,
+                top=[dict(name=k[:90], calls=c, device_ms=us / 1e3)
+                     for k, (c, us) in items])
+
+
+def random_full_sequence(gen, *, bh=160, n=2048, d=128):
+    """bf16 q/k/v ``[bh, n, d]`` at the scoring path's shapes (4
+    sequences × 40 heads of 2048 tokens)."""
+    import torch
+
+    return [torch.randn((bh, n, d), generator=gen, device=DEV).to(
+        torch.bfloat16) for _ in range(3)]
+
+
+def small_scoring_check():
+    """Serve-smoke model in bf16 with impl="pallas" on the card:
+    ``LMModel.apply`` logits through B9 + B10 vs the same model with the
+    plain versions swapped in (layer 2, the one sparse layer, selects
+    bit-exactly, so the logits differ by B10's rounding alone)."""
+    import torch
+
+    from repro_torch.configs.registry import get_serve_config
+    from repro_torch.kernels import block_sparse_attention as bsa
+    from repro_torch.kernels import mpmrf_filter as fk
+    from repro_torch.models import LMModel
+
+    cfg = dataclasses.replace(get_serve_config("qwen3-14b", smoke=True),
+                              dtype="bfloat16")
+    model = LMModel(cfg, device=DEV)
+    params = model.init(seed=2)
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    batch = {"inputs": torch.randint(1, cfg.vocab_size - 1, (2, 128),
+                                     generator=gen, device=DEV)}
+    fast = model.apply(params, batch)[0]
+    swaps = [(fk, "mpmrf_filter_scores"), (bsa, "block_sparse_attention")]
+    saved = [(m, n, getattr(m, n)) for m, n in swaps]
+    try:
+        for m, n in swaps:
+            setattr(m, n, getattr(m, n + "_plain"))
+        plain = model.apply(params, batch)[0]
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+    need(bool(torch.isfinite(fast).all()), "small scoring: non-finite logits")
+    diff = fast - plain
+    rel = (diff.norm() / plain.norm()).item()
+    log(f"[small-score] serve-smoke bf16 apply logits [2, 128, "
+        f"{cfg.vocab_size}], kernels vs plain versions: max |err| "
+        f"{diff.abs().max().item():.3e}, ‖err‖/‖ref‖ {rel:.3e} (rms "
+        f"{plain.pow(2).mean().sqrt().item():.3e})")
+    need(rel <= SMALL_REL_TOL,
+         f"small scoring logits differ by {rel:.3e} of their norm")
+
+
+def score_full_width(model, params, *, n_seq=4, seq_len=2048, seed=5):
+    """``LMModel.loss`` over ``n_seq`` random sequences at full width, the
+    launch counts zeroed just before and read just after; then ``apply``
+    for the logits. Returns the results and the q/k/v (``[B·H, n, d]``)
+    that the first sparse layer handed to the kernels."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops
+
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size - 1,
+                                        size=(n_seq, seq_len + 1)),
+                           device=DEV)
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    captured = {}
+    real_bsa = ops.block_sparse_attention
+
+    def capture(q, k, v, *args, **kw):
+        captured.setdefault("qkv", (q, k, v))
+        return real_bsa(q, k, v, *args, **kw)
+
+    sync()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.block_sparse_attention = capture
+    try:
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, metrics = model.loss(params, batch)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+    finally:
+        ops.block_sparse_attention = real_bsa
+    peak = mem_gb(torch.cuda.max_memory_allocated)
+    sparse_layers = cfg.num_layers - cfg.energon.min_prune_layer
+    tokens = n_seq * seq_len
+    log(f"[score] {cfg.name} LMModel.loss over {n_seq} × {seq_len} tokens "
+        f"({cfg.num_layers} layers, impl {cfg.energon.impl!r}): loss "
+        f"{float(loss):.4f} in {wall:.3f} s ({tokens / wall:.1f} tok/s), "
+        f"peak device memory {peak} GB")
+    log(f"[score] kernel launches: {json.dumps(launches)}")
+    need(bool(torch.isfinite(loss)), f"non-finite loss {float(loss)}")
+    for name in ("mpmrf_filter_scores", "block_sparse_attention"):
+        need(launches[name] == sparse_layers,
+             f"{name} launched {launches[name]} times in scoring, not "
+             f"{sparse_layers} (layers {cfg.energon.min_prune_layer}–"
+             f"{cfg.num_layers - 1})")
+    for name in SERVE_KERNELS + ("flash_attention",):
+        need(launches[name] == 0, f"{name} launched in scoring")
+    need(float(metrics["tokens"]) == tokens, "loss counted the wrong tokens")
+
+    t0 = time.perf_counter()
+    logits, _ = model.apply(params, batch)
+    sync()
+    apply_wall = time.perf_counter() - t0
+    need(tuple(logits.shape) == (n_seq, seq_len, cfg.vocab_size),
+         f"logits shape {tuple(logits.shape)}")
+    need(bool(torch.isfinite(logits).all()), "non-finite logits")
+    log(f"[score] LMModel.apply: logits {tuple(logits.shape)} f32, all "
+        f"finite, in {apply_wall:.3f} s (rms "
+        f"{logits.pow(2).mean().sqrt().item():.3f})")
+    del logits
+    out = dict(loss=float(loss), wall_s=wall, tok_s=tokens / wall,
+               apply_wall_s=apply_wall, tokens=tokens, peak_memory_gb=peak,
+               launches=launches)
+    if DEV == "cuda":
+        out["profile"] = profile_scoring(model, params, batch)
+    return out, captured["qkv"]
+
+
+def profile_scoring(model, params, batch):
+    """One more ``LMModel.loss`` under ``torch.profiler``: device time by
+    kernel and the device's idle share of the call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        t0 = time.perf_counter()
+        model.loss(params, batch)
+        sync()
+        wall = time.perf_counter() - t0
+    out = dict(wall_s=wall, **device_split(prof, wall, top=15))
+    log(f"[profile-score] LMModel.loss: wall {wall:.3f} s, device busy "
+        f"{out['device_busy_s']:.3f} s, idle {out['idle_share']:.1%} "
+        f"(under the profiler)")
+    for r in out["top"]:
+        log(f"[profile-score] {r['device_ms']:10.2f} ms  x{r['calls']:<6d} "
+            f"{r['name']}")
+    return out
+
+
+def time_sparse_pair(q, k, v, *, bq, bk, ratio, layer):
+    """The sparse pair (B9 + selection + B10) against B11 on the same
+    operands: a measurement to write down, not a claimed speedup."""
+    from repro_torch.kernels import ops
+
+    budget = max(1, math.ceil(k.shape[1] // bk / ratio))
+    pair = lambda: ops.block_sparse_attention(
+        q, k, v, *ops.mpmrf_select_blocks(
+            q, k, block_budget=budget, query_block=bq, key_block=bk),
+        query_block=bq, key_block=bk)
+    dense = lambda: ops.flash_attention(q, k, v)
+    out = dict(sparse_pair_ms=time_ms(pair, iters=10),
+               flash_ms=time_ms(dense, iters=10))
+    log(f"[pair:captured] B9 + selection + B10 {out['sparse_pair_ms']:.4f} "
+        f"ms vs B11 {out['flash_ms']:.4f} ms on layer {layer}'s operands")
+    return out
+
+
+def grad_check(*, bh=8, n=512, d=128, bq=128, bk=64, budget=2):
+    """``ops.energon_block_attention`` forward and backward on the card:
+    the forward equals the mpmrf_select_blocks + block_sparse_attention
+    composition, and the gradients equal autograd through the plain
+    block-sparse attention with that selection (the backward's own
+    recipe, run a second time: its index backward sums with atomics, so
+    bf16 grads are held to torch's bf16 tolerance)."""
+    import torch
+
+    from repro_torch.kernels import block_sparse_attention as bsa
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    q, k, v = (torch.randn((bh, n, d), generator=gen, device=DEV).to(
+        torch.bfloat16).requires_grad_() for _ in range(3))
+    out = ops.energon_block_attention(q, k, v, budget, bq, bk, True)
+    kw = dict(query_block=bq, key_block=bk)
+    idx, val = ops.mpmrf_select_blocks(q.detach(), k.detach(),
+                                       block_budget=budget, **kw)
+    want = ops.block_sparse_attention(q.detach(), k.detach(), v.detach(),
+                                      idx, val, **kw)
+    need(torch.equal(out.detach(), want),
+         "energon_block_attention forward differs from its composition")
+    g = torch.randn(out.shape, generator=gen, device=DEV).to(out.dtype)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    ref = torch.autograd.grad(
+        bsa.block_sparse_attention_plain(q, k, v, idx, val, **kw),
+        (q, k, v), g)
+    errs = []
+    for name, a, b in zip("qkv", grads, ref):
+        need(bool(torch.isfinite(a).all()), f"non-finite d{name}")
+        try:
+            torch.testing.assert_close(a, b)
+        except AssertionError as exc:
+            raise SmokeFailure(f"d{name} differs: {exc}") from None
+        errs.append((a.float() - b.float()).abs().max().item())
+    log(f"[grad] energon_block_attention [{bh}, {n}, {d}] bf16, budget "
+        f"{budget}: forward equal to its composition; dq/dk/dv vs autograd "
+        f"through the plain version max |err| "
+        + " / ".join(f"{e:.3e}" for e in errs))
 
 
 def main(argv=None) -> int:
@@ -687,18 +1110,46 @@ def main(argv=None) -> int:
                results)
     prof = profile_drain(engine, prompts[0][:SYSTEM_LEN])
 
+    # full-sequence scoring on the same model object and weights; the
+    # serving engine (and its page pool) goes first
+    model, params = engine.model, engine.params
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    e = model.cfg.energon
+    blocks = dict(bq=e.query_block, bk=e.key_block, ratio=e.pruning_ratio)
+    q, k, v = random_full_sequence(gen)
+    random_fs = check_full_sequence(q, k, v, "random", results, **blocks)
+    half = q.shape[1] // 2
+    check_full_sequence(q[:, half:].contiguous(), k, v, "random-offset",
+                        results, q_offset=half, timed=False, **blocks)
+    del q, k, v
+    small_scoring_check()
+    scoring, (q, k, v) = score_full_width(model, params)
+    captured_fs = check_full_sequence(q, k, v, f"captured-layer{layer}",
+                                      results, **blocks)
+    pair = time_sparse_pair(q, k, v, layer=layer, **blocks)
+    del q, k, v
+    grad_check()
+
     timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name, meta in KERNELS.items():
-        rand, live = results[name]
+        entries = results[name]
+        main_run, rand = entries[-1], entries[0]
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
-            replaces=meta["replaces"], launches=launches[name],
-            max_abs_err=max(rand["err"], live["err"]),
-            **{k: live[k] for k in timed_keys},
+            replaces=meta["replaces"],
+            launches=(launches if name in SERVE_KERNELS
+                      else scoring["launches"])[name],
+            max_abs_err=max(r["err"] for r in entries),
+            **{k: main_run[k] for k in timed_keys},
             random={k: rand[k] for k in ("err",) + timed_keys},
         ))
     log(json.dumps({"serve": run1, "profile": prof, "card": smi}))
+    log(json.dumps({"scoring": dict(scoring, random=random_fs,
+                                    captured=captured_fs, **pair),
+                    "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,15 @@
 """Energon attention dispatch (port of ``repro.core.energon_attention``).
 
-This slice ports the serving main path: the paged entry points
+Ported: the paged serving entry points
 :func:`energon_paged_prefill_attention` and
 :func:`energon_paged_decode_attention`, whose fused branches run the
-hand-written CUDA kernels through :mod:`repro_torch.kernels.ops`, and
-the dense branch of :func:`energon_attention` that the unpruned prefix
-layers take. A config that would reach the reference's ``mpmrf_row`` /
-``mpmrf_block`` XLA paths (or the unpaged fused kernels) raises
-``NotImplementedError``; those wait for a later slice.
+hand-written CUDA kernels through :mod:`repro_torch.kernels.ops`; and
+:func:`energon_attention`'s full-sequence call (dense prefix layers,
+``impl="pallas"`` through B9 + B10) plus its dense per-row-position
+branch that the paged prefix layers take. A config that would reach the
+reference's ``mpmrf_row`` / ``mpmrf_block`` XLA paths, the chunked
+path or the unpaged fused kernels raises ``NotImplementedError``; those
+wait for a later slice.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core import filtering as flt
 from repro_torch.core import sparse_attention as spa
 
 # Resident filter planes are allocated only for caches at least this long
@@ -70,8 +73,9 @@ def _zero_stats(batch: int, device) -> torch.Tensor:
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} waits for a later slice of the PyTorch port; this "
-        "slice serves impl='pallas' with resident filter planes"
+        f"{what} waits for a later slice of the PyTorch port; the "
+        "port runs impl='pallas' through its kernels and the dense "
+        "prefix layers"
     )
 
 
@@ -81,24 +85,98 @@ def energon_attention(
     v: torch.Tensor,
     cfg: EnergonConfig,
     *,
-    q_positions: torch.Tensor,
     causal: bool = True,
     window: Optional[int] = None,
     layer_index: int = 10**9,
+    q_offset: int = 0,
+    q_positions: Optional[torch.Tensor] = None,
+    kv_length: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     telemetry: bool = False,
 ):
-    """Chunked-prefill attention ``[B, H, n, d]`` at per-row positions
-    ``q_positions`` (int32 ``[B, n_q]``; padding sentinels ≥ n_k are
-    wholly masked) — the dense branch the unpruned prefix layers (below
-    ``cfg.min_prune_layer``) and ``impl="dense"`` take. Every other
-    branch of the reference (block/row MP-MRF, offset-only masks,
-    flash-style chunking) waits for a later slice and raises.
+    """Multi-head attention ``[B, H, n, d]`` with Energon sparsity.
+
+    Two calls are ported. The full-sequence call (``q_positions`` None;
+    query row i at absolute position ``q_offset + i``): layers below
+    ``cfg.min_prune_layer`` and ``impl="dense"`` take dense attention
+    under the causal mask, and ``impl="pallas"`` runs the Filtering Unit
+    (B9 + Eq. 3 + top-B) and the Attention Unit (B10) over
+    ``[B·H, n, d]``. The chunked-prefill call (``q_positions`` int32
+    ``[B, n_q]``, padding sentinels ≥ n_k wholly masked) takes the dense
+    branch only, for the unpruned prefix layers of the paged path.
+
+    Every other branch of the reference raises up front with the reason
+    (:func:`full_sequence_faults`): the row-granular fallback for
+    sequences not divisible into two or more blocks, the chunked
+    (flash-style) path past ``chunk_threshold``, the XLA block fallback
+    for windows and padded caches, and the ``mpmrf_row`` /
+    ``mpmrf_block`` impls. Telemetry reports zeros on these paths, as
+    the reference's pure-kernel path does.
     """
     n_q, n_k = q.shape[-2], k.shape[-2]
     impl = "dense" if layer_index < cfg.min_prune_layer else cfg.impl
+    if q_positions is not None:
+        out = _positions_dense(q, k, v, cfg, impl, q_positions, causal,
+                               window, scale)
+    else:
+        faults = full_sequence_faults(cfg, impl, n_q, n_k, window=window,
+                                      kv_length=kv_length)
+        if faults:
+            raise _not_ported(
+                f"this full-sequence call ({'; '.join(faults)})")
+        if impl == "dense":
+            valid = None
+            if causal:
+                valid = flt.causal_valid_mask(n_q, n_k, q_offset, q.device)
+            out = spa.dense_attention(q, k, v, valid, scale)
+        else:
+            out = _pallas_attention(q, k, v, cfg, causal, q_offset, scale)
+    if telemetry:
+        return out, _zero_stats(q.shape[0], q.device)
+    return out
+
+
+def full_sequence_faults(
+    cfg: EnergonConfig, impl: str, n_q: int, n_k: int, *,
+    window: Optional[int] = None, kv_length=None,
+) -> List[str]:
+    """Why a full-sequence call with the effective ``impl`` would leave
+    the ported branches (dense, or the B9 + B10 kernels). Empty when it
+    can run."""
+    faults = []
+    fallback = ("the reference's XLA block fallback" if impl == "pallas"
+                else "a mask of the dense path not ported yet")
+    if kv_length is not None:
+        faults.append(f"kv_length (padded caches) takes {fallback}")
+    if window is not None:
+        faults.append(f"window={window} takes {fallback}")
+    if n_q * n_k > cfg.chunk_threshold:
+        faults.append(
+            f"n_q·n_k = {n_q}·{n_k} is past chunk_threshold="
+            f"{cfg.chunk_threshold}: the chunked (flash-style) path "
+            "(core/chunked_attention.py)")
+    if impl in ("mpmrf_row", "mpmrf_block"):
+        faults.append(f"impl={impl!r} (the XLA selection paths)")
+    elif impl == "pallas":
+        if n_q % cfg.query_block or n_k % cfg.key_block:
+            faults.append(
+                f"sequence {n_q}×{n_k} not divisible into "
+                f"{cfg.query_block}×{cfg.key_block} blocks: the reference "
+                "falls back to mpmrf_row")
+        elif n_k // cfg.key_block <= 1:
+            faults.append(
+                f"one key block only ({n_k} keys of {cfg.key_block}): the "
+                "reference falls back to mpmrf_row")
+    elif impl != "dense":
+        raise ValueError(f"unknown Energon impl: {impl}")
+    return faults
+
+
+def _positions_dense(q, k, v, cfg, impl, q_positions, causal, window, scale):
+    """Dense attention at per-row positions (the paged prefix layers)."""
+    n_q, n_k = q.shape[-2], k.shape[-2]
     if impl != "dense":
-        raise _not_ported(f"energon_attention impl={impl!r}")
+        raise _not_ported(f"energon_attention impl={impl!r} at q_positions")
     if n_q * n_k > cfg.chunk_threshold:
         raise ValueError(
             f"q_positions attention materializes [{n_q}, {n_k}] masks "
@@ -112,10 +190,40 @@ def energon_attention(
         valid = valid & (kpos <= qpos)
     if window is not None and window > 0:
         valid = valid & (kpos > qpos - window)
-    out = spa.dense_attention(q, k, v, valid, scale)
-    if telemetry:
-        return out, _zero_stats(q.shape[0], q.device)
-    return out
+    return spa.dense_attention(q, k, v, valid, scale)
+
+
+def _pallas_attention(q, k, v, cfg, causal, q_offset, scale):
+    """The Filtering Unit then the Attention Unit over ``[B·H, n, d]``."""
+    from repro_torch.kernels import ops as kops
+
+    batch, heads, n_q, d = q.shape
+    n_k = k.shape[-2]
+    budget = max(1, math.ceil((n_k // cfg.key_block) / cfg.pruning_ratio))
+    qf = q.reshape(batch * heads, n_q, d)
+    kf = k.reshape(batch * heads, n_k, d)
+    vf = v.reshape(batch * heads, n_k, d)
+    idx, val = kops.mpmrf_select_blocks(
+        qf, kf,
+        round_bits=cfg.round_bits,
+        alphas=cfg.alphas,
+        block_budget=budget,
+        query_block=cfg.query_block,
+        key_block=cfg.key_block,
+        causal=causal,
+        q_offset=q_offset,
+        keep_first=cfg.keep_first,
+        keep_diagonal=cfg.keep_diagonal,
+    )
+    out = kops.block_sparse_attention(
+        qf, kf, vf, idx, val,
+        query_block=cfg.query_block,
+        key_block=cfg.key_block,
+        causal=causal,
+        q_offset=q_offset,
+        scale=scale,
+    )
+    return out.reshape(q.shape)
 
 
 def decode_live_budget(

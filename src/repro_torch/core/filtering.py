@@ -1,9 +1,10 @@
 """MP-MRF block selection rules (port of ``repro.core.filtering``).
 
-One torch implementation of each selection rule the fused paged kernels
-run between their filter and gather stages: the Eq. 3 threshold, the
+One torch implementation of each selection rule the fused kernels run
+between their filter and gather stages: the Eq. 3 threshold, the
 prefill top-B selection on pooled block planes and the decode
-exact-budget tier selection, plus the telemetry reduction.
+exact-budget tier selection, plus the telemetry reduction and the
+causal mask of the full-sequence path.
 
 Parity with the reference rests on three orderings:
 
@@ -102,6 +103,15 @@ def top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def one_hot_bool(idx: torch.Tensor, n: int) -> torch.Tensor:
     return idx.long()[..., None] == torch.arange(n, device=idx.device)
+
+
+def causal_valid_mask(n_q: int, n_k: int, offset: int = 0,
+                      device=None) -> torch.Tensor:
+    """Causal validity ``[n_q, n_k]``: query row i (at absolute position
+    ``offset + i``) may see keys ≤ ``offset + i``."""
+    qpos = torch.arange(n_q, device=device)[:, None] + offset
+    kpos = torch.arange(n_k, device=device)[None, :]
+    return kpos <= qpos
 
 
 def prefill_block_select_from_planes(

@@ -6,10 +6,12 @@ is the top ``bits`` bits of the same integer code (arithmetic right
 shift), so ``code == (msb_plane << (16 - bits)) + lsb_remainder`` and
 the rounds' dot products combine by shift-and-add (Fig. 7).
 
-Scales are ``absmax / 32767`` computed with a true division, as the
-reference's source states it. (Under ``jax.jit`` XLA folds the divide
-into a multiply by ``1/32767``, which can move a scale by one ulp; the
-codes agree either way on the tests' inputs.)
+Scales are ``absmax · float32(1/32767)``: the reference's source
+divides by 32767, but it runs under ``jax.jit`` wherever it is used, and
+XLA folds that divide into a multiply by the float32 reciprocal. The
+two differ by one ulp on some inputs, and one ulp in a scale can flip
+an Eq. 3 threshold or a top-B tie, so the port multiplies as the
+compiled reference does.
 """
 
 from __future__ import annotations
@@ -20,6 +22,10 @@ from typing import Optional, Tuple, Union
 import torch
 
 INT16_LEVELS = 32767  # symmetric int16 range [-32767, 32767]
+#: float32(1 / 32767), the constant XLA multiplies by in place of the
+#: reference's ``/ INT16_LEVELS``; float32 × float32 rounds once either
+#: way, so a Python float holding it exactly gives the same product
+INV_INT16_LEVELS = torch.tensor(1.0 / INT16_LEVELS, dtype=torch.float32).item()
 
 Axes = Optional[Union[int, Tuple[int, ...]]]
 
@@ -70,7 +76,7 @@ def quantize_int16(
         absmax = x.abs().amax()
     else:
         absmax = x.abs().amax(dim=axis, keepdim=True)
-    scale = torch.clamp(absmax, min=eps) / INT16_LEVELS
+    scale = torch.clamp(absmax, min=eps) * INV_INT16_LEVELS
     codes = torch.clamp(
         torch.round(x / scale), -INT16_LEVELS, INT16_LEVELS
     ).to(torch.int32)
@@ -92,7 +98,7 @@ def quantize_int16_blocks(
         raise ValueError(f"rows {n} not divisible by block {block}")
     xb = x.float().reshape(*lead, n // block, block, d)
     absmax = xb.abs().amax(dim=(-2, -1), keepdim=True)
-    scale = torch.clamp(absmax, min=eps) / INT16_LEVELS
+    scale = torch.clamp(absmax, min=eps) * INV_INT16_LEVELS
     codes = torch.clamp(
         torch.round(xb / scale), -INT16_LEVELS, INT16_LEVELS
     ).to(torch.int16)

@@ -13,13 +13,20 @@ scores``                                  mpmrf_paged_prefill_filter_
                                           scores``
 ``mpmrf_prefill.paged_prefill_gather_     B4 ``mpmrf_prefill.py::
 attention``                               paged_prefill_gather_attention``
+``mpmrf_filter.mpmrf_filter_scores``      B9 ``mpmrf_filter.py::
+                                          mpmrf_filter_scores``
+``block_sparse_attention.block_sparse_    B10 ``block_sparse_attention.py::
+attention``                               block_sparse_attention``
+``flash_attention.flash_attention``       B11 ``flash_attention.py::
+                                          flash_attention``
 ========================================  =============================
 
-The filter kernels (B1, B3) equal their plain versions bit for bit. The
-bf16 gathers (B2, B4) and their plain versions both compute in f32 from
-the same bf16 inputs and round the output once, so an element differs
-by at most one bf16 ulp (≤ 2⁻⁷·|v|): :func:`gather_within_tolerance`
-allows two, plus a floor for outputs near 0.
+The filter kernels (B1, B3, B9) equal their plain versions bit for bit.
+The bf16 attention kernels (B2, B4, B10, B11) and their plain versions
+both compute in f32 from the same bf16 inputs and round the output
+once, so an element differs by at most one bf16 ulp (≤ 2⁻⁷·|v|):
+:func:`gather_within_tolerance` allows two, plus a floor for outputs
+near 0.
 """
 
 GATHER_ATOL = 1e-3

@@ -31,7 +31,8 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("mpmrf_decode", "mpmrf_prefill")
+SOURCES = ("mpmrf_decode", "mpmrf_prefill", "mpmrf_filter",
+           "block_sparse_attention", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,6 +43,9 @@ launch_counts: Dict[str, int] = {
     "paged_decode_gather_attention": 0,
     "mpmrf_paged_prefill_filter_scores": 0,
     "paged_prefill_gather_attention": 0,
+    "mpmrf_filter_scores": 0,
+    "block_sparse_attention": 0,
+    "flash_attention": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

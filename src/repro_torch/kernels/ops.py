@@ -1,5 +1,14 @@
-"""Fused paged Energon attention: filter kernel → selection → gather
-kernel (port of the paged half of ``repro.kernels.ops``).
+"""The Energon kernel pipelines (port of ``repro.kernels.ops``).
+
+The full-sequence half composes the attention-level kernels: per-row q
+and per-head k quantization, the two-round filter (B9) over int8 planes,
+the deferred k-scale rescale, Eq. 3 rounds and top-B in torch, then
+block-sparse attention over the survivors (B10); dense flash attention
+(B11) is the unpruned baseline, and :func:`energon_block_attention`
+makes the pipeline differentiable.
+
+The paged half is the fused serving path: filter kernel → selection →
+gather kernel.
 
 The pipeline quantizes the folded query rows, scores every logical key
 block straight off the pool's resident int16 codes (B1 / B3), runs the
@@ -23,10 +32,205 @@ import torch
 
 from repro_torch.core import filtering as flt
 from repro_torch.core import quantization as qlib
+from repro_torch.kernels import block_sparse_attention as bsa_kernel
+from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import mpmrf_decode as dec_kernel
+from repro_torch.kernels import mpmrf_filter as filt_kernel
 from repro_torch.kernels import mpmrf_prefill as pre_kernel
 
 NEG_INF = -1e30
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+    scale: Optional[float] = None,
+    block_q: int = 128,
+    block_k: int = 128,
+) -> torch.Tensor:
+    """Dense flash attention over ``[bh, n, d]`` operands (B11)."""
+    return fa_kernel.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+        q_offset=q_offset, scale=scale, block_q=block_q, block_k=block_k,
+    )
+
+
+def full_sequence_planes(q: torch.Tensor, k: torch.Tensor,
+                         round_bits: Tuple[int, ...] = (2, 4)):
+    """B9's operands: per-row q and per-head k int16 quantization, the
+    q plane at the final round's width and the k MSB / remainder planes
+    as int8. Returns ``(q_plane, k_msb, k_rem, q_scale, k_scale)`` with
+    q_scale f32 ``[bh, n_q, 1]`` and k_scale f32 ``[bh, 1, 1]``."""
+    lo, hi = round_bits
+    q16 = qlib.quantize_int16(q, axis=-1)
+    k16 = qlib.quantize_int16(k, axis=(-2, -1))
+    return (q16.bit_plane(hi).to(torch.int8),
+            k16.bit_plane(lo).to(torch.int8),
+            k16.lsb_remainder(lo, hi).to(torch.int8),
+            q16.scale, k16.scale)
+
+
+def select_from_scores(
+    s0: torch.Tensor,
+    s1: torch.Tensor,
+    k_scale: torch.Tensor,
+    *,
+    round_bits: Tuple[int, ...] = (2, 4),
+    alphas: Tuple[float, ...] = (0.0, 0.0),
+    block_budget: int = 8,
+    query_block: int = 128,
+    key_block: int = 128,
+    keep_first: bool = True,
+    keep_diagonal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B9's block maxima → survivor table: the deferred rescale, two
+    Eq. 3 rounds, the keep-first / diagonal pins and top-B."""
+    lo, hi = round_bits
+    n_qb, n_kb = s0.shape[-2:]
+    # factors deferred from the kernel, in the reference's order: the
+    # per-head k scale × the q plane's 2^(16-hi) × the round's 2^(16-bits)
+    q_plane_factor = float(2 ** (16 - hi))
+    s0 = torch.where(s0 <= NEG_INF / 2, NEG_INF,
+                     s0 * k_scale * q_plane_factor * float(2 ** (16 - lo)))
+    s1 = torch.where(s1 <= NEG_INF / 2, NEG_INF,
+                     s1 * k_scale * q_plane_factor * float(2 ** (16 - hi)))
+
+    blk_valid = s0 > NEG_INF / 2
+    keep = blk_valid
+    keep = keep & (s0 >= flt.eq3_threshold(s0, alphas[0], keep))
+    keep = keep & (s1 >= flt.eq3_threshold(s1, alphas[1], keep))
+    if keep_first:
+        keep = keep.clone()
+        keep[..., 0] = blk_valid[..., 0]
+    if keep_diagonal:
+        diag = torch.clamp(
+            (torch.arange(n_qb, device=s0.device) * query_block) // key_block,
+            max=n_kb - 1)
+        keep = keep | (flt.one_hot_bool(diag, n_kb) & blk_valid)
+
+    sel = torch.where(keep, s1, NEG_INF)
+    top_vals, block_indices = flt.top_k_stable(sel, min(block_budget, n_kb))
+    block_valid = (top_vals > NEG_INF / 2).to(torch.int32)
+    block_indices = torch.where(block_valid > 0, block_indices, 0)
+    return block_indices.to(torch.int32), block_valid
+
+
+def mpmrf_select_blocks(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    *,
+    round_bits: Tuple[int, ...] = (2, 4),
+    alphas: Tuple[float, ...] = (0.0, 0.0),
+    block_budget: int = 8,
+    query_block: int = 128,
+    key_block: int = 128,
+    causal: bool = True,
+    q_offset: int = 0,
+    keep_first: bool = True,
+    keep_diagonal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Filtering Unit: quantize → B9 → block selection.
+
+    q/k float ``[bh, n, d]``. Returns ``(block_indices, block_valid)``,
+    each int32 ``[bh, n_qb, B]`` with B = min(block_budget, n_kb):
+    top-B of the final round's scores among the Eq. 3 survivors (lower
+    index first on ties), padded slots pointing at block 0.
+    """
+    if len(round_bits) != 2:
+        raise ValueError("the filter kernel takes the 2-round config")
+    q_plane, k_msb, k_rem, q_scale, k_scale = full_sequence_planes(
+        q, k, round_bits)
+    s0, s1 = filt_kernel.mpmrf_filter_scores(
+        q_plane, k_msb, k_rem, q_scale, shift=round_bits[1] - round_bits[0],
+        query_block=query_block, key_block=key_block, causal=causal,
+        q_offset=q_offset,
+    )
+    return select_from_scores(
+        s0, s1, k_scale, round_bits=round_bits, alphas=alphas,
+        block_budget=block_budget, query_block=query_block,
+        key_block=key_block, keep_first=keep_first,
+        keep_diagonal=keep_diagonal,
+    )
+
+
+def block_sparse_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    block_indices: torch.Tensor,
+    block_valid: Optional[torch.Tensor] = None,
+    *,
+    query_block: int = 128,
+    key_block: int = 128,
+    causal: bool = True,
+    q_offset: int = 0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The Attention Unit over ``[bh, n, d]`` operands (B10)."""
+    if block_valid is None:
+        block_valid = torch.ones_like(block_indices, dtype=torch.int32)
+    return bsa_kernel.block_sparse_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        block_indices.to(torch.int32).contiguous(),
+        block_valid.to(torch.int32).contiguous(),
+        query_block=query_block, key_block=key_block, causal=causal,
+        q_offset=q_offset, scale=scale,
+    )
+
+
+class _EnergonBlockAttention(torch.autograd.Function):
+    """B9 → selection → B10 forward; the backward recomputes through the
+    plain block-sparse attention with the saved selection, as the
+    reference's ``_eba_bwd`` does through ``block_sparse_attention_ref``
+    (selection itself is not differentiated; the reference has no
+    backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, block_budget, query_block, key_block, causal):
+        idx, val = mpmrf_select_blocks(
+            q, k, block_budget=block_budget, query_block=query_block,
+            key_block=key_block, causal=causal,
+        )
+        out = block_sparse_attention(
+            q, k, v, idx, val, query_block=query_block, key_block=key_block,
+            causal=causal,
+        )
+        ctx.save_for_backward(q, k, v, idx, val)
+        ctx.blocks = (query_block, key_block, causal)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, idx, val = ctx.saved_tensors
+        query_block, key_block, causal = ctx.blocks
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = bsa_kernel.block_sparse_attention_plain(
+                *leaves, idx, val, query_block=query_block,
+                key_block=key_block, causal=causal,
+            )
+            grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None, None, None, None)
+
+
+def energon_block_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    block_budget: int = 8,
+    query_block: int = 128,
+    key_block: int = 128,
+    causal: bool = True,
+) -> torch.Tensor:
+    """End-to-end Energon attention (FU kernel + AU kernel) over
+    ``[bh, n, d]`` operands, differentiable in q, k and v."""
+    return _EnergonBlockAttention.apply(
+        q, k, v, block_budget, query_block, key_block, causal
+    )
 
 
 def _head_offset_table(

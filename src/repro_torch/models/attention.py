@@ -1,10 +1,13 @@
-"""GQA attention over the paged KV cache (port of the paged half of
-``repro.models.attention``).
+"""GQA attention (port of ``repro.models.attention``): the
+full-sequence block and the blocks over the paged KV cache.
 
-Activations stay ``[batch, seq, d_model]``; GQA folds the G = H/KV query
-heads of each KV head into the query axis, ``[B, KV, G·C, hd]``
-(group-major), so the attention kernels see one KV head per row. The
-unpaged cache path waits for a later slice of the port.
+Activations stay ``[batch, seq, d_model]``. The full-sequence block
+repeats each KV head to its G = H/KV query heads, as the reference
+does, and hands ``[B, H, n, hd]`` to :func:`energon_attention`. The
+paged blocks fold the G query heads of each KV head into the query
+axis, ``[B, KV, G·C, hd]`` (group-major), so the attention kernels see
+one KV head per row. The unpaged cache path waits for a later slice of
+the port.
 
 The port updates the page pool **in place** (the reference returns a
 new pool functionally): a chunk's K/V rows are written through the
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch.core import (
     EnergonConfig,
+    energon_attention,
     energon_paged_decode_attention,
     energon_paged_prefill_attention,
 )
@@ -70,6 +74,43 @@ def _project_qkv(
     q = L.apply_rope(q, positions, rope_theta)
     k = L.apply_rope(k, positions, rope_theta)
     return q, k, v
+
+
+def _repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """``[B, KV, n, hd]`` → ``[B, KV·groups, n, hd]`` (each KV head
+    repeated for its query heads, in order)."""
+    if groups == 1:
+        return x
+    return torch.repeat_interleave(x, groups, dim=1)
+
+
+def attention_block(
+    params,
+    x: torch.Tensor,
+    energon: EnergonConfig,
+    *,
+    num_heads: int,
+    num_kv_heads: int,
+    rope_theta: float = 10000.0,
+    use_qk_norm: bool = False,
+    window: Optional[int] = None,
+    layer_index: int = 10**9,
+) -> torch.Tensor:
+    """Full-sequence causal attention at positions 0 .. n−1.
+    x ``[B, n, d]`` → ``[B, n, d]``."""
+    batch, n, _ = x.shape
+    positions = torch.arange(n, device=x.device)[None, :]
+    q, k, v = _project_qkv(params, x, positions, use_qk_norm, rope_theta)
+    groups = num_heads // num_kv_heads
+    out = energon_attention(
+        q.transpose(1, 2),                              # [B, H, n, hd]
+        _repeat_kv(k.transpose(1, 2), groups),
+        _repeat_kv(v.transpose(1, 2), groups),
+        energon, causal=True, window=window, layer_index=layer_index,
+    )
+    wo = params["wo"]
+    out = out.transpose(1, 2).reshape(batch, n, -1)     # [B, n, H·hd]
+    return out @ wo.reshape(-1, wo.shape[-1])
 
 
 def init_paged_kv_cache(

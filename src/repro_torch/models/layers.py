@@ -1,5 +1,6 @@
 """Shared neural layers (port of ``repro.models.layers``): initializers,
-RMSNorm, RoPE, the SwiGLU MLP, embedding and LM head.
+RMSNorm, RoPE, the SwiGLU MLP, embedding, LM head and the
+cross-entropy loss.
 
 Parameters are plain dicts of tensors with the reference's layouts, so
 :mod:`repro_torch.convert` can carry a reference pytree across as is.
@@ -8,6 +9,7 @@ Parameters are plain dicts of tensors with the reference's layouts, so
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +37,14 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = (xf * xf).sum(dim=-1, keepdim=True) / x.shape[-1]
     inv = torch.rsqrt(var + eps).to(x.dtype)
     return x * inv * params["scale"].to(x.dtype)
+
+
+def apply_norm(kind: str, params, x: torch.Tensor) -> torch.Tensor:
+    """The block norm by config name (LayerNorm waits for the families
+    that use it)."""
+    if kind == "rmsnorm":
+        return rmsnorm(params, x)
+    raise NotImplementedError(f"norm {kind!r} is not ported yet")
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -74,3 +84,19 @@ def lm_logits(params, x: torch.Tensor) -> torch.Tensor:
     accumulated in f32, as the reference's
     ``preferred_element_type=float32``."""
     return x.float() @ params["w"].float()
+
+
+def softmax_cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean cross-entropy over the valid positions, in float32 (the
+    reference's logsumexp minus the gold logit). Returns
+    ``(loss, #valid_tokens)``."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    total = torch.clamp(mask.sum(), min=1.0)
+    return (nll * mask).sum() / total, total

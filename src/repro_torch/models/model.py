@@ -1,5 +1,6 @@
-"""LMModel — the dense-family serve surface (port of
-``repro.models.model.LMModel``): weight init, paged-cache management,
+"""LMModel — the dense-family surface (port of
+``repro.models.model.LMModel``): weight init, whole-sequence logits and
+loss (``apply`` / ``loss``, forward only), paged-cache management,
 chunked prefill and one-token decode over the shared page pool.
 
 Parameters are a plain dict with the reference pytree's layout and
@@ -91,6 +92,52 @@ class LMModel:
         }
 
     # ------------------------------------------------------------------
+    # forward (scoring)
+    # ------------------------------------------------------------------
+
+    def _tfm_block_fn(self):
+        cfg = self.cfg
+
+        def block_fn(layer_params, x, window, layer_idx):
+            return tfm.apply_block(
+                layer_params, x, cfg.energon,
+                activation=cfg.activation, norm=cfg.norm,
+                **self._attn_kwargs(layer_idx, window or None),  # 0 ⇒ global
+            )
+
+        return block_fn
+
+    @torch.no_grad()
+    def apply(self, params, batch: Dict[str, torch.Tensor]):
+        """Whole-sequence logits of ``batch['inputs'] [B, n]`` (int
+        tokens). Returns ``(logits [B, n, V] f32, aux)``; ``aux`` is the
+        reference's auxiliary loss, 0 for the dense family. Forward only:
+        the sparse layers run the kernels, which have no backward here
+        (``kernels.ops.energon_block_attention`` is the differentiable
+        pipeline)."""
+        cfg = self.cfg
+        x = self._embed(params, batch["inputs"])
+        x = tfm.apply_stack(
+            params["blocks"], x, self.layer_windows(), self._tfm_block_fn(),
+            prefix_layers=cfg.energon.min_prune_layer,
+        )
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._logits_out(params, x), aux
+
+    @torch.no_grad()
+    def loss(self, params, batch: Dict[str, torch.Tensor]):
+        """Mean cross-entropy of ``batch['targets'] [B, n]`` under
+        :meth:`apply`'s logits (optional ``batch['mask']``). Returns
+        ``(loss, metrics)`` with ``loss`` / ``ce`` / ``aux`` / ``tokens``."""
+        logits, aux = self.apply(params, batch)
+        ce, n_tokens = L.softmax_cross_entropy(
+            logits, batch["targets"], batch.get("mask")
+        )
+        total = ce + aux
+        return total, {"loss": total, "ce": ce, "aux": aux,
+                       "tokens": n_tokens}
+
+    # ------------------------------------------------------------------
     # paged cache
     # ------------------------------------------------------------------
 
@@ -174,17 +221,6 @@ class LMModel:
         x = L.rmsnorm(params["final_norm"], x)
         return L.lm_logits(params["lm_head"], x)
 
-    def _serve_block_step(self, layer_params, x, attn_call):
-        """Pre-norm attention + residual, then the MLP half."""
-        cfg = self.cfg
-        h = attn_call(
-            layer_params["attn"],
-            L.rmsnorm(layer_params["norm_attn"], x),
-        )
-        x = x + h
-        h_in = L.rmsnorm(layer_params["norm_mlp"], x)
-        return x + L.apply_mlp(layer_params["mlp"], h_in, cfg.activation)
-
     def _attn_kwargs(self, layer_idx: int, window) -> Dict[str, Any]:
         cfg = self.cfg
         return dict(
@@ -232,7 +268,8 @@ class LMModel:
                     p, xn, kv_cache, positions, block_table, write,
                     cfg.energon, **self._attn_kwargs(layer_idx, window),
                 )
-            return self._serve_block_step(layer_params, x, attn)
+            return tfm.block_step(layer_params, x, attn,
+                                  activation=cfg.activation, norm=cfg.norm)
 
         x = tfm.apply_stack_decode(
             params["blocks"], x, cache, self.layer_windows(), step_fn,
@@ -263,7 +300,8 @@ class LMModel:
                     p, xn, kv_cache, cache_index, block_table, write,
                     cfg.energon, **self._attn_kwargs(layer_idx, window),
                 )
-            return self._serve_block_step(layer_params, x, attn)
+            return tfm.block_step(layer_params, x, attn,
+                                  activation=cfg.activation, norm=cfg.norm)
 
         x = tfm.apply_stack_decode(
             params["blocks"], x, cache, self.layer_windows(), step_fn,

@@ -1,12 +1,13 @@
-"""Decoder stack over a serving cache (port of
-``repro.models.transformer.apply_stack_decode``).
+"""Decoder block and stacks (port of ``repro.models.transformer``):
+the full-sequence stack and the stack over a serving cache.
 
 Layer parameters and cache leaves stay stacked on a leading ``[L]``
 axis, as in the reference; the reference's ``lax.scan`` becomes a
 Python loop that hands each layer views of its slice. Layers below
 ``prefix_layers`` run with layer index 0 (the unpruned, dense prefix of
 §III-A), the rest with ``prefix_layers``, exactly as the reference's two
-scans do.
+scans do. The full-sequence stack is forward only: rematerialization
+and the MoE block wait for the training and MoE slices.
 """
 
 from __future__ import annotations
@@ -14,6 +15,10 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Sequence
 
 import torch
+
+from repro_torch.core import EnergonConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
 
 
 def layer_slice(tree, i: int):
@@ -29,6 +34,63 @@ def num_layers(tree) -> int:
     return tree.shape[0]
 
 
+def block_step(params, x: torch.Tensor, attn_call, *, activation: str,
+               norm: str) -> torch.Tensor:
+    """Pre-norm decoder block around ``attn_call(attn_params, x_normed)``:
+    x + attention(norm(x)), then x + MLP(norm(x))."""
+    x = x + attn_call(params["attn"],
+                      L.apply_norm(norm, params["norm_attn"], x))
+    h_in = L.apply_norm(norm, params["norm_mlp"], x)
+    return x + L.apply_mlp(params["mlp"], h_in, activation)
+
+
+def apply_block(
+    params,
+    x: torch.Tensor,
+    energon: EnergonConfig,
+    *,
+    num_heads: int,
+    num_kv_heads: int,
+    rope_theta: float,
+    use_qk_norm: bool,
+    activation: str,
+    norm: str,
+    window: Optional[int] = None,
+    layer_index: int = 10**9,
+) -> torch.Tensor:
+    """Pre-norm decoder block over the whole sequence. x ``[B, n, d]``."""
+    def attn_call(p, xn):
+        return attn.attention_block(
+            p, xn, energon,
+            num_heads=num_heads,
+            num_kv_heads=num_kv_heads,
+            rope_theta=rope_theta,
+            use_qk_norm=use_qk_norm,
+            window=window,
+            layer_index=layer_index,
+        )
+
+    return block_step(params, x, attn_call, activation=activation,
+                      norm=norm)
+
+
+def apply_stack(
+    params_stacked: Dict[str, Any],
+    x: torch.Tensor,
+    windows: Optional[Sequence[int]],
+    block_fn,
+    *,
+    prefix_layers: int = 0,
+) -> torch.Tensor:
+    """Run ``block_fn(params, x, window, layer_idx) -> x`` over the
+    stacked layers (``windows``: per-layer sizes, 0 ⇒ global)."""
+    for i in range(num_layers(params_stacked)):
+        layer_idx = 0 if i < prefix_layers else prefix_layers
+        window = None if windows is None else windows[i]
+        x = block_fn(layer_slice(params_stacked, i), x, window, layer_idx)
+    return x
+
+
 def apply_stack_decode(
     params_stacked: Dict[str, Any],
     x: torch.Tensor,
@@ -41,12 +103,9 @@ def apply_stack_decode(
     """Run ``step_fn(params, x, cache, window, layer_idx) -> x`` over the
     layers. Each step updates its cache slice in place, so the stacked
     ``caches`` hold every layer's new state when this returns."""
-    n = num_layers(params_stacked)
-    for i in range(n):
-        layer_idx = 0 if i < prefix_layers else prefix_layers
-        window = None if windows is None else windows[i]
-        x = step_fn(
-            layer_slice(params_stacked, i), x, layer_slice(caches, i),
-            window, layer_idx,
-        )
-    return x
+    return apply_stack(
+        {"params": params_stacked, "cache": caches}, x, windows,
+        lambda layer, x, window, layer_idx: step_fn(
+            layer["params"], x, layer["cache"], window, layer_idx),
+        prefix_layers=prefix_layers,
+    )

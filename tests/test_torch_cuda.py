@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain versions on the card.
+"""The CUDA kernels against their plain versions on the card (B1–B4,
+B9–B11).
 
 Marked ``gpu``: on a host without CUDA every case skips. On the GPU
 machine run ``PYTHONPATH=src python -m pytest --noconftest -m gpu
@@ -92,3 +93,85 @@ def test_prefill_kernels_match_plain(cuda):
     out = pk.paged_prefill_gather_attention(*gargs, **kw).float()
     ref = pk.paged_prefill_gather_attention_plain(*gargs, **kw).float()
     assert gather_within_tolerance(out, ref)
+
+
+def _planes_full_sequence(cuda, bh, n, d, seed):
+    """Int8 planes of the full-sequence filter (B9) in their value
+    ranges: q 4-bit, k MSB 2-bit, remainder 2-bit unsigned."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randint(-8, 8, (bh, n, d), generator=gen, device=cuda)
+    msb = torch.randint(-2, 2, (bh, n, d), generator=gen, device=cuda)
+    rem = torch.randint(0, 4, (bh, n, d), generator=gen, device=cuda)
+    qs = torch.rand((bh, n, 1), generator=gen, device=cuda) * 1e-3 + 1e-5
+    return (q.to(torch.int8), msb.to(torch.int8), rem.to(torch.int8), qs)
+
+
+@pytest.mark.parametrize("causal,q_offset", [(True, 0), (True, 48),
+                                             (False, 0)])
+@pytest.mark.parametrize("d,bq,bk", [(16, 16, 16), (128, 128, 64)])
+def test_filter_kernel_matches_plain(cuda, d, bq, bk, causal, q_offset):
+    from repro_torch.kernels import mpmrf_filter as fk
+
+    args = _planes_full_sequence(cuda, 6, 256, d, seed=2)
+    kw = dict(query_block=bq, key_block=bk, shift=2, causal=causal,
+              q_offset=q_offset)
+    out = fk.mpmrf_filter_scores(*args, **kw)
+    ref = fk.mpmrf_filter_scores_plain(*args, **kw)
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+
+
+def _qkv(cuda, bh, n, d, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn((bh, n, d), generator=gen, device=cuda).to(
+        torch.bfloat16) for _ in range(3)]
+
+
+@pytest.mark.parametrize("q_offset", [0, 64])
+@pytest.mark.parametrize("d,bq,bk", [(16, 16, 16), (128, 128, 64)])
+def test_attention_kernels_match_plain(cuda, d, bq, bk, q_offset):
+    from repro_torch.kernels import block_sparse_attention as bsa
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    n, bh = 256, 6
+    q, k, v = _qkv(cuda, bh, n, d, seed=3)
+    kw = dict(query_block=bq, key_block=bk, causal=True, q_offset=q_offset)
+    idx, val = ops.mpmrf_select_blocks(q, k, block_budget=2, **kw)
+    out = bsa.block_sparse_attention(q, k, v, idx, val, **kw).float()
+    ref = bsa.block_sparse_attention_plain(q, k, v, idx, val, **kw).float()
+    assert gather_within_tolerance(out, ref)
+    fkw = dict(causal=True, q_offset=q_offset, block_q=bq, block_k=bk)
+    dense = fa.flash_attention(q, k, v, **fkw).float()
+    dref = fa.flash_attention_plain(q, k, v, causal=True,
+                                    q_offset=q_offset).float()
+    assert gather_within_tolerance(dense, dref)
+    # every key block a survivor (ρ ≤ 1): the sparse kernel is dense
+    n_qb, n_kb = n // bq, n // bk
+    all_idx = torch.arange(n_kb, device=cuda, dtype=torch.int32).expand(
+        bh, n_qb, n_kb).contiguous()
+    all_val = torch.ones_like(all_idx)
+    full = bsa.block_sparse_attention(q, k, v, all_idx, all_val, **kw)
+    assert gather_within_tolerance(full.float(), dref)
+
+
+def test_energon_block_attention_grad(cuda):
+    from repro_torch.kernels import block_sparse_attention as bsa
+    from repro_torch.kernels import ops
+
+    q, k, v = (x.requires_grad_() for x in _qkv(cuda, 4, 128, 16, seed=4))
+    kw = dict(query_block=16, key_block=16)
+    out = ops.energon_block_attention(q, k, v, 3, 16, 16, True)
+    idx, val = ops.mpmrf_select_blocks(q.detach(), k.detach(),
+                                       block_budget=3, **kw)
+    want = ops.block_sparse_attention(q.detach(), k.detach(), v.detach(),
+                                      idx, val, **kw)
+    assert torch.equal(out.detach(), want)
+    g = torch.randn_like(out)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    ref = torch.autograd.grad(
+        bsa.block_sparse_attention_plain(q, k, v, idx, val, **kw), (q, k, v),
+        g)
+    # the same plain graph twice; its index backward accumulates with
+    # atomics, so the bf16 grads may differ in the order of their sums
+    for a, b in zip(grads, ref):
+        torch.testing.assert_close(a, b)

@@ -67,3 +67,22 @@ def test_kernel_wrappers_take_only_cpu_or_cuda_tensors():
     q = torch.zeros((1, 1, 16), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         dk.paged_filter_scores(q, q, q, q, q, q, key_block=16)
+
+
+@pytest.mark.parametrize("kernel", ["b9", "b10", "b11"])
+def test_full_sequence_kernel_wrappers_take_only_cpu_or_cuda(kernel):
+    from repro_torch.kernels import block_sparse_attention as bsa
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mpmrf_filter as fk
+
+    x = torch.zeros((1, 16, 16), dtype=torch.bfloat16, device="meta")
+    idx = torch.zeros((1, 1, 1), dtype=torch.int32, device="meta")
+    call = {
+        "b9": lambda: fk.mpmrf_filter_scores(
+            x, x, x, x, shift=2, query_block=16, key_block=16),
+        "b10": lambda: bsa.block_sparse_attention(
+            x, x, x, idx, idx, query_block=16, key_block=16),
+        "b11": lambda: fa.flash_attention(x, x, x, block_q=16, block_k=16),
+    }[kernel]
+    with pytest.raises(ValueError, match="unsupported device"):
+        call()

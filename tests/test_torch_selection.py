@@ -1,11 +1,13 @@
 """Quantization and MP-MRF selection parity with the reference.
 
-Codes must match exactly and scales at rtol 2e-7 (a scale may sit one
-ulp apart where XLA folds the divide by 32767 into a multiply). The
-selection rules are fed identical score planes — including ties, where
+Codes and scales must equal the reference's under ``jax.jit`` bit for
+bit: XLA folds the reference's divide by 32767 into a multiply by the
+float32 reciprocal, which the port computes too (eager JAX divides, and
+differs from both by one ulp on some inputs). The selection rules are fed identical score planes — including ties, where
 ``jax.lax.top_k`` puts the lower index first and ``jnp.argsort`` is
 stable — and must pick identical survivor tables and tiers."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,34 +19,70 @@ from repro_torch.core import quantization as tq
 from tests._torch_port import n, t
 
 
+def _jit_quantize_int16(x, axis):
+    codes, scale = jax.jit(
+        lambda a: (lambda q: (q.codes, q.scale))(jq.quantize_int16(a, axis))
+    )(jnp.asarray(x))
+    return jq.QuantizedTensor(codes=codes, scale=scale, axis=axis)
+
+
+def _jit_quantize_blocks(x, block):
+    return jax.jit(lambda a: jq.quantize_int16_blocks(a, block))(
+        jnp.asarray(x))
+
+
 @pytest.mark.parametrize("axis", [-1, (-2, -1), None])
 def test_quantize_int16_codes_exact(axis):
     x = np.random.default_rng(0).normal(size=(3, 4, 16, 8)).astype(np.float32)
-    ref = jq.quantize_int16(jnp.asarray(x), axis=axis)
+    ref = _jit_quantize_int16(x, axis)
     out = tq.quantize_int16(t(x), axis=axis)
     np.testing.assert_array_equal(n(out.codes), n(ref.codes))
-    np.testing.assert_allclose(n(out.scale), n(ref.scale), rtol=2e-7)
+    np.testing.assert_array_equal(n(out.scale), n(ref.scale))
     for bits in (2, 4, 8):
         np.testing.assert_array_equal(n(out.bit_plane(bits)),
                                       n(ref.bit_plane(bits)))
     np.testing.assert_array_equal(n(out.lsb_remainder(2, 4)),
                                   n(ref.lsb_remainder(2, 4)))
-    np.testing.assert_allclose(n(out.plane_scale(4)), n(ref.plane_scale(4)),
-                               rtol=2e-7)
+    np.testing.assert_array_equal(n(out.plane_scale(4)),
+                                  n(ref.plane_scale(4)))
 
 
 def test_quantize_blocks_and_view():
     x = np.random.default_rng(1).normal(size=(2, 3, 64, 16)).astype(np.float32)
     x[0, 0, :16] = 0.0                      # an all-zero block: eps floor
-    rc, rs = jq.quantize_int16_blocks(jnp.asarray(x), 16)
+    rc, rs = _jit_quantize_blocks(x, 16)
     oc, os_ = tq.quantize_int16_blocks(t(x), 16)
     assert oc.dtype.is_floating_point is False and oc.element_size() == 2
     np.testing.assert_array_equal(n(oc), n(rc))
-    np.testing.assert_allclose(n(os_), n(rs), rtol=2e-7)
+    np.testing.assert_array_equal(n(os_), n(rs))
     rv = jq.blockwise_quantized_view(rc, rs, 16)
     ov = tq.blockwise_quantized_view(oc, os_, 16)
     np.testing.assert_array_equal(n(ov.codes), n(rv.codes))
-    np.testing.assert_allclose(n(ov.scale), n(rv.scale), rtol=2e-7)
+    np.testing.assert_array_equal(n(ov.scale), n(rv.scale))
+
+
+def test_scale_is_the_jitted_reciprocal_multiply():
+    """Absmax values for which ``a / 32767`` and ``a · float32(1/32767)``
+    round to different float32 scales: the port must give the jitted
+    reference's (the multiply), for per-row and per-block scales."""
+    absmax = np.array([3.6132073, 3.7459838, 1.7050351, 2.3320215],
+                      np.float32)
+    divided = absmax / np.float32(tq.INT16_LEVELS)
+    multiplied = absmax * np.float32(tq.INV_INT16_LEVELS)
+    assert (divided != multiplied).all()      # the case is a real split
+    x = np.random.default_rng(6).uniform(-1, 1, size=(4, 16, 8)).astype(
+        np.float32)
+    x[:, 3, 5] = -absmax                     # each head's absmax
+    ref = _jit_quantize_int16(x, (-2, -1))
+    out = tq.quantize_int16(t(x), axis=(-2, -1))
+    np.testing.assert_array_equal(n(out.scale).ravel(), multiplied)
+    np.testing.assert_array_equal(n(out.scale), n(ref.scale))
+    np.testing.assert_array_equal(n(out.codes), n(ref.codes))
+    rc, rs = _jit_quantize_blocks(x, 16)
+    oc, os_ = tq.quantize_int16_blocks(t(x), 16)
+    np.testing.assert_array_equal(n(os_).ravel(), multiplied)
+    np.testing.assert_array_equal(n(os_), n(rs))
+    np.testing.assert_array_equal(n(oc), n(rc))
 
 
 def _tied_planes(rng, shape, invalid_frac=0.2):

@@ -53,3 +53,30 @@ def test_small_model_check_separates_rounding_from_faults(
     else:
         with pytest.raises(chip_smoke.SmokeFailure):
             chip_smoke.small_reference_check()
+
+
+def _offset_plus_one(fn):
+    # B10: the causal mask lets key ``q_offset + i + 1`` in
+    def wrapper(*a, **kw):
+        kw["q_offset"] = kw.get("q_offset", 0) + 1
+        return fn(*a, **kw)
+    return wrapper
+
+
+@pytest.mark.parametrize("fault, passes", [
+    (_one_ulp, True), (_scale, False), (_offset_plus_one, False)],
+    ids=["one-ulp", "scale+10%", "mask+1"])
+def test_small_scoring_check_separates_rounding_from_faults(
+        monkeypatch, fault, passes):
+    """The same for the scoring check: B10 as the card runs it against
+    its plain version, in the serve-smoke model's one sparse layer."""
+    from repro_torch.kernels import block_sparse_attention as bsa
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(bsa, "block_sparse_attention",
+                        fault(bsa.block_sparse_attention))
+    if passes:
+        chip_smoke.small_scoring_check()
+    else:
+        with pytest.raises(chip_smoke.SmokeFailure):
+            chip_smoke.small_scoring_check()
