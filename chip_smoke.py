@@ -38,38 +38,63 @@ cuts qwen3-14b's depth, never its width). Phases:
    ``torch.profiler``: the share of the wall time the device was busy
    and the largest device items.
 
+Then the contiguous (unpaged) cache, on the same model object and
+weights, once the paged engine is released:
+
+7. B5–B8 on random inputs at the unpaged path's shapes (bh = 64 rows of
+   8 slots × 8 KV heads, n_k 4096, G = 5, chunk 128, key blocks of 64,
+   an idle slot's ``max_len + 1`` length and sentinel rows): B5 / B7
+   scores and the survivor tables selected from them bit-equal to the
+   plain versions, B6 / B8 within the gather tolerance; the same rows
+   laid out as shuffled pages give B1 = B5, B2 = B6, B3 = B7, B4 = B8
+   bit for bit; B7 once more at key block 128 over 64-row scale groups.
+   Each kernel, its plain version and (B6, B8) SDPA over the gathered
+   survivors timed.
+8. ``ServeLoop(paged=False)`` serving phase 4's 8 requests (launch
+   counts zeroed just before, read just after): B5 / B6 launch once per
+   sparse layer (2–39) per decode step, B7 / B8 once per sparse layer
+   per prefill wave, B1–B4 and B9–B11 never; every request drains with
+   finite logits and the greedy stream of the paged run 1. Prefill and
+   decode tok/s, TTFT and ITL p50 and peak device memory are printed.
+9. Phase 7's checks and times on layer 2's queries of the last prefill
+   wave and decode step, over its live contiguous cache; then the same
+   requests through a fresh paged engine and a fresh unpaged one, warm,
+   so the two layouts' tok/s are taken in turns in one call
+   (``[in-turns]``; each must give phase 4's streams).
+
 Then full-sequence scoring (``LMModel.apply`` / ``loss``, impl
 "pallas": B9 → Eq. 3 + top-B → B10 in the sparse layers) on the same
-model object and weights, once the serving engine is released:
+model object and weights, once the serving engines are released:
 
-7. B9–B11 on random bf16 q/k/v at the scoring path's shapes ([160,
-   2048, 128]: 4 sequences × 40 heads; query block 128, key block 64,
-   budget 8; B11 in 128 × 128 tiles), and once more with the queries'
-   second half at q_offset 1024: B9's scores and the survivor table
-   bit-equal to the plain versions', B10 and B11 within the gather
-   tolerance, B10 with every causal block a survivor against B11. Each
-   kernel, its plain version and its library call (SDPA over the
-   gathered survivors for B10, causal SDPA for B11) timed.
-8. The serve-smoke model in bf16: ``apply`` logits through B9 + B10 vs
-   the plain versions swapped in, ‖Δ‖/‖ref‖ ≤ 2.5e-3.
-9. ``LMModel.loss`` over 4 sequences of 2048 tokens at full width,
-   launch counts zeroed just before and read just after: B9 and B10
-   once per sparse layer (layers 2–39), B11 and B1–B4 never; the loss
-   and every logit of a following ``apply`` finite. Wall time, tokens/s
-   and peak device memory are printed; one more ``loss`` call under
-   ``torch.profiler`` gives its device time by kernel and idle share.
-10. Phase 7's checks and times again on the q/k/v that layer 2 handed
-    the kernels in phase 9, and the sparse pair (B9 + selection + B10)
+10. B9–B11 on random bf16 q/k/v at the scoring path's shapes ([160,
+    2048, 128]: 4 sequences × 40 heads; query block 128, key block 64,
+    budget 8; B11 in 128 × 128 tiles), and once more with the queries'
+    second half at q_offset 1024: B9's scores and the survivor table
+    bit-equal to the plain versions', B10 and B11 within the gather
+    tolerance, B10 with every causal block a survivor against B11. Each
+    kernel, its plain version and its library call (SDPA over the
+    gathered survivors for B10, causal SDPA for B11) timed.
+11. The serve-smoke model in bf16: ``apply`` logits through B9 + B10 vs
+    the plain versions swapped in, ‖Δ‖/‖ref‖ ≤ 2.5e-3.
+12. ``LMModel.loss`` over 4 sequences of 2048 tokens at full width,
+    launch counts zeroed just before and read just after: B9 and B10
+    once per sparse layer (layers 2–39), B11 and B1–B8 never; the loss
+    and every logit of a following ``apply`` finite. Wall time, tokens/s
+    and peak device memory are printed; one more ``loss`` call under
+    ``torch.profiler`` gives its device time by kernel and idle share.
+13. Phase 10's checks and times again on the q/k/v that layer 2 handed
+    the kernels in phase 12, and the sparse pair (B9 + selection + B10)
     timed against B11 on them (a measurement, not a claimed speedup).
-11. ``ops.energon_block_attention`` forward and backward at a small size:
+14. ``ops.energon_block_attention`` forward and backward at a small size:
     the forward equals its composition, the gradients autograd through
     the plain block-sparse attention.
 
 The line before last is a JSON object listing each kernel's launches
-(B1–B4 in phase 4, B9–B11 in phase 9), error and times (those of the
-live pool or the captured layer; ``random`` holds phase 2's or 7's);
-the scoring results are on the line before it;
-the last line is ``{"ok": true, "device": ...}``.
+(B1–B4 in phase 4, B5–B8 in phase 8, B9–B11 in phase 12), error and
+times (those of the live pool or the captured layer; ``random`` holds
+phase 2's, 7's or 10's); the scoring results, the unpaged serve and the
+paged serve are on the lines before it; the last line is
+``{"ok": true, "device": ...}``.
 Any failure exits non-zero before printing either.
 """
 
@@ -109,6 +134,18 @@ KERNELS = {
     "paged_prefill_gather_attention": dict(
         id="B4", source="src/repro_torch/kernels/csrc/mpmrf_prefill.cu",
         replaces="src/repro/kernels/mpmrf_prefill.py:502"),
+    "mpmrf_decode_filter_scores": dict(
+        id="B5", source="src/repro_torch/kernels/csrc/mpmrf_decode.cu",
+        replaces="src/repro/kernels/mpmrf_decode.py:90"),
+    "decode_gather_attention": dict(
+        id="B6", source="src/repro_torch/kernels/csrc/mpmrf_decode.cu",
+        replaces="src/repro/kernels/mpmrf_decode.py:337"),
+    "mpmrf_prefill_filter_scores": dict(
+        id="B7", source="src/repro_torch/kernels/csrc/mpmrf_prefill.cu",
+        replaces="src/repro/kernels/mpmrf_prefill.py:100"),
+    "prefill_gather_attention": dict(
+        id="B8", source="src/repro_torch/kernels/csrc/mpmrf_prefill.cu",
+        replaces="src/repro/kernels/mpmrf_prefill.py:360"),
     "mpmrf_filter_scores": dict(
         id="B9", source="src/repro_torch/kernels/csrc/mpmrf_filter.cu",
         replaces="src/repro/kernels/mpmrf_filter.py:74"),
@@ -121,7 +158,8 @@ KERNELS = {
         replaces="src/repro/kernels/flash_attention.py:82"),
 }
 SERVE_KERNELS = tuple(KERNELS)[:4]        # B1–B4: the paged serving path
-SCORE_KERNELS = tuple(KERNELS)[4:]        # B9–B11: full-sequence scoring
+UNPAGED_KERNELS = tuple(KERNELS)[4:8]     # B5–B8: the contiguous cache
+SCORE_KERNELS = tuple(KERNELS)[8:]        # B9–B11: full-sequence scoring
 
 
 class SmokeFailure(RuntimeError):
@@ -257,6 +295,64 @@ def bound(nbytes, ops, peak):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def time_kernels(label, entries, rows, *, iters=20, plain_iters=5):
+    """Time each kernel of ``rows`` (name, kernel, plain version, library
+    call or None, bytes, operations, peak rate), its plain version and
+    its library call with CUDA events, bound it, and write the numbers
+    into ``entries[name]``."""
+    for name, fn, plain, lib, nbytes, ops_n, peak in rows:
+        r = entries[name]
+        r["ms"] = time_ms(fn, iters=iters)
+        r["plain_ms"] = time_ms(plain, iters=plain_iters, warmup=1)
+        r["library_ms"] = (time_ms(lib, iters=iters) if lib is not None
+                           else None)
+        r["bound_ms"], r["bound_by"] = bound(nbytes, ops_n, peak)
+        lib_txt = ("n/a" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f}")
+        log(f"[time:{label}] {KERNELS[name]['id']} {name}: "
+            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+            f"{lib_txt}, bound {r['bound_ms']:.4f} by {r['bound_by']})")
+
+
+def sdpa_decode(q, k_blocks, v_blocks, idx, val, cl, bk):
+    """SDPA of the G folded rows over each row's gathered survivor blocks
+    ``[bh, S, bk, d]`` under the decode kernels' mask (a yardstick)."""
+    import torch
+    import torch.nn.functional as F
+
+    bh, g, d = q.shape
+    kg = k_blocks.reshape(bh, 1, -1, d)
+    vg = v_blocks.reshape(bh, 1, -1, d)
+    kpos = (idx.long()[:, :, None] * bk
+            + torch.arange(bk, device=q.device)).reshape(bh, -1)
+    ok = ((val[:, :, None] > 0).expand(-1, -1, bk).reshape(bh, -1)
+          & (kpos < cl.long()[:, None]))
+    mask = ok[:, None, None, :].expand(bh, 1, g, ok.shape[-1])
+    qd = q.reshape(bh, 1, g, d)
+    return lambda: F.scaled_dot_product_attention(qd, kg, vg, attn_mask=mask)
+
+
+def sdpa_prefill(q, qpos, k_blocks, v_blocks, idx, val, bq, bk, n_k):
+    """SDPA of each query block over its gathered survivor blocks
+    ``[bh, n_qb, S, bk, d]`` under the prefill kernels' per-row mask."""
+    import torch
+    import torch.nn.functional as F
+
+    bh, n_q, d = q.shape
+    n_qb = n_q // bq
+    kg = k_blocks.reshape(bh * n_qb, 1, -1, d)
+    vg = v_blocks.reshape(bh * n_qb, 1, -1, d)
+    kpos = (idx.long()[..., None] * bk
+            + torch.arange(bk, device=q.device)).reshape(bh, n_qb, 1, -1)
+    slot_ok = (val[..., None] > 0).expand(-1, -1, -1, bk).reshape(
+        bh, n_qb, 1, -1)
+    qposr = qpos.long().reshape(bh, n_qb, bq, 1)
+    mask = (slot_ok & (kpos <= qposr) & (qposr < n_k)).reshape(
+        bh * n_qb, 1, bq, -1)
+    qr = q.reshape(bh * n_qb, 1, bq, d)
+    return lambda: F.scaled_dot_product_attention(qr, kg, vg, attn_mask=mask)
+
+
 def quantized_q(q):
     from repro_torch.core import quantization as qlib
 
@@ -267,7 +363,6 @@ def quantized_q(q):
 def check_case(case, label, results):
     """Hold B1–B4 against their plain versions on ``case``; time them."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.core.energon_attention import (
         _prefill_diag_blocks, decode_live_budget,
@@ -278,7 +373,7 @@ def check_case(case, label, results):
     from repro_torch.kernels import ops
 
     c = case
-    bh, g, d = c.q_dec.shape
+    _, g, d = c.q_dec.shape
     mb = c.bt.shape[-1]
     n_k = mb * c.bk
     n_q = c.q_pre.shape[1]
@@ -361,30 +456,12 @@ def check_case(case, label, results):
 
     # --- yardsticks: SDPA over the gathered survivors (timed only) -------
     pages = torch.gather(c.bt.long(), 1, idx.long())
-    kg = c.k_pages[pages].reshape(bh, 1, -1, d)
-    vg = c.v_pages[pages].reshape(bh, 1, -1, d)
-    kpos = (idx.long()[:, :, None] * c.bk
-            + torch.arange(c.bk, device=DEV)).reshape(bh, -1)
-    okd = ((val[:, :, None] > 0).expand(-1, -1, c.bk).reshape(bh, -1)
-           & (kpos < c.cl.long()[:, None]))
-    maskd = okd[:, None, None, :].expand(bh, 1, g, okd.shape[-1])
-    qd = c.q_dec.reshape(bh, 1, g, d)
-    sdpa_dec = lambda: F.scaled_dot_product_attention(qd, kg, vg,
-                                                      attn_mask=maskd)
+    sdpa_dec = sdpa_decode(c.q_dec, c.k_pages[pages], c.v_pages[pages], idx,
+                           val, c.cl, c.bk)
     ppages = torch.gather(c.bt.long()[:, None, :].expand(-1, n_qb, -1), 2,
                           pidx.long())
-    kgp = c.k_pages[ppages].reshape(bh * n_qb, 1, -1, d)
-    vgp = c.v_pages[ppages].reshape(bh * n_qb, 1, -1, d)
-    kposp = (pidx.long()[..., None] * c.bk
-             + torch.arange(c.bk, device=DEV)).reshape(bh, n_qb, 1, -1)
-    slot_ok = (pval[..., None] > 0).expand(-1, -1, -1, c.bk).reshape(
-        bh, n_qb, 1, -1)
-    qposr = c.qpos.long().reshape(bh, n_qb, c.bq, 1)
-    maskp = (slot_ok & (kposp <= qposr) & (qposr < n_k)).reshape(
-        bh * n_qb, 1, c.bq, -1)
-    qpr = c.q_pre.reshape(bh * n_qb, 1, c.bq, d)
-    sdpa_pre = lambda: F.scaled_dot_product_attention(qpr, kgp, vgp,
-                                                      attn_mask=maskp)
+    sdpa_pre = sdpa_prefill(c.q_pre, c.qpos, c.k_pages[ppages],
+                            c.v_pages[ppages], pidx, pval, c.bq, c.bk, n_k)
 
     # --- bounds from this case's data ------------------------------------
     live_blocks = int(((c.cl.long() + c.bk - 1) // c.bk).sum())
@@ -410,7 +487,7 @@ def check_case(case, label, results):
                 + 2 * pidx.numel() * 4 + n_pvalid * c.bk * d * 2 * 2)
     b4_flops = n_pvalid * c.bq * c.bk * d * 2 * 2
 
-    for name, fn, plain, lib, nbytes, ops_n, peak in (
+    time_kernels(label, {name: results[name][-1] for name in SERVE_KERNELS}, (
         ("mpmrf_paged_filter_scores", b1, b1p, None, b1_bytes, b1_ops,
          H100_INT8_OPS),
         ("paged_decode_gather_attention", b2, b2p, sdpa_dec, b2_bytes,
@@ -419,17 +496,7 @@ def check_case(case, label, results):
          b3_ops, H100_INT8_OPS),
         ("paged_prefill_gather_attention", b4, b4p, sdpa_pre, b4_bytes,
          b4_flops, H100_BF16_FLOPS),
-    ):
-        r = results[name][-1]
-        r["ms"] = time_ms(fn)
-        r["plain_ms"] = time_ms(plain, iters=5, warmup=1)
-        r["library_ms"] = time_ms(lib) if lib is not None else None
-        r["bound_ms"], r["bound_by"] = bound(nbytes, ops_n, peak)
-        lib_txt = ("n/a" if r["library_ms"] is None
-                   else f"{r['library_ms']:.4f}")
-        log(f"[time:{label}] {KERNELS[name]['id']} {name}: "
-            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
-            f"{lib_txt}, bound {r['bound_ms']:.4f} by {r['bound_by']})")
+    ))
 
 
 # ---------------------------------------------------------------------------
@@ -573,26 +640,15 @@ def check_full_sequence(q, k, v, label, results, *, bq, bk, ratio,
     b11_bytes = (q.numel() + k.numel() + v.numel() + q.numel()) * 2
     b11_flops = pairs * d * 2 * 2
 
-    timing = {}
-    for name, fn, plain, lib, nbytes, ops_n, peak in (
+    time_kernels(label, entry, (
         ("mpmrf_filter_scores", b9, b9p, None, b9_bytes, b9_ops,
          H100_INT8_OPS),
         ("block_sparse_attention", b10, b10p, sdpa_sparse, b10_bytes,
          b10_flops, H100_BF16_FLOPS),
         ("flash_attention", b11, b11p, sdpa_dense, b11_bytes, b11_flops,
          H100_BF16_FLOPS),
-    ):
-        r = entry[name]
-        r["ms"] = time_ms(fn, iters=10)
-        r["plain_ms"] = time_ms(plain, iters=3, warmup=1)
-        r["library_ms"] = time_ms(lib, iters=10) if lib is not None else None
-        r["bound_ms"], r["bound_by"] = bound(nbytes, ops_n, peak)
-        lib_txt = ("n/a" if r["library_ms"] is None
-                   else f"{r['library_ms']:.4f}")
-        log(f"[time:{label}] {KERNELS[name]['id']} {name}: "
-            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
-            f"{lib_txt}, bound {r['bound_ms']:.4f} by {r['bound_by']})")
-        timing[name] = r["ms"]
+    ), iters=10, plain_iters=3)
+    timing = {name: r["ms"] for name, r in entry.items()}
     return dict(survivor_tiles=kept, causal_tiles=causal_tiles,
                 budget=budget, ms=timing)
 
@@ -736,6 +792,8 @@ def serve_full_width(cfg, *, seed=0, n_req=8, prompt_len=2048,
     for name in SERVE_KERNELS:
         need(launches[name] > 0,
              f"kernel {name} never launched on the serving path")
+    for name in UNPAGED_KERNELS + SCORE_KERNELS:
+        need(launches[name] == 0, f"{name} launched on the paged path")
     streams1 = {r.uid: list(r.tokens_out) for r in done}
 
     pf_tok, pf_time = m.prefill_tokens, m.prefill_time
@@ -748,7 +806,7 @@ def serve_full_width(cfg, *, seed=0, n_req=8, prompt_len=2048,
         f"{m.prefill_time - pf_time:.3f} s")
     need(streams1 == streams2, "run 2 streams differ from run 1")
     need(m.prefix_hits > 0, "run 2 never hit the prefix cache")
-    return engine, prompts, run1, launches
+    return engine, prompts, run1, launches, streams1
 
 
 def live_pool_case(engine, prompts, layer):
@@ -852,6 +910,444 @@ def device_split(prof, wall, top=12):
                      for k, (c, us) in items])
 
 
+# ---------------------------------------------------------------------------
+# the contiguous-cache serving path (B5–B8)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ContiguousCase:
+    """Operands of B5–B8 for one decode step and one prefill chunk of a
+    sparse layer over the contiguous cache: ``bh = B·KV`` rows of
+    ``n_k`` keys, planes scaled per ``bk``-row block."""
+
+    q_dec: object       # [bh, G, d] bf16
+    cl: object          # [bh] int32
+    q_pre: object       # [bh, n_q, d] bf16
+    qpos: object        # [bh, n_q] int32
+    k: object           # [bh, n_k, d] bf16
+    v: object
+    codes: object       # [bh, n_k, d] int16
+    scale: object       # [bh, n_k // bk] f32
+    bk: int             # decode key block = the planes' scale block
+    pk: int             # prefill key block (B7 / B8)
+    bq: int
+    ratio: float
+
+
+def random_contiguous_case(gen, *, bh=64, g=5, d=128, n_k=4096, bk=64,
+                           pk=64, chunk=128, bq=128, ratio=4.0):
+    """Random operands at the unpaged path's shapes, with an idle slot's
+    ``max_len + 1`` length and a ragged tail of sentinel rows."""
+    import torch
+
+    from repro_torch.core import quantization as qlib
+
+    dev = DEV
+    k = torch.randn((bh, n_k, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    codes, scales = qlib.quantize_int16_blocks(k, bk)
+    cl = torch.randint(1, n_k + 1, (bh,), generator=gen, device=dev)
+    cl[0] = n_k + 1
+    off = torch.randint(0, n_k // chunk, (bh,), generator=gen,
+                        device=dev) * chunk
+    pos = off[:, None] + torch.arange(chunk, device=dev)[None, :]
+    pos[1, -9:] = n_k
+    return ContiguousCase(
+        q_dec=torch.randn((bh, g, d), generator=gen, device=dev).to(
+            torch.bfloat16),
+        cl=cl.to(torch.int32),
+        q_pre=torch.randn((bh, g * chunk, d), generator=gen, device=dev).to(
+            torch.bfloat16),
+        qpos=pos.repeat(1, g).to(torch.int32), k=k,
+        v=torch.randn((bh, n_k, d), generator=gen, device=dev).to(
+            torch.bfloat16),
+        codes=codes, scale=scales, bk=bk, pk=pk, bq=bq, ratio=ratio,
+    )
+
+
+def contiguous_selection(c, s0, s1, p0, p1):
+    """The survivor tables the path selects from B5's and B7's scores."""
+    from repro_torch.core.energon_attention import (
+        _prefill_diag_blocks, decode_live_budget,
+    )
+    from repro_torch.kernels import ops
+
+    n_k = c.k.shape[1]
+    lb = decode_live_budget(c.cl, c.bk, c.ratio)
+    idx, val, _ = ops._fused_decode_select(
+        s0, s1, c.cl, alphas=(0.0, 0.0), key_block=c.bk,
+        block_budget=max(1, math.ceil(n_k // c.bk / c.ratio)),
+        keep_all=False, keep_first=True, keep_diagonal=True,
+        live_budget=lb, heads=1)
+    pidx, pval, _ = ops._fused_prefill_select(
+        p0, p1, round_bits=(2, 4), alphas=(0.0, 0.0), query_block=c.bq,
+        key_block=c.pk, block_budget=max(1, math.ceil(n_k // c.pk / c.ratio)),
+        keep_all=False, keep_first=True, keep_diagonal=True,
+        diag_blocks=_prefill_diag_blocks(c.qpos, c.bq, c.pk, n_k), heads=1)
+    return idx, val, pidx, pval
+
+
+def check_contiguous(c, label, results, *, timed=True, gather=True):
+    """Hold B5–B8 against their plain versions on ``c``: B5 / B7 scores
+    and the survivor tables selected from them bit-equal, B6 / B8 within
+    the gather tolerance. With ``timed``, each kernel, its plain version
+    and (B6, B8) SDPA over the gathered survivors are timed and bounded
+    from this case's data. Returns the operands for
+    :func:`check_same_rows`."""
+    import torch
+
+    from repro_torch.kernels import gather_within_tolerance
+    from repro_torch.kernels import mpmrf_decode as dk
+    from repro_torch.kernels import mpmrf_prefill as pk
+
+    bh, g, d = c.q_dec.shape
+    n_k = c.k.shape[1]
+    n_q = c.q_pre.shape[1]
+    qp, qs = quantized_q(c.q_dec)
+    qpp, qps = quantized_q(c.q_pre)
+    row_scale = c.scale.repeat_interleave(c.bk, dim=-1).contiguous()
+    fkw = dict(key_block=c.bk)
+    pkw = dict(query_block=c.bq, key_block=c.pk)
+    b5 = lambda: dk.mpmrf_decode_filter_scores(qp, qs, c.codes, c.scale,
+                                               c.cl, **fkw)
+    b5p = lambda: dk.mpmrf_decode_filter_scores_plain(qp, qs, c.codes,
+                                                      c.scale, c.cl, **fkw)
+    b7 = lambda: pk.mpmrf_prefill_filter_scores(qpp, qps, c.qpos, c.codes,
+                                                row_scale, **pkw)
+    b7p = lambda: pk.mpmrf_prefill_filter_scores_plain(
+        qpp, qps, c.qpos, c.codes, row_scale, **pkw)
+    s0, s1 = b5()
+    r0, r1 = b5p()
+    p0, p1 = b7()
+    q0, q1 = b7p()
+    sync()
+    need(torch.equal(s0, r0) and torch.equal(s1, r1),
+         f"{label} B5 scores differ from the plain version")
+    need(torch.equal(p0, q0) and torch.equal(p1, q1),
+         f"{label} B7 scores differ from the plain version")
+    idx, val, pidx, pval = contiguous_selection(c, s0, s1, p0, p1)
+    ref_sel = contiguous_selection(c, r0, r1, q0, q1)
+    need(all(torch.equal(a, b) for a, b in zip(
+        (idx, val, pidx, pval), ref_sel)),
+        f"{label} B5/B7 survivor tables differ")
+    results["mpmrf_decode_filter_scores"].append(dict(err=0.0))
+    results["mpmrf_prefill_filter_scores"].append(dict(err=0.0))
+    line = (f"[contiguous:{label}] bh {bh}, n_k {n_k}, d {d}, key blocks "
+            f"{c.bk}/{c.pk}: B5/B7 bit-equal (scores and survivor tables)")
+    if not gather:
+        log(line)
+        return None
+
+    b6 = lambda: dk.decode_gather_attention(c.q_dec, c.k, c.v, idx, val,
+                                            c.cl, **fkw)
+    b6p = lambda: dk.decode_gather_attention_plain(c.q_dec, c.k, c.v, idx,
+                                                   val, c.cl, **fkw)
+    b8 = lambda: pk.prefill_gather_attention(c.q_pre, c.qpos, c.k, c.v,
+                                             pidx, pval, **pkw)
+    b8p = lambda: pk.prefill_gather_attention_plain(
+        c.q_pre, c.qpos, c.k, c.v, pidx, pval, **pkw)
+    for name, fn, plain in (("decode_gather_attention", b6, b6p),
+                            ("prefill_gather_attention", b8, b8p)):
+        out, ref = fn().float(), plain().float()
+        err = (out - ref).abs().max().item()
+        need(gather_within_tolerance(out, ref),
+             f"{label} {KERNELS[name]['id']} off by {err:.3e}")
+        results[name].append(dict(err=err,
+                                  ref_rms=ref.pow(2).mean().sqrt().item()))
+    r6 = results["decode_gather_attention"][-1]
+    r8 = results["prefill_gather_attention"][-1]
+    log(f"{line}; B6 max |err| {r6['err']:.3e} (rms |ref| "
+        f"{r6['ref_rms']:.3e}), B8 max |err| {r8['err']:.3e} (rms |ref| "
+        f"{r8['ref_rms']:.3e})")
+    ops_in = dict(qp=qp, qs=qs, qpp=qpp, qps=qps, s=(s0, s1), p=(p0, p1),
+                  idx=idx, val=val, pidx=pidx, pval=pval)
+    if not timed:
+        return ops_in
+
+    # --- yardsticks: SDPA over the gathered survivors (timed only) -------
+    rows = torch.arange(bh, device=DEV)[:, None]
+    sdpa_dec = sdpa_decode(
+        c.q_dec, c.k.view(bh, -1, c.bk, d)[rows, idx.long()],
+        c.v.view(bh, -1, c.bk, d)[rows, idx.long()], idx, val, c.cl, c.bk)
+    rows = rows[..., None]
+    sdpa_pre = sdpa_prefill(
+        c.q_pre, c.qpos, c.k.view(bh, -1, c.pk, d)[rows, pidx.long()],
+        c.v.view(bh, -1, c.pk, d)[rows, pidx.long()], pidx, pval, c.bq,
+        c.pk, n_k)
+
+    # --- bounds from this case's data ------------------------------------
+    n_kb = n_k // c.bk
+    live_blocks = int(((c.cl.long() + c.bk - 1) // c.bk).clamp(
+        max=n_kb).sum())
+    b5_bytes = (qp.numel() * 4 + qs.numel() * 4 + c.cl.numel() * 4
+                + live_blocks * (c.bk * d * 2 + 4) + 2 * s0.numel() * 4)
+    b5_ops = live_blocks * g * c.bk * d * 2 * 2
+    n_valid = int(val.sum())
+    b6_bytes = (c.q_dec.numel() * 2 * 2 + 2 * idx.numel() * 4
+                + c.cl.numel() * 4 + n_valid * c.bk * d * 2 * 2)
+    b6_flops = n_valid * g * c.bk * d * 2 * 2
+    valid_rows = c.qpos < n_k
+    pairs = int(torch.where(valid_rows, c.qpos.long() + 1, 0).sum())
+    seen = torch.where(valid_rows, c.qpos, -1).amax(dim=1)
+    seen_blocks = int(((seen.long() + c.pk) // c.pk).clamp(min=0).sum())
+    b7_bytes = (qpp.numel() * 4 + qps.numel() * 4 + c.qpos.numel() * 4
+                + seen_blocks * c.pk * (d * 2 + 4) + 2 * p0.numel() * 4)
+    b7_ops = pairs * d * 2 * 2
+    n_pvalid = int(pval.sum())
+    b8_bytes = (c.q_pre.numel() * 2 * 2 + c.qpos.numel() * 4
+                + 2 * pidx.numel() * 4 + n_pvalid * c.pk * d * 2 * 2)
+    b8_flops = n_pvalid * c.bq * c.pk * d * 2 * 2
+
+    time_kernels(label, {n: results[n][-1] for n in UNPAGED_KERNELS}, (
+        ("mpmrf_decode_filter_scores", b5, b5p, None, b5_bytes, b5_ops,
+         H100_INT8_OPS),
+        ("decode_gather_attention", b6, b6p, sdpa_dec, b6_bytes, b6_flops,
+         H100_BF16_FLOPS),
+        ("mpmrf_prefill_filter_scores", b7, b7p, None, b7_bytes, b7_ops,
+         H100_INT8_OPS),
+        ("prefill_gather_attention", b8, b8p, sdpa_pre, b8_bytes, b8_flops,
+         H100_BF16_FLOPS),
+    ))
+    return ops_in
+
+
+def check_same_rows(c, o, label, gen):
+    """Lay ``c``'s contiguous rows out as pages under a shuffled block
+    table: B1 must equal B5, B2 equal B6, B3 equal B7 and B4 equal B8,
+    bit for bit (the twins share their kernel bodies). Each pair is then
+    timed in turns on those rows; returns the times."""
+    import torch
+
+    from repro_torch.kernels import mpmrf_decode as dk
+    from repro_torch.kernels import mpmrf_prefill as pk
+
+    need(c.pk == c.bk, "the paged kernels take one page per key tile")
+    bh, n_k, d = c.k.shape
+    n_kb = n_k // c.bk
+    table = torch.randperm(bh * n_kb, generator=gen, device=DEV)
+    inv = torch.empty_like(table)
+    inv[table] = torch.arange(bh * n_kb, device=DEV)
+    table = table.reshape(bh, n_kb).to(torch.int32)
+
+    def pages(x):
+        return x.reshape(bh * n_kb, c.bk, d)[inv].contiguous()
+
+    codes, k, v = pages(c.codes), pages(c.k), pages(c.v)
+    scale = c.scale.reshape(-1)[inv].reshape(-1, 1).contiguous()
+    row_scale = c.scale.repeat_interleave(c.bk, dim=-1).contiguous()
+    pairs = {
+        "B5/B1": (
+            lambda: dk.mpmrf_decode_filter_scores(
+                o["qp"], o["qs"], c.codes, c.scale, c.cl, key_block=c.bk),
+            lambda: dk.paged_filter_scores(
+                o["qp"], o["qs"], codes, scale, table, c.cl,
+                key_block=c.bk)),
+        "B6/B2": (
+            lambda: dk.decode_gather_attention(
+                c.q_dec, c.k, c.v, o["idx"], o["val"], c.cl, key_block=c.bk),
+            lambda: dk.paged_decode_gather_attention(
+                c.q_dec, k, v, o["idx"], o["val"], table, c.cl,
+                key_block=c.bk)),
+        "B7/B3": (
+            lambda: pk.mpmrf_prefill_filter_scores(
+                o["qpp"], o["qps"], c.qpos, c.codes, row_scale,
+                query_block=c.bq, key_block=c.bk),
+            lambda: pk.paged_prefill_filter_scores(
+                o["qpp"], o["qps"], c.qpos, codes, scale, table,
+                query_block=c.bq, key_block=c.bk)),
+        "B8/B4": (
+            lambda: pk.prefill_gather_attention(
+                c.q_pre, c.qpos, c.k, c.v, o["pidx"], o["pval"],
+                query_block=c.bq, key_block=c.bk),
+            lambda: pk.paged_prefill_gather_attention(
+                c.q_pre, c.qpos, k, v, o["pidx"], o["pval"], table,
+                query_block=c.bq, key_block=c.bk)),
+    }
+    for name, (contiguous, paged) in pairs.items():
+        a, b = contiguous(), paged()
+        sync()
+        same = (all(torch.equal(x, y) for x, y in zip(a, b))
+                if isinstance(a, tuple) else torch.equal(a, b))
+        need(same, f"{label} {name}: the twins differ on the same rows")
+    # both twins timed in turns (paged, contiguous, contiguous, paged)
+    times = {}
+    for name, (contiguous, paged) in pairs.items():
+        tp0, tc0 = time_ms(paged), time_ms(contiguous)
+        tc1, tp1 = time_ms(contiguous), time_ms(paged)
+        times[name] = dict(contiguous_ms=(tc0 + tc1) / 2,
+                           paged_ms=(tp0 + tp1) / 2)
+    log(f"[same-rows:{label}] the contiguous rows as {bh * n_kb} shuffled "
+        f"pages: B5 = B1, B6 = B2, B7 = B3, B8 = B4 bit for bit; ms "
+        f"contiguous/paged " + ", ".join(
+            f"{n} {t['contiguous_ms']:.4f}/{t['paged_ms']:.4f}"
+            for n, t in times.items()))
+    return times
+
+
+def serve_unpaged(model, params, prompts, paged_streams, *, seed=0,
+                  new_tokens=32, max_len=4096, chunk=128):
+    """The same requests through ``ServeLoop(paged=False)`` on the same
+    model: launch counts zeroed just before and read just after; every
+    request drains with finite logits and the paged run's greedy stream.
+    Layer 2's queries of the last prefill wave and the last decode step
+    are kept for the captured kernel case."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import Request, ServeLoop
+
+    cfg = model.cfg
+    sparse = cfg.num_layers - cfg.energon.min_prune_layer
+    engine = ServeLoop(
+        model, params, batch_slots=len(prompts), max_len=max_len,
+        eos_token=-1, seed=seed, prefill_chunk=chunk, paged=False,
+        device=DEV,
+    )
+    captured, calls = {}, {"prefill": 0, "decode": 0}
+    real = {"prefill": ops.fused_prefill_attention,
+            "decode": ops.fused_decode_attention}
+
+    def capturing(kind):
+        def fn(q, *args, **kw):
+            if calls[kind] % sparse == 0:       # the first sparse layer
+                pos = args[4]                   # q_positions / cache_length
+                captured[kind] = (q.clone(), pos.clone())
+            calls[kind] += 1
+            return real[kind](q, *args, **kw)
+        return fn
+
+    sync()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.fused_prefill_attention = capturing("prefill")
+    ops.fused_decode_attention = capturing("decode")
+    try:
+        for i, p in enumerate(prompts):
+            engine.submit(Request(uid=i, prompt=list(p),
+                                  max_new_tokens=new_tokens))
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = engine.run_until_drained()
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+    finally:
+        ops.fused_prefill_attention = real["prefill"]
+        ops.fused_decode_attention = real["decode"]
+    m = engine.metrics
+    lat = m.latency_stats()
+    peak = mem_gb(torch.cuda.max_memory_allocated)
+    log(f"[unpaged] {len(done)} requests drained in {wall:.2f} s; prefill "
+        f"{m.prefill_tokens} tok in {m.prefill_time:.3f} s "
+        f"({m.prefill_tokens_per_sec:.1f} tok/s), decode {m.decode_tokens} "
+        f"tok in {m.decode_time:.3f} s ({m.decode_tokens_per_sec:.1f} "
+        f"tok/s); ttft p50 {lat['ttft_p50'] * 1e3:.1f} ms, itl p50 "
+        f"{lat['itl_p50'] * 1e3:.2f} ms; contiguous cache "
+        f"{engine.batch_slots} × {engine.max_len} rows; peak device memory "
+        f"{peak} GB")
+    log(f"[unpaged] kernel launches: {json.dumps(launches)}")
+    need(len(done) == len(prompts) and all(r.done for r in done),
+         "unpaged: not every request drained")
+    need(m.nonfinite_logits == 0,
+         f"unpaged: {m.nonfinite_logits} non-finite logits")
+    streams = {r.uid: list(r.tokens_out) for r in done}
+    need(streams == paged_streams,
+         "unpaged greedy streams differ from the paged run's")
+    per = {"mpmrf_decode_filter_scores": m.decode_dispatches,
+           "decode_gather_attention": m.decode_dispatches,
+           "mpmrf_prefill_filter_scores": m.prefill_dispatches,
+           "prefill_gather_attention": m.prefill_dispatches}
+    for name, n_calls in per.items():
+        need(n_calls > 0 and launches[name] == sparse * n_calls,
+             f"{name} launched {launches[name]} times, not {sparse} × "
+             f"{n_calls} (layers {cfg.energon.min_prune_layer}–"
+             f"{cfg.num_layers - 1} of every dispatch)")
+    for name in SERVE_KERNELS + SCORE_KERNELS:
+        need(launches[name] == 0, f"{name} launched on the unpaged path")
+    log(f"[unpaged] streams equal the paged run's, token for token; B5/B6 "
+        f"{sparse} × {m.decode_dispatches} decode steps, B7/B8 {sparse} × "
+        f"{m.prefill_dispatches} prefill waves; B1–B4, B9–B11 never")
+    out = dict(
+        prefill_tok_s=m.prefill_tokens_per_sec,
+        decode_tok_s=m.decode_tokens_per_sec, wall_s=wall,
+        ttft_p50_ms=lat["ttft_p50"] * 1e3, itl_p50_ms=lat["itl_p50"] * 1e3,
+        peak_memory_gb=peak, prefill_dispatches=m.prefill_dispatches,
+        decode_dispatches=m.decode_dispatches,
+    )
+    return engine, out, launches, captured
+
+
+def serve_in_turns(model, params, prompts, streams, *, seed=0,
+                   new_tokens=32, max_len=4096, chunk=128):
+    """The same requests through a fresh paged engine (prefix sharing
+    off) and then a fresh unpaged one, both warm: with phase 8's unpaged
+    drain before them, the two layouts are timed in turns in one call
+    (unpaged, paged, unpaged). Each must give ``streams``."""
+    import torch
+
+    from repro_torch.runtime import Request, ServeLoop
+
+    out = {}
+    for layout in ("paged", "unpaged"):
+        engine = ServeLoop(
+            model, params, batch_slots=len(prompts), max_len=max_len,
+            eos_token=-1, seed=seed, prefill_chunk=chunk,
+            paged=layout == "paged", prefix_sharing=False, device=DEV,
+        )
+        for i, p in enumerate(prompts):
+            engine.submit(Request(uid=i, prompt=list(p),
+                                  max_new_tokens=new_tokens))
+        t0 = time.perf_counter()
+        done = engine.run_until_drained()
+        sync()
+        wall = time.perf_counter() - t0
+        need({r.uid: list(r.tokens_out) for r in done} == streams,
+             f"in turns: the {layout} streams differ from the paged run's")
+        m = engine.metrics
+        lat = m.latency_stats()
+        out[layout] = dict(
+            prefill_tok_s=m.prefill_tokens_per_sec,
+            decode_tok_s=m.decode_tokens_per_sec, wall_s=wall,
+            ttft_p50_ms=lat["ttft_p50"] * 1e3,
+            itl_p50_ms=lat["itl_p50"] * 1e3)
+        del engine, done
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("[in-turns] warm drains of the same requests, streams equal: "
+        + "; ".join(f"{k} prefill {v['prefill_tok_s']:.1f} tok/s, decode "
+                    f"{v['decode_tok_s']:.1f} tok/s, ttft p50 "
+                    f"{v['ttft_p50_ms']:.1f} ms, itl p50 "
+                    f"{v['itl_p50_ms']:.2f} ms" for k, v in out.items()))
+    return out
+
+
+def captured_contiguous_case(engine, captured, layer):
+    """Layer ``layer``'s queries of the last prefill wave and decode step
+    over its live contiguous cache after the drain (rows the decode
+    steps appended lie past every captured query's position)."""
+    import torch
+
+    e = engine.model.cfg.energon
+    cache = {k: v[layer] for k, v in engine.cache.items()}
+    batch, heads, n_k, d = cache["k"].shape
+    bh = batch * heads
+    q_pre, qpos = captured["prefill"]
+    q_dec, cl = captured["decode"]
+    dt = cache["k"].dtype
+    return ContiguousCase(
+        q_dec=q_dec.reshape(bh, -1, d).to(dt).contiguous(),
+        cl=cl.to(torch.int32).repeat_interleave(heads),
+        q_pre=q_pre.reshape(bh, -1, d).to(dt).contiguous(),
+        qpos=qpos.to(torch.int32).repeat_interleave(heads, dim=0),
+        k=cache["k"].reshape(bh, n_k, d), v=cache["v"].reshape(bh, n_k, d),
+        codes=cache["k_codes"].reshape(bh, n_k, d),
+        scale=cache["k_scale"].reshape(bh, -1), bk=e.decode_key_block,
+        pk=e.key_block, bq=e.query_block, ratio=e.pruning_ratio,
+    )
+
+
 def random_full_sequence(gen, *, bh=160, n=2048, d=128):
     """bf16 q/k/v ``[bh, n, d]`` at the scoring path's shapes (4
     sequences × 40 heads of 2048 tokens)."""
@@ -952,7 +1448,7 @@ def score_full_width(model, params, *, n_seq=4, seq_len=2048, seed=5):
              f"{name} launched {launches[name]} times in scoring, not "
              f"{sparse_layers} (layers {cfg.energon.min_prune_layer}–"
              f"{cfg.num_layers - 1})")
-    for name in SERVE_KERNELS + ("flash_attention",):
+    for name in SERVE_KERNELS + UNPAGED_KERNELS + ("flash_attention",):
         need(launches[name] == 0, f"{name} launched in scoring")
     need(float(metrics["tokens"]) == tokens, "loss counted the wrong tokens")
 
@@ -1104,18 +1600,36 @@ def main(argv=None) -> int:
     if args.layers != cfg.num_layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
         log(f"[serve] depth cut to {args.layers} of {get_serve_config('qwen3-14b').num_layers} layers (width unchanged)")
-    engine, prompts, run1, launches = serve_full_width(cfg)
+    engine, prompts, run1, launches, streams1 = serve_full_width(cfg)
     layer = engine.model.cfg.energon.min_prune_layer
     check_case(live_pool_case(engine, prompts, layer), f"live-layer{layer}",
                results)
     prof = profile_drain(engine, prompts[0][:SYSTEM_LEN])
 
-    # full-sequence scoring on the same model object and weights; the
-    # serving engine (and its page pool) goes first
+    # the contiguous cache on the same model object and weights; the
+    # paged engine (and its page pool) goes first
     model, params = engine.model, engine.params
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    case = random_contiguous_case(gen)
+    same_rows = {"random": check_same_rows(
+        case, check_contiguous(case, "random", results), "random", gen)}
+    check_contiguous(random_contiguous_case(gen, pk=128), "random-kb128",
+                     results, timed=False, gather=False)
+    del case
+    uengine, unpaged, ulaunches, captured = serve_unpaged(
+        model, params, prompts, streams1)
+    case = captured_contiguous_case(uengine, captured, layer)
+    same_rows["captured"] = check_same_rows(
+        case, check_contiguous(case, f"captured-layer{layer}", results),
+        f"captured-layer{layer}", gen)
+    del uengine, case, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    in_turns = serve_in_turns(model, params, prompts, streams1)
+
+    # full-sequence scoring on the same model object and weights
     e = model.cfg.energon
     blocks = dict(bq=e.query_block, bk=e.key_block, ratio=e.pruning_ratio)
     q, k, v = random_full_sequence(gen)
@@ -1137,16 +1651,18 @@ def main(argv=None) -> int:
     for name, meta in KERNELS.items():
         entries = results[name]
         main_run, rand = entries[-1], entries[0]
+        run = (launches if name in SERVE_KERNELS else ulaunches
+               if name in UNPAGED_KERNELS else scoring["launches"])
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
-            replaces=meta["replaces"],
-            launches=(launches if name in SERVE_KERNELS
-                      else scoring["launches"])[name],
+            replaces=meta["replaces"], launches=run[name],
             max_abs_err=max(r["err"] for r in entries),
             **{k: main_run[k] for k in timed_keys},
             random={k: rand[k] for k in ("err",) + timed_keys},
         ))
     log(json.dumps({"serve": run1, "profile": prof, "card": smi}))
+    log(json.dumps({"unpaged": dict(unpaged, same_rows=same_rows,
+                                     in_turns=in_turns), "card": smi}))
     log(json.dumps({"scoring": dict(scoring, random=random_fs,
                                     captured=captured_fs, **pair),
                     "card": smi}))

@@ -4,6 +4,7 @@ from repro_torch.core.energon_attention import (
     EnergonConfig,
     decode_live_budget,
     energon_attention,
+    energon_decode_attention,
     energon_paged_decode_attention,
     energon_paged_prefill_attention,
 )
@@ -15,6 +16,7 @@ __all__ = [
     "MPMRFConfig",
     "decode_live_budget",
     "energon_attention",
+    "energon_decode_attention",
     "energon_paged_decode_attention",
     "energon_paged_prefill_attention",
 ]

@@ -1,15 +1,16 @@
 """Energon attention dispatch (port of ``repro.core.energon_attention``).
 
-Ported: the paged serving entry points
-:func:`energon_paged_prefill_attention` and
-:func:`energon_paged_decode_attention`, whose fused branches run the
-hand-written CUDA kernels through :mod:`repro_torch.kernels.ops`; and
+Ported: the serving entry points over both cache layouts — paged
+(:func:`energon_paged_prefill_attention`,
+:func:`energon_paged_decode_attention`) and contiguous
+(:func:`energon_attention` at ``q_positions`` with resident planes,
+:func:`energon_decode_attention`) — whose fused branches run the
+hand-written CUDA kernels through :mod:`repro_torch.kernels.ops`, and
+whose dense branches serve the prefix layers; and
 :func:`energon_attention`'s full-sequence call (dense prefix layers,
-``impl="pallas"`` through B9 + B10) plus its dense per-row-position
-branch that the paged prefix layers take. A config that would reach the
-reference's ``mpmrf_row`` / ``mpmrf_block`` XLA paths, the chunked
-path or the unpaged fused kernels raises ``NotImplementedError``; those
-wait for a later slice.
+``impl="pallas"`` through B9 + B10). A config that would reach the
+reference's ``mpmrf_row`` / ``mpmrf_block`` XLA paths or the chunked
+path raises ``NotImplementedError``; those wait for a later slice.
 """
 
 from __future__ import annotations
@@ -92,6 +93,7 @@ def energon_attention(
     q_positions: Optional[torch.Tensor] = None,
     kv_length: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    filter_cache: Optional[Dict[str, torch.Tensor]] = None,
     telemetry: bool = False,
 ):
     """Multi-head attention ``[B, H, n, d]`` with Energon sparsity.
@@ -102,8 +104,12 @@ def energon_attention(
     under the causal mask, and ``impl="pallas"`` runs the Filtering Unit
     (B9 + Eq. 3 + top-B) and the Attention Unit (B10) over
     ``[B·H, n, d]``. The chunked-prefill call (``q_positions`` int32
-    ``[B, n_q]``, padding sentinels ≥ n_k wholly masked) takes the dense
-    branch only, for the unpruned prefix layers of the paged path.
+    ``[B, n_q]``, padding sentinels ≥ n_k wholly masked): with
+    ``impl="pallas"`` and the cache's resident planes in
+    ``filter_cache`` (``{"codes": int16 [B, H, n_k, d], "scale": f32
+    [B, H, n_k // cfg.decode_key_block]}``) it runs the fused prefill
+    kernels (B7 → selection → B8) before any ``[n_q, n_k]`` mask is
+    built; the unpruned prefix layers take the dense branch.
 
     Every other branch of the reference raises up front with the reason
     (:func:`full_sequence_faults`): the row-granular fallback for
@@ -116,6 +122,34 @@ def energon_attention(
     n_q, n_k = q.shape[-2], k.shape[-2]
     impl = "dense" if layer_index < cfg.min_prune_layer else cfg.impl
     if q_positions is not None:
+        if (
+            impl == "pallas" and causal and kv_length is None
+            and n_q % cfg.query_block == 0 and n_k % cfg.key_block == 0
+            and n_k // cfg.key_block > 1
+            and _fused_prefill_engaged(cfg, filter_cache is not None,
+                                       window, n_k)
+        ):
+            from repro_torch.kernels import ops as kops
+
+            n_kb = n_k // cfg.key_block
+            return kops.fused_prefill_attention(
+                q, k, v, filter_cache["codes"], filter_cache["scale"],
+                q_positions,
+                round_bits=cfg.round_bits,
+                alphas=cfg.alphas,
+                query_block=cfg.query_block,
+                key_block=cfg.key_block,
+                filter_block=cfg.decode_key_block,
+                block_budget=max(1, math.ceil(n_kb / cfg.pruning_ratio)),
+                keep_all=cfg.pruning_ratio <= 1.0,
+                keep_first=cfg.keep_first,
+                keep_diagonal=cfg.keep_diagonal,
+                diag_blocks=_prefill_diag_blocks(
+                    q_positions, cfg.query_block, cfg.key_block, n_k
+                ),
+                scale=scale,
+                telemetry=telemetry,
+            )
         out = _positions_dense(q, k, v, cfg, impl, q_positions, causal,
                                window, scale)
     else:
@@ -296,7 +330,8 @@ def _fused_prefill_engaged(
 ) -> bool:
     """The fused prefill kernels additionally need a cache divisible
     into the resident plane blocks (the reference's padded-cache
-    ``kv_length`` condition has no paged caller)."""
+    ``kv_length`` condition is checked by :func:`energon_attention`, its
+    one caller that takes ``kv_length``)."""
     return (
         cfg.impl == "pallas"
         and filter_planes_resident
@@ -308,14 +343,16 @@ def _fused_prefill_engaged(
     )
 
 
-def paged_serving_faults(
-    cfg: EnergonConfig, *, group: int, cache_len: int, chunk: int
+def serving_faults(
+    cfg: EnergonConfig, *, group: int, cache_len: int, chunk: int,
+    paged: bool = True,
 ) -> List[str]:
     """Why serving ``chunk``-token prefill chunks (``group`` query heads
-    per KV head) against ``cache_len``-row paged caches would fail mid-run
-    in this slice: sparse layers that miss the fused kernels' engagement
-    rules raise, and the dense prefix layers refuse masks past
-    ``chunk_threshold``. Empty when every layer can run."""
+    per KV head) against ``cache_len``-row caches — paged, or contiguous
+    with ``paged=False`` — would fail mid-run: sparse layers that miss
+    the fused kernels' engagement rules raise, and the dense prefix
+    layers refuse masks past ``chunk_threshold``. Empty when every layer
+    can run."""
     rows = group * chunk
     faults = []
     if (cfg.impl == "dense" or cfg.min_prune_layer > 0) \
@@ -327,8 +364,8 @@ def paged_serving_faults(
     if cfg.impl == "dense":
         return faults
     if cfg.impl != "pallas":
-        return faults + [f"impl={cfg.impl!r} is not ported yet (this "
-                         "slice serves impl='pallas')"]
+        return faults + [f"impl={cfg.impl!r} is not ported yet (the port "
+                         "serves impl='pallas')"]
     if not cfg.filter_cache_engages(cache_len):
         threshold = cfg.filter_cache_min_len
         faults.append(
@@ -336,9 +373,15 @@ def paged_serving_faults(
             f"{FILTER_CACHE_AUTO_MIN_LEN if threshold is None else threshold}"
             f" cache rows (max_len {cache_len}): raise max_len or set "
             "filter_cache_min_len")
-    if cfg.key_block != cfg.decode_key_block:
+    if paged and cfg.key_block != cfg.decode_key_block:
         faults.append(f"key_block {cfg.key_block} must equal "
                       f"decode_key_block {cfg.decode_key_block}")
+    if not paged and (cache_len % cfg.key_block
+                      or cache_len // cfg.key_block <= 1):
+        faults.append(
+            f"the {cache_len} cache rows must divide into two or more "
+            f"key blocks of {cfg.key_block} (else the reference falls back "
+            "to mpmrf_row)")
     if rows % cfg.query_block:
         faults.append(f"query_block {cfg.query_block} must divide the "
                       f"{rows} folded chunk rows (G={group} × chunk "
@@ -433,6 +476,43 @@ def energon_paged_prefill_attention(
     )
 
 
+def _decode_route(
+    cfg: EnergonConfig, n_k: int, layer_index: int, window,
+    filter_planes_resident: bool,
+) -> str:
+    """Which decode branch runs — ``"dense"`` (prefix layers, dense impl,
+    ρ ≤ 1 outside the block path) or ``"fused"`` — for either cache
+    layout; branches not ported yet raise."""
+    if layer_index < cfg.min_prune_layer or cfg.impl == "dense":
+        return "dense"
+    bk = cfg.decode_key_block
+    if (cfg.impl in ("mpmrf_block", "pallas") and bk > 0 and n_k % bk == 0
+            and n_k // bk > 1):
+        if _fused_decode_engaged(cfg, filter_planes_resident, window):
+            return "fused"
+        raise _not_ported("the XLA block decode path")
+    if cfg.pruning_ratio <= 1.0:
+        return "dense"
+    raise _not_ported("row-granular MP-MRF decode")
+
+
+def _fused_decode_kwargs(cfg: EnergonConfig, n_k: int, cache_length,
+                         scale, telemetry) -> Dict[str, object]:
+    budget, keep_all, live_budget = _decode_block_plan(cfg, n_k, cache_length)
+    return dict(
+        round_bits=cfg.round_bits,
+        alphas=cfg.alphas,
+        key_block=cfg.decode_key_block,
+        block_budget=budget,
+        keep_all=keep_all,
+        keep_first=cfg.keep_first,
+        keep_diagonal=cfg.keep_diagonal,
+        live_budget=live_budget,
+        scale=scale,
+        telemetry=telemetry,
+    )
+
+
 def energon_paged_decode_attention(
     q: torch.Tensor,
     cache: Dict[str, torch.Tensor],
@@ -457,46 +537,61 @@ def energon_paged_decode_attention(
     bk = cfg.decode_key_block
     if bk <= 0:
         raise ValueError("paged decode needs decode_key_block > 0")
-    mb = block_table.shape[-1]
-    n_k = mb * bk
+    n_k = block_table.shape[-1] * bk
+    route = _decode_route(cfg, n_k, layer_index, window, "k_codes" in cache)
+    if route == "fused":
+        from repro_torch.kernels import ops as kops
 
-    def dense():
-        valid = _decode_valid_mask(q, n_k, cache_length, window)
-        out = spa.dense_attention(
-            q,
-            pgc.gather_logical_rows(cache["k"], block_table, bk),
-            pgc.gather_logical_rows(cache["v"], block_table, bk),
-            valid, scale,
+        return kops.fused_paged_decode_attention(
+            q, cache["k"], cache["v"], cache["k_codes"], cache["k_scale"],
+            block_table, cache_length,
+            **_fused_decode_kwargs(cfg, n_k, cache_length, scale, telemetry),
         )
-        return (out, _zero_stats(q.shape[0], q.device)) if telemetry else out
+    valid = _decode_valid_mask(q, n_k, cache_length, window)
+    out = spa.dense_attention(
+        q,
+        pgc.gather_logical_rows(cache["k"], block_table, bk),
+        pgc.gather_logical_rows(cache["v"], block_table, bk),
+        valid, scale,
+    )
+    return (out, _zero_stats(q.shape[0], q.device)) if telemetry else out
 
-    if layer_index < cfg.min_prune_layer or cfg.impl == "dense":
-        return dense()
 
-    use_block = cfg.impl in ("mpmrf_block", "pallas") and n_k // bk > 1
-    if use_block:
-        budget, keep_all, live_budget = _decode_block_plan(
-            cfg, n_k, cache_length
+def energon_decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cache_length: torch.Tensor,
+    cfg: EnergonConfig,
+    *,
+    layer_index: int = 10**9,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    filter_cache: Optional[Dict[str, torch.Tensor]] = None,
+    telemetry: bool = False,
+):
+    """One-token decode attention over the contiguous cache.
+
+    q ``[B, KV, G, d]`` (folded GQA rows, all at one position); caches
+    ``[B, KV, n_k, d]``; ``cache_length`` int32 ``[B]`` (an idle slot's
+    ``max_len + 1`` sentinel masks nothing); ``filter_cache`` the
+    resident planes (``{"codes": int16 [B, KV, n_k, d], "scale": f32
+    [B, KV, n_k // cfg.decode_key_block]}``). Prefix layers (and
+    ``impl="dense"``, and ρ ≤ 1 outside the block path) attend densely;
+    sparse layers with resident planes run the fused kernels (B5 →
+    selection → B6).
+    """
+    n_k = k_cache.shape[-2]
+    route = _decode_route(cfg, n_k, layer_index, window,
+                          filter_cache is not None)
+    if route == "fused":
+        from repro_torch.kernels import ops as kops
+
+        return kops.fused_decode_attention(
+            q, k_cache, v_cache, filter_cache["codes"], filter_cache["scale"],
+            cache_length,
+            **_fused_decode_kwargs(cfg, n_k, cache_length, scale, telemetry),
         )
-        if _fused_decode_engaged(cfg, "k_codes" in cache, window):
-            from repro_torch.kernels import ops as kops
-
-            return kops.fused_paged_decode_attention(
-                q, cache["k"], cache["v"], cache["k_codes"], cache["k_scale"],
-                block_table, cache_length,
-                round_bits=cfg.round_bits,
-                alphas=cfg.alphas,
-                key_block=bk,
-                block_budget=budget,
-                keep_all=keep_all,
-                keep_first=cfg.keep_first,
-                keep_diagonal=cfg.keep_diagonal,
-                live_budget=live_budget,
-                scale=scale,
-                telemetry=telemetry,
-            )
-        raise _not_ported("the XLA block decode path (mpmrf_paged_block_select)")
-
-    if cfg.pruning_ratio <= 1.0:
-        return dense()
-    raise _not_ported("row-granular MP-MRF decode")
+    valid = _decode_valid_mask(q, n_k, cache_length, window)
+    out = spa.dense_attention(q, k_cache, v_cache, valid, scale)
+    return (out, _zero_stats(q.shape[0], q.device)) if telemetry else out

@@ -43,6 +43,10 @@ launch_counts: Dict[str, int] = {
     "paged_decode_gather_attention": 0,
     "mpmrf_paged_prefill_filter_scores": 0,
     "paged_prefill_gather_attention": 0,
+    "mpmrf_decode_filter_scores": 0,
+    "decode_gather_attention": 0,
+    "mpmrf_prefill_filter_scores": 0,
+    "prefill_gather_attention": 0,
     "mpmrf_filter_scores": 0,
     "block_sparse_attention": 0,
     "flash_attention": 0,

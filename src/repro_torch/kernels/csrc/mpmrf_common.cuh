@@ -1,8 +1,14 @@
-// Device code shared by the paged MP-MRF kernels (decode and prefill).
+// Device code shared by the MP-MRF serving kernels (decode and prefill),
+// paged and contiguous alike.
+//
+// block_of: where logical key block j of bh row b lives. A paged cache
+//   names a physical page in its block table; a contiguous [bh, n_k, d]
+//   cache is the same pool with the implicit table b·mb + j, so both
+//   layouts run one kernel body, templated on which of the two it reads.
 //
 // filter_tile: the two-round shift-and-add block score of one logical
 //   key block (one physical page) against a tile of query rows, read
-//   straight off the page's resident int16 codes. Both rounds' bit
+//   straight off the block's resident int16 codes. Both rounds' bit
 //   planes are derived in shared memory by arithmetic shift and packed
 //   four int8 lanes to a word, so each dot product is __dp4a on packed
 //   planes with int32 accumulation — exact, like the reference's int32
@@ -49,12 +55,21 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return v;  // valid in warp 0
 }
 
+template <bool kPaged>
+__device__ __forceinline__ int block_of(const int32_t* __restrict__ table,
+                                        int b, int j, int mb) {
+  return kPaged ? table[b * mb + j] : b * mb + j;
+}
+
 // One block of FILTER_THREADS threads scores `rows` query rows against
-// the bk keys of physical page `page`.
+// the bk keys of one key block.
 //   q_plane  int32 [rows, 4*DW]   (row-major, this tile only)
 //   q_scale  f32   [rows]
 //   q_pos    int32 [rows] or null (decode: every row masks kpos < limit)
-//   codes    int16 [bk, 4*DW]     (this page only)
+//   codes    int16 [bk, 4*DW]     (this block only)
+//   k_scale  f32, key row r's scale at k_scale[r * scale_stride]: stride
+//            0 for one scale per page or block, 1 for per-row scales (a
+//            prefill key tile spanning several scale groups)
 // Row validity: prefill `kpos <= q_pos[i] && q_pos[i] < n_k`; decode
 // `kpos < limit`. Writes the two rounds' block maxima (NEG_INF when no
 // pair is valid) to *out0, *out1.
@@ -62,8 +77,9 @@ template <int DW>
 __device__ void filter_tile(
     const int32_t* __restrict__ q_plane, const float* __restrict__ q_scale,
     const int32_t* __restrict__ q_pos, const int16_t* __restrict__ codes,
-    float page_scale, int rows, int bk, int kbase, int limit, int n_k,
-    int lo, int hi, float* out0, float* out1) {
+    const float* __restrict__ k_scale, int scale_stride, int rows, int bk,
+    int kbase, int limit, int n_k, int lo, int hi, float* out0,
+    float* out1) {
   int* qw = dyn_smem();                                  // [rows][DW]
   int* kmsb = qw + rows * DW;                      // [bk][DW+1]
   int* krem = kmsb + bk * (DW + 1);                // [bk][DW+1]
@@ -104,10 +120,11 @@ __device__ void filter_tile(
   }
   __syncthreads();
 
-  const float ks0 = __fmul_rn(page_scale, (float)(1 << (16 - lo)));
-  const float ks1 = __fmul_rn(page_scale, (float)(1 << (16 - hi)));
   const int shift_mul = 1 << (hi - lo);
   const int r = tid % bk;          // this thread's key row
+  const float ks = k_scale[r * scale_stride];
+  const float ks0 = __fmul_rn(ks, (float)(1 << (16 - lo)));
+  const float ks1 = __fmul_rn(ks, (float)(1 << (16 - hi)));
   const int groups = blockDim.x / bk;
   int km[DW], kr[DW];
 #pragma unroll

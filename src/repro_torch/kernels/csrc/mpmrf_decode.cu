@@ -1,5 +1,5 @@
-// Paged MP-MRF decode kernels for Hopper (sm_90a), with a plain C
-// interface for ctypes.
+// MP-MRF decode kernels for Hopper (sm_90a), paged and contiguous, with
+// a plain C interface for ctypes.
 //
 // B1 mpmrf_paged_filter_scores — replaces the TPU kernel
 //   repro/kernels/mpmrf_decode.py::mpmrf_paged_filter_scores
@@ -12,6 +12,17 @@
 //   past the slot's cache length skips the page entirely (its scores
 //   are all masked to NEG_INF) — the bytes read are the live pages'.
 //
+// B5 mpmrf_decode_filter_scores — replaces
+//   repro/kernels/mpmrf_decode.py::mpmrf_decode_filter_scores
+//   (_decode_filter_kernel): B1 over a contiguous [bh, n_k, d] code
+//   cache with per-block scales [bh, n_kb]. That cache is a page pool
+//   whose table is implicit (block j of row b is block b·n_kb + j, its
+//   scale the same entry), so B5 is B1's kernel body instantiated for
+//   the contiguous layout (block_of<false>): the same bytes bound, the
+//   same early exit, and scores equal to B1's on the same rows, bit for
+//   bit. A length past n_k (an idle slot's max_len + 1 sentinel) masks
+//   nothing; the grid covers the n_kb blocks only.
+//
 // B2 paged_decode_gather_attention — replaces
 //   repro/kernels/mpmrf_decode.py::paged_decode_gather_attention
 //   (_paged_gather_kernel). One block per bh row walks the survivor
@@ -23,6 +34,12 @@
 //   bytes (the survivor pages of K and V); slots whose valid bit is 0
 //   are skipped without reading their pages, which leaves m, l and acc
 //   exactly as the reference's masked step does (corr = 1, p = 0).
+//
+// B6 decode_gather_attention — replaces
+//   repro/kernels/mpmrf_decode.py::decode_gather_attention
+//   (_decode_gather_kernel): B2 with idx[b, s] naming block
+//   b·n_kb + idx[b, s] of the contiguous K/V cache — the same kernel
+//   body, the same bytes bound, outputs equal to B2's on the same rows.
 #include "mpmrf_common.cuh"
 
 using mpmrf::dyn_smem;
@@ -30,10 +47,10 @@ using mpmrf::dyn_smem;
 #define GATHER_THREADS 128
 #define GATHER_MAX_G 16
 
-template <int DW>
-__global__ void __launch_bounds__(FILTER_THREADS) paged_filter_kernel(
+template <int DW, bool kPaged>
+__global__ void __launch_bounds__(FILTER_THREADS) decode_filter_kernel(
     const int32_t* __restrict__ q_plane, const float* __restrict__ q_scale,
-    const int16_t* __restrict__ codes, const float* __restrict__ page_scale,
+    const int16_t* __restrict__ codes, const float* __restrict__ blk_scale,
     const int32_t* __restrict__ block_table,
     const int32_t* __restrict__ cache_len, float* __restrict__ s0,
     float* __restrict__ s1, int g, int bk, int mb, int lo, int hi) {
@@ -48,14 +65,15 @@ __global__ void __launch_bounds__(FILTER_THREADS) paged_filter_kernel(
     return;
   }
   const int d = 4 * DW;
-  const int page = block_table[out];
+  const int blk = mpmrf::block_of<kPaged>(block_table, b, j, mb);
   mpmrf::filter_tile<DW>(
       q_plane + (size_t)b * g * d, q_scale + (size_t)b * g, nullptr,
-      codes + (size_t)page * bk * d, page_scale[page], g, bk, j * bk, len,
+      codes + (size_t)blk * bk * d, blk_scale + blk, 0, g, bk, j * bk, len,
       0, lo, hi, s0 + out, s1 + out);
 }
 
-__global__ void __launch_bounds__(GATHER_THREADS) paged_decode_gather_kernel(
+template <bool kPaged>
+__global__ void __launch_bounds__(GATHER_THREADS) decode_gather_kernel(
     const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* __restrict__ k_pages,
     const __nv_bfloat16* __restrict__ v_pages,
@@ -90,7 +108,7 @@ __global__ void __launch_bounds__(GATHER_THREADS) paged_decode_gather_kernel(
   for (int s = 0; s < budget; ++s) {
     if (!val[b * budget + s]) continue;
     const int kb = idx[b * budget + s];
-    const size_t page = (size_t)block_table[b * mb + kb];
+    const size_t page = mpmrf::block_of<kPaged>(block_table, b, kb, mb);
     __syncthreads();  // the previous slot's readers are done
     mpmrf::load_tile(vs, v_pages + page * bk * d, bk * d);
     const int4* ksrc = reinterpret_cast<const int4*>(k_pages + page * bk * d);
@@ -171,48 +189,54 @@ static size_t filter_smem_bytes(int rows, int bk, int dw) {
                         2 * (size_t)rows + 64);
 }
 
-template <int DW>
+template <int DW, bool kPaged>
 static void launch_filter(dim3 grid, size_t smem, cudaStream_t stream,
                           const void* q_plane, const void* q_scale,
-                          const void* codes, const void* page_scale,
+                          const void* codes, const void* blk_scale,
                           const void* block_table, const void* cache_len,
                           void* s0, void* s1, int g, int bk, int mb, int lo,
                           int hi) {
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(paged_filter_kernel<DW>,
+    cudaFuncSetAttribute(decode_filter_kernel<DW, kPaged>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
-  paged_filter_kernel<DW><<<grid, FILTER_THREADS, smem, stream>>>(
+  decode_filter_kernel<DW, kPaged><<<grid, FILTER_THREADS, smem, stream>>>(
       (const int32_t*)q_plane, (const float*)q_scale, (const int16_t*)codes,
-      (const float*)page_scale, (const int32_t*)block_table,
+      (const float*)blk_scale, (const int32_t*)block_table,
       (const int32_t*)cache_len, (float*)s0, (float*)s1, g, bk, mb, lo, hi);
 }
 
-extern "C" int mpmrf_paged_filter_scores(
-    const void* q_plane, const void* q_scale, const void* codes,
-    const void* page_scale, const void* block_table, const void* cache_len,
-    void* s0, void* s1, int bh, int g, int d, int bk, int mb, int lo, int hi,
-    void* stream) {
+// mb: blocks per bh row (table width, or n_kb of the contiguous cache)
+template <bool kPaged>
+static int filter_scores(const void* q_plane, const void* q_scale,
+                         const void* codes, const void* blk_scale,
+                         const void* block_table, const void* cache_len,
+                         void* s0, void* s1, int bh, int g, int d, int bk,
+                         int mb, int lo, int hi, void* stream) {
   cudaGetLastError();
   const dim3 grid(mb, bh);
   const size_t smem = filter_smem_bytes(g, bk, d / 4);
   cudaStream_t st = (cudaStream_t)stream;
   switch (d) {
     case 16:
-      launch_filter<4>(grid, smem, st, q_plane, q_scale, codes, page_scale,
-                       block_table, cache_len, s0, s1, g, bk, mb, lo, hi);
+      launch_filter<4, kPaged>(grid, smem, st, q_plane, q_scale, codes,
+                               blk_scale, block_table, cache_len, s0, s1, g,
+                               bk, mb, lo, hi);
       break;
     case 32:
-      launch_filter<8>(grid, smem, st, q_plane, q_scale, codes, page_scale,
-                       block_table, cache_len, s0, s1, g, bk, mb, lo, hi);
+      launch_filter<8, kPaged>(grid, smem, st, q_plane, q_scale, codes,
+                               blk_scale, block_table, cache_len, s0, s1, g,
+                               bk, mb, lo, hi);
       break;
     case 64:
-      launch_filter<16>(grid, smem, st, q_plane, q_scale, codes, page_scale,
-                        block_table, cache_len, s0, s1, g, bk, mb, lo, hi);
+      launch_filter<16, kPaged>(grid, smem, st, q_plane, q_scale, codes,
+                                blk_scale, block_table, cache_len, s0, s1, g,
+                                bk, mb, lo, hi);
       break;
     case 128:
-      launch_filter<32>(grid, smem, st, q_plane, q_scale, codes, page_scale,
-                        block_table, cache_len, s0, s1, g, bk, mb, lo, hi);
+      launch_filter<32, kPaged>(grid, smem, st, q_plane, q_scale, codes,
+                                blk_scale, block_table, cache_len, s0, s1, g,
+                                bk, mb, lo, hi);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -220,26 +244,64 @@ extern "C" int mpmrf_paged_filter_scores(
   return (int)cudaGetLastError();
 }
 
-extern "C" int paged_decode_gather_attention(
-    const void* q, const void* k_pages, const void* v_pages, const void* idx,
-    const void* val, const void* block_table, const void* cache_len,
-    void* out, int bh, int g, int d, int bk, int budget, int mb,
-    float sm_scale, void* stream) {
+template <bool kPaged>
+static int gather_attention(const void* q, const void* k, const void* v,
+                            const void* idx, const void* val,
+                            const void* block_table, const void* cache_len,
+                            void* out, int bh, int g, int d, int bk,
+                            int budget, int mb, float sm_scale, void* stream) {
   cudaGetLastError();
   if (g > GATHER_MAX_G || d > GATHER_THREADS) return (int)cudaErrorInvalidValue;
   const size_t head_floats = (((size_t)g * d + (size_t)g * bk + 3 * g) + 3) & ~(size_t)3;
   const size_t smem = head_floats * sizeof(float) +
                       sizeof(__nv_bfloat16) * ((size_t)bk * d + (size_t)bk * (d + 2));
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(paged_decode_gather_kernel,
+    cudaFuncSetAttribute(decode_gather_kernel<kPaged>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
-  paged_decode_gather_kernel<<<bh, GATHER_THREADS, smem,
-                               (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
-      (const __nv_bfloat16*)v_pages, (const int32_t*)idx,
-      (const int32_t*)val, (const int32_t*)block_table,
-      (const int32_t*)cache_len, (__nv_bfloat16*)out, g, d, bk, budget, mb,
-      sm_scale);
+  decode_gather_kernel<kPaged><<<bh, GATHER_THREADS, smem,
+                                 (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const int32_t*)idx, (const int32_t*)val,
+      (const int32_t*)block_table, (const int32_t*)cache_len,
+      (__nv_bfloat16*)out, g, d, bk, budget, mb, sm_scale);
   return (int)cudaGetLastError();
+}
+
+extern "C" int mpmrf_paged_filter_scores(
+    const void* q_plane, const void* q_scale, const void* codes,
+    const void* page_scale, const void* block_table, const void* cache_len,
+    void* s0, void* s1, int bh, int g, int d, int bk, int mb, int lo, int hi,
+    void* stream) {
+  return filter_scores<true>(q_plane, q_scale, codes, page_scale,
+                             block_table, cache_len, s0, s1, bh, g, d, bk, mb,
+                             lo, hi, stream);
+}
+
+extern "C" int mpmrf_decode_filter_scores(
+    const void* q_plane, const void* q_scale, const void* codes,
+    const void* block_scale, const void* cache_len, void* s0, void* s1,
+    int bh, int g, int d, int bk, int n_kb, int lo, int hi, void* stream) {
+  return filter_scores<false>(q_plane, q_scale, codes, block_scale, nullptr,
+                              cache_len, s0, s1, bh, g, d, bk, n_kb, lo, hi,
+                              stream);
+}
+
+extern "C" int paged_decode_gather_attention(
+    const void* q, const void* k_pages, const void* v_pages, const void* idx,
+    const void* val, const void* block_table, const void* cache_len,
+    void* out, int bh, int g, int d, int bk, int budget, int mb,
+    float sm_scale, void* stream) {
+  return gather_attention<true>(q, k_pages, v_pages, idx, val, block_table,
+                                cache_len, out, bh, g, d, bk, budget, mb,
+                                sm_scale, stream);
+}
+
+extern "C" int decode_gather_attention(
+    const void* q, const void* k_cache, const void* v_cache, const void* idx,
+    const void* val, const void* cache_len, void* out, int bh, int g, int d,
+    int bk, int budget, int n_kb, float sm_scale, void* stream) {
+  return gather_attention<false>(q, k_cache, v_cache, idx, val, nullptr,
+                                 cache_len, out, bh, g, d, bk, budget, n_kb,
+                                 sm_scale, stream);
 }

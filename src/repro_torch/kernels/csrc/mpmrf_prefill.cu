@@ -1,5 +1,5 @@
-// Paged MP-MRF prefill kernels for Hopper (sm_90a), with a plain C
-// interface for ctypes.
+// MP-MRF prefill kernels for Hopper (sm_90a), paged and contiguous,
+// with a plain C interface for ctypes.
 //
 // B3 mpmrf_paged_prefill_filter_scores — replaces the TPU kernel
 //   repro/kernels/mpmrf_prefill.py::mpmrf_paged_prefill_filter_scores
@@ -17,6 +17,17 @@
 //   block can see (causal future, or only sentinel rows), which skip
 //   both the page read and the arithmetic.
 //
+// B7 mpmrf_prefill_filter_scores — replaces
+//   repro/kernels/mpmrf_prefill.py::mpmrf_prefill_filter_scores
+//   (_prefill_filter_kernel): B3 over the contiguous [bh, n_k, d] codes
+//   (block j of row b is block b·n_kb + j, block_of<false>), the same
+//   kernel body and bound. Its key scale is per row ([bh, n_k], the
+//   caller's expansion of the resident per-block scales), because a
+//   prefill key tile may span several decode-block scale groups; each
+//   thread rescales with its own key row's scale in the reference's
+//   association, so the scores stay bit-exact, and equal B3's when the
+//   tile is one scale group.
+//
 // B4 paged_prefill_gather_attention — replaces
 //   repro/kernels/mpmrf_prefill.py::paged_prefill_gather_attention
 //   (_paged_prefill_gather_kernel). One block per (query block, bh
@@ -28,15 +39,23 @@
 //   (p = 0 for scores ≤ NEG_INF/2, output acc / max(l, 1e-30)). Bound
 //   by bytes: the survivor pages, read once per query block; slots
 //   whose valid bit is 0 are skipped without reading their pages.
+//
+// B8 prefill_gather_attention — replaces
+//   repro/kernels/mpmrf_prefill.py::prefill_gather_attention
+//   (_prefill_gather_kernel): B4 with row bases b·n_k + idx·bk of the
+//   contiguous K/V cache — the same kernel body, outputs equal to B4's
+//   on the same rows; sentinel rows (qpos ≥ n_k) come out 0.
 #include "mpmrf_common.cuh"
 
 using mpmrf::dyn_smem;
 
-template <int DW>
-__global__ void __launch_bounds__(FILTER_THREADS) paged_prefill_filter_kernel(
+// k_scale: one per block (kPaged, the page's scale) or one per key row
+// (contiguous, [bh, n_k])
+template <int DW, bool kPaged>
+__global__ void __launch_bounds__(FILTER_THREADS) prefill_filter_kernel(
     const int32_t* __restrict__ q_plane, const float* __restrict__ q_scale,
     const int32_t* __restrict__ q_pos, const int16_t* __restrict__ codes,
-    const float* __restrict__ page_scale,
+    const float* __restrict__ k_scale,
     const int32_t* __restrict__ block_table, float* __restrict__ s0,
     float* __restrict__ s1, int n_q, int bq, int bk, int mb, int lo,
     int hi) {
@@ -57,15 +76,16 @@ __global__ void __launch_bounds__(FILTER_THREADS) paged_prefill_filter_kernel(
     return;
   }
   const int d = 4 * DW;
-  const int page = block_table[b * mb + j];
+  const int blk = mpmrf::block_of<kPaged>(block_table, b, j, mb);
   mpmrf::filter_tile<DW>(
       q_plane + row0 * d, q_scale + row0, q_pos + row0,
-      codes + (size_t)page * bk * d, page_scale[page], bq, bk, kmin, 0, n_k,
-      lo, hi, s0 + out, s1 + out);
+      codes + (size_t)blk * bk * d,
+      kPaged ? k_scale + blk : k_scale + (size_t)blk * bk, kPaged ? 0 : 1,
+      bq, bk, kmin, 0, n_k, lo, hi, s0 + out, s1 + out);
 }
 
-template <int D>
-__global__ void __launch_bounds__(256) paged_prefill_gather_kernel(
+template <int D, bool kPaged>
+__global__ void __launch_bounds__(256) prefill_gather_kernel(
     const __nv_bfloat16* __restrict__ q, const int32_t* __restrict__ q_pos,
     const __nv_bfloat16* __restrict__ k_pages,
     const __nv_bfloat16* __restrict__ v_pages,
@@ -97,7 +117,7 @@ __global__ void __launch_bounds__(256) paged_prefill_gather_kernel(
   for (int s = 0; s < budget; ++s) {
     if (!val_row[s]) continue;
     const int kb = idx_row[s];
-    const size_t page = (size_t)block_table[b * mb + kb];
+    const size_t page = mpmrf::block_of<kPaged>(block_table, b, kb, mb);
     __syncthreads();  // the previous slot's readers are done
     mpmrf::load_tile(ks, k_pages + page * bk * D, bk * D);
     mpmrf::load_tile(vs, v_pages + page * bk * D, bk * D);
@@ -163,72 +183,73 @@ static size_t filter_smem_bytes(int rows, int bk, int dw) {
                         2 * (size_t)rows + 64);
 }
 
-template <int DW>
+template <int DW, bool kPaged>
 static void launch_filter(dim3 grid, size_t smem, cudaStream_t stream,
                           const void* q_plane, const void* q_scale,
                           const void* q_pos, const void* codes,
-                          const void* page_scale, const void* block_table,
+                          const void* k_scale, const void* block_table,
                           void* s0, void* s1, int n_q, int bq, int bk, int mb,
                           int lo, int hi) {
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(paged_prefill_filter_kernel<DW>,
+    cudaFuncSetAttribute(prefill_filter_kernel<DW, kPaged>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
-  paged_prefill_filter_kernel<DW><<<grid, FILTER_THREADS, smem, stream>>>(
+  prefill_filter_kernel<DW, kPaged><<<grid, FILTER_THREADS, smem, stream>>>(
       (const int32_t*)q_plane, (const float*)q_scale, (const int32_t*)q_pos,
-      (const int16_t*)codes, (const float*)page_scale,
+      (const int16_t*)codes, (const float*)k_scale,
       (const int32_t*)block_table, (float*)s0, (float*)s1, n_q, bq, bk, mb,
       lo, hi);
 }
 
-template <int D>
+template <int D, bool kPaged>
 static void launch_gather(dim3 grid, int threads, size_t smem,
                           cudaStream_t stream, const void* q,
-                          const void* q_pos, const void* k_pages,
-                          const void* v_pages, const void* idx,
-                          const void* val, const void* block_table, void* out,
-                          int n_q, int bq, int bk, int budget, int mb,
-                          float sm_scale) {
+                          const void* q_pos, const void* k, const void* v,
+                          const void* idx, const void* val,
+                          const void* block_table, void* out, int n_q, int bq,
+                          int bk, int budget, int mb, float sm_scale) {
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(paged_prefill_gather_kernel<D>,
+    cudaFuncSetAttribute(prefill_gather_kernel<D, kPaged>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
-  paged_prefill_gather_kernel<D><<<grid, threads, smem, stream>>>(
+  prefill_gather_kernel<D, kPaged><<<grid, threads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const int32_t*)q_pos,
-      (const __nv_bfloat16*)k_pages, (const __nv_bfloat16*)v_pages,
-      (const int32_t*)idx, (const int32_t*)val, (const int32_t*)block_table,
-      (__nv_bfloat16*)out, n_q, bq, bk, budget, mb, sm_scale);
+      (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const int32_t*)idx,
+      (const int32_t*)val, (const int32_t*)block_table, (__nv_bfloat16*)out,
+      n_q, bq, bk, budget, mb, sm_scale);
 }
 
-extern "C" int mpmrf_paged_prefill_filter_scores(
-    const void* q_plane, const void* q_scale, const void* q_pos,
-    const void* codes, const void* page_scale, const void* block_table,
-    void* s0, void* s1, int bh, int n_q, int d, int bq, int bk, int mb,
-    int lo, int hi, void* stream) {
+// mb: blocks per bh row (table width, or n_kb of the contiguous cache)
+template <bool kPaged>
+static int filter_scores(const void* q_plane, const void* q_scale,
+                         const void* q_pos, const void* codes,
+                         const void* k_scale, const void* block_table,
+                         void* s0, void* s1, int bh, int n_q, int d, int bq,
+                         int bk, int mb, int lo, int hi, void* stream) {
   cudaGetLastError();
   const dim3 grid(mb, n_q / bq, bh);
   const size_t smem = filter_smem_bytes(bq, bk, d / 4);
   cudaStream_t st = (cudaStream_t)stream;
   switch (d) {
     case 16:
-      launch_filter<4>(grid, smem, st, q_plane, q_scale, q_pos, codes,
-                       page_scale, block_table, s0, s1, n_q, bq, bk, mb, lo,
-                       hi);
+      launch_filter<4, kPaged>(grid, smem, st, q_plane, q_scale, q_pos, codes,
+                               k_scale, block_table, s0, s1, n_q, bq, bk, mb,
+                               lo, hi);
       break;
     case 32:
-      launch_filter<8>(grid, smem, st, q_plane, q_scale, q_pos, codes,
-                       page_scale, block_table, s0, s1, n_q, bq, bk, mb, lo,
-                       hi);
+      launch_filter<8, kPaged>(grid, smem, st, q_plane, q_scale, q_pos, codes,
+                               k_scale, block_table, s0, s1, n_q, bq, bk, mb,
+                               lo, hi);
       break;
     case 64:
-      launch_filter<16>(grid, smem, st, q_plane, q_scale, q_pos, codes,
-                        page_scale, block_table, s0, s1, n_q, bq, bk, mb, lo,
-                        hi);
+      launch_filter<16, kPaged>(grid, smem, st, q_plane, q_scale, q_pos,
+                                codes, k_scale, block_table, s0, s1, n_q, bq,
+                                bk, mb, lo, hi);
       break;
     case 128:
-      launch_filter<32>(grid, smem, st, q_plane, q_scale, q_pos, codes,
-                        page_scale, block_table, s0, s1, n_q, bq, bk, mb, lo,
-                        hi);
+      launch_filter<32, kPaged>(grid, smem, st, q_plane, q_scale, q_pos,
+                                codes, k_scale, block_table, s0, s1, n_q, bq,
+                                bk, mb, lo, hi);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -236,11 +257,12 @@ extern "C" int mpmrf_paged_prefill_filter_scores(
   return (int)cudaGetLastError();
 }
 
-extern "C" int paged_prefill_gather_attention(
-    const void* q, const void* q_pos, const void* k_pages,
-    const void* v_pages, const void* idx, const void* val,
-    const void* block_table, void* out, int bh, int n_q, int d, int bq,
-    int bk, int budget, int mb, float sm_scale, void* stream) {
+template <bool kPaged>
+static int gather_attention(const void* q, const void* q_pos, const void* k,
+                            const void* v, const void* idx, const void* val,
+                            const void* block_table, void* out, int bh,
+                            int n_q, int d, int bq, int bk, int budget, int mb,
+                            float sm_scale, void* stream) {
   cudaGetLastError();
   const dim3 grid(n_q / bq, bh);
   const int threads = 2 * bq;
@@ -248,27 +270,66 @@ extern "C" int paged_prefill_gather_attention(
   cudaStream_t st = (cudaStream_t)stream;
   switch (d) {
     case 16:
-      launch_gather<16>(grid, threads, smem, st, q, q_pos, k_pages, v_pages,
-                        idx, val, block_table, out, n_q, bq, bk, budget, mb,
-                        sm_scale);
+      launch_gather<16, kPaged>(grid, threads, smem, st, q, q_pos, k, v, idx,
+                                val, block_table, out, n_q, bq, bk, budget,
+                                mb, sm_scale);
       break;
     case 32:
-      launch_gather<32>(grid, threads, smem, st, q, q_pos, k_pages, v_pages,
-                        idx, val, block_table, out, n_q, bq, bk, budget, mb,
-                        sm_scale);
+      launch_gather<32, kPaged>(grid, threads, smem, st, q, q_pos, k, v, idx,
+                                val, block_table, out, n_q, bq, bk, budget,
+                                mb, sm_scale);
       break;
     case 64:
-      launch_gather<64>(grid, threads, smem, st, q, q_pos, k_pages, v_pages,
-                        idx, val, block_table, out, n_q, bq, bk, budget, mb,
-                        sm_scale);
+      launch_gather<64, kPaged>(grid, threads, smem, st, q, q_pos, k, v, idx,
+                                val, block_table, out, n_q, bq, bk, budget,
+                                mb, sm_scale);
       break;
     case 128:
-      launch_gather<128>(grid, threads, smem, st, q, q_pos, k_pages, v_pages,
-                         idx, val, block_table, out, n_q, bq, bk, budget, mb,
-                         sm_scale);
+      launch_gather<128, kPaged>(grid, threads, smem, st, q, q_pos, k, v,
+                                 idx, val, block_table, out, n_q, bq, bk,
+                                 budget, mb, sm_scale);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int mpmrf_paged_prefill_filter_scores(
+    const void* q_plane, const void* q_scale, const void* q_pos,
+    const void* codes, const void* page_scale, const void* block_table,
+    void* s0, void* s1, int bh, int n_q, int d, int bq, int bk, int mb,
+    int lo, int hi, void* stream) {
+  return filter_scores<true>(q_plane, q_scale, q_pos, codes, page_scale,
+                             block_table, s0, s1, bh, n_q, d, bq, bk, mb, lo,
+                             hi, stream);
+}
+
+extern "C" int mpmrf_prefill_filter_scores(
+    const void* q_plane, const void* q_scale, const void* q_pos,
+    const void* codes, const void* row_scale, void* s0, void* s1, int bh,
+    int n_q, int d, int bq, int bk, int n_kb, int lo, int hi, void* stream) {
+  return filter_scores<false>(q_plane, q_scale, q_pos, codes, row_scale,
+                              nullptr, s0, s1, bh, n_q, d, bq, bk, n_kb, lo,
+                              hi, stream);
+}
+
+extern "C" int paged_prefill_gather_attention(
+    const void* q, const void* q_pos, const void* k_pages,
+    const void* v_pages, const void* idx, const void* val,
+    const void* block_table, void* out, int bh, int n_q, int d, int bq,
+    int bk, int budget, int mb, float sm_scale, void* stream) {
+  return gather_attention<true>(q, q_pos, k_pages, v_pages, idx, val,
+                                block_table, out, bh, n_q, d, bq, bk, budget,
+                                mb, sm_scale, stream);
+}
+
+extern "C" int prefill_gather_attention(
+    const void* q, const void* q_pos, const void* k_cache,
+    const void* v_cache, const void* idx, const void* val, void* out, int bh,
+    int n_q, int d, int bq, int bk, int budget, int n_kb, float sm_scale,
+    void* stream) {
+  return gather_attention<false>(q, q_pos, k_cache, v_cache, idx, val,
+                                 nullptr, out, bh, n_q, d, bq, bk, budget,
+                                 n_kb, sm_scale, stream);
 }

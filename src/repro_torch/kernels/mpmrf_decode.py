@@ -1,13 +1,18 @@
-"""Paged MP-MRF decode kernels: B1 (filter) and B2 (survivor gather).
+"""MP-MRF decode kernels: B1 / B5 (filter) and B2 / B6 (survivor
+gather), over the paged pool and over the contiguous cache.
 
 Each wrapper launches its CUDA kernel (``csrc/mpmrf_decode.cu``) when
 its tensors lie on a CUDA device, and runs the plain PyTorch version
 beside it when they lie on the CPU — the CPU tests' path. A CUDA tensor
 never reaches the plain version through the wrapper; chip runs call the
-plain functions directly to hold the kernels against them.
+plain functions directly to hold the kernels against them. The paged and
+contiguous twins share their kernel body and their plain version's
+arithmetic: a contiguous ``[bh, n_k, d]`` cache is a pool whose block j
+of row b is block ``b·n_kb + j``.
 
-Ports of ``repro.kernels.mpmrf_decode.mpmrf_paged_filter_scores`` and
-``paged_decode_gather_attention`` (the TPU Pallas kernels).
+Ports of ``repro.kernels.mpmrf_decode.mpmrf_paged_filter_scores``,
+``paged_decode_gather_attention``, ``mpmrf_decode_filter_scores`` and
+``decode_gather_attention`` (the TPU Pallas kernels).
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ NEG_INF = -1e30
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "mpmrf_paged_filter_scores": [_P] * 8 + [_I] * 7 + [_P],
+    "mpmrf_decode_filter_scores": [_P] * 7 + [_I] * 7 + [_P],
     "paged_decode_gather_attention": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "decode_gather_attention": [_P] * 7 + [_I] * 6 + [_F, _P],
 }
 FILTER_HEAD_DIMS = (16, 32, 64, 128)
 
@@ -51,19 +58,15 @@ def _check_cuda(*tensors: torch.Tensor) -> None:
 # --------------------------------------------------------------------------
 
 
-def paged_filter_scores_plain(
-    q_plane, q_scale, k_codes_pages, k_page_scale, block_table,
-    cache_length, *, round_bits=(2, 4), key_block=64,
-):
-    """Plain PyTorch version of B1 (bit-exact: integer dots in float64,
-    which holds these small-integer sums exactly, and the reference's
-    rescale association)."""
+def _filter_scores_plain(q_plane, q_scale, codes, block_scale,
+                         cache_length, round_bits, key_block):
+    """B1 / B5 on gathered blocks: codes int16 ``[bh, mb, bk, d]``, their
+    scales ``[bh, mb]``. Bit-exact: integer dots in float64, which holds
+    these small-integer sums exactly, and the reference's rescale
+    association."""
     lo, hi = round_bits
-    bh, g, d = q_plane.shape
-    bk = key_block
-    mb = block_table.shape[-1]
-    bt = block_table.long()
-    codes = k_codes_pages[bt].to(torch.int32)                 # [bh, mb, bk, d]
+    _, mb, bk, _ = codes.shape
+    codes = codes.to(torch.int32)
     msb = codes >> (16 - lo)
     rem = (codes >> (16 - hi)) - (msb << (hi - lo))
     qp = q_plane.to(torch.float64)
@@ -72,15 +75,27 @@ def paged_filter_scores_plain(
     acc0 = acc0.round().to(torch.int32)
     acc1 = (acc0 << (hi - lo)) + accr.round().to(torch.int32)
     qs = (q_scale.float() * float(2 ** (16 - hi)))[:, None]   # [bh,1,g,1]
-    ks = k_page_scale.float().reshape(-1)[bt][..., None, None]  # [bh,mb,1,1]
+    ks = block_scale.float()[..., None, None]                 # [bh,mb,1,1]
     s0 = (acc0.float() * qs) * (ks * float(2 ** (16 - lo)))
     s1 = (acc1.float() * qs) * (ks * float(2 ** (16 - hi)))
-    kpos = (torch.arange(mb, device=qp.device)[:, None] * bk
+    kpos = (torch.arange(mb, device=qp.device)[:, None] * key_block
             + torch.arange(bk, device=qp.device)[None, :])      # [mb, bk]
     ok = (kpos[None] < cache_length.long()[:, None, None])[:, :, None, :]
     s0 = torch.where(ok, s0, NEG_INF).amax(dim=(-2, -1))
     s1 = torch.where(ok, s1, NEG_INF).amax(dim=(-2, -1))
     return s0, s1
+
+
+def paged_filter_scores_plain(
+    q_plane, q_scale, k_codes_pages, k_page_scale, block_table,
+    cache_length, *, round_bits=(2, 4), key_block=64,
+):
+    """Plain PyTorch version of B1 (bit-exact)."""
+    bt = block_table.long()
+    return _filter_scores_plain(
+        q_plane, q_scale, k_codes_pages[bt], k_page_scale.reshape(-1)[bt],
+        cache_length, round_bits, key_block,
+    )
 
 
 def paged_filter_scores(
@@ -142,20 +157,16 @@ def paged_filter_scores(
 # --------------------------------------------------------------------------
 
 
-def paged_decode_gather_attention_plain(
-    q, k_pages, v_pages, block_indices, block_valid, block_table,
-    cache_length, *, key_block=64, scale=None,
-):
-    """Plain PyTorch version of B2: softmax over the gathered survivor
-    keys with the kernel's masking rules (f32 math, output in V's
-    dtype)."""
-    bh, g, d = q.shape
+def _decode_gather_plain(q, k_blocks, v_blocks, block_indices, block_valid,
+                        cache_length, key_block, scale, out_dtype):
+    """B2 / B6 on the gathered survivor blocks ``[bh, S, bk, d]``: softmax
+    with the kernels' masking rules (f32 math, output in ``out_dtype``)."""
+    bh, _, d = q.shape
     bk = key_block
     sm_scale = scale if scale is not None else 1.0 / (d ** 0.5)
     idx = block_indices.long()
-    pages = torch.gather(block_table.long(), 1, idx)            # [bh, budget]
-    k = k_pages[pages].float().reshape(bh, -1, d)               # [bh, S·bk, d]
-    v = v_pages[pages].float().reshape(bh, -1, d)
+    k = k_blocks.float().reshape(bh, -1, d)                     # [bh, S·bk, d]
+    v = v_blocks.float().reshape(bh, -1, d)
     s = torch.matmul(q.float(), k.transpose(-1, -2)) * sm_scale  # [bh, g, S·bk]
     kpos = (idx[:, :, None] * bk
             + torch.arange(bk, device=q.device)).reshape(bh, -1)
@@ -166,7 +177,20 @@ def paged_decode_gather_attention_plain(
     p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - m))
     l = p.sum(dim=-1, keepdim=True)
     out = torch.matmul(p, v) / torch.clamp(l, min=1e-30)
-    return out.to(v_pages.dtype)
+    return out.to(out_dtype)
+
+
+def paged_decode_gather_attention_plain(
+    q, k_pages, v_pages, block_indices, block_valid, block_table,
+    cache_length, *, key_block=64, scale=None,
+):
+    """Plain PyTorch version of B2: softmax over the gathered survivor
+    pages with the kernel's masking rules."""
+    pages = torch.gather(block_table.long(), 1, block_indices.long())
+    return _decode_gather_plain(
+        q, k_pages[pages], v_pages[pages], block_indices, block_valid,
+        cache_length, key_block, scale, v_pages.dtype,
+    )
 
 
 def paged_decode_gather_attention(
@@ -219,4 +243,155 @@ def paged_decode_gather_attention(
         bh, g, d, key_block, budget, mb, float(sm_scale),
         _build.stream_ptr(q.device),
     ), "paged_decode_gather_attention")
+    return out
+
+
+# --------------------------------------------------------------------------
+# B5: two-round block-max decode scores off the contiguous filter cache
+# --------------------------------------------------------------------------
+
+
+def _cache_blocks(x: torch.Tensor, key_block: int) -> torch.Tensor:
+    """``[bh, n_k, ...]`` cache → ``[bh, n_kb, bk, ...]`` blocks."""
+    bh, n_k = x.shape[:2]
+    _require(n_k % key_block == 0,
+             f"cache rows {n_k} not divisible by {key_block}")
+    return x.reshape(bh, n_k // key_block, key_block, *x.shape[2:])
+
+
+def mpmrf_decode_filter_scores_plain(
+    q_plane, q_scale, k_codes, k_block_scale, cache_length, *,
+    round_bits=(2, 4), key_block=64,
+):
+    """Plain PyTorch version of B5 (bit-exact, B1's arithmetic)."""
+    return _filter_scores_plain(
+        q_plane, q_scale, _cache_blocks(k_codes, key_block), k_block_scale,
+        cache_length, round_bits, key_block,
+    )
+
+
+def mpmrf_decode_filter_scores(
+    q_plane: torch.Tensor,
+    q_scale: torch.Tensor,
+    k_codes: torch.Tensor,
+    k_block_scale: torch.Tensor,
+    cache_length: torch.Tensor,
+    *,
+    round_bits: Tuple[int, int] = (2, 4),
+    key_block: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-round block-max decode scores off the contiguous cache (B5).
+
+    q_plane int32 ``[bh, G, d]``; q_scale f32 ``[bh, G, 1]``; k_codes
+    int16 ``[bh, n_k, d]``; k_block_scale f32 ``[bh, n_kb]``;
+    cache_length int32 ``[bh]`` (values past n_k mask nothing). Returns
+    ``(s0, s1)`` f32 ``[bh, n_kb]``; blocks wholly past the length are
+    NEG_INF.
+    """
+    if q_plane.device.type == "cpu":
+        return mpmrf_decode_filter_scores_plain(
+            q_plane, q_scale, k_codes, k_block_scale, cache_length,
+            round_bits=round_bits, key_block=key_block,
+        )
+    _require(q_plane.is_cuda, f"unsupported device {q_plane.device}")
+    lo, hi = round_bits
+    bh, g, d = q_plane.shape
+    n_k = k_codes.shape[-2]
+    _require(n_k % key_block == 0,
+             f"cache rows {n_k} not divisible by {key_block}")
+    n_kb = n_k // key_block
+    _require(hi <= 8 and lo < hi, "plane widths must satisfy lo < hi <= 8")
+    _require(d in FILTER_HEAD_DIMS, f"head_dim {d} not in {FILTER_HEAD_DIMS}")
+    _require(256 % key_block == 0, f"key_block {key_block} must divide 256")
+    _require(tuple(k_codes.shape) == (bh, n_k, d)
+             and tuple(k_block_scale.shape) == (bh, n_kb),
+             "k_codes must be [bh, n_k, d] and k_block_scale [bh, n_kb]")
+    _require(q_plane.dtype == torch.int32 and k_codes.dtype == torch.int16
+             and cache_length.dtype == torch.int32,
+             "dtypes: q_plane/cache_length int32, codes int16")
+    q_scale = q_scale.float().contiguous()
+    k_block_scale = k_block_scale.float().contiguous()
+    _check_cuda(q_plane, q_scale, k_codes, k_block_scale, cache_length)
+    s0 = torch.empty((bh, n_kb), dtype=torch.float32, device=q_plane.device)
+    s1 = torch.empty_like(s0)
+    fn = _lib().mpmrf_decode_filter_scores
+    _build.count_launch("mpmrf_decode_filter_scores")
+    _build.check(fn(
+        _build.ptr(q_plane), _build.ptr(q_scale), _build.ptr(k_codes),
+        _build.ptr(k_block_scale), _build.ptr(cache_length), _build.ptr(s0),
+        _build.ptr(s1), bh, g, d, key_block, n_kb, lo, hi,
+        _build.stream_ptr(q_plane.device),
+    ), "mpmrf_decode_filter_scores")
+    return s0, s1
+
+
+# --------------------------------------------------------------------------
+# B6: survivor-table decode attention over the contiguous cache
+# --------------------------------------------------------------------------
+
+
+def decode_gather_attention_plain(
+    q, k_cache, v_cache, block_indices, block_valid, cache_length, *,
+    key_block=64, scale=None,
+):
+    """Plain PyTorch version of B6 (B2's arithmetic on the contiguous
+    cache's survivor blocks)."""
+    rows = torch.arange(q.shape[0], device=q.device)[:, None]
+    idx = block_indices.long()
+    return _decode_gather_plain(
+        q, _cache_blocks(k_cache, key_block)[rows, idx],
+        _cache_blocks(v_cache, key_block)[rows, idx], block_indices,
+        block_valid, cache_length, key_block, scale, v_cache.dtype,
+    )
+
+
+def decode_gather_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    block_indices: torch.Tensor,
+    block_valid: torch.Tensor,
+    cache_length: torch.Tensor,
+    *,
+    key_block: int = 64,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Survivor-table decode attention over the contiguous cache (B6).
+
+    q ``[bh, G, d]``; k_cache/v_cache ``[bh, n_k, d]``; block_indices /
+    block_valid int32 ``[bh, budget]``; cache_length int32 ``[bh]``.
+    Returns ``[bh, G, d]`` in V's dtype.
+    """
+    if q.device.type == "cpu":
+        return decode_gather_attention_plain(
+            q, k_cache, v_cache, block_indices, block_valid, cache_length,
+            key_block=key_block, scale=scale,
+        )
+    _require(q.is_cuda, f"unsupported device {q.device}")
+    bh, g, d = q.shape
+    n_k = k_cache.shape[-2]
+    budget = block_indices.shape[-1]
+    _require(q.dtype == k_cache.dtype == v_cache.dtype == torch.bfloat16,
+             "the CUDA gather kernel takes bfloat16 q/K/V")
+    _require(g <= 16 and d <= 128 and d % 8 == 0,
+             f"needs G <= 16 and head_dim <= 128, divisible by 8 (G={g}, d={d})")
+    _require(key_block % 4 == 0 and n_k % key_block == 0,
+             f"key_block {key_block} must be a multiple of 4 dividing "
+             f"the {n_k} cache rows")
+    _require(tuple(k_cache.shape) == tuple(v_cache.shape) == (bh, n_k, d),
+             "K/V caches must be [bh, n_k, d]")
+    _require(block_indices.dtype == block_valid.dtype == cache_length.dtype
+             == torch.int32, "index operands are int32")
+    _check_cuda(q, k_cache, v_cache, block_indices, block_valid, cache_length)
+    sm_scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    out = torch.empty_like(q)
+    fn = _lib().decode_gather_attention
+    _build.count_launch("decode_gather_attention")
+    _build.check(fn(
+        _build.ptr(q), _build.ptr(k_cache), _build.ptr(v_cache),
+        _build.ptr(block_indices), _build.ptr(block_valid),
+        _build.ptr(cache_length), _build.ptr(out),
+        bh, g, d, key_block, budget, n_k // key_block, float(sm_scale),
+        _build.stream_ptr(q.device),
+    ), "decode_gather_attention")
     return out

@@ -7,18 +7,20 @@ block-sparse attention over the survivors (B10); dense flash attention
 (B11) is the unpruned baseline, and :func:`energon_block_attention`
 makes the pipeline differentiable.
 
-The paged half is the fused serving path: filter kernel → selection →
-gather kernel.
+The serving half is the fused path: filter kernel → selection →
+gather kernel, over the paged pool or the contiguous cache.
 
 The pipeline quantizes the folded query rows, scores every logical key
-block straight off the pool's resident int16 codes (B1 / B3), runs the
-Eq. 3 thresholds and budget selection on the small block-score planes
-through the one torch implementation of each rule
-(:mod:`repro_torch.core.filtering`), and gathers only the survivor
-pages of K and V (B2 / B4). Both kernels address the pool through the
-block table, offset per KV head: the pools fold the KV-head axis into
-the page axis (``[KV, P·ps, d]`` → ``[KV·P, ps, d]``), so row ``b·KV+h``
-of the table reads ``table[b] + h·P``.
+block straight off the resident int16 codes (B1 / B3 paged, B5 / B7
+contiguous), runs the Eq. 3 thresholds and budget selection on the
+small block-score planes through the one torch implementation of each
+rule (:mod:`repro_torch.core.filtering`, shared by both layouts), and
+gathers only the survivor blocks of K and V (B2 / B4, B6 / B8). The
+paged kernels address the pool through the block table, offset per KV
+head: the pools fold the KV-head axis into the page axis
+(``[KV, P·ps, d]`` → ``[KV·P, ps, d]``), so row ``b·KV+h`` of the table
+reads ``table[b] + h·P``. The contiguous kernels read
+``[B·KV, n_k, d]`` directly.
 
 The reference's ``shard_map`` tensor-parallel branch waits for a later
 slice of the port.
@@ -346,6 +348,68 @@ def fused_paged_decode_attention(
     return out
 
 
+def fused_decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    k_codes: torch.Tensor,
+    k_block_scale: torch.Tensor,
+    cache_length: torch.Tensor,
+    *,
+    round_bits: Tuple[int, ...] = (2, 4),
+    alphas: Tuple[float, ...] = (0.0, 0.0),
+    key_block: int = 64,
+    block_budget: int = 8,
+    keep_all: bool = False,
+    keep_first: bool = True,
+    keep_diagonal: bool = True,
+    live_budget: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    telemetry: bool = False,
+):
+    """Fused decode over the contiguous cache (B5 → selection → B6).
+
+    q ``[B, KV, G, d]``; k_cache/v_cache/k_codes ``[B, KV, n_k, d]``;
+    k_block_scale f32 ``[B, KV, n_kb]``; cache_length int32 ``[B]``
+    (an idle slot's ``max_len + 1`` sentinel masks nothing);
+    live_budget optional int32 ``[B]``. Returns ``[B, KV, G, d]`` (V's
+    dtype); with ``telemetry`` also int32 ``[B, 4]`` selection stats
+    summed over heads.
+    """
+    if len(round_bits) != 2:
+        raise ValueError("fused decode kernel supports 2-round configs")
+    batch, heads, g, d = q.shape
+    n_k = k_cache.shape[-2]
+    bk = key_block
+    bh = batch * heads
+
+    q16 = qlib.quantize_int16(q, axis=-1)
+    qp = q16.bit_plane(round_bits[-1]).reshape(bh, g, d)
+    qs = q16.scale.reshape(bh, g, 1)
+    cl_bh = cache_length.to(torch.int32).repeat_interleave(heads)
+
+    s0, s1 = dec_kernel.mpmrf_decode_filter_scores(
+        qp, qs, k_codes.reshape(bh, n_k, d),
+        k_block_scale.reshape(bh, n_k // bk), cl_bh,
+        round_bits=tuple(round_bits), key_block=bk,
+    )
+    idx, val, stats = _fused_decode_select(
+        s0, s1, cl_bh,
+        alphas=alphas, key_block=bk, block_budget=block_budget,
+        keep_all=keep_all, keep_first=keep_first,
+        keep_diagonal=keep_diagonal, live_budget=live_budget, heads=heads,
+        with_stats=telemetry,
+    )
+    out = dec_kernel.decode_gather_attention(
+        q.reshape(bh, g, d).contiguous(),
+        k_cache.reshape(bh, n_k, d), v_cache.reshape(bh, n_k, d),
+        idx, val, cl_bh, key_block=bk, scale=scale,
+    ).reshape(batch, heads, g, d)
+    if telemetry:
+        return out, stats.reshape(batch, heads, 4).sum(1, dtype=torch.int32)
+    return out
+
+
 def _fused_prefill_select(
     s0, s1, *, round_bits, alphas, query_block, key_block, block_budget,
     keep_all, keep_first, keep_diagonal, diag_blocks, heads,
@@ -433,6 +497,78 @@ def fused_paged_prefill_attention(
         k_pool.reshape(heads * num_pages, bk, d),
         v_pool.reshape(heads * num_pages, bk, d),
         idx, val, bt_bh, query_block=query_block, key_block=bk, scale=scale,
+    ).reshape(batch, heads, n_q, d)
+    if telemetry:
+        return out, stats.reshape(batch, heads, 4).sum(1, dtype=torch.int32)
+    return out
+
+
+def fused_prefill_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    k_codes: torch.Tensor,
+    k_block_scale: torch.Tensor,
+    q_positions: torch.Tensor,
+    *,
+    round_bits: Tuple[int, ...] = (2, 4),
+    alphas: Tuple[float, ...] = (0.0, 0.0),
+    query_block: int = 128,
+    key_block: int = 128,
+    filter_block: int = 64,
+    block_budget: int = 8,
+    keep_all: bool = False,
+    keep_first: bool = True,
+    keep_diagonal: bool = True,
+    diag_blocks: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    telemetry: bool = False,
+):
+    """Fused prefill over the contiguous cache (B7 → selection → B8).
+
+    q ``[B, KV, n_q, d]`` folded chunk rows; k_cache/v_cache/k_codes
+    ``[B, KV, n_k, d]``; k_block_scale f32 ``[B, KV, n_k // filter_block]``
+    (the decode key block the cache quantizes at — a prefill key tile may
+    span several, so B7 reads each row's scale, expanded here);
+    q_positions int32 ``[B, n_q]`` (sentinels ≥ n_k); diag_blocks
+    optional int32 ``[B, n_qb]``. Returns ``[B, KV, n_q, d]``; with
+    ``telemetry`` also int32 ``[B, 4]`` stats summed over heads and
+    query blocks.
+    """
+    if len(round_bits) != 2:
+        raise ValueError("fused prefill kernel supports 2-round configs")
+    batch, heads, n_q, d = q.shape
+    n_k = k_cache.shape[-2]
+    if n_k % filter_block:
+        raise ValueError(
+            f"cache rows {n_k} not divisible by filter block {filter_block}"
+        )
+    bh = batch * heads
+
+    q16 = qlib.quantize_int16(q, axis=-1)
+    qp = q16.bit_plane(round_bits[-1]).reshape(bh, n_q, d)
+    qs = q16.scale.reshape(bh, n_q, 1)
+    qpos_bh = q_positions.to(torch.int32).repeat_interleave(heads, dim=0)
+    ks_row = torch.repeat_interleave(
+        k_block_scale.float(), filter_block, dim=-1
+    ).reshape(bh, n_k)
+
+    s0, s1 = pre_kernel.mpmrf_prefill_filter_scores(
+        qp, qs, qpos_bh, k_codes.reshape(bh, n_k, d), ks_row,
+        round_bits=tuple(round_bits), query_block=query_block,
+        key_block=key_block,
+    )
+    idx, val, stats = _fused_prefill_select(
+        s0, s1, round_bits=round_bits, alphas=alphas,
+        query_block=query_block, key_block=key_block,
+        block_budget=block_budget, keep_all=keep_all, keep_first=keep_first,
+        keep_diagonal=keep_diagonal, diag_blocks=diag_blocks, heads=heads,
+        with_stats=telemetry,
+    )
+    out = pre_kernel.prefill_gather_attention(
+        q.reshape(bh, n_q, d).contiguous(), qpos_bh,
+        k_cache.reshape(bh, n_k, d), v_cache.reshape(bh, n_k, d),
+        idx, val, query_block=query_block, key_block=key_block, scale=scale,
     ).reshape(batch, heads, n_q, d)
     if telemetry:
         return out, stats.reshape(batch, heads, 4).sum(1, dtype=torch.int32)

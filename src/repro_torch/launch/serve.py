@@ -1,11 +1,12 @@
 """Serving launcher: chunked prefill + batched sparse decode over the
-paged KV cache, on the GPU.
+paged KV cache (or, with ``--unpaged``, the contiguous one), on the GPU.
 
 ``python -m repro_torch.launch.serve --arch qwen3-14b`` serves synthetic
 requests at full width (random weights from ``--seed``) through the
-fused paged kernels and reports prefill and decode throughput and
-latency percentiles. ``--smoke`` uses the reduced widths; ``--layers``
-cuts depth only; ``--device cpu`` runs the kernels' plain versions.
+fused paged kernels (``--unpaged``: their contiguous twins) and reports
+prefill and decode throughput and latency percentiles. ``--smoke`` uses
+the reduced widths; ``--layers`` cuts depth only; ``--device cpu`` runs
+the kernels' plain versions.
 ``--max-len`` and ``--prefill-chunk`` default to shapes on which every
 layer runs (4096 / 128 at full width, 128 / 64 at smoke widths);
 ``ServeLoop`` refuses shapes that would leave the fused kernels.
@@ -37,6 +38,8 @@ def main(argv=None):
                     default="hybrid")
     ap.add_argument("--admission-lookahead", type=int, default=0,
                     metavar="K")
+    ap.add_argument("--unpaged", action="store_true",
+                    help="force the contiguous batch×max_len cache")
     ap.add_argument("--num-pages", type=int, default=None,
                     help="paged pool size (default slots×blocks; smaller "
                          "values oversubscribe and may preempt)")
@@ -70,8 +73,10 @@ def main(argv=None):
         eos_token=cfg.vocab_size - 1, seed=args.seed,
         prefill_chunk=args.prefill_chunk, scheduler=args.scheduler,
         admission_lookahead=args.admission_lookahead,
-        num_pages=args.num_pages,
-        prefix_sharing=not args.no_prefix_sharing, device=device,
+        paged=False if args.unpaged else None, num_pages=args.num_pages,
+        prefix_sharing=(False if (args.no_prefix_sharing or args.unpaged)
+                        else None),
+        device=device,
     )
     rng = np.random.default_rng(args.seed)
     system = rng.integers(1, cfg.vocab_size - 1,
@@ -100,10 +105,14 @@ def main(argv=None):
     print(f"[serve] latency: ttft p50/p95 {lat['ttft_p50'] * 1e3:.1f}/"
           f"{lat['ttft_p95'] * 1e3:.1f} ms, itl p50/p95 "
           f"{lat['itl_p50'] * 1e3:.1f}/{lat['itl_p95'] * 1e3:.1f} ms")
-    pool = attention_cache_bytes(engine.cache)
-    print(f"[serve] cache (paged): {engine.layout.num_pages} pages, "
-          f"{pool} B pool, peak {m.peak_pages_in_use} pages in use, "
-          f"{m.preemptions} preemptions")
+    nbytes = attention_cache_bytes(engine.cache)
+    if engine.paged:
+        print(f"[serve] cache (paged): {engine.layout.num_pages} pages, "
+              f"{nbytes} B pool, peak {m.peak_pages_in_use} pages in use, "
+              f"{m.preemptions} preemptions")
+    else:
+        print(f"[serve] cache (contiguous): {engine.batch_slots} slots × "
+              f"{engine.max_len} rows, {nbytes} B")
     if engine.sharing:
         print(f"[serve] prefix cache: hit-rate {m.prefix_hit_rate:.2f} "
               f"({m.prefix_hits}/{m.prefix_lookups} admissions), "

@@ -1,4 +1,4 @@
-"""Models of the port (the dense family over the paged cache)."""
+"""Models of the port (the dense family over the paged or contiguous cache)."""
 
 from repro_torch.models.model import LMModel
 

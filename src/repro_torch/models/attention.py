@@ -1,19 +1,22 @@
 """GQA attention (port of ``repro.models.attention``): the
-full-sequence block and the blocks over the paged KV cache.
+full-sequence block and the serving blocks over the paged KV cache and
+over the contiguous (unpaged) one.
 
 Activations stay ``[batch, seq, d_model]``. The full-sequence block
 repeats each KV head to its G = H/KV query heads, as the reference
 does, and hands ``[B, H, n, hd]`` to :func:`energon_attention`. The
-paged blocks fold the G query heads of each KV head into the query
+serving blocks fold the G query heads of each KV head into the query
 axis, ``[B, KV, G·C, hd]`` (group-major), so the attention kernels see
-one KV head per row. The unpaged cache path waits for a later slice of
-the port.
+one KV head per row.
 
-The port updates the page pool **in place** (the reference returns a
-new pool functionally): a chunk's K/V rows are written through the
-block table with ``index_put_``, and its filter planes refreshed in the
-same leaves — the pool is the one resident copy, so nothing is
-duplicated per step.
+The port updates both caches **in place** (the reference returns new
+caches functionally): a chunk's K/V rows are written with
+``index_put_`` — through the block table into the pool, or at their
+positions into the contiguous ``[B, KV, max_len, hd]`` cache, where the
+reference scatters with a one-hot product — and the filter planes are
+refreshed in the same leaves. Positions past the cache (padding
+sentinels) write nothing in either layout. The cache is the one
+resident copy, so nothing is duplicated per step.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from repro_torch.core import (
     EnergonConfig,
     energon_attention,
+    energon_decode_attention,
     energon_paged_decode_attention,
     energon_paged_prefill_attention,
 )
@@ -113,6 +117,202 @@ def attention_block(
     return out @ wo.reshape(-1, wo.shape[-1])
 
 
+def init_kv_cache(
+    batch: int, num_kv_heads: int, max_len: int, head_dim: int, dtype,
+    device, filter_block: int = 0,
+) -> Dict[str, torch.Tensor]:
+    """One layer's contiguous decode cache ``[B, KV, max_len, hd]``;
+    ``filter_block > 0`` adds the resident filter planes: int16 codes in
+    the same layout and one f32 absmax scale per ``filter_block``-row
+    key block, kept fresh by the writers."""
+    shape = (batch, num_kv_heads, max_len, head_dim)
+    cache = {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+    if filter_block > 0:
+        if max_len % filter_block:
+            raise ValueError(
+                f"max_len {max_len} not divisible by filter block "
+                f"{filter_block}"
+            )
+        cache["k_codes"] = torch.zeros(shape, dtype=torch.int16,
+                                       device=device)
+        cache["k_scale"] = torch.zeros(
+            (batch, num_kv_heads, max_len // filter_block),
+            dtype=torch.float32, device=device,
+        )
+    return cache
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheWrite:
+    """Where one call's K/V rows land in the contiguous cache: ``src``
+    indexes the written tokens of the flattened ``[B·C]`` chunk,
+    ``slot`` / ``pos`` their batch row and cache row. Computed once per
+    call (:func:`cache_write_plan`), as :class:`PagedWrite` is."""
+
+    src: torch.Tensor
+    slot: torch.Tensor
+    pos: torch.Tensor
+
+
+def cache_write_plan(positions: torch.Tensor, max_len: int) -> CacheWrite:
+    """Token (b, c) lands in row ``positions[b, c]`` of slot b; positions
+    outside ``[0, max_len)`` — the padding and idle-slot sentinels —
+    write nothing, as the reference's all-zero one-hot rows do."""
+    pos = positions.reshape(-1).long()
+    src = torch.nonzero((pos >= 0) & (pos < max_len)).reshape(-1)
+    return CacheWrite(src=src, slot=src // positions.shape[1], pos=pos[src])
+
+
+def _refresh_filter_block(
+    cache: Dict[str, torch.Tensor], pos: torch.Tensor, block: int
+) -> None:
+    """Re-quantize, in place, the key block each slot's append at
+    ``pos [B]`` touched: after every write, block j's codes and scale
+    equal a fresh per-block quantization of its rows. As the reference
+    does, a position past the cache (an idle slot's sentinel) clips to
+    the last block, which re-quantizes unchanged rows."""
+    k = cache["k"]
+    batch, kv, max_len, hd = k.shape
+    n_kb = max_len // block
+    rows = torch.arange(batch, device=k.device)
+    blk = torch.clamp(pos.long(), 0, max_len - 1) // block
+    sel = k.view(batch, kv, n_kb, block, hd)[rows, :, blk]   # [B,KV,bk,hd]
+    codes, scale = qlib.quantize_int16_blocks(sel, block)
+    cache["k_codes"].view(batch, kv, n_kb, block, hd)[rows, :, blk] = codes
+    cache["k_scale"][rows, :, blk] = scale[..., 0]
+
+
+def _fold_groups(q: torch.Tensor, num_heads: int,
+                 num_kv_heads: int) -> torch.Tensor:
+    """``[B, C, H, hd]`` queries → ``[B, KV, G·C, hd]`` (group-major)."""
+    batch, chunk, _, hd = q.shape
+    groups = num_heads // num_kv_heads
+    return q.transpose(1, 2).reshape(batch, num_kv_heads, groups * chunk, hd)
+
+
+def _project_update_fold(
+    params,
+    x: torch.Tensor,
+    cache: Dict[str, torch.Tensor],
+    positions: torch.Tensor,
+    write: CacheWrite,
+    *,
+    num_heads: int,
+    num_kv_heads: int,
+    rope_theta: float,
+    use_qk_norm: bool,
+    filter_block: int,
+) -> torch.Tensor:
+    """Project the chunk, write its K/V rows into the contiguous cache
+    where ``write`` says (in place) and fold GQA groups into the query
+    axis.
+
+    The filter planes are refreshed at the write: a decode append
+    (C = 1) re-quantizes the one block each slot's position falls in; a
+    prefill chunk re-quantizes every block of the cache. Returns
+    ``q_folded [B, KV, G·C, hd]``.
+    """
+    chunk = x.shape[1]
+    q, k, v = _project_qkv(params, x, positions, use_qk_norm, rope_theta)
+    k_cache, v_cache = cache["k"], cache["v"]
+    hd = k.shape[-1]
+    k_cache[write.slot, :, write.pos] = (
+        k.reshape(-1, num_kv_heads, hd)[write.src].to(k_cache.dtype))
+    v_cache[write.slot, :, write.pos] = (
+        v.reshape(-1, num_kv_heads, hd)[write.src].to(v_cache.dtype))
+    if "k_codes" in cache:
+        if filter_block <= 0:
+            raise ValueError(
+                "cache carries filter planes but filter_block is unset")
+        if chunk == 1:
+            _refresh_filter_block(cache, positions[:, 0], filter_block)
+        else:
+            codes, scales = qlib.quantize_int16_blocks(k_cache, filter_block)
+            cache["k_codes"].copy_(codes)
+            cache["k_scale"].copy_(scales)
+    return _fold_groups(q, num_heads, num_kv_heads)
+
+
+def prefill_attention_block(
+    params,
+    x: torch.Tensor,
+    cache: Dict[str, torch.Tensor],
+    positions: torch.Tensor,
+    write: CacheWrite,
+    energon: EnergonConfig,
+    *,
+    num_heads: int,
+    num_kv_heads: int,
+    rope_theta: float = 10000.0,
+    use_qk_norm: bool = False,
+    window: Optional[int] = None,
+    layer_index: int = 10**9,
+) -> torch.Tensor:
+    """Chunked-prefill attention against the contiguous cache. x
+    ``[B, C, d]``; positions ``[B, C]`` (sentinels ≥ max_len write
+    nothing and produce outputs the caller ignores); ``write`` from
+    :func:`cache_write_plan`. The chunk attends the updated cache under
+    a per-row causal mask, reading the planes refreshed by its own
+    write. Returns ``[B, C, d]``."""
+    chunk = x.shape[1]
+    qg = _project_update_fold(
+        params, x, cache, positions, write,
+        num_heads=num_heads, num_kv_heads=num_kv_heads,
+        rope_theta=rope_theta, use_qk_norm=use_qk_norm,
+        filter_block=energon.decode_key_block,
+    )
+    groups = num_heads // num_kv_heads
+    qpos = positions.repeat(1, groups)       # folded row (g, c) → pos[c]
+    out = energon_attention(
+        qg, cache["k"], cache["v"], energon,
+        causal=True, window=window, layer_index=layer_index,
+        q_positions=qpos, filter_cache=_filter_planes(cache),
+    )
+    return _unfold_heads_out(out, params, num_heads, chunk)
+
+
+def decode_attention_block(
+    params,
+    x: torch.Tensor,
+    cache: Dict[str, torch.Tensor],
+    cache_index: torch.Tensor,
+    write: CacheWrite,
+    energon: EnergonConfig,
+    *,
+    num_heads: int,
+    num_kv_heads: int,
+    rope_theta: float = 10000.0,
+    use_qk_norm: bool = False,
+    window: Optional[int] = None,
+    layer_index: int = 10**9,
+) -> torch.Tensor:
+    """One-token decode step over the contiguous cache. x ``[B, 1, d]``;
+    cache_index ``[B]`` (an idle slot's ``max_len`` sentinel writes
+    nothing and attends every row); ``write`` from
+    :func:`cache_write_plan`. Returns ``[B, 1, d]``."""
+    qg = _project_update_fold(
+        params, x, cache, cache_index[:, None], write,
+        num_heads=num_heads, num_kv_heads=num_kv_heads,
+        rope_theta=rope_theta, use_qk_norm=use_qk_norm,
+        filter_block=energon.decode_key_block,
+    )
+    out = energon_decode_attention(
+        qg, cache["k"], cache["v"], cache_index + 1, energon,
+        layer_index=layer_index, window=window,
+        filter_cache=_filter_planes(cache),
+    )
+    return _unfold_heads_out(out, params, num_heads, 1)
+
+
+def _filter_planes(cache) -> Optional[Dict[str, torch.Tensor]]:
+    if "k_codes" not in cache:
+        return None
+    return {"codes": cache["k_codes"], "scale": cache["k_scale"]}
+
+
 def init_paged_kv_cache(
     num_pages: int, num_kv_heads: int, page_size: int, head_dim: int,
     dtype, device, filter_planes: bool = True,
@@ -187,7 +387,7 @@ def _project_update_fold_paged(
     a prefill chunk re-quantizes the whole pool. Returns
     ``q_folded [B, KV, G·C, hd]``.
     """
-    batch, chunk, _ = x.shape
+    chunk = x.shape[1]
     ps = filter_block
     if ps <= 0:
         raise ValueError("paged cache needs a positive page size")
@@ -215,9 +415,7 @@ def _project_update_fold_paged(
             cache["k_codes"].copy_(codes)
             cache["k_scale"].copy_(scales)
 
-    groups = num_heads // num_kv_heads
-    q = q.transpose(1, 2)                           # [B, H, C, hd]
-    return q.reshape(batch, num_kv_heads, groups * chunk, q.shape[-1])
+    return _fold_groups(q, num_heads, num_kv_heads)
 
 
 def _unfold_heads_out(

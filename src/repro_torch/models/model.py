@@ -1,14 +1,15 @@
 """LMModel — the dense-family surface (port of
 ``repro.models.model.LMModel``): weight init, whole-sequence logits and
-loss (``apply`` / ``loss``, forward only), paged-cache management,
-chunked prefill and one-token decode over the shared page pool.
+loss (``apply`` / ``loss``, forward only), cache management, chunked
+prefill and one-token decode over the shared page pool (with
+``inputs['block_table']``) or the contiguous per-slot cache (without).
 
 Parameters are a plain dict with the reference pytree's layout and
 names, blocks stacked on a leading ``[L]`` axis — so a reference
-checkpoint converts leaf by leaf (:mod:`repro_torch.convert`). The page
-pool is updated in place; ``prefill`` / ``decode_step`` return it for
-parity with the reference's functional signatures. Other families and
-the unpaged cache wait for later slices.
+checkpoint converts leaf by leaf (:mod:`repro_torch.convert`). Caches
+are updated in place; ``prefill`` / ``decode_step`` return them for
+parity with the reference's functional signatures. Other families wait
+for later slices.
 """
 
 from __future__ import annotations
@@ -138,7 +139,7 @@ class LMModel:
                        "tokens": n_tokens}
 
     # ------------------------------------------------------------------
-    # paged cache
+    # serving caches
     # ------------------------------------------------------------------
 
     def layer_windows(self) -> Optional[List[int]]:
@@ -164,6 +165,39 @@ class LMModel:
         return e.decode_key_block > 0 and e.impl in (
             "mpmrf_row", "mpmrf_block", "pallas"
         )
+
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
+        """Contiguous per-slot caches stacked ``[L, B, KV, rows, hd]``
+        (rows = :meth:`decode_cache_len`); the filter planes exist only
+        when the crossover gate engages at that length."""
+        cfg = self.cfg
+        rows = self.decode_cache_len(max_len)
+        filter_block = (cfg.energon.decode_key_block
+                        if cfg.energon.filter_cache_engages(rows) else 0)
+        one = attn_lib.init_kv_cache(
+            batch, cfg.num_kv_heads, rows, cfg.head_dim, self.dtype,
+            "meta", filter_block=filter_block,
+        )
+        return {
+            k: torch.zeros((cfg.num_layers,) + tuple(v.shape), dtype=v.dtype,
+                           device=self.device)
+            for k, v in one.items()
+        }
+
+    def reset_decode_slots(self, cache, reset_mask: torch.Tensor):
+        """Zero, in place, the K/V rows, codes and scales of the masked
+        slots (``reset_mask`` bool ``[B]``) of a contiguous cache: a block
+        mixing a new prompt's rows with its previous occupant's stale ones
+        would quantize the real rows against an inflated absmax. Only
+        ``impl="dense"``, which never quantizes, keeps the stale rows
+        (positional writes overwrite them before they are read)."""
+        if self.cfg.energon.impl == "dense":
+            return cache
+        slots = torch.nonzero(reset_mask.to(self.device)).reshape(-1)
+        for key in ("k", "v", "k_codes", "k_scale"):
+            if key in cache:
+                cache[key][:, slots] = 0
+        return cache
 
     def init_paged_cache(
         self, num_pages: int, max_len: Optional[int] = None
@@ -229,23 +263,14 @@ class LMModel:
             window=window, layer_index=layer_idx,
         )
 
-    @staticmethod
-    def _block_table(inputs) -> torch.Tensor:
-        bt = inputs.get("block_table")
-        if bt is None:
-            raise NotImplementedError(
-                "the unpaged cache waits for a later slice of the port; "
-                "pass inputs['block_table']"
-            )
-        return bt
-
     @torch.no_grad()
     def prefill(self, params, cache, inputs: Dict[str, torch.Tensor],
                 cache_index: torch.Tensor):
         """Chunked prefill of ``inputs['tokens'] [B, C]`` at
         ``inputs['positions'] [B, C]`` (default ``cache_index + arange``;
-        positions ≥ the logical rows are padding sentinels) through
-        ``inputs['block_table']``. Returns ``(logits [B, C, V] f32,
+        positions ≥ the cache rows are padding sentinels), through
+        ``inputs['block_table']`` into the page pool when given, else
+        into the contiguous cache. Returns ``(logits [B, C, V] f32,
         cache)``."""
         cfg = self.cfg
         x = self._embed(params, inputs["tokens"])
@@ -256,17 +281,23 @@ class LMModel:
                 chunk, device=x.device
             )[None, :]
         positions = positions.to(torch.int32)
-        block_table = self._block_table(inputs)
-        write = attn_lib.paged_write_plan(
-            positions, block_table, cfg.energon.decode_key_block,
-            cache["k"].shape[-2],
-        )
+        block_table = inputs.get("block_table")
+        if block_table is None:
+            write = attn_lib.cache_write_plan(positions, cache["k"].shape[-2])
+            block, where = attn_lib.prefill_attention_block, ()
+        else:
+            write = attn_lib.paged_write_plan(
+                positions, block_table, cfg.energon.decode_key_block,
+                cache["k"].shape[-2],
+            )
+            block = attn_lib.paged_prefill_attention_block
+            where = (block_table,)
 
         def step_fn(layer_params, x, kv_cache, window, layer_idx):
             def attn(p, xn):
-                return attn_lib.paged_prefill_attention_block(
-                    p, xn, kv_cache, positions, block_table, write,
-                    cfg.energon, **self._attn_kwargs(layer_idx, window),
+                return block(
+                    p, xn, kv_cache, positions, *where, write, cfg.energon,
+                    **self._attn_kwargs(layer_idx, window),
                 )
             return tfm.block_step(layer_params, x, attn,
                                   activation=cfg.activation, norm=cfg.norm)
@@ -280,25 +311,35 @@ class LMModel:
     @torch.no_grad()
     def decode_step(self, params, cache, inputs: Dict[str, torch.Tensor],
                     cache_index: torch.Tensor):
-        """One-token decode: ``inputs['tokens'] [B, 1]``, optional
-        ``inputs['active'] [B]`` (inactive slots' appends are dropped),
-        ``inputs['block_table']``; ``cache_index [B]`` current lengths.
-        Returns ``(logits [B, 1, V] f32, cache)``."""
+        """One-token decode: ``inputs['tokens'] [B, 1]``; ``cache_index
+        [B]`` current lengths. With ``inputs['block_table']`` the page
+        pool is read and optional ``inputs['active'] [B]`` drops inactive
+        slots' appends; without it the contiguous cache is written
+        positionally, as in the reference (an index ≥ the cache rows
+        writes nothing — the engine's idle-slot sentinel). Returns
+        ``(logits [B, 1, V] f32, cache)``."""
         cfg = self.cfg
         x = self._embed(params, inputs["tokens"])
-        active = inputs.get("active")
-        block_table = self._block_table(inputs)
+        block_table = inputs.get("block_table")
         cache_index = cache_index.to(torch.int32)
-        write = attn_lib.paged_write_plan(
-            cache_index[:, None], block_table, cfg.energon.decode_key_block,
-            cache["k"].shape[-2], write_mask=active,
-        )
+        if block_table is None:
+            write = attn_lib.cache_write_plan(
+                cache_index[:, None], cache["k"].shape[-2])
+            block, where = attn_lib.decode_attention_block, ()
+        else:
+            write = attn_lib.paged_write_plan(
+                cache_index[:, None], block_table,
+                cfg.energon.decode_key_block, cache["k"].shape[-2],
+                write_mask=inputs.get("active"),
+            )
+            block = attn_lib.paged_decode_attention_block
+            where = (block_table,)
 
         def step_fn(layer_params, x, kv_cache, window, layer_idx):
             def attn(p, xn):
-                return attn_lib.paged_decode_attention_block(
-                    p, xn, kv_cache, cache_index, block_table, write,
-                    cfg.energon, **self._attn_kwargs(layer_idx, window),
+                return block(
+                    p, xn, kv_cache, cache_index, *where, write, cfg.energon,
+                    **self._attn_kwargs(layer_idx, window),
                 )
             return tfm.block_step(layer_params, x, attn,
                                   activation=cfg.activation, norm=cfg.norm)

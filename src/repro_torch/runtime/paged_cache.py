@@ -516,7 +516,7 @@ def clone_page_rows(
 
 
 def attention_cache_bytes(cache) -> int:
-    """Total bytes of the K/V + filter leaves of a paged cache."""
+    """Total bytes of the K/V + filter leaves of a serving cache."""
     if not isinstance(cache, dict):
         return 0
     total = 0

@@ -1,12 +1,17 @@
 """Serving runtime (port of ``repro.runtime.serve_loop``): a
 continuous-batching chunked-prefill → sparse-decode engine over the
-shared page pool.
+shared page pool (default) or the contiguous per-slot cache
+(``paged=False``).
 
 * **Paged pool**: a request is admitted the moment enough pages are free
   for its prompt; decode grows a slot one page at a time; on exhaustion
   the youngest live slot is preempted (pages freed, request requeued at
   the front and re-prefilled on re-admission). Allocation is host-side
   and deterministic.
+* **Contiguous cache**: every slot owns ``max_len`` rows; admission
+  zeroes the admitted slots' rows and planes, and a decode tick steps
+  idle and mid-prefill slots at the ``max_len`` sentinel, which writes
+  nothing. Paged and contiguous engines give the same streams.
 * **Prefix sharing**: admission attaches the longest cached prefix from
   the allocator's trie by block-table aliasing; writes into shared or
   registered pages go through copy-on-write; skipped prefill stays on
@@ -39,7 +44,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.energon_attention import paged_serving_faults
+from repro_torch.core.energon_attention import serving_faults
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.runtime.paged_cache import PageAllocator, PagedLayout
 from repro_torch.runtime.pending import PendingQueue
@@ -166,7 +171,8 @@ class _PrefillJob:
 
 class ServeLoop:
     """Continuous-batching chunked-prefill / sparse-decode engine over
-    the paged KV cache, on ``device`` (``cuda`` unless given)."""
+    the paged KV cache (the default where the model supports it) or the
+    contiguous one, on ``device`` (``cuda`` unless given)."""
 
     def __init__(
         self,
@@ -180,8 +186,9 @@ class ServeLoop:
         prefill_chunk: int = 64,
         scheduler: str = "hybrid",
         admission_lookahead: int = 0,
+        paged: Optional[bool] = None,
         num_pages: Optional[int] = None,
-        prefix_sharing: bool = True,
+        prefix_sharing: Optional[bool] = None,
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
@@ -189,29 +196,41 @@ class ServeLoop:
             raise ValueError(
                 f"model lives on {model.device}, engine on {self.device}"
             )
-        if not model.supports_paged:
-            raise NotImplementedError(
-                "this slice of the port serves from the paged pool only"
+        self.paged = model.supports_paged if paged is None else bool(paged)
+        if self.paged and not model.supports_paged:
+            raise ValueError(
+                "paged serving needs decode_key_block > 0 and a non-dense "
+                "impl"
             )
+        # prefix sharing aliases pages through block tables: paged only
+        if prefix_sharing is None:
+            prefix_sharing = self.paged
+        if prefix_sharing and not self.paged:
+            raise ValueError("prefix_sharing requires the paged cache")
         self.model = model
         self.params = params
         self.batch_slots = batch_slots
         self.sharing = bool(prefix_sharing)
         bk = model.cfg.energon.decode_key_block
-        rows = max(-(-model.decode_cache_len(max_len) // bk), 2) * bk
+        # whole decode key blocks (and, paged, at least two pages): the
+        # sentinels and limits below must use the rounded row count
+        rows = model.decode_cache_len(max_len)
+        if self.paged:
+            rows = max(-(-rows // bk), 2) * bk
         self.max_len = rows
         self.eos = eos_token
         self.seed = seed
         self.prefill_chunk = max(1, min(prefill_chunk, max_len))
         cfg = model.cfg
-        faults = paged_serving_faults(
+        faults = serving_faults(
             cfg.energon, group=cfg.num_heads // cfg.num_kv_heads,
-            cache_len=rows, chunk=self.prefill_chunk,
+            cache_len=rows, chunk=self.prefill_chunk, paged=self.paged,
         )
         if faults:
+            layout = "paged" if self.paged else "contiguous"
             raise ValueError(
                 f"max_len {max_len} / prefill_chunk {prefill_chunk} would "
-                "leave the paged serving path: " + "; ".join(faults)
+                f"leave the {layout} serving path: " + "; ".join(faults)
             )
         if scheduler not in ("hybrid", "sync"):
             raise ValueError(
@@ -221,15 +240,20 @@ class ServeLoop:
         self._hybrid = scheduler == "hybrid"
         self.admission_lookahead = max(0, int(admission_lookahead))
         self._prefill_jobs: Dict[int, _PrefillJob] = {}
-        mb = rows // bk
-        if num_pages is None:
-            num_pages = batch_slots * mb
-        self.layout = PagedLayout(
-            num_pages=num_pages, page_size=bk, max_blocks=mb,
-            batch_slots=batch_slots,
-        )
-        self.allocator = PageAllocator(self.layout)
-        self.cache = model.init_paged_cache(num_pages, max_len=self.max_len)
+        self.layout = self.allocator = None
+        if self.paged:
+            mb = rows // bk
+            if num_pages is None:
+                num_pages = batch_slots * mb
+            self.layout = PagedLayout(
+                num_pages=num_pages, page_size=bk, max_blocks=mb,
+                batch_slots=batch_slots,
+            )
+            self.allocator = PageAllocator(self.layout)
+            self.cache = model.init_paged_cache(num_pages,
+                                                max_len=self.max_len)
+        else:
+            self.cache = model.init_cache(batch_slots, self.max_len)
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self._temps = np.zeros((batch_slots,), np.float32)
         self._lengths = np.zeros((batch_slots,), np.int64)
@@ -317,6 +341,7 @@ class ServeLoop:
         prefill jobs, under sync the whole wave runs here."""
         chunked, sequential = [], []
         new_pages: List[int] = []
+        admitted_slots: List[int] = []
         now = time.perf_counter()
         free = [i for i in range(self.batch_slots) if self.slots[i] is None]
         candidates = (
@@ -331,6 +356,7 @@ class ServeLoop:
             while req is not None:
                 if self._try_admit(i, req, now, new_pages, chunked,
                                    sequential):
+                    admitted_slots.append(i)
                     admitted = True
                     break
                 misses += 1
@@ -339,9 +365,17 @@ class ServeLoop:
                 req = next(cand_iter, None)
             if not admitted:
                 break
-        if new_pages:
-            self._reset_pages(new_pages)
-        self.metrics.peak_pages_in_use = self.allocator.peak_pages_in_use
+        if self.paged:
+            # slot hygiene per page, at allocation: fresh pages are
+            # zeroed; attached and CoW pages carry live data
+            if new_pages:
+                self._reset_pages(new_pages)
+            self.metrics.peak_pages_in_use = self.allocator.peak_pages_in_use
+        elif admitted_slots:
+            mask = np.zeros((self.batch_slots,), bool)
+            mask[admitted_slots] = True
+            self.model.reset_decode_slots(self.cache, self._tensor(
+                mask, torch.bool))
         for i, req in sequential:
             # a one-token prompt writes nothing before its first decode
             req._next_input = req.prompt[-1] if req.prompt else self.eos
@@ -355,41 +389,18 @@ class ServeLoop:
     def _try_admit(self, i: int, req: Request, now: float,
                    new_pages: List[int], chunked: List,
                    sequential: List) -> bool:
-        """Prefix attach then page allocation for ``req`` into slot
-        ``i``, with full rollback when the pool cannot cover it."""
+        """Admit ``req`` into free slot ``i`` (paged: prefix attach and
+        pages first, :meth:`_admit_pages`); False when the pool cannot
+        cover it."""
         resumed = bool(req.tokens_out)
         seq_tokens = req.prompt + req.tokens_out[:-1] if resumed else req.prompt
         use_chunked = resumed or len(req.prompt) > 1
-        skip, attach, clone_src = 0, [], None
-        if self.sharing and use_chunked and len(seq_tokens) > 1:
-            skip, attach, clone_src = self._plan_prefix_attach(
-                seq_tokens, resumed
-            )
-        pair = None
-        for p in attach:
-            self.allocator.share(i, p)
-        if clone_src is not None:
-            self.allocator.share(i, clone_src)
-            pair = self.allocator.cow(i, len(attach))
-            if pair is not None:
-                # copy now: the source just dropped to refcount 0 and a
-                # later allocation in this pass could evict it
-                self.model.clone_pages(self.cache, [pair[0]], [pair[1]])
-        pages = None
-        if clone_src is None or pair is not None:
-            pages = self.allocator.ensure_capacity(i, max(len(seq_tokens), 1))
-        if pages is None:
-            self.allocator.free_slot(i)
-            return False
-        new_pages += pages
-        if self.sharing and use_chunked and len(seq_tokens) > 1:
-            self.metrics.prefix_lookups += 1
-        if pair is not None:
-            self.metrics.cow_clones += 1
-        if skip > 0:
-            self.metrics.prefix_hits += 1
-            self.metrics.pages_shared += len(attach) + (clone_src is not None)
-            self.metrics.prefill_tokens_skipped += skip
+        skip = 0
+        if self.paged:
+            skip = self._admit_pages(i, seq_tokens, use_chunked, resumed,
+                                     new_pages)
+            if skip is None:
+                return False
         self.pending.remove(req.uid)
         self.pending.note_admitted(req)
         self.slots[i] = req
@@ -410,6 +421,43 @@ class ServeLoop:
             sequential.append((i, req))
         return True
 
+    def _admit_pages(self, i: int, seq_tokens: List[int], use_chunked: bool,
+                     resumed: bool, new_pages: List[int]) -> Optional[int]:
+        """Prefix attach then page allocation for slot ``i``, with full
+        rollback when the pool cannot cover it (returns None); else the
+        number of prompt tokens the attached prefix skips."""
+        skip, attach, clone_src = 0, [], None
+        if self.sharing and use_chunked and len(seq_tokens) > 1:
+            skip, attach, clone_src = self._plan_prefix_attach(
+                seq_tokens, resumed
+            )
+        pair = None
+        for p in attach:
+            self.allocator.share(i, p)
+        if clone_src is not None:
+            self.allocator.share(i, clone_src)
+            pair = self.allocator.cow(i, len(attach))
+            if pair is not None:
+                # copy now: the source just dropped to refcount 0 and a
+                # later allocation in this pass could evict it
+                self.model.clone_pages(self.cache, [pair[0]], [pair[1]])
+        pages = None
+        if clone_src is None or pair is not None:
+            pages = self.allocator.ensure_capacity(i, max(len(seq_tokens), 1))
+        if pages is None:
+            self.allocator.free_slot(i)
+            return None
+        new_pages += pages
+        if self.sharing and use_chunked and len(seq_tokens) > 1:
+            self.metrics.prefix_lookups += 1
+        if pair is not None:
+            self.metrics.cow_clones += 1
+        if skip > 0:
+            self.metrics.prefix_hits += 1
+            self.metrics.pages_shared += len(attach) + (clone_src is not None)
+            self.metrics.prefill_tokens_skipped += skip
+        return skip
+
     def _enqueue_prefill_jobs(self, admitted):
         for i, req, seq, resumed, skip in admitted:
             if skip >= len(seq):
@@ -424,11 +472,9 @@ class ServeLoop:
                 )
 
     def _dispatch_prefill(self, toks, pos):
-        inputs = {
-            "tokens": self._tensor(toks),
-            "positions": self._tensor(pos),
-            "block_table": self.allocator.table_device(self.device),
-        }
+        inputs = {"tokens": self._tensor(toks), "positions": self._tensor(pos)}
+        if self.paged:
+            inputs["block_table"] = self.allocator.table_device(self.device)
         logits, self.cache = self.model.prefill(
             self.params, self.cache, inputs, self._cache_index()
         )
@@ -529,7 +575,8 @@ class ServeLoop:
         self._temps[i] = 0.0
         self._lengths[i] = 0
         self._slot_order[i] = None
-        self.allocator.free_slot(i)
+        if self.paged:
+            self.allocator.free_slot(i)
 
     def _preempt_victim(self) -> Optional[int]:
         """Lowest priority class first, ties broken youngest."""
@@ -605,7 +652,7 @@ class ServeLoop:
             i for i, r in enumerate(self.slots)
             if r is not None and (not self._hybrid or r.state == "decode")
         ]
-        if live:
+        if live and self.paged:
             live = self._ensure_decode_capacity(live)
             self.metrics.peak_pages_in_use = self.allocator.peak_pages_in_use
         if not live:
@@ -620,10 +667,17 @@ class ServeLoop:
         inputs = {
             "tokens": self._tensor(tokens),
             "active": self._tensor(active, torch.bool),
-            "block_table": self.allocator.table_device(self.device),
         }
+        step_index = self._lengths
+        if self.paged:
+            inputs["block_table"] = self.allocator.table_device(self.device)
+        else:
+            # contiguous writes are positional: an idle or mid-prefill
+            # slot steps at the max_len sentinel, which writes nothing
+            # (its rows from earlier chunks must survive the tick)
+            step_index = np.where(active, self._lengths, self.max_len)
         logits, self.cache = self.model.decode_step(
-            self.params, self.cache, inputs, self._cache_index()
+            self.params, self.cache, inputs, self._tensor(step_index)
         )
         self._lengths += active
         if self.sharing:

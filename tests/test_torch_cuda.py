@@ -1,5 +1,5 @@
-"""The CUDA kernels against their plain versions on the card (B1–B4,
-B9–B11).
+"""The CUDA kernels against their plain versions on the card (B1–B11),
+and the contiguous twins B5–B8 against the paged B1–B4 on the same rows.
 
 Marked ``gpu``: on a host without CUDA every case skips. On the GPU
 machine run ``PYTHONPATH=src python -m pytest --noconftest -m gpu
@@ -175,3 +175,99 @@ def test_energon_block_attention_grad(cuda):
     # atomics, so the bf16 grads may differ in the order of their sums
     for a, b in zip(grads, ref):
         torch.testing.assert_close(a, b)
+
+
+def _contiguous_case(cuda, d, bk, bh=6, g=4, n_kb=8, n_q=64, seed=5):
+    """A contiguous cache ``[bh, n_k, d]`` and the same rows laid out as
+    pages under a shuffled table (B1–B4's operands)."""
+    from repro_torch.core import quantization as qlib
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    n_k = n_kb * bk
+    k = torch.randn((bh, n_k, d), generator=gen, device=cuda)
+    codes, scale = qlib.quantize_int16_blocks(k, bk)      # [bh, n_kb]
+    v = torch.randn((bh, n_k, d), generator=gen, device=cuda)
+    table = torch.randperm(bh * n_kb, generator=gen, device=cuda).reshape(
+        bh, n_kb)
+    inv = torch.empty_like(table.reshape(-1))
+    inv[table.reshape(-1)] = torch.arange(bh * n_kb, device=cuda)
+
+    def pages(x):                          # [bh, n_k, ...] → [P, bk, ...]
+        return x.reshape(bh * n_kb, bk, *x.shape[2:])[inv].contiguous()
+
+    cl = torch.randint(1, n_k + 1, (bh,), generator=gen, device=cuda)
+    cl[0] = n_k + 1                        # an idle slot's sentinel length
+    qpos = (torch.randint(0, n_k - n_q, (bh, 1), generator=gen, device=cuda)
+            + torch.arange(n_q, device=cuda))
+    qpos[1, -7:] = n_k                     # ragged tail: sentinel rows
+    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    return dict(
+        q_dec=torch.randn((bh, g, d), generator=gen, device=cuda),
+        q_pre=torch.randn((bh, n_q, d), generator=gen, device=cuda),
+        k=k, v=v, codes=codes, scale=scale, cl=cl.to(torch.int32),
+        qpos=qpos.to(torch.int32), table=table.to(torch.int32),
+        k_pages=pages(k), v_pages=pages(v), codes_pages=pages(codes),
+        scale_pages=scale.reshape(-1)[inv].reshape(-1, 1).contiguous(),
+    )
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_contiguous_decode_kernels_match_plain_and_paged(cuda, d):
+    from repro_torch.kernels import mpmrf_decode as dk
+
+    bk = 64
+    c = _contiguous_case(cuda, d, bk)
+    qp, qs = _planes(c["q_dec"])
+    args = (qp, qs, c["codes"], c["scale"], c["cl"])
+    s = dk.mpmrf_decode_filter_scores(*args, key_block=bk)
+    r = dk.mpmrf_decode_filter_scores_plain(*args, key_block=bk)
+    p = dk.paged_filter_scores(qp, qs, c["codes_pages"], c["scale_pages"],
+                               c["table"], c["cl"], key_block=bk)
+    for a, b, e in zip(s, r, p):
+        assert torch.equal(a, b) and torch.equal(a, e)
+    idx = torch.argsort(-s[1], dim=-1, stable=True)[:, :3].to(torch.int32)
+    val = (torch.gather(s[1], 1, idx.long()) > -5e29).to(torch.int32)
+    q = c["q_dec"].to(torch.bfloat16)
+    gargs = (q, c["k"], c["v"], idx, val, c["cl"])
+    out = dk.decode_gather_attention(*gargs, key_block=bk)
+    ref = dk.decode_gather_attention_plain(*gargs, key_block=bk)
+    assert gather_within_tolerance(out.float(), ref.float())
+    paged = dk.paged_decode_gather_attention(
+        q, c["k_pages"], c["v_pages"], idx, val, c["table"], c["cl"],
+        key_block=bk)
+    assert torch.equal(out, paged)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_contiguous_prefill_kernels_match_plain_and_paged(cuda, d):
+    from repro_torch.kernels import mpmrf_prefill as pk
+
+    bk, bq = 64, 32
+    c = _contiguous_case(cuda, d, bk, seed=6)
+    qp, qs = _planes(c["q_pre"])
+    row_scale = c["scale"].repeat_interleave(bk, dim=-1)
+    args = (qp, qs, c["qpos"], c["codes"], row_scale)
+    kw = dict(query_block=bq, key_block=bk)
+    s = pk.mpmrf_prefill_filter_scores(*args, **kw)
+    r = pk.mpmrf_prefill_filter_scores_plain(*args, **kw)
+    p = pk.paged_prefill_filter_scores(
+        qp, qs, c["qpos"], c["codes_pages"], c["scale_pages"], c["table"],
+        **kw)
+    for a, b, e in zip(s, r, p):
+        assert torch.equal(a, b) and torch.equal(a, e)
+    # a key tile of 128 rows over two 64-row scale groups
+    wide = dict(query_block=bq, key_block=2 * bk)
+    s2 = pk.mpmrf_prefill_filter_scores(*args, **wide)
+    r2 = pk.mpmrf_prefill_filter_scores_plain(*args, **wide)
+    assert torch.equal(s2[0], r2[0]) and torch.equal(s2[1], r2[1])
+    idx = torch.argsort(-s[1], dim=-1, stable=True)[..., :3].to(torch.int32)
+    val = (torch.gather(s[1], 2, idx.long()) > -5e29).to(torch.int32)
+    q = c["q_pre"].to(torch.bfloat16)
+    gargs = (q, c["qpos"], c["k"], c["v"], idx, val)
+    out = pk.prefill_gather_attention(*gargs, **kw)
+    ref = pk.prefill_gather_attention_plain(*gargs, **kw)
+    assert gather_within_tolerance(out.float(), ref.float())
+    assert not out[1, -7:].any()           # sentinel rows come out 0
+    paged = pk.paged_prefill_gather_attention(
+        q, c["qpos"], c["k_pages"], c["v_pages"], idx, val, c["table"], **kw)
+    assert torch.equal(out, paged)
