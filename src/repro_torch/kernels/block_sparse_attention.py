@@ -97,9 +97,10 @@ def block_sparse_attention(
             key_block=key_block, causal=causal, q_offset=q_offset,
             scale=scale,
         )
-    check_attention_launch(q, k, v, query_block, key_block)
     n_qb = n_q // query_block
     budget = block_indices.shape[-1]
+    check_attention_launch(q, k, v, query_block, key_block,
+                           table_slots=budget)
     _require(tuple(block_indices.shape) == tuple(block_valid.shape)
              == (bh, n_qb, budget), "survivor table must be [bh, n_qb, B]")
     _require(block_indices.dtype == block_valid.dtype == torch.int32,

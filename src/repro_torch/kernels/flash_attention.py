@@ -24,6 +24,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"flash_attention": [_P] * 4 + [_I] * 8 + [_F, _P]}
 #: shared memory a block may use on the H100 (227 KB)
 SMEM_LIMIT = 232448
+#: keys per ring stage and stages of the tile engine (csrc/flash_common.cuh)
+KEY_TILE, STAGES = 64, 3
 
 
 def _lib():
@@ -36,10 +38,22 @@ def row_chunk(per_row: int, budget: int = 1 << 28) -> int:
     return max(1, budget // max(per_row, 1))
 
 
-def check_attention_launch(q, k, v, query_block, key_block) -> None:
+def engine_smem_bytes(d: int, query_block: int, table_slots: int = 0) -> int:
+    """Shared memory of one B10/B11 block: its bf16 Q/O stage (64 rows
+    on the wgmma path, d ≥ 64 and query blocks of 64 or 128, else the
+    query block), a ring of STAGES K and V tiles of KEY_TILE rows, and
+    (B10) the kept survivor list of ``table_slots`` ids and its count."""
+    rows = 64 if d >= 64 and query_block % 64 == 0 else query_block
+    ring = 2 * d * (rows + 2 * STAGES * KEY_TILE)
+    return ring + (4 * (table_slots + 1) if table_slots else 0)
+
+
+def check_attention_launch(q, k, v, query_block, key_block,
+                           table_slots=0) -> None:
     """What the contiguous-row attention kernels (B10, B11) take: bf16
-    operands, two threads per query row (query_block ≤ 128), key tiles
-    of multiples of 8 rows, and two K/V tiles in shared memory."""
+    operands, one warp per 16 query rows (query_block ≤ 128), key blocks
+    of multiples of 8 rows (the engine pads a partial tile with masked
+    keys), and the engine's shared memory."""
     d = q.shape[-1]
     _require(q.is_cuda, f"unsupported device {q.device}")
     _require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
@@ -48,8 +62,9 @@ def check_attention_launch(q, k, v, query_block, key_block) -> None:
     _require(query_block % 16 == 0 and query_block <= 128,
              f"query_block {query_block} must be a multiple of 16, <= 128")
     _require(key_block % 8 == 0, "key_block must be a multiple of 8")
-    _require(4 * key_block * d <= SMEM_LIMIT,
-             f"two {key_block}×{d} bf16 tiles exceed shared memory")
+    smem = engine_smem_bytes(d, query_block, table_slots)
+    _require(smem <= SMEM_LIMIT,
+             f"the tile engine's {smem} bytes exceed shared memory")
     _require(k.shape == v.shape and k.shape[0] == q.shape[0]
              and k.shape[-1] == d, "q/K/V shapes disagree")
 

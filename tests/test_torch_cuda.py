@@ -126,32 +126,100 @@ def _qkv(cuda, bh, n, d, seed):
         torch.bfloat16) for _ in range(3)]
 
 
+#: every instantiation and tiling of the B10/B11 tile engine: d ∈ {16,
+#: 32, 64, 128}, one to eight warps, a key block of 8 (one ring tile
+#: padded with masked keys), of 16, of one ring tile (64) and of two (128)
+ENGINE_SHAPES = [(16, 16, 8), (32, 32, 16), (64, 64, 64), (128, 128, 64),
+                 (128, 128, 128)]
+EARLY_ROWS = 32   # where two or three keys carry a row: bf16 P fails here
+
+
+def _assert_attention_close(out, ref):
+    """Within the gather tolerance overall, and on the first 32 query
+    rows of each bh row on their own."""
+    out, ref = out.float(), ref.float()
+    assert gather_within_tolerance(out, ref)
+    assert gather_within_tolerance(out[:, :EARLY_ROWS], ref[:, :EARLY_ROWS])
+
+
 @pytest.mark.parametrize("q_offset", [0, 64])
-@pytest.mark.parametrize("d,bq,bk", [(16, 16, 16), (128, 128, 64)])
+@pytest.mark.parametrize("d,bq,bk", ENGINE_SHAPES)
 def test_attention_kernels_match_plain(cuda, d, bq, bk, q_offset):
+    """Causal B10 (the filter's selection) and B11 against their plain
+    versions; at q_offset 64 the 256 queries sit over 384 keys (n_q <
+    n_k). With every causal block a survivor, B10 is dense: ≈ B11."""
     from repro_torch.kernels import block_sparse_attention as bsa
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
 
-    n, bh = 256, 6
-    q, k, v = _qkv(cuda, bh, n, d, seed=3)
+    n_q, bh = 256, 6
+    n_k = n_q + 2 * q_offset
+    q, k, v = _qkv(cuda, bh, n_k, d, seed=3)
+    q = q[:, :n_q].contiguous()
     kw = dict(query_block=bq, key_block=bk, causal=True, q_offset=q_offset)
     idx, val = ops.mpmrf_select_blocks(q, k, block_budget=2, **kw)
-    out = bsa.block_sparse_attention(q, k, v, idx, val, **kw).float()
-    ref = bsa.block_sparse_attention_plain(q, k, v, idx, val, **kw).float()
-    assert gather_within_tolerance(out, ref)
+    out = bsa.block_sparse_attention(q, k, v, idx, val, **kw)
+    ref = bsa.block_sparse_attention_plain(q, k, v, idx, val, **kw)
+    _assert_attention_close(out, ref)
     fkw = dict(causal=True, q_offset=q_offset, block_q=bq, block_k=bk)
-    dense = fa.flash_attention(q, k, v, **fkw).float()
-    dref = fa.flash_attention_plain(q, k, v, causal=True,
-                                    q_offset=q_offset).float()
-    assert gather_within_tolerance(dense, dref)
+    dense = fa.flash_attention(q, k, v, **fkw)
+    dref = fa.flash_attention_plain(q, k, v, causal=True, q_offset=q_offset)
+    _assert_attention_close(dense, dref)
     # every key block a survivor (ρ ≤ 1): the sparse kernel is dense
-    n_qb, n_kb = n // bq, n // bk
+    n_qb, n_kb = n_q // bq, n_k // bk
     all_idx = torch.arange(n_kb, device=cuda, dtype=torch.int32).expand(
         bh, n_qb, n_kb).contiguous()
     all_val = torch.ones_like(all_idx)
     full = bsa.block_sparse_attention(q, k, v, all_idx, all_val, **kw)
-    assert gather_within_tolerance(full.float(), dref)
+    _assert_attention_close(full, dref)
+
+
+@pytest.mark.parametrize("d,bq,bk", ENGINE_SHAPES)
+def test_attention_kernels_match_plain_noncausal(cuda, d, bq, bk):
+    """Non-causal B11 and B10 with 128 queries over 256 keys."""
+    from repro_torch.kernels import block_sparse_attention as bsa
+    from repro_torch.kernels import flash_attention as fa
+
+    n_q, n_k, bh = 128, 256, 4
+    q, k, v = _qkv(cuda, bh, n_k, d, seed=7)
+    q = q[:, :n_q].contiguous()
+    dense = fa.flash_attention(q, k, v, causal=False, block_q=bq, block_k=bk)
+    _assert_attention_close(dense, fa.flash_attention_plain(
+        q, k, v, causal=False))
+    n_qb, n_kb = n_q // bq, n_k // bk
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    idx = torch.randint(0, n_kb, (bh, n_qb, 3), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    val = torch.ones_like(idx)
+    kw = dict(query_block=bq, key_block=bk, causal=False)
+    _assert_attention_close(
+        bsa.block_sparse_attention(q, k, v, idx, val, **kw),
+        bsa.block_sparse_attention_plain(q, k, v, idx, val, **kw))
+
+
+@pytest.mark.parametrize("d,bq,bk", ENGINE_SHAPES)
+def test_block_sparse_table_with_invalid_and_masked_slots(cuda, d, bq, bk):
+    """A hand-made survivor table: random ids, some slots invalid (one
+    query block with none valid: its rows come out 0), and survivors
+    wholly above the diagonal, which the kernel skips unread."""
+    from repro_torch.kernels import block_sparse_attention as bsa
+
+    n, bh, budget = 256, 4, 4
+    q, k, v = _qkv(cuda, bh, n, d, seed=9)
+    n_qb, n_kb = n // bq, n // bk
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    idx = torch.randint(0, n_kb, (bh, n_qb, budget), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    val = (torch.rand((bh, n_qb, budget), generator=gen, device=cuda)
+           < 0.7).to(torch.int32)
+    idx[:, 0, 0], val[:, 0, 0] = n_kb - 1, 1      # above the diagonal
+    idx[:, 0, 1], val[:, 0, 1] = 0, 1             # the first block
+    val[0, -1] = 0                                # no valid slot at all
+    kw = dict(query_block=bq, key_block=bk, causal=True)
+    out = bsa.block_sparse_attention(q, k, v, idx, val, **kw)
+    _assert_attention_close(out, bsa.block_sparse_attention_plain(
+        q, k, v, idx, val, **kw))
+    assert not out[0, -bq:].any()
 
 
 def test_energon_block_attention_grad(cuda):

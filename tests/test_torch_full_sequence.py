@@ -104,6 +104,40 @@ def test_b11_flash_attention_matches_pallas(causal, q_offset):
     np.testing.assert_allclose(n(full), n(out), **TOL)
 
 
+@pytest.mark.parametrize("p_operand,admitted", [("bf16", False),
+                                                  ("bf16 hi + lo", True)])
+def test_pv_product_needs_p_at_f32_accuracy(p_operand, admitted):
+    """Why B10/B11 multiply P·V as two bf16 products, hi = bf16(p) and
+    lo = bf16(p − hi), on the tensor cores: rows where three keys carry
+    the softmax and two of their values cancel, emulated in f32 from
+    bf16 V. P rounded once to bf16 leaves the gather tolerance (the
+    kernels' contract with their plain versions); the split keeps P at
+    f32 accuracy and stays inside it."""
+    from repro_torch.kernels import gather_within_tolerance
+
+    rng = np.random.default_rng(11)
+    rows, d = 64, 16
+    s = rng.normal(scale=0.5, size=(rows, 3))
+    p = np.exp(s - s.max(-1, keepdims=True)).astype(np.float32)
+    v0 = rng.uniform(1.0, 4.0, size=(rows, d)) * rng.choice([-1, 1],
+                                                            size=(rows, d))
+    v1 = -(p[:, :1] / p[:, 1:2]) * v0 + rng.normal(scale=0.05,
+                                                   size=(rows, d))
+    v2 = rng.normal(scale=0.05, size=(rows, d))
+    vf = torch.tensor(np.stack([v0, v1, v2], axis=1)).to(
+        torch.bfloat16).float()                            # [rows, 3, d]
+    pt = torch.tensor(p)                                   # [rows, 3] f32
+    l = pt.sum(-1, keepdim=True)
+    ref = (torch.einsum("rk,rkd->rd", pt, vf) / l).to(torch.bfloat16)
+    hi = pt.to(torch.bfloat16).float()
+    acc = torch.einsum("rk,rkd->rd", hi, vf)
+    if p_operand == "bf16 hi + lo":
+        lo = (pt - hi).to(torch.bfloat16).float()
+        acc = acc + torch.einsum("rk,rkd->rd", lo, vf)
+    out = (acc / l).to(torch.bfloat16)
+    assert gather_within_tolerance(out, ref) is admitted
+
+
 def _jit_select(**kw):
     return jax.jit(functools.partial(jops.mpmrf_select_blocks,
                                      interpret=True, **kw))
