@@ -6,19 +6,23 @@ cuts qwen3-14b's depth, never its width). Phases:
 
 1. The card's name and power limit, torch/CUDA versions, and the
    ``nvcc`` build of every kernel from ``src/repro_torch/kernels/csrc``
-   (B10/B11 always rebuilt): the registers and spill bytes ``ptxas``
-   reports for each B10/B11 instantiation, and a failure on any spill
-   at d 128.
+   (the tile-engine sources always rebuilt): the registers and spill
+   bytes ``ptxas`` reports for each instantiation of the kernels on the
+   tile engine of ``flash_common.cuh`` (B2/B6 and B4/B8 per head dim and
+   layout, B10, B11), and a failure on any spill at d 128.
 2. Each kernel of the serving path (B1–B4) at the path's shapes on
    random inputs, held against its plain PyTorch version on the card:
    filter scores (B1, B3) and the selection made from them must be
    bit-equal; the bf16 gathers (B2, B4) must agree within
    |Δ| ≤ 1e-3 + 1.6e-2·|ref| (two bf16 ulps: both sides compute in f32
    from the same bf16 inputs and round the output once, so they differ
-   by one ulp at most; ``repro_torch.kernels.gather_within_tolerance``).
-   Then each kernel, its plain version and one PyTorch call computing
-   the same function where one exists (SDPA over the gathered
-   survivors, timed only) are timed with CUDA events.
+   by one ulp at most; ``repro_torch.kernels.gather_within_tolerance``),
+   B4 also on the rows of a sequence's first chunk (positions < 32)
+   alone. Then each kernel, its plain version and one PyTorch call
+   computing the same function where one exists (SDPA over the gathered
+   survivors, timed only) are timed with CUDA events; the gathers
+   rebuilt on the tile engine (B2, B4, B6, B8) print their previous
+   design's time beside.
 3. A small reference check: the serve-smoke model in bf16, prefill and
    decode logits with the kernels against the same model with the
    plain versions swapped in, on the same card (only layer 2 is sparse
@@ -38,8 +42,9 @@ cuts qwen3-14b's depth, never its width). Phases:
 5. The kernels again, compared and timed on the live pool of a sparse
    layer after serving.
 6. One more drain of fresh prompts on the same engine under
-   ``torch.profiler``: the share of the wall time the device was busy
-   and the largest device items.
+   ``torch.profiler``: the share of the wall time the device was busy,
+   the largest device items and each of the port's kernels' device
+   time and calls (``[profile] the port's kernels``).
 
 Then the contiguous (unpaged) cache, on the same model object and
 weights, once the paged engine is released:
@@ -48,7 +53,8 @@ weights, once the paged engine is released:
    8 slots × 8 KV heads, n_k 4096, G = 5, chunk 128, key blocks of 64,
    an idle slot's ``max_len + 1`` length and sentinel rows): B5 / B7
    scores and the survivor tables selected from them bit-equal to the
-   plain versions, B6 / B8 within the gather tolerance; the same rows
+   plain versions, B6 / B8 within the gather tolerance (B8 also on its
+   first-chunk rows alone); the same rows
    laid out as shuffled pages give B1 = B5, B2 = B6, B3 = B7, B4 = B8
    bit for bit; B7 once more at key block 128 over 64-row scale groups.
    Each kernel, its plain version and (B6, B8) SDPA over the gathered
@@ -113,6 +119,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -124,9 +131,10 @@ H100_BYTES_PER_S = 3.35e12        # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12          # dense tensor-core peak
 H100_INT8_OPS = 1979e12           # dense tensor-core peak
 SMALL_REL_TOL = 2.5e-3
-#: query rows where two or three keys carry the softmax: B10/B11 are held
-#: to the gather tolerance there on their own (P rounded once to bf16
-#: fails it; tests/test_torch_full_sequence.py)
+#: query rows where two or three keys carry the softmax: B10/B11 (the
+#: first 32 rows) and B4/B8 (the rows at positions < 32) are held to the
+#: gather tolerance there on their own (P rounded once to bf16 fails it;
+#: tests/test_torch_full_sequence.py)
 EARLY_ROWS = 32
 SYSTEM_LEN = 256                  # shared system prompt of the serve phase
 #: the card the script drives (a CPU rehearsal of its logic may swap it)
@@ -167,6 +175,32 @@ KERNELS = {
     "flash_attention": dict(
         id="B11", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:82"),
+}
+#: the times (ms) of the gathers' previous design (one block per bh row
+#: or query block, on CUDA cores; PERF.md §6, NVIDIA H100 80GB HBM3,
+#: 700 W) on the same kinds of operands: phase 2's / 7's random case, the
+#: live pool (B2, B4) or the captured layer (B6, B8). They are quoted,
+#: not measured, so only the ``[time:…]`` text carries them.
+EARLIER_MS = {
+    "paged_decode_gather_attention": dict(random=0.2269, live=0.1247),
+    "paged_prefill_gather_attention": dict(random=0.7455, live=0.3974),
+    "decode_gather_attention": dict(random=0.2386, captured=0.1377),
+    "prefill_gather_attention": dict(random=1.2027, captured=1.1732),
+}
+#: the kernels' device-side names: body → (paged, contiguous) wrapper, or
+#: its one wrapper
+DEVICE_NAMES = {
+    "decode_filter_kernel": ("mpmrf_paged_filter_scores",
+                             "mpmrf_decode_filter_scores"),
+    "decode_split_kernel": ("paged_decode_gather_attention",
+                            "decode_gather_attention"),
+    "prefill_filter_kernel": ("mpmrf_paged_prefill_filter_scores",
+                              "mpmrf_prefill_filter_scores"),
+    "prefill_gather_kernel": ("paged_prefill_gather_attention",
+                              "prefill_gather_attention"),
+    "filter_scores_kernel": ("mpmrf_filter_scores",),
+    "block_sparse_attention_kernel": ("block_sparse_attention",),
+    "flash_attention_kernel": ("flash_attention",),
 }
 SERVE_KERNELS = tuple(KERNELS)[:4]        # B1–B4: the paged serving path
 UNPAGED_KERNELS = tuple(KERNELS)[4:8]     # B5–B8: the contiguous cache
@@ -267,6 +301,7 @@ def random_case(gen, *, batch=8, heads=8, g=5, d=128, bk=64, mb=64, chunk=128,
     # one prefill chunk per slot at a random chunk-aligned offset
     off = torch.randint(0, mb * bk // chunk, (batch,), generator=gen,
                         device=dev) * chunk
+    off[0] = 0                  # a first chunk: rows where few keys count
     pos = off[:, None] + torch.arange(chunk, device=dev)[None, :]
     qpos = pos.repeat(1, g).to(torch.int32)                  # [B, G·C]
     return make_case(
@@ -299,6 +334,51 @@ def make_case(q_dec, cl, q_pre, qpos, k_pool, v_pool, codes, scales, table,
     )
 
 
+def device_ms(fn, iters=20):
+    """Device time of one call of ``fn`` (ms): every kernel and copy it
+    launches, summed from a ``torch.profiler`` trace of ``iters`` calls
+    (warm). Beside ``time_ms``, whose CUDA-event span of back-to-back
+    calls is the host's enqueue time where that exceeds the device's.
+    None off the card."""
+    if DEV != "cuda":
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    for _ in range(3):       # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                     ) as prof:
+            for _ in range(iters):
+                fn()
+            sync()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    raise SmokeFailure("the profiler saw no device time")
+
+
+def row_blocks(idx, n_kb):
+    """A survivor table's blocks as ids unique across its bh rows
+    (b·n_kb + idx)."""
+    import torch
+
+    b = torch.arange(idx.shape[0], device=idx.device).reshape(
+        -1, *([1] * (idx.dim() - 1)))
+    return b * n_kb + idx.long()
+
+
+def distinct_blocks(blocks, valid):
+    """Key blocks a gather must read at least once: the distinct ids
+    among the valid slots (the query blocks of one bh row share many of
+    their survivors, which the card reads from memory once)."""
+    import torch
+
+    return int(torch.unique(blocks[valid > 0]).numel())
+
+
 def bound(nbytes, ops, peak):
     """The least time the card could take: the larger of bytes over the
     memory rate and operations over the operands' peak rate (ms)."""
@@ -320,9 +400,18 @@ def time_kernels(label, entries, rows, *, iters=20, plain_iters=5):
         r["bound_ms"], r["bound_by"] = bound(nbytes, ops_n, peak)
         lib_txt = ("n/a" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f}")
+        was = EARLIER_MS.get(name, {}).get(label.split("-")[0])
+        was_txt = ""
+        if was is not None and DEV == "cuda":   # a redesigned gather
+            r["device_ms"] = device_ms(fn)
+            r["library_device_ms"] = device_ms(lib)
+            was_txt = (f", before the redesign {was:.4f}; device "
+                       f"{r['device_ms']:.4f}, "
+                       f"library device {r['library_device_ms']:.4f}")
         log(f"[time:{label}] {KERNELS[name]['id']} {name}: "
             f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
-            f"{lib_txt}, bound {r['bound_ms']:.4f} by {r['bound_by']})")
+            f"{lib_txt}, bound {r['bound_ms']:.4f} by {r['bound_by']}"
+            f"{was_txt})")
 
 
 def sdpa_decode(q, k_blocks, v_blocks, idx, val, cl, bk):
@@ -362,6 +451,28 @@ def sdpa_prefill(q, qpos, k_blocks, v_blocks, idx, val, bq, bk, n_k):
         bh * n_qb, 1, bq, -1)
     qr = q.reshape(bh * n_qb, 1, bq, d)
     return lambda: F.scaled_dot_product_attention(qr, kg, vg, attn_mask=mask)
+
+
+def early_rows_err(out, ref, qpos, label, kid):
+    """Hold a prefill gather's rows at positions < EARLY_ROWS (a
+    sequence's first chunk, where two or three keys carry a row) to the
+    gather tolerance on their own; their max |err|, or None when the case
+    has no such row."""
+    from repro_torch.kernels import gather_within_tolerance
+
+    early = qpos < EARLY_ROWS
+    if not bool(early.any()):
+        return None
+    o, r = out[early], ref[early]
+    err = (o - r).abs().max().item()
+    need(gather_within_tolerance(o, r),
+         f"{label} {kid} off by {err:.3e} on its rows at positions < "
+         f"{EARLY_ROWS}")
+    return err
+
+
+def fmt_err(err):
+    return "n/a" if err is None else f"{err:.3e}"
 
 
 def quantized_q(q):
@@ -458,12 +569,15 @@ def check_case(case, label, results):
     err = (out - ref).abs().max().item()
     need(gather_within_tolerance(out, ref), f"{label} B4 off by {err:.3e}")
     results["paged_prefill_gather_attention"].append(
-        dict(err=err, ref_rms=ref.pow(2).mean().sqrt().item()))
+        dict(err=err, ref_rms=ref.pow(2).mean().sqrt().item(),
+             err_first_rows=early_rows_err(out, ref, c.qpos, label, "B4")))
     r2 = results["paged_decode_gather_attention"][-1]
     r4 = results["paged_prefill_gather_attention"][-1]
     log(f"[kernels:{label}] B1/B3 bit-equal (scores and selection); "
         f"B2 max |err| {r2['err']:.3e} (rms |ref| {r2['ref_rms']:.3e}), "
-        f"B4 max |err| {r4['err']:.3e} (rms |ref| {r4['ref_rms']:.3e})")
+        f"B4 max |err| {r4['err']:.3e} (rms |ref| {r4['ref_rms']:.3e}; "
+        f"rows at positions < {EARLY_ROWS} "
+        f"{fmt_err(r4['err_first_rows'])})")
 
     # --- yardsticks: SDPA over the gathered survivors (timed only) -------
     pages = torch.gather(c.bt.long(), 1, idx.long())
@@ -495,7 +609,8 @@ def check_case(case, label, results):
     b3_ops = pairs * d * 2 * 2
     n_pvalid = int(pval.sum())
     b4_bytes = (c.q_pre.numel() * 2 * 2 + c.qpos.numel() * 4
-                + 2 * pidx.numel() * 4 + n_pvalid * c.bk * d * 2 * 2)
+                + 2 * pidx.numel() * 4
+                + distinct_blocks(ppages, pval) * c.bk * d * 2 * 2)
     b4_flops = n_pvalid * c.bq * c.bk * d * 2 * 2
 
     time_kernels(label, {name: results[name][-1] for name in SERVE_KERNELS}, (
@@ -653,7 +768,7 @@ def check_full_sequence(q, k, v, label, results, *, bq, bk, ratio,
     b9_bytes = 3 * q.numel() + qs.numel() * 4 + 2 * s0.numel() * 4
     b9_ops = pairs * d * 2 * 2            # two rounds of multiply-add
     b10_bytes = (q.numel() * 2 * 2 + 2 * idx.numel() * 4
-                 + kept * bk * d * 2 * 2)
+                 + distinct_blocks(row_blocks(idx, n_kb), val) * bk * d * 2 * 2)
     b10_flops = survivor_pairs(idx, val, bq, bk, q_offset) * d * 2 * 2
     b11_bytes = (q.numel() + k.numel() + v.numel() + q.numel()) * 2
     b11_flops = pairs * d * 2 * 2
@@ -904,6 +1019,9 @@ def profile_drain(engine, system, *, seed=1, n_req=8, prompt_len=2048,
     for r in out["top"]:
         log(f"[profile] {r['device_ms']:10.2f} ms  x{r['calls']:<6d} "
             f"{r['name']}")
+    log("[profile] the port's kernels: " + ", ".join(
+        f"{k} {r['device_ms']:.2f} ms over {r['calls']} calls"
+        for k, r in out["port"].items()))
     return out
 
 
@@ -922,10 +1040,21 @@ def device_split(prof, wall, top=12):
     busy_us = sum(us for _, us in per_kernel.values())
     need(busy_us > 0, "the profiler saw no device time")
     items = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:top]
+    port = {}
+    for name, (calls, us) in per_kernel.items():
+        m = re.match(r"void (\w+)<\d+(, (true|false))?>", name)
+        if m and m.group(1) in DEVICE_NAMES:
+            wrappers = DEVICE_NAMES[m.group(1)]
+            wrapper = wrappers[0 if m.group(3) != "false" else 1]
+            kid = KERNELS[wrapper]["id"]
+            c0, us0 = port.get(kid, (0, 0.0))
+            port[kid] = (c0 + calls, us0 + us)
     return dict(device_busy_s=busy_us / 1e6,
                 idle_share=1 - busy_us / 1e6 / wall,
                 top=[dict(name=k[:90], calls=c, device_ms=us / 1e3)
-                     for k, (c, us) in items])
+                     for k, (c, us) in items],
+                port={k: dict(calls=c, device_ms=us / 1e3)
+                      for k, (c, us) in sorted(port.items())})
 
 
 # ---------------------------------------------------------------------------
@@ -969,6 +1098,7 @@ def random_contiguous_case(gen, *, bh=64, g=5, d=128, n_k=4096, bk=64,
     cl[0] = n_k + 1
     off = torch.randint(0, n_k // chunk, (bh,), generator=gen,
                         device=dev) * chunk
+    off[2] = 0                  # a first chunk: rows where few keys count
     pos = off[:, None] + torch.arange(chunk, device=dev)[None, :]
     pos[1, -9:] = n_k
     return ContiguousCase(
@@ -1075,9 +1205,12 @@ def check_contiguous(c, label, results, *, timed=True, gather=True):
                                   ref_rms=ref.pow(2).mean().sqrt().item()))
     r6 = results["decode_gather_attention"][-1]
     r8 = results["prefill_gather_attention"][-1]
+    # out, ref: B8's (the loop's last)
+    r8["err_first_rows"] = early_rows_err(out, ref, c.qpos, label, "B8")
     log(f"{line}; B6 max |err| {r6['err']:.3e} (rms |ref| "
         f"{r6['ref_rms']:.3e}), B8 max |err| {r8['err']:.3e} (rms |ref| "
-        f"{r8['ref_rms']:.3e})")
+        f"{r8['ref_rms']:.3e}; rows at positions < {EARLY_ROWS} "
+        f"{fmt_err(r8['err_first_rows'])})")
     ops_in = dict(qp=qp, qs=qs, qpp=qpp, qps=qps, s=(s0, s1), p=(p0, p1),
                   idx=idx, val=val, pidx=pidx, pval=pval)
     if not timed:
@@ -1114,7 +1247,9 @@ def check_contiguous(c, label, results, *, timed=True, gather=True):
     b7_ops = pairs * d * 2 * 2
     n_pvalid = int(pval.sum())
     b8_bytes = (c.q_pre.numel() * 2 * 2 + c.qpos.numel() * 4
-                + 2 * pidx.numel() * 4 + n_pvalid * c.pk * d * 2 * 2)
+                + 2 * pidx.numel() * 4
+                + distinct_blocks(row_blocks(pidx, n_k // c.pk), pval)
+                * c.pk * d * 2 * 2)
     b8_flops = n_pvalid * c.bq * c.pk * d * 2 * 2
 
     time_kernels(label, {n: results[n][-1] for n in UNPAGED_KERNELS}, (
@@ -1507,6 +1642,9 @@ def profile_scoring(model, params, batch):
     for r in out["top"]:
         log(f"[profile-score] {r['device_ms']:10.2f} ms  x{r['calls']:<6d} "
             f"{r['name']}")
+    log("[profile-score] the port's kernels: " + ", ".join(
+        f"{k} {r['device_ms']:.2f} ms over {r['calls']} calls"
+        for k, r in out["port"].items()))
     return out
 
 
@@ -1570,37 +1708,54 @@ def grad_check(*, bh=8, n=512, d=128, bq=128, bk=64, budget=2):
         + " / ".join(f"{e:.3e}" for e in errs))
 
 
-ATTENTION_SOURCES = ("block_sparse_attention", "flash_attention")
+#: the sources of the tile-engine kernels, always rebuilt so that nvcc's
+#: -Xptxas -v report covers every instantiation
+ENGINE_SOURCES = ("mpmrf_decode", "mpmrf_prefill", "block_sparse_attention",
+                  "flash_attention")
+#: the tile-engine kernels and their instantiations: (head dims, layouts)
+ENGINE_KERNELS = {
+    "decode_split_kernel": "B2/B6",
+    "prefill_gather_kernel": "B4/B8",
+    "block_sparse_attention_kernel": "B10",
+    "flash_attention_kernel": "B11",
+}
 
 
-def attention_ptxas():
-    """Registers and spill bytes of each B10/B11 instantiation (one per
-    head dim) from nvcc's ``-Xptxas -v`` report; fails on any spill at
-    d 128, the scoring path's head dim."""
-    import re
-
+def engine_ptxas():
+    """Registers and spill bytes of each tile-engine instantiation (B2/B6,
+    B4/B8 per head dim and layout, B10, B11 per head dim) from nvcc's
+    ``-Xptxas -v`` report; fails on any spill at d 128, the model
+    paths' head dim."""
     from repro_torch.kernels import _build
 
+    pat = re.compile(r"Compiling entry function '_Z\d+(\w+?)ILi(\d+)E(Lb([01])E)?")
     out = {}
-    for name in ATTENTION_SOURCES:
+    for name in ENGINE_SOURCES:
         report = _build.build_info["ptxas"].get(name, "")
         kernel = None
         for line in report.splitlines():
-            m = re.search(r"Compiling entry function '_Z\d+(\w+?)ILi(\d+)E", line)
-            if m:
-                kernel = f"{m.group(1)}<{m.group(2)}>"
-                out[kernel] = dict(d=int(m.group(2)))
+            m = pat.search(line)
+            if m and m.group(1) in ENGINE_KERNELS:
+                layout = {None: "", "1": ", paged", "0": ", contiguous"}[
+                    m.group(4)]
+                kernel = f"{m.group(1)}<{m.group(2)}{layout}>"
+                out[kernel] = dict(d=int(m.group(2)),
+                                   kernel=ENGINE_KERNELS[m.group(1)])
+            elif "Compiling entry function" in line:
+                kernel = None
             elif kernel and "spill stores" in line:
                 st, ld = re.findall(r"(\d+) bytes spill", line)
                 out[kernel].update(spill_stores=int(st), spill_loads=int(ld))
             elif kernel and "Used" in line and "registers" in line:
                 out[kernel]["registers"] = int(
                     re.search(r"Used (\d+) registers", line).group(1))
-    need(len(out) == 2 * 4, f"ptxas reported {sorted(out)}, not B10 and B11 "
-         f"at d 16, 32, 64 and 128")
+    need(len(out) == 4 * (2 + 2 + 1 + 1),
+         f"ptxas reported {sorted(out)}, not B2/B6 and B4/B8 (paged and "
+         f"contiguous), B10 and B11 at d 16, 32, 64 and 128")
     for kernel, r in sorted(out.items()):
-        log(f"[ptxas] {kernel}: {r.get('registers')} registers, spill "
-            f"stores {r.get('spill_stores')} B, loads {r.get('spill_loads')} B")
+        log(f"[ptxas] {r['kernel']} {kernel}: {r.get('registers')} "
+            f"registers, spill stores {r.get('spill_stores')} B, loads "
+            f"{r.get('spill_loads')} B")
         if r["d"] == 128:
             need(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
                  f"{kernel} spills at d 128")
@@ -1637,7 +1792,7 @@ def main(argv=None) -> int:
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, device "
         f"{torch.cuda.get_device_name(0)}")
-    for name in ATTENTION_SOURCES:   # rebuilt, so that ptxas reports them
+    for name in ENGINE_SOURCES:   # rebuilt, so that ptxas reports them
         _build._lib_path(name).unlink(missing_ok=True)
     secs = _build.build()
     log(f"[build] nvcc built {', '.join(_build.SOURCES)} in {secs:.1f} s "
@@ -1646,7 +1801,7 @@ def main(argv=None) -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas:{name}] {line.strip()}")
-    ptxas = attention_ptxas()
+    ptxas = engine_ptxas()
 
     results = {name: [] for name in KERNELS}
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -1716,6 +1871,8 @@ def main(argv=None) -> int:
             replaces=meta["replaces"], launches=run[name],
             max_abs_err=max(r["err"] for r in entries),
             **{k: main_run[k] for k in timed_keys},
+            **{k: main_run[k] for k in ("device_ms", "library_device_ms")
+               if k in main_run},
             ms_over_bound=main_run["ms"] / main_run["bound_ms"],
             random=dict({k: rand[k] for k in ("err",) + timed_keys},
                         ms_over_bound=rand["ms"] / rand["bound_ms"]),

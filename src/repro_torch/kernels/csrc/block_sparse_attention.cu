@@ -66,14 +66,16 @@ __global__ void __launch_bounds__(256) block_sparse_attention_kernel(
   __syncthreads();
 
   const int per = (bk + flash::KT - 1) / flash::KT;  // ring tiles per block
-  const auto tiles = [kept, bk, per](int t, int& kpos0, int& nv) {
+  const auto tiles = [kept, bk, per](int t, int& src, int& kpos0, int& nv) {
     const int c = t % per;
     kpos0 = kept[t / per] * bk + c * flash::KT;
+    src = kpos0;
     nv = min(flash::KT, bk - c * flash::KT);
   };
   const size_t krow0 = (size_t)b * n_k * D;
-  flash::run<D>(k + krow0, v + krow0, out + row0 * D, smem, rows, q_first,
-                causal != 0, sm_scale, kept[budget] * per, tiles);
+  flash::run<D>(k + krow0, v + krow0, out + row0 * D, smem, rows,
+                flash::Contiguous{q_first}, q_last, causal != 0, sm_scale,
+                kept[budget] * per, tiles);
 }
 
 template <int D>
@@ -82,13 +84,8 @@ static void launch(dim3 grid, int threads, size_t smem, cudaStream_t stream,
                    const void* idx, const void* val, void* out, int n_q,
                    int n_k, int bq, int rows, int bk, int budget, int causal,
                    int q_offset, float sm_scale) {
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(block_sparse_attention_kernel<D>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  cudaFuncSetAttribute(block_sparse_attention_kernel<D>,
-                       cudaFuncAttributePreferredSharedMemoryCarveout,
-                       cudaSharedmemCarveoutMaxShared);
+  static size_t given[64];
+  flash::allow_smem(block_sparse_attention_kernel<D>, smem, given);
   block_sparse_attention_kernel<D><<<grid, threads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const int32_t*)idx, (const int32_t*)val,

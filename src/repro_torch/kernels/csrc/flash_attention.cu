@@ -39,13 +39,14 @@ __global__ void __launch_bounds__(256) flash_attention_kernel(
   const int n_tiles = last < 0 ? 0 : last / flash::KT + 1;
   __nv_bfloat16* smem = flash::smem_base();
   flash::issue_q<D>(smem, q + row0 * D, bq);
-  const auto tiles = [n_k](int t, int& kpos0, int& nv) {
-    kpos0 = t * flash::KT;
+  const auto tiles = [n_k](int t, int& src, int& kpos0, int& nv) {
+    kpos0 = src = t * flash::KT;
     nv = min(flash::KT, n_k - kpos0);
   };
   const size_t krow0 = (size_t)b * n_k * D;
-  flash::run<D>(k + krow0, v + krow0, out + row0 * D, smem, bq, q_first,
-                causal != 0, sm_scale, n_tiles, tiles);
+  flash::run<D>(k + krow0, v + krow0, out + row0 * D, smem, bq,
+                flash::Contiguous{q_first}, q_first + bq - 1, causal != 0,
+                sm_scale, n_tiles, tiles);
 }
 
 template <int D>
@@ -53,13 +54,8 @@ static void launch(dim3 grid, int threads, size_t smem, cudaStream_t stream,
                    const void* q, const void* k, const void* v, void* out,
                    int n_q, int n_k, int bq, int causal, int q_offset,
                    float sm_scale) {
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(flash_attention_kernel<D>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  cudaFuncSetAttribute(flash_attention_kernel<D>,
-                       cudaFuncAttributePreferredSharedMemoryCarveout,
-                       cudaSharedmemCarveoutMaxShared);
+  static size_t given[64];
+  flash::allow_smem(flash_attention_kernel<D>, smem, given);
   flash_attention_kernel<D><<<grid, threads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)out, n_q, n_k, bq, causal,

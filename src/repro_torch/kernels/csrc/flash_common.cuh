@@ -1,12 +1,25 @@
-// The tile engine shared by the contiguous-row attention kernels (B10
-// block-sparse, B11 dense flash): one block of query rows, one warp per
-// 16 of them, streams a list of key tiles through a ring in shared
-// memory and folds each into an f32 online softmax on the tensor cores.
+// The tile engine shared by the attention kernels of the port: B10
+// (block-sparse), B11 (dense flash), B4/B8 (prefill survivor gather) and
+// B2/B6 (decode survivor gather, one split of its slots). One block of
+// query rows, one warp per 16 of them, streams a list of key tiles
+// through a ring in shared memory and folds each into an f32 online
+// softmax on the tensor cores.
 //
+// - Tiles: the caller names tile t of its list by its source row (where
+//   its K/V rows start in the operand arrays: a page of the pool, a block
+//   of the contiguous cache, or simply the key position) and its logical
+//   key position kpos0, separately, with its count of valid keys.
+// - Rows: a position policy gives each query row's position (computed,
+//   q_first + r, for B10/B11; read from q_positions for B4/B8; the cache
+//   length − 1 for the decode rows). A row at position −1 is dead (a
+//   sentinel or padding row): every key is masked for it, so it comes out
+//   0. A tile wholly above the largest live position of the block (the
+//   wgmma path) or of the warp (mma.sync) is skipped.
 // - Ring: STAGES stages of one K and one V tile of KT keys, filled by
 //   16-byte cp.async.cg copies issued STAGES − 1 tiles ahead of the
 //   tile being computed, one __syncthreads per tile. Keys past a tile's
-//   valid count are zero-filled and masked.
+//   valid count, and columns past the operands' head dim (a decode head
+//   padded to the next instantiation), are zero-filled.
 // - Layout: every bf16 tile (Q/O stage, K, V) is stored as 64-column
 //   blocks of 128-byte rows with the 16-byte chunks XOR-swizzled by the
 //   row (the 128-byte swizzle of wgmma and TMA), so the eight rows an
@@ -24,19 +37,19 @@
 //   * Warp (every other shape): the query block in one block, Q held as
 //     ldmatrix fragments, K by ldmatrix and V by ldmatrix.trans,
 //     mma.sync m16n8k16.
-// - Softmax: the scale is applied in f32; only tiles that cross the
-//   diagonal or hold invalid keys are masked, and a tile wholly above a
-//   warp's (the block's, on the wgmma path) rows is skipped. The
-//   reference's rules hold: forbidden scores are NEG_INF, p = 0 wherever
-//   s ≤ NEG_INF/2, and the softmax is folded once per tile (row max and
-//   sum across the quad with __shfl_xor_sync).
+// - Softmax: the scale is applied in f32; only tiles that hold invalid
+//   keys or cross a row's position are masked. The reference's rules
+//   hold: forbidden scores are NEG_INF, p = 0 wherever s ≤ NEG_INF/2,
+//   and the softmax is folded once per tile (row max and sum across the
+//   quad with __shfl_xor_sync).
 // - P·V at f32 accuracy: p is split into hi = bf16(p) and
 //   lo = bf16(p − hi), both multiplied by the same V tile into one f32
 //   accumulator. P rounded once to bf16 fails the gather tolerance on
 //   early query rows, where two or three keys carry the row and their
 //   values cancel (tests/test_torch_full_sequence.py); l sums the f32 p.
-// - Epilogue: acc / max(l, 1e-30), rounded once to bf16, staged through
-//   the Q rows in shared memory and stored in 16-byte writes.
+// - Epilogue (run): acc / max(l, 1e-30), rounded once to bf16, staged
+//   through the Q rows in shared memory and stored in 16-byte writes; a
+//   caller of key_loop may instead keep the raw (m, l, acc).
 // A tile whose every pair is masked leaves (m, l, acc) bit-identical
 // (corr = 1, p = 0), which is why the kernels may skip such tiles.
 #pragma once
@@ -49,6 +62,25 @@ constexpr int KT = 64;      // keys per ring stage
 constexpr int STAGES = 3;   // ring depth
 constexpr int ALIGN = 1024; // a 128-byte swizzle atom: 8 rows of 128 bytes
 constexpr float LOG2E = 1.4426950408889634f;
+
+// Let `kernel` take `smem` bytes of dynamic shared memory, with the
+// shared-memory carve-out at its maximum, on the current device. The
+// attributes are set only when a launch needs more than the kernel was
+// last given there (`given`: the caller's per-kernel record, per
+// device), so a steady stream of launches makes no attribute calls.
+template <class Kernel>
+inline void allow_smem(Kernel kernel, size_t smem, size_t (&given)[64]) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const bool kept = dev >= 0 && dev < 64;
+  if (kept && smem <= given[dev]) return;
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  if (kept) given[dev] = smem;
+}
 
 // Query rows per block: one warpgroup of 64 for the wgmma path (a
 // query block of 128 takes two blocks, which then run two to an SM),
@@ -222,24 +254,59 @@ __device__ __forceinline__ void p_frags(const float* s, int j,
   split(s[8 * j + 6], s[8 * j + 7], hi[3], lo[3]);
 }
 
+// --- query-row positions ------------------------------------------------------
+
+// The positions of the lane's rows g and g + 8 of its warp's 16, and the
+// least and largest position among those 16 rows (−1: a dead row).
+struct RowPos {
+  int p[2];
+  int lo, hi;
+};
+
+// Row r of the block sits at position q_first + r (B10, B11).
+struct Contiguous {
+  int q_first;
+  __device__ __forceinline__ int operator()(int r) const {
+    return q_first + r;
+  }
+};
+
+// RowPos of this warp's rows under the position policy `pos` (block
+// row → position, −1 for a dead row).
+template <class Pos>
+__device__ __forceinline__ RowPos warp_rows(const Pos& pos) {
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
+  RowPos rp;
+  rp.p[0] = pos(r0 + (lane >> 2));
+  rp.p[1] = pos(r0 + (lane >> 2) + 8);
+  rp.lo = min(rp.p[0], rp.p[1]);
+  rp.hi = max(rp.p[0], rp.p[1]);
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    rp.lo = min(rp.lo, __shfl_xor_sync(0xffffffffu, rp.lo, off));
+    rp.hi = max(rp.hi, __shfl_xor_sync(0xffffffffu, rp.hi, off));
+  }
+  return rp;
+}
+
 // Scale and mask the lane's part of a 16 × KT slice of S (`s`, 8-key
 // tile t at s[4t..4t+3]), fold it into the running (m, l) of rows g and
 // g + 8, rescale the accumulator `o` (NO floats, the same layout), and
-// leave p in `s`. Keys kpos0 + key; rows qpos0 + row.
+// leave p in `s`. Keys kpos0 + key; rows at positions rp.p.
 template <int NO>
 __device__ __forceinline__ void fold(float* s, float (&m)[2], float (&l)[2],
-                                     float* o, int nv, int kpos0, int qpos0,
-                                     bool causal, float sm_scale) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, qd = lane & 3;
-  const bool masked = nv < KT || (causal && kpos0 + KT - 1 > qpos0);
+                                     float* o, int nv, int kpos0,
+                                     const RowPos& rp, bool causal,
+                                     float sm_scale) {
+  const int lane = threadIdx.x & 31, qd = lane & 3;
+  const bool masked = nv < KT || (causal && kpos0 + KT - 1 > rp.lo);
   float tm[2] = {MPMRF_NEG_INF, MPMRF_NEG_INF};
 #pragma unroll
   for (int i = 0; i < KT / 2; ++i) {
     float x = s[i] * sm_scale;
     if (masked) {
       const int key = 8 * (i >> 2) + 2 * qd + (i & 1);
-      const int row = g + 8 * ((i >> 1) & 1);
-      if (key >= nv || (causal && kpos0 + key > qpos0 + row))
+      if (key >= nv || (causal && kpos0 + key > rp.p[(i >> 1) & 1]))
         x = MPMRF_NEG_INF;
     }
     s[i] = x;
@@ -309,7 +376,8 @@ __device__ __forceinline__ void store_rows(const float* o, const float (&l)[2],
 // --- the two product paths ----------------------------------------------------
 //
 // Both expose one interface to the key loop: init and attend (fold one
-// key tile into the rows; done when it returns).
+// key tile into the rows; done when it returns). `rp` holds the warp's
+// row positions, `q_last` the block's largest live position.
 
 // One warp's 16 rows on mma.sync; every call completes before it returns.
 template <int D>
@@ -319,12 +387,9 @@ struct Warp {
   uint32_t qf[NK][4];
   float o[D / 2];
   float m[2], l[2];
-  int qpos0;  // position of this warp's first row
 
-  __device__ __forceinline__ void init(const __nv_bfloat16* qs, int bq,
-                                       int q_first) {
+  __device__ __forceinline__ void init(const __nv_bfloat16* qs, int bq) {
     const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
-    qpos0 = q_first + r0;
 #pragma unroll
     for (int kk = 0; kk < NK; ++kk)
       ldsm_x4(smem_u32(qs + swz<D>(bq, r0 + (lane & 15),
@@ -337,13 +402,15 @@ struct Warp {
   }
 
   // Fold keys kpos0 .. kpos0 + nv − 1 (ks / vs: KT × D, rows ≥ nv
-  // zero) into the rows. With `causal`, key kpos is visible to row qpos
-  // iff kpos <= qpos.
+  // zero) into the rows. With `causal`, key kpos is visible to a row at
+  // position qpos iff kpos <= qpos.
   __device__ __forceinline__ void attend(const __nv_bfloat16* ks,
                                          const __nv_bfloat16* vs, int nv,
-                                         int kpos0, bool causal,
+                                         int kpos0, const RowPos& rp,
+                                         int q_last, bool causal,
                                          float sm_scale) {
-    if (causal && kpos0 > qpos0 + 15) return;  // wholly above these rows
+    (void)q_last;
+    if (causal && kpos0 > rp.hi) return;  // wholly above these rows
     const int lane = threadIdx.x & 31;
     float s[KT / 2];
 #pragma unroll
@@ -361,7 +428,7 @@ struct Warp {
         mma(s + 8 * j, qf[kk], b[0], b[1]);
         mma(s + 8 * j + 4, qf[kk], b[2], b[3]);
       }
-    fold<D / 2>(s, m, l, o, nv, kpos0, qpos0, causal, sm_scale);
+    fold<D / 2>(s, m, l, o, nv, kpos0, rp, causal, sm_scale);
 #pragma unroll
     for (int j = 0; j < KT / 16; ++j) {
       if (j * 16 >= nv) continue;
@@ -391,14 +458,10 @@ struct Group {
   float o[D / 2];                    // block b at o[32b .. 32b + 31]
   float m[2], l[2];
   uint32_t qaddr;  // the Q rows in shared memory
-  int qpos0, gpos0;  // positions of this warp's and the block's row 0
 
-  __device__ __forceinline__ void init(const __nv_bfloat16* qs, int bq,
-                                       int q_first) {
+  __device__ __forceinline__ void init(const __nv_bfloat16* qs, int bq) {
     (void)bq;  // 64
     qaddr = smem_u32(qs);
-    qpos0 = q_first + (threadIdx.x >> 5) * 16;
-    gpos0 = q_first;
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     m[0] = m[1] = MPMRF_NEG_INF;
@@ -407,11 +470,12 @@ struct Group {
 
   __device__ __forceinline__ void attend(const __nv_bfloat16* ks,
                                          const __nv_bfloat16* vs, int nv,
-                                         int kpos0, bool causal,
+                                         int kpos0, const RowPos& rp,
+                                         int q_last, bool causal,
                                          float sm_scale) {
     // wholly above the block's rows (a uniform branch: wgmma is issued
     // by the four warps together)
-    if (causal && kpos0 > gpos0 + 63) return;
+    if (causal && kpos0 > q_last) return;
     float s[KT / 2];
 #pragma unroll
     for (int i = 0; i < KT / 2; ++i) s[i] = 0.f;
@@ -425,7 +489,7 @@ struct Group {
     wg_commit();
     wg_wait();
     pin<KT / 2>(s);
-    fold<D / 2>(s, m, l, o, nv, kpos0, qpos0, causal, sm_scale);
+    fold<D / 2>(s, m, l, o, nv, kpos0, rp, causal, sm_scale);
     uint32_t hi[KT / 16][4], lo[KT / 16][4];
 #pragma unroll
     for (int j = 0; j < KT / 16; ++j) p_frags(s, j, hi[j], lo[j]);
@@ -447,32 +511,37 @@ struct Group {
 
 // --- the block's key loop -------------------------------------------------------
 
-// Rows [0, nv) of the KT × D tile at `src` (row stride D) into the
-// tile `dst`; rows nv..KT-1 are zero-filled (a masked key's p = 0 must
-// meet a finite V row). With a block of THREADS threads (0: any), each
-// thread's chunk and swizzle repeat every step when the step spans a
-// multiple of 8 rows, so its offsets are computed once.
+// Rows [0, nv) of the KT-row tile at `src` (row stride and head dim
+// ld ≤ D) into the KT × D tile `dst`; rows nv..KT-1 and columns past ld
+// are zero-filled (a masked key's p = 0 must meet a finite V row, and a
+// padded column adds nothing to a product). With a block of THREADS
+// threads (0: any) and an unpadded head (ld = D), each thread's chunk
+// and swizzle repeat every step when the step spans a multiple of 8
+// rows, so its offsets are computed once.
 template <int D, int THREADS>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int nv) {
+                                          const __nv_bfloat16* src, int nv,
+                                          int ld) {
   constexpr int C = D / 8;
   if constexpr (THREADS > 0 && THREADS % (8 * C) == 0 && C >= 8) {
-    constexpr int STEP = THREADS / C;  // rows per step
-    const int r0 = threadIdx.x / C, c = threadIdx.x % C;
-    const uint32_t d0 = smem_u32(dst + swz<D>(KT, r0, c) * 8);
-    const __nv_bfloat16* s0 = src + r0 * D + c * 8;
+    if (ld == D) {
+      constexpr int STEP = THREADS / C;  // rows per step
+      const int r0 = threadIdx.x / C, c = threadIdx.x % C;
+      const uint32_t d0 = smem_u32(dst + swz<D>(KT, r0, c) * 8);
+      const __nv_bfloat16* s0 = src + r0 * D + c * 8;
 #pragma unroll
-    for (int j = 0; j < KT / STEP; ++j) {
-      const bool in = r0 + j * STEP < nv;
-      cp_async16(d0 + j * STEP * 128, in ? s0 + j * STEP * D : src, in);
+      for (int j = 0; j < KT / STEP; ++j) {
+        const bool in = r0 + j * STEP < nv;
+        cp_async16(d0 + j * STEP * 128, in ? s0 + j * STEP * D : src, in);
+      }
+      return;
     }
-  } else {
-    for (int i = threadIdx.x; i < KT * C; i += blockDim.x) {
-      const int r = i / C, c = i % C;
-      const bool in = r < nv;
-      cp_async16(smem_u32(dst + swz<D>(KT, r, c) * 8),
-                 src + (in ? r : 0) * D + c * 8, in);
-    }
+  }
+  for (int i = threadIdx.x; i < KT * C; i += blockDim.x) {
+    const int r = i / C, c = i % C;
+    const bool in = r < nv && c * 8 < ld;
+    cp_async16(smem_u32(dst + swz<D>(KT, r, c) * 8),
+               in ? src + r * ld + c * 8 : src, in);
   }
 }
 
@@ -498,68 +567,77 @@ __device__ __forceinline__ void issue_q(__nv_bfloat16* qs,
                q + (size_t)(r0 + i / C) * D + (i % C) * 8, true);
 }
 
-template <int D, class Rows, class Tiles>
-__device__ __forceinline__ void key_loop(const __nv_bfloat16* __restrict__ k,
+// The key loop of one block, into `rows` (init'ed here). `tiles(t, src,
+// kpos0, nv)` names tile t of `n_tiles`: nv ≤ KT keys at logical
+// positions kpos0 .. kpos0 + nv − 1, whose K and V rows start at row
+// `src` of `k` / `v` (row stride ld, the operands' head dim, ≤ D).
+// `smem` (smem_base) holds the bq Q/O rows, then the ring; the caller
+// has issued the Q rows. `pos` gives block row r's position (−1: dead)
+// and q_last is the block's largest live position.
+template <int D, class Rows, class Pos, class Tiles>
+__device__ __forceinline__ void key_loop(Rows& rows,
+                                         const __nv_bfloat16* __restrict__ k,
                                          const __nv_bfloat16* __restrict__ v,
-                                         __nv_bfloat16* __restrict__ out,
                                          __nv_bfloat16* smem, int bq,
-                                         int q_first, bool causal,
-                                         float sm_scale, int n_tiles,
-                                         const Tiles& tiles) {
+                                         const Pos& pos, int q_last,
+                                         bool causal, float sm_scale,
+                                         int n_tiles, const Tiles& tiles,
+                                         int ld = D) {
   __nv_bfloat16* ring = smem + bq * D;
   auto kst = [&](int t) { return ring + (t % STAGES) * 2 * KT * D; };
   auto issue = [&](int t) {
     if (t < n_tiles) {
-      int kpos0, nv;
-      tiles(t, kpos0, nv);
-      load_tile<D, Rows::THREADS>(kst(t), k + (size_t)kpos0 * D, nv);
-      load_tile<D, Rows::THREADS>(kst(t) + KT * D, v + (size_t)kpos0 * D,
-                                  nv);
+      int src, kpos0, nv;
+      tiles(t, src, kpos0, nv);
+      load_tile<D, Rows::THREADS>(kst(t), k + (size_t)src * ld, nv, ld);
+      load_tile<D, Rows::THREADS>(kst(t) + KT * D, v + (size_t)src * ld,
+                                  nv, ld);
     }
     cp_commit();
   };
 #pragma unroll
   for (int t = 0; t < STAGES - 1; ++t) issue(t);
+  const RowPos rp = warp_rows(pos);
   cp_wait<STAGES - 2>();  // the Q rows (group 0) are in
   fence_async_smem();
   __syncthreads();
-  Rows rows;
-  rows.init(smem, bq, q_first);
+  rows.init(smem, bq);
   for (int t = 0; t < n_tiles; ++t) {
     cp_wait<STAGES - 2>();
     fence_async_smem();
     __syncthreads();  // tile t is in; tile t − 1's stage is free
     issue(t + STAGES - 1);
-    int kpos0, nv;
-    tiles(t, kpos0, nv);
-    rows.attend(kst(t), kst(t) + KT * D, nv, kpos0, causal, sm_scale);
+    int src, kpos0, nv;
+    tiles(t, src, kpos0, nv);
+    rows.attend(kst(t), kst(t) + KT * D, nv, kpos0, rp, q_last, causal,
+                sm_scale);
   }
-  store_rows<D>(rows.o, rows.l, smem, bq,
-                out + (size_t)(threadIdx.x >> 5) * 16 * D);
 }
 
-// The key loop of one block. `tiles(t, kpos0, nv)` names tile t of
-// `n_tiles`: keys kpos0 .. kpos0 + nv − 1 (nv ≤ KT) of this bh row,
-// whose K and V rows start at `k` / `v`. `smem` (smem_base) holds the
-// bq Q/O rows, then the ring; the caller has issued the Q rows
-// (issue_q). Row r of the block sits at position q_first + r and is
-// written to out + r·D.
-template <int D, class Tiles>
+// key_loop on the block's product path, then the epilogue: block row r
+// is written to out + r·D.
+template <int D, class Pos, class Tiles>
 __device__ __forceinline__ void run(const __nv_bfloat16* __restrict__ k,
                                     const __nv_bfloat16* __restrict__ v,
                                     __nv_bfloat16* __restrict__ out,
-                                    __nv_bfloat16* smem, int bq, int q_first,
-                                    bool causal, float sm_scale, int n_tiles,
+                                    __nv_bfloat16* smem, int bq,
+                                    const Pos& pos, int q_last, bool causal,
+                                    float sm_scale, int n_tiles,
                                     const Tiles& tiles) {
+  __nv_bfloat16* rows_out = out + (size_t)(threadIdx.x >> 5) * 16 * D;
   if constexpr (D >= 64) {
     if (bq == 64) {
-      key_loop<D, Group<D>>(k, v, out, smem, bq, q_first, causal, sm_scale,
-                            n_tiles, tiles);
+      Group<D> rows;
+      key_loop<D>(rows, k, v, smem, bq, pos, q_last, causal, sm_scale,
+                  n_tiles, tiles);
+      store_rows<D>(rows.o, rows.l, smem, bq, rows_out);
       return;
     }
   }
-  key_loop<D, Warp<D>>(k, v, out, smem, bq, q_first, causal, sm_scale,
-                       n_tiles, tiles);
+  Warp<D> rows;
+  key_loop<D>(rows, k, v, smem, bq, pos, q_last, causal, sm_scale, n_tiles,
+              tiles);
+  store_rows<D>(rows.o, rows.l, smem, bq, rows_out);
 }
 
 }  // namespace flash

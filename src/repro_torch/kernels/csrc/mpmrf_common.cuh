@@ -17,7 +17,8 @@
 //   products only, and the block max is order-free, so scores equal the
 //   reference (and the plain PyTorch version) bit for bit.
 //
-// gather helpers: bf16 tile loads for the survivor-gather kernels.
+// The survivor-gather kernels (B2/B6, B4/B8) run on the attention tile
+// engine of flash_common.cuh, with block_of naming their tile sources.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -157,16 +158,6 @@ __device__ void filter_tile(
     *out0 = m0;
     *out1 = m1;
   }
-}
-
-// Copy one bk × d bf16 tile (a page of K or V) into shared memory,
-// 16 bytes per thread per step.
-__device__ __forceinline__ void load_tile(
-    __nv_bfloat16* __restrict__ dst, const __nv_bfloat16* __restrict__ src,
-    int elems) {
-  const int4* s = reinterpret_cast<const int4*>(src);
-  int4* t = reinterpret_cast<int4*>(dst);
-  for (int c = threadIdx.x; c < elems / 8; c += blockDim.x) t[c] = s[c];
 }
 
 }  // namespace mpmrf

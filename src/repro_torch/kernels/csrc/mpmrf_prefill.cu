@@ -30,24 +30,34 @@
 //
 // B4 paged_prefill_gather_attention — replaces
 //   repro/kernels/mpmrf_prefill.py::paged_prefill_gather_attention
-//   (_paged_prefill_gather_kernel). One block per (query block, bh
-//   row), two threads per query row, each holding half of the row's
-//   query and accumulator in registers. The block walks the survivor
-//   slots in order, streams page bt[b, idx[b, qb, s]] of K and V into
-//   shared memory (read once for all bq rows), and folds 8-key
-//   sub-tiles into an f32 online softmax with the reference's rules
-//   (p = 0 for scores ≤ NEG_INF/2, output acc / max(l, 1e-30)). Bound
-//   by bytes: the survivor pages, read once per query block; slots
-//   whose valid bit is 0 are skipped without reading their pages.
+//   (_paged_prefill_gather_kernel): flash attention of each query block
+//   of folded chunk rows over its survivor pages bt[b, idx[b, qb, s]],
+//   each row under its own causal mask kpos ≤ q_positions[row], rows at
+//   sentinel positions (≥ n_k) 0.
+//
+//   The work is a block-sparse attention (64 bh × 640 rows × ≤ 1024
+//   survivor keys × d 128 on the serving path: ≈ 32 GFLOP with P·V
+//   counted twice, tens of µs on the tensor cores), so the design is
+//   B10's, on the tile engine of flash_common.cuh: blocks of 64 query
+//   rows on the wgmma path (d ∈ {64, 128}, query blocks of 64 or 128, a
+//   query block of 128 being two blocks reading one table row), one
+//   block per query block on mma.sync otherwise. A block reads its rows'
+//   positions (sentinels become dead rows at −1) and keeps, in table
+//   order, the survivor slots that are valid and not wholly above its
+//   largest live position (skipping the others is bit-identical); each
+//   kept page enters the cp.async ring as ⌈bk/64⌉ tiles from its own
+//   page base, at its logical key positions, so the next survivors are
+//   in flight while one computes. P·V runs as bf16 hi + lo into one f32
+//   accumulator. A block whose rows are all sentinels writes zeros and
+//   exits. Bound by bytes on the serving path: q, the output and the
+//   kept survivor pages, read once per block.
 //
 // B8 prefill_gather_attention — replaces
 //   repro/kernels/mpmrf_prefill.py::prefill_gather_attention
-//   (_prefill_gather_kernel): B4 with row bases b·n_k + idx·bk of the
-//   contiguous K/V cache — the same kernel body, outputs equal to B4's
-//   on the same rows; sentinel rows (qpos ≥ n_k) come out 0.
-#include "mpmrf_common.cuh"
-
-using mpmrf::dyn_smem;
+//   (_prefill_gather_kernel): B4 with block b·n_kb + idx of the
+//   contiguous K/V cache as the tile source (block_of<false>) — the same
+//   kernel body, outputs equal to B4's on the same rows.
+#include "flash_common.cuh"
 
 // k_scale: one per block (kPaged, the page's scale) or one per key row
 // (contiguous, [bh, n_k])
@@ -84,6 +94,17 @@ __global__ void __launch_bounds__(FILTER_THREADS) prefill_filter_kernel(
       bq, bk, kmin, 0, n_k, lo, hi, s0 + out, s1 + out);
 }
 
+// Block row r's position, from q_positions; a sentinel row (position
+// ≥ n_k) is dead (−1).
+struct ChunkRows {
+  const int32_t* pos;  // the block's first row
+  int n_k;
+  __device__ __forceinline__ int operator()(int r) const {
+    const int p = pos[r];
+    return p < n_k ? p : -1;
+  }
+};
+
 template <int D, bool kPaged>
 __global__ void __launch_bounds__(256) prefill_gather_kernel(
     const __nv_bfloat16* __restrict__ q, const int32_t* __restrict__ q_pos,
@@ -91,91 +112,70 @@ __global__ void __launch_bounds__(256) prefill_gather_kernel(
     const __nv_bfloat16* __restrict__ v_pages,
     const int32_t* __restrict__ idx, const int32_t* __restrict__ val,
     const int32_t* __restrict__ block_table, __nv_bfloat16* __restrict__ out,
-    int n_q, int bq, int bk, int budget, int mb, float sm_scale) {
-  constexpr int W = D / 4;  // bf16x2 words per thread: 2k + half
-  const int qb = blockIdx.x, b = blockIdx.y, n_qb = gridDim.x;
-  const int n_k = mb * bk;
-  const int tid = threadIdx.x, half = tid & 1;
-  const size_t grow = (size_t)b * n_q + (size_t)qb * bq + (tid >> 1);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(dyn_smem());
-  __nv_bfloat16* vs = ks + bk * D;
-
-  float2 qr[W], acc[W];
-  const __nv_bfloat162* qrow =
-      reinterpret_cast<const __nv_bfloat162*>(q + grow * D);
-#pragma unroll
-  for (int k = 0; k < W; ++k) {
-    qr[k] = __bfloat1622float2(qrow[2 * k + half]);
-    acc[k] = make_float2(0.f, 0.f);
-  }
-  const int pos = q_pos[grow];
-  const bool row_ok = pos < n_k;
-  float m = MPMRF_NEG_INF, l = 0.f;
-  const int* idx_row = idx + ((size_t)b * n_qb + qb) * budget;
-  const int* val_row = val + ((size_t)b * n_qb + qb) * budget;
-
-  for (int s = 0; s < budget; ++s) {
-    if (!val_row[s]) continue;
-    const int kb = idx_row[s];
-    const size_t page = mpmrf::block_of<kPaged>(block_table, b, kb, mb);
-    __syncthreads();  // the previous slot's readers are done
-    mpmrf::load_tile(ks, k_pages + page * bk * D, bk * D);
-    mpmrf::load_tile(vs, v_pages + page * bk * D, bk * D);
-    __syncthreads();
-    for (int r0 = 0; r0 < bk; r0 += 8) {
-      float sv[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const __nv_bfloat162* krow =
-            reinterpret_cast<const __nv_bfloat162*>(ks + (r0 + u) * D);
-        float part = 0.f;
-#pragma unroll
-        for (int k = 0; k < W; ++k) {
-          const float2 kf = __bfloat1622float2(krow[2 * k + half]);
-          part += qr[k].x * kf.x;
-          part += qr[k].y * kf.y;
-        }
-        part += __shfl_xor_sync(0xffffffffu, part, 1);
-        const int kpos = kb * bk + r0 + u;
-        sv[u] = (row_ok && kpos <= pos) ? part * sm_scale : MPMRF_NEG_INF;
+    int n_q, int bq, int rows, int bk, int budget, int mb, float sm_scale) {
+  // rows: this block's query rows (flash::block_rows), a part of the
+  // query block of bq rows whose survivor table it reads
+  const int n_qb = n_q / bq, n_k = mb * bk;
+  const int x = blockIdx.x, b = blockIdx.y;
+  const int qb = x * rows / bq;
+  const size_t row0 = (size_t)b * n_q + (size_t)x * rows;
+  const ChunkRows pos{q_pos + row0, n_k};
+  __nv_bfloat16* smem = flash::smem_base();
+  // after the stage and the ring: the kept slots' logical blocks and
+  // source blocks, their count and the block's largest live position
+  int* kept_kb = reinterpret_cast<int*>(
+      smem + (size_t)(rows + 2 * flash::STAGES * flash::KT) * D);
+  int* kept_src = kept_kb + budget;
+  int* info = kept_src + budget;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 0) {
+    int hi = -1;
+    for (int r = lane; r < rows; r += 32) hi = max(hi, pos(r));
+    for (int off = 16; off > 0; off >>= 1)
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    const int* idx_row = idx + ((size_t)b * n_qb + qb) * budget;
+    const int* val_row = val + ((size_t)b * n_qb + qb) * budget;
+    int n = 0;
+    for (int s0 = 0; s0 < budget; s0 += 32) {
+      const int s = s0 + lane;
+      int kb = 0;
+      bool keep = false;
+      if (s < budget) {
+        kb = idx_row[s];
+        keep = val_row[s] != 0 && kb * bk <= hi;
       }
-      float mc = sv[0];
-#pragma unroll
-      for (int u = 1; u < 8; ++u) mc = fmaxf(mc, sv[u]);
-      const float m_new = fmaxf(m, mc);
-      const float corr = expf(m - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        sv[u] = sv[u] <= MPMRF_NEG_INF / 2 ? 0.f : expf(sv[u] - m_new);
-        ps += sv[u];
+      const unsigned mask = __ballot_sync(0xffffffffu, keep);
+      if (keep) {
+        const int at = n + __popc(mask & ((1u << lane) - 1));
+        kept_kb[at] = kb;
+        kept_src[at] = mpmrf::block_of<kPaged>(block_table, b, kb, mb);
       }
-      l = corr * l + ps;
-#pragma unroll
-      for (int k = 0; k < W; ++k) {
-        acc[k].x *= corr;
-        acc[k].y *= corr;
-      }
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const __nv_bfloat162* vrow =
-            reinterpret_cast<const __nv_bfloat162*>(vs + (r0 + u) * D);
-#pragma unroll
-        for (int k = 0; k < W; ++k) {
-          const float2 vf = __bfloat1622float2(vrow[2 * k + half]);
-          acc[k].x += sv[u] * vf.x;
-          acc[k].y += sv[u] * vf.y;
-        }
-      }
-      m = m_new;
+      n += __popc(mask);
+    }
+    if (lane == 0) {
+      info[0] = n;
+      info[1] = hi;
     }
   }
-  const float denom = fmaxf(l, 1e-30f);
-  __nv_bfloat162* orow = reinterpret_cast<__nv_bfloat162*>(out + grow * D);
-#pragma unroll
-  for (int k = 0; k < W; ++k)
-    orow[2 * k + half] =
-        __floats2bfloat162_rn(acc[k].x / denom, acc[k].y / denom);
+  __syncthreads();
+  const int q_last = info[1];
+  if (q_last < 0) {  // every row a sentinel
+    int4* o = reinterpret_cast<int4*>(out + row0 * D);
+    for (int i = threadIdx.x; i < rows * D / 8; i += blockDim.x)
+      o[i] = make_int4(0, 0, 0, 0);
+    return;
+  }
+  flash::issue_q<D>(smem, q + row0 * D, rows);
+  const int per = (bk + flash::KT - 1) / flash::KT;  // ring tiles per page
+  const auto tiles = [kept_kb, kept_src, bk, per](int t, int& src,
+                                                  int& kpos0, int& nv) {
+    const int s = t / per, c = t % per;
+    src = kept_src[s] * bk + c * flash::KT;
+    kpos0 = kept_kb[s] * bk + c * flash::KT;
+    nv = min(flash::KT, bk - c * flash::KT);
+  };
+  flash::run<D>(k_pages, v_pages, out + row0 * D, smem, rows, pos, q_last,
+                true, sm_scale, info[0] * per, tiles);
 }
 
 static size_t filter_smem_bytes(int rows, int bk, int dw) {
@@ -207,16 +207,15 @@ static void launch_gather(dim3 grid, int threads, size_t smem,
                           const void* q_pos, const void* k, const void* v,
                           const void* idx, const void* val,
                           const void* block_table, void* out, int n_q, int bq,
-                          int bk, int budget, int mb, float sm_scale) {
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(prefill_gather_kernel<D, kPaged>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
+                          int rows, int bk, int budget, int mb,
+                          float sm_scale) {
+  static size_t given[64];
+  flash::allow_smem(prefill_gather_kernel<D, kPaged>, smem, given);
   prefill_gather_kernel<D, kPaged><<<grid, threads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const int32_t*)q_pos,
       (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const int32_t*)idx,
       (const int32_t*)val, (const int32_t*)block_table, (__nv_bfloat16*)out,
-      n_q, bq, bk, budget, mb, sm_scale);
+      n_q, bq, rows, bk, budget, mb, sm_scale);
 }
 
 // mb: blocks per bh row (table width, or n_kb of the contiguous cache)
@@ -264,30 +263,34 @@ static int gather_attention(const void* q, const void* q_pos, const void* k,
                             int n_q, int d, int bq, int bk, int budget, int mb,
                             float sm_scale, void* stream) {
   cudaGetLastError();
-  const dim3 grid(n_q / bq, bh);
-  const int threads = 2 * bq;
-  const size_t smem = 2 * sizeof(__nv_bfloat16) * (size_t)bk * d;
+  const int rows = flash::block_rows(d, bq);
+  const dim3 grid(n_q / rows, bh);
+  const int threads = 2 * rows;  // one warp per 16 query rows
+  // the engine's stage and ring, then the kept lists, their count and
+  // the block's largest live position
+  const size_t smem =
+      flash::smem_bytes(d, rows) + sizeof(int) * (2 * (size_t)budget + 2);
   cudaStream_t st = (cudaStream_t)stream;
   switch (d) {
     case 16:
       launch_gather<16, kPaged>(grid, threads, smem, st, q, q_pos, k, v, idx,
-                                val, block_table, out, n_q, bq, bk, budget,
-                                mb, sm_scale);
+                                val, block_table, out, n_q, bq, rows, bk,
+                                budget, mb, sm_scale);
       break;
     case 32:
       launch_gather<32, kPaged>(grid, threads, smem, st, q, q_pos, k, v, idx,
-                                val, block_table, out, n_q, bq, bk, budget,
-                                mb, sm_scale);
+                                val, block_table, out, n_q, bq, rows, bk,
+                                budget, mb, sm_scale);
       break;
     case 64:
       launch_gather<64, kPaged>(grid, threads, smem, st, q, q_pos, k, v, idx,
-                                val, block_table, out, n_q, bq, bk, budget,
-                                mb, sm_scale);
+                                val, block_table, out, n_q, bq, rows, bk,
+                                budget, mb, sm_scale);
       break;
     case 128:
       launch_gather<128, kPaged>(grid, threads, smem, st, q, q_pos, k, v,
-                                 idx, val, block_table, out, n_q, bq, bk,
-                                 budget, mb, sm_scale);
+                                 idx, val, block_table, out, n_q, bq, rows,
+                                 bk, budget, mb, sm_scale);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -49,11 +49,13 @@ def engine_smem_bytes(d: int, query_block: int, table_slots: int = 0) -> int:
 
 
 def check_attention_launch(q, k, v, query_block, key_block,
-                           table_slots=0) -> None:
-    """What the contiguous-row attention kernels (B10, B11) take: bf16
+                           table_slots=0, *, rows_of_q=True) -> None:
+    """What the tile engine's kernels (B4 / B8, B10, B11) take: bf16
     operands, one warp per 16 query rows (query_block ≤ 128), key blocks
     of multiples of 8 rows (the engine pads a partial tile with masked
-    keys), and the engine's shared memory."""
+    keys), and the engine's shared memory. ``rows_of_q``: K/V are
+    ``[bh, n_k, d]`` beside q (B10, B11); the gathers check their own
+    pool or cache layout."""
     d = q.shape[-1]
     _require(q.is_cuda, f"unsupported device {q.device}")
     _require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
@@ -65,8 +67,9 @@ def check_attention_launch(q, k, v, query_block, key_block,
     smem = engine_smem_bytes(d, query_block, table_slots)
     _require(smem <= SMEM_LIMIT,
              f"the tile engine's {smem} bytes exceed shared memory")
-    _require(k.shape == v.shape and k.shape[0] == q.shape[0]
-             and k.shape[-1] == d, "q/K/V shapes disagree")
+    if rows_of_q:
+        _require(k.shape == v.shape and k.shape[0] == q.shape[0]
+                 and k.shape[-1] == d, "q/K/V shapes disagree")
 
 
 def flash_attention_plain(q, k, v, *, causal=True, q_offset=0, scale=None):

@@ -8,7 +8,9 @@ never reaches the plain version through the wrapper; chip runs call the
 plain functions directly to hold the kernels against them. The paged and
 contiguous twins share their kernel body and their plain version's
 arithmetic: a contiguous ``[bh, n_k, d]`` cache is a pool whose block j
-of row b is block ``b·n_kb + j``.
+of row b is block ``b·n_kb + j``. The gathers split each row's survivor
+slots over several blocks (:func:`decode_splits`) and merge the splits'
+partials in split order.
 
 Ports of ``repro.kernels.mpmrf_decode.mpmrf_paged_filter_scores``,
 ``paged_decode_gather_attention``, ``mpmrf_decode_filter_scores`` and
@@ -18,7 +20,7 @@ Ports of ``repro.kernels.mpmrf_decode.mpmrf_paged_filter_scores``,
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -30,10 +32,19 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "mpmrf_paged_filter_scores": [_P] * 8 + [_I] * 7 + [_P],
     "mpmrf_decode_filter_scores": [_P] * 7 + [_I] * 7 + [_P],
-    "paged_decode_gather_attention": [_P] * 8 + [_I] * 6 + [_F, _P],
-    "decode_gather_attention": [_P] * 7 + [_I] * 6 + [_F, _P],
+    "paged_decode_gather_attention": [_P] * 10 + [_I] * 7 + [_F, _P],
+    "decode_gather_attention": [_P] * 9 + [_I] * 7 + [_F, _P],
 }
 FILTER_HEAD_DIMS = (16, 32, 64, 128)
+#: survivor slots that one block of the decode gather (B2 / B6) takes,
+#: and the most splits of one row (the merge keeps each split's (m, l)
+#: in shared memory)
+DECODE_SPLIT_SLOTS, DECODE_MAX_SPLITS = 4, 32
+#: per (device, stream): the decode gather's f32 workspace and the int32
+#: counts its blocks arrive on (one per bh row, zero between calls), each
+#: grown on demand
+_split_scratch_of: Dict[Tuple[int, int],
+                        Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _lib():
@@ -157,6 +168,47 @@ def paged_filter_scores(
 # --------------------------------------------------------------------------
 
 
+def decode_split_slots(budget: int) -> int:
+    """Survivor slots per split of the decode gather (B2 / B6): runs of
+    DECODE_SPLIT_SLOTS consecutive slots, one block each, longer only
+    where the budget would need more than DECODE_MAX_SPLITS of them. The
+    serving path's budget 16 over 64 bh rows gives 4 splits, 256 blocks:
+    about two per SM of an H100. The rule reads the budget alone, not bh
+    nor the device, so a row's output never depends on the batch it was
+    decoded in."""
+    return max(DECODE_SPLIT_SLOTS, -(-budget // DECODE_MAX_SPLITS))
+
+
+def decode_splits(budget: int) -> int:
+    """Splits of each bh row's ``budget`` slots (the last may be short;
+    at least one, also for an empty table)."""
+    return max(1, -(-budget // decode_split_slots(budget)))
+
+
+def decode_workspace_floats(bh: int, g: int, d: int, budget: int) -> int:
+    """f32 workspace of one decode gather call: each split's partials of
+    its G rows, the unnormalised accumulator (d) and (m, l)."""
+    return bh * decode_splits(budget) * g * (d + 2)
+
+
+def _split_scratch(q, bh, g, d, budget):
+    """The split decode gather's workspace and row counts on the current
+    stream, and that stream's handle. Calls on one stream run in order,
+    so they can share both; the row's last block merges its splits and
+    sets its count back to 0, so the counts stay zero between calls. Each
+    stream has its own pair, so calls on two streams never share one."""
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    key = (q.device.index, stream)
+    floats = decode_workspace_floats(bh, g, d, budget)
+    work, count = _split_scratch_of.get(key, (None, None))
+    if work is None or work.numel() < floats:
+        work = torch.empty(floats, dtype=torch.float32, device=q.device)
+    if count is None or count.numel() < bh:
+        count = torch.zeros(bh, dtype=torch.int32, device=q.device)
+    _split_scratch_of[key] = work, count
+    return work, count, stream
+
+
 def _decode_gather_plain(q, k_blocks, v_blocks, block_indices, block_valid,
                         cache_length, key_block, scale, out_dtype):
     """B2 / B6 on the gathered survivor blocks ``[bh, S, bk, d]``: softmax
@@ -234,14 +286,15 @@ def paged_decode_gather_attention(
                 cache_length)
     sm_scale = scale if scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
+    work, count, stream = _split_scratch(q, bh, g, d, budget)
     fn = _lib().paged_decode_gather_attention
     _build.count_launch("paged_decode_gather_attention")
     _build.check(fn(
         _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
         _build.ptr(block_indices), _build.ptr(block_valid),
         _build.ptr(block_table), _build.ptr(cache_length), _build.ptr(out),
-        bh, g, d, key_block, budget, mb, float(sm_scale),
-        _build.stream_ptr(q.device),
+        _build.ptr(work), _build.ptr(count), bh, g, d, key_block, budget, mb,
+        decode_split_slots(budget), float(sm_scale), ctypes.c_void_p(stream),
     ), "paged_decode_gather_attention")
     return out
 
@@ -385,13 +438,14 @@ def decode_gather_attention(
     _check_cuda(q, k_cache, v_cache, block_indices, block_valid, cache_length)
     sm_scale = scale if scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
+    work, count, stream = _split_scratch(q, bh, g, d, budget)
     fn = _lib().decode_gather_attention
     _build.count_launch("decode_gather_attention")
     _build.check(fn(
         _build.ptr(q), _build.ptr(k_cache), _build.ptr(v_cache),
         _build.ptr(block_indices), _build.ptr(block_valid),
-        _build.ptr(cache_length), _build.ptr(out),
-        bh, g, d, key_block, budget, n_k // key_block, float(sm_scale),
-        _build.stream_ptr(q.device),
+        _build.ptr(cache_length), _build.ptr(out), _build.ptr(work),
+        _build.ptr(count), bh, g, d, key_block, budget, n_k // key_block,
+        decode_split_slots(budget), float(sm_scale), ctypes.c_void_p(stream),
     ), "decode_gather_attention")
     return out

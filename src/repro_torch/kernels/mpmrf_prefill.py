@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import check_attention_launch
 from repro_torch.kernels.mpmrf_decode import (
     FILTER_HEAD_DIMS, NEG_INF, _cache_blocks, _check_cuda, _require,
 )
@@ -229,15 +230,12 @@ def paged_prefill_gather_attention(
             block_table, query_block=query_block, key_block=key_block,
             scale=scale,
         )
-    _require(q.is_cuda, f"unsupported device {q.device}")
     budget = block_indices.shape[-1]
     mb = block_table.shape[-1]
-    _require(q.dtype == k_pages.dtype == v_pages.dtype == torch.bfloat16,
-             "the CUDA gather kernel takes bfloat16 q/K/V")
-    _require(d in FILTER_HEAD_DIMS, f"head_dim {d} not in {FILTER_HEAD_DIMS}")
-    _require(query_block % 16 == 0 and query_block <= 128,
-             f"query_block {query_block} must be a multiple of 16, <= 128")
-    _require(key_block % 8 == 0, "key_block must be a multiple of 8")
+    # the kept survivor lists: two ids per slot, a count and the
+    # block's largest live position
+    check_attention_launch(q, k_pages, v_pages, query_block, key_block,
+                           2 * budget + 1, rows_of_q=False)
     _require(tuple(k_pages.shape[1:]) == (key_block, d),
              "K/V pages must be [P, key_block, d]")
     _require(q_positions.dtype == block_indices.dtype == block_valid.dtype
@@ -383,17 +381,14 @@ def prefill_gather_attention(
             q, q_positions, k_cache, v_cache, block_indices, block_valid,
             query_block=query_block, key_block=key_block, scale=scale,
         )
-    _require(q.is_cuda, f"unsupported device {q.device}")
     n_k = k_cache.shape[-2]
     budget = block_indices.shape[-1]
-    _require(q.dtype == k_cache.dtype == v_cache.dtype == torch.bfloat16,
-             "the CUDA gather kernel takes bfloat16 q/K/V")
-    _require(d in FILTER_HEAD_DIMS, f"head_dim {d} not in {FILTER_HEAD_DIMS}")
-    _require(query_block % 16 == 0 and query_block <= 128,
-             f"query_block {query_block} must be a multiple of 16, <= 128")
-    _require(key_block % 8 == 0 and n_k % key_block == 0,
-             f"key_block {key_block} must be a multiple of 8 dividing the "
-             f"{n_k} cache rows")
+    # the kept survivor lists: two ids per slot, a count and the
+    # block's largest live position
+    check_attention_launch(q, k_cache, v_cache, query_block, key_block,
+                           2 * budget + 1, rows_of_q=False)
+    _require(n_k % key_block == 0,
+             f"key_block {key_block} must divide the {n_k} cache rows")
     _require(tuple(k_cache.shape) == tuple(v_cache.shape) == (bh, n_k, d),
              "K/V caches must be [bh, n_k, d]")
     _require(q_positions.dtype == block_indices.dtype == block_valid.dtype

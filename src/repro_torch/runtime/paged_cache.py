@@ -453,9 +453,14 @@ def gather_logical_rows(
 ) -> torch.Tensor:
     """Per-slot logical view of a row-major pool leaf:
     ``[KV, pool_rows, ...]`` → ``[B, KV, mb·ps, ...]`` (a transient
-    copy; the pool stays the only resident state)."""
+    copy; the pool stays the only resident state). Gathered straight
+    into a contiguous ``[B, KV, …]`` tensor — the layout of the
+    contiguous cache — so that the dense attention over it multiplies
+    operands laid out as the unpaged path's and rounds as they do (a
+    permuted view sends cuBLAS down another summation order)."""
     rows = logical_row_ids(block_table, page_size)        # [B, n_log]
-    return pool[:, rows].movedim(1, 0)
+    heads = torch.arange(pool.shape[0], device=pool.device)
+    return pool[heads[None, :, None], rows[:, None, :]]
 
 
 def gather_logical_scales(

@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain versions on the card (B1–B11),
-and the contiguous twins B5–B8 against the paged B1–B4 on the same rows.
+and the contiguous twins B5–B8 against the paged B1–B4 on the same rows;
+the split decode gather (B2 / B6) and the tile-engine prefill gather
+(B4 / B8) across their instantiations, edge rows and tables, twice.
 
 Marked ``gpu``: on a host without CUDA every case skips. On the GPU
 machine run ``PYTHONPATH=src python -m pytest --noconftest -m gpu
@@ -14,6 +16,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import gather_within_tolerance
+# by its own name, from this directory (pytest puts it on the path): on
+# the GPU machine ``tests`` can name another installed package
+from _torch_port import dense_decode_twins
 
 pytestmark = pytest.mark.gpu
 
@@ -339,3 +344,138 @@ def test_contiguous_prefill_kernels_match_plain_and_paged(cuda, d):
     paged = pk.paged_prefill_gather_attention(
         q, c["qpos"], c["k_pages"], c["v_pages"], idx, val, c["table"], **kw)
     assert torch.equal(out, paged)
+
+
+def _twin_gathers(cuda, d, bk, bh, n_kb, seed):
+    """K/V of a contiguous cache ``[bh, n_k, d]`` and the same rows as
+    pages under a shuffled table."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    n_k = n_kb * bk
+    k, v = (torch.randn((bh, n_k, d), generator=gen, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    table = torch.randperm(bh * n_kb, generator=gen, device=cuda)
+    inv = torch.empty_like(table)
+    inv[table] = torch.arange(bh * n_kb, device=cuda)
+    pages = lambda x: x.reshape(bh * n_kb, bk, d)[inv].contiguous()
+    return gen, k, v, pages(k), pages(v), table.reshape(bh, n_kb).to(
+        torch.int32)
+
+
+#: (G, d, key block, budget) of the split decode gather: G 1 / 5 / 16,
+#: every head-dim instantiation and two zero-padded heads (8 on the
+#: mma.sync path, 40 on wgmma), one or two ring tiles per page; budget 7
+#: (two splits, the second short) and 133 (27 splits of 5)
+DECODE_SHAPES = [(1, 16, 16, 7), (5, 32, 64, 7), (16, 64, 16, 7),
+                 (5, 128, 64, 7), (16, 128, 128, 7), (5, 40, 16, 7),
+                 (1, 8, 64, 7), (5, 128, 16, 7), (5, 128, 16, 133)]
+
+
+@pytest.mark.parametrize("g,d,bk,budget", DECODE_SHAPES)
+def test_split_decode_gathers_match_plain_and_each_other(cuda, g, d, bk,
+                                                         budget):
+    """B6 within the gather tolerance of its plain version, B2 = B6 bit
+    for bit on the same rows, both the same when run twice. Row 1's
+    second split all invalid, row 2 without a valid slot (0), row 3's
+    length cutting inside a block, row 0 an idle slot's max_len + 1."""
+    from repro_torch.kernels import mpmrf_decode as dk
+
+    bh, n_kb = 6, budget + 5
+    gen, k, v, kp, vp, table = _twin_gathers(cuda, d, bk, bh, n_kb, seed=g)
+    n_k = n_kb * bk
+    q = torch.randn((bh, g, d), generator=gen, device=cuda).to(torch.bfloat16)
+    idx = torch.stack([torch.randperm(n_kb, generator=gen, device=cuda)[
+        :budget] for _ in range(bh)]).to(torch.int32)
+    val = (torch.rand((bh, budget), generator=gen, device=cuda) < 0.8).to(
+        torch.int32)
+    val[1, 4:] = 0
+    val[2] = 0
+    cl = torch.randint(1, n_k + 1, (bh,), generator=gen, device=cuda)
+    cl[0] = n_k + 1
+    cl[3] = 3 * bk + bk // 2
+    idx[3, 0], val[3, 0] = 3, 1                 # the block the length cuts
+    cl = cl.to(torch.int32)
+    assert dk.decode_splits(budget) == (2 if budget == 7 else 27)
+    args = (q, k, v, idx, val, cl)
+    out = dk.decode_gather_attention(*args, key_block=bk)
+    ref = dk.decode_gather_attention_plain(*args, key_block=bk)
+    assert gather_within_tolerance(out.float(), ref.float())
+    assert torch.isfinite(out.float()).all() and not out[2].any()
+    paged = dk.paged_decode_gather_attention(q, kp, vp, idx, val, table, cl,
+                                             key_block=bk)
+    assert torch.equal(out, paged)
+    assert torch.equal(out, dk.decode_gather_attention(*args, key_block=bk))
+    assert torch.equal(paged, dk.paged_decode_gather_attention(
+        q, kp, vp, idx, val, table, cl, key_block=bk))
+
+
+#: (d, query block, key block) of the prefill gather: the wgmma path (d
+#: 64 / 128, query blocks of 64 / 128), the mma.sync path (d 16 / 32,
+#: query blocks of 16 / 48), pages of one ring tile padded (16), one
+#: (64) and two (128) ring tiles
+PREFILL_SHAPES = [(16, 16, 16), (32, 48, 64), (64, 64, 64), (128, 128, 64),
+                  (128, 128, 128), (128, 48, 16), (64, 128, 16),
+                  (128, 16, 64)]
+
+
+@pytest.mark.parametrize("d,bq,bk", PREFILL_SHAPES)
+def test_prefill_gathers_match_plain_and_each_other(cuda, d, bq, bk):
+    """B8 within the gather tolerance of its plain version (overall and on
+    the rows at positions < 32), B4 = B8 bit for bit on the same rows,
+    both the same when run twice. Folded chunks of C = bq/2 rows under 4
+    heads, so a query block spans two heads and its positions are not
+    contiguous along its rows; row 0's chunk starts at position 0, row
+    1 ends in sentinel rows, row 3 is all sentinels (zeros); survivors
+    above a block's rows and invalid slots in the tables."""
+    from repro_torch.kernels import mpmrf_prefill as pk
+
+    bh, n_kb, budget, heads = 4, 10, 5, 4
+    chunk = bq // 2
+    gen, k, v, kp, vp, table = _twin_gathers(cuda, d, bk, bh, n_kb,
+                                             seed=d + bq + bk)
+    n_k = n_kb * bk
+    n_q = heads * chunk
+    n_qb = n_q // bq
+    off = torch.randint(0, n_k - chunk + 1, (bh, 1), generator=gen,
+                        device=cuda)
+    off[0] = 0
+    pos = off + torch.arange(chunk, device=cuda)
+    pos[1, -5:] = n_k
+    pos[3] = n_k
+    qpos = pos.repeat(1, heads).to(torch.int32)            # row (h, c) → c
+    q = torch.randn((bh, n_q, d), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    idx = torch.randint(0, n_kb, (bh, n_qb, budget), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    val = (torch.rand((bh, n_qb, budget), generator=gen, device=cuda)
+           < 0.75).to(torch.int32)
+    # the block of each query block's last live position, and block 0
+    last = torch.where(qpos < n_k, qpos, -1).reshape(bh, n_qb, bq).amax(-1)
+    idx[..., 0], val[..., 0] = (last.clamp(min=0) // bk).to(torch.int32), 1
+    idx[..., 1], val[..., 1] = 0, 1
+    kw = dict(query_block=bq, key_block=bk)
+    args = (q, qpos, k, v, idx, val)
+    out = pk.prefill_gather_attention(*args, **kw)
+    ref = pk.prefill_gather_attention_plain(*args, **kw)
+    assert gather_within_tolerance(out.float(), ref.float())
+    early = (qpos < 32).nonzero(as_tuple=True)
+    assert gather_within_tolerance(out[early].float(), ref[early].float())
+    assert not out[1].reshape(heads, chunk, d)[:, -5:].any()
+    assert not out[3].any()
+    paged = pk.paged_prefill_gather_attention(q, qpos, kp, vp, idx, val,
+                                              table, **kw)
+    assert torch.equal(out, paged)
+    assert torch.equal(out, pk.prefill_gather_attention(*args, **kw))
+    assert torch.equal(paged, pk.paged_prefill_gather_attention(
+        q, qpos, kp, vp, idx, val, table, **kw))
+
+
+def test_dense_decode_paged_equals_unpaged(cuda):
+    """The prefix layers' dense decode over the paged view and over the
+    contiguous cache, same rows, at the serving path's shape (8 slots × 8
+    KV heads × 4096 rows, G 5, d 128): bit for bit. With the view a
+    permuted one, cuBLAS summed in another order (in the last bits), and
+    the paged and unpaged engines' greedy streams could part."""
+    paged, unpaged, k_log, k = dense_decode_twins(
+        cuda, batch=8, heads=8, g=5, d=128, ps=64, mb=64)
+    assert k_log.is_contiguous() and torch.equal(k_log, k)
+    assert torch.equal(paged, unpaged)

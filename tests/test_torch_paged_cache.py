@@ -1,17 +1,20 @@
 """The port's page pool against the reference's: the allocator (a copy)
 must make the same placement decisions on the same operation sequence,
-and the device helpers must move the same rows."""
+and the device helpers must move the same rows — into the contiguous
+cache's layout, so that the paged and unpaged dense decode agree bit
+for bit."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.models import LMModel as JaxLMModel
 from repro.runtime import paged_cache as jpgc
 from repro_torch.configs.registry import get_serve_config
 from repro_torch.models import LMModel
 from repro_torch.runtime import paged_cache as tpgc
-from tests._torch_port import jax_model_config, n, t
+from tests._torch_port import dense_decode_twins, jax_model_config, n, t
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -93,3 +96,14 @@ def test_reset_and_clone_pages_match_reference():
                                       err_msg=k)
     assert tpgc.attention_cache_bytes(cache) == \
         jpgc.attention_cache_bytes(jcache)
+
+
+def test_logical_rows_are_laid_out_as_the_contiguous_cache():
+    """The paged view of the pool is a contiguous ``[B, KV, n, d]`` copy
+    equal to the contiguous cache it spells, and the dense decode of the
+    prefix layers gives the same bits on both layouts (a permuted view
+    made cuBLAS sum in another order on the card: the two engines'
+    streams could part)."""
+    paged, unpaged, k_log, k = dense_decode_twins("cpu")
+    assert k_log.is_contiguous() and torch.equal(k_log, k)
+    assert torch.equal(paged, unpaged)
