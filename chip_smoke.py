@@ -6,10 +6,12 @@ cuts qwen3-14b's depth, never its width). Phases:
 
 1. The card's name and power limit, torch/CUDA versions, and the
    ``nvcc`` build of every kernel from ``src/repro_torch/kernels/csrc``
-   (the tile-engine sources always rebuilt): the registers and spill
-   bytes ``ptxas`` reports for each instantiation of the kernels on the
-   tile engine of ``flash_common.cuh`` (B2/B6 and B4/B8 per head dim and
-   layout, B10, B11), and a failure on any spill at d 128.
+   (always rebuilt): the registers and spill bytes ``ptxas`` reports for
+   each instantiation of the kernels on the tile engine of
+   ``flash_common.cuh`` (B2/B6 and B4/B8 per head dim and layout, B10,
+   B11) and on the integer filter engine of ``filter_engine.cuh`` (B3/B7
+   per head dim, product path and layout, B9 per head dim and product
+   path), and a failure on any spill at d 128.
 2. Each kernel of the serving path (B1–B4) at the path's shapes on
    random inputs, held against its plain PyTorch version on the card:
    filter scores (B1, B3) and the selection made from them must be
@@ -20,9 +22,12 @@ cuts qwen3-14b's depth, never its width). Phases:
    B4 also on the rows of a sequence's first chunk (positions < 32)
    alone. Then each kernel, its plain version and one PyTorch call
    computing the same function where one exists (SDPA over the gathered
-   survivors, timed only) are timed with CUDA events; the gathers
-   rebuilt on the tile engine (B2, B4, B6, B8) print their previous
-   design's time beside.
+   survivors, timed only) are timed with CUDA events; the kernels
+   redesigned since the first port (the gathers B2, B4, B6, B8 on the
+   tile engine, the filters B3, B7, B9 on the filter engine) print their
+   previous design's time and their device time beside (the event
+   span of calls queued behind a spin on the device), and a profiler
+   trace's device items of the same calls (``[trace:…]``).
 3. A small reference check: the serve-smoke model in bf16, prefill and
    decode logits with the kernels against the same model with the
    plain versions swapped in, on the same card (only layer 2 is sparse
@@ -37,14 +42,16 @@ cuts qwen3-14b's depth, never its width). Phases:
    system prompt, 32 greedy tokens each, 8 slots, max_len 4096,
    prefill chunk 128. Launch counts are zeroed just before this run and
    read just after; every kernel must have launched, every request
-   drained and every logit been finite. The same requests are served
-   again (now hitting the prefix cache) and must give the same streams.
+   drained and every logit been finite; the streams' sha1 is printed,
+   to compare two trees' runs. The same requests are served again (now
+   hitting the prefix cache) and must give the same streams.
 5. The kernels again, compared and timed on the live pool of a sparse
    layer after serving.
 6. One more drain of fresh prompts on the same engine under
    ``torch.profiler``: the share of the wall time the device was busy,
    the largest device items and each of the port's kernels' device
-   time and calls (``[profile] the port's kernels``).
+   time and calls (``[profile] the port's kernels``: B1–B4, B3 among
+   them).
 
 Then the contiguous (unpaged) cache, on the same model object and
 weights, once the paged engine is released:
@@ -90,9 +97,11 @@ model object and weights, once the serving engines are released:
 12. ``LMModel.loss`` over 4 sequences of 2048 tokens at full width,
     launch counts zeroed just before and read just after: B9 and B10
     once per sparse layer (layers 2–39), B11 and B1–B8 never; the loss
-    and every logit of a following ``apply`` finite. Wall time, tokens/s
-    and peak device memory are printed; one more ``loss`` call under
-    ``torch.profiler`` gives its device time by kernel and idle share.
+    (printed exactly, so that two trees' runs compare) and every logit
+    of a following ``apply`` finite. Wall time, tokens/s and peak device
+    memory are printed; one more ``loss`` call under ``torch.profiler``
+    gives its device time by kernel (B9's and B10's among them) and idle
+    share.
 13. Phase 10's checks and times again on the q/k/v that layer 2 handed
     the kernels in phase 12, and the sparse pair (B9 + selection + B10)
     timed against B11 on them (a measurement, not a claimed speedup).
@@ -176,16 +185,21 @@ KERNELS = {
         id="B11", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:82"),
 }
-#: the times (ms) of the gathers' previous design (one block per bh row
-#: or query block, on CUDA cores; PERF.md §6, NVIDIA H100 80GB HBM3,
-#: 700 W) on the same kinds of operands: phase 2's / 7's random case, the
-#: live pool (B2, B4) or the captured layer (B6, B8). They are quoted,
-#: not measured, so only the ``[time:…]`` text carries them.
+#: the times (ms) of the redesigned kernels' previous design (PERF.md §6,
+#: NVIDIA H100 80GB HBM3, 700 W) on the same kinds of operands: phase 2's
+#: / 7's / 10's random case, the live pool (B2–B4) or the captured layer
+#: (B6–B9): the gathers' one block per bh row or query block on CUDA
+#: cores, the filters' one block per tile with __dp4a on CUDA cores.
+#: They are quoted, not measured, so only the ``[time:…]`` text carries
+#: them.
 EARLIER_MS = {
     "paged_decode_gather_attention": dict(random=0.2269, live=0.1247),
+    "mpmrf_paged_prefill_filter_scores": dict(random=0.4783, live=0.7026),
     "paged_prefill_gather_attention": dict(random=0.7455, live=0.3974),
     "decode_gather_attention": dict(random=0.2386, captured=0.1377),
+    "mpmrf_prefill_filter_scores": dict(random=0.6904, captured=0.7043),
     "prefill_gather_attention": dict(random=1.2027, captured=1.1732),
+    "mpmrf_filter_scores": dict(random=1.9638, captured=1.9612),
 }
 #: the kernels' device-side names: body → (paged, contiguous) wrapper, or
 #: its one wrapper
@@ -335,29 +349,57 @@ def make_case(q_dec, cl, q_pre, qpos, k_pool, v_pool, codes, scales, table,
 
 
 def device_ms(fn, iters=20):
-    """Device time of one call of ``fn`` (ms): every kernel and copy it
-    launches, summed from a ``torch.profiler`` trace of ``iters`` calls
-    (warm). Beside ``time_ms``, whose CUDA-event span of back-to-back
-    calls is the host's enqueue time where that exceeds the device's.
-    None off the card."""
+    """Device time of one call of ``fn`` (ms): the CUDA-event span of
+    ``iters`` calls enqueued behind a spin on the device
+    (``torch.cuda._sleep``), over ``iters``. The device then runs the
+    calls back to back whatever the host's pace; the spin grows until
+    the host has enqueued every call before it ends. Beside
+    ``time_ms``, whose span of back-to-back calls is the host's enqueue
+    time where that exceeds the device's. None off the card."""
     if DEV != "cuda":
         return None
+    import torch
+
+    fn()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 1 << 24                     # ~9 ms at the H100's clock
+    for _ in range(5):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()        # the spin still runs
+        sync()
+        if ahead:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    raise SmokeFailure("the host did not enqueue the calls within the "
+                       "device's spin")
+
+
+def trace_items(fn, iters=20):
+    """The device items of a ``torch.profiler`` trace of ``iters`` calls
+    of ``fn`` (warm): {name: (count, total µs)}, to show what the
+    profiler records beside ``device_ms``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     sync()
-    for _ in range(3):       # a trace now and then comes back empty
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-                     ) as prof:
-            for _ in range(iters):
-                fn()
-            sync()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / iters
-    raise SmokeFailure("the profiler saw no device time")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        for _ in range(iters):
+            fn()
+        sync()
+    items = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = items.get(e.name, (0, 0.0))
+            items[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return items
 
 
 def row_blocks(idx, n_kb):
@@ -402,12 +444,21 @@ def time_kernels(label, entries, rows, *, iters=20, plain_iters=5):
                    else f"{r['library_ms']:.4f}")
         was = EARLIER_MS.get(name, {}).get(label.split("-")[0])
         was_txt = ""
-        if was is not None and DEV == "cuda":   # a redesigned gather
+        if was is not None and DEV == "cuda":   # a redesigned kernel
             r["device_ms"] = device_ms(fn)
-            r["library_device_ms"] = device_ms(lib)
             was_txt = (f", before the redesign {was:.4f}; device "
-                       f"{r['device_ms']:.4f}, "
-                       f"library device {r['library_device_ms']:.4f}")
+                       f"{r['device_ms']:.4f}")
+            calls = 20
+            items = trace_items(fn, calls)
+            log(f"[trace:{label}] {KERNELS[name]['id']}: a profiler trace "
+                f"of {calls} calls holds " + ", ".join(
+                    f"{k[:48]} x{n} ({us / n:.1f} us each)"
+                    for k, (n, us) in items.items())
+                + f"; its device time over {calls} calls "
+                f"{sum(us for _, us in items.values()) / calls / 1e3:.4f} ms")
+            if lib is not None:
+                r["library_device_ms"] = device_ms(lib)
+                was_txt += f", library device {r['library_device_ms']:.4f}"
         log(f"[time:{label}] {KERNELS[name]['id']} {name}: "
             f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
             f"{lib_txt}, bound {r['bound_ms']:.4f} by {r['bound_by']}"
@@ -928,6 +979,8 @@ def serve_full_width(cfg, *, seed=0, n_req=8, prompt_len=2048,
     for name in UNPAGED_KERNELS + SCORE_KERNELS:
         need(launches[name] == 0, f"{name} launched on the paged path")
     streams1 = {r.uid: list(r.tokens_out) for r in done}
+    log(f"[serve] run 1 greedy streams, sha1 (to compare two trees' "
+        f"runs): {streams_digest(streams1)}")
 
     pf_tok, pf_time = m.prefill_tokens, m.prefill_time
     done2, wall2 = drive(100)
@@ -940,6 +993,14 @@ def serve_full_width(cfg, *, seed=0, n_req=8, prompt_len=2048,
     need(streams1 == streams2, "run 2 streams differ from run 1")
     need(m.prefix_hits > 0, "run 2 never hit the prefix cache")
     return engine, prompts, run1, launches, streams1
+
+
+def streams_digest(streams):
+    """sha1 of a run's greedy streams ({uid: tokens})."""
+    import hashlib
+
+    text = json.dumps({str(k): v for k, v in sorted(streams.items())})
+    return hashlib.sha1(text.encode()).hexdigest()
 
 
 def live_pool_case(engine, prompts, layer):
@@ -1042,7 +1103,7 @@ def device_split(prof, wall, top=12):
     items = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:top]
     port = {}
     for name, (calls, us) in per_kernel.items():
-        m = re.match(r"void (\w+)<\d+(, (true|false))?>", name)
+        m = re.match(r"void (\w+)<\d+(?:, \d+)?(, (true|false))?>", name)
         if m and m.group(1) in DEVICE_NAMES:
             wrappers = DEVICE_NAMES[m.group(1)]
             wrapper = wrappers[0 if m.group(3) != "false" else 1]
@@ -1592,7 +1653,8 @@ def score_full_width(model, params, *, n_seq=4, seq_len=2048, seed=5):
     tokens = n_seq * seq_len
     log(f"[score] {cfg.name} LMModel.loss over {n_seq} × {seq_len} tokens "
         f"({cfg.num_layers} layers, impl {cfg.energon.impl!r}): loss "
-        f"{float(loss):.4f} in {wall:.3f} s ({tokens / wall:.1f} tok/s), "
+        f"{float(loss):.4f} (exactly {float(loss)!r}) in {wall:.3f} s "
+        f"({tokens / wall:.1f} tok/s), "
         f"peak device memory {peak} GB")
     log(f"[score] kernel launches: {json.dumps(launches)}")
     need(bool(torch.isfinite(loss)), f"non-finite loss {float(loss)}")
@@ -1708,27 +1770,33 @@ def grad_check(*, bh=8, n=512, d=128, bq=128, bk=64, budget=2):
         + " / ".join(f"{e:.3e}" for e in errs))
 
 
-#: the sources of the tile-engine kernels, always rebuilt so that nvcc's
-#: -Xptxas -v report covers every instantiation
-ENGINE_SOURCES = ("mpmrf_decode", "mpmrf_prefill", "block_sparse_attention",
-                  "flash_attention")
-#: the tile-engine kernels and their instantiations: (head dims, layouts)
+#: the sources of the tile-engine and filter-engine kernels, always
+#: rebuilt so that nvcc's -Xptxas -v report covers every instantiation
+ENGINE_SOURCES = ("mpmrf_decode", "mpmrf_prefill", "mpmrf_filter",
+                  "block_sparse_attention", "flash_attention")
+#: the engines' kernels and their instantiation counts: head dims ×
+#: (tile engine) layouts, or (filter engine) product paths — wgmma or
+#: mma.sync at d 128, mma.sync below — × layouts
 ENGINE_KERNELS = {
-    "decode_split_kernel": "B2/B6",
-    "prefill_gather_kernel": "B4/B8",
-    "block_sparse_attention_kernel": "B10",
-    "flash_attention_kernel": "B11",
+    "decode_split_kernel": ("B2/B6", 4 * 2),
+    "prefill_gather_kernel": ("B4/B8", 4 * 2),
+    "block_sparse_attention_kernel": ("B10", 4),
+    "flash_attention_kernel": ("B11", 4),
+    "prefill_filter_kernel": ("B3/B7", (3 + 2) * 2),
+    "filter_scores_kernel": ("B9", 3 + 2),
 }
 
 
 def engine_ptxas():
-    """Registers and spill bytes of each tile-engine instantiation (B2/B6,
-    B4/B8 per head dim and layout, B10, B11 per head dim) from nvcc's
-    ``-Xptxas -v`` report; fails on any spill at d 128, the model
-    paths' head dim."""
+    """Registers and spill bytes of each instantiation of the tile engine
+    (B2/B6, B4/B8 per head dim and layout, B10, B11 per head dim) and of
+    the filter engine (B3/B7 per head dim, product path and layout, B9
+    per head dim and product path) from nvcc's ``-Xptxas -v`` report;
+    fails on any spill at d 128, the model paths' head dim."""
     from repro_torch.kernels import _build
 
-    pat = re.compile(r"Compiling entry function '_Z\d+(\w+?)ILi(\d+)E(Lb([01])E)?")
+    pat = re.compile(r"Compiling entry function "
+                     r"'_Z\d+(\w+?)ILi(\d+)E(?:Li(\d+)E)?(Lb([01])E)?")
     out = {}
     for name in ENGINE_SOURCES:
         report = _build.build_info["ptxas"].get(name, "")
@@ -1736,11 +1804,12 @@ def engine_ptxas():
         for line in report.splitlines():
             m = pat.search(line)
             if m and m.group(1) in ENGINE_KERNELS:
+                mt = "" if m.group(3) is None else f", {m.group(3)}"
                 layout = {None: "", "1": ", paged", "0": ", contiguous"}[
-                    m.group(4)]
-                kernel = f"{m.group(1)}<{m.group(2)}{layout}>"
+                    m.group(5)]
+                kernel = f"{m.group(1)}<{m.group(2)}{mt}{layout}>"
                 out[kernel] = dict(d=int(m.group(2)),
-                                   kernel=ENGINE_KERNELS[m.group(1)])
+                                   kernel=ENGINE_KERNELS[m.group(1)][0])
             elif "Compiling entry function" in line:
                 kernel = None
             elif kernel and "spill stores" in line:
@@ -1749,9 +1818,11 @@ def engine_ptxas():
             elif kernel and "Used" in line and "registers" in line:
                 out[kernel]["registers"] = int(
                     re.search(r"Used (\d+) registers", line).group(1))
-    need(len(out) == 4 * (2 + 2 + 1 + 1),
-         f"ptxas reported {sorted(out)}, not B2/B6 and B4/B8 (paged and "
-         f"contiguous), B10 and B11 at d 16, 32, 64 and 128")
+    want = sum(count for _, count in ENGINE_KERNELS.values())
+    need(len(out) == want,
+         f"ptxas reported {sorted(out)}, not the {want} instantiations of "
+         f"B2/B6, B4/B8, B3/B7 (paged and contiguous), B9, B10 and B11 at "
+         f"d 16, 32, 64 and 128")
     for kernel, r in sorted(out.items()):
         log(f"[ptxas] {r['kernel']} {kernel}: {r.get('registers')} "
             f"registers, spill stores {r.get('spill_stores')} B, loads "

@@ -1,0 +1,693 @@
+// The integer filter engine shared by the full-query-block MP-MRF filter
+// kernels of the port: B3 (paged prefill), B7 (contiguous prefill) and
+// B9 (full sequence, precomputed planes). Each output is the max, over a
+// bq × bk tile of (query row, key) pairs, of both filter rounds' scores
+//     s_r = (f32(acc_r) · qs_row) · ks_key        (round to nearest)
+// with acc_r an exact int32 dot of int8 bit planes, pairs the mask
+// forbids counted as NEG_INF. The three kernels are one body under three
+// policies (Kind): where a row's position and scale come from, where a
+// key tile's planes come from, and what its key scale is.
+//
+// - Blocks: one block owns a (bh row, query block) pair, or one run of
+//   it: the query block's visible key blocks (those at or below its
+//   largest live position) are cut into min(S, T) contiguous runs of
+//   equal length, S fixed per launch so that the launch makes about four
+//   blocks per SM (filter_runs). Each output (qb, j) is written by
+//   exactly one block: the block whose run holds j, or, for a key block
+//   above every row, block (j − T) mod S, which writes NEG_INF without
+//   reading anything.
+//   Query blocks go in reverse order; B3/B7 run a bh row's query blocks
+//   together (they read the same pages, which then come from L2), B9
+//   every row's last query block first (the longest causal triangles).
+// - Keys: a cp.async ring in shared memory. B9 streams its k_msb and
+//   k_rem rows straight into 128-byte-swizzled plane tiles (three
+//   stages). B3/B7 stream the int16 codes (two stages) and derive both
+//   int8 planes once per block, one tile ahead of the products:
+//   msb = code >> (16 − lo) and hi = code >> (16 − hi), four lanes to a
+//   word, from the codes' high bytes by a packed arithmetic shift.
+// - Products on the int8 tensor cores, s8 × s8 → s32, two per key tile
+//   with the same query operand. B3/B7 multiply q by msb and by the hi
+//   plane: acc1 = (acc0 << (hi − lo)) + q·remᵀ = q·(msb·2^(hi−lo) +
+//   rem)ᵀ = q·hiᵀ, exactly; every operand fits int8 for
+//   1 ≤ lo < hi ≤ 8. B9 multiplies its given planes:
+//   acc1 = acc0·2^shift + q·remᵀ. Two paths (product_path):
+//   * wgmma (d 128, query and key blocks of multiples of 64): a
+//     warpgroup per 64 query rows issues m64n64k32 with the query stage
+//     and the key planes read from shared memory by descriptor, the
+//     query stage kept for the block's whole life;
+//   * mma.sync (every other shape): one warp per 16 query rows, the
+//     query plane held as A fragments in registers for the block's whole
+//     life, the key planes by ldmatrix; m16n8k32, or m16n8k16 at d 16.
+// - Epilogue, per key tile in registers. The rescale is a chain of
+//   round-to-nearest products by positive finite factors, so it is
+//   monotone in acc: the max of the scores is the score of the largest
+//   acc. Each thread keeps, per row, the largest acc among its valid
+//   pairs (an int32 max: Hopper's three-way DPX max on a tile wholly
+//   visible to the warp's rows, masked pairs skipped elsewhere) and
+//   rescales it once in the reference's association; a tile whose key
+//   scales differ (B7 across scale groups: seen while its planes are
+//   derived, ORed over the block at the next barrier) or a row whose
+//   factors are not positive and finite takes the per-pair rescale. Then the max over the thread's
+//   rows, over the warp by shuffles, and across warps through shared
+//   memory: warp 0 writes (s0, s1) of tile t while tile t + 1 computes.
+//   As in the reference (and the plain versions), the result is bit for
+//   bit the max of the scores, NEG_INF where no pair is valid.
+#pragma once
+
+#include <climits>
+
+#include "flash_common.cuh"
+
+namespace filt {
+
+enum class Kind { kPagedPrefill, kPrefill, kFull };
+
+constexpr int CODE_STAGES = 2;   // B3/B7: int16 code tiles in flight
+constexpr int PLANE_STAGES = 3;  // B9: int8 plane tiles in flight
+constexpr int MAX_WARPS = 8;     // query blocks of at most 128 rows
+
+// Everything a launch passes; unused fields are 0 for a kind.
+struct Args {
+  const void* q_plane;       // int32 (B3/B7) or int8 (B9) [bh, n_q, d]
+  const float* q_scale;      // [bh, n_q]
+  const int32_t* q_pos;      // B3/B7 [bh, n_q]
+  const void* k0;            // B3/B7 int16 codes; B9 int8 k_msb
+  const int8_t* k_rem;       // B9
+  const float* k_scale;      // B3 [pages] (per page); B7 [bh, n_k] (per row)
+  const int32_t* table;      // B3 [bh, mb]
+  float* s0;
+  float* s1;
+  int n_q, bq, bk, n_kb, runs;  // runs: S, the key runs per query block
+  int lo, hi;                // B3/B7 plane widths
+  int shift, causal, q_offset;  // B9
+};
+
+// Offset, in bytes, of 16-byte chunk c of row r of an int8 tile of
+// `rows` rows of D bytes: the tile engine's swizzle of the same bytes.
+template <int D>
+__device__ __forceinline__ int off(int rows, int r, int c) {
+  return flash::swz<D / 2>(rows, r, c) * 16;
+}
+
+__device__ __forceinline__ void mma_k32(int* c, const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_k16(int* c, const uint32_t (&a)[4],
+                                        uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b0));
+}
+
+// Arithmetic right shift by s (0..7) of each of the four int8 lanes of
+// h: the logical shift masked to the lane, then the lane's sign bit
+// (bit 7 − s) spread over the vacated bits by one multiply, which no
+// lane carries out of (2^(7−s) · (2^(s+1) − 2) < 256).
+struct LaneShift {
+  int s;
+  uint32_t mask, sign, fill;
+  __device__ __forceinline__ explicit LaneShift(int s_) : s(s_) {
+    mask = 0x01010101u * (0xFFu >> s);
+    sign = 0x01010101u * (0x80u >> s);
+    fill = (2u << s) - 2u;
+  }
+  __device__ __forceinline__ uint32_t operator()(uint32_t h) const {
+    const uint32_t u = (h >> s) & mask;
+    return u | ((u & sign) * fill);
+  }
+};
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ bool positive_finite(float x) {
+  return x > 0.f && x <= 3.40282347e38f;  // NaN fails both
+}
+
+// Runs of the query block's T visible key blocks: run s of min(S, T).
+__device__ __forceinline__ void key_run(int T, int S, int s, int& j0,
+                                        int& j1) {
+  const int n = min(S, T);
+  j0 = s < n ? s * T / n : 0;
+  j1 = s < n ? (s + 1) * T / n : 0;
+}
+
+// The launch's S: enough runs per query block that the launch makes
+// about four blocks per SM, at most one per key block.
+inline int filter_runs(int pairs, int n_kb, int sms) {
+  const int want = (4 * sms + pairs - 1) / pairs;
+  return max(1, min(n_kb, want));
+}
+
+// SMs of the current device, read once per device.
+inline int sm_count() {
+  static int cached[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < 64 && cached[dev] > 0) return cached[dev];
+  int n = 132;
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  if (dev >= 0 && dev < 64) cached[dev] = n;
+  return n;
+}
+
+// The product path of a launch, as the kernels' MT template argument:
+// 0 = wgmma, one warpgroup per 64 query rows (d 128, query and key
+// blocks of multiples of 64); 1 = mma.sync, one 16-row m-tile per warp.
+inline int product_path(int d, int bq, int bk) {
+  return d == 128 && bq % 64 == 0 && bk % 64 == 0 ? 0 : 1;
+}
+
+// On mma.sync the query stage is needed only until its A fragments are
+// loaded, so it lives in the last (msb, hi) plane region — B3/B7's
+// second plane buffer, B9's third ring stage — when it fits there. wgmma
+// reads it from shared memory at every tile.
+__host__ __device__ inline bool q_in_planes(int mt, int bq, int bk) {
+  return mt > 0 && bq <= 2 * bk;
+}
+
+// Dynamic shared memory of one block: the query stage where it does not
+// sit in the planes, the plane tiles (B3/B7: two buffers of derived
+// planes; B9: the ring), (B3/B7) the code ring and the planes' key
+// scales, then the cross-warp maxima and the warps' largest positions.
+// Every plane tile and the query stage start on a 1024-byte boundary.
+inline size_t smem_bytes(Kind kind, int mt, int d, int bq, int bk) {
+  size_t planes = kind == Kind::kFull
+                      ? (size_t)PLANE_STAGES * 2 * bk * d
+                      : (size_t)2 * 2 * bk * d +
+                            (size_t)CODE_STAGES * (bk * 2 * d + bk * 4) +
+                            2 * bk * 4;
+  return (q_in_planes(mt, bq, bk) ? 0 : (size_t)bq * d) + planes +
+         sizeof(float) * 2 * MAX_WARPS * 2 + sizeof(int) * MAX_WARPS;
+}
+
+#define FILT_OUT32(d)                                                        \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),   \
+      "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]),          \
+      "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),      \
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),      \
+      "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),      \
+      "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),      \
+      "+r"(d[31])
+
+// d (64 × 64, s32) = [d +] A · Bᵀ, s8 A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_s8(int* d, uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " FLASH_D32
+      ", %32, %33, p;\n}\n"
+      : FILT_OUT32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// Waits for all but the last committed group of wgmma products.
+__device__ __forceinline__ void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// Pins accumulator registers in place across an asynchronous product.
+template <int N>
+__device__ __forceinline__ void pin(int* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int D, int MT, Kind K>
+__device__ __forceinline__ void filter_block(const Args& a) {
+  constexpr bool kCodes = K != Kind::kFull;
+  constexpr bool kGroup = MT == 0;          // wgmma (see product_path)
+  constexpr int KS = D >= 32 ? D / 32 : 1;  // k-steps of 32 bytes over d
+  constexpr int C = D / 16;                 // 16-byte chunks per plane row
+  constexpr int ROWS = 2;                   // query rows per thread
+  constexpr int RW = 16;                    // query rows per warp
+  const int warps = blockDim.x >> 5, nthr = blockDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int bq = a.bq, bk = a.bk, n_kb = a.n_kb, n_k = n_kb * bk;
+  // B3/B7: x = (query block, run), the run fastest, y = the bh row, so
+  // the query blocks that read one row's pages run together; B9: x = the
+  // run, y = the bh row, z = the query block, so the longest causal
+  // triangles of every row start first. Query blocks in reverse order.
+  int s, b, qb, n_qb;
+  if constexpr (kCodes) {
+    const int x = gridDim.x - 1 - blockIdx.x;
+    n_qb = gridDim.x / a.runs;
+    qb = x / a.runs;
+    s = x % a.runs;
+  } else {
+    n_qb = gridDim.z;
+    qb = n_qb - 1 - blockIdx.z;
+    s = blockIdx.x;
+  }
+  b = blockIdx.y;
+  const size_t row0 = (size_t)b * a.n_q + (size_t)qb * bq;
+  const size_t out0 = ((size_t)b * n_qb + qb) * n_kb;
+
+  // --- shared memory ------------------------------------------------------
+  uint8_t* base = reinterpret_cast<uint8_t*>(flash::smem_base());
+  const bool q_alias = q_in_planes(MT, bq, bk);
+  const int plane_tile = bk * D;
+  const int code_stage = bk * 2 * D + bk * 4;       // B3/B7: codes, scales
+  // B3/B7: [2][msb, hi] derived planes; B9: the ring of [msb, rem] stages
+  uint8_t* planes = base + (q_alias ? 0 : bq * D);
+  uint8_t* ring = kCodes ? planes + 2 * 2 * plane_tile : planes;
+  float* pscale = reinterpret_cast<float*>(ring + CODE_STAGES * code_stage);
+  float* red = kCodes ? pscale + 2 * bk
+                      : reinterpret_cast<float*>(
+                            planes + PLANE_STAGES * 2 * plane_tile);
+  int* wmax = reinterpret_cast<int*>(red + 2 * MAX_WARPS * 2);
+  uint8_t* qs_tile = !q_alias ? base                // [bq][D] int8, swizzled
+                     : kCodes ? planes + 2 * plane_tile
+                              : planes + 2 * 2 * plane_tile;
+
+  // --- this thread's rows: positions (−1: dead) and scale factors -----------
+  int pos[ROWS];
+  float qsf[ROWS];
+  bool rows_ok = true;
+  const float q_factor = kCodes ? (float)(1 << (16 - a.hi)) : 1.f;
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const int r = warp * RW + g + 8 * k;
+    if constexpr (kCodes) {
+      const int p = a.q_pos[row0 + r];
+      pos[k] = p < n_k ? p : -1;
+      qsf[k] = __fmul_rn(a.q_scale[row0 + r], q_factor);
+    } else {
+      pos[k] = a.causal ? a.q_offset + qb * bq + r : INT_MAX;
+      qsf[k] = a.q_scale[row0 + r];
+    }
+    rows_ok &= pos[k] < 0 || positive_finite(qsf[k]);
+  }
+  int wmin = pos[0], wmx = pos[0];
+#pragma unroll
+  for (int k = 1; k < ROWS; ++k) {
+    wmin = min(wmin, pos[k]);
+    wmx = max(wmx, pos[k]);
+  }
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) {
+    wmin = min(wmin, __shfl_xor_sync(0xffffffffu, wmin, o));
+    wmx = max(wmx, __shfl_xor_sync(0xffffffffu, wmx, o));
+  }
+  if (lane == 0) wmax[warp] = wmx;
+  __syncthreads();
+  int bmax = wmax[0];
+  for (int w = 1; w < warps; ++w) bmax = max(bmax, wmax[w]);
+  // the largest position of the warp's warpgroup: wgmma is issued by
+  // its four warps together
+  const int gmx = kGroup ? max(max(wmax[warp & ~3], wmax[(warp & ~3) + 1]),
+                               max(wmax[(warp & ~3) + 2],
+                                   wmax[(warp & ~3) + 3]))
+                         : wmx;
+
+  // --- the query block's visible key blocks, this block's run of them -------
+  const int T = bmax < 0 ? 0 : min(n_kb, bmax / bk + 1);
+  for (int j = T + s + tid * a.runs; j < n_kb; j += nthr * a.runs) {
+    a.s0[out0 + j] = MPMRF_NEG_INF;  // above every row of the block
+    a.s1[out0 + j] = MPMRF_NEG_INF;
+  }
+  int j0, j1;
+  key_run(T, a.runs, s, j0, j1);
+  const int n = j1 - j0;
+  if (n <= 0) return;
+
+  // --- staging ----------------------------------------------------------------
+  if constexpr (kCodes) {  // the int32 plane narrowed to int8 on load
+    const int32_t* q = static_cast<const int32_t*>(a.q_plane) + row0 * D;
+#pragma unroll 2
+    for (int i = tid; i < bq * C; i += nthr) {
+      const int r = i / C, c = i % C;
+      const int4* src = reinterpret_cast<const int4*>(q + r * D + 16 * c);
+      uint32_t w[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int4 v = src[u];
+        w[u] = __byte_perm(__byte_perm(v.x, v.y, 0x0040),
+                           __byte_perm(v.z, v.w, 0x0040), 0x5410);
+      }
+      *reinterpret_cast<uint4*>(qs_tile + off<D>(bq, r, c)) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    flash::fence_async_smem();
+  } else {                 // int8 already: copied with the first tile
+    const int8_t* q = static_cast<const int8_t*>(a.q_plane) + row0 * D;
+    for (int i = tid; i < bq * C; i += nthr) {
+      const int r = i / C, c = i % C;
+      flash::cp_async16(flash::smem_u32(qs_tile + off<D>(bq, r, c)),
+                        q + r * D + 16 * c, true);
+    }
+  }
+
+  // tile t's sources into its ring stage. B3/B7 read the block id of
+  // tile t + 1 here (B3: from the table), so that its load is not waited
+  // for until the next call, an iteration later.
+  const auto block_id = [&](int t) {
+    return mpmrf::block_of<K == Kind::kPagedPrefill>(a.table, b, j0 + t,
+                                                     n_kb);
+  };
+  int next_blk = kCodes ? block_id(0) : 0;
+  const auto issue = [&](int t) {
+    if (t < n) {
+      if constexpr (kCodes) {
+        const int blk = next_blk;
+        if (t + 1 < n) next_blk = block_id(t + 1);
+        const uint8_t* src =
+            static_cast<const uint8_t*>(a.k0) + (size_t)blk * bk * 2 * D;
+        uint8_t* dst = ring + (t % CODE_STAGES) * code_stage;
+        for (int i = tid; i < bk * D / 8; i += nthr)
+          flash::cp_async16(flash::smem_u32(dst + 16 * i), src + 16 * i,
+                            true);
+        if constexpr (K == Kind::kPrefill) {  // the tile's row scales
+          const float* ks = a.k_scale + (size_t)blk * bk;
+          for (int i = tid; i < bk / 4; i += nthr)
+            flash::cp_async16(flash::smem_u32(dst + bk * 2 * D + 16 * i),
+                              ks + 4 * i, true);
+        } else if (tid == 0) {                // the page's scale
+          cp_async4(flash::smem_u32(dst + bk * 2 * D), a.k_scale + blk);
+        }
+      } else {
+        const size_t krow = ((size_t)b * n_k + (size_t)(j0 + t) * bk) * D;
+        const int8_t* msb = static_cast<const int8_t*>(a.k0) + krow;
+        const int8_t* rem = a.k_rem + krow;
+        uint8_t* dst = ring + (t % PLANE_STAGES) * 2 * plane_tile;
+        for (int i = tid; i < bk * C; i += nthr) {
+          const int r = i / C, c = i % C;
+          const int o = off<D>(bk, r, c);
+          flash::cp_async16(flash::smem_u32(dst + o), msb + r * D + 16 * c,
+                            true);
+          flash::cp_async16(flash::smem_u32(dst + plane_tile + o),
+                            rem + r * D + 16 * c, true);
+        }
+      }
+    }
+    flash::cp_commit();
+  };
+
+  // B3/B7: tile t's codes (ring stage t mod 2) → its two int8 planes and
+  // key scales (buffer t mod 2). Returns, for B7, whether this thread saw
+  // a key-row scale differ from the tile's first: the next barrier ORs it
+  // over the block.
+  const auto convert = [&](int t) {
+    int differs = 0;
+    const LaneShift msb_of(8 - a.lo), hi_of(8 - a.hi);
+    const uint8_t* src = ring + (t % CODE_STAGES) * code_stage;
+    uint8_t* dst = planes + (t & 1) * 2 * plane_tile;
+    for (int i = tid; i < bk * C; i += nthr) {
+      const int r = i / C, c = i % C;
+      const int4* cp = reinterpret_cast<const int4*>(src + r * 2 * D + 32 * c);
+      const int4 x = cp[0], y = cp[1];
+      // the high bytes of the 16 codes: code >> 8, four to a word
+      const uint32_t h[4] = {__byte_perm(x.x, x.y, 0x7531),
+                             __byte_perm(x.z, x.w, 0x7531),
+                             __byte_perm(y.x, y.y, 0x7531),
+                             __byte_perm(y.z, y.w, 0x7531)};
+      const int o = off<D>(bk, r, c);
+      *reinterpret_cast<uint4*>(dst + o) =
+          make_uint4(msb_of(h[0]), msb_of(h[1]), msb_of(h[2]), msb_of(h[3]));
+      *reinterpret_cast<uint4*>(dst + plane_tile + o) =
+          make_uint4(hi_of(h[0]), hi_of(h[1]), hi_of(h[2]), hi_of(h[3]));
+    }
+    if constexpr (K == Kind::kPrefill) {
+      const int4* ks = reinterpret_cast<const int4*>(src + bk * 2 * D);
+      const int first = ks[0].x;
+      for (int i = tid; i < bk / 4; i += nthr) {
+        const int4 v = ks[i];
+        differs |= (v.x != first) | (v.y != first) | (v.z != first) |
+                   (v.w != first);
+        reinterpret_cast<int4*>(pscale + (t & 1) * bk)[i] = v;
+      }
+    } else if (tid == 0) {
+      pscale[(t & 1) * bk] =
+          *reinterpret_cast<const float*>(src + bk * 2 * D);
+    }
+    flash::fence_async_smem();  // the planes become visible to wgmma
+    return differs;
+  };
+
+  // mma.sync: the query rows as A fragments, held for the block's life
+  uint32_t qa[KS][4];
+  const auto load_q = [&]() {
+    if constexpr (!kGroup) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        flash::ldsm_x4(
+            flash::smem_u32(qs_tile +
+                            off<D>(bq, warp * RW + (lane & 15),
+                                   D >= 32 ? 2 * kk + (lane >> 4) : 0)),
+            qa[kk]);
+    }
+  };
+
+  // warp 0 folds the warps' maxima of tile t and writes its (s0, s1)
+  const auto flush = [&](int t) {
+    if (warp != 0) return;
+    const float* rr = red + (t & 1) * MAX_WARPS * 2;
+    float v0 = lane < warps ? rr[2 * lane] : MPMRF_NEG_INF;
+    float v1 = lane < warps ? rr[2 * lane + 1] : MPMRF_NEG_INF;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      v0 = fmaxf(v0, __shfl_xor_sync(0xffffffffu, v0, o));
+      v1 = fmaxf(v1, __shfl_xor_sync(0xffffffffu, v1, o));
+    }
+    if (lane == 0) {
+      a.s0[out0 + j0 + t] = v0;
+      a.s1[out0 + j0 + t] = v1;
+    }
+  };
+
+  const int shift_mul = 1 << a.shift;
+  const float k_factor0 = kCodes ? (float)(1 << (16 - a.lo)) : 1.f;
+  const float k_factor1 = q_factor;
+  // tile t: planes p0 (msb) and p0 + plane_tile (hi, or B9's remainder)
+  // (`uniform`: B7's key-row scales of the tile are all one)
+  const auto compute = [&](int t, const uint8_t* p0, bool uniform) {
+    const int kbase = (j0 + t) * bk;
+    float m0 = MPMRF_NEG_INF, m1 = MPMRF_NEG_INF;
+    float ks0 = 1.f, ks1 = 1.f;
+    // the tile's key scales: B3's page scale, B7's key-row scales
+    const float* kcol = pscale + (t & 1) * bk;
+    if constexpr (kCodes) {
+      const float ks = kcol[0];
+      ks0 = __fmul_rn(ks, k_factor0);
+      ks1 = __fmul_rn(ks, k_factor1);
+    }
+    const bool fast =
+        rows_ok && uniform && positive_finite(ks0) && positive_finite(ks1);
+    const bool masked = kbase + bk - 1 > wmin;
+    // the per-row rescale on a tile wholly visible to the warp's rows
+    const bool plain = fast && !masked;
+    int rm0[ROWS], rm1[ROWS];
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) rm0[k] = rm1[k] = INT_MIN;
+    // One 8-key fragment into the rows' maxima: f0 / f1 the two planes'
+    // accumulators (c0, c1: row 0, keys col, col + 1; c2, c3: row 1). A
+    // plain tile takes an int max, three-way (Hopper's DPX); otherwise
+    // each pair is masked, and rescaled unless `fast`.
+    const auto fold = [&](const int* f0, const int* f1, int col) {
+      int x1[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        x1[i] = K == Kind::kFull ? f0[i] * shift_mul + f1[i] : f1[i];
+      if (plain) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          rm0[h] = __vimax3_s32(rm0[h], f0[2 * h], f0[2 * h + 1]);
+          rm1[h] = __vimax3_s32(rm1[h], x1[2 * h], x1[2 * h + 1]);
+        }
+        return;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = i >> 1, c = col + 2 * tig + (i & 1);
+        if (kbase + c > pos[k]) continue;  // masked (dead rows too)
+        if (fast) {
+          rm0[k] = max(rm0[k], f0[i]);
+          rm1[k] = max(rm1[k], x1[i]);
+        } else {  // the per-pair rescale
+          float c0 = ks0, c1 = ks1;
+          if constexpr (K == Kind::kPrefill) {
+            c0 = __fmul_rn(kcol[c], k_factor0);
+            c1 = __fmul_rn(kcol[c], k_factor1);
+          }
+          m0 = fmaxf(m0, __fmul_rn(__fmul_rn((float)f0[i], qsf[k]), c0));
+          m1 = fmaxf(m1, __fmul_rn(__fmul_rn((float)x1[i], qsf[k]), c1));
+        }
+      }
+    };
+    const uint8_t* p1 = p0 + plane_tile;
+    if constexpr (kGroup) {
+      // wholly above the warpgroup's rows (a uniform branch: wgmma is
+      // issued by its four warps together)
+      if (kbase <= gmx) {
+        const uint32_t qaddr = flash::smem_u32(qs_tile + (warp >> 2) * 64 * D);
+        for (int n0 = 0; n0 < bk; n0 += 64) {
+          int d0[32], d1[32];
+#pragma unroll
+          for (int i = 0; i < 32; ++i) d0[i] = d1[i] = 0;
+          const uint32_t a0 = flash::smem_u32(p0 + n0 * D);
+          const uint32_t a1 = flash::smem_u32(p1 + n0 * D);
+          pin<32>(d0);
+          pin<32>(d1);
+          flash::wg_fence();
+          // two commit groups, so that a plain tile's msb maxima are
+          // taken while the second product runs
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk)
+            wgmma_s8(d0, flash::desc(qaddr + kk * 32),
+                     flash::desc(a0 + kk * 32), kk);
+          flash::wg_commit();
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk)
+            wgmma_s8(d1, flash::desc(qaddr + kk * 32),
+                     flash::desc(a1 + kk * 32), kk);
+          // (the waits are warpgroup-wide, so every warp makes both)
+          flash::wg_commit();
+          wg_wait1();
+          pin<32>(d0);
+          if (plain) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                rm0[h] = __vimax3_s32(rm0[h], d0[4 * j + 2 * h],
+                                      d0[4 * j + 2 * h + 1]);
+          }
+          flash::wg_wait();
+          pin<32>(d1);
+          if (plain) {
+            if constexpr (K == Kind::kFull) {  // acc1 = acc0·2^shift + accr
+#pragma unroll
+              for (int i = 0; i < 32; ++i) d1[i] += d0[i] * shift_mul;
+            }
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                rm1[h] = __vimax3_s32(rm1[h], d1[4 * j + 2 * h],
+                                      d1[4 * j + 2 * h + 1]);
+          } else if (kbase + n0 <= wmx) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              fold(d0 + 4 * j, d1 + 4 * j, n0 + 8 * j);
+          }
+        }
+      }
+    } else if (kbase <= wmx) {  // some row of the warp sees the tile
+      for (int gk = 0; 16 * gk < bk; ++gk) {
+        // a key block of 8 mod 16 keys ends in a group of 8: its second
+        // n-tile repeats the first and is not folded
+        const bool half = 16 * gk + 16 > bk;
+        int acc[2][2][4];  // [n-tile][plane]
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int pl = 0; pl < 2; ++pl)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[nt][pl][i] = 0;
+        const int rr = 16 * gk + (lane & 7) + (half ? 0 : (lane >> 4) << 3);
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          const int cc = D >= 32 ? 2 * kk + ((lane >> 3) & 1) : 0;
+          uint32_t bm[4], bh[4];
+          flash::ldsm_x4(flash::smem_u32(p0 + off<D>(bk, rr, cc)), bm);
+          flash::ldsm_x4(flash::smem_u32(p1 + off<D>(bk, rr, cc)), bh);
+          if constexpr (D >= 32) {
+            mma_k32(acc[0][0], qa[kk], bm[0], bm[1]);
+            mma_k32(acc[1][0], qa[kk], bm[2], bm[3]);
+            mma_k32(acc[0][1], qa[kk], bh[0], bh[1]);
+            mma_k32(acc[1][1], qa[kk], bh[2], bh[3]);
+          } else {
+            mma_k16(acc[0][0], qa[kk], bm[0]);
+            mma_k16(acc[1][0], qa[kk], bm[2]);
+            mma_k16(acc[0][1], qa[kk], bh[0]);
+            mma_k16(acc[1][1], qa[kk], bh[2]);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2 - half; ++nt)
+          fold(acc[nt][0], acc[nt][1], 16 * gk + 8 * nt);
+      }
+    }
+    if (fast) {  // each row's largest valid acc, rescaled once
+#pragma unroll
+      for (int k = 0; k < ROWS; ++k) {
+        if (rm0[k] == INT_MIN) continue;  // no valid pair in this row
+        m0 = fmaxf(m0, __fmul_rn(__fmul_rn((float)rm0[k], qsf[k]), ks0));
+        m1 = fmaxf(m1, __fmul_rn(__fmul_rn((float)rm1[k], qsf[k]), ks1));
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+    }
+    if (lane == 0) {
+      red[(t & 1) * MAX_WARPS * 2 + 2 * warp] = m0;
+      red[(t & 1) * MAX_WARPS * 2 + 2 * warp + 1] = m1;
+    }
+  };
+
+  // --- the key loop: one __syncthreads per tile ---------------------------------
+  if constexpr (kCodes) {
+    issue(0);
+    issue(1);
+    flash::cp_wait<1>();
+    __syncthreads();  // tile 0's codes and the query stage are in
+    load_q();
+    int differs = convert(0);
+    for (int t = 0; t < n; ++t) {
+      flash::cp_wait<0>();
+      // tile t's planes, tile t + 1's codes are in
+      const bool uniform = !__syncthreads_or(differs);
+      if (t > 0) flush(t - 1);
+      issue(t + 2);     // into tile t's code stage, converted already
+      differs = t + 1 < n ? convert(t + 1) : 0;
+      compute(t, planes + (t & 1) * 2 * plane_tile, uniform);
+    }
+  } else {
+    issue(0);         // with the query stage
+    issue(1);
+    for (int t = 0; t < n; ++t) {
+      flash::cp_wait<1>();
+      flash::fence_async_smem();
+      __syncthreads();  // tile t is in; tile t − 1's stage is free
+      if (t == 0) {
+        load_q();
+        __syncthreads();  // the query stage may be ring stage 2
+      } else {
+        flush(t - 1);
+      }
+      issue(t + 2);
+      compute(t, ring + (t % PLANE_STAGES) * 2 * plane_tile, true);
+    }
+  }
+  __syncthreads();
+  flush(n - 1);
+}
+
+// Launch `kernel` (filter_block's instantiation for head dim d on the
+// product path `mt`) over `bh` rows of `n_qb` query blocks.
+template <class Kernel>
+inline int launch(Kernel kernel, size_t (&given)[64], Kind kind, int mt,
+                  int d, int bh, int n_qb, Args a, cudaStream_t stream) {
+  const size_t smem = smem_bytes(kind, mt, d, a.bq, a.bk);
+  flash::allow_smem(kernel, smem, given);
+  a.runs = filter_runs(bh * n_qb, a.n_kb, sm_count());
+  const int threads = a.bq / 16 * 32;
+  const dim3 grid = kind == Kind::kFull ? dim3(a.runs, bh, n_qb)
+                                        : dim3(a.runs * n_qb, bh);
+  kernel<<<grid, threads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace filt

@@ -6,8 +6,10 @@
 //   cache is the same pool with the implicit table b·mb + j, so both
 //   layouts run one kernel body, templated on which of the two it reads.
 //
-// filter_tile: the two-round shift-and-add block score of one logical
-//   key block (one physical page) against a tile of query rows, read
+// filter_tile: the decode filter's body (B1/B5 only; the prefill and
+//   full-sequence filters B3/B7/B9 run on the int8 tensor-core engine of
+//   filter_engine.cuh). The two-round shift-and-add block score of one
+//   logical key block (one physical page) against a tile of query rows, read
 //   straight off the block's resident int16 codes. Both rounds' bit
 //   planes are derived in shared memory by arithmetic shift and packed
 //   four int8 lanes to a word, so each dot product is __dp4a on packed
@@ -18,7 +20,8 @@
 //   reference (and the plain PyTorch version) bit for bit.
 //
 // The survivor-gather kernels (B2/B6, B4/B8) run on the attention tile
-// engine of flash_common.cuh, with block_of naming their tile sources.
+// engine of flash_common.cuh, and B3/B7 on the filter engine, with
+// block_of naming their tile sources.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -12,131 +12,47 @@
 //   scale and the planes' 2^(16-bits) factors are the caller's, as in
 //   the reference.
 //
-//   Exactness: the planes are precomputed int8 (q in [-8, 7], MSB in
-//   [-2, 1], remainder in [0, 3]), packed four lanes to a word as they
-//   lie in memory, so every dot is __dp4a with int32 accumulation —
-//   exact, like the reference's int32 dot. The only float steps are one
-//   int→float conversion (exact: |acc| < 2^24) and one round-to-nearest
-//   product, and the max is order-free, so the scores equal the plain
-//   version's bit for bit.
-//
 //   Bound on the H100 by integer operations: every causal (query, key)
-//   pair costs 2·d multiply-adds while the bytes are one read of the
-//   planes. One block per tile stages the query block's plane (bq × d
-//   bytes) in shared memory; each thread holds one key row's two planes
-//   in registers and walks a quarter (bk = 64) of the query rows, so
-//   the key planes are read once per tile and the query words are
-//   broadcast from shared memory. Tiles wholly above the diagonal write
-//   NEG_INF without reading anything (their max is NEG_INF either way).
-//   The dots run on CUDA-core __dp4a, not the int8 tensor cores: a later
-//   PR's work.
-#include "mpmrf_common.cuh"
+//   pair costs two d-long int8 dots, while the bytes are one read of
+//   the planes. The design runs on the integer filter engine
+//   (filter_engine.cuh), the one B3/B7 use: a block owns a query block
+//   (bh · n_qb blocks, longest causal triangles first; a launch with
+//   too few of them splits each query block's key range into runs),
+//   stages its q plane once for its whole life, streams its key blocks'
+//   k_msb / k_rem rows through a three-stage cp.async ring of swizzled
+//   tiles and multiplies on the int8 tensor cores (s8, int32
+//   accumulate; wgmma m64n64k32 on the scoring path's d 128 and 64-row
+//   blocks, mma.sync otherwise). Key blocks above the diagonal are never
+//   read: the block that owns them writes NEG_INF.
+//
+//   Exactness: the planes are int8 and the dots int32, so acc0 and acc1
+//   equal the reference's; the rescale is monotone for a positive q
+//   scale, so the row's largest valid acc gives its max score (one
+//   int→float conversion, exact for |acc| < 2^24, and one
+//   round-to-nearest product), and the max is order-free: the scores
+//   equal the plain version's bit for bit.
+#include "filter_engine.cuh"
 
-using mpmrf::dyn_smem;
-
-template <int DW>
-__global__ void __launch_bounds__(FILTER_THREADS) filter_scores_kernel(
-    const int8_t* __restrict__ q_plane, const int8_t* __restrict__ k_msb,
-    const int8_t* __restrict__ k_rem, const float* __restrict__ q_scale,
-    float* __restrict__ s0, float* __restrict__ s1, int n_q, int n_k,
-    int bq, int bk, int shift, int causal, int q_offset) {
-  const int kb = blockIdx.x, qb = blockIdx.y, b = blockIdx.z;
-  const int n_qb = gridDim.y, n_kb = gridDim.x;
-  const size_t out = ((size_t)b * n_qb + qb) * n_kb + kb;
-  const int q_first = q_offset + qb * bq;       // absolute position, row 0
-  const int kmin = kb * bk;
-  if (causal && kmin > q_first + bq - 1) {      // no pair of the tile is valid
-    if (threadIdx.x == 0) {
-      s0[out] = MPMRF_NEG_INF;
-      s1[out] = MPMRF_NEG_INF;
-    }
-    return;
-  }
-  constexpr int D = 4 * DW;                     // head_dim in int8 lanes
-  int* qw = dyn_smem();                         // [bq][DW] packed q plane
-  int* kmsb = qw + bq * DW;                     // [bk][DW+1] (padded)
-  int* krem = kmsb + bk * (DW + 1);             // [bk][DW+1]
-  float* qs = reinterpret_cast<float*>(krem + bk * (DW + 1));  // [bq]
-  float* red = qs + bq;                         // [2][32]
-  const int tid = threadIdx.x;
-
-  const int4* qsrc = reinterpret_cast<const int4*>(
-      q_plane + ((size_t)b * n_q + (size_t)qb * bq) * D);
-  for (int c = tid; c < bq * DW / 4; c += blockDim.x)
-    reinterpret_cast<int4*>(qw)[c] = qsrc[c];
-  for (int i = tid; i < bq; i += blockDim.x)
-    qs[i] = q_scale[(size_t)b * n_q + (size_t)qb * bq + i];
-  const size_t krow0 = ((size_t)b * n_k + kmin) * D;
-  const int4* msrc = reinterpret_cast<const int4*>(k_msb + krow0);
-  const int4* rsrc = reinterpret_cast<const int4*>(k_rem + krow0);
-  for (int c = tid; c < bk * DW / 4; c += blockDim.x) {
-    const int r = c / (DW / 4), w = (c % (DW / 4)) * 4;
-    const int4 m = msrc[c], e = rsrc[c];
-    int* md = kmsb + r * (DW + 1) + w;
-    int* ed = krem + r * (DW + 1) + w;
-    md[0] = m.x; md[1] = m.y; md[2] = m.z; md[3] = m.w;
-    ed[0] = e.x; ed[1] = e.y; ed[2] = e.z; ed[3] = e.w;
-  }
-  __syncthreads();
-
-  const int r = tid % bk;                       // this thread's key row
-  const int groups = blockDim.x / bk;
-  int km[DW], kr[DW];
-#pragma unroll
-  for (int w = 0; w < DW; ++w) {
-    km[w] = kmsb[r * (DW + 1) + w];
-    kr[w] = krem[r * (DW + 1) + w];
-  }
-  const int kpos = kmin + r;
-  const int shift_mul = 1 << shift;
-  float m0 = MPMRF_NEG_INF, m1 = MPMRF_NEG_INF;
-  for (int i = tid / bk; i < bq; i += groups) {
-    if (causal && kpos > q_first + i) continue;
-    const int4* qrow = reinterpret_cast<const int4*>(qw + i * DW);
-    int a0 = 0, ar = 0;
-#pragma unroll
-    for (int w4 = 0; w4 < DW / 4; ++w4) {
-      const int4 qv = qrow[w4];
-      a0 = __dp4a(qv.x, km[4 * w4 + 0], a0);
-      a0 = __dp4a(qv.y, km[4 * w4 + 1], a0);
-      a0 = __dp4a(qv.z, km[4 * w4 + 2], a0);
-      a0 = __dp4a(qv.w, km[4 * w4 + 3], a0);
-      ar = __dp4a(qv.x, kr[4 * w4 + 0], ar);
-      ar = __dp4a(qv.y, kr[4 * w4 + 1], ar);
-      ar = __dp4a(qv.z, kr[4 * w4 + 2], ar);
-      ar = __dp4a(qv.w, kr[4 * w4 + 3], ar);
-    }
-    const int a1 = a0 * shift_mul + ar;
-    const float qsi = qs[i];
-    m0 = fmaxf(m0, __fmul_rn((float)a0, qsi));
-    m1 = fmaxf(m1, __fmul_rn((float)a1, qsi));
-  }
-  m0 = mpmrf::block_max(m0, red);
-  m1 = mpmrf::block_max(m1, red + 32);
-  if (tid == 0) {
-    s0[out] = m0;
-    s1[out] = m1;
-  }
+// MT: the product path (filt::product_path)
+template <int D, int MT>
+__global__ void __launch_bounds__(32 * filt::MAX_WARPS)
+    filter_scores_kernel(filt::Args a) {
+  filt::filter_block<D, MT, filt::Kind::kFull>(a);
 }
 
-static size_t filter_smem_bytes(int bq, int bk, int dw) {
-  return sizeof(int) * ((size_t)bq * dw + 2 * (size_t)bk * (dw + 1) +
-                        (size_t)bq + 64);
-}
-
-template <int DW>
-static void launch(dim3 grid, size_t smem, cudaStream_t stream,
-                   const void* q_plane, const void* k_msb, const void* k_rem,
-                   const void* q_scale, void* s0, void* s1, int n_q, int n_k,
-                   int bq, int bk, int shift, int causal, int q_offset) {
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(filter_scores_kernel<DW>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  filter_scores_kernel<DW><<<grid, FILTER_THREADS, smem, stream>>>(
-      (const int8_t*)q_plane, (const int8_t*)k_msb, (const int8_t*)k_rem,
-      (const float*)q_scale, (float*)s0, (float*)s1, n_q, n_k, bq, bk, shift,
-      causal, q_offset);
+template <int D>
+static int launch(const filt::Args& a, int bh, int n_qb,
+                  cudaStream_t stream) {
+  static size_t given[2][64];
+  const filt::Kind kind = filt::Kind::kFull;
+  const int mt = filt::product_path(D, a.bq, a.bk);
+  if constexpr (D == 128) {
+    if (mt == 0)
+      return filt::launch(filter_scores_kernel<D, 0>, given[0], kind, mt, D,
+                          bh, n_qb, a, stream);
+  }
+  return filt::launch(filter_scores_kernel<D, 1>, given[1], kind, mt, D, bh,
+                      n_qb, a, stream);
 }
 
 extern "C" int mpmrf_filter_scores(
@@ -145,28 +61,27 @@ extern "C" int mpmrf_filter_scores(
     int d, int bq, int bk, int shift, int causal, int q_offset,
     void* stream) {
   cudaGetLastError();
-  const dim3 grid(n_k / bk, n_q / bq, bh);
-  const size_t smem = filter_smem_bytes(bq, bk, d / 4);
+  filt::Args a{};
+  a.q_plane = q_plane;
+  a.q_scale = (const float*)q_scale;
+  a.k0 = k_msb;
+  a.k_rem = (const int8_t*)k_rem;
+  a.s0 = (float*)s0;
+  a.s1 = (float*)s1;
+  a.n_q = n_q;
+  a.bq = bq;
+  a.bk = bk;
+  a.n_kb = n_k / bk;
+  a.shift = shift;
+  a.causal = causal;
+  a.q_offset = q_offset;
+  const int n_qb = n_q / bq;
   cudaStream_t st = (cudaStream_t)stream;
   switch (d) {
-    case 16:
-      launch<4>(grid, smem, st, q_plane, k_msb, k_rem, q_scale, s0, s1, n_q,
-                n_k, bq, bk, shift, causal, q_offset);
-      break;
-    case 32:
-      launch<8>(grid, smem, st, q_plane, k_msb, k_rem, q_scale, s0, s1, n_q,
-                n_k, bq, bk, shift, causal, q_offset);
-      break;
-    case 64:
-      launch<16>(grid, smem, st, q_plane, k_msb, k_rem, q_scale, s0, s1, n_q,
-                 n_k, bq, bk, shift, causal, q_offset);
-      break;
-    case 128:
-      launch<32>(grid, smem, st, q_plane, k_msb, k_rem, q_scale, s0, s1, n_q,
-                 n_k, bq, bk, shift, causal, q_offset);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 16: return launch<16>(a, bh, n_qb, st);
+    case 32: return launch<32>(a, bh, n_qb, st);
+    case 64: return launch<64>(a, bh, n_qb, st);
+    case 128: return launch<128>(a, bh, n_qb, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

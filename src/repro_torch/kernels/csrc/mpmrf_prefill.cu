@@ -3,30 +3,32 @@
 //
 // B3 mpmrf_paged_prefill_filter_scores — replaces the TPU kernel
 //   repro/kernels/mpmrf_prefill.py::mpmrf_paged_prefill_filter_scores
-//   (_paged_prefill_filter_kernel). One block per (logical block j,
-//   query block, bh row) stages the query block's 4-bit plane (bq × d,
-//   packed int8) and page bt[b, j]'s two code planes in shared memory
-//   and pools both rounds' scores over the bq × bk tile under the
-//   per-row mask kpos ≤ qpos ∧ qpos < n_k (mpmrf_common.cuh). Bound on
-//   the H100 by integer operations: every page is scored against every
-//   query block, so the work is n_q·n_k·d multiply-adds per round while
-//   the bytes are one read of the planes. The design answers with
-//   __dp4a (four int8 products per instruction) on planes packed in
-//   shared memory, the key row's planes held in registers across the
-//   query rows, and an early exit for blocks that no row of the query
-//   block can see (causal future, or only sentinel rows), which skip
-//   both the page read and the arithmetic.
+//   (_paged_prefill_filter_kernel): both filter rounds of a query block
+//   of chunk rows against page bt[b, j]'s int16 codes, pooled over the
+//   bq × bk tile under the per-row mask kpos ≤ qpos ∧ qpos < n_k, for
+//   every logical block j. Bound on the H100 by integer operations: each
+//   (row, visible key) pair costs two d-long int8 dots, while the bytes
+//   are one read of the codes a query block can see. The design runs on
+//   the integer filter engine (filter_engine.cuh): a block owns a query
+//   block (or a run of its visible key blocks), stages its plane once as
+//   int8, streams the pages through a cp.async ring, derives the msb and
+//   hi planes from the codes once per block and multiplies on the int8
+//   tensor cores (s8, int32 accumulate: exact; wgmma m64n64k32 on the
+//   serving path's d 128 and 64-row blocks, mma.sync otherwise); the
+//   rescale is applied once per row to the row's largest valid acc
+//   (monotone for positive scales), so the scores equal the reference
+//   and the plain version bit for bit. Blocks above every row of the
+//   query block write NEG_INF without reading a page.
 //
 // B7 mpmrf_prefill_filter_scores — replaces
 //   repro/kernels/mpmrf_prefill.py::mpmrf_prefill_filter_scores
 //   (_prefill_filter_kernel): B3 over the contiguous [bh, n_k, d] codes
 //   (block j of row b is block b·n_kb + j, block_of<false>), the same
-//   kernel body and bound. Its key scale is per row ([bh, n_k], the
-//   caller's expansion of the resident per-block scales), because a
-//   prefill key tile may span several decode-block scale groups; each
-//   thread rescales with its own key row's scale in the reference's
-//   association, so the scores stay bit-exact, and equal B3's when the
-//   tile is one scale group.
+//   engine body and bound. Its key scale is per row ([bh, n_k], the
+//   caller's expansion of the resident per-block scales), staged with
+//   the codes: a tile of one scale group takes B3's per-row rescale, a
+//   tile across several groups the per-pair one, both in the
+//   reference's association, so B7 equals B3 on the same rows.
 //
 // B4 paged_prefill_gather_attention — replaces
 //   repro/kernels/mpmrf_prefill.py::paged_prefill_gather_attention
@@ -57,41 +59,15 @@
 //   (_prefill_gather_kernel): B4 with block b·n_kb + idx of the
 //   contiguous K/V cache as the tile source (block_of<false>) — the same
 //   kernel body, outputs equal to B4's on the same rows.
-#include "flash_common.cuh"
+#include "filter_engine.cuh"
 
-// k_scale: one per block (kPaged, the page's scale) or one per key row
-// (contiguous, [bh, n_k])
-template <int DW, bool kPaged>
-__global__ void __launch_bounds__(FILTER_THREADS) prefill_filter_kernel(
-    const int32_t* __restrict__ q_plane, const float* __restrict__ q_scale,
-    const int32_t* __restrict__ q_pos, const int16_t* __restrict__ codes,
-    const float* __restrict__ k_scale,
-    const int32_t* __restrict__ block_table, float* __restrict__ s0,
-    float* __restrict__ s1, int n_q, int bq, int bk, int mb, int lo,
-    int hi) {
-  const int j = blockIdx.x, qb = blockIdx.y, b = blockIdx.z;
-  const int n_qb = gridDim.y, n_k = mb * bk, kmin = j * bk;
-  const int out = (b * n_qb + qb) * mb + j;
-  const size_t row0 = (size_t)b * n_q + (size_t)qb * bq;
-  int any = 0;
-  for (int i = threadIdx.x; i < bq; i += blockDim.x) {
-    const int p = q_pos[row0 + i];
-    any |= (kmin <= p && p < n_k);
-  }
-  if (!__syncthreads_or(any)) {
-    if (threadIdx.x == 0) {
-      s0[out] = MPMRF_NEG_INF;
-      s1[out] = MPMRF_NEG_INF;
-    }
-    return;
-  }
-  const int d = 4 * DW;
-  const int blk = mpmrf::block_of<kPaged>(block_table, b, j, mb);
-  mpmrf::filter_tile<DW>(
-      q_plane + row0 * d, q_scale + row0, q_pos + row0,
-      codes + (size_t)blk * bk * d,
-      kPaged ? k_scale + blk : k_scale + (size_t)blk * bk, kPaged ? 0 : 1,
-      bq, bk, kmin, 0, n_k, lo, hi, s0 + out, s1 + out);
+// MT: the product path (filt::product_path)
+template <int D, int MT, bool kPaged>
+__global__ void __launch_bounds__(32 * filt::MAX_WARPS)
+    prefill_filter_kernel(filt::Args a) {
+  filt::filter_block<D, MT,
+                     kPaged ? filt::Kind::kPagedPrefill : filt::Kind::kPrefill>(
+      a);
 }
 
 // Block row r's position, from q_positions; a sentinel row (position
@@ -178,27 +154,20 @@ __global__ void __launch_bounds__(256) prefill_gather_kernel(
                 true, sm_scale, info[0] * per, tiles);
 }
 
-static size_t filter_smem_bytes(int rows, int bk, int dw) {
-  return sizeof(int) * ((size_t)rows * dw + 2 * (size_t)bk * (dw + 1) +
-                        2 * (size_t)rows + 64);
-}
-
-template <int DW, bool kPaged>
-static void launch_filter(dim3 grid, size_t smem, cudaStream_t stream,
-                          const void* q_plane, const void* q_scale,
-                          const void* q_pos, const void* codes,
-                          const void* k_scale, const void* block_table,
-                          void* s0, void* s1, int n_q, int bq, int bk, int mb,
-                          int lo, int hi) {
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(prefill_filter_kernel<DW, kPaged>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  prefill_filter_kernel<DW, kPaged><<<grid, FILTER_THREADS, smem, stream>>>(
-      (const int32_t*)q_plane, (const float*)q_scale, (const int32_t*)q_pos,
-      (const int16_t*)codes, (const float*)k_scale,
-      (const int32_t*)block_table, (float*)s0, (float*)s1, n_q, bq, bk, mb,
-      lo, hi);
+template <int D, bool kPaged>
+static int launch_filter(const filt::Args& a, int bh, int n_qb,
+                         cudaStream_t stream) {
+  static size_t given[2][64];
+  const filt::Kind kind =
+      kPaged ? filt::Kind::kPagedPrefill : filt::Kind::kPrefill;
+  const int mt = filt::product_path(D, a.bq, a.bk);
+  if constexpr (D == 128) {
+    if (mt == 0)
+      return filt::launch(prefill_filter_kernel<D, 0, kPaged>, given[0],
+                          kind, mt, D, bh, n_qb, a, stream);
+  }
+  return filt::launch(prefill_filter_kernel<D, 1, kPaged>, given[1], kind, mt,
+                      D, bh, n_qb, a, stream);
 }
 
 template <int D, bool kPaged>
@@ -226,34 +195,30 @@ static int filter_scores(const void* q_plane, const void* q_scale,
                          void* s0, void* s1, int bh, int n_q, int d, int bq,
                          int bk, int mb, int lo, int hi, void* stream) {
   cudaGetLastError();
-  const dim3 grid(mb, n_q / bq, bh);
-  const size_t smem = filter_smem_bytes(bq, bk, d / 4);
+  filt::Args a{};
+  a.q_plane = q_plane;
+  a.q_scale = (const float*)q_scale;
+  a.q_pos = (const int32_t*)q_pos;
+  a.k0 = codes;
+  a.k_scale = (const float*)k_scale;
+  a.table = (const int32_t*)block_table;
+  a.s0 = (float*)s0;
+  a.s1 = (float*)s1;
+  a.n_q = n_q;
+  a.bq = bq;
+  a.bk = bk;
+  a.n_kb = mb;
+  a.lo = lo;
+  a.hi = hi;
+  const int n_qb = n_q / bq;
   cudaStream_t st = (cudaStream_t)stream;
   switch (d) {
-    case 16:
-      launch_filter<4, kPaged>(grid, smem, st, q_plane, q_scale, q_pos, codes,
-                               k_scale, block_table, s0, s1, n_q, bq, bk, mb,
-                               lo, hi);
-      break;
-    case 32:
-      launch_filter<8, kPaged>(grid, smem, st, q_plane, q_scale, q_pos, codes,
-                               k_scale, block_table, s0, s1, n_q, bq, bk, mb,
-                               lo, hi);
-      break;
-    case 64:
-      launch_filter<16, kPaged>(grid, smem, st, q_plane, q_scale, q_pos,
-                                codes, k_scale, block_table, s0, s1, n_q, bq,
-                                bk, mb, lo, hi);
-      break;
-    case 128:
-      launch_filter<32, kPaged>(grid, smem, st, q_plane, q_scale, q_pos,
-                                codes, k_scale, block_table, s0, s1, n_q, bq,
-                                bk, mb, lo, hi);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 16: return launch_filter<16, kPaged>(a, bh, n_qb, st);
+    case 32: return launch_filter<32, kPaged>(a, bh, n_qb, st);
+    case 64: return launch_filter<64, kPaged>(a, bh, n_qb, st);
+    case 128: return launch_filter<128, kPaged>(a, bh, n_qb, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 template <bool kPaged>

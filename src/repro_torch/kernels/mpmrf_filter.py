@@ -29,6 +29,29 @@ def _lib():
     return _build.load("mpmrf_filter", _SIGNATURES)
 
 
+# --------------------------------------------------------------------------
+# the integer filter engine of B3 / B7 / B9 (csrc/filter_engine.cuh)
+# --------------------------------------------------------------------------
+
+
+def check_filter_launch(d, query_block, key_block, round_bits=None):
+    """What the filter engine takes: a head dim it is built for, query
+    blocks of 16-row m-tiles up to 128 rows (at most eight warps), key
+    blocks of 8-key n-tiles up to 128 (the ring's shared memory) and,
+    for B3 / B7, plane widths whose msb = code >> (16 − lo) and
+    hi = code >> (16 − hi) planes fit int8 and derive from the codes'
+    high bytes (1 ≤ lo < hi ≤ 8)."""
+    _require(d in FILTER_HEAD_DIMS, f"head_dim {d} not in {FILTER_HEAD_DIMS}")
+    _require(query_block % 16 == 0 and 0 < query_block <= 128,
+             f"query_block {query_block} must be a multiple of 16, <= 128")
+    _require(key_block % 8 == 0 and 0 < key_block <= 128,
+             f"key_block {key_block} must be a multiple of 8, <= 128")
+    if round_bits is not None:
+        lo, hi = round_bits
+        _require(1 <= lo < hi <= 8,
+                 "plane widths must satisfy 1 <= lo < hi <= 8")
+
+
 def mpmrf_filter_scores_plain(
     q_plane, k_msb, k_rem, q_scale, *, query_block, key_block, shift,
     causal=True, q_offset=0,
@@ -103,9 +126,7 @@ def mpmrf_filter_scores(
     _require(q_plane.is_cuda, f"unsupported device {q_plane.device}")
     _require(q_plane.dtype == k_msb.dtype == k_rem.dtype == torch.int8,
              "the CUDA filter kernel takes int8 planes")
-    _require(d in FILTER_HEAD_DIMS, f"head_dim {d} not in {FILTER_HEAD_DIMS}")
-    _require(key_block <= 256 and 256 % key_block == 0,
-             f"key_block {key_block} must divide 256")
+    check_filter_launch(d, query_block, key_block)
     _require(0 <= shift <= 8, f"shift {shift} out of range")
     _require(tuple(k_msb.shape) == tuple(k_rem.shape) == (bh, n_k, d)
              and tuple(q_scale.shape) == (bh, n_q, 1),

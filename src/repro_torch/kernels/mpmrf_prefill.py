@@ -22,8 +22,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import check_attention_launch
 from repro_torch.kernels.mpmrf_decode import (
-    FILTER_HEAD_DIMS, NEG_INF, _cache_blocks, _check_cuda, _require,
+    NEG_INF, _cache_blocks, _check_cuda, _require,
 )
+from repro_torch.kernels.mpmrf_filter import check_filter_launch
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -122,9 +123,7 @@ def paged_prefill_filter_scores(
     lo, hi = round_bits
     mb = block_table.shape[-1]
     n_qb = n_q // query_block
-    _require(hi <= 8 and lo < hi, "plane widths must satisfy lo < hi <= 8")
-    _require(d in FILTER_HEAD_DIMS, f"head_dim {d} not in {FILTER_HEAD_DIMS}")
-    _require(256 % key_block == 0, f"key_block {key_block} must divide 256")
+    check_filter_launch(d, query_block, key_block, round_bits)
     _require(tuple(k_codes_pages.shape[1:]) == (key_block, d),
              "k_codes_pages must be [P, key_block, d]")
     _require(q_plane.dtype == q_positions.dtype == block_table.dtype
@@ -307,9 +306,7 @@ def mpmrf_prefill_filter_scores(
     _require(n_k % key_block == 0,
              f"cache rows {n_k} not divisible by {key_block}")
     n_kb, n_qb = n_k // key_block, n_q // query_block
-    _require(hi <= 8 and lo < hi, "plane widths must satisfy lo < hi <= 8")
-    _require(d in FILTER_HEAD_DIMS, f"head_dim {d} not in {FILTER_HEAD_DIMS}")
-    _require(256 % key_block == 0, f"key_block {key_block} must divide 256")
+    check_filter_launch(d, query_block, key_block, round_bits)
     _require(tuple(k_codes.shape) == (bh, n_k, d)
              and tuple(k_row_scale.shape) == (bh, n_k),
              "k_codes must be [bh, n_k, d] and k_row_scale [bh, n_k]")

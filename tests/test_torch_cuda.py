@@ -111,18 +111,111 @@ def _planes_full_sequence(cuda, bh, n, d, seed):
     return (q.to(torch.int8), msb.to(torch.int8), rem.to(torch.int8), qs)
 
 
+#: (d, query block, key block) of the filter engine (B3 / B7 / B9): its
+#: wgmma path (d 128, query blocks of one or two warpgroups, key blocks
+#: of one or two 64-key products) and its mma.sync path at every head dim
+#: (d 16 on m16n8k16, the rest on m16n8k32), query blocks of one to eight
+#: warps (16–128 rows), key blocks of half a 16-key group (8), of one
+#: and a half (24), of one (16), of four (64) and of eight (128)
+FILTER_SHAPES = [(16, 16, 16), (32, 48, 64), (64, 64, 128), (128, 128, 64),
+                 (128, 16, 128), (64, 128, 16), (32, 64, 64),
+                 (128, 128, 128), (128, 64, 64), (128, 128, 16),
+                 (16, 16, 8), (64, 32, 24)]
+
+
 @pytest.mark.parametrize("causal,q_offset", [(True, 0), (True, 48),
-                                             (False, 0)])
-@pytest.mark.parametrize("d,bq,bk", [(16, 16, 16), (128, 128, 64)])
+                                             (True, 301), (False, 0)])
+@pytest.mark.parametrize("d,bq,bk", FILTER_SHAPES)
 def test_filter_kernel_matches_plain(cuda, d, bq, bk, causal, q_offset):
+    """B9 = its plain version bit for bit, at causal offsets 0 and not
+    aligned to a block, and without the mask; row 0 at the extreme plane
+    values (q −8, msb −2, rem 3: the largest |acc|), a negative and a
+    zero q scale (the per-pair rescale); the same when run twice. With 6
+    rows of few query blocks the launch splits each query block's keys
+    into runs, so visible ranges end inside and across runs."""
     from repro_torch.kernels import mpmrf_filter as fk
 
-    args = _planes_full_sequence(cuda, 6, 256, d, seed=2)
+    q, msb, rem, qs = _planes_full_sequence(cuda, 6, 384, d, seed=2)
+    q[0], msb[0], rem[0] = -8, -2, 3
+    qs[1, 5], qs[2, 7] = -qs[1, 5], 0.0
     kw = dict(query_block=bq, key_block=bk, shift=2, causal=causal,
               q_offset=q_offset)
-    out = fk.mpmrf_filter_scores(*args, **kw)
-    ref = fk.mpmrf_filter_scores_plain(*args, **kw)
+    out = fk.mpmrf_filter_scores(q, msb, rem, qs, **kw)
+    ref = fk.mpmrf_filter_scores_plain(q, msb, rem, qs, **kw)
     assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+    again = fk.mpmrf_filter_scores(q, msb, rem, qs, **kw)
+    assert torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])
+
+
+#: (d, query block, key block, round bits) of B3 / B7 on the engine: its
+#: shapes, plus the widest planes it derives (msb 1 bit and hi 8 bits: the
+#: packed shifts by 7 and by 0) and a (3, 7) split
+PREFILL_FILTER_SHAPES = [(16, 16, 16, (2, 4)), (32, 48, 64, (2, 4)),
+                         (64, 64, 128, (2, 4)), (128, 128, 64, (2, 4)),
+                         (128, 128, 128, (2, 4)), (128, 16, 64, (2, 4)),
+                         (64, 128, 16, (3, 7)), (128, 128, 64, (1, 8)),
+                         (128, 64, 128, (2, 4)), (128, 48, 16, (2, 4)),
+                         (32, 16, 8, (2, 4)), (128, 64, 24, (2, 4))]
+
+
+@pytest.mark.parametrize("d,bq,bk,round_bits", PREFILL_FILTER_SHAPES)
+def test_prefill_filters_match_plain_and_each_other(cuda, d, bq, bk,
+                                                    round_bits):
+    """B7 = its plain version bit for bit, B3 = B7 on the same rows laid
+    out as pages, both the same when run twice, and B7 with a key tile of
+    two scale groups = its plain version. Folded chunks of C = bq/2 rows
+    under 4 heads; row 0's chunk starts at position 0, row 1 ends in
+    sentinel rows, row 3 is all sentinels (every score NEG_INF); row 2 at
+    the extreme planes (q and every code at their most negative: the
+    largest |acc|); one row with a negative q scale (the per-pair
+    rescale)."""
+    from repro_torch.kernels import mpmrf_prefill as pk
+
+    lo, hi = round_bits
+    bh, n_kb, heads = 4, 10, 4
+    chunk = bq // 2
+    gen = torch.Generator(device=cuda).manual_seed(d + bq + bk + hi)
+    n_k, n_q = n_kb * bk, heads * chunk
+    codes = torch.randint(-32768, 32768, (bh, n_k, d), generator=gen,
+                          device=cuda, dtype=torch.int32).to(torch.int16)
+    codes[2] = -32768
+    scale = torch.rand((bh, n_kb), generator=gen, device=cuda) + 0.05
+    row_scale = scale.repeat_interleave(bk, dim=-1).contiguous()
+    half = 1 << (hi - 1)
+    q = torch.randint(-half, half, (bh, n_q, d), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    q[2] = -half
+    qs = torch.rand((bh, n_q, 1), generator=gen, device=cuda) * 1e-3 + 1e-5
+    qs[0, 3] = -qs[0, 3]
+    off = torch.randint(0, n_k - chunk + 1, (bh, 1), generator=gen,
+                        device=cuda)
+    off[0] = 0
+    pos = off + torch.arange(chunk, device=cuda)
+    pos[1, -5:] = n_k
+    pos[3] = n_k
+    qpos = pos.repeat(1, heads).to(torch.int32)
+    kw = dict(round_bits=round_bits, query_block=bq, key_block=bk)
+    args = (q, qs, qpos, codes, row_scale)
+    out = pk.mpmrf_prefill_filter_scores(*args, **kw)
+    ref = pk.mpmrf_prefill_filter_scores_plain(*args, **kw)
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+    assert (out[0][3] == pk.NEG_INF).all() and (out[1][3] == pk.NEG_INF).all()
+    again = pk.mpmrf_prefill_filter_scores(*args, **kw)
+    assert torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])
+    table = torch.randperm(bh * n_kb, generator=gen, device=cuda)
+    inv = torch.empty_like(table)
+    inv[table] = torch.arange(bh * n_kb, device=cuda)
+    pages = codes.reshape(bh * n_kb, bk, d)[inv].contiguous()
+    page_scale = scale.reshape(-1)[inv].reshape(-1, 1).contiguous()
+    table = table.reshape(bh, n_kb).to(torch.int32)
+    paged = pk.paged_prefill_filter_scores(q, qs, qpos, pages, page_scale,
+                                           table, **kw)
+    assert torch.equal(paged[0], out[0]) and torch.equal(paged[1], out[1])
+    if 2 * bk <= 128:            # a key tile across two scale groups
+        wide = dict(kw, key_block=2 * bk)
+        s2 = pk.mpmrf_prefill_filter_scores(*args, **wide)
+        r2 = pk.mpmrf_prefill_filter_scores_plain(*args, **wide)
+        assert torch.equal(s2[0], r2[0]) and torch.equal(s2[1], r2[1])
 
 
 def _qkv(cuda, bh, n, d, seed):
