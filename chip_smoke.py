@@ -11,7 +11,8 @@ cuts qwen3-14b's depth, never its width). Phases:
    ``flash_common.cuh`` (B2/B6 and B4/B8 per head dim and layout, B10,
    B11) and on the integer filter engine of ``filter_engine.cuh`` (B3/B7
    per head dim, product path and layout, B9 per head dim and product
-   path), and a failure on any spill at d 128.
+   path, B1/B5 per head dim and layout), and a failure on any spill at
+   d 128.
 2. Each kernel of the serving path (B1–B4) at the path's shapes on
    random inputs, held against its plain PyTorch version on the card:
    filter scores (B1, B3) and the selection made from them must be
@@ -20,14 +21,16 @@ cuts qwen3-14b's depth, never its width). Phases:
    from the same bf16 inputs and round the output once, so they differ
    by one ulp at most; ``repro_torch.kernels.gather_within_tolerance``),
    B4 also on the rows of a sequence's first chunk (positions < 32)
-   alone. Then each kernel, its plain version and one PyTorch call
-   computing the same function where one exists (SDPA over the gathered
-   survivors, timed only) are timed with CUDA events; the kernels
-   redesigned since the first port (the gathers B2, B4, B6, B8 on the
-   tile engine, the filters B3, B7, B9 on the filter engine) print their
-   previous design's time and their device time beside (the event
-   span of calls queued behind a spin on the device), and a profiler
-   trace's device items of the same calls (``[trace:…]``).
+   alone; B1 also at round bits (1, 8) and (0, 8), whose q and hi
+   planes are 8 bits wide (``[wide:…]``). Then each kernel, its plain
+   version and one PyTorch call computing the same function where one
+   exists (SDPA over the gathered survivors, timed only) are timed with
+   CUDA events; the kernels redesigned since the first port (the gathers
+   B2, B4, B6, B8 on the tile engine, the filters B1, B3, B5, B7, B9 on
+   the filter engine) print their previous design's time and their
+   device time beside (the event span of calls queued behind a spin on
+   the device), and a profiler trace's device items of the same calls
+   (``[trace:…]``).
 3. A small reference check: the serve-smoke model in bf16, prefill and
    decode logits with the kernels against the same model with the
    plain versions swapped in, on the same card (only layer 2 is sparse
@@ -60,8 +63,9 @@ weights, once the paged engine is released:
    8 slots × 8 KV heads, n_k 4096, G = 5, chunk 128, key blocks of 64,
    an idle slot's ``max_len + 1`` length and sentinel rows): B5 / B7
    scores and the survivor tables selected from them bit-equal to the
-   plain versions, B6 / B8 within the gather tolerance (B8 also on its
-   first-chunk rows alone); the same rows
+   plain versions (B5 also at round bits (1, 8) and (0, 8)), B6 / B8
+   within the gather tolerance (B8 also on its first-chunk rows alone);
+   the same rows
    laid out as shuffled pages give B1 = B5, B2 = B6, B3 = B7, B4 = B8
    bit for bit; B7 once more at key block 128 over 64-row scale groups.
    Each kernel, its plain version and (B6, B8) SDPA over the gathered
@@ -193,6 +197,8 @@ KERNELS = {
 #: They are quoted, not measured, so only the ``[time:…]`` text carries
 #: them.
 EARLIER_MS = {
+    "mpmrf_paged_filter_scores": dict(random=0.0370, live=0.0480),
+    "mpmrf_decode_filter_scores": dict(random=0.0479, captured=0.0384),
     "paged_decode_gather_attention": dict(random=0.2269, live=0.1247),
     "mpmrf_paged_prefill_filter_scores": dict(random=0.4783, live=0.7026),
     "paged_prefill_gather_attention": dict(random=0.7455, live=0.3974),
@@ -219,6 +225,9 @@ DEVICE_NAMES = {
 SERVE_KERNELS = tuple(KERNELS)[:4]        # B1–B4: the paged serving path
 UNPAGED_KERNELS = tuple(KERNELS)[4:8]     # B5–B8: the contiguous cache
 SCORE_KERNELS = tuple(KERNELS)[8:]        # B9–B11: full-sequence scoring
+#: the decode filters' widest planes: msb 1 bit / hi 8, and lo = 0 (the
+#: msb plane the code's sign), where the q plane is 8 bits too
+WIDE_ROUND_BITS = ((1, 8), (0, 8))
 
 
 class SmokeFailure(RuntimeError):
@@ -526,11 +535,28 @@ def fmt_err(err):
     return "n/a" if err is None else f"{err:.3e}"
 
 
-def quantized_q(q):
+def quantized_q(q, bits=4):
     from repro_torch.core import quantization as qlib
 
     q16 = qlib.quantize_int16(q, axis=-1)
-    return q16.bit_plane(4).contiguous(), q16.scale.contiguous()
+    return q16.bit_plane(bits).contiguous(), q16.scale.contiguous()
+
+
+def check_wide_planes(kernel, plain, q, label, kid):
+    """Hold a decode filter (B1 or B5: ``kernel(q_plane, q_scale,
+    round_bits)`` and its plain version) to its plain version, bit for
+    bit, at WIDE_ROUND_BITS, the q plane quantized to their 8 bits."""
+    import torch
+
+    for rb in WIDE_ROUND_BITS:
+        qp, qs = quantized_q(q, rb[1])
+        out, ref = kernel(qp, qs, rb), plain(qp, qs, rb)
+        sync()
+        need(all(torch.equal(a, b) for a, b in zip(out, ref)),
+             f"{label} {kid} scores at round bits {rb} differ from the "
+             f"plain version")
+    log(f"[wide:{label}] {kid} bit-equal to its plain version at round "
+        f"bits " + " and ".join(map(str, WIDE_ROUND_BITS)))
 
 
 def check_case(case, label, results):
@@ -573,6 +599,14 @@ def check_case(case, label, results):
     need(torch.equal(idx, ridx) and torch.equal(val, rval),
          f"{label} B1 selection differs")
     results["mpmrf_paged_filter_scores"].append(dict(err=0.0))
+    if label == "random":
+        check_wide_planes(
+            lambda p, s, rb: dk.paged_filter_scores(
+                p, s, c.codes, c.scale, c.bt, c.cl, round_bits=rb,
+                key_block=c.bk),
+            lambda p, s, rb: dk.paged_filter_scores_plain(
+                p, s, c.codes, c.scale, c.bt, c.cl, round_bits=rb,
+                key_block=c.bk), c.q_dec, label, "B1")
 
     # --- B2 ---------------------------------------------------------------
     b2 = lambda: dk.paged_decode_gather_attention(
@@ -1242,6 +1276,13 @@ def check_contiguous(c, label, results, *, timed=True, gather=True):
         f"{label} B5/B7 survivor tables differ")
     results["mpmrf_decode_filter_scores"].append(dict(err=0.0))
     results["mpmrf_prefill_filter_scores"].append(dict(err=0.0))
+    if label == "random":
+        check_wide_planes(
+            lambda p, s, rb: dk.mpmrf_decode_filter_scores(
+                p, s, c.codes, c.scale, c.cl, round_bits=rb, **fkw),
+            lambda p, s, rb: dk.mpmrf_decode_filter_scores_plain(
+                p, s, c.codes, c.scale, c.cl, round_bits=rb, **fkw),
+            c.q_dec, label, "B5")
     line = (f"[contiguous:{label}] bh {bh}, n_k {n_k}, d {d}, key blocks "
             f"{c.bk}/{c.pk}: B5/B7 bit-equal (scores and survivor tables)")
     if not gather:
@@ -1330,7 +1371,8 @@ def check_same_rows(c, o, label, gen):
     """Lay ``c``'s contiguous rows out as pages under a shuffled block
     table: B1 must equal B5, B2 equal B6, B3 equal B7 and B4 equal B8,
     bit for bit (the twins share their kernel bodies). Each pair is then
-    timed in turns on those rows; returns the times."""
+    timed in turns on those rows, by events and on the device; returns
+    the times."""
     import torch
 
     from repro_torch.kernels import mpmrf_decode as dk
@@ -1384,17 +1426,25 @@ def check_same_rows(c, o, label, gen):
         same = (all(torch.equal(x, y) for x, y in zip(a, b))
                 if isinstance(a, tuple) else torch.equal(a, b))
         need(same, f"{label} {name}: the twins differ on the same rows")
-    # both twins timed in turns (paged, contiguous, contiguous, paged)
+    # both twins timed in turns (paged, contiguous, contiguous, paged),
+    # by events and on the device (events behind a spin)
     times = {}
     for name, (contiguous, paged) in pairs.items():
-        tp0, tc0 = time_ms(paged), time_ms(contiguous)
-        tc1, tp1 = time_ms(contiguous), time_ms(paged)
-        times[name] = dict(contiguous_ms=(tc0 + tc1) / 2,
-                           paged_ms=(tp0 + tp1) / 2)
+        t = {}
+        for unit, timer in (("ms", time_ms), ("device_ms", device_ms)):
+            tp0, tc0 = timer(paged), timer(contiguous)
+            tc1, tp1 = timer(contiguous), timer(paged)
+            if tp0 is not None:
+                t[f"contiguous_{unit}"] = (tc0 + tc1) / 2
+                t[f"paged_{unit}"] = (tp0 + tp1) / 2
+        times[name] = t
     log(f"[same-rows:{label}] the contiguous rows as {bh * n_kb} shuffled "
         f"pages: B5 = B1, B6 = B2, B7 = B3, B8 = B4 bit for bit; ms "
         f"contiguous/paged " + ", ".join(
             f"{n} {t['contiguous_ms']:.4f}/{t['paged_ms']:.4f}"
+            + (f" (device {t['contiguous_device_ms']:.4f}/"
+               f"{t['paged_device_ms']:.4f})" if "paged_device_ms" in t
+               else "")
             for n, t in times.items()))
     return times
 
@@ -1776,7 +1826,8 @@ ENGINE_SOURCES = ("mpmrf_decode", "mpmrf_prefill", "mpmrf_filter",
                   "block_sparse_attention", "flash_attention")
 #: the engines' kernels and their instantiation counts: head dims ×
 #: (tile engine) layouts, or (filter engine) product paths — wgmma or
-#: mma.sync at d 128, mma.sync below — × layouts
+#: mma.sync at d 128, mma.sync below — × layouts (B1/B5: head dims ×
+#: layouts)
 ENGINE_KERNELS = {
     "decode_split_kernel": ("B2/B6", 4 * 2),
     "prefill_gather_kernel": ("B4/B8", 4 * 2),
@@ -1784,6 +1835,7 @@ ENGINE_KERNELS = {
     "flash_attention_kernel": ("B11", 4),
     "prefill_filter_kernel": ("B3/B7", (3 + 2) * 2),
     "filter_scores_kernel": ("B9", 3 + 2),
+    "decode_filter_kernel": ("B1/B5", 4 * 2),
 }
 
 
@@ -1791,8 +1843,9 @@ def engine_ptxas():
     """Registers and spill bytes of each instantiation of the tile engine
     (B2/B6, B4/B8 per head dim and layout, B10, B11 per head dim) and of
     the filter engine (B3/B7 per head dim, product path and layout, B9
-    per head dim and product path) from nvcc's ``-Xptxas -v`` report;
-    fails on any spill at d 128, the model paths' head dim."""
+    per head dim and product path, B1/B5 per head dim and layout) from
+    nvcc's ``-Xptxas -v`` report; fails on any spill at d 128, the model
+    paths' head dim."""
     from repro_torch.kernels import _build
 
     pat = re.compile(r"Compiling entry function "
@@ -1821,8 +1874,8 @@ def engine_ptxas():
     want = sum(count for _, count in ENGINE_KERNELS.values())
     need(len(out) == want,
          f"ptxas reported {sorted(out)}, not the {want} instantiations of "
-         f"B2/B6, B4/B8, B3/B7 (paged and contiguous), B9, B10 and B11 at "
-         f"d 16, 32, 64 and 128")
+         f"B2/B6, B4/B8, B3/B7, B1/B5 (paged and contiguous), B9, B10 and "
+         f"B11 at d 16, 32, 64 and 128")
     for kernel, r in sorted(out.items()):
         log(f"[ptxas] {r['kernel']} {kernel}: {r.get('registers')} "
             f"registers, spill stores {r.get('spill_stores')} B, loads "

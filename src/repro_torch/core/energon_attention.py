@@ -382,6 +382,19 @@ def serving_faults(
             f"the {cache_len} cache rows must divide into two or more "
             f"key blocks of {cfg.key_block} (else the reference falls back "
             "to mpmrf_row)")
+    from repro_torch.kernels.mpmrf_decode import (
+        DECODE_FILTER_MAX_G, DECODE_FILTER_MAX_KEY_BLOCK,
+    )
+
+    if group > DECODE_FILTER_MAX_G:
+        faults.append(f"the decode kernels take at most "
+                      f"{DECODE_FILTER_MAX_G} query heads per KV head "
+                      f"(G={group})")
+    dkb = cfg.decode_key_block
+    if dkb % 8 or not 0 < dkb <= DECODE_FILTER_MAX_KEY_BLOCK:
+        faults.append(f"decode_key_block {dkb} must be a multiple of 8, "
+                      f"<= {DECODE_FILTER_MAX_KEY_BLOCK} (the decode "
+                      "filter's key tiles)")
     if rows % cfg.query_block:
         faults.append(f"query_block {cfg.query_block} must divide the "
                       f"{rows} folded chunk rows (G={group} × chunk "

@@ -1,12 +1,16 @@
-// The integer filter engine shared by the full-query-block MP-MRF filter
-// kernels of the port: B3 (paged prefill), B7 (contiguous prefill) and
-// B9 (full sequence, precomputed planes). Each output is the max, over a
-// bq × bk tile of (query row, key) pairs, of both filter rounds' scores
+// The integer filter engine shared by the MP-MRF filter kernels of the
+// port: B3 (paged prefill), B7 (contiguous prefill), B9 (full sequence,
+// precomputed planes) and the decode filter B1 (paged) / B5
+// (contiguous). Each output is the max, over a tile of (query row, key)
+// pairs, of both filter rounds' scores
 //     s_r = (f32(acc_r) · qs_row) · ks_key        (round to nearest)
 // with acc_r an exact int32 dot of int8 bit planes, pairs the mask
-// forbids counted as NEG_INF. The three kernels are one body under three
-// policies (Kind): where a row's position and scale come from, where a
-// key tile's planes come from, and what its key scale is.
+// forbids counted as NEG_INF. B3/B7/B9 are one body (filter_block) under
+// three policies (Kind): where a row's position and scale come from,
+// where a key tile's planes come from, and what its key scale is. The
+// decode kind (decode_block, below) is a body of its own built from the
+// same parts: its G ≤ 16 query rows are too few for an m-tile, so its
+// keys go on the products' M side.
 //
 // - Blocks: one block owns a (bh row, query block) pair, or one run of
 //   it: the query block's visible key blocks (those at or below its
@@ -24,12 +28,15 @@
 //   stages). B3/B7 stream the int16 codes (two stages) and derive both
 //   int8 planes once per block, one tile ahead of the products:
 //   msb = code >> (16 − lo) and hi = code >> (16 − hi), four lanes to a
-//   word, from the codes' high bytes by a packed arithmetic shift.
+//   word, from the codes' high bytes by a packed arithmetic shift of
+//   min(8 − lo, 7) and 8 − hi (at lo = 0 the msb plane is the code's
+//   sign, which the shift by 7 gives; the wrappers compute the shifts,
+//   kernels/mpmrf_decode.py::plane_shifts).
 // - Products on the int8 tensor cores, s8 × s8 → s32, two per key tile
 //   with the same query operand. B3/B7 multiply q by msb and by the hi
 //   plane: acc1 = (acc0 << (hi − lo)) + q·remᵀ = q·(msb·2^(hi−lo) +
 //   rem)ᵀ = q·hiᵀ, exactly; every operand fits int8 for
-//   1 ≤ lo < hi ≤ 8. B9 multiplies its given planes:
+//   0 ≤ lo < hi ≤ 8. B9 multiplies its given planes:
 //   acc1 = acc0·2^shift + q·remᵀ. Two paths (product_path):
 //   * wgmma (d 128, query and key blocks of multiples of 64): a
 //     warpgroup per 64 query rows issues m64n64k32 with the query stage
@@ -52,6 +59,38 @@
 //   memory: warp 0 writes (s0, s1) of tile t while tile t + 1 computes.
 //   As in the reference (and the plain versions), the result is bit for
 //   bit the max of the scores, NEG_INF where no pair is valid.
+//
+// The decode kind (B1/B5: one output per logical key block j of a bh
+// row, the G folded query rows of a decode step against the bk keys of
+// page bt[b, j], masked at kpos < cache_length[b]) is bound by bytes: it
+// reads each live page's int16 codes once, G·bk·d·4 int8 operations a
+// page are nothing beside them. So it streams pages:
+// - Blocks: one per (bh row, run) of the row's T = ⌈len / bk⌉ live key
+//   blocks, cut into min(S, T) runs (key_run); S per launch so that the
+//   launch is one wave of the blocks the card holds at once
+//   (decode_runs: 8 at the serving path's 64 rows, four blocks per SM),
+//   since each block streams its pages and a second wave would only add
+//   its start-up. A key block past the length gets NEG_INF from block
+//   (j − T) mod S without a read. The block reads its length, (B1) its
+//   row of the table, its q rows and their scales together, so one round
+//   trip to memory comes before the first page's.
+// - Keys: a ring of DECODE_STAGES whole pages by cp.async, two in flight
+//   while one is multiplied (a third stage in flight costs a block per
+//   SM at 16 KB pages: three instead of four, and with them fewer, longer
+//   runs; it measured slower). Each thread copies the 16 codes (two
+//   16-byte chunks) of a key row it will derive, so it derives them in
+//   place, with no barrier, one page ahead of the products: the msb
+//   chunk replaces the first, the hi chunk the second. Rows are
+//   XOR-swizzled by 16-byte chunk, so ldmatrix reads conflict-free.
+// - Products: mma.sync s8 with the keys on the M side: four warps, each
+//   one m16 tile of a 64-key page; A = 16 keys × 32 bytes of a derived
+//   plane by ldmatrix, B = the G rows (one n8 tile, two for 8 < G ≤ 16)
+//   as fragments narrowed from the int32 q plane once per block and held
+//   for the block's life. acc0 = q·msbᵀ and acc1 = q·hiᵀ, as above.
+// - Epilogue: the shared one — per query row the largest valid acc,
+//   rescaled once (the per-pair rescale where a factor is not positive
+//   and finite), the max over the warp by shuffles and across the four
+//   warps through shared memory, one (s0, s1) per (b, j).
 #pragma once
 
 #include <climits>
@@ -60,25 +99,32 @@
 
 namespace filt {
 
-enum class Kind { kPagedPrefill, kPrefill, kFull };
+enum class Kind { kPagedPrefill, kPrefill, kFull, kPagedDecode, kDecode };
 
-constexpr int CODE_STAGES = 2;   // B3/B7: int16 code tiles in flight
-constexpr int PLANE_STAGES = 3;  // B9: int8 plane tiles in flight
-constexpr int MAX_WARPS = 8;     // query blocks of at most 128 rows
+constexpr int CODE_STAGES = 2;    // B3/B7: int16 code tiles in flight
+constexpr int PLANE_STAGES = 3;   // B9: int8 plane tiles in flight
+constexpr int DECODE_STAGES = 3;  // B1/B5: pages in the ring
+constexpr int DECODE_WARPS = 4;   // B1/B5: one m16 tile of a 64-key page each
+constexpr int MAX_WARPS = 8;      // query blocks of at most 128 rows
 
 // Everything a launch passes; unused fields are 0 for a kind.
 struct Args {
-  const void* q_plane;       // int32 (B3/B7) or int8 (B9) [bh, n_q, d]
+  const void* q_plane;       // int32 (B1/B3/B5/B7) or int8 (B9) [bh, n_q, d]
   const float* q_scale;      // [bh, n_q]
   const int32_t* q_pos;      // B3/B7 [bh, n_q]
-  const void* k0;            // B3/B7 int16 codes; B9 int8 k_msb
+  const int32_t* len;        // B1/B5 [bh] cache lengths
+  const void* k0;            // B1/B3/B5/B7 int16 codes; B9 int8 k_msb
   const int8_t* k_rem;       // B9
-  const float* k_scale;      // B3 [pages] (per page); B7 [bh, n_k] (per row)
-  const int32_t* table;      // B3 [bh, mb]
+  // B1/B3 [pages] (per page); B5 [bh, n_kb] (per block); B7 [bh, n_k]
+  // (per row)
+  const float* k_scale;
+  const int32_t* table;      // B1/B3 [bh, mb]
   float* s0;
   float* s1;
   int n_q, bq, bk, n_kb, runs;  // runs: S, the key runs per query block
-  int lo, hi;                // B3/B7 plane widths
+                                // (B1/B5: n_q = G, per bh row)
+  int lo, hi;                // B1/B3/B5/B7 plane widths
+  int msb_shift, hi_shift;   // their packed shifts of the codes' high bytes
   int shift, causal, q_offset;  // B9
 };
 
@@ -133,6 +179,82 @@ __device__ __forceinline__ bool positive_finite(float x) {
   return x > 0.f && x <= 3.40282347e38f;  // NaN fails both
 }
 
+// Four int32 plane values (each fits int8) narrowed to four int8 lanes.
+__device__ __forceinline__ uint32_t narrow4(const int4& v) {
+  return __byte_perm(__byte_perm(v.x, v.y, 0x0040),
+                     __byte_perm(v.z, v.w, 0x0040), 0x5410);
+}
+
+// 16 int16 codes (two 16-byte chunks x, y) → their msb and hi plane
+// bytes, from the codes' high bytes (code >> 8, four to a word).
+__device__ __forceinline__ void derive16(const int4& x, const int4& y,
+                                         const LaneShift& msb_of,
+                                         const LaneShift& hi_of, uint4& msb,
+                                         uint4& hi) {
+  const uint32_t h[4] = {__byte_perm(x.x, x.y, 0x7531),
+                         __byte_perm(x.z, x.w, 0x7531),
+                         __byte_perm(y.x, y.y, 0x7531),
+                         __byte_perm(y.z, y.w, 0x7531)};
+  msb = make_uint4(msb_of(h[0]), msb_of(h[1]), msb_of(h[2]), msb_of(h[3]));
+  hi = make_uint4(hi_of(h[0]), hi_of(h[1]), hi_of(h[2]), hi_of(h[3]));
+}
+
+// --- the epilogue ---------------------------------------------------------
+// The reference's rescale of one acc: (f32(acc) · qs) · ks, each product
+// rounded to nearest.
+__device__ __forceinline__ float rescale(int acc, float qs, float ks) {
+  return __fmul_rn(__fmul_rn((float)acc, qs), ks);
+}
+
+// Each of a thread's R rows' largest valid acc (INT_MIN: none), rescaled
+// once, into the thread's maxima m0, m1 (positive finite factors: the
+// rescale is monotone in acc).
+template <int R>
+__device__ __forceinline__ void rescale_rows(const int* rm0, const int* rm1,
+                                             const float* qsf, float ks0,
+                                             float ks1, float& m0,
+                                             float& m1) {
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    if (rm0[k] == INT_MIN) continue;  // no valid pair in this row
+    m0 = fmaxf(m0, rescale(rm0[k], qsf[k], ks0));
+    m1 = fmaxf(m1, rescale(rm1[k], qsf[k], ks1));
+  }
+}
+
+// The max of (m0, m1) over the warp, stored by lane 0 at slot[0..1].
+__device__ __forceinline__ void warp_max_to(float m0, float m1,
+                                            float* slot) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    slot[0] = m0;
+    slot[1] = m1;
+  }
+}
+
+// Warp 0 folds the `warps` warps' maxima rr[2·w], rr[2·w + 1] and writes
+// them to *o0, *o1.
+__device__ __forceinline__ void flush_warps(const float* rr, int warps,
+                                            float* o0, float* o1) {
+  const int lane = threadIdx.x & 31;
+  if ((threadIdx.x >> 5) != 0) return;
+  float v0 = lane < warps ? rr[2 * lane] : MPMRF_NEG_INF;
+  float v1 = lane < warps ? rr[2 * lane + 1] : MPMRF_NEG_INF;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v0 = fmaxf(v0, __shfl_xor_sync(0xffffffffu, v0, o));
+    v1 = fmaxf(v1, __shfl_xor_sync(0xffffffffu, v1, o));
+  }
+  if (lane == 0) {
+    *o0 = v0;
+    *o1 = v1;
+  }
+}
+
 // Runs of the query block's T visible key blocks: run s of min(S, T).
 __device__ __forceinline__ void key_run(int T, int S, int s, int& j0,
                                         int& j1) {
@@ -175,12 +297,24 @@ __host__ __device__ inline bool q_in_planes(int mt, int bq, int bk) {
   return mt > 0 && bq <= 2 * bk;
 }
 
+// B1/B5: bytes of one ring stage, a page's codes and its scale.
+__host__ __device__ inline int decode_stage(int d, int bk) {
+  return bk * 2 * d + 16;
+}
+
 // Dynamic shared memory of one block: the query stage where it does not
 // sit in the planes, the plane tiles (B3/B7: two buffers of derived
 // planes; B9: the ring), (B3/B7) the code ring and the planes' key
 // scales, then the cross-warp maxima and the warps' largest positions.
 // Every plane tile and the query stage start on a 1024-byte boundary.
-inline size_t smem_bytes(Kind kind, int mt, int d, int bq, int bk) {
+// B1/B5: the ring of pages, the cross-warp maxima, (B1) the row's block
+// table of n_kb entries.
+inline size_t smem_bytes(Kind kind, int mt, int d, int bq, int bk,
+                         int n_kb) {
+  if (kind == Kind::kPagedDecode || kind == Kind::kDecode)
+    return (size_t)DECODE_STAGES * decode_stage(d, bk) +
+           sizeof(float) * 2 * MAX_WARPS * 2 +
+           (kind == Kind::kPagedDecode ? sizeof(int) * n_kb : 0);
   size_t planes = kind == Kind::kFull
                       ? (size_t)PLANE_STAGES * 2 * bk * d
                       : (size_t)2 * 2 * bk * d +
@@ -328,15 +462,9 @@ __device__ __forceinline__ void filter_block(const Args& a) {
     for (int i = tid; i < bq * C; i += nthr) {
       const int r = i / C, c = i % C;
       const int4* src = reinterpret_cast<const int4*>(q + r * D + 16 * c);
-      uint32_t w[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int4 v = src[u];
-        w[u] = __byte_perm(__byte_perm(v.x, v.y, 0x0040),
-                           __byte_perm(v.z, v.w, 0x0040), 0x5410);
-      }
       *reinterpret_cast<uint4*>(qs_tile + off<D>(bq, r, c)) =
-          make_uint4(w[0], w[1], w[2], w[3]);
+          make_uint4(narrow4(src[0]), narrow4(src[1]), narrow4(src[2]),
+                     narrow4(src[3]));
     }
     flash::fence_async_smem();
   } else {                 // int8 already: copied with the first tile
@@ -399,23 +527,16 @@ __device__ __forceinline__ void filter_block(const Args& a) {
   // over the block.
   const auto convert = [&](int t) {
     int differs = 0;
-    const LaneShift msb_of(8 - a.lo), hi_of(8 - a.hi);
+    const LaneShift msb_of(a.msb_shift), hi_of(a.hi_shift);
     const uint8_t* src = ring + (t % CODE_STAGES) * code_stage;
     uint8_t* dst = planes + (t & 1) * 2 * plane_tile;
     for (int i = tid; i < bk * C; i += nthr) {
       const int r = i / C, c = i % C;
       const int4* cp = reinterpret_cast<const int4*>(src + r * 2 * D + 32 * c);
-      const int4 x = cp[0], y = cp[1];
-      // the high bytes of the 16 codes: code >> 8, four to a word
-      const uint32_t h[4] = {__byte_perm(x.x, x.y, 0x7531),
-                             __byte_perm(x.z, x.w, 0x7531),
-                             __byte_perm(y.x, y.y, 0x7531),
-                             __byte_perm(y.z, y.w, 0x7531)};
       const int o = off<D>(bk, r, c);
-      *reinterpret_cast<uint4*>(dst + o) =
-          make_uint4(msb_of(h[0]), msb_of(h[1]), msb_of(h[2]), msb_of(h[3]));
-      *reinterpret_cast<uint4*>(dst + plane_tile + o) =
-          make_uint4(hi_of(h[0]), hi_of(h[1]), hi_of(h[2]), hi_of(h[3]));
+      derive16(cp[0], cp[1], msb_of, hi_of,
+               *reinterpret_cast<uint4*>(dst + o),
+               *reinterpret_cast<uint4*>(dst + plane_tile + o));
     }
     if constexpr (K == Kind::kPrefill) {
       const int4* ks = reinterpret_cast<const int4*>(src + bk * 2 * D);
@@ -450,19 +571,8 @@ __device__ __forceinline__ void filter_block(const Args& a) {
 
   // warp 0 folds the warps' maxima of tile t and writes its (s0, s1)
   const auto flush = [&](int t) {
-    if (warp != 0) return;
-    const float* rr = red + (t & 1) * MAX_WARPS * 2;
-    float v0 = lane < warps ? rr[2 * lane] : MPMRF_NEG_INF;
-    float v1 = lane < warps ? rr[2 * lane + 1] : MPMRF_NEG_INF;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      v0 = fmaxf(v0, __shfl_xor_sync(0xffffffffu, v0, o));
-      v1 = fmaxf(v1, __shfl_xor_sync(0xffffffffu, v1, o));
-    }
-    if (lane == 0) {
-      a.s0[out0 + j0 + t] = v0;
-      a.s1[out0 + j0 + t] = v1;
-    }
+    flush_warps(red + (t & 1) * MAX_WARPS * 2, warps, a.s0 + out0 + j0 + t,
+                a.s1 + out0 + j0 + t);
   };
 
   const int shift_mul = 1 << a.shift;
@@ -519,8 +629,8 @@ __device__ __forceinline__ void filter_block(const Args& a) {
             c0 = __fmul_rn(kcol[c], k_factor0);
             c1 = __fmul_rn(kcol[c], k_factor1);
           }
-          m0 = fmaxf(m0, __fmul_rn(__fmul_rn((float)f0[i], qsf[k]), c0));
-          m1 = fmaxf(m1, __fmul_rn(__fmul_rn((float)x1[i], qsf[k]), c1));
+          m0 = fmaxf(m0, rescale(f0[i], qsf[k], c0));
+          m1 = fmaxf(m1, rescale(x1[i], qsf[k], c1));
         }
       }
     };
@@ -618,23 +728,9 @@ __device__ __forceinline__ void filter_block(const Args& a) {
           fold(acc[nt][0], acc[nt][1], 16 * gk + 8 * nt);
       }
     }
-    if (fast) {  // each row's largest valid acc, rescaled once
-#pragma unroll
-      for (int k = 0; k < ROWS; ++k) {
-        if (rm0[k] == INT_MIN) continue;  // no valid pair in this row
-        m0 = fmaxf(m0, __fmul_rn(__fmul_rn((float)rm0[k], qsf[k]), ks0));
-        m1 = fmaxf(m1, __fmul_rn(__fmul_rn((float)rm1[k], qsf[k]), ks1));
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
-    }
-    if (lane == 0) {
-      red[(t & 1) * MAX_WARPS * 2 + 2 * warp] = m0;
-      red[(t & 1) * MAX_WARPS * 2 + 2 * warp + 1] = m1;
-    }
+    // each row's largest valid acc, rescaled once
+    if (fast) rescale_rows<ROWS>(rm0, rm1, qsf, ks0, ks1, m0, m1);
+    warp_max_to(m0, m1, red + (t & 1) * MAX_WARPS * 2 + 2 * warp);
   };
 
   // --- the key loop: one __syncthreads per tile ---------------------------------
@@ -675,15 +771,260 @@ __device__ __forceinline__ void filter_block(const Args& a) {
   flush(n - 1);
 }
 
+// B1/B5's S: as many runs per row as the card holds blocks of `kernel`
+// at once (a single wave: a row's pages stream through its runs, so a
+// second wave would only add its start-up), at most one per key block.
+// The blocks per SM are asked once per device and shared-memory size.
+template <class Kernel>
+inline int decode_runs(Kernel kernel, int threads, size_t smem, int bh,
+                       int n_kb) {
+  static int per_sm[64];
+  static size_t asked[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int n = 1;
+  if (dev >= 0 && dev < 64 && asked[dev] == smem && per_sm[dev] > 0) {
+    n = per_sm[dev];
+  } else {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
+    n = max(1, n);
+    if (dev >= 0 && dev < 64) {
+      per_sm[dev] = n;
+      asked[dev] = smem;
+    }
+  }
+  return max(1, min(n_kb, n * sm_count() / bh));
+}
+
+// B1/B5: byte offset of 16-byte chunk x of key row r in a ring stage (a
+// page of bk rows of 2·D bytes); the chunks are XOR-swizzled by the row,
+// so the eight rows an ldmatrix reads at one chunk fall in eight bank
+// groups (at d ≥ 64).
+template <int D>
+__device__ __forceinline__ int code_off(int r, int x) {
+  constexpr int SW = D / 8 - 1 < 7 ? D / 8 - 1 : 7;
+  return r * 2 * D + 16 * (x ^ (r & SW));
+}
+
+// The decode kind (B1: kPaged, B5: contiguous), one block of
+// DECODE_WARPS warps per (run, bh row); see the note at the top.
+template <int D, bool kPaged>
+__device__ __forceinline__ void decode_block(const Args& a) {
+  constexpr int KS = D >= 32 ? D / 32 : 1;  // k-steps of 32 bytes over d
+  constexpr int P = D / 16;                 // 16-code pieces per key row
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int s = blockIdx.x, b = blockIdx.y;
+  const int G = a.n_q, bk = a.bk, n_kb = a.n_kb;
+  const size_t out0 = (size_t)b * n_kb;
+  uint8_t* ring = reinterpret_cast<uint8_t*>(flash::smem_base());
+  const int stage = decode_stage(D, bk);
+  float* red = reinterpret_cast<float*>(ring + DECODE_STAGES * stage);
+  int* ids = reinterpret_cast<int*>(red + 2 * MAX_WARPS * 2);  // B1: [n_kb]
+
+  // --- what needs nothing else, loaded together: the row's length, (B1)
+  // its block table, the G rows as B fragments (rows ≥ G zero, narrowed
+  // once per block) and this thread's accumulator rows 8·nt + 2·tig + h:
+  // their scales and liveness
+  const int len = a.len[b];
+  if constexpr (kPaged) {
+    for (int j = tid; j < n_kb; j += nthr) ids[j] = a.table[out0 + j];
+  }
+  const bool two = G > 8;  // a second n8 tile
+  const int32_t* q = static_cast<const int32_t*>(a.q_plane) + (size_t)b * G * D;
+  uint32_t qb[2][KS][2];
+  float qsf[4];
+  bool live[4];
+  bool rows_ok = true;
+  const float q_factor = (float)(1 << (16 - a.hi));
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const int row = 8 * nt + g;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int32_t* p = q + row * D + 32 * kk + 4 * tig;
+      qb[nt][kk][0] = row < G ? narrow4(*reinterpret_cast<const int4*>(p)) : 0u;
+      qb[nt][kk][1] = row < G && D >= 32
+                          ? narrow4(*reinterpret_cast<const int4*>(p + 16))
+                          : 0u;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 8 * nt + 2 * tig + h;
+      live[2 * nt + h] = r < G;
+      qsf[2 * nt + h] =
+          r < G ? __fmul_rn(a.q_scale[(size_t)b * G + r], q_factor) : 0.f;
+      rows_ok &= r >= G || positive_finite(qsf[2 * nt + h]);
+    }
+  }
+  if constexpr (kPaged) __syncthreads();  // the table is in
+
+  // --- the row's live key blocks, this block's run of them --------------------
+  const int T = len <= 0 ? 0 : min(n_kb, (len - 1) / bk + 1);
+  for (int j = T + s + tid * a.runs; j < n_kb; j += nthr * a.runs) {
+    a.s0[out0 + j] = MPMRF_NEG_INF;  // past the length
+    a.s1[out0 + j] = MPMRF_NEG_INF;
+  }
+  int j0, j1;
+  key_run(T, a.runs, s, j0, j1);
+  const int n = j1 - j0;
+  if (n <= 0) return;
+
+  // page t of the run into ring stage t mod DECODE_STAGES: each thread
+  // copies the two chunks of the 16-code pieces it will derive, tid 0
+  // the page's scale
+  const auto issue = [&](int t) {
+    if (t < n) {
+      const int blk = kPaged ? ids[j0 + t] : b * n_kb + j0 + t;
+      const uint8_t* src =
+          static_cast<const uint8_t*>(a.k0) + (size_t)blk * bk * 2 * D;
+      uint8_t* dst = ring + (t % DECODE_STAGES) * stage;
+      for (int i = tid; i < bk * P; i += nthr) {
+        const int r = i / P, c = i % P;
+        flash::cp_async16(flash::smem_u32(dst + code_off<D>(r, 2 * c)),
+                          src + 32 * i, true);
+        flash::cp_async16(flash::smem_u32(dst + code_off<D>(r, 2 * c + 1)),
+                          src + 32 * i + 16, true);
+      }
+      if (tid == 0) cp_async4(flash::smem_u32(dst + bk * 2 * D), a.k_scale + blk);
+    }
+    flash::cp_commit();
+  };
+
+  // page t's codes → its msb and hi planes, in place: each thread the
+  // pieces it copied (its own cp.async copies are complete once it has
+  // waited for them, so no barrier comes between)
+  const LaneShift msb_of(a.msb_shift), hi_of(a.hi_shift);
+  const auto convert = [&](int t) {
+    uint8_t* tile = ring + (t % DECODE_STAGES) * stage;
+    for (int i = tid; i < bk * P; i += nthr) {
+      const int r = i / P, c = i % P;
+      uint4* x = reinterpret_cast<uint4*>(tile + code_off<D>(r, 2 * c));
+      uint4* y = reinterpret_cast<uint4*>(tile + code_off<D>(r, 2 * c + 1));
+      derive16(*reinterpret_cast<const int4*>(x),
+               *reinterpret_cast<const int4*>(y), msb_of, hi_of, *x, *y);
+    }
+  };
+
+  const float k_factor0 = (float)(1 << (16 - a.lo));
+  const float k_factor1 = q_factor;
+  // page t: this warp's m16 tiles of it into the warp's (s0, s1) maxima
+  const auto compute = [&](int t) {
+    const uint8_t* tile = ring + (t % DECODE_STAGES) * stage;
+    const int nvalid = min(bk, len - (j0 + t) * bk);  // keys below the length
+    const float ks = *reinterpret_cast<const float*>(tile + bk * 2 * D);
+    const float ks0 = __fmul_rn(ks, k_factor0), ks1 = __fmul_rn(ks, k_factor1);
+    const bool fast = rows_ok && positive_finite(ks0) && positive_finite(ks1);
+    float m0 = MPMRF_NEG_INF, m1 = MPMRF_NEG_INF;
+    int rm0[4], rm1[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) rm0[k] = rm1[k] = INT_MIN;
+    for (int mt = warp; 16 * mt < bk; mt += DECODE_WARPS) {
+      int acc[2][2][4];  // [n-tile][plane]
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int pl = 0; pl < 2; ++pl)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[nt][pl][i] = 0;
+      // lanes 8i .. 8i + 7 address matrix i: keys 0–7 / 8–15 of the tile
+      // (a key block of 8 mod 16 keys repeats its last key: masked)
+      const int row = min(16 * mt + (lane & 7) + ((lane >> 3) & 1) * 8, bk - 1);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t am[4], ah[4];
+        if constexpr (D >= 32) {  // msb, then hi: bytes 0–15 and 16–31
+          const int x = 4 * kk + 2 * (lane >> 4);
+          flash::ldsm_x4(flash::smem_u32(tile + code_off<D>(row, x)), am);
+          flash::ldsm_x4(flash::smem_u32(tile + code_off<D>(row, x + 1)), ah);
+        } else {                  // d 16: msb (chunk 0) and hi (chunk 1)
+          uint32_t r[4];
+          flash::ldsm_x4(flash::smem_u32(tile + code_off<D>(row, lane >> 4)),
+                         r);
+          am[0] = r[0], am[1] = r[1], ah[0] = r[2], ah[1] = r[3];
+          am[2] = am[3] = ah[2] = ah[3] = 0u;
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          if (nt == 1 && !two) break;
+          if constexpr (D >= 32) {
+            mma_k32(acc[nt][0], am, qb[nt][kk][0], qb[nt][kk][1]);
+            mma_k32(acc[nt][1], ah, qb[nt][kk][0], qb[nt][kk][1]);
+          } else {
+            mma_k16(acc[nt][0], am, qb[nt][kk][0]);
+            mma_k16(acc[nt][1], ah, qb[nt][kk][0]);
+          }
+        }
+      }
+      // acc[nt][pl][2·e + h]: key 16·mt + g + 8·e, row 8·nt + 2·tig + h
+      const bool whole = 16 * mt + 16 <= nvalid;  // every key of it valid
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = 2 * nt + h;
+          if (!live[k]) continue;  // a padding row
+          const int* f0 = acc[nt][0];
+          const int* f1 = acc[nt][1];
+          if (fast && whole) {  // an int max, three-way (Hopper's DPX)
+            rm0[k] = __vimax3_s32(rm0[k], f0[h], f0[2 + h]);
+            rm1[k] = __vimax3_s32(rm1[k], f1[h], f1[2 + h]);
+            continue;
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (16 * mt + g + 8 * e >= nvalid) continue;  // masked
+            if (fast) {
+              rm0[k] = max(rm0[k], f0[2 * e + h]);
+              rm1[k] = max(rm1[k], f1[2 * e + h]);
+            } else {  // the per-pair rescale
+              m0 = fmaxf(m0, rescale(f0[2 * e + h], qsf[k], ks0));
+              m1 = fmaxf(m1, rescale(f1[2 * e + h], qsf[k], ks1));
+            }
+          }
+        }
+      }
+    }
+    if (fast) rescale_rows<4>(rm0, rm1, qsf, ks0, ks1, m0, m1);
+    warp_max_to(m0, m1, red + (t & 1) * MAX_WARPS * 2 + 2 * warp);
+  };
+  const auto flush = [&](int t) {
+    flush_warps(red + (t & 1) * MAX_WARPS * 2, DECODE_WARPS,
+                a.s0 + out0 + j0 + t, a.s1 + out0 + j0 + t);
+  };
+
+  // --- the page loop: one __syncthreads per page ----------------------------
+  // While page t is multiplied, pages t + 1 and t + 2 are in flight; page
+  // t + 1 is then derived, so its planes are ready at the next barrier.
+#pragma unroll
+  for (int t = 0; t < DECODE_STAGES - 1; ++t) issue(t);
+  flash::cp_wait<DECODE_STAGES - 2>();  // this thread's pieces of page 0
+  convert(0);
+  for (int t = 0; t < n; ++t) {
+    __syncthreads();  // page t's planes are in; page t − 1's stage is free
+    if (t > 0) flush(t - 1);
+    issue(t + DECODE_STAGES - 1);
+    compute(t);
+    flash::cp_wait<DECODE_STAGES - 2>();  // this thread's pieces of t + 1
+    if (t + 1 < n) convert(t + 1);
+  }
+  __syncthreads();
+  flush(n - 1);
+}
+
 // Launch `kernel` (filter_block's instantiation for head dim d on the
-// product path `mt`) over `bh` rows of `n_qb` query blocks.
+// product path `mt`, or decode_block's) over `bh` rows of `n_qb` query
+// blocks (the decode kind: one row of G, n_qb 1).
 template <class Kernel>
 inline int launch(Kernel kernel, size_t (&given)[64], Kind kind, int mt,
                   int d, int bh, int n_qb, Args a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(kind, mt, d, a.bq, a.bk);
+  const bool decode = kind == Kind::kPagedDecode || kind == Kind::kDecode;
+  const size_t smem = smem_bytes(kind, mt, d, a.bq, a.bk, a.n_kb);
   flash::allow_smem(kernel, smem, given);
-  a.runs = filter_runs(bh * n_qb, a.n_kb, sm_count());
-  const int threads = a.bq / 16 * 32;
+  const int threads = decode ? 32 * DECODE_WARPS : a.bq / 16 * 32;
+  a.runs = decode ? decode_runs(kernel, threads, smem, bh, a.n_kb)
+                  : filter_runs(bh * n_qb, a.n_kb, sm_count());
   const dim3 grid = kind == Kind::kFull ? dim3(a.runs, bh, n_qb)
                                         : dim3(a.runs * n_qb, bh);
   kernel<<<grid, threads, smem, stream>>>(a);

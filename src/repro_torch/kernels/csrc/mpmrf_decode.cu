@@ -3,14 +3,26 @@
 //
 // B1 mpmrf_paged_filter_scores — replaces the TPU kernel
 //   repro/kernels/mpmrf_decode.py::mpmrf_paged_filter_scores
-//   (_paged_filter_kernel). One block per (logical block j, bh row):
-//   it reads physical page bt[b, j]'s int16 codes once, derives the
-//   2-bit and 4-bit planes by shift in shared memory, scores the G
-//   folded query rows with __dp4a (see mpmrf_common.cuh) and writes the
-//   two block maxima. Bound on the H100 by bytes: the codes are read
-//   once and nothing else of size moves, so a block that lies wholly
-//   past the slot's cache length skips the page entirely (its scores
-//   are all masked to NEG_INF) — the bytes read are the live pages'.
+//   (_paged_filter_kernel): both filter rounds' block maxima of the G
+//   folded query rows of each bh row against physical page bt[b, j]'s
+//   int16 codes, keys below the cache length, for every logical block j.
+//   Bound on the H100 by bytes: each live page's codes are read once
+//   (16 KB at bk 64, d 128) and G·bk·d·4 int8 operations a page are
+//   nothing beside them; a block wholly past the length is NEG_INF and
+//   never read. The design is the decode kind of the integer filter
+//   engine (filter_engine.cuh, decode_block): one block of four warps
+//   per run of a row's live pages, one wave of four blocks per SM (where
+//   one block per page left half the launch empty and ran each page's
+//   load, derivation and reductions in series), the pages streamed
+//   through a three-stage cp.async ring with two in flight while one is
+//   multiplied, the msb and hi planes derived in place one page ahead,
+//   the products on the int8 tensor cores (mma.sync s8, keys on M, the G
+//   rows as n8 fragments held for the block's life: exact int32 sums)
+//   and each row's largest acc rescaled once in the reference's
+//   association, so the scores equal the reference and the plain version
+//   bit for bit at every 0 ≤ lo < hi ≤ 8 (the products take the hi plane,
+//   which always fits int8, and not the remainder plane, which reaches
+//   255 at lo 0, hi 8).
 //
 // B5 mpmrf_decode_filter_scores — replaces
 //   repro/kernels/mpmrf_decode.py::mpmrf_decode_filter_scores
@@ -21,7 +33,7 @@
 //   the contiguous layout (block_of<false>): the same bytes bound, the
 //   same early exit, and scores equal to B1's on the same rows, bit for
 //   bit. A length past n_k (an idle slot's max_len + 1 sentinel) masks
-//   nothing; the grid covers the n_kb blocks only.
+//   nothing.
 //
 // B2 paged_decode_gather_attention — replaces
 //   repro/kernels/mpmrf_decode.py::paged_decode_gather_attention
@@ -62,31 +74,14 @@
 //   body, the same bytes bound, outputs equal to B2's on the same rows.
 #include <type_traits>
 
-#include "flash_common.cuh"
+#include "filter_engine.cuh"
 
-template <int DW, bool kPaged>
-__global__ void __launch_bounds__(FILTER_THREADS) decode_filter_kernel(
-    const int32_t* __restrict__ q_plane, const float* __restrict__ q_scale,
-    const int16_t* __restrict__ codes, const float* __restrict__ blk_scale,
-    const int32_t* __restrict__ block_table,
-    const int32_t* __restrict__ cache_len, float* __restrict__ s0,
-    float* __restrict__ s1, int g, int bk, int mb, int lo, int hi) {
-  const int j = blockIdx.x, b = blockIdx.y;
-  const int len = cache_len[b];
-  const int out = b * mb + j;
-  if (j * bk >= len) {
-    if (threadIdx.x == 0) {
-      s0[out] = MPMRF_NEG_INF;
-      s1[out] = MPMRF_NEG_INF;
-    }
-    return;
-  }
-  const int d = 4 * DW;
-  const int blk = mpmrf::block_of<kPaged>(block_table, b, j, mb);
-  mpmrf::filter_tile<DW>(
-      q_plane + (size_t)b * g * d, q_scale + (size_t)b * g, nullptr,
-      codes + (size_t)blk * bk * d, blk_scale + blk, 0, g, bk, j * bk, len,
-      0, lo, hi, s0 + out, s1 + out);
+// One block of the decode kind of the filter engine: a run of one bh
+// row's live key blocks (filter_engine.cuh, decode_block).
+template <int D, bool kPaged>
+__global__ void __launch_bounds__(32 * filt::DECODE_WARPS)
+    decode_filter_kernel(filt::Args a) {
+  filt::decode_block<D, kPaged>(a);
 }
 
 // The G folded rows of a decode step padded to the block's rows: a live
@@ -245,64 +240,51 @@ __global__ void __launch_bounds__(D >= 64 ? 128 : 32) decode_split_kernel(
   if (tid == 0) count[b] = 0;
 }
 
-static size_t filter_smem_bytes(int rows, int bk, int dw) {
-  return sizeof(int) * ((size_t)rows * dw + 2 * (size_t)bk * (dw + 1) +
-                        2 * (size_t)rows + 64);
+template <int D, bool kPaged>
+static int launch_filter(const filt::Args& a, int bh, cudaStream_t stream) {
+  static size_t given[64];
+  return filt::launch(decode_filter_kernel<D, kPaged>, given,
+                      kPaged ? filt::Kind::kPagedDecode : filt::Kind::kDecode,
+                      1, D, bh, 1, a, stream);
 }
 
-template <int DW, bool kPaged>
-static void launch_filter(dim3 grid, size_t smem, cudaStream_t stream,
-                          const void* q_plane, const void* q_scale,
-                          const void* codes, const void* blk_scale,
-                          const void* block_table, const void* cache_len,
-                          void* s0, void* s1, int g, int bk, int mb, int lo,
-                          int hi) {
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(decode_filter_kernel<DW, kPaged>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  decode_filter_kernel<DW, kPaged><<<grid, FILTER_THREADS, smem, stream>>>(
-      (const int32_t*)q_plane, (const float*)q_scale, (const int16_t*)codes,
-      (const float*)blk_scale, (const int32_t*)block_table,
-      (const int32_t*)cache_len, (float*)s0, (float*)s1, g, bk, mb, lo, hi);
-}
-
-// mb: blocks per bh row (table width, or n_kb of the contiguous cache)
+// mb: blocks per bh row (table width, or n_kb of the contiguous cache);
+// msb_shift / hi_shift: the planes' packed shifts of the codes' high
+// bytes (kernels/mpmrf_decode.py::plane_shifts)
 template <bool kPaged>
 static int filter_scores(const void* q_plane, const void* q_scale,
                          const void* codes, const void* blk_scale,
                          const void* block_table, const void* cache_len,
                          void* s0, void* s1, int bh, int g, int d, int bk,
-                         int mb, int lo, int hi, void* stream) {
+                         int mb, int lo, int hi, int msb_shift, int hi_shift,
+                         void* stream) {
   cudaGetLastError();
-  const dim3 grid(mb, bh);
-  const size_t smem = filter_smem_bytes(g, bk, d / 4);
+  if (g < 1 || g > 16 || bk < 8 || bk > 128 || bk % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  filt::Args a{};
+  a.q_plane = q_plane;
+  a.q_scale = (const float*)q_scale;
+  a.len = (const int32_t*)cache_len;
+  a.k0 = codes;
+  a.k_scale = (const float*)blk_scale;
+  a.table = (const int32_t*)block_table;
+  a.s0 = (float*)s0;
+  a.s1 = (float*)s1;
+  a.n_q = g;
+  a.bk = bk;
+  a.n_kb = mb;
+  a.lo = lo;
+  a.hi = hi;
+  a.msb_shift = msb_shift;
+  a.hi_shift = hi_shift;
   cudaStream_t st = (cudaStream_t)stream;
   switch (d) {
-    case 16:
-      launch_filter<4, kPaged>(grid, smem, st, q_plane, q_scale, codes,
-                               blk_scale, block_table, cache_len, s0, s1, g,
-                               bk, mb, lo, hi);
-      break;
-    case 32:
-      launch_filter<8, kPaged>(grid, smem, st, q_plane, q_scale, codes,
-                               blk_scale, block_table, cache_len, s0, s1, g,
-                               bk, mb, lo, hi);
-      break;
-    case 64:
-      launch_filter<16, kPaged>(grid, smem, st, q_plane, q_scale, codes,
-                                blk_scale, block_table, cache_len, s0, s1, g,
-                                bk, mb, lo, hi);
-      break;
-    case 128:
-      launch_filter<32, kPaged>(grid, smem, st, q_plane, q_scale, codes,
-                                blk_scale, block_table, cache_len, s0, s1, g,
-                                bk, mb, lo, hi);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 16: return launch_filter<16, kPaged>(a, bh, st);
+    case 32: return launch_filter<32, kPaged>(a, bh, st);
+    case 64: return launch_filter<64, kPaged>(a, bh, st);
+    case 128: return launch_filter<128, kPaged>(a, bh, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 template <int D, bool kPaged>
@@ -378,19 +360,20 @@ extern "C" int mpmrf_paged_filter_scores(
     const void* q_plane, const void* q_scale, const void* codes,
     const void* page_scale, const void* block_table, const void* cache_len,
     void* s0, void* s1, int bh, int g, int d, int bk, int mb, int lo, int hi,
-    void* stream) {
+    int msb_shift, int hi_shift, void* stream) {
   return filter_scores<true>(q_plane, q_scale, codes, page_scale,
                              block_table, cache_len, s0, s1, bh, g, d, bk, mb,
-                             lo, hi, stream);
+                             lo, hi, msb_shift, hi_shift, stream);
 }
 
 extern "C" int mpmrf_decode_filter_scores(
     const void* q_plane, const void* q_scale, const void* codes,
     const void* block_scale, const void* cache_len, void* s0, void* s1,
-    int bh, int g, int d, int bk, int n_kb, int lo, int hi, void* stream) {
+    int bh, int g, int d, int bk, int n_kb, int lo, int hi, int msb_shift,
+    int hi_shift, void* stream) {
   return filter_scores<false>(q_plane, q_scale, codes, block_scale, nullptr,
                               cache_len, s0, s1, bh, g, d, bk, n_kb, lo, hi,
-                              stream);
+                              msb_shift, hi_shift, stream);
 }
 
 extern "C" int paged_decode_gather_attention(

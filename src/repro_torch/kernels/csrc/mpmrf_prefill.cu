@@ -193,7 +193,8 @@ static int filter_scores(const void* q_plane, const void* q_scale,
                          const void* q_pos, const void* codes,
                          const void* k_scale, const void* block_table,
                          void* s0, void* s1, int bh, int n_q, int d, int bq,
-                         int bk, int mb, int lo, int hi, void* stream) {
+                         int bk, int mb, int lo, int hi, int msb_shift,
+                         int hi_shift, void* stream) {
   cudaGetLastError();
   filt::Args a{};
   a.q_plane = q_plane;
@@ -210,6 +211,8 @@ static int filter_scores(const void* q_plane, const void* q_scale,
   a.n_kb = mb;
   a.lo = lo;
   a.hi = hi;
+  a.msb_shift = msb_shift;
+  a.hi_shift = hi_shift;
   const int n_qb = n_q / bq;
   cudaStream_t st = (cudaStream_t)stream;
   switch (d) {
@@ -267,19 +270,20 @@ extern "C" int mpmrf_paged_prefill_filter_scores(
     const void* q_plane, const void* q_scale, const void* q_pos,
     const void* codes, const void* page_scale, const void* block_table,
     void* s0, void* s1, int bh, int n_q, int d, int bq, int bk, int mb,
-    int lo, int hi, void* stream) {
+    int lo, int hi, int msb_shift, int hi_shift, void* stream) {
   return filter_scores<true>(q_plane, q_scale, q_pos, codes, page_scale,
                              block_table, s0, s1, bh, n_q, d, bq, bk, mb, lo,
-                             hi, stream);
+                             hi, msb_shift, hi_shift, stream);
 }
 
 extern "C" int mpmrf_prefill_filter_scores(
     const void* q_plane, const void* q_scale, const void* q_pos,
     const void* codes, const void* row_scale, void* s0, void* s1, int bh,
-    int n_q, int d, int bq, int bk, int n_kb, int lo, int hi, void* stream) {
+    int n_q, int d, int bq, int bk, int n_kb, int lo, int hi, int msb_shift,
+    int hi_shift, void* stream) {
   return filter_scores<false>(q_plane, q_scale, q_pos, codes, row_scale,
                               nullptr, s0, s1, bh, n_q, d, bq, bk, n_kb, lo,
-                              hi, stream);
+                              hi, msb_shift, hi_shift, stream);
 }
 
 extern "C" int paged_prefill_gather_attention(

@@ -30,12 +30,16 @@ NEG_INF = -1e30
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "mpmrf_paged_filter_scores": [_P] * 8 + [_I] * 7 + [_P],
-    "mpmrf_decode_filter_scores": [_P] * 7 + [_I] * 7 + [_P],
+    "mpmrf_paged_filter_scores": [_P] * 8 + [_I] * 9 + [_P],
+    "mpmrf_decode_filter_scores": [_P] * 7 + [_I] * 9 + [_P],
     "paged_decode_gather_attention": [_P] * 10 + [_I] * 7 + [_F, _P],
     "decode_gather_attention": [_P] * 9 + [_I] * 7 + [_F, _P],
 }
 FILTER_HEAD_DIMS = (16, 32, 64, 128)
+#: the decode filter's (B1 / B5) query rows per bh row (two n8 tiles)
+#: and key blocks (m16 tiles, the last one half of 8 keys, up to 128:
+#: the page ring's shared memory)
+DECODE_FILTER_MAX_G, DECODE_FILTER_MAX_KEY_BLOCK = 16, 128
 #: survivor slots that one block of the decode gather (B2 / B6) takes,
 #: and the most splits of one row (the merge keeps each split's (m, l)
 #: in shared memory)
@@ -54,6 +58,46 @@ def _lib():
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def check_plane_widths(round_bits) -> None:
+    """Plane widths the filter kernels derive from the codes' high bytes:
+    msb = code >> (16 − lo) and hi = code >> (16 − hi) fit int8 for
+    0 ≤ lo < hi ≤ 8 (``plane_shifts``)."""
+    lo, hi = round_bits
+    if not 0 <= lo < hi <= 8:
+        raise ValueError("plane widths must satisfy 0 <= lo < hi <= 8")
+
+
+def plane_shifts(round_bits) -> Tuple[int, int]:
+    """The packed arithmetic shifts of a code's high byte (code >> 8, an
+    int8) that give the filter kernels' two planes: msb = code >> (16 −
+    lo) is (code >> 8) >> min(8 − lo, 7) — at lo = 0 the code's sign,
+    which the shift by 7 gives — and hi = code >> (16 − hi) is
+    (code >> 8) >> (8 − hi). The kernels (B1 / B5 / B3 / B7) take both."""
+    check_plane_widths(round_bits)
+    lo, hi = round_bits
+    return min(8 - lo, 7), 8 - hi
+
+
+def check_decode_filter_launch(g, d, key_block, round_bits) -> None:
+    """What the decode kind of the filter engine (B1 / B5) takes: at most
+    16 folded query rows (two n8 tiles), a head dim it is built for, key
+    blocks of 8-key multiples up to 128 (the reference's test models use
+    16, the card's serving path 64) and plane widths it derives from the
+    codes' high bytes. ``serving_faults`` refuses the rows and key blocks
+    past these up front. (Per call on the decode path: the messages are
+    formatted only on a refusal.)"""
+    if not 1 <= g <= DECODE_FILTER_MAX_G:
+        raise ValueError(f"the decode filter takes 1 to "
+                         f"{DECODE_FILTER_MAX_G} query rows per bh row "
+                         f"(G={g})")
+    if d not in FILTER_HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {FILTER_HEAD_DIMS}")
+    if key_block % 8 or not 0 < key_block <= DECODE_FILTER_MAX_KEY_BLOCK:
+        raise ValueError(f"key_block {key_block} must be a multiple of 8, "
+                         f"<= {DECODE_FILTER_MAX_KEY_BLOCK}")
+    check_plane_widths(round_bits)
 
 
 def _check_cuda(*tensors: torch.Tensor) -> None:
@@ -137,9 +181,7 @@ def paged_filter_scores(
     lo, hi = round_bits
     bh, g, d = q_plane.shape
     mb = block_table.shape[-1]
-    _require(hi <= 8 and lo < hi, "plane widths must satisfy lo < hi <= 8")
-    _require(d in FILTER_HEAD_DIMS, f"head_dim {d} not in {FILTER_HEAD_DIMS}")
-    _require(256 % key_block == 0, f"key_block {key_block} must divide 256")
+    check_decode_filter_launch(g, d, key_block, round_bits)
     _require(tuple(k_codes_pages.shape[1:]) == (key_block, d),
              "k_codes_pages must be [P, key_block, d]")
     _require(q_plane.dtype == torch.int32 and k_codes_pages.dtype == torch.int16
@@ -158,7 +200,8 @@ def paged_filter_scores(
         _build.ptr(q_plane), _build.ptr(q_scale), _build.ptr(k_codes_pages),
         _build.ptr(k_page_scale), _build.ptr(block_table),
         _build.ptr(cache_length), _build.ptr(s0), _build.ptr(s1),
-        bh, g, d, key_block, mb, lo, hi, _build.stream_ptr(q_plane.device),
+        bh, g, d, key_block, mb, lo, hi, *plane_shifts(round_bits),
+        _build.stream_ptr(q_plane.device),
     ), "mpmrf_paged_filter_scores")
     return s0, s1
 
@@ -353,9 +396,7 @@ def mpmrf_decode_filter_scores(
     _require(n_k % key_block == 0,
              f"cache rows {n_k} not divisible by {key_block}")
     n_kb = n_k // key_block
-    _require(hi <= 8 and lo < hi, "plane widths must satisfy lo < hi <= 8")
-    _require(d in FILTER_HEAD_DIMS, f"head_dim {d} not in {FILTER_HEAD_DIMS}")
-    _require(256 % key_block == 0, f"key_block {key_block} must divide 256")
+    check_decode_filter_launch(g, d, key_block, round_bits)
     _require(tuple(k_codes.shape) == (bh, n_k, d)
              and tuple(k_block_scale.shape) == (bh, n_kb),
              "k_codes must be [bh, n_k, d] and k_block_scale [bh, n_kb]")
@@ -373,7 +414,7 @@ def mpmrf_decode_filter_scores(
         _build.ptr(q_plane), _build.ptr(q_scale), _build.ptr(k_codes),
         _build.ptr(k_block_scale), _build.ptr(cache_length), _build.ptr(s0),
         _build.ptr(s1), bh, g, d, key_block, n_kb, lo, hi,
-        _build.stream_ptr(q_plane.device),
+        *plane_shifts(round_bits), _build.stream_ptr(q_plane.device),
     ), "mpmrf_decode_filter_scores")
     return s0, s1
 

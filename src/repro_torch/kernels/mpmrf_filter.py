@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.mpmrf_decode import (
-    FILTER_HEAD_DIMS, NEG_INF, _check_cuda, _require,
+    FILTER_HEAD_DIMS, NEG_INF, _check_cuda, _require, check_plane_widths,
 )
 from repro_torch.kernels.flash_attention import row_chunk
 
@@ -35,21 +35,19 @@ def _lib():
 
 
 def check_filter_launch(d, query_block, key_block, round_bits=None):
-    """What the filter engine takes: a head dim it is built for, query
-    blocks of 16-row m-tiles up to 128 rows (at most eight warps), key
-    blocks of 8-key n-tiles up to 128 (the ring's shared memory) and,
-    for B3 / B7, plane widths whose msb = code >> (16 − lo) and
-    hi = code >> (16 − hi) planes fit int8 and derive from the codes'
-    high bytes (1 ≤ lo < hi ≤ 8)."""
+    """What the filter engine takes for B3 / B7 / B9: a head dim it is
+    built for, query blocks of 16-row m-tiles up to 128 rows (at most
+    eight warps), key blocks of 8-key n-tiles up to 128 (the ring's
+    shared memory) and, for B3 / B7, plane widths whose planes derive
+    from the codes' high bytes (``check_plane_widths``). The decode
+    kind's limits are ``mpmrf_decode.check_decode_filter_launch``."""
     _require(d in FILTER_HEAD_DIMS, f"head_dim {d} not in {FILTER_HEAD_DIMS}")
     _require(query_block % 16 == 0 and 0 < query_block <= 128,
              f"query_block {query_block} must be a multiple of 16, <= 128")
     _require(key_block % 8 == 0 and 0 < key_block <= 128,
              f"key_block {key_block} must be a multiple of 8, <= 128")
     if round_bits is not None:
-        lo, hi = round_bits
-        _require(1 <= lo < hi <= 8,
-                 "plane widths must satisfy 1 <= lo < hi <= 8")
+        check_plane_widths(round_bits)
 
 
 def mpmrf_filter_scores_plain(

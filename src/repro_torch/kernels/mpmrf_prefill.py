@@ -22,14 +22,14 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import check_attention_launch
 from repro_torch.kernels.mpmrf_decode import (
-    NEG_INF, _cache_blocks, _check_cuda, _require,
+    NEG_INF, _cache_blocks, _check_cuda, _require, plane_shifts,
 )
 from repro_torch.kernels.mpmrf_filter import check_filter_launch
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "mpmrf_paged_prefill_filter_scores": [_P] * 8 + [_I] * 8 + [_P],
-    "mpmrf_prefill_filter_scores": [_P] * 7 + [_I] * 8 + [_P],
+    "mpmrf_paged_prefill_filter_scores": [_P] * 8 + [_I] * 10 + [_P],
+    "mpmrf_prefill_filter_scores": [_P] * 7 + [_I] * 10 + [_P],
     "paged_prefill_gather_attention": [_P] * 8 + [_I] * 7 + [_F, _P],
     "prefill_gather_attention": [_P] * 7 + [_I] * 7 + [_F, _P],
 }
@@ -143,7 +143,7 @@ def paged_prefill_filter_scores(
         _build.ptr(k_codes_pages), _build.ptr(k_page_scale),
         _build.ptr(block_table), _build.ptr(s0), _build.ptr(s1),
         bh, n_q, d, query_block, key_block, mb, lo, hi,
-        _build.stream_ptr(q_plane.device),
+        *plane_shifts(round_bits), _build.stream_ptr(q_plane.device),
     ), "mpmrf_paged_prefill_filter_scores")
     return s0, s1
 
@@ -325,7 +325,7 @@ def mpmrf_prefill_filter_scores(
         _build.ptr(q_plane), _build.ptr(q_scale), _build.ptr(q_positions),
         _build.ptr(k_codes), _build.ptr(k_row_scale), _build.ptr(s0),
         _build.ptr(s1), bh, n_q, d, query_block, key_block, n_kb, lo, hi,
-        _build.stream_ptr(q_plane.device),
+        *plane_shifts(round_bits), _build.stream_ptr(q_plane.device),
     ), "mpmrf_prefill_filter_scores")
     return s0, s1
 

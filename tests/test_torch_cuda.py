@@ -149,13 +149,15 @@ def test_filter_kernel_matches_plain(cuda, d, bq, bk, causal, q_offset):
 
 #: (d, query block, key block, round bits) of B3 / B7 on the engine: its
 #: shapes, plus the widest planes it derives (msb 1 bit and hi 8 bits: the
-#: packed shifts by 7 and by 0) and a (3, 7) split
+#: packed shifts by 7 and by 0), a (3, 7) split, and lo = 0 (the msb
+#: plane the code's sign: the shift by 7 again)
 PREFILL_FILTER_SHAPES = [(16, 16, 16, (2, 4)), (32, 48, 64, (2, 4)),
                          (64, 64, 128, (2, 4)), (128, 128, 64, (2, 4)),
                          (128, 128, 128, (2, 4)), (128, 16, 64, (2, 4)),
                          (64, 128, 16, (3, 7)), (128, 128, 64, (1, 8)),
                          (128, 64, 128, (2, 4)), (128, 48, 16, (2, 4)),
-                         (32, 16, 8, (2, 4)), (128, 64, 24, (2, 4))]
+                         (32, 16, 8, (2, 4)), (128, 64, 24, (2, 4)),
+                         (128, 128, 64, (0, 8)), (64, 32, 16, (0, 8))]
 
 
 @pytest.mark.parametrize("d,bq,bk,round_bits", PREFILL_FILTER_SHAPES)
@@ -572,3 +574,105 @@ def test_dense_decode_paged_equals_unpaged(cuda):
         cuda, batch=8, heads=8, g=5, d=128, ps=64, mb=64)
     assert k_log.is_contiguous() and torch.equal(k_log, k)
     assert torch.equal(paged, unpaged)
+
+
+def _decode_filter_case(cuda, g, d, bk, round_bits, repeats, n_kb, seed):
+    """B1 / B5 operands: a contiguous code cache of ``6·repeats`` bh rows
+    and the same rows as pages under a shuffled table. Rows 0–5 have
+    lengths 1, bk − 1, bk, mid-block, n_kb·bk and n_kb·bk + 1 (an idle
+    slot's max_len + 1 sentinel), the other rows random lengths. Row 2's
+    codes and first q row sit at their most negative (the largest |acc|);
+    one live block has scale 0 and one q row a negative scale (the
+    per-pair rescale). The table entries past row 0's length alias pages
+    that other rows use (an unmapped entry may name any page)."""
+    lo, hi = round_bits
+    bh = 6 * repeats
+    n_k = n_kb * bk
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    codes = torch.randint(-32768, 32768, (bh, n_k, d), generator=gen,
+                          device=cuda, dtype=torch.int32).to(torch.int16)
+    codes[2] = -32768
+    scale = torch.rand((bh, n_kb), generator=gen, device=cuda) + 0.05
+    scale[3, 1] = 0.0
+    half = 1 << (hi - 1)
+    q = torch.randint(-half, half, (bh, g, d), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    q[2, 0] = -half
+    qs = torch.rand((bh, g, 1), generator=gen, device=cuda) * 1e-3 + 1e-5
+    qs[4, g - 1] = -qs[4, g - 1]
+    cl = torch.randint(1, n_k + 2, (bh,), generator=gen, device=cuda)
+    cl[:6] = torch.tensor([1, bk - 1, bk, 5 * bk + bk // 2, n_k, n_k + 1],
+                          device=cuda).clamp(min=1)
+    table = torch.randperm(bh * n_kb, generator=gen, device=cuda)
+    inv = torch.empty_like(table)
+    inv[table] = torch.arange(bh * n_kb, device=cuda)
+    pages = codes.reshape(bh * n_kb, bk, d)[inv].contiguous()
+    page_scale = scale.reshape(-1)[inv].reshape(-1, 1).contiguous()
+    table = table.reshape(bh, n_kb).to(torch.int32)
+    table[0, 1:] = table[1, 0]
+    return (q, qs.contiguous(), codes, scale, cl.to(torch.int32), pages,
+            page_scale, table)
+
+
+#: the decode filter (B1 / B5, the decode kind of the filter engine):
+#: G of one n8 tile (1, 2, 5, 8) and of two (16), every head dim (d 16 on
+#: m16n8k16), key blocks of one m16 tile (16, one warp of four busy) and
+#: of four (64, the card's serving path), the (2, 4) planes, the widest
+#: at lo 1 and lo = 0 (the code's sign as msb, and a remainder plane
+#: reaching 255, past int8)
+DECODE_FILTER_GRID = [(g, d, bk, rb) for g in (1, 2, 5, 8, 16)
+                      for d in (16, 32, 64, 128) for bk in (16, 64)
+                      for rb in ((2, 4), (1, 8), (0, 8))]
+
+
+def _check_decode_filters(cuda, g, d, bk, round_bits, repeats, n_kb, seed):
+    from repro_torch.kernels import mpmrf_decode as dk
+
+    q, qs, codes, scale, cl, pages, page_scale, table = _decode_filter_case(
+        cuda, g, d, bk, round_bits, repeats, n_kb, seed)
+    kw = dict(round_bits=round_bits, key_block=bk)
+    b5 = dk.mpmrf_decode_filter_scores(q, qs, codes, scale, cl, **kw)
+    r5 = dk.mpmrf_decode_filter_scores_plain(q, qs, codes, scale, cl, **kw)
+    assert torch.equal(b5[0], r5[0]) and torch.equal(b5[1], r5[1])
+    again = dk.mpmrf_decode_filter_scores(q, qs, codes, scale, cl, **kw)
+    assert torch.equal(b5[0], again[0]) and torch.equal(b5[1], again[1])
+    b1 = dk.paged_filter_scores(q, qs, pages, page_scale, table, cl, **kw)
+    r1 = dk.paged_filter_scores_plain(q, qs, pages, page_scale, table, cl,
+                                      **kw)
+    assert torch.equal(b1[0], r1[0]) and torch.equal(b1[1], r1[1])
+    again = dk.paged_filter_scores(q, qs, pages, page_scale, table, cl, **kw)
+    assert torch.equal(b1[0], again[0]) and torch.equal(b1[1], again[1])
+    assert torch.equal(b1[0], b5[0]) and torch.equal(b1[1], b5[1])
+    # blocks past the length NEG_INF; the sentinel row masks nothing
+    assert (b1[0][0, 1:] == dk.NEG_INF).all()
+    assert (b1[1][5] > dk.NEG_INF / 2).all()
+
+
+@pytest.mark.parametrize("g,d,bk,round_bits", DECODE_FILTER_GRID, ids=[
+    f"G{g}-d{d}-bk{bk}-lo{lo}-hi{hi}"
+    for g, d, bk, (lo, hi) in DECODE_FILTER_GRID])
+def test_decode_filters_match_plain_and_each_other(cuda, g, d, bk,
+                                                   round_bits):
+    """B1 and B5 = their plain versions bit for bit, the same when run
+    twice, and B5 = B1 on the same rows laid out as pages. 132 bh rows of
+    16 key blocks: each row's live blocks are cut into runs of about
+    four, so the page ring wraps."""
+    _check_decode_filters(cuda, g, d, bk, round_bits, repeats=22, n_kb=16,
+                          seed=g + d + bk + round_bits[0])
+
+
+@pytest.mark.parametrize("g,d,bk,round_bits,repeats,n_kb", [
+    (5, 128, 8, (2, 4), 22, 16),     # half an m16 tile per page
+    (16, 64, 24, (0, 8), 22, 16),    # one and a half
+    (5, 128, 128, (1, 8), 22, 16),   # two per warp
+    (5, 128, 64, (2, 4), 100, 64),   # 600 rows: one run per row, 64 pages
+    (3, 16, 128, (0, 8), 2, 4),      # one block per key block
+])
+def test_decode_filters_at_other_key_blocks_and_runs(cuda, g, d, bk,
+                                                     round_bits, repeats,
+                                                     n_kb):
+    """The same checks at key blocks of 8 mod 16 keys (the last m16 tile
+    half masked), of two m16 tiles per warp, one run of a whole row
+    (the ring wraps 16 times) and a run of one block."""
+    _check_decode_filters(cuda, g, d, bk, round_bits, repeats, n_kb,
+                          seed=7 * g + bk)

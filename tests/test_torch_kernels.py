@@ -21,8 +21,9 @@ BH, G, D, BK, MB, PAGES = 4, 4, 16, 16, 5, 12
 N_Q, BQ = 32, 16
 
 
-def _filter_operands(rng, rows):
-    q_plane = rng.integers(-8, 8, size=(BH, rows, D)).astype(np.int32)
+def _filter_operands(rng, rows, hi=4):
+    half = 1 << (hi - 1)                 # the q plane of hi bits
+    q_plane = rng.integers(-half, half, size=(BH, rows, D)).astype(np.int32)
     q_scale = rng.uniform(1e-5, 1e-3, size=(BH, rows, 1)).astype(np.float32)
     codes = rng.integers(-32767, 32768, size=(PAGES, BK, D)).astype(np.int16)
     scale = rng.uniform(1e-5, 1e-3, size=(PAGES, 1)).astype(np.float32)
@@ -40,20 +41,25 @@ def _gather_operands(rng, rows, budget_shape):
     return q, k, v, table.astype(np.int32), idx, val
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_b1_paged_filter_scores_bit_exact(seed):
+@pytest.mark.parametrize("seed,round_bits", [
+    pytest.param(0, (2, 4), id="0"), pytest.param(1, (2, 4), id="1"),
+    pytest.param(0, (1, 8), id="0-lo1-hi8"),
+    # lo = 0: the msb plane is the code's sign, the remainder reaches 255
+    pytest.param(1, (0, 8), id="1-lo0-hi8"),
+])
+def test_b1_paged_filter_scores_bit_exact(seed, round_bits):
     rng = np.random.default_rng(seed)
-    qp, qs, codes, scale, table = _filter_operands(rng, G)
+    qp, qs, codes, scale, table = _filter_operands(rng, G, round_bits[1])
     # lengths: one slot sees a single block, one sees none of the last
     cl = np.array([1, 17, MB * BK, 50], np.int32)
     ref = jdec.mpmrf_paged_filter_scores(
         jnp.asarray(qp), jnp.asarray(qs), jnp.asarray(codes),
         jnp.asarray(scale), jnp.asarray(table), jnp.asarray(cl),
-        round_bits=(2, 4), key_block=BK, interpret=True,
+        round_bits=round_bits, key_block=BK, interpret=True,
     )
     out = tdec.paged_filter_scores(
         t(qp), t(qs), t(codes), t(scale), t(table), t(cl),
-        round_bits=(2, 4), key_block=BK,
+        round_bits=round_bits, key_block=BK,
     )
     for r, o in zip(ref, out):
         np.testing.assert_array_equal(n(r), n(o))

@@ -163,3 +163,26 @@ def test_serve_loop_refuses_shapes_off_the_path(max_len, chunk, fault):
     with pytest.raises(ValueError, match=fault):
         ServeLoop(model, model.init(), max_len=max_len, prefill_chunk=chunk,
                   device="cpu")
+
+
+@pytest.mark.parametrize("model_overrides, energon_overrides, fault", [
+    # 34 query heads over 2 KV heads: G = 17, past the decode kernels' 16
+    ({"num_heads": 34}, {},
+     "the decode kernels take at most 16 query heads per KV head (G=17)"),
+    ({}, {"key_block": 4, "decode_key_block": 4},
+     "decode_key_block 4 must be a multiple of 8, <= 128"),
+    ({}, {"key_block": 256, "decode_key_block": 256},
+     "decode_key_block 256 must be a multiple of 8, <= 128"),
+])
+def test_serve_loop_refuses_shapes_off_the_decode_filter(
+        model_overrides, energon_overrides, fault):
+    """Rows and key blocks that the decode filter (B1 / B5) does not take
+    are refused up front, before a decode step would raise mid-run."""
+    cfg = _narrow_full_config()
+    cfg = dataclasses.replace(cfg, energon=dataclasses.replace(
+        cfg.energon, **energon_overrides), **model_overrides)
+    model = LMModel(cfg, device="cpu")
+    with pytest.raises(ValueError, match=fault.replace("(", r"\(")
+                       .replace(")", r"\)")):
+        ServeLoop(model, model.init(), max_len=4096, prefill_chunk=128,
+                  device="cpu")

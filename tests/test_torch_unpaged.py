@@ -64,8 +64,9 @@ def _codes(rng, filter_block=BK):
     return np.asarray(codes), np.asarray(scale)
 
 
-def _q_planes(rng, rows):
-    q_plane = rng.integers(-8, 8, size=(BH, rows, D)).astype(np.int32)
+def _q_planes(rng, rows, hi=4):
+    half = 1 << (hi - 1)                 # the q plane of hi bits
+    q_plane = rng.integers(-half, half, size=(BH, rows, D)).astype(np.int32)
     q_scale = rng.uniform(1e-5, 1e-3, size=(BH, rows, 1)).astype(np.float32)
     return q_plane, q_scale
 
@@ -78,19 +79,26 @@ def _qpos(rng):
     return pos
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_b5_decode_filter_scores_bit_exact(seed):
+@pytest.mark.parametrize("seed,round_bits", [
+    pytest.param(0, (2, 4), id="0"), pytest.param(1, (2, 4), id="1"),
+    pytest.param(0, (1, 8), id="0-lo1-hi8"),
+    # lo = 0: the msb plane is the code's sign, the remainder reaches 255
+    pytest.param(1, (0, 8), id="1-lo0-hi8"),
+])
+def test_b5_decode_filter_scores_bit_exact(seed, round_bits):
     rng = np.random.default_rng(seed)
-    qp, qs = _q_planes(rng, G)
+    qp, qs = _q_planes(rng, G, round_bits[1])
     codes, scale = _codes(rng)
     # one row in its first block, one at the full cache, one past it
     # (an idle slot's max_len + 1 sentinel), one mid-block
     cl = np.array([1, N_K, N_K + 1, 37], np.int32)
     ref = jdec.mpmrf_decode_filter_scores(
         jnp.asarray(qp), jnp.asarray(qs), jnp.asarray(codes),
-        jnp.asarray(scale), jnp.asarray(cl), key_block=BK, interpret=True)
+        jnp.asarray(scale), jnp.asarray(cl), round_bits=round_bits,
+        key_block=BK, interpret=True)
     out = tdec.mpmrf_decode_filter_scores(
-        t(qp), t(qs), t(codes), t(scale), t(cl), key_block=BK)
+        t(qp), t(qs), t(codes), t(scale), t(cl), round_bits=round_bits,
+        key_block=BK)
     for r, o in zip(ref, out):
         np.testing.assert_array_equal(n(r), n(o))
     assert (n(out[0])[0, 1:] == tdec.NEG_INF).all()
