@@ -43,18 +43,24 @@ cuts qwen3-14b's depth, never its width). Phases:
 4. Serving qwen3-14b at full width (random weights from a seed) through
    ``ServeLoop``: 8 requests of 2048-token prompts sharing a 256-token
    system prompt, 32 greedy tokens each, 8 slots, max_len 4096,
-   prefill chunk 128. Launch counts are zeroed just before this run and
-   read just after; every kernel must have launched, every request
-   drained and every logit been finite; the streams' sha1 is printed,
-   to compare two trees' runs. The same requests are served again (now
-   hitting the prefix cache) and must give the same streams.
+   prefill chunk 128. Every serving engine of this script replays its
+   decode step and prefill wave from CUDA graphs (the default on CUDA),
+   captured before its clock starts (``[graph]``: seconds and device
+   memory of the captures). Launch counts are zeroed just before this
+   run and read just after; every kernel must have launched, every
+   request drained and every logit been finite; the streams' sha1 is
+   printed, to compare two trees' runs. The same requests are served
+   again (now hitting the prefix cache) and must give the same streams.
 5. The kernels again, compared and timed on the live pool of a sparse
    layer after serving.
 6. One more drain of fresh prompts on the same engine under
    ``torch.profiler``: the share of the wall time the device was busy,
    the largest device items and each of the port's kernels' device
    time and calls (``[profile] the port's kernels``: B1–B4, B3 among
-   them).
+   them), beside the launches the wrappers counted in that drain (a
+   trace that misses some says so); then decode ticks alone under the
+   profiler (``[profile-decode]``): wall and device time per tick, idle
+   share, device kernels per tick and the largest items.
 
 Then the contiguous (unpaged) cache, on the same model object and
 weights, once the paged engine is released:
@@ -81,6 +87,13 @@ weights, once the paged engine is released:
    requests through a fresh paged engine and a fresh unpaged one, warm,
    so the two layouts' tok/s are taken in turns in one call
    (``[in-turns]``; each must give phase 4's streams).
+9b. The same requests drained by fresh eager (``cuda_graphs=False``) and
+   graphed engines in turns — eager, graphed, eager, graphed — paged,
+   then unpaged (``[eager-graphed]``): every drain must give phase 4's
+   streams (sha1), each graphed drain the per-kernel launch counts of
+   its eager twin, with B1–B4 (paged) or B5–B8 (unpaged) launched;
+   prefill and decode tok/s, TTFT and ITL p50/p95 of the four drains
+   side by side, and a ``[graph]`` line per graphed engine.
 
 Then full-sequence scoring (``LMModel.apply`` / ``loss``, impl
 "pallas": B9 → Eq. 3 + top-B → B10 in the sparse layers) on the same
@@ -117,8 +130,9 @@ The line before last is a JSON object listing each kernel's launches
 (B1–B4 in phase 4, B5–B8 in phase 8, B9–B11 in phase 12), error and
 times (those of the live pool or the captured layer; ``random`` holds
 phase 2's, 7's or 10's) and each time over its bound
-(``ms_over_bound``); the scoring results (with the ptxas report), the
-unpaged serve and the paged serve are on the lines before it; the last
+(``ms_over_bound``); the eager/graphed drains, the scoring results
+(with the ptxas report), the unpaged serve and the paged serve are on
+the lines before it; the last
 line is
 ``{"ok": true, "device": ...}``.
 Any failure exits non-zero before printing either.
@@ -965,6 +979,9 @@ def serve_full_width(cfg, *, seed=0, n_req=8, prompt_len=2048,
         model, params, batch_slots=n_req, max_len=max_len, eos_token=-1,
         seed=seed, prefill_chunk=chunk, prefix_sharing=True, device=DEV,
     )
+    need(engine.cuda_graphs, "the engine does not replay CUDA graphs")
+    engine.capture_graphs()
+    log_graphs("[graph] paged engine", engine)
     rng = np.random.default_rng(seed)
     system = rng.integers(1, cfg.vocab_size - 1, size=system_len).tolist()
     prompts = [system + rng.integers(1, cfg.vocab_size - 1,
@@ -1029,6 +1046,18 @@ def serve_full_width(cfg, *, seed=0, n_req=8, prompt_len=2048,
     return engine, prompts, run1, launches, streams1
 
 
+def log_graphs(label, engine):
+    """One ``[graph]`` line: each graphed step's captures, warm-up and
+    capture seconds and the device memory its graphs reserved."""
+    steps = engine.graphs
+    log(f"{label}: " + "; ".join(
+        f"{s.method} {s.captures} graph(s), captured in "
+        f"{s.capture_seconds:.2f} s, {s.graph_bytes / 2**30:.2f} GiB"
+        for s in steps) + " (one capture stream and memory pool)")
+    return dict(capture_s=sum(s.capture_seconds for s in steps),
+                graph_gib=sum(s.graph_bytes for s in steps) / 2**30)
+
+
 def streams_digest(streams):
     """sha1 of a run's greedy streams ({uid: tokens})."""
     import hashlib
@@ -1089,10 +1118,13 @@ def profile_drain(engine, system, *, seed=1, n_req=8, prompt_len=2048,
 
     from repro_torch.runtime import Request
 
+    from repro_torch.kernels import _build
+
     vocab = engine.model.cfg.vocab_size
     rng = np.random.default_rng(seed)
     m = engine.metrics
     pf0, dec0 = m.prefill_time, m.decode_time
+    _build.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
                  ) as prof:
         for i in range(n_req):
@@ -1103,20 +1135,75 @@ def profile_drain(engine, system, *, seed=1, n_req=8, prompt_len=2048,
         engine.run_until_drained()
         sync()
         wall = time.perf_counter() - t0
+    launched = {KERNELS[name]["id"]: _build.launch_counts[name]
+                for name in SERVE_KERNELS}
     split = device_split(prof, wall)
     out = dict(wall_s=wall, prefill_s=m.prefill_time - pf0,
-               decode_s=m.decode_time - dec0, **split)
+               decode_s=m.decode_time - dec0, launched=launched, **split)
+    graphed = "replayed from CUDA graphs" if engine.cuda_graphs else "eager"
     log(f"[profile] {n_req} fresh prompts of {prompt_len} tokens, "
-        f"{new_tokens} new each: wall {wall:.3f} s (prefill "
+        f"{new_tokens} new each, {graphed}: wall {wall:.3f} s (prefill "
         f"{out['prefill_s']:.3f} s, decode {out['decode_s']:.3f} s), "
         f"device busy {out['device_busy_s']:.3f} s, idle "
         f"{out['idle_share']:.1%} (under the profiler)")
     for r in out["top"]:
         log(f"[profile] {r['device_ms']:10.2f} ms  x{r['calls']:<6d} "
             f"{r['name']}")
+    seen = {k: out["port"].get(k, {"calls": 0, "device_ms": 0.0})
+            for k in launched}
     log("[profile] the port's kernels: " + ", ".join(
-        f"{k} {r['device_ms']:.2f} ms over {r['calls']} calls"
-        for k, r in out["port"].items()))
+        f"{k} {r['device_ms']:.2f} ms over {r['calls']} calls (of "
+        f"{launched[k]} launched" + (
+            f"; the profiler missed {launched[k] - r['calls']}"
+            if r["calls"] < launched[k] else "") + ")"
+        for k, r in seen.items()))
+    return out
+
+
+def profile_decode(engine, system, *, seed=2, n_req=8, prompt_len=2048,
+                   ticks=8):
+    """Decode ticks alone under ``torch.profiler``: fresh prompts are
+    prefilled first, unprofiled, then ``ticks`` ticks in which every slot
+    decodes are traced. Per tick: wall and device busy time, the device's
+    idle share, the kernels the device ran, and the largest items."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime import Request
+
+    vocab = engine.model.cfg.vocab_size
+    rng = np.random.default_rng(seed)
+    for i in range(n_req):
+        body = rng.integers(1, vocab - 1, size=prompt_len - len(system))
+        engine.submit(Request(uid=2000 + i, prompt=system + body.tolist(),
+                              max_new_tokens=ticks + 4))
+    while engine.pending or not all(r is not None and r.state == "decode"
+                                    for r in engine.slots):
+        engine.tick()
+    engine.tick()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            engine.tick()
+        sync()
+        wall = time.perf_counter() - t0
+    engine.run_until_drained()
+    split = device_split(prof, wall, top=8)
+    out = dict(ticks=ticks, tick_ms=wall / ticks * 1e3,
+               device_ms=split["device_busy_s"] / ticks * 1e3,
+               idle_share=split["idle_share"],
+               kernels_per_tick=split["kernels"] / ticks, top=split["top"])
+    log(f"[profile-decode] {ticks} decode ticks of {n_req} slots "
+        f"({'graphed' if engine.cuda_graphs else 'eager'}): "
+        f"{out['tick_ms']:.2f} ms a tick, device busy "
+        f"{out['device_ms']:.2f} ms a tick, idle {out['idle_share']:.1%}, "
+        f"{out['kernels_per_tick']:.0f} device kernels and copies a tick "
+        f"(under the profiler)")
+    for r in out["top"]:
+        log(f"[profile-decode] {r['device_ms'] / ticks:8.3f} ms a tick  "
+            f"x{r['calls'] / ticks:<7.1f} {r['name']}")
     return out
 
 
@@ -1146,6 +1233,7 @@ def device_split(prof, wall, top=12):
             port[kid] = (c0 + calls, us0 + us)
     return dict(device_busy_s=busy_us / 1e6,
                 idle_share=1 - busy_us / 1e6 / wall,
+                kernels=sum(c for c, _ in per_kernel.values()),
                 top=[dict(name=k[:90], calls=c, device_ms=us / 1e3)
                      for k, (c, us) in items],
                 port={k: dict(calls=c, device_ms=us / 1e3)
@@ -1488,6 +1576,9 @@ def serve_unpaged(model, params, prompts, paged_streams, *, seed=0,
     ops.fused_prefill_attention = capturing("prefill")
     ops.fused_decode_attention = capturing("decode")
     try:
+        # captured with the patches in place: the graphs' copies of layer
+        # 2's queries are refreshed by every replay
+        engine.capture_graphs()
         for i, p in enumerate(prompts):
             engine.submit(Request(uid=i, prompt=list(p),
                                   max_new_tokens=new_tokens))
@@ -1560,6 +1651,7 @@ def serve_in_turns(model, params, prompts, streams, *, seed=0,
             eos_token=-1, seed=seed, prefill_chunk=chunk,
             paged=layout == "paged", prefix_sharing=False, device=DEV,
         )
+        engine.capture_graphs()
         for i, p in enumerate(prompts):
             engine.submit(Request(uid=i, prompt=list(p),
                                   max_new_tokens=new_tokens))
@@ -1584,6 +1676,95 @@ def serve_in_turns(model, params, prompts, streams, *, seed=0,
                     f"{v['decode_tok_s']:.1f} tok/s, ttft p50 "
                     f"{v['ttft_p50_ms']:.1f} ms, itl p50 "
                     f"{v['itl_p50_ms']:.2f} ms" for k, v in out.items()))
+    return out
+
+
+def eager_graphed_in_turns(model, params, prompts, streams, *, seed=0,
+                           new_tokens=32, max_len=4096, chunk=128):
+    """The same requests drained by eager and graphed engines in turns
+    (eager, graphed, eager, graphed), paged and then unpaged, each on a
+    fresh engine (graphs captured before the clock starts). Every drain
+    must give ``streams`` (the paged run 1's), and each graphed drain the
+    per-kernel launch counts of the eager drain before it."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import Request, ServeLoop
+
+    digest = streams_digest(streams)
+    out = {}
+    for layout in ("paged", "unpaged"):
+        runs = []
+        for graphs in (False, True, False, True):
+            mode = "graphed" if graphs else "eager"
+            before = torch.cuda.memory_allocated()
+            engine = ServeLoop(
+                model, params, batch_slots=len(prompts), max_len=max_len,
+                eos_token=-1, seed=seed, prefill_chunk=chunk,
+                paged=layout == "paged", device=DEV, cuda_graphs=graphs,
+            )
+            graph = {}
+            if graphs:
+                engine.capture_graphs()
+                graph = log_graphs(f"[graph] {layout} engine, turn "
+                                   f"{len(runs) + 1}", engine)
+            for i, p in enumerate(prompts):
+                engine.submit(Request(uid=i, prompt=list(p),
+                                      max_new_tokens=new_tokens))
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            done = engine.run_until_drained()
+            sync()
+            wall = time.perf_counter() - t0
+            launches = dict(_build.launch_counts)
+            need(streams_digest({r.uid: list(r.tokens_out) for r in done})
+                 == digest, f"[eager-graphed] {layout} {mode} drain "
+                 f"{len(runs) + 1}: streams differ from the paged run 1's")
+            if graphs:
+                need(launches == runs[-1]["launches"],
+                     f"[eager-graphed] {layout} graphed launches "
+                     f"{launches} differ from the eager drain's "
+                     f"{runs[-1]['launches']}")
+            m = engine.metrics
+            lat = m.latency_stats()
+            runs.append(dict(
+                mode=mode, wall_s=wall,
+                prefill_tok_s=m.prefill_tokens_per_sec,
+                decode_tok_s=m.decode_tokens_per_sec,
+                ttft_p50_ms=lat["ttft_p50"] * 1e3,
+                ttft_p95_ms=lat["ttft_p95"] * 1e3,
+                itl_p50_ms=lat["itl_p50"] * 1e3,
+                itl_p95_ms=lat["itl_p95"] * 1e3,
+                launches=launches, **graph))
+            del engine, done
+            gc.collect()
+            torch.cuda.empty_cache()
+            # the engine's cache and graphs go with it
+            left = torch.cuda.memory_allocated() - before
+            runs[-1]["left_mib"] = left / 2**20
+            need(left < 256 * 2**20,
+                 f"[eager-graphed] {layout} {mode} engine left "
+                 f"{left / 2**20:.1f} MiB allocated after its release")
+        kernels = SERVE_KERNELS if layout == "paged" else UNPAGED_KERNELS
+        for name in kernels:
+            need(runs[1]["launches"][name] > 0,
+                 f"[eager-graphed] {name} never launched in the graphed "
+                 f"{layout} drain")
+        log(f"[eager-graphed] {layout}: streams of all four drains equal "
+            f"the paged run 1's (sha1 {digest}); each graphed drain's "
+            f"launches equal its eager twin's: " + ", ".join(
+                f"{KERNELS[k]['id']} {runs[1]['launches'][k]}"
+                for k in kernels))
+        for r in runs:
+            log(f"[eager-graphed] {layout} {r['mode']:7s}: prefill "
+                f"{r['prefill_tok_s']:.1f} tok/s, decode "
+                f"{r['decode_tok_s']:.1f} tok/s, ttft p50/p95 "
+                f"{r['ttft_p50_ms']:.1f}/{r['ttft_p95_ms']:.1f} ms, itl "
+                f"p50/p95 {r['itl_p50_ms']:.2f}/{r['itl_p95_ms']:.2f} ms, "
+                f"wall {r['wall_s']:.2f} s; {r['left_mib']:.1f} MiB left "
+                f"allocated once released")
+        out[layout] = [{k: v for k, v in r.items() if k != "launches"}
+                       for r in runs]
     return out
 
 
@@ -1942,6 +2123,7 @@ def main(argv=None) -> int:
     check_case(live_pool_case(engine, prompts, layer), f"live-layer{layer}",
                results)
     prof = profile_drain(engine, prompts[0][:SYSTEM_LEN])
+    prof["decode"] = profile_decode(engine, prompts[0][:SYSTEM_LEN])
 
     # the contiguous cache on the same model object and weights; the
     # paged engine (and its page pool) goes first
@@ -1965,6 +2147,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     in_turns = serve_in_turns(model, params, prompts, streams1)
+    eager_graphed = eager_graphed_in_turns(model, params, prompts, streams1)
 
     # full-sequence scoring on the same model object and weights
     e = model.cfg.energon
@@ -2007,6 +2190,7 @@ def main(argv=None) -> int:
     log(json.dumps({"scoring": dict(scoring, random=random_fs,
                                     captured=captured_fs, **pair),
                     "ptxas": ptxas, "card": smi}))
+    log(json.dumps({"eager_graphed": eager_graphed, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

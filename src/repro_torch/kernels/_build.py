@@ -15,11 +15,15 @@ exception, because a refused launch never runs and a later
 
 ``launch_counts`` holds one plain integer per kernel: a wrapper adds one
 exactly where it launches its kernel, so a run can show which kernels
-its path went through.
+its path went through. A step captured as a CUDA graph runs its
+wrappers once, at capture, and never again: :func:`set_aside` takes the
+capture's launches back out of the counts and hands them to the caller,
+which adds them once per replay (:func:`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,7 +31,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, Iterator, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -64,6 +68,30 @@ def reset_launch_counts() -> None:
 
 def count_launch(name: str) -> None:
     launch_counts[name] += 1
+
+
+@contextlib.contextmanager
+def set_aside() -> Iterator[Dict[str, int]]:
+    """Launches counted inside the block are taken back out of
+    ``launch_counts`` when it ends and left in the yielded dict (per
+    kernel, kernels that did not launch omitted): a warm-up call made
+    only to prepare a capture counts nothing, and a capture's launches
+    are what each replay of it adds."""
+    before = dict(launch_counts)
+    delta: Dict[str, int] = {}
+    try:
+        yield delta
+    finally:
+        for name, n in before.items():
+            if launch_counts[name] != n:
+                delta[name] = launch_counts[name] - n
+            launch_counts[name] = n
+
+
+def add_launches(delta: Dict[str, int]) -> None:
+    """Count the launches of one replay of a captured step."""
+    for name, n in delta.items():
+        launch_counts[name] += n
 
 
 def _nvcc() -> str:

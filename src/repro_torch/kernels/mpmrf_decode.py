@@ -20,7 +20,7 @@ Ports of ``repro.kernels.mpmrf_decode.mpmrf_paged_filter_scores``,
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -45,10 +45,11 @@ DECODE_FILTER_MAX_G, DECODE_FILTER_MAX_KEY_BLOCK = 16, 128
 #: in shared memory)
 DECODE_SPLIT_SLOTS, DECODE_MAX_SPLITS = 4, 32
 #: per (device, stream): the decode gather's f32 workspace and the int32
-#: counts its blocks arrive on (one per bh row, zero between calls), each
-#: grown on demand
+#: counts its blocks arrive on (one per bh row, zero between calls), grown
+#: on demand; the pairs they outgrew, which a captured graph may still read
 _split_scratch_of: Dict[Tuple[int, int],
                         Tuple[torch.Tensor, torch.Tensor]] = {}
+_outgrown_scratch: List[Tuple[torch.Tensor, torch.Tensor]] = []
 
 
 def _lib():
@@ -239,14 +240,17 @@ def _split_scratch(q, bh, g, d, budget):
     stream, and that stream's handle. Calls on one stream run in order,
     so they can share both; the row's last block merges its splits and
     sets its count back to 0, so the counts stay zero between calls. Each
-    stream has its own pair, so calls on two streams never share one."""
+    stream has its own pair, so calls on two streams never share one. A
+    pair outgrown by a larger call is kept, not freed: a CUDA graph
+    captured on the stream reads it by address."""
     stream = torch.cuda.current_stream(q.device).cuda_stream
     key = (q.device.index, stream)
     floats = decode_workspace_floats(bh, g, d, budget)
     work, count = _split_scratch_of.get(key, (None, None))
-    if work is None or work.numel() < floats:
+    if work is None or work.numel() < floats or count.numel() < bh:
+        if work is not None:
+            _outgrown_scratch.append((work, count))
         work = torch.empty(floats, dtype=torch.float32, device=q.device)
-    if count is None or count.numel() < bh:
         count = torch.zeros(bh, dtype=torch.int32, device=q.device)
     _split_scratch_of[key] = work, count
     return work, count, stream

@@ -78,6 +78,7 @@ def main(argv=None):
                         else None),
         device=device,
     )
+    engine.capture_graphs()      # before the clock: no request waits
     rng = np.random.default_rng(args.seed)
     system = rng.integers(1, cfg.vocab_size - 1,
                           size=args.system_prompt_len).tolist()

@@ -14,17 +14,27 @@ caches functionally): a chunk's K/V rows are written with
 ``index_put_`` — through the block table into the pool, or at their
 positions into the contiguous ``[B, KV, max_len, hd]`` cache, where the
 reference scatters with a one-hot product — and the filter planes are
-refreshed in the same leaves. Positions past the cache (padding
-sentinels) write nothing in either layout. The cache is the one
-resident copy, so nothing is duplicated per step.
+refreshed in the same leaves. The cache is the one resident copy, so
+nothing is duplicated per step.
+
+Every call writes a fixed number of rows, B·C, and never asks the host
+which ones are kept, so a step can be captured as a CUDA graph. A row
+that must write nothing (a padding or idle-slot sentinel, a slot the
+``active`` mask drops) is sent to a **scratch target**: a few elements
+that the cache allocates after each layer's leaf (:func:`stacked_leaf`)
+and that no leaf shows, so no kernel and no reader ever sees them —
+what the reference's all-zero one-hot rows do. Kept rows are distinct,
+so no write has two sources except the scratch, which nothing reads.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
 
 from repro_torch.core import (
     EnergonConfig,
@@ -145,25 +155,89 @@ def init_kv_cache(
     return cache
 
 
+def contiguous_scratch(head_dim: int) -> Dict[str, int]:
+    """Scratch elements after each layer of a contiguous cache's leaves:
+    one K/V row (the filter planes are refreshed by position, not by the
+    write plan)."""
+    return {"k": head_dim, "v": head_dim}
+
+
+def paged_scratch(page_size: int, head_dim: int) -> Dict[str, int]:
+    """Scratch elements after each layer of a page pool's leaves: one K/V
+    row, one page of codes and one scale (a decode append re-quantizes
+    the page it wrote; a dropped one re-quantizes into the scratch)."""
+    return {"k": head_dim, "v": head_dim, "k_codes": page_size * head_dim,
+            "k_scale": 1}
+
+
+#: the storages :func:`stacked_leaf` allocated, by storage address: a
+#: weak reference (the entry holds only while the storage lives), the
+#: layers' stride and one layer's elements
+_stacked: Dict[int, Tuple[StorageWeakRef, int, int]] = {}
+
+
+def stacked_leaf(num_layers: int, shape, dtype, device,
+                 scratch: int = 0) -> torch.Tensor:
+    """Zeroed per-layer leaves ``[L, *shape]`` in which every layer is
+    followed in memory by at least ``scratch`` elements that the leaf
+    does not show. Each layer's slice is contiguous, starts 256-byte
+    aligned (as the kernels require of their operands) and has the
+    layout the kernels always read; only the fixed-shape writes reach
+    past it (:func:`_rows_with_scratch`)."""
+    per = math.prod(shape)
+    align = max(1, 256 // dtype.itemsize)
+    stride = -(-(per + scratch) // align) * align
+    store = torch.zeros((num_layers, stride), dtype=dtype, device=device)
+    for gone in [k for k, (ref, _, _) in _stacked.items() if ref.expired()]:
+        del _stacked[gone]
+    storage = store.untyped_storage()
+    _stacked[storage._cdata] = (StorageWeakRef(storage), stride, per)
+    return store[:, :per].view(num_layers, *shape)
+
+
+def _rows_with_scratch(leaf: torch.Tensor, width: int) -> torch.Tensor:
+    """One layer's leaf as ``[numel // width + 1, width]`` rows, the last
+    of which is the scratch row after it. Raises unless the leaf is a
+    whole layer of a :func:`stacked_leaf` with ``width`` elements of
+    scratch after it: past any other leaf, that row would be someone
+    else's data (the next layer's first row, in a plain stack)."""
+    entry = _stacked.get(leaf.untyped_storage()._cdata)
+    if (entry is None or entry[0].expired() or not leaf.is_contiguous()
+            or leaf.numel() != entry[2] or leaf.storage_offset() % entry[1]
+            or entry[2] + width > entry[1]):
+        raise ValueError(
+            "cache leaf has no write scratch after its layers; allocate "
+            "the cache with LMModel.init_cache / init_paged_cache"
+        )
+    return leaf.as_strided((leaf.numel() // width + 1, width), (width, 1))
+
+
 @dataclasses.dataclass(frozen=True)
 class CacheWrite:
-    """Where one call's K/V rows land in the contiguous cache: ``src``
-    indexes the written tokens of the flattened ``[B·C]`` chunk,
-    ``slot`` / ``pos`` their batch row and cache row. Computed once per
-    call (:func:`cache_write_plan`), as :class:`PagedWrite` is."""
+    """Where one call's K/V rows land in the contiguous cache: ``rows
+    [B·C, KV]`` is each (token, KV head)'s row of the layer's
+    ``[B·KV·max_len + 1, hd]`` row view; a dropped token's rows are all
+    the scratch row ``B·KV·max_len``. Computed once per call
+    (:func:`cache_write_plan`), as :class:`PagedWrite` is."""
 
-    src: torch.Tensor
-    slot: torch.Tensor
-    pos: torch.Tensor
+    rows: torch.Tensor
 
 
-def cache_write_plan(positions: torch.Tensor, max_len: int) -> CacheWrite:
+def cache_write_plan(positions: torch.Tensor, max_len: int,
+                     num_kv_heads: int) -> CacheWrite:
     """Token (b, c) lands in row ``positions[b, c]`` of slot b; positions
     outside ``[0, max_len)`` — the padding and idle-slot sentinels —
-    write nothing, as the reference's all-zero one-hot rows do."""
-    pos = positions.reshape(-1).long()
-    src = torch.nonzero((pos >= 0) & (pos < max_len)).reshape(-1)
-    return CacheWrite(src=src, slot=src // positions.shape[1], pos=pos[src])
+    land in the scratch row, as the reference's all-zero one-hot rows
+    write nothing."""
+    batch, chunk = positions.shape
+    dev = positions.device
+    pos = positions.long()[..., None]                          # [B, C, 1]
+    slot = torch.arange(batch, device=dev)[:, None, None]
+    head = torch.arange(num_kv_heads, device=dev)
+    row = (slot * num_kv_heads + head) * max_len + pos         # [B, C, KV]
+    keep = (pos >= 0) & (pos < max_len)
+    rows = torch.where(keep, row, batch * num_kv_heads * max_len)
+    return CacheWrite(rows=rows.reshape(batch * chunk, num_kv_heads))
 
 
 def _refresh_filter_block(
@@ -219,10 +293,10 @@ def _project_update_fold(
     q, k, v = _project_qkv(params, x, positions, use_qk_norm, rope_theta)
     k_cache, v_cache = cache["k"], cache["v"]
     hd = k.shape[-1]
-    k_cache[write.slot, :, write.pos] = (
-        k.reshape(-1, num_kv_heads, hd)[write.src].to(k_cache.dtype))
-    v_cache[write.slot, :, write.pos] = (
-        v.reshape(-1, num_kv_heads, hd)[write.src].to(v_cache.dtype))
+    _rows_with_scratch(k_cache, hd)[write.rows] = (
+        k.reshape(-1, num_kv_heads, hd).to(k_cache.dtype))
+    _rows_with_scratch(v_cache, hd)[write.rows] = (
+        v.reshape(-1, num_kv_heads, hd).to(v_cache.dtype))
     if "k_codes" in cache:
         if filter_block <= 0:
             raise ValueError(
@@ -337,14 +411,19 @@ def init_paged_kv_cache(
 
 @dataclasses.dataclass(frozen=True)
 class PagedWrite:
-    """Where one call's K/V rows land in the pool: ``src`` indexes the
-    written tokens of the flattened ``[B·C]`` chunk, ``rows`` their pool
-    rows. The plan is the same for every layer, and finding the kept
-    tokens syncs with the host, so the model computes it once per call
-    (:func:`paged_write_plan`) instead of once per layer."""
+    """Where one call's K/V rows land in the pool, for all B·C tokens:
+    ``rows [KV, B·C]`` each (KV head, token)'s row of the layer's
+    ``[KV·pool_rows + 1, hd]`` row view, a dropped token's the scratch
+    row ``KV·pool_rows``; ``page [B·C]`` the physical page a kept token
+    wrote (0 for a dropped one, read but never written); ``pages [KV,
+    B·C]`` that page's row of the ``[KV·num_pages + 1, ps·hd]`` codes
+    view (and of the scales), a dropped token's the scratch page. The
+    plan is the same for every layer, so the model computes it once per
+    call (:func:`paged_write_plan`)."""
 
-    src: torch.Tensor
     rows: torch.Tensor
+    page: torch.Tensor
+    pages: torch.Tensor
 
 
 def paged_write_plan(
@@ -352,18 +431,29 @@ def paged_write_plan(
     block_table: torch.Tensor,
     page_size: int,
     pool_rows: int,
+    num_kv_heads: int,
     write_mask: Optional[torch.Tensor] = None,
 ) -> PagedWrite:
     """Token (b, c) at logical position p lands in pool row
     ``table[b, p // ps]·ps + p % ps``. Sentinel positions and masked-off
     slots resolve to :data:`~repro_torch.runtime.paged_cache.DROP_ROW`
-    and are dropped *explicitly* — ``index_put_`` has no drop mode, and
-    an idle slot's table may alias pages a live slot owns."""
-    rowid = pgc.paged_row_targets(
+    and go to the scratch target — ``index_put_`` has no drop mode, and
+    an idle slot's table may alias pages a live slot owns, so a dropped
+    row must not land on any pool row."""
+    target = pgc.paged_row_targets(
         positions, block_table, page_size, write_mask=write_mask
     ).reshape(-1)
-    src = torch.nonzero(rowid < pool_rows).reshape(-1)
-    return PagedWrite(src=src, rows=rowid[src])
+    keep = target < pool_rows
+    head = torch.arange(num_kv_heads, device=target.device)[:, None]
+    num_pages = pool_rows // page_size
+    page = torch.where(keep, target // page_size, 0)
+    return PagedWrite(
+        rows=torch.where(keep, head * pool_rows + target,
+                         num_kv_heads * pool_rows),
+        page=page,
+        pages=torch.where(keep, head * num_pages + page,
+                          num_kv_heads * num_pages),
+    )
 
 
 def _project_update_fold_paged(
@@ -393,23 +483,23 @@ def _project_update_fold_paged(
         raise ValueError("paged cache needs a positive page size")
     q, k, v = _project_qkv(params, x, positions, use_qk_norm, rope_theta)
     k_pool, v_pool = cache["k"], cache["v"]
-    # [B, C, KV, hd] → [KV, written, hd]
-    k_rows = k.reshape(-1, num_kv_heads, k.shape[-1])[write.src].transpose(0, 1)
-    v_rows = v.reshape(-1, num_kv_heads, v.shape[-1])[write.src].transpose(0, 1)
-    k_pool[:, write.rows] = k_rows.to(k_pool.dtype)
-    v_pool[:, write.rows] = v_rows.to(v_pool.dtype)
+    hd = k_pool.shape[-1]
+    # [B, C, KV, hd] → [KV, B·C, hd]
+    _rows_with_scratch(k_pool, hd)[write.rows] = (
+        k.reshape(-1, num_kv_heads, hd).transpose(0, 1).to(k_pool.dtype))
+    _rows_with_scratch(v_pool, hd)[write.rows] = (
+        v.reshape(-1, num_kv_heads, hd).transpose(0, 1).to(v_pool.dtype))
 
     if "k_codes" in cache:
         num_pages = cache["k_scale"].shape[-1]
-        hd = k_pool.shape[-1]
         if chunk == 1:
-            page = write.rows // ps          # one page per writing slot
-            sel = k_pool.view(num_kv_heads, num_pages, ps, hd)[:, page]
+            # the one page each slot's append touched (a dropped append
+            # re-quantizes page 0 into the scratch page)
+            sel = k_pool.view(num_kv_heads, num_pages, ps, hd)[:, write.page]
             new_codes, new_scale = qlib.quantize_int16_blocks(sel, ps)
-            cache["k_codes"].view(num_kv_heads, num_pages, ps, hd)[:, page] = (
-                new_codes
-            )
-            cache["k_scale"][:, page] = new_scale[..., 0]
+            _rows_with_scratch(cache["k_codes"], ps * hd)[write.pages] = (
+                new_codes.reshape(*write.pages.shape, ps * hd))
+            _rows_with_scratch(cache["k_scale"], 1)[write.pages] = new_scale
         else:
             codes, scales = qlib.quantize_int16_blocks(k_pool, ps)
             cache["k_codes"].copy_(codes)

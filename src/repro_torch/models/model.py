@@ -178,9 +178,10 @@ class LMModel:
             batch, cfg.num_kv_heads, rows, cfg.head_dim, self.dtype,
             "meta", filter_block=filter_block,
         )
+        scratch = attn_lib.contiguous_scratch(cfg.head_dim)
         return {
-            k: torch.zeros((cfg.num_layers,) + tuple(v.shape), dtype=v.dtype,
-                           device=self.device)
+            k: attn_lib.stacked_leaf(cfg.num_layers, v.shape, v.dtype,
+                                     self.device, scratch.get(k, 0))
             for k, v in one.items()
         }
 
@@ -214,12 +215,13 @@ class LMModel:
         gate_len = max_len if max_len is not None else num_pages * ps
         one = attn_lib.init_paged_kv_cache(
             num_pages, cfg.num_kv_heads, ps, cfg.head_dim, self.dtype,
-            self.device,
+            "meta",
             filter_planes=cfg.energon.filter_cache_engages(gate_len),
         )
+        scratch = attn_lib.paged_scratch(ps, cfg.head_dim)
         return {
-            k: torch.zeros((cfg.num_layers,) + tuple(v.shape), dtype=v.dtype,
-                           device=self.device)
+            k: attn_lib.stacked_leaf(cfg.num_layers, v.shape, v.dtype,
+                                     self.device, scratch[k])
             for k, v in one.items()
         }
 
@@ -263,6 +265,19 @@ class LMModel:
             window=window, layer_index=layer_idx,
         )
 
+    def _write_plan(self, cache, positions, block_table, active=None):
+        """The call's fixed-shape cache write plan (the same for every
+        layer)."""
+        cfg = self.cfg
+        rows = cache["k"].shape[-2]
+        if block_table is None:
+            return attn_lib.cache_write_plan(positions, rows,
+                                             cfg.num_kv_heads)
+        return attn_lib.paged_write_plan(
+            positions, block_table, cfg.energon.decode_key_block, rows,
+            cfg.num_kv_heads, write_mask=active,
+        )
+
     @torch.no_grad()
     def prefill(self, params, cache, inputs: Dict[str, torch.Tensor],
                 cache_index: torch.Tensor):
@@ -282,14 +297,10 @@ class LMModel:
             )[None, :]
         positions = positions.to(torch.int32)
         block_table = inputs.get("block_table")
+        write = self._write_plan(cache, positions, block_table)
         if block_table is None:
-            write = attn_lib.cache_write_plan(positions, cache["k"].shape[-2])
             block, where = attn_lib.prefill_attention_block, ()
         else:
-            write = attn_lib.paged_write_plan(
-                positions, block_table, cfg.energon.decode_key_block,
-                cache["k"].shape[-2],
-            )
             block = attn_lib.paged_prefill_attention_block
             where = (block_table,)
 
@@ -322,16 +333,11 @@ class LMModel:
         x = self._embed(params, inputs["tokens"])
         block_table = inputs.get("block_table")
         cache_index = cache_index.to(torch.int32)
+        write = self._write_plan(cache, cache_index[:, None], block_table,
+                                 inputs.get("active"))
         if block_table is None:
-            write = attn_lib.cache_write_plan(
-                cache_index[:, None], cache["k"].shape[-2])
             block, where = attn_lib.decode_attention_block, ()
         else:
-            write = attn_lib.paged_write_plan(
-                cache_index[:, None], block_table,
-                cfg.energon.decode_key_block, cache["k"].shape[-2],
-                write_mask=inputs.get("active"),
-            )
             block = attn_lib.paged_decode_attention_block
             where = (block_table,)
 

@@ -11,6 +11,8 @@ from repro_torch.runtime.serve_loop import (
     EngineStalled,
     Request,
     ServeLoop,
+    make_prefill_step,
+    make_serve_step,
 )
 
 __all__ = [
@@ -22,4 +24,6 @@ __all__ = [
     "Request",
     "ServeLoop",
     "attention_cache_bytes",
+    "make_prefill_step",
+    "make_serve_step",
 ]

@@ -28,6 +28,13 @@ shared page pool (default) or the contiguous per-slot cache
   streams are what compares across the two packages.)
 * **Metrics**: prefill and decode tok/s, TTFT and inter-token latency
   percentiles, preemptions, page watermark and prefix-cache counters.
+* **Compiled steps**: on CUDA the decode step and the prefill wave
+  replay CUDA graphs (:class:`GraphedStep`, which :func:`make_serve_step`
+  / :func:`make_prefill_step` make: the reference's jitted steps), one
+  dispatch each, bit-identical to the eager steps; ``cuda_graphs=False``
+  runs the eager ones, the handle for holding the two against each
+  other. Sampling, allocation, prefix registration and copy-on-write
+  clones stay on the host, between them.
 
 Fault injection, retry, deadlines, cancel, load shedding, observability
 and the device mesh wait for later slices of the port.
@@ -46,6 +53,7 @@ import torch
 
 from repro_torch.core.energon_attention import serving_faults
 from repro_torch.device import DeviceLike, resolve_device, synchronize
+from repro_torch.runtime.cuda_graph import GraphedStep
 from repro_torch.runtime.paged_cache import PageAllocator, PagedLayout
 from repro_torch.runtime.pending import PendingQueue
 
@@ -158,6 +166,38 @@ def sampling_seed(seed: int, uid: int, n_sampled: int) -> int:
     return h ^ (h >> 17)
 
 
+def make_serve_step(model, *, device: DeviceLike = None):
+    """The one-token decode step as one dispatch: the port of the
+    reference's ``make_serve_step`` (a jitted ``decode_step`` that
+    donates the cache). On CUDA a :class:`GraphedStep` that captures
+    ``model.decode_step`` per input signature on first use and replays
+    it, updating the cache in place; on the CPU, where graphs do not
+    exist, ``model.decode_step`` itself."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return model.decode_step
+    return GraphedStep(model, "decode_step", dev)
+
+
+def make_prefill_step(model, *, device: DeviceLike = None):
+    """The chunked-prefill wave as one dispatch (the reference's
+    ``make_prefill_step``), as :func:`make_serve_step` is for decode."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return model.prefill
+    return GraphedStep(model, "prefill", dev)
+
+
+def _take_rows(logits: torch.Tensor, picks: List[Tuple[int, int]]):
+    """Copies of ``logits[i, j]`` for each (slot i, row j) of ``picks``,
+    keyed by slot: a replayed step's logits are overwritten by the next
+    replay, and a wave keeps its slots' last rows across dispatches."""
+    if not picks:
+        return {}
+    rows = torch.stack([logits[i, j] for i, j in picks])
+    return {i: rows[k] for k, (i, _) in enumerate(picks)}
+
+
 @dataclasses.dataclass
 class _PrefillJob:
     """One slot's in-flight chunked prefill under the hybrid scheduler."""
@@ -172,7 +212,9 @@ class _PrefillJob:
 class ServeLoop:
     """Continuous-batching chunked-prefill / sparse-decode engine over
     the paged KV cache (the default where the model supports it) or the
-    contiguous one, on ``device`` (``cuda`` unless given)."""
+    contiguous one, on ``device`` (``cuda`` unless given). ``cuda_graphs``
+    (default: on where the device is CUDA) replays the decode step and
+    the prefill wave from CUDA graphs; False runs them eagerly."""
 
     def __init__(
         self,
@@ -190,8 +232,15 @@ class ServeLoop:
         num_pages: Optional[int] = None,
         prefix_sharing: Optional[bool] = None,
         device: DeviceLike = None,
+        cuda_graphs: Optional[bool] = None,
     ):
         self.device = resolve_device(device)
+        if cuda_graphs is None:
+            cuda_graphs = self.device.type == "cuda"
+        if cuda_graphs and self.device.type != "cuda":
+            raise ValueError(f"cuda_graphs needs a CUDA device, not "
+                             f"{self.device}")
+        self.cuda_graphs = bool(cuda_graphs)
         if model.device != self.device:
             raise ValueError(
                 f"model lives on {model.device}, engine on {self.device}"
@@ -209,6 +258,15 @@ class ServeLoop:
             raise ValueError("prefix_sharing requires the paged cache")
         self.model = model
         self.params = params
+        # graphed steps (None: the model's eager methods, looked up at
+        # each call), sharing one graph memory pool: they replay one at a
+        # time, and each consumes or copies its logits before the next
+        self._prefill = self._decode = None
+        if self.cuda_graphs:
+            pool = torch.cuda.graph_pool_handle()
+            self._prefill = GraphedStep(model, "prefill", self.device, pool)
+            self._decode = GraphedStep(model, "decode_step", self.device,
+                                       pool)
         self.batch_slots = batch_slots
         self.sharing = bool(prefix_sharing)
         bk = model.cfg.energon.decode_key_block
@@ -276,6 +334,31 @@ class ServeLoop:
         req._submit_seq = next(self._submit_seq)
         req.state = "pending"
         self.pending.append(req)
+
+    @property
+    def graphs(self) -> List[GraphedStep]:
+        """The engine's graphed steps (none when it runs eagerly)."""
+        return [s for s in (self._prefill, self._decode) if s is not None]
+
+    def capture_graphs(self) -> None:
+        """Capture the prefill and decode graphs for this engine's shapes
+        now, with every slot inactive (the cache is left as it was), so
+        that no request waits for a capture. A no-op for an eager engine
+        or one whose graphs exist."""
+        if not self.cuda_graphs:
+            return
+        batch = self.batch_slots
+        table = ({"block_table": self.allocator.table_device(self.device)}
+                 if self.paged else {})
+        index = self._cache_index()
+        chunk = np.zeros((batch, self.prefill_chunk), np.int32)
+        self._prefill.prepare(self.params, self.cache, {
+            "tokens": self._tensor(chunk), "positions": self._tensor(chunk),
+            **table}, index)
+        self._decode.prepare(self.params, self.cache, {
+            "tokens": self._tensor(np.zeros((batch, 1), np.int32)),
+            "active": self._tensor(np.zeros((batch,), bool), torch.bool),
+            **table}, index)
 
     # --- device helpers --------------------------------------------------
     def _tensor(self, a, dtype=torch.int32) -> torch.Tensor:
@@ -475,7 +558,7 @@ class ServeLoop:
         inputs = {"tokens": self._tensor(toks), "positions": self._tensor(pos)}
         if self.paged:
             inputs["block_table"] = self.allocator.table_device(self.device)
-        logits, self.cache = self.model.prefill(
+        logits, self.cache = (self._prefill or self.model.prefill)(
             self.params, self.cache, inputs, self._cache_index()
         )
         self.metrics.prefill_dispatches += 1
@@ -501,10 +584,12 @@ class ServeLoop:
                     toks[i, :len(part)] = part
                     pos[i, :len(part)] = lo + np.arange(len(part))
             logits = self._dispatch_prefill(toks, pos)
+            picks = []
             for i, req, seq, resumed, skip in admitted:
                 lo = skip + c * C
                 if not resumed and lo < len(seq) <= lo + C:
-                    last_logits[i] = logits[i, len(seq) - 1 - lo]
+                    picks.append((i, len(seq) - 1 - lo))
+            last_logits.update(_take_rows(logits, picks))
         synchronize(self.device)
         for i, req, seq, _, skip in admitted:
             self._lengths[i] = len(seq)
@@ -552,14 +637,15 @@ class ServeLoop:
             consumed[i] = len(part)
         logits = self._dispatch_prefill(toks, pos)
         finished = []
-        last_logits = {}
+        picks = []
         for i, job in jobs:
             lo, job.pos = job.pos, job.pos + consumed[i]
             self.metrics.prefill_tokens += consumed[i]
             if job.pos >= len(job.seq):
                 finished.append((i, job.req, job.seq, job.resumed, job.skip))
                 if not job.resumed:
-                    last_logits[i] = logits[i, len(job.seq) - 1 - lo]
+                    picks.append((i, len(job.seq) - 1 - lo))
+        last_logits = _take_rows(logits, picks)
         synchronize(self.device)
         self.metrics.prefill_time += time.perf_counter() - t0
         for i, *_ in finished:
@@ -676,7 +762,7 @@ class ServeLoop:
             # slot steps at the max_len sentinel, which writes nothing
             # (its rows from earlier chunks must survive the tick)
             step_index = np.where(active, self._lengths, self.max_len)
-        logits, self.cache = self.model.decode_step(
+        logits, self.cache = (self._decode or self.model.decode_step)(
             self.params, self.cache, inputs, self._tensor(step_index)
         )
         self._lengths += active

@@ -10,8 +10,22 @@ imports ``jax``). ``python3 chip_smoke.py`` makes the same checks at the
 serving shapes.
 Filter scores must be bit-equal; bf16 gathers agree within
 ``repro_torch.kernels.gather_within_tolerance`` (both sides compute in
-f32 and round the output once: at most one bf16 ulp apart)."""
+f32 and round the output once: at most one bf16 ulp apart).
 
+Last, the serve steps replayed from CUDA graphs against the eager steps
+on the serve-smoke model in bf16, bit for bit: greedy and sampled
+streams, the final cache and the kernels' launch counts of whole drains
+(both layouts, both schedulers, prefix sharing with copy-on-write, a
+pool small enough to preempt), a decode replay after the block table
+gained a page and after the capture stream's gather scratch was
+outgrown, the cache across a capture, engines capturing on one stream
+and giving back their graphs' memory, and the refusal of inputs that do
+not say which rows are live."""
+
+import dataclasses
+import gc
+
+import numpy as np
 import pytest
 import torch
 
@@ -676,3 +690,244 @@ def test_decode_filters_at_other_key_blocks_and_runs(cuda, g, d, bk,
     (the ring wraps 16 times) and a run of one block."""
     _check_decode_filters(cuda, g, d, bk, round_bits, repeats, n_kb,
                           seed=7 * g + bk)
+
+
+# --------------------------------------------------------------------------
+# graphed serve steps ≡ eager serve steps
+# --------------------------------------------------------------------------
+
+SERVE_LEN, SERVE_CHUNK = 64, 8
+
+
+@pytest.fixture(scope="module")
+def smoke_bf16():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs.registry import get_serve_config
+    from repro_torch.models import LMModel
+
+    cfg = dataclasses.replace(get_serve_config("qwen3-14b", smoke=True),
+                              dtype="bfloat16")
+    model = LMModel(cfg, device="cuda")
+    return cfg, model, model.init(seed=1)
+
+
+def _serve_trace(vocab, seed=11):
+    """Five requests on one 16-token prefix, request 0's prompt exactly
+    two pages (so its second round attaches a page and clones one),
+    request 3 sampled at temperature 0.9."""
+    rng = np.random.default_rng(seed)
+    prefix = [int(x) for x in rng.integers(1, vocab - 1, size=16)]
+    out = []
+    for uid in range(5):
+        n = 16 if uid == 0 else int(rng.integers(3, 20))
+        out.append(dict(
+            uid=uid, max_new_tokens=12,
+            prompt=prefix + [int(x) for x in rng.integers(1, vocab - 1,
+                                                          size=n)],
+            temperature=0.9 if uid == 3 else 0.0))
+    return out
+
+
+def _drain_twice(smoke, graphs, **kw):
+    """The trace served twice on one engine (the second round finds the
+    first's prefixes cached): streams, the cache's leaves, the kernels'
+    launch counts of both rounds, and the engine."""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import Request, ServeLoop
+
+    cfg, model, params = smoke
+    engine = ServeLoop(model, params, batch_slots=3, max_len=SERVE_LEN,
+                       eos_token=cfg.vocab_size - 1,
+                       prefill_chunk=SERVE_CHUNK, device="cuda",
+                       cuda_graphs=graphs, **kw)
+    _build.reset_launch_counts()
+    for rnd in range(2):
+        for r in _serve_trace(cfg.vocab_size):
+            engine.submit(Request(**dict(r, uid=r["uid"] + 100 * rnd)))
+        engine.run_until_drained()
+    torch.cuda.synchronize()
+    streams = {r.uid: list(r.tokens_out) for r in engine.completed}
+    cache = {k: v.clone() for k, v in engine.cache.items()}
+    return streams, cache, dict(_build.launch_counts), engine
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(scheduler="sync"), dict(num_pages=5),
+    dict(paged=False), dict(paged=False, scheduler="sync"),
+], ids=["paged-hybrid-shared", "paged-sync-shared", "paged-preempting",
+        "unpaged-hybrid", "unpaged-sync"])
+def test_graphed_drain_equals_eager(smoke_bf16, kw):
+    eager, eager_cache, eager_n, eng_e = _drain_twice(smoke_bf16, False, **kw)
+    graphed, cache, n, eng = _drain_twice(smoke_bf16, True, **kw)
+    assert eng.cuda_graphs and not eng_e.cuda_graphs
+    assert [s.captures for s in eng.graphs] == [1, 1]
+    assert graphed == eager and len(graphed) == 10
+    for key in eager_cache:
+        assert torch.equal(cache[key], eager_cache[key]), key
+    assert n == eager_n
+    paged = kw.get("paged", True)
+    names = (("mpmrf_paged_filter_scores", "paged_decode_gather_attention",
+              "mpmrf_paged_prefill_filter_scores",
+              "paged_prefill_gather_attention") if paged else
+             ("mpmrf_decode_filter_scores", "decode_gather_attention",
+              "mpmrf_prefill_filter_scores", "prefill_gather_attention"))
+    assert all(n[name] > 0 for name in names)
+    m = eng.metrics
+    assert m.decode_dispatches == eng_e.metrics.decode_dispatches
+    if kw == {}:
+        assert m.cow_clones > 0 and m.prefix_hits > 0
+    if "num_pages" in kw:
+        assert m.preemptions > 0
+
+
+def _prefilled(smoke, paged, lens=(14, 9)):
+    """A cache with two prompts prefilled eagerly (slot 2 idle), its
+    block table (one page per slot so far) and the next decode index."""
+    cfg, model, params = smoke
+    cache = (model.init_paged_cache(12, max_len=SERVE_LEN) if paged
+             else model.init_cache(3, SERVE_LEN))
+    table = torch.zeros((3, SERVE_LEN // 16), dtype=torch.int32,
+                        device="cuda")
+    table[0, 0], table[1, 0] = 1, 5
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    toks = torch.randint(1, cfg.vocab_size - 1, (3, 16), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    pos = torch.full((3, 16), SERVE_LEN, dtype=torch.int32, device="cuda")
+    for b, n in enumerate(lens):
+        pos[b, :n] = torch.arange(n, dtype=torch.int32, device="cuda")
+    zero = torch.zeros(3, dtype=torch.int32, device="cuda")
+    for c in range(2):
+        inputs = {"tokens": toks[:, 8 * c:8 * c + 8],
+                  "positions": pos[:, 8 * c:8 * c + 8]}
+        if paged:
+            inputs["block_table"] = table
+        model.prefill(params, cache, inputs, zero)
+    index = torch.tensor(list(lens) + [0], dtype=torch.int32, device="cuda")
+    return cache, table, index
+
+
+def test_graphed_decode_replays_after_the_table_gained_a_page(smoke_bf16):
+    """Slot 0 steps from 14 to 20 (its page 1 joins the table before
+    position 16), slot 1 from 9: each graphed step's logits and the cache
+    after equal the eager step's on a twin cache, bit for bit."""
+    from repro_torch.runtime import make_serve_step
+
+    _, model, params = smoke_bf16
+    (ga, table_g, idx), (ea, table_e, _) = (_prefilled(smoke_bf16, True)
+                                            for _ in range(2))
+    from repro_torch.kernels import mpmrf_decode
+    from repro_torch.runtime.cuda_graph import _capture_stream
+
+    step = make_serve_step(model, device="cuda")
+    active = torch.tensor([True, True, False], device="cuda")
+    nxt = torch.full((3, 1), 7, dtype=torch.int32, device="cuda")
+    for t in range(6):
+        if int(idx[0]) == 16:
+            table_g[0, 1] = table_e[0, 1] = 2
+        if t == 3:
+            # a larger call on the capture stream outgrows the gather
+            # scratch the graph baked in: the graph goes on reading it
+            outgrown = len(mpmrf_decode._outgrown_scratch)
+            with torch.cuda.stream(_capture_stream(step.device)):
+                mpmrf_decode._split_scratch(nxt, 1024, 8, 128, 16)
+            assert len(mpmrf_decode._outgrown_scratch) == outgrown + 1
+        inputs = {"tokens": nxt, "active": active}
+        lg, _ = step(params, ga, dict(inputs, block_table=table_g), idx)
+        le, _ = model.decode_step(params, ea,
+                                  dict(inputs, block_table=table_e), idx)
+        assert torch.equal(lg, le), t
+        nxt = le[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        idx = idx + active.to(torch.int32)
+    assert step.captures == 1 and int(idx[0]) == 20
+    for key in ga:
+        assert torch.equal(ga[key], ea[key]), key
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "unpaged"])
+@pytest.mark.parametrize("method", ["decode_step", "prefill"])
+def test_capture_leaves_the_cache_as_it_was(smoke_bf16, paged, method):
+    """Warm-up and capture run with every slot inactive: the cache is bit
+    for bit what it was, also a reset page's or slot's scale 0."""
+    from repro_torch.runtime.cuda_graph import GraphedStep
+
+    _, model, params = smoke_bf16
+    cache, table, index = _prefilled(smoke_bf16, paged)
+    if paged:
+        model.reset_pages(cache, torch.arange(12, device="cuda") == 9)
+    else:
+        model.reset_decode_slots(
+            cache, torch.tensor([False, False, True], device="cuda"))
+    chunk = 1 if method == "decode_step" else SERVE_CHUNK
+    inputs = {"tokens": torch.ones((3, chunk), dtype=torch.int32,
+                                   device="cuda")}
+    if method == "prefill":
+        inputs["positions"] = torch.zeros_like(inputs["tokens"])
+    if paged:
+        inputs["block_table"] = table
+        if method == "decode_step":
+            inputs["active"] = torch.ones(3, dtype=torch.bool, device="cuda")
+    idx = index if method == "decode_step" else torch.zeros_like(index)
+    before = {k: v.clone() for k, v in cache.items()}
+    assert (cache["k_scale"] == 0).any()
+    step = GraphedStep(model, method, torch.device("cuda"))
+    step.prepare(params, cache, inputs, idx)
+    torch.cuda.synchronize()
+    for key in before:
+        assert torch.equal(cache[key], before[key]), key
+    assert step.capture_seconds > 0 and step.graph_bytes > 0
+
+
+def test_engines_capture_on_one_stream_and_give_back_their_graphs(
+        smoke_bf16):
+    """Every capture runs on the device's one capture stream; an engine's
+    two steps share a graph memory pool of their own, which goes with
+    the engine, to the byte."""
+    from repro_torch.runtime import ServeLoop
+    from repro_torch.runtime.cuda_graph import _capture_stream
+
+    _, model, params = smoke_bf16
+
+    def engine():
+        eng = ServeLoop(model, params, batch_slots=3, max_len=SERVE_LEN,
+                        prefill_chunk=SERVE_CHUNK, device="cuda")
+        eng.capture_graphs()
+        return eng
+
+    a, b = engine(), engine()
+    assert a.graphs[0].pool == a.graphs[1].pool != b.graphs[0].pool
+    stream = _capture_stream(a.graphs[0].device)
+    del a
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    c = engine()
+    assert _capture_stream(c.graphs[0].device) is stream
+    assert all(s.graph_bytes > 0 for s in c.graphs[:1])
+    del c
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() == held
+
+
+@pytest.mark.parametrize("paged, method, live", [
+    (True, "decode_step", "active"), (True, "prefill", "positions"),
+    (False, "prefill", "positions"),
+], ids=["paged-decode", "paged-prefill", "unpaged-prefill"])
+def test_a_graphed_step_needs_the_live_rows(smoke_bf16, paged, method, live):
+    """A prefill without ``positions`` or a paged decode without
+    ``active`` cannot be captured with every row dead: it is refused."""
+    from repro_torch.runtime.cuda_graph import GraphedStep
+
+    _, model, params = smoke_bf16
+    cache, table, index = _prefilled(smoke_bf16, paged)
+    chunk = 1 if method == "decode_step" else SERVE_CHUNK
+    inputs = {"tokens": torch.ones((3, chunk), dtype=torch.int32,
+                                   device="cuda")}
+    if paged:
+        inputs["block_table"] = table
+    step = GraphedStep(model, method, torch.device("cuda"))
+    with pytest.raises(ValueError, match=f"needs inputs\\['{live}'\\]"):
+        step.prepare(params, cache, inputs, index)
+    assert step.captures == 0
