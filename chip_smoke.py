@@ -47,8 +47,9 @@ cuts qwen3-14b's depth, never its width). Phases:
    decode step and prefill wave from CUDA graphs (the default on CUDA),
    captured before its clock starts (``[graph]``: seconds and device
    memory of the captures). Launch counts are zeroed just before this
-   run and read just after; every kernel must have launched, every
-   request drained and every logit been finite; the streams' sha1 is
+   run and read just after; every kernel must have launched and every
+   request drained, none quarantined for non-finite logits; the streams'
+   sha1 is
    printed, to compare two trees' runs. The same requests are served
    again (now hitting the prefix cache) and must give the same streams.
 5. The kernels again, compared and timed on the live pool of a sparse
@@ -79,8 +80,8 @@ weights, once the paged engine is released:
 8. ``ServeLoop(paged=False)`` serving phase 4's 8 requests (launch
    counts zeroed just before, read just after): B5 / B6 launch once per
    sparse layer (2–39) per decode step, B7 / B8 once per sparse layer
-   per prefill wave, B1–B4 and B9–B11 never; every request drains with
-   finite logits and the greedy stream of the paged run 1. Prefill and
+   per prefill wave, B1–B4 and B9–B11 never; every request drains (none
+   quarantined) with the greedy stream of the paged run 1. Prefill and
    decode tok/s, TTFT and ITL p50 and peak device memory are printed.
 9. Phase 7's checks and times on layer 2's queries of the last prefill
    wave and decode step, over its live contiguous cache; then the same
@@ -94,6 +95,25 @@ weights, once the paged engine is released:
    its eager twin, with B1–B4 (paged) or B5–B8 (unpaged) launched;
    prefill and decode tok/s, TTFT and ITL p50/p95 of the four drains
    side by side, and a ``[graph]`` line per graphed engine.
+9c. The same requests through fresh paged graphed engines with
+   ``Observability(device_telemetry=True)`` and without, in turns
+   (observed, plain, observed, plain; ``[telemetry]``): every drain gives
+   phase 4's streams (sha1) and B1–B4's launches of phase 4's run 1, each
+   observed engine replays its own telemetry variants and records every
+   dispatch's selection counts; ρ_eff of decode and prefill (and of
+   layers 2, 3, 20, 39), ITL beside the decode-attributed ITL, decode
+   tok/s and the graphs' memory of each drain.
+9d. The same requests under a seeded fault schedule (``[chaos]``: step
+   faults retried, allocation denials, a preempt storm, decode and
+   prefill NaN poison, step delays), one request cancelled mid-prefill
+   and the allocator audited every tick, on a fresh observed engine:
+   every survivor streams phase 4's tokens for its uid (one of them
+   evicted by the storm after 22 decode steps, restored by replaying
+   them), each poisoned
+   request ends ``failed`` and the cancelled one ``cancelled``, every
+   fault site fired and every step fault was retried, the pool ends with
+   every page free or cached, the exported Chrome trace validates and
+   the metrics JSON parses.
 
 Then full-sequence scoring (``LMModel.apply`` / ``loss``, impl
 "pallas": B9 → Eq. 3 + top-B → B10 in the sparse layers) on the same
@@ -131,8 +151,8 @@ The line before last is a JSON object listing each kernel's launches
 times (those of the live pool or the captured layer; ``random`` holds
 phase 2's, 7's or 10's) and each time over its bound
 (``ms_over_bound``); the eager/graphed drains, the scoring results
-(with the ptxas report), the unpaged serve and the paged serve are on
-the lines before it; the last
+(with the ptxas report), the unpaged serve and the paged serve, the
+telemetry and chaos phases are on the lines before it; the last
 line is
 ``{"ok": true, "device": ...}``.
 Any failure exits non-zero before printing either.
@@ -1023,7 +1043,8 @@ def serve_full_width(cfg, *, seed=0, n_req=8, prompt_len=2048,
          "not every request drained")
     need(all(len(r.tokens_out) == new_tokens for r in done),
          f"a request stopped short of {new_tokens} tokens")
-    need(m.nonfinite_logits == 0, f"{m.nonfinite_logits} non-finite logits")
+    need(m.failed_requests == 0,
+         f"{m.failed_requests} requests quarantined (non-finite logits)")
     for name in SERVE_KERNELS:
         need(launches[name] > 0,
              f"kernel {name} never launched on the serving path")
@@ -1541,7 +1562,7 @@ def serve_unpaged(model, params, prompts, paged_streams, *, seed=0,
                   new_tokens=32, max_len=4096, chunk=128):
     """The same requests through ``ServeLoop(paged=False)`` on the same
     model: launch counts zeroed just before and read just after; every
-    request drains with finite logits and the paged run's greedy stream.
+    request drains, none quarantined, with the paged run's greedy stream.
     Layer 2's queries of the last prefill wave and the last decode step
     are kept for the captured kernel case."""
     import torch
@@ -1605,8 +1626,9 @@ def serve_unpaged(model, params, prompts, paged_streams, *, seed=0,
     log(f"[unpaged] kernel launches: {json.dumps(launches)}")
     need(len(done) == len(prompts) and all(r.done for r in done),
          "unpaged: not every request drained")
-    need(m.nonfinite_logits == 0,
-         f"unpaged: {m.nonfinite_logits} non-finite logits")
+    need(m.failed_requests == 0,
+         f"unpaged: {m.failed_requests} requests quarantined (non-finite "
+         f"logits)")
     streams = {r.uid: list(r.tokens_out) for r in done}
     need(streams == paged_streams,
          "unpaged greedy streams differ from the paged run's")
@@ -1765,6 +1787,229 @@ def eager_graphed_in_turns(model, params, prompts, streams, *, seed=0,
                 f"allocated once released")
         out[layout] = [{k: v for k, v in r.items() if k != "launches"}
                        for r in runs]
+    return out
+
+
+def _release(engine):
+    """Drop an engine's cache and graphs before the next one."""
+    import torch
+
+    del engine
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+#: layers whose ρ_eff the ``[telemetry]`` lines print (0–1 are dense)
+RHO_LAYERS = (2, 3, 20, 39)
+
+
+def telemetry_in_turns(model, params, prompts, streams, launches, *,
+                       seed=0, new_tokens=32, max_len=4096, chunk=128):
+    """Phase 4's requests through fresh paged graphed engines with
+    ``Observability(device_telemetry=True)`` and without it, in turns
+    (observed, plain, observed, plain): each drain must give phase 4's
+    streams, each observed drain B1–B4's launches of phase 4's run 1.
+    ρ_eff of decode and prefill, a few layers' ratios, ITL beside the
+    decode-attributed ITL, decode tok/s and the graphs' memory of each."""
+    from repro_torch.kernels import _build
+    from repro_torch.observability import Observability
+    from repro_torch.runtime import Request, ServeLoop
+
+    digest = streams_digest(streams)
+    runs = []
+    for observed in (True, False, True, False):
+        obs = Observability() if observed else None
+        engine = ServeLoop(
+            model, params, batch_slots=len(prompts), max_len=max_len,
+            eos_token=-1, seed=seed, prefill_chunk=chunk,
+            prefix_sharing=True, observability=obs, device=DEV,
+        )
+        label = "observed" if observed else "plain"
+        need(all(s.telemetry == observed for s in engine.graphs),
+             f"[telemetry] the {label} engine's graphed steps are not "
+             f"its own variants")
+        engine.capture_graphs()
+        graph = log_graphs(f"[graph] {label} engine, turn {len(runs) + 1}",
+                           engine)
+        for i, p in enumerate(prompts):
+            engine.submit(Request(uid=i, prompt=list(p),
+                                  max_new_tokens=new_tokens))
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = engine.run_until_drained()
+        sync()
+        wall = time.perf_counter() - t0
+        got = dict(_build.launch_counts)
+        m = engine.metrics
+        need(len(done) == len(prompts) and m.failed_requests == 0,
+             f"[telemetry] {label}: not every request drained")
+        need(streams_digest({r.uid: list(r.tokens_out) for r in done})
+             == digest, f"[telemetry] {label} drain {len(runs) + 1}: "
+             f"streams differ from phase 4's")
+        for name in SERVE_KERNELS:
+            need(got[name] == launches[name],
+                 f"[telemetry] {label}: {KERNELS[name]['id']} launched "
+                 f"{got[name]} times, phase 4's run 1 {launches[name]}")
+        lat = m.latency_stats()
+        run = dict(
+            mode=label, wall_s=wall, decode_tok_s=m.decode_tokens_per_sec,
+            prefill_tok_s=m.prefill_tokens_per_sec,
+            itl_p50_ms=lat["itl_p50"] * 1e3, itl_p95_ms=lat["itl_p95"] * 1e3,
+            itl_decode_p50_ms=lat["itl_decode_p50"] * 1e3,
+            itl_decode_p95_ms=lat["itl_decode_p95"] * 1e3, **graph)
+        if observed:
+            sp = obs.sparsity.snapshot()
+            need(sp["decode"]["dispatches"] == m.decode_dispatches
+                 and sp["prefill"]["dispatches"] == m.prefill_dispatches,
+                 "[telemetry] not every dispatch recorded its stats")
+            for phase in ("decode", "prefill"):
+                rho = sp[phase]["rho_eff"]
+                need(rho is not None and 0.0 < rho <= 1.0,
+                     f"[telemetry] {phase} rho_eff {rho}")
+                layers = sp[phase]["rho_eff_per_layer"]
+                run[f"rho_eff_{phase}"] = rho
+                run[f"rho_eff_{phase}_layers"] = {
+                    i: layers[i] for i in RHO_LAYERS if i < len(layers)}
+                run[f"{phase}_blocks"] = sp[phase]["blocks"]
+            run["pinned_fraction_decode"] = sp["decode"]["pinned_fraction"]
+            run["fill_fraction_decode"] = sp["decode"]["fill_fraction"]
+        runs.append(run)
+        _release(engine)
+    for r in runs:
+        rho = (f"; rho_eff decode {r['rho_eff_decode']:.4f} (layers "
+               + ", ".join(f"{i}: {v:.4f}" for i, v in
+                           r["rho_eff_decode_layers"].items())
+               + f"), prefill {r['rho_eff_prefill']:.4f} (layers "
+               + ", ".join(f"{i}: {v:.4f}" for i, v in
+                           r["rho_eff_prefill_layers"].items())
+               + f"), decode pinned {r['pinned_fraction_decode']:.4f} / "
+               f"fill {r['fill_fraction_decode']:.4f}"
+               if r["mode"] == "observed" else "")
+        log(f"[telemetry] {r['mode']:8s}: decode {r['decode_tok_s']:.1f} "
+            f"tok/s, prefill {r['prefill_tok_s']:.1f} tok/s, itl p50/p95 "
+            f"{r['itl_p50_ms']:.2f}/{r['itl_p95_ms']:.2f} ms, itl_decode "
+            f"p50/p95 {r['itl_decode_p50_ms']:.2f}/"
+            f"{r['itl_decode_p95_ms']:.2f} ms, graphs "
+            f"{r['graph_gib']:.2f} GiB{rho}")
+    log(f"[telemetry] streams of all four drains equal phase 4's (sha1 "
+        f"{digest}); B1–B4 launches of each equal phase 4's run 1: "
+        + ", ".join(f"{KERNELS[k]['id']} {launches[k]}"
+                    for k in SERVE_KERNELS))
+    return runs
+
+
+#: the ``[chaos]`` phase's schedule: every fault site fires under this
+#: seed at phase 4's shapes, and the storm evicts two decoding requests,
+#: one of which survives by replaying its decode steps (the engine's
+#: decisions there depend only on the shapes and the injector, never on
+#: the tokens, since no token is an EOS: a CPU rehearsal with a one-layer
+#: model draws the same schedule)
+CHAOS_SEED = 11
+CHAOS_SPEC = dict(
+    alloc_failure=0.1, step_exception=0.05, step_exception_burst=2,
+    nan_logits=0.006, nan_prefill=0.2, delay=0.05, delay_seconds=0.005,
+    preempt_storm=0.03, preempt_storm_size=2,
+)
+#: the request cancelled mid-prefill, and the tick it is cancelled at
+CHAOS_CANCEL = (3, 4)
+
+
+def chaos_drain(model, params, prompts, streams, *, seed=0, new_tokens=32,
+                max_len=4096, chunk=128):
+    """Phase 4's requests under a seeded fault schedule (step faults,
+    allocation denials, preempt storms, decode and prefill poison, step
+    delays), one request cancelled mid-prefill, the allocator audited
+    every tick, on a fresh paged graphed engine with observability:
+    every survivor streams phase 4's tokens for its uid, the poisoned
+    requests end ``failed``, the cancelled one ``cancelled``; retries
+    happened, the pool ends with every page free or cached, the Chrome
+    trace validates and the metrics JSON parses."""
+    import tempfile
+
+    from repro_torch.observability import Observability, validate_chrome_trace
+    from repro_torch.runtime import FaultInjector, FaultSpec, Request, ServeLoop
+
+    inj = FaultInjector(seed=CHAOS_SEED, spec=FaultSpec(**CHAOS_SPEC))
+    obs = Observability()
+    engine = ServeLoop(
+        model, params, batch_slots=len(prompts), max_len=max_len,
+        eos_token=-1, seed=seed, prefill_chunk=chunk, prefix_sharing=True,
+        fault_injector=inj, audit=True, observability=obs, device=DEV,
+    )
+    engine.capture_graphs()
+    for i, p in enumerate(prompts):
+        engine.submit(Request(uid=i, prompt=list(p),
+                              max_new_tokens=new_tokens))
+    uid, at = CHAOS_CANCEL
+    t0 = time.perf_counter()
+    while engine.metrics.ticks < at:
+        engine.tick()
+    victim = next((r for r in engine.slots if r is not None and r.uid == uid),
+                  None)
+    need(victim is not None and victim.state == "prefill",
+         f"[chaos] uid {uid} is not mid-prefill at tick {at}")
+    need(engine.cancel(uid), f"[chaos] cancel({uid}) refused")
+    done = engine.run_until_drained()
+    sync()
+    wall = time.perf_counter() - t0
+    m = engine.metrics
+    states = {r.uid: r.state for r in done + engine.terminated}
+    need(sorted(states) == list(range(len(prompts))),
+         f"[chaos] lost requests: {sorted(states)}")
+    need(states[uid] == "cancelled", f"[chaos] uid {uid} ended "
+         f"{states[uid]}, not cancelled")
+    failed = sorted(r.uid for r in engine.terminated if r.state == "failed")
+    need(all(r.error == "non-finite logits" for r in engine.terminated
+             if r.state == "failed"), "[chaos] a failure not from poison")
+    need(len(failed) == m.failed_requests
+         == inj.counts["nan_logits"] + inj.counts["nan_prefill"],
+         f"[chaos] failed {failed} against poison {inj.counts}")
+    need(set(states.values()) <= {"done", "failed", "cancelled"},
+         f"[chaos] terminal states {states}")
+    for r in done:
+        need(list(r.tokens_out) == streams[r.uid],
+             f"[chaos] survivor uid {r.uid} diverged from phase 4's stream")
+    for site in ("alloc_failure", "step_exception", "nan_logits",
+                 "nan_prefill", "delay", "preempt_storm"):
+        need(inj.counts[site] > 0, f"[chaos] site {site} never fired")
+    need(m.retries == inj.counts["step_exception"] > 0,
+         f"[chaos] {m.retries} retries for {inj.counts['step_exception']} "
+         f"step faults")
+    alloc = engine.allocator
+    need(alloc.pages_in_use == 0
+         and alloc.free_pages == engine.layout.num_pages,
+         f"[chaos] pool not home: {alloc.pages_in_use} pages in use, "
+         f"{alloc.free_pages} of {engine.layout.num_pages} free or cached")
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = os.path.join(tmp, "trace.json")
+        metrics_path = os.path.join(tmp, "metrics.json")
+        obs.export_chrome_trace(trace_path)
+        obs.registry.write_json(metrics_path)
+        with open(trace_path) as f:
+            doc = json.load(f)
+        validate_chrome_trace(doc)
+        with open(metrics_path) as f:
+            snap = json.load(f)
+    need(snap["serve_retries"]["value"] == m.retries
+         and snap["serve_ticks"]["value"] == m.ticks,
+         "[chaos] the metrics JSON disagrees with the engine")
+    out = dict(
+        wall_s=wall, ticks=m.ticks, survivors=len(done), failed=failed,
+        cancelled=[uid], counts=dict(inj.counts), retries=m.retries,
+        preemptions=m.preemptions, stragglers=m.stragglers,
+        trace_events=len(doc["traceEvents"]),
+        rho_eff_decode=obs.sparsity.rho_eff_decode,
+    )
+    log(f"[chaos] seed {CHAOS_SEED}: {len(done)} survivors stream phase "
+        f"4's tokens, failed (poisoned) {failed}, cancelled mid-prefill "
+        f"[{uid}]; injected {json.dumps(out['counts'])}; {m.retries} "
+        f"retries, {m.preemptions} preemptions, {m.stragglers} stragglers, "
+        f"{m.ticks} ticks audited, wall {wall:.2f} s; pool home "
+        f"({alloc.cached_pages} cached); trace of {out['trace_events']} "
+        f"events validates, metrics JSON parses")
+    log(f"[chaos] {m.summary()}")
+    _release(engine)
     return out
 
 
@@ -2148,6 +2393,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     in_turns = serve_in_turns(model, params, prompts, streams1)
     eager_graphed = eager_graphed_in_turns(model, params, prompts, streams1)
+    telemetry = telemetry_in_turns(model, params, prompts, streams1,
+                                   launches)
+    chaos = chaos_drain(model, params, prompts, streams1)
 
     # full-sequence scoring on the same model object and weights
     e = model.cfg.energon
@@ -2191,6 +2439,7 @@ def main(argv=None) -> int:
                                     captured=captured_fs, **pair),
                     "ptxas": ptxas, "card": smi}))
     log(json.dumps({"eager_graphed": eager_graphed, "card": smi}))
+    log(json.dumps({"telemetry": telemetry, "chaos": chaos, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

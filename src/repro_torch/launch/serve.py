@@ -10,6 +10,11 @@ the kernels' plain versions.
 ``--max-len`` and ``--prefill-chunk`` default to shapes on which every
 layer runs (4096 / 128 at full width, 128 / 64 at smoke widths);
 ``ServeLoop`` refuses shapes that would leave the fused kernels.
+``--deadline-ms``, ``--queue-limit`` and ``--chaos-seed`` exercise the
+request lifecycle and fault containment; ``--obs``, ``--metrics-out``
+and ``--trace-out`` attach the observability layer (event trace,
+metrics registry, sparsity telemetry) and write its JSON snapshot and
+Chrome trace.
 """
 
 from __future__ import annotations
@@ -46,6 +51,25 @@ def main(argv=None):
     ap.add_argument("--no-prefix-sharing", action="store_true")
     ap.add_argument("--system-prompt-len", type=int, default=0,
                     help="prepend this many shared system-prompt tokens")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request TTL in milliseconds: the engine "
+                         "evicts an expired request at any state")
+    ap.add_argument("--queue-limit", type=int, default=None,
+                    help="bounded admission queue: submissions past this "
+                         "depth are rejected (QueueFull)")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="run under a seeded FaultInjector (allocation "
+                         "denials, step exceptions, NaN logits, "
+                         "preemption storms); one seed, one schedule")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome/Perfetto trace of the run here; "
+                         "implies --obs")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics/sparsity JSON snapshot here; "
+                         "implies --obs")
+    ap.add_argument("--obs", action="store_true",
+                    help="attach the observability layer (event trace, "
+                         "sparsity telemetry, metrics registry)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -53,7 +77,10 @@ def main(argv=None):
     from repro_torch.configs.registry import get_serve_config
     from repro_torch.device import resolve_device
     from repro_torch.models import LMModel
-    from repro_torch.runtime import Request, ServeLoop, attention_cache_bytes
+    from repro_torch.runtime import (
+        FaultInjector, FaultSpec, QueueFull, Request, ServeLoop,
+        attention_cache_bytes,
+    )
 
     device = resolve_device(args.device)
     if args.max_len is None:
@@ -68,6 +95,17 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, dtype="bfloat16")
     model = LMModel(cfg, device=device)
     params = model.init(seed=args.seed)
+    obs = None
+    if args.obs or args.trace_out or args.metrics_out:
+        from repro_torch.observability import Observability
+
+        obs = Observability()
+    injector = None
+    if args.chaos_seed is not None:
+        injector = FaultInjector(seed=args.chaos_seed, spec=FaultSpec(
+            alloc_failure=0.05, step_exception=0.05, nan_logits=0.01,
+            nan_prefill=0.01, preempt_storm=0.05,
+        ))
     engine = ServeLoop(
         model, params, batch_slots=args.batch_slots, max_len=args.max_len,
         eos_token=cfg.vocab_size - 1, seed=args.seed,
@@ -76,18 +114,25 @@ def main(argv=None):
         paged=False if args.unpaged else None, num_pages=args.num_pages,
         prefix_sharing=(False if (args.no_prefix_sharing or args.unpaged)
                         else None),
-        device=device,
+        queue_limit=args.queue_limit,
+        default_deadline_s=(args.deadline_ms / 1e3
+                            if args.deadline_ms is not None else None),
+        fault_injector=injector, observability=obs, device=device,
     )
     engine.capture_graphs()      # before the clock: no request waits
     rng = np.random.default_rng(args.seed)
     system = rng.integers(1, cfg.vocab_size - 1,
                           size=args.system_prompt_len).tolist()
+    rejected = 0
     for uid in range(args.requests):
         prompt = system + rng.integers(
             1, cfg.vocab_size - 1, size=args.prompt_len
         ).tolist()
-        engine.submit(Request(uid=uid, prompt=prompt,
-                              max_new_tokens=args.new_tokens))
+        try:
+            engine.submit(Request(uid=uid, prompt=prompt,
+                                  max_new_tokens=args.new_tokens))
+        except QueueFull:
+            rejected += 1
     t0 = time.perf_counter()
     done = engine.run_until_drained()
     dt = time.perf_counter() - t0
@@ -105,7 +150,9 @@ def main(argv=None):
     lat = m.latency_stats()
     print(f"[serve] latency: ttft p50/p95 {lat['ttft_p50'] * 1e3:.1f}/"
           f"{lat['ttft_p95'] * 1e3:.1f} ms, itl p50/p95 "
-          f"{lat['itl_p50'] * 1e3:.1f}/{lat['itl_p95'] * 1e3:.1f} ms")
+          f"{lat['itl_p50'] * 1e3:.1f}/{lat['itl_p95'] * 1e3:.1f} ms "
+          f"(decode-attributed p95 {lat['itl_decode_p95'] * 1e3:.1f} ms), "
+          f"queue p95 {lat['queue_wait_p95'] * 1e3:.1f} ms")
     nbytes = attention_cache_bytes(engine.cache)
     if engine.paged:
         print(f"[serve] cache (paged): {engine.layout.num_pages} pages, "
@@ -120,7 +167,45 @@ def main(argv=None):
               f"{m.pages_shared} pages shared, "
               f"{m.prefill_tokens_skipped} prefill tok skipped, "
               f"{m.cow_clones} CoW clones")
+    if engine.terminated or rejected or m.retries or injector is not None:
+        print(f"[serve] lifecycle: {len(done)} completed, "
+              f"{m.failed_requests} failed, {m.cancelled_requests} "
+              f"cancelled, {m.expired_requests} expired, "
+              f"{m.shed_requests + rejected} shed/rejected, "
+              f"{m.retries} step retries")
+    if injector is not None:
+        print(f"[serve] chaos (seed {args.chaos_seed}): "
+              f"{injector.total_injected} faults injected "
+              f"{dict(injector.counts)}")
+    if obs is not None:
+        _report_observability(obs, args)
     return engine
+
+
+def _report_observability(obs, args) -> None:
+    """The sparsity line, and the Chrome trace and metrics snapshot
+    where asked for."""
+    sp = obs.sparsity.snapshot()
+    rho_p, rho_d = sp["prefill"]["rho_eff"], sp["decode"]["rho_eff"]
+    pool = obs.series_stats("pool_occupancy")
+    print(f"[serve] sparsity: rho_eff prefill "
+          f"{'n/a' if rho_p is None else f'{rho_p:.3f}'} / decode "
+          f"{'n/a' if rho_d is None else f'{rho_d:.3f}'}"
+          + (f" (pinned {sp['decode']['pinned_fraction']:.2f}, "
+             f"fill {sp['decode']['fill_fraction']:.2f})"
+             if rho_d is not None else "")
+          + f", pool occupancy p50/peak {pool['p50']:.0f}/"
+            f"{pool['peak']:.0f} pages, {len(obs.trace)} trace events")
+    if args.trace_out:
+        obs.export_chrome_trace(args.trace_out)
+        print(f"[serve] chrome trace -> {args.trace_out} "
+              f"(open in ui.perfetto.dev)")
+    if args.metrics_out:
+        import json
+
+        with open(args.metrics_out, "w") as f:
+            json.dump(obs.snapshot(), f, indent=2)
+        print(f"[serve] metrics snapshot -> {args.metrics_out}")
 
 
 if __name__ == "__main__":

@@ -324,13 +324,15 @@ def prefill_attention_block(
     use_qk_norm: bool = False,
     window: Optional[int] = None,
     layer_index: int = 10**9,
-) -> torch.Tensor:
+    telemetry: bool = False,
+):
     """Chunked-prefill attention against the contiguous cache. x
     ``[B, C, d]``; positions ``[B, C]`` (sentinels ≥ max_len write
     nothing and produce outputs the caller ignores); ``write`` from
     :func:`cache_write_plan`. The chunk attends the updated cache under
     a per-row causal mask, reading the planes refreshed by its own
-    write. Returns ``[B, C, d]``."""
+    write. Returns ``[B, C, d]``; with ``telemetry``, ``(y, stats)``
+    where stats is the layer's int32 ``[B, 4]`` selection counts."""
     chunk = x.shape[1]
     qg = _project_update_fold(
         params, x, cache, positions, write,
@@ -344,8 +346,9 @@ def prefill_attention_block(
         qg, cache["k"], cache["v"], energon,
         causal=True, window=window, layer_index=layer_index,
         q_positions=qpos, filter_cache=_filter_planes(cache),
+        telemetry=telemetry,
     )
-    return _unfold_heads_out(out, params, num_heads, chunk)
+    return _unfold_with_stats(out, params, num_heads, chunk, telemetry)
 
 
 def decode_attention_block(
@@ -362,11 +365,13 @@ def decode_attention_block(
     use_qk_norm: bool = False,
     window: Optional[int] = None,
     layer_index: int = 10**9,
-) -> torch.Tensor:
+    telemetry: bool = False,
+):
     """One-token decode step over the contiguous cache. x ``[B, 1, d]``;
     cache_index ``[B]`` (an idle slot's ``max_len`` sentinel writes
     nothing and attends every row); ``write`` from
-    :func:`cache_write_plan`. Returns ``[B, 1, d]``."""
+    :func:`cache_write_plan`. Returns ``[B, 1, d]``; with ``telemetry``,
+    ``(y, stats [B, 4])``."""
     qg = _project_update_fold(
         params, x, cache, cache_index[:, None], write,
         num_heads=num_heads, num_kv_heads=num_kv_heads,
@@ -376,9 +381,9 @@ def decode_attention_block(
     out = energon_decode_attention(
         qg, cache["k"], cache["v"], cache_index + 1, energon,
         layer_index=layer_index, window=window,
-        filter_cache=_filter_planes(cache),
+        filter_cache=_filter_planes(cache), telemetry=telemetry,
     )
-    return _unfold_heads_out(out, params, num_heads, 1)
+    return _unfold_with_stats(out, params, num_heads, 1, telemetry)
 
 
 def _filter_planes(cache) -> Optional[Dict[str, torch.Tensor]]:
@@ -518,6 +523,16 @@ def _unfold_heads_out(
     return out.reshape(batch, chunk, -1) @ wo.reshape(-1, wo.shape[-1])
 
 
+def _unfold_with_stats(out, params, num_heads: int, chunk: int,
+                       telemetry: bool):
+    """:func:`_unfold_heads_out` of an attention output that, with
+    ``telemetry``, comes as ``(out, stats)``; the stats pass through."""
+    if telemetry:
+        out, stats = out
+        return _unfold_heads_out(out, params, num_heads, chunk), stats
+    return _unfold_heads_out(out, params, num_heads, chunk)
+
+
 def paged_prefill_attention_block(
     params,
     x: torch.Tensor,
@@ -533,11 +548,13 @@ def paged_prefill_attention_block(
     use_qk_norm: bool = False,
     window: Optional[int] = None,
     layer_index: int = 10**9,
-) -> torch.Tensor:
+    telemetry: bool = False,
+):
     """Chunked-prefill attention against the page pool. x ``[B, C, d]``;
     positions ``[B, C]`` (sentinels ≥ logical rows write nothing and
     produce outputs the caller ignores); ``write`` from
-    :func:`paged_write_plan`. Returns ``[B, C, d]``."""
+    :func:`paged_write_plan`. Returns ``[B, C, d]``; with ``telemetry``,
+    ``(y, stats [B, 4])``."""
     chunk = x.shape[1]
     qg = _project_update_fold_paged(
         params, x, cache, positions, write,
@@ -549,9 +566,9 @@ def paged_prefill_attention_block(
     qpos = positions.repeat(1, groups)       # folded row (g, c) → pos[c]
     out = energon_paged_prefill_attention(
         qg, cache, block_table, qpos, energon,
-        layer_index=layer_index, window=window,
+        layer_index=layer_index, window=window, telemetry=telemetry,
     )
-    return _unfold_heads_out(out, params, num_heads, chunk)
+    return _unfold_with_stats(out, params, num_heads, chunk, telemetry)
 
 
 def paged_decode_attention_block(
@@ -569,10 +586,12 @@ def paged_decode_attention_block(
     use_qk_norm: bool = False,
     window: Optional[int] = None,
     layer_index: int = 10**9,
-) -> torch.Tensor:
+    telemetry: bool = False,
+):
     """One-token paged decode step. x ``[B, 1, d]``; cache_index ``[B]``;
     ``write`` (from :func:`paged_write_plan` with the ``active`` slots'
-    mask) says which slots' appends land. Returns ``[B, 1, d]``."""
+    mask) says which slots' appends land. Returns ``[B, 1, d]``; with
+    ``telemetry``, ``(y, stats [B, 4])``."""
     qg = _project_update_fold_paged(
         params, x, cache, cache_index[:, None], write,
         num_heads=num_heads, num_kv_heads=num_kv_heads,
@@ -581,6 +600,6 @@ def paged_decode_attention_block(
     )
     out = energon_paged_decode_attention(
         qg, cache, block_table, cache_index + 1, energon,
-        layer_index=layer_index, window=window,
+        layer_index=layer_index, window=window, telemetry=telemetry,
     )
-    return _unfold_heads_out(out, params, num_heads, 1)
+    return _unfold_with_stats(out, params, num_heads, 1, telemetry)

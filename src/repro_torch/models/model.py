@@ -280,13 +280,17 @@ class LMModel:
 
     @torch.no_grad()
     def prefill(self, params, cache, inputs: Dict[str, torch.Tensor],
-                cache_index: torch.Tensor):
+                cache_index: torch.Tensor, telemetry: bool = False):
         """Chunked prefill of ``inputs['tokens'] [B, C]`` at
         ``inputs['positions'] [B, C]`` (default ``cache_index + arange``;
         positions ≥ the cache rows are padding sentinels), through
         ``inputs['block_table']`` into the page pool when given, else
         into the contiguous cache. Returns ``(logits [B, C, V] f32,
-        cache)``."""
+        cache)``; with ``telemetry``, ``(logits, cache, stats)`` where
+        stats is int32 ``[L, B, 4]`` per-layer selection counts
+        (:func:`repro_torch.core.filtering.selection_stats`; zeros for
+        the dense prefix layers). Logits and cache are the same bits
+        either way."""
         cfg = self.cfg
         x = self._embed(params, inputs["tokens"])
         chunk = x.shape[1]
@@ -309,26 +313,36 @@ class LMModel:
                 return block(
                     p, xn, kv_cache, positions, *where, write, cfg.energon,
                     **self._attn_kwargs(layer_idx, window),
+                    telemetry=telemetry,
                 )
             return tfm.block_step(layer_params, x, attn,
-                                  activation=cfg.activation, norm=cfg.norm)
+                                  activation=cfg.activation, norm=cfg.norm,
+                                  telemetry=telemetry)
 
-        x = tfm.apply_stack_decode(
+        return self._serve_out(params, cache, tfm.apply_stack_decode(
             params["blocks"], x, cache, self.layer_windows(), step_fn,
-            prefix_layers=cfg.energon.min_prune_layer,
-        )
-        return self._logits_out(params, x), cache
+            prefix_layers=cfg.energon.min_prune_layer, telemetry=telemetry,
+        ), telemetry)
+
+    def _serve_out(self, params, cache, out, telemetry: bool):
+        """``(logits, cache)`` of a serve step's stack output, or with
+        ``telemetry`` ``(logits, cache, stats)``."""
+        if telemetry:
+            x, stats = out
+            return self._logits_out(params, x), cache, stats
+        return self._logits_out(params, out), cache
 
     @torch.no_grad()
     def decode_step(self, params, cache, inputs: Dict[str, torch.Tensor],
-                    cache_index: torch.Tensor):
+                    cache_index: torch.Tensor, telemetry: bool = False):
         """One-token decode: ``inputs['tokens'] [B, 1]``; ``cache_index
         [B]`` current lengths. With ``inputs['block_table']`` the page
         pool is read and optional ``inputs['active'] [B]`` drops inactive
         slots' appends; without it the contiguous cache is written
         positionally, as in the reference (an index ≥ the cache rows
         writes nothing — the engine's idle-slot sentinel). Returns
-        ``(logits [B, 1, V] f32, cache)``."""
+        ``(logits [B, 1, V] f32, cache)``; with ``telemetry`` also the
+        int32 ``[L, B, 4]`` stats, as :meth:`prefill`."""
         cfg = self.cfg
         x = self._embed(params, inputs["tokens"])
         block_table = inputs.get("block_table")
@@ -346,15 +360,16 @@ class LMModel:
                 return block(
                     p, xn, kv_cache, cache_index, *where, write, cfg.energon,
                     **self._attn_kwargs(layer_idx, window),
+                    telemetry=telemetry,
                 )
             return tfm.block_step(layer_params, x, attn,
-                                  activation=cfg.activation, norm=cfg.norm)
+                                  activation=cfg.activation, norm=cfg.norm,
+                                  telemetry=telemetry)
 
-        x = tfm.apply_stack_decode(
+        return self._serve_out(params, cache, tfm.apply_stack_decode(
             params["blocks"], x, cache, self.layer_windows(), step_fn,
-            prefix_layers=cfg.energon.min_prune_layer,
-        )
-        return self._logits_out(params, x), cache
+            prefix_layers=cfg.energon.min_prune_layer, telemetry=telemetry,
+        ), telemetry)
 
 
 def _stack_like(tree, n: int):

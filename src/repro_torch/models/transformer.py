@@ -35,13 +35,18 @@ def num_layers(tree) -> int:
 
 
 def block_step(params, x: torch.Tensor, attn_call, *, activation: str,
-               norm: str) -> torch.Tensor:
+               norm: str, telemetry: bool = False):
     """Pre-norm decoder block around ``attn_call(attn_params, x_normed)``:
-    x + attention(norm(x)), then x + MLP(norm(x))."""
-    x = x + attn_call(params["attn"],
-                      L.apply_norm(norm, params["norm_attn"], x))
+    x + attention(norm(x)), then x + MLP(norm(x)). With ``telemetry``
+    ``attn_call`` returns ``(h, stats)`` and so does the block, the
+    stats passed through unchanged."""
+    h = attn_call(params["attn"], L.apply_norm(norm, params["norm_attn"], x))
+    if telemetry:
+        h, stats = h
+    x = x + h
     h_in = L.apply_norm(norm, params["norm_mlp"], x)
-    return x + L.apply_mlp(params["mlp"], h_in, activation)
+    x = x + L.apply_mlp(params["mlp"], h_in, activation)
+    return (x, stats) if telemetry else x
 
 
 def apply_block(
@@ -99,13 +104,24 @@ def apply_stack_decode(
     step_fn,
     *,
     prefix_layers: int = 0,
-) -> torch.Tensor:
+    telemetry: bool = False,
+):
     """Run ``step_fn(params, x, cache, window, layer_idx) -> x`` over the
     layers. Each step updates its cache slice in place, so the stacked
-    ``caches`` hold every layer's new state when this returns."""
-    return apply_stack(
-        {"params": params_stacked, "cache": caches}, x, windows,
-        lambda layer, x, window, layer_idx: step_fn(
-            layer["params"], x, layer["cache"], window, layer_idx),
+    ``caches`` hold every layer's new state when this returns. With
+    ``telemetry`` the step returns ``(x, stats [B, 4])`` and this
+    ``(x, stats)``, the layers' stats stacked to int32 ``[L, B, 4]``."""
+    stats = []
+
+    def layer_step(layer, x, window, layer_idx):
+        out = step_fn(layer["params"], x, layer["cache"], window, layer_idx)
+        if telemetry:
+            out, st = out
+            stats.append(st)
+        return out
+
+    x = apply_stack(
+        {"params": params_stacked, "cache": caches}, x, windows, layer_step,
         prefix_layers=prefix_layers,
     )
+    return (x, torch.stack(stats)) if telemetry else x

@@ -1,5 +1,16 @@
-"""Serving runtime of the port: page pool, admission queue, engine."""
+"""Serving runtime of the port: page pool, admission queue, engine,
+fault tolerance."""
 
+from repro_torch.runtime.fault_tolerance import (
+    FaultInjector,
+    FaultSpec,
+    PreemptionHandler,
+    RetryPolicy,
+    StepFailure,
+    StragglerMonitor,
+    TransientStepError,
+    retry_step,
+)
 from repro_torch.runtime.paged_cache import (
     PageAllocator,
     PagedLayout,
@@ -9,6 +20,7 @@ from repro_torch.runtime.pending import PendingQueue
 from repro_torch.runtime.serve_loop import (
     EngineMetrics,
     EngineStalled,
+    QueueFull,
     Request,
     ServeLoop,
     make_prefill_step,
@@ -18,12 +30,21 @@ from repro_torch.runtime.serve_loop import (
 __all__ = [
     "EngineMetrics",
     "EngineStalled",
+    "FaultInjector",
+    "FaultSpec",
     "PageAllocator",
     "PagedLayout",
     "PendingQueue",
+    "PreemptionHandler",
+    "QueueFull",
     "Request",
+    "RetryPolicy",
     "ServeLoop",
+    "StepFailure",
+    "StragglerMonitor",
+    "TransientStepError",
     "attention_cache_bytes",
     "make_prefill_step",
     "make_serve_step",
+    "retry_step",
 ]

@@ -30,6 +30,10 @@ Capture, on the device's one capture stream:
 * the kernels' launch counts of the warm-up are dropped and those of the
   capture kept, and each replay adds them (:func:`_build.set_aside`).
 
+A ``telemetry`` step captures ``model.<method>(..., telemetry=True)``:
+the same kernels, plus the selection counts of every layer, returned as
+a third output that the replay overwrites like the logits.
+
 A failed capture or replay raises; nothing falls back to the eager step.
 The logits a replay returns live in the graph's static output, which the
 next replay of either step overwrites: a caller that keeps rows across
@@ -41,7 +45,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import time
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -66,6 +70,7 @@ class _Captured:
     inputs: Dict[str, torch.Tensor]   # static input buffers
     index: torch.Tensor               # static cache_index
     logits: torch.Tensor              # static output
+    stats: Optional[torch.Tensor]     # static [L, B, 4] (telemetry)
     launches: Dict[str, int]          # kernel launches of one replay
     owner: Tuple[int, int]            # params' and cache's first addresses
 
@@ -96,13 +101,14 @@ def idle_inputs(model, method: str, cache, inputs: Dict[str, torch.Tensor],
     return static, index
 
 
-def run_idle(model, method: str, params, cache, static, index) -> None:
+def run_idle(model, method: str, params, cache, static, index,
+             telemetry: bool = False) -> None:
     """One call of ``model.<method>`` on :func:`idle_inputs`, leaving the
     cache bit for bit as it was: its writes land in the scratch target,
     its re-quantization reproduces each block's codes, and the scales
     (where only an all-zero block's would move) are put back."""
     scales = cache["k_scale"].clone() if "k_scale" in cache else None
-    getattr(model, method)(params, cache, static, index)
+    getattr(model, method)(params, cache, static, index, telemetry=telemetry)
     if scales is not None:
         cache["k_scale"].copy_(scales)
 
@@ -110,7 +116,8 @@ def run_idle(model, method: str, params, cache, static, index) -> None:
 class GraphedStep:
     """``model.<method>`` (``decode_step`` or ``prefill``) as a callable
     ``(params, cache, inputs, cache_index) -> (logits, cache)`` that
-    replays CUDA graphs. The inputs must say which rows are live, so that
+    replays CUDA graphs (with ``telemetry``, ``(logits, cache, stats)``
+    of ``model.<method>(..., telemetry=True)``). The inputs must say which rows are live, so that
     capture can run with none: ``positions`` for a prefill, ``active``
     for a paged decode. Steps given one ``pool`` (a
     ``torch.cuda.graph_pool_handle()``) share their graphs' memory: safe
@@ -118,13 +125,14 @@ class GraphedStep:
     each step's logits are consumed before the next replay."""
 
     def __init__(self, model, method: str, device: torch.device,
-                 pool=None):
+                 pool=None, telemetry: bool = False):
         if device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
         if method not in ("decode_step", "prefill"):
             raise ValueError(f"no graphed step for {method!r}")
         self.model = model
         self.method = method
+        self.telemetry = bool(telemetry)
         self.device = torch.device("cuda", torch.cuda.current_device()
                                    if device.index is None else device.index)
         self.pool = torch.cuda.graph_pool_handle() if pool is None else pool
@@ -146,6 +154,8 @@ class GraphedStep:
         cap.index.copy_(cache_index)
         cap.graph.replay()
         _build.add_launches(cap.launches)
+        if self.telemetry:
+            return cap.logits, cache, cap.stats
         return cap.logits, cache
 
     def prepare(self, params, cache, inputs: Dict[str, torch.Tensor],
@@ -183,7 +193,8 @@ class GraphedStep:
         current = torch.cuda.current_stream(self.device)
         stream.wait_stream(current)
         with _build.set_aside(), torch.cuda.stream(stream):
-            run_idle(self.model, self.method, params, cache, static, index)
+            run_idle(self.model, self.method, params, cache, static, index,
+                     self.telemetry)
         current.wait_stream(stream)
         torch.cuda.synchronize(self.device)
         gc.collect()
@@ -193,11 +204,13 @@ class GraphedStep:
         fn = getattr(self.model, self.method)
         with _build.set_aside() as launches:
             with torch.cuda.graph(graph, pool=self.pool, stream=stream):
-                logits, _ = fn(params, cache, static, index)
+                out = fn(params, cache, static, index,
+                         telemetry=self.telemetry)
         self.graph_bytes += torch.cuda.memory_reserved(self.device) - reserved
         self.capture_seconds += time.perf_counter() - t0
         return _Captured(
-            graph=graph, inputs=static, index=index, logits=logits,
+            graph=graph, inputs=static, index=index, logits=out[0],
+            stats=out[2] if self.telemetry else None,
             launches=dict(launches),
             owner=(_first_ptr(params), _first_ptr(cache)),
         )

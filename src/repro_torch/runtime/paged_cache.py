@@ -142,6 +142,9 @@ class PageAllocator:
         self._root = _TrieNode()
         self._page_node: Dict[int, _TrieNode] = {}
         self._cached: "OrderedDict[int, None]" = OrderedDict()
+        #: optional event trace (set by the engine's observability):
+        #: every cached page evicted for reuse emits ``page_evict``
+        self.tracer = None
 
     @property
     def free_pages(self) -> int:
@@ -236,6 +239,8 @@ class PageAllocator:
         if self._cached:
             page, _ = self._cached.popitem(last=False)
             self._deregister(page)
+            if self.tracer is not None:
+                self.tracer.emit("page_evict", site="allocator", page=page)
             return page
         return None
 

@@ -225,10 +225,8 @@ class PendingQueue:
     # --- internals -----------------------------------------------------
 
     def _push_deadline(self, req: "Request") -> None:
-        # the port's Request carries no deadline yet (lifecycle features
-        # wait for a later slice): such requests never enter the heap
-        if getattr(req, "deadline_s", None) is not None \
-                and req._t_submit is not None:
+        # requests without a deadline never enter the heap
+        if req.deadline_s is not None and req._t_submit is not None:
             heapq.heappush(
                 self._deadline_heap,
                 (req._t_submit + req.deadline_s, req.uid),

@@ -6,8 +6,13 @@ shared page pool (default) or the contiguous per-slot cache
 * **Paged pool**: a request is admitted the moment enough pages are free
   for its prompt; decode grows a slot one page at a time; on exhaustion
   the youngest live slot is preempted (pages freed, request requeued at
-  the front and re-prefilled on re-admission). Allocation is host-side
-  and deterministic.
+  the front). Allocation is host-side and deterministic.
+* **Restore**: a re-admitted request gets back every row it wrote as it
+  was written — its prompt rows by prefill chunks on the original grid
+  (or attached pages), the rows its decode steps wrote by replaying
+  those steps in later decode ticks (state ``replay``), since prefill
+  attention selects other key blocks than decode and would change them.
+  (The reference re-prefills the generated rows too.)
 * **Contiguous cache**: every slot owns ``max_len`` rows; admission
   zeroes the admitted slots' rows and planes, and a decode tick steps
   idle and mid-prefill slots at the ``max_len`` sentinel, which writes
@@ -26,8 +31,12 @@ shared page pool (default) or the contiguous per-slot cache
   what makes hybrid ≡ sync and preempted ≡ ample-pool hold in-port.
   (The reference's ``jax.random`` streams are not reproduced; greedy
   streams are what compares across the two packages.)
-* **Metrics**: prefill and decode tok/s, TTFT and inter-token latency
-  percentiles, preemptions, page watermark and prefix-cache counters.
+* **Metrics**: prefill and decode tok/s, queue wait, TTFT and
+  inter-token latency percentiles — raw (``itl``) and decode-attributed
+  (``itl_decode``: the gap less the engine's prefill time between the
+  two commits) —, preemptions, page watermark, prefix-cache counters and
+  the lifecycle counters. Committed tokens surface at once through
+  ``Request.on_token``.
 * **Compiled steps**: on CUDA the decode step and the prefill wave
   replay CUDA graphs (:class:`GraphedStep`, which :func:`make_serve_step`
   / :func:`make_prefill_step` make: the reference's jitted steps), one
@@ -35,33 +44,70 @@ shared page pool (default) or the contiguous per-slot cache
   runs the eager ones, the handle for holding the two against each
   other. Sampling, allocation, prefix registration and copy-on-write
   clones stay on the host, between them.
+* **Request lifecycle and fault containment**: requests move pending →
+  prefill → decode → {done, cancelled, expired, failed, shed};
+  ``cancel(uid)`` and per-request deadlines evict a request at any
+  state, freeing its pages under the allocator's rules; ``queue_limit``
+  bounds the admission queue (:class:`QueueFull`, optional
+  lowest-priority / youngest-first shedding); ``run_until_drained``
+  raises :class:`EngineStalled` after ``stall_patience`` zero-progress
+  ticks. Non-finite logits quarantine only the faulted slot (terminal
+  ``failed``), and step dispatches retry transient errors under a
+  ``RetryPolicy``. A seeded :class:`FaultInjector` threads chaos through
+  every fault site, and every surviving request streams bit-identically
+  to the fault-free run.
+* **Observability** (``observability=``): an event trace, a metrics
+  registry that the counters mirror into, per-tick series, and — with
+  ``device_telemetry`` — the steps' per-layer selection counts, from
+  separate ``telemetry=True`` steps whose stats ride the tick's one
+  device-to-host copy. An engine built without an injector, a retry
+  policy or observability dispatches exactly the steps it did before.
 
-Fault injection, retry, deadlines, cancel, load shedding, observability
-and the device mesh wait for later slices of the port.
+The device mesh waits for a later slice of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.energon_attention import serving_faults
 from repro_torch.device import DeviceLike, resolve_device, synchronize
+from repro_torch.observability import Observability
+from repro_torch.observability.metrics import (
+    DEFAULT_LATENCY_BOUNDS,
+    MetricsRegistry,
+)
 from repro_torch.runtime.cuda_graph import GraphedStep
+from repro_torch.runtime.fault_tolerance import (
+    FaultInjector,
+    RetryPolicy,
+    StragglerMonitor,
+    TransientStepError,
+    retry_step,
+)
 from repro_torch.runtime.paged_cache import PageAllocator, PagedLayout
 from repro_torch.runtime.pending import PendingQueue
 
 
+class QueueFull(RuntimeError):
+    """The bounded admission queue rejected a submission (backpressure):
+    the queue is at ``queue_limit`` and load shedding either is disabled
+    or found no lower-priority victim to drop."""
+
+
 class EngineStalled(RuntimeError):
-    """A tick made no progress with work still queued (e.g. a prompt
-    needing more pages than the pool can ever free); ``uids`` names the
-    stuck requests."""
+    """The engine made zero progress with work still queued — no token
+    committed, no request admitted or reaching a terminal state — and
+    would otherwise spin to ``max_ticks``; ``uids`` names the stuck
+    requests (queued and live)."""
 
     def __init__(self, msg: str, uids: List[int]):
         super().__init__(msg)
@@ -74,16 +120,29 @@ class Request:
     prompt: List[int]
     max_new_tokens: int = 32
     temperature: float = 0.0
-    #: admission rank: higher admits first
+    #: admission and load-shedding rank: higher admits first and
+    #: survives shedding; ties shed youngest first
     priority: int = 0
     #: fairness domain: tenants of one priority class take turns
     tenant: str = ""
+    #: TTL in seconds from submission; the engine evicts the request at
+    #: any state once it expires (None = no deadline)
+    deadline_s: Optional[float] = None
+    #: streaming hook, called as ``on_token(req, tok)`` the moment each
+    #: token commits (first token included), on the engine's tick path:
+    #: it must be cheap and must not raise
+    on_token: Optional[Callable[["Request", int], None]] = None
     tokens_out: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
-    #: pending → prefill → decode (→ preempted → prefill …) → done
+    #: pending → prefill → decode (→ preempted → prefill → replay …)
+    #: → {done, cancelled, expired, failed, shed}
     state: str = "new"
+    #: diagnostic of a terminal failure (e.g. "non-finite logits")
+    error: Optional[str] = None
     _next_input: int = 0
     _submit_seq: int = -1
+    # latency stamps (perf_counter); the gaps keep a bounded tail, the
+    # full series streams into the registry's histograms
     _t_submit: Optional[float] = None
     _t_admit: Optional[float] = None
     _t_first: Optional[float] = None
@@ -91,31 +150,80 @@ class Request:
     _itl: "deque[float]" = dataclasses.field(
         default_factory=lambda: deque(maxlen=512)
     )
+    #: decode-attributed gaps: the wall gap less the engine's prefill
+    #: time between the two commits
+    _itl_decode: "deque[float]" = dataclasses.field(
+        default_factory=lambda: deque(maxlen=512)
+    )
+    #: the engine's prefill time at this request's last commit
+    _pf_mark: float = 0.0
 
 
 def _pct(vals: List[float], p: float) -> float:
     return float(np.percentile(np.asarray(vals), p)) if vals else 0.0
 
 
+class _CounterAttr:
+    """Integer engine counter with plain attribute semantics that
+    mirrors every write into the engine's optional
+    :class:`MetricsRegistry` (a live view, never a stale copy)."""
+
+    def __set_name__(self, owner, name):
+        self.name = name
+
+    def __get__(self, obj, objtype=None):
+        if obj is None:
+            return self
+        return obj._counters.get(self.name, 0)
+
+    def __set__(self, obj, value):
+        obj._counters[self.name] = int(value)
+        if obj.registry is not None:
+            obj.registry.counter(obj._ns + self.name).value = int(value)
+
+
+class _GaugeAttr(_CounterAttr):
+    """Like :class:`_CounterAttr`, mirrored into a registry gauge (which
+    tracks its own peak)."""
+
+    def __set__(self, obj, value):
+        obj._counters[self.name] = int(value)
+        if obj.registry is not None:
+            obj.registry.gauge(obj._ns + self.name).set(int(value))
+
+
 class EngineMetrics:
     """Prefill and decode throughput measured separately, per-request
-    latency records, and the paged scheduler's counters."""
+    latency records, the paged scheduler's counters and the lifecycle
+    counters. Counters are attributes over an optional
+    :class:`MetricsRegistry` (``registry=None``: plain ints); the raw
+    records are capped at ``max_request_records``, the registry's
+    histograms see every observation."""
 
-    def __init__(self, max_request_records: int = 1024):
-        self.prefill_tokens = 0
-        self.decode_tokens = 0
-        self.prefill_dispatches = 0
-        self.decode_dispatches = 0
-        self.ticks = 0
-        self.preemptions = 0
-        self.peak_pages_in_use = 0
-        self.prefix_lookups = 0
-        self.prefix_hits = 0
-        self.pages_shared = 0
-        self.prefill_tokens_skipped = 0
-        self.cow_clones = 0
-        #: sampled slots whose logits held a NaN/Inf
-        self.nonfinite_logits = 0
+    prefill_tokens = _CounterAttr()
+    decode_tokens = _CounterAttr()
+    prefill_dispatches = _CounterAttr()
+    decode_dispatches = _CounterAttr()
+    ticks = _CounterAttr()
+    preemptions = _CounterAttr()
+    peak_pages_in_use = _GaugeAttr()
+    prefix_lookups = _CounterAttr()
+    prefix_hits = _CounterAttr()
+    pages_shared = _CounterAttr()
+    prefill_tokens_skipped = _CounterAttr()
+    cow_clones = _CounterAttr()
+    retries = _CounterAttr()
+    stragglers = _CounterAttr()
+    failed_requests = _CounterAttr()
+    cancelled_requests = _CounterAttr()
+    expired_requests = _CounterAttr()
+    shed_requests = _CounterAttr()
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None,
+                 max_request_records: int = 1024):
+        self._ns = "serve_"
+        self.registry = registry
+        self._counters: Dict[str, int] = {}
         self.prefill_time = 0.0
         self.decode_time = 0.0
         self.requests_recorded = 0
@@ -135,28 +243,106 @@ class EngineMetrics:
     def prefix_hit_rate(self) -> float:
         return self.prefix_hits / max(self.prefix_lookups, 1)
 
+    def _hist(self, name: str):
+        return self.registry.histogram(self._ns + name,
+                                       DEFAULT_LATENCY_BOUNDS)
+
+    def observe_itl(self, dt: float,
+                    decode_dt: Optional[float] = None) -> None:
+        """Stream one inter-token gap into the registry's histograms:
+        ``dt`` the wall gap, ``decode_dt`` the same gap less the prefill
+        time between the two commits."""
+        if self.registry is not None:
+            self._hist("itl_seconds").observe(dt)
+            if decode_dt is not None:
+                self._hist("itl_decode_seconds").observe(decode_dt)
+
+    def sync_registry(self) -> None:
+        """Push the float time accumulators into the registry (the
+        integer counters mirror on every write)."""
+        if self.registry is None:
+            return
+        self.registry.gauge(self._ns + "prefill_time_seconds").set(
+            self.prefill_time)
+        self.registry.gauge(self._ns + "decode_time_seconds").set(
+            self.decode_time)
+
     def record_request(self, req: Request) -> None:
+        """Fold a completed request's latency stamps into the records
+        (bounded) and the registry's histograms (streaming)."""
         if req._t_submit is None:
             return
         qw = (req._t_admit - req._t_submit) if req._t_admit is not None else 0.0
         ttft = (req._t_first - req._t_submit) if req._t_first is not None else 0.0
         self.request_records.append({
             "uid": req.uid, "queue_wait": qw, "ttft": ttft,
-            "itl": list(req._itl),
+            "itl": list(req._itl), "itl_decode": list(req._itl_decode),
         })
         self.requests_recorded += 1
+        if self.registry is not None:
+            self._hist("queue_wait_seconds").observe(qw)
+            self._hist("ttft_seconds").observe(ttft)
 
     def latency_stats(self) -> Dict[str, float]:
-        """p50/p95 of queue wait, TTFT and inter-token latency (s)."""
+        """p50/p95 of queue wait, TTFT and inter-token latency, raw and
+        decode-attributed (s; zeros when nothing is recorded)."""
         qw = [r["queue_wait"] for r in self.request_records]
         tt = [r["ttft"] for r in self.request_records]
         itl = [x for r in self.request_records for x in r["itl"]]
+        itl_d = [x for r in self.request_records for x in r["itl_decode"]]
         return {
             "requests": float(self.requests_recorded),
             "queue_wait_p50": _pct(qw, 50), "queue_wait_p95": _pct(qw, 95),
             "ttft_p50": _pct(tt, 50), "ttft_p95": _pct(tt, 95),
             "itl_p50": _pct(itl, 50), "itl_p95": _pct(itl, 95),
+            "itl_decode_p50": _pct(itl_d, 50),
+            "itl_decode_p95": _pct(itl_d, 95),
         }
+
+    def summary(self) -> str:
+        s = (
+            f"prefill {self.prefill_tokens} tok / "
+            f"{self.prefill_dispatches} calls "
+            f"({self.prefill_tokens_per_sec:.1f} tok/s) | "
+            f"decode {self.decode_tokens} tok / "
+            f"{self.decode_dispatches} calls "
+            f"({self.decode_tokens_per_sec:.1f} tok/s) | "
+            f"{self.ticks} ticks"
+        )
+        if self.request_records:
+            st = self.latency_stats()
+            s += (
+                f" | queue p50/p95 {st['queue_wait_p50'] * 1e3:.1f}/"
+                f"{st['queue_wait_p95'] * 1e3:.1f} ms"
+                f" | ttft p50/p95 {st['ttft_p50'] * 1e3:.1f}/"
+                f"{st['ttft_p95'] * 1e3:.1f} ms"
+                f" | itl p50/p95 {st['itl_p50'] * 1e3:.1f}/"
+                f"{st['itl_p95'] * 1e3:.1f} ms"
+            )
+        if self.peak_pages_in_use:
+            s += (
+                f" | {self.preemptions} preemptions, "
+                f"peak {self.peak_pages_in_use} pages"
+            )
+        if self.prefix_lookups:
+            s += (
+                f" | prefix hit-rate {self.prefix_hit_rate:.2f} "
+                f"({self.pages_shared} pages shared, "
+                f"{self.prefill_tokens_skipped} prefill tok skipped, "
+                f"{self.cow_clones} CoW clones)"
+            )
+        evicted = (self.failed_requests + self.cancelled_requests
+                   + self.expired_requests + self.shed_requests)
+        if evicted or self.retries or self.stragglers:
+            s += (
+                f" | lifecycle: {self.retries} retries, "
+                f"{self.stragglers} stragglers, "
+                f"{self.failed_requests} failed, "
+                f"{self.cancelled_requests} cancelled, "
+                f"{self.expired_requests} expired, "
+                f"{self.shed_requests} shed"
+            )
+        return s
 
 
 def sampling_seed(seed: int, uid: int, n_sampled: int) -> int:
@@ -188,6 +374,14 @@ def make_prefill_step(model, *, device: DeviceLike = None):
     return GraphedStep(model, "prefill", dev)
 
 
+def _poison_logits(logits: torch.Tensor, mask: np.ndarray) -> torch.Tensor:
+    """Chaos hook: ``mask`` slots' logits replaced with NaN (``logits
+    [B, V]``, ``mask`` bool ``[B]``), off the step, on its output; a
+    fault-free tick never dispatches it."""
+    keep = torch.as_tensor(mask, device=logits.device)[:, None]
+    return torch.where(keep, torch.nan, logits)
+
+
 def _take_rows(logits: torch.Tensor, picks: List[Tuple[int, int]]):
     """Copies of ``logits[i, j]`` for each (slot i, row j) of ``picks``,
     keyed by slot: a replayed step's logits are overwritten by the next
@@ -214,7 +408,19 @@ class ServeLoop:
     the paged KV cache (the default where the model supports it) or the
     contiguous one, on ``device`` (``cuda`` unless given). ``cuda_graphs``
     (default: on where the device is CUDA) replays the decode step and
-    the prefill wave from CUDA graphs; False runs them eagerly."""
+    the prefill wave from CUDA graphs; False runs them eagerly.
+
+    Lifecycle and faults: ``queue_limit`` bounds the queue (``submit``
+    raises :class:`QueueFull`, or with ``load_shedding`` sheds a
+    lower-priority queued request); ``default_deadline_s`` is the TTL of
+    requests that set none; ``fault_injector`` threads a seeded chaos
+    schedule through every fault site and ``retry_policy`` retries a
+    failed dispatch (default, with an injector: 3 retries, no backoff);
+    ``audit`` checks the allocator's invariants every tick;
+    ``stall_patience`` zero-progress ticks raise :class:`EngineStalled`
+    (default 1, 32 with an injector). ``observability`` records the event
+    trace, the metrics registry and, with its ``device_telemetry``, the
+    steps' selection counts."""
 
     def __init__(
         self,
@@ -231,6 +437,14 @@ class ServeLoop:
         paged: Optional[bool] = None,
         num_pages: Optional[int] = None,
         prefix_sharing: Optional[bool] = None,
+        queue_limit: Optional[int] = None,
+        load_shedding: bool = False,
+        default_deadline_s: Optional[float] = None,
+        fault_injector: Optional[FaultInjector] = None,
+        retry_policy: Optional[RetryPolicy] = None,
+        audit: bool = False,
+        stall_patience: Optional[int] = None,
+        observability: Optional[Observability] = None,
         device: DeviceLike = None,
         cuda_graphs: Optional[bool] = None,
     ):
@@ -258,15 +472,23 @@ class ServeLoop:
             raise ValueError("prefix_sharing requires the paged cache")
         self.model = model
         self.params = params
+        # Observability is additive: without device telemetry the engine
+        # dispatches exactly the steps it always did; with it, the
+        # telemetry variants *instead* (graphed steps of their own on
+        # CUDA — only the variant dispatched is ever captured)
+        self.obs = observability
+        self._telemetry = (observability is not None
+                           and observability.device_telemetry)
         # graphed steps (None: the model's eager methods, looked up at
         # each call), sharing one graph memory pool: they replay one at a
-        # time, and each consumes or copies its logits before the next
+        # time, and each consumes or copies its outputs before the next
         self._prefill = self._decode = None
         if self.cuda_graphs:
             pool = torch.cuda.graph_pool_handle()
-            self._prefill = GraphedStep(model, "prefill", self.device, pool)
+            self._prefill = GraphedStep(model, "prefill", self.device, pool,
+                                        telemetry=self._telemetry)
             self._decode = GraphedStep(model, "decode_step", self.device,
-                                       pool)
+                                       pool, telemetry=self._telemetry)
         self.batch_slots = batch_slots
         self.sharing = bool(prefix_sharing)
         bk = model.cfg.energon.decode_key_block
@@ -297,6 +519,7 @@ class ServeLoop:
         self.scheduler = scheduler
         self._hybrid = scheduler == "hybrid"
         self.admission_lookahead = max(0, int(admission_lookahead))
+        #: slot → in-flight hybrid prefill job
         self._prefill_jobs: Dict[int, _PrefillJob] = {}
         self.layout = self.allocator = None
         if self.paged:
@@ -320,7 +543,54 @@ class ServeLoop:
         self._submit_seq = itertools.count()
         self.pending = PendingQueue()
         self.completed: List[Request] = []
-        self.metrics = EngineMetrics()
+        self.metrics = EngineMetrics(
+            registry=observability.registry if observability else None)
+        # --- lifecycle / fault tolerance ---------------------------------
+        #: queued requests past which `submit` pushes back (preemption
+        #: requeues bypass it: evicting a live slot must never fail)
+        self.queue_limit = queue_limit
+        self.load_shedding = bool(load_shedding)
+        self.default_deadline_s = default_deadline_s
+        self._injector = fault_injector
+        self.retry_policy = retry_policy
+        #: per-tick allocator self-check (O(pool) host work a tick)
+        self.audit = bool(audit)
+        #: consecutive zero-progress ticks tolerated: fault-free one is
+        #: permanent (the allocator re-decides identically); under
+        #: injection a denied allocation recovers on a later tick
+        self.stall_patience = (
+            stall_patience if stall_patience is not None
+            else (1 if fault_injector is None else 32)
+        )
+        #: requests that reached a terminal state other than `done`
+        self.terminated: List[Request] = []
+        self.straggler = StragglerMonitor()
+        if observability is not None:
+            if self.allocator is not None:
+                self.allocator.tracer = observability.trace
+            if fault_injector is not None:
+                fault_injector.tracer = observability.trace
+
+    def _emit(self, name: str, **kw):
+        """A trace event, iff observability is attached."""
+        if self.obs is not None:
+            self.obs.trace.emit(name, **kw)
+
+    def _obs_tick_end(self):
+        """Per-tick series and the float gauges, at every tick's end."""
+        if self.obs is None:
+            return
+        self.metrics.sync_registry()
+        self.obs.record_tick_series(
+            self.metrics.ticks,
+            pool_occupancy=self.allocator.pages_in_use if self.paged else 0,
+            queue_depth=len(self.pending),
+            live_slots=sum(s is not None for s in self.slots),
+        )
+
+    @property
+    def ticks(self) -> int:
+        return self.metrics.ticks
 
     # --- API -----------------------------------------------------------
     def submit(self, req: Request):
@@ -331,9 +601,43 @@ class ServeLoop:
             )
         if req._t_submit is None:
             req._t_submit = time.perf_counter()
+        if req.deadline_s is None:
+            req.deadline_s = self.default_deadline_s
         req._submit_seq = next(self._submit_seq)
         req.state = "pending"
+        if self.queue_limit is not None and \
+                len(self.pending) >= self.queue_limit:
+            # backpressure; with shedding the victim is the queued request
+            # least deserving its place (lowest priority, youngest). A
+            # newcomer that does not outrank it is itself rejected.
+            victim = None
+            if self.load_shedding and self.pending:
+                victim = self.pending.shed_victim()
+            if victim is None or victim.priority >= req.priority:
+                raise QueueFull(
+                    f"admission queue at limit ({self.queue_limit}); "
+                    f"request uid={req.uid} rejected"
+                )
+            self.pending.remove(victim.uid)
+            self._finish_terminal(
+                victim, "shed", f"load-shed for higher-priority uid={req.uid}"
+            )
         self.pending.append(req)
+
+    def cancel(self, uid: int) -> bool:
+        """Cancel a request at any state — queued, live (prefilling or
+        decoding) or preempted and requeued; its pages free under the
+        allocator's rules, so survivors' streams are untouched. False
+        when ``uid`` is unknown or already terminal."""
+        req = self.pending.remove(uid)
+        if req is not None:
+            self._finish_terminal(req, "cancelled")
+            return True
+        for i, req in enumerate(self.slots):
+            if req is not None and req.uid == uid:
+                self._evict_slot(i, "cancelled")
+                return True
+        return False
 
     @property
     def graphs(self) -> List[GraphedStep]:
@@ -360,6 +664,90 @@ class ServeLoop:
             "active": self._tensor(np.zeros((batch,), bool), torch.bool),
             **table}, index)
 
+    # --- lifecycle internals -------------------------------------------
+    def _finish_terminal(self, req: Request, state: str,
+                         error: Optional[str] = None,
+                         slot: Optional[int] = None):
+        """Move a request to a terminal state other than ``done`` (its
+        ``done`` stays False: that means completed normally)."""
+        req.state = state
+        if error is not None:
+            req.error = error
+        self.terminated.append(req)
+        counter = {"failed": "failed_requests",
+                   "cancelled": "cancelled_requests",
+                   "expired": "expired_requests",
+                   "shed": "shed_requests"}[state]
+        setattr(self.metrics, counter, getattr(self.metrics, counter) + 1)
+        event = {"failed": "quarantine", "cancelled": "cancel",
+                 "expired": "expire", "shed": "shed"}[state]
+        self._emit(event, slot=slot, uid=req.uid, error=error or "")
+
+    def _evict_slot(self, i: int, state: str, error: Optional[str] = None):
+        """Terminal eviction of a live slot (cancel, expiry, quarantine):
+        its pages free at once, as on completion."""
+        req = self.slots[i]
+        self._release_slot(i)
+        self._finish_terminal(req, state, error, slot=i)
+
+    def _expire_deadlines(self):
+        """Evict every request whose TTL lapsed, at any state: queued ones
+        pop off the queue's deadline heap, live slots are scanned."""
+        now = time.perf_counter()
+        for req in self.pending.pop_expired(now):
+            self._finish_terminal(req, "expired", "deadline exceeded")
+        for i, req in enumerate(self.slots):
+            if (req is not None and req.deadline_s is not None
+                    and req._t_submit is not None
+                    and now - req._t_submit > req.deadline_s):
+                self._evict_slot(i, "expired", "deadline exceeded")
+
+    def _dispatch(self, fn, *args):
+        """One step dispatch under the engine's retry policy. The
+        injector's fault site sits before the call, so a retry
+        re-dispatches against an unchanged cache; an engine with neither
+        an injector nor a policy calls the step directly."""
+        if self._injector is None and self.retry_policy is None:
+            return fn(*args)
+        first = [True]
+
+        def attempt():
+            fresh, first[0] = first[0], False
+            if self._injector is not None and \
+                    self._injector.step_fault(fresh):
+                raise TransientStepError("injected step fault")
+            return fn(*args)
+
+        def note(attempt_no, exc):
+            self.metrics.retries += 1
+            self._emit("retry", site="step_dispatch", attempt=attempt_no)
+
+        policy = self.retry_policy or RetryPolicy(base_delay=0.0)
+        return retry_step(attempt, policy=policy, on_retry=note)
+
+    def _ensure_capacity_inj(self, slot: int, n_tokens: int):
+        """``allocator.ensure_capacity`` behind the injector's allocation
+        fault site, consulted only where the call would allocate; a
+        denial looks like pool exhaustion (wait at admission, preempt at
+        decode)."""
+        if (self._injector is not None
+                and self.layout.blocks_for(max(n_tokens, 1))
+                > int(self.allocator.n_blocks[slot])
+                and self._injector.alloc_failure()):
+            return None
+        return self.allocator.ensure_capacity(slot, n_tokens)
+
+    def _injected_preempt_storm(self):
+        """Chaos site: force-preempt the injector's count of victims, by
+        the ordinary preemption policy and machinery."""
+        live = [i for i in range(self.batch_slots)
+                if self.slots[i] is not None]
+        for _ in range(self._injector.preempt_storm(len(live))):
+            victim = self._preempt_victim()
+            if victim is None:
+                break
+            self._preempt(victim)
+
     # --- device helpers --------------------------------------------------
     def _tensor(self, a, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
@@ -372,11 +760,23 @@ class ServeLoop:
             self.cache, self.allocator.page_reset_mask(pages, self.device)
         )
 
-    def _sample(self, logits: torch.Tensor, mask: np.ndarray):
+    def _step_fn(self, method: str):
+        """The step dispatched for ``method``: the graphed step, else the
+        model's eager method (its telemetry variant with telemetry on)."""
+        graphed = self._prefill if method == "prefill" else self._decode
+        if graphed is not None:
+            return graphed
+        fn = getattr(self.model, method)
+        return functools.partial(fn, telemetry=True) if self._telemetry \
+            else fn
+
+    def _sample(self, logits: torch.Tensor, mask: np.ndarray,
+                stats: Optional[torch.Tensor] = None):
         """Sample one token for each ``mask`` slot from ``logits [B, V]``:
         argmax at temperature ≤ 0, else a draw from the slot's request
-        stream. Returns the host tokens; slots whose logits hold a
-        NaN/Inf are counted in ``metrics.nonfinite_logits``."""
+        stream. Returns host ``(tokens, finite, stats)``: ``finite[b]``
+        is False where slot b's logits hold a NaN/Inf (the quarantine
+        signal), and ``stats`` (telemetry) rides the same copy."""
         toks = torch.argmax(logits, dim=-1)
         finite = torch.isfinite(logits).all(dim=-1)
         for i in np.nonzero(mask)[0]:
@@ -387,27 +787,37 @@ class ServeLoop:
             gen = torch.Generator(device=self.device).manual_seed(
                 sampling_seed(self.seed, req.uid, len(req.tokens_out))
             )
-            probs = torch.softmax(logits[i].float() / max(temp, 1e-6), -1)
+            # a non-finite row draws from zeros instead (its slot is
+            # quarantined and the token dropped): the draw must not fail
+            row = torch.where(finite[i], logits[i].float(), 0.0)
+            probs = torch.softmax(row / max(temp, 1e-6), -1)
             toks[i] = torch.multinomial(probs, 1, generator=gen)[0]
-        out = torch.stack([toks.to(torch.int64), finite.to(torch.int64)])
-        toks_h, finite_h = out.cpu().numpy()
-        self.metrics.nonfinite_logits += int((finite_h == 0)[mask].sum())
-        return toks_h
+        parts = [toks.to(torch.int64), finite.to(torch.int64)]
+        if stats is not None:
+            parts.append(stats.reshape(-1).to(torch.int64))
+        out = torch.cat(parts).cpu().numpy()
+        b = logits.shape[0]
+        host_stats = (out[2 * b:].reshape(stats.shape)
+                      if stats is not None else None)
+        return out[:b], out[b:2 * b].astype(bool), host_stats
 
     # --- admission -----------------------------------------------------
-    def _plan_prefix_attach(self, seq_tokens: List[int], resumed: bool):
+    def _plan_prefix_attach(self, seq_tokens: List[int], resumed: bool,
+                            chunked_len: int):
         """Longest cached prefix: ``(skip, attach_pages, clone_src)``.
         Recomputed chunks stay on the ``prefill_chunk`` grid (prefill
         selection pools per query block); a fresh request keeps its last
-        token to seed sampling; a resumed one whose match covers all it
-        wrote restores by aliasing alone."""
+        token to seed sampling; a resumed one restores what it wrote past
+        the match by prefill chunks only below ``chunked_len`` (the rows
+        its first admission prefilled), so its skip leaves the grid there
+        (the rest replays, or aliasing covered everything)."""
         matched = self.allocator.match_prefix(seq_tokens)
         if not matched:
             return 0, [], None
         bk = self.layout.page_size
         if resumed:
             skip = min(len(matched) * bk, len(seq_tokens))
-            if skip < len(seq_tokens):
+            if skip < chunked_len:
                 skip = (skip // self.prefill_chunk) * self.prefill_chunk
         else:
             skip = min(len(matched) * bk, len(seq_tokens) - 1)
@@ -480,8 +890,8 @@ class ServeLoop:
         use_chunked = resumed or len(req.prompt) > 1
         skip = 0
         if self.paged:
-            skip = self._admit_pages(i, seq_tokens, use_chunked, resumed,
-                                     new_pages)
+            skip = self._admit_pages(i, req, seq_tokens, use_chunked,
+                                     resumed, new_pages)
             if skip is None:
                 return False
         self.pending.remove(req.uid)
@@ -489,13 +899,21 @@ class ServeLoop:
         self.slots[i] = req
         req.state = "prefill"
         self._slot_order[i] = next(self._admit_seq)
+        self._emit("admit", slot=i, uid=req.uid, resumed=resumed,
+                   prompt_len=len(seq_tokens), skip=skip)
         if req._t_admit is None:
             req._t_admit = now
         self._temps[i] = req.temperature
         self._lengths[i] = 0
         if resumed:
             if seq_tokens:
-                chunked.append((i, req, seq_tokens, True, skip))
+                # restore what it wrote as it was written: the rows its
+                # first admission prefilled by chunks on the same grid,
+                # the rows decode wrote by replaying those decode steps
+                # (tick) — prefill attention selects other blocks, so
+                # re-prefilled decode rows would differ
+                upto = max(skip, self._chunked_len(req))
+                chunked.append((i, req, seq_tokens[:upto], True, skip))
             else:
                 req.state = "decode"
         elif use_chunked:
@@ -504,15 +922,16 @@ class ServeLoop:
             sequential.append((i, req))
         return True
 
-    def _admit_pages(self, i: int, seq_tokens: List[int], use_chunked: bool,
-                     resumed: bool, new_pages: List[int]) -> Optional[int]:
+    def _admit_pages(self, i: int, req: Request, seq_tokens: List[int],
+                     use_chunked: bool, resumed: bool,
+                     new_pages: List[int]) -> Optional[int]:
         """Prefix attach then page allocation for slot ``i``, with full
         rollback when the pool cannot cover it (returns None); else the
         number of prompt tokens the attached prefix skips."""
         skip, attach, clone_src = 0, [], None
         if self.sharing and use_chunked and len(seq_tokens) > 1:
             skip, attach, clone_src = self._plan_prefix_attach(
-                seq_tokens, resumed
+                seq_tokens, resumed, self._chunked_len(req)
             )
         pair = None
         for p in attach:
@@ -526,7 +945,7 @@ class ServeLoop:
                 self.model.clone_pages(self.cache, [pair[0]], [pair[1]])
         pages = None
         if clone_src is None or pair is not None:
-            pages = self.allocator.ensure_capacity(i, max(len(seq_tokens), 1))
+            pages = self._ensure_capacity_inj(i, max(len(seq_tokens), 1))
         if pages is None:
             self.allocator.free_slot(i)
             return None
@@ -535,34 +954,57 @@ class ServeLoop:
             self.metrics.prefix_lookups += 1
         if pair is not None:
             self.metrics.cow_clones += 1
+            self._emit("cow_clone", slot=i, uid=req.uid, src=pair[0],
+                       dst=pair[1], site="admit")
         if skip > 0:
             self.metrics.prefix_hits += 1
             self.metrics.pages_shared += len(attach) + (clone_src is not None)
             self.metrics.prefill_tokens_skipped += skip
         return skip
 
+    @staticmethod
+    def _chunked_len(req: Request) -> int:
+        """Rows a request's first admission wrote by chunked prefill (a
+        one-token prompt's row is written by its first decode step)."""
+        return len(req.prompt) if len(req.prompt) > 1 else 0
+
+    def _resume(self, i: int, req: Request):
+        """A restored slot decodes once its rows reach what it had
+        written; until then its state is ``replay``: each decode tick
+        feeds it its next written token instead of sampling."""
+        written = len(req.prompt) + len(req.tokens_out) - 1
+        req.state = "replay" if self._lengths[i] < written else "decode"
+
+    def _replay_input(self, i: int, req: Request) -> int:
+        pos = int(self._lengths[i])
+        if pos < len(req.prompt):
+            return req.prompt[pos]
+        return req.tokens_out[pos - len(req.prompt)]
+
     def _enqueue_prefill_jobs(self, admitted):
         for i, req, seq, resumed, skip in admitted:
             if skip >= len(seq):
-                # fully covered resume: restored by table aliasing alone
-                self._lengths[i] = len(seq)
+                # a resume with nothing to prefill: restored by table
+                # aliasing (and replay)
+                self._lengths[i] = skip
                 if self.sharing:
                     self.allocator.register_prefix(i, seq)
-                req.state = "decode"
+                self._resume(i, req)
             else:
                 self._prefill_jobs[i] = _PrefillJob(
                     req=req, seq=seq, resumed=resumed, skip=skip, pos=skip,
                 )
 
     def _dispatch_prefill(self, toks, pos):
+        """One prefill dispatch; returns ``(logits, stats or None)``."""
         inputs = {"tokens": self._tensor(toks), "positions": self._tensor(pos)}
         if self.paged:
             inputs["block_table"] = self.allocator.table_device(self.device)
-        logits, self.cache = (self._prefill or self.model.prefill)(
-            self.params, self.cache, inputs, self._cache_index()
-        )
+        out = self._dispatch(self._step_fn("prefill"), self.params,
+                             self.cache, inputs, self._cache_index())
+        self.cache = out[1]
         self.metrics.prefill_dispatches += 1
-        return logits
+        return out[0], (out[2] if self._telemetry else None)
 
     def _prefill_slots(self, admitted):
         """Synchronous wave: chunk c of every admitted prompt rides one
@@ -574,6 +1016,7 @@ class ServeLoop:
             -(-(len(seq) - skip) // C) for _, _, seq, _, skip in admitted
         )
         last_logits = {}
+        stats_chunks = []
         for c in range(n_chunks):
             toks = np.zeros((self.batch_slots, C), np.int32)
             pos = np.full((self.batch_slots, C), self.max_len, np.int32)
@@ -583,7 +1026,12 @@ class ServeLoop:
                 if part:
                     toks[i, :len(part)] = part
                     pos[i, :len(part)] = lo + np.arange(len(part))
-            logits = self._dispatch_prefill(toks, pos)
+            logits, stats = self._dispatch_prefill(toks, pos)
+            if stats is not None:
+                # a replay overwrites its stats: keep this chunk's
+                stats_chunks.append(stats.clone())
+            self._emit("prefill_chunk", site="prefill", chunk=c,
+                       slots=len(admitted))
             picks = []
             for i, req, seq, resumed, skip in admitted:
                 lo = skip + c * C
@@ -595,11 +1043,23 @@ class ServeLoop:
             self._lengths[i] = len(seq)
             self.metrics.prefill_tokens += len(seq) - skip
         self.metrics.prefill_time += time.perf_counter() - t0
+        self._emit("prefill_wave", site="prefill",
+                   dur=time.perf_counter() - t0, chunks=n_chunks,
+                   slots=len(admitted))
+        if stats_chunks:
+            # one copy for the whole wave; the stats are tiny [L, B, 4]
+            for st in torch.stack(stats_chunks).cpu().numpy():
+                self.obs.record_prefill_stats(st)
         self._complete_prefill(admitted, last_logits)
 
     def _complete_prefill(self, entries, last_logits):
-        """Sample every fresh finishing slot's first token, register the
-        filled pages in the prefix trie, commit, flip to decode."""
+        """The shared tail of a sync wave and of hybrid job completion,
+        in the order the contracts rely on: sample every fresh finishing
+        slot's first token (the ``poison_prefill`` chaos site just
+        before), quarantine non-finite slots *before* prefix
+        registration (a faulted slot's pages never enter the trie),
+        register the survivors' prefixes, commit first tokens, flip to
+        decode."""
         toks = None
         if last_logits:
             zero_row = torch.zeros_like(next(iter(last_logits.values())))
@@ -608,20 +1068,42 @@ class ServeLoop:
             ])
             mask = np.zeros((self.batch_slots,), bool)
             mask[list(last_logits)] = True
-            toks = self._sample(logits_mat, mask)
+            if self._injector is not None:
+                doomed = self._injector.poison_prefill([
+                    req.uid for _, req, _, resumed, _ in entries
+                    if not resumed
+                ])
+                if doomed:
+                    pmask = np.zeros((self.batch_slots,), bool)
+                    for i, req, _, resumed, _ in entries:
+                        if not resumed and req.uid in doomed:
+                            pmask[i] = True
+                    logits_mat = _poison_logits(logits_mat, pmask)
+            toks, finite, _ = self._sample(logits_mat, mask)
+            # idle rows are zero (finite): only real fresh slots trip it
+            for i, req, _, resumed, _ in entries:
+                if not resumed and not finite[i]:
+                    self._evict_slot(i, "failed", "non-finite logits")
         if self.sharing:
+            # registration only now: mid-wave, a sharer could have read a
+            # page its writer had not finished
             for i, req, seq, _, _ in entries:
                 if self.slots[i] is req:
                     self.allocator.register_prefix(i, seq)
         for i, req, _, resumed, _ in entries:
-            if not resumed and self.slots[i] is req:
+            if self.slots[i] is not req:
+                continue
+            if resumed:
+                self._resume(i, req)
+            else:
                 self._commit_token(i, req, int(toks[i]))
-            if self.slots[i] is req:
-                req.state = "decode"
+                if self.slots[i] is req:
+                    req.state = "decode"
 
     def _prefill_tick(self):
         """Hybrid scheduler: advance every prefill job by one chunk in a
-        single dispatch, each slot at its own offset."""
+        single dispatch, each slot at its own offset; finished jobs run
+        the shared completion tail."""
         jobs = sorted(self._prefill_jobs.items())
         if not jobs:
             return
@@ -635,19 +1117,31 @@ class ServeLoop:
             toks[i, :len(part)] = part
             pos[i, :len(part)] = job.pos + np.arange(len(part))
             consumed[i] = len(part)
-        logits = self._dispatch_prefill(toks, pos)
+        logits, stats = self._dispatch_prefill(toks, pos)
+        self._emit("prefill_chunk", site="prefill",
+                   chunk=min((j.pos - j.skip) // C for _, j in jobs),
+                   slots=len(jobs))
         finished = []
         picks = []
         for i, job in jobs:
             lo, job.pos = job.pos, job.pos + consumed[i]
+            # per chunk: keeps the stall detector's progress marker
+            # moving on prefill-only ticks
             self.metrics.prefill_tokens += consumed[i]
             if job.pos >= len(job.seq):
                 finished.append((i, job.req, job.seq, job.resumed, job.skip))
                 if not job.resumed:
                     picks.append((i, len(job.seq) - 1 - lo))
         last_logits = _take_rows(logits, picks)
+        # synced before the clock stops: the ITL attribution subtracts
+        # prefill time, which must be the device's
         synchronize(self.device)
         self.metrics.prefill_time += time.perf_counter() - t0
+        self._emit("prefill_tick", site="prefill",
+                   dur=time.perf_counter() - t0, slots=len(jobs),
+                   finished=len(finished))
+        if stats is not None:
+            self.obs.record_prefill_stats(stats.cpu().numpy())
         for i, *_ in finished:
             job = self._prefill_jobs.pop(i)
             self._lengths[i] = len(job.seq)
@@ -665,7 +1159,8 @@ class ServeLoop:
             self.allocator.free_slot(i)
 
     def _preempt_victim(self) -> Optional[int]:
-        """Lowest priority class first, ties broken youngest."""
+        """Lowest priority class first, ties broken youngest; a
+        mid-prefill slot is as evictable as a decoding one."""
         return max(
             (j for j in range(self.batch_slots) if self.slots[j] is not None),
             key=lambda j: (-self.slots[j].priority, self._slot_order[j]),
@@ -673,11 +1168,15 @@ class ServeLoop:
         )
 
     def _preempt(self, victim: int):
+        """Evict a live slot and requeue it at the front (past the queue
+        limit); it re-prefills what it wrote on re-admission."""
         req = self.slots[victim]
         self._release_slot(victim)
         req.state = "preempted"
         self.pending.requeue_front(req)
         self.metrics.preemptions += 1
+        self._emit("preempt", slot=victim, uid=req.uid,
+                   written=max(len(req.prompt) + len(req.tokens_out) - 1, 0))
 
     def _ensure_decode_capacity(self, live: List[int]) -> List[int]:
         """Every live slot must exclusively own the page its next row
@@ -686,9 +1185,7 @@ class ServeLoop:
         fresh: List[int] = []
         for i in live:
             while self.slots[i] is not None:
-                got = self.allocator.ensure_capacity(
-                    i, int(self._lengths[i]) + 1
-                )
+                got = self._ensure_capacity_inj(i, int(self._lengths[i]) + 1)
                 if got is not None:
                     fresh += got
                 if got is not None and self.sharing:
@@ -702,6 +1199,9 @@ class ServeLoop:
                                 self.cache, [pair[0]], [pair[1]]
                             )
                             self.metrics.cow_clones += 1
+                            self._emit("cow_clone", slot=i,
+                                       uid=self.slots[i].uid, src=pair[0],
+                                       dst=pair[1], site="decode")
                 if got is not None:
                     break
                 self._preempt(self._preempt_victim())
@@ -714,10 +1214,20 @@ class ServeLoop:
         if not req.tokens_out:
             req._t_first = now
         elif req._t_last is not None:
-            req._itl.append(now - req._t_last)
+            dt = now - req._t_last
+            # tick-phase attribution: the prefill time between this
+            # request's commits is scheduler latency, not decode latency
+            stall = max(self.metrics.prefill_time - req._pf_mark, 0.0)
+            decode_dt = max(dt - stall, 0.0)
+            req._itl.append(dt)
+            req._itl_decode.append(decode_dt)
+            self.metrics.observe_itl(dt, decode_dt)
         req._t_last = now
+        req._pf_mark = self.metrics.prefill_time
         req.tokens_out.append(tok)
         req._next_input = tok
+        if req.on_token is not None:
+            req.on_token(req, tok)
         # m generated tokens write prompt + m - 1 rows
         limit = min(req.max_new_tokens, self.max_len - len(req.prompt) + 1)
         if tok == self.eos or len(req.tokens_out) >= limit:
@@ -726,30 +1236,59 @@ class ServeLoop:
             self.completed.append(req)
             self._release_slot(i)
             self.metrics.record_request(req)
+            self._emit("finish", slot=i, uid=req.uid,
+                       tokens=len(req.tokens_out))
+
+    def _audit_tick(self):
+        """Optional per-tick allocator self-check: raises at the tick
+        that corrupts its state."""
+        if self.audit and self.paged:
+            self.allocator.check_invariants()
+
+    def _end_tick(self):
+        """Every tick counts once (idle and prefill-only ones too, so the
+        per-tick series stay one point a tick), then audit and series."""
+        self.metrics.ticks += 1
+        self._audit_tick()
+        self._obs_tick_end()
 
     # --- tick ----------------------------------------------------------
     def tick(self):
-        """Admit, advance prefill by at most one chunk wave (hybrid),
-        then decode one token for every decode-state slot."""
+        """Expire deadlines, admit, advance prefill by at most one chunk
+        wave (hybrid), then decode one token for every decode-state slot
+        (quarantining any slot whose logits go non-finite); a replaying
+        slot rides the same step to restore its next written row."""
+        if self.obs is not None:
+            self.obs.trace.tick = self.metrics.ticks
+        self._expire_deadlines()
+        if self._injector is not None:
+            self._injected_preempt_storm()
         self._admit()
         if self._hybrid and self._prefill_jobs:
             self._prefill_tick()
         live = [
             i for i, r in enumerate(self.slots)
-            if r is not None and (not self._hybrid or r.state == "decode")
+            if r is not None
+            and (not self._hybrid or r.state in ("decode", "replay"))
         ]
         if live and self.paged:
             live = self._ensure_decode_capacity(live)
             self.metrics.peak_pages_in_use = self.allocator.peak_pages_in_use
         if not live:
-            self.metrics.ticks += 1
+            self._end_tick()
             return
         t0 = time.perf_counter()
         tokens = np.full((self.batch_slots, 1), self.eos, np.int32)
         active = np.zeros((self.batch_slots,), bool)
         for i in live:
-            tokens[i, 0] = self.slots[i]._next_input
+            req = self.slots[i]
+            tokens[i, 0] = (self._replay_input(i, req)
+                            if req.state == "replay" else req._next_input)
             active[i] = True
+        # the slots that sample: a replaying slot's logits are dropped
+        sampling = [i for i in live if self.slots[i].state == "decode"]
+        mask = np.zeros((self.batch_slots,), bool)
+        mask[sampling] = True
         inputs = {
             "tokens": self._tensor(tokens),
             "active": self._tensor(active, torch.bool),
@@ -762,9 +1301,9 @@ class ServeLoop:
             # slot steps at the max_len sentinel, which writes nothing
             # (its rows from earlier chunks must survive the tick)
             step_index = np.where(active, self._lengths, self.max_len)
-        logits, self.cache = (self._decode or self.model.decode_step)(
-            self.params, self.cache, inputs, self._tensor(step_index)
-        )
+        out = self._dispatch(self._step_fn("decode_step"), self.params,
+                             self.cache, inputs, self._tensor(step_index))
+        logits, self.cache = out[0], out[1]
         self._lengths += active
         if self.sharing:
             # an append that filled a page freezes it: register its content
@@ -774,43 +1313,89 @@ class ServeLoop:
                 if n and n % bk == 0:
                     req = self.slots[i]
                     self.allocator.register_prefix(
-                        i, req.prompt + req.tokens_out
+                        i, (req.prompt + req.tokens_out)[:n]
                     )
-        next_tokens = self._sample(logits[:, -1, :], active)
+        logits = logits[:, -1, :]
+        if self._injector is not None:
+            doomed = self._injector.poison_decode(
+                [self.slots[i].uid for i in sampling])
+            if doomed:
+                pmask = np.zeros((self.batch_slots,), bool)
+                for i in sampling:
+                    if self.slots[i].uid in doomed:
+                        pmask[i] = True
+                logits = _poison_logits(logits, pmask)
+        next_tokens, finite, stats = self._sample(
+            logits, mask, out[2] if self._telemetry else None)
+        if stats is not None:
+            self.obs.record_decode_stats(stats, slots=live)
+        if self._injector is not None:
+            # an injected straggler: the sleep lands inside decode time
+            delay = self._injector.step_delay()
+            if delay:
+                time.sleep(delay)
         self.metrics.decode_dispatches += 1
-        self.metrics.decode_time += time.perf_counter() - t0
+        elapsed = time.perf_counter() - t0
+        self.metrics.decode_time += elapsed
+        self._emit("decode_tick", site="decode", dur=elapsed, live=len(live))
+        if self.straggler.record(elapsed):
+            self.metrics.stragglers += 1
         for i in live:
+            req = self.slots[i]
+            if req.state == "replay":
+                self._resume(i, req)
+                continue
+            if not finite[i]:
+                # quarantine: only the faulted slot dies
+                self._evict_slot(i, "failed", "non-finite logits")
+                continue
             self.metrics.decode_tokens += 1
-            self._commit_token(i, self.slots[i], int(next_tokens[i]))
-        self.metrics.ticks += 1
+            self._commit_token(i, req, int(next_tokens[i]))
+        self._end_tick()
 
     # --- draining ------------------------------------------------------
     def _has_work(self) -> bool:
         return bool(self.pending) or any(s is not None for s in self.slots)
 
     def _progress_marker(self) -> Tuple[int, ...]:
+        """Any token computed (a replayed row included: its decode step
+        counts), request finished or evicted, or change in queue depth
+        counts as progress."""
         m = self.metrics
-        return (m.prefill_tokens, m.decode_tokens, m.preemptions,
-                len(self.completed), len(self.pending))
+        return (m.prefill_tokens, m.decode_tokens, m.decode_dispatches,
+                m.preemptions, len(self.completed), len(self.terminated),
+                len(self.pending))
 
-    def run_until_drained(self, max_ticks: int = 100_000) -> List[Request]:
-        """Tick until every request completes; a zero-progress tick with
-        work queued raises :class:`EngineStalled` (the engine is
-        deterministic, so it would repeat forever)."""
+    def _stuck_uids(self) -> List[int]:
+        return sorted([r.uid for r in self.pending]
+                      + [r.uid for r in self.slots if r is not None])
+
+    def run_until_drained(self, max_ticks: int = 100_000, *,
+                          raise_on_stall: bool = True) -> List[Request]:
+        """Tick until every request reaches a terminal state. After
+        ``stall_patience`` consecutive zero-progress ticks with work
+        queued, or ``max_ticks`` spent with work left,
+        :class:`EngineStalled` names the stuck uids
+        (``raise_on_stall=False``: return the completed ones instead)."""
+        stagnant = 0
         for _ in range(max_ticks):
             if not self._has_work():
                 return self.completed
             before = self._progress_marker()
             self.tick()
-            if self._progress_marker() == before:
-                stuck = sorted([r.uid for r in self.pending]
-                               + [r.uid for r in self.slots if r is not None])
-                raise EngineStalled(
-                    f"zero progress with work queued; stuck uids: {stuck}",
-                    stuck,
-                )
-        if self._has_work():
+            if self._progress_marker() != before:
+                stagnant = 0
+                continue
+            stagnant += 1
+            if stagnant > self.stall_patience:
+                if raise_on_stall:
+                    raise EngineStalled(
+                        f"zero progress over {stagnant} consecutive ticks "
+                        f"with work queued; stuck uids: "
+                        f"{self._stuck_uids()}", self._stuck_uids())
+                return self.completed
+        if self._has_work() and raise_on_stall:
             raise EngineStalled(
-                f"max_ticks={max_ticks} exhausted with work queued", []
-            )
+                f"max_ticks={max_ticks} exhausted with work queued; stuck "
+                f"uids: {self._stuck_uids()}", self._stuck_uids())
         return self.completed

@@ -20,7 +20,9 @@ pool small enough to preempt), a decode replay after the block table
 gained a page and after the capture stream's gather scratch was
 outgrown, the cache across a capture, engines capturing on one stream
 and giving back their graphs' memory, and the refusal of inputs that do
-not say which rows are live."""
+not say which rows are live; the telemetry variants (graphed ≡ eager
+counts, the plain steps' streams and launches) and a chaos drain
+(graphed ≡ eager outcomes and event trace)."""
 
 import dataclasses
 import gc
@@ -779,6 +781,57 @@ def test_graphed_drain_equals_eager(smoke_bf16, kw):
         assert m.cow_clones > 0 and m.prefix_hits > 0
     if "num_pages" in kw:
         assert m.preemptions > 0
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "unpaged"])
+def test_graphed_telemetry_drain_equals_eager_and_plain(smoke_bf16, paged):
+    """With device telemetry the engine replays the telemetry variants of
+    its steps: the same streams, cache and kernel launches as the plain
+    graphed engine, and the same selection counts as the eager telemetry
+    steps."""
+    from repro_torch.observability import Observability
+
+    plain, plain_cache, plain_n, _ = _drain_twice(smoke_bf16, True,
+                                                  paged=paged)
+    runs = {}
+    for graphs in (False, True):
+        obs = Observability()
+        streams, cache, n, eng = _drain_twice(smoke_bf16, graphs,
+                                              paged=paged, observability=obs)
+        runs[graphs] = (streams, obs.sparsity.snapshot(), n)
+        assert streams == plain
+        for key in plain_cache:
+            assert torch.equal(cache[key], plain_cache[key]), key
+    assert [s.telemetry for s in eng.graphs] == [True, True]
+    assert [s.captures for s in eng.graphs] == [1, 1]
+    assert runs[True][1] == runs[False][1]
+    assert runs[True][1]["decode"]["dispatches"] > 0
+    assert 0.0 < runs[True][1]["decode"]["rho_eff"] <= 1.0
+    assert runs[True][2] == runs[False][2] == plain_n
+
+
+def test_graphed_chaos_drain_equals_eager(smoke_bf16):
+    """Injected faults (retried dispatches, NaN poison, denials, storms)
+    around graphed steps: the same terminal states, streams, injector
+    counts and event trace as the eager engine's."""
+    from repro_torch.observability import Observability
+    from repro_torch.runtime import FaultInjector, FaultSpec
+
+    out = []
+    for graphs in (False, True):
+        obs = Observability()
+        inj = FaultInjector(seed=7, spec=FaultSpec(
+            alloc_failure=0.1, step_exception=0.15, nan_logits=0.02,
+            nan_prefill=0.1, preempt_storm=0.1, preempt_storm_size=1))
+        streams, _, _, eng = _drain_twice(
+            smoke_bf16, graphs, num_pages=8, fault_injector=inj,
+            observability=obs, audit=True)
+        out.append((streams, {r.uid: r.state for r in eng.terminated},
+                    dict(inj.counts), eng.metrics.retries,
+                    obs.trace.signature()))
+        assert eng.allocator.pages_in_use == 0
+    assert out[0] == out[1]
+    assert out[1][3] > 0 and "failed" in out[1][1].values()
 
 
 def _prefilled(smoke, paged, lens=(14, 9)):
