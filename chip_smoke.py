@@ -146,14 +146,45 @@ model object and weights, once the serving engines are released:
     the forward equals its composition, the gradients autograd through
     the plain block-sparse attention.
 
+The rest of the attention dispatch, on the same model object and
+weights:
+
+9e. (after 9d) ``[xla-serve]``: phase 4's requests through a fresh
+    graphed paged ``ServeLoop`` built with the reference's default
+    ``impl="mpmrf_block"`` (the XLA selection and gather paths, resident
+    planes): every request drains, none quarantined, no kernel launched;
+    the streams' sha1 and how many tokens equal phase 4's (recorded, not
+    gated: P rounds to bf16 on this path); prefill / decode tok/s, ITL
+    p50 and the graphs' memory (``[graph] xla paged engine``); then, on
+    layer 2's live operands of the last prefill wave and decode step,
+    the XLA prefill and decode selections against the fused kernels'
+    (B3's, B1's) survivor tables, bit for bit.
+15. ``[score-long]``: ``LMModel.loss`` over 2 × 8192 tokens with impl
+    "pallas": n_q·n_k is 16× ``chunk_threshold``, so every layer takes
+    the chunked path's kernel route — B11 on layers 0–1 (2 launches), B9
+    → selection → B10 on layers 2–39 (38 each), B1–B8 never (launch
+    counts zeroed just before, read just after); the loss printed
+    exactly, every logit of a following ``apply`` finite, wall time,
+    tok/s, peak memory, and one profiled call (``[profile-score-long]``).
+    Then on layer 2's q/k/v ([80, 8192, 128]) phase 10's checks and times
+    (``[full-seq:long-layer2]``, ``[time:long-layer2]``: B9, B10 and B11
+    at n 8192, n_kb 128, budget 32), and the kernel route against the
+    torch scan (``energon_block_attention_chunked``): survivor tables
+    bit-equal, outputs within the gather tolerance, both timed.
+16. ``[xla-full]``: ``LMModel.loss`` over 2 × 2048 tokens with impl
+    "mpmrf_block" (the direct XLA block path): no kernel launched; on
+    layer 2's q/k, ``mpmrf_block_select``'s survivor table against
+    ``ops.mpmrf_select_blocks``' (B9) bit for bit; the loss beside phase
+    12's.
+
 The line before last is a JSON object listing each kernel's launches
-(B1–B4 in phase 4, B5–B8 in phase 8, B9–B11 in phase 12), error and
-times (those of the live pool or the captured layer; ``random`` holds
-phase 2's, 7's or 10's) and each time over its bound
-(``ms_over_bound``); the eager/graphed drains, the scoring results
-(with the ptxas report), the unpaged serve and the paged serve, the
-telemetry and chaos phases are on the lines before it; the last
-line is
+(B1–B4 in phase 4, B5–B8 in phase 8, B9–B11 in phase 15), error and
+times (those of the live pool, the captured layer or, B9–B11, the long
+score's layer 2; ``random`` holds phase 2's, 7's or 10's) and each time
+over its bound (``ms_over_bound``); the eager/graphed drains, the
+scoring results (with the ptxas report), the unpaged serve and the paged
+serve, the telemetry and chaos phases and the long-score / XLA phases
+are on the lines before it; the last line is
 ``{"ok": true, "device": ...}``.
 Any failure exits non-zero before printing either.
 """
@@ -1182,7 +1213,7 @@ def profile_drain(engine, system, *, seed=1, n_req=8, prompt_len=2048,
 
 
 def profile_decode(engine, system, *, seed=2, n_req=8, prompt_len=2048,
-                   ticks=8):
+                   ticks=8, label="profile-decode"):
     """Decode ticks alone under ``torch.profiler``: fresh prompts are
     prefilled first, unprofiled, then ``ticks`` ticks in which every slot
     decodes are traced. Per tick: wall and device busy time, the device's
@@ -1216,14 +1247,14 @@ def profile_decode(engine, system, *, seed=2, n_req=8, prompt_len=2048,
                device_ms=split["device_busy_s"] / ticks * 1e3,
                idle_share=split["idle_share"],
                kernels_per_tick=split["kernels"] / ticks, top=split["top"])
-    log(f"[profile-decode] {ticks} decode ticks of {n_req} slots "
+    log(f"[{label}] {ticks} decode ticks of {n_req} slots "
         f"({'graphed' if engine.cuda_graphs else 'eager'}): "
         f"{out['tick_ms']:.2f} ms a tick, device busy "
         f"{out['device_ms']:.2f} ms a tick, idle {out['idle_share']:.1%}, "
         f"{out['kernels_per_tick']:.0f} device kernels and copies a tick "
         f"(under the profiler)")
     for r in out["top"]:
-        log(f"[profile-decode] {r['device_ms'] / ticks:8.3f} ms a tick  "
+        log(f"[{label}] {r['device_ms'] / ticks:8.3f} ms a tick  "
             f"x{r['calls'] / ticks:<7.1f} {r['name']}")
     return out
 
@@ -2162,7 +2193,7 @@ def score_full_width(model, params, *, n_seq=4, seq_len=2048, seed=5):
     return out, captured["qkv"]
 
 
-def profile_scoring(model, params, batch):
+def profile_scoring(model, params, batch, label="profile-score"):
     """One more ``LMModel.loss`` under ``torch.profiler``: device time by
     kernel and the device's idle share of the call's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -2174,13 +2205,13 @@ def profile_scoring(model, params, batch):
         sync()
         wall = time.perf_counter() - t0
     out = dict(wall_s=wall, **device_split(prof, wall, top=15))
-    log(f"[profile-score] LMModel.loss: wall {wall:.3f} s, device busy "
+    log(f"[{label}] LMModel.loss: wall {wall:.3f} s, device busy "
         f"{out['device_busy_s']:.3f} s, idle {out['idle_share']:.1%} "
         f"(under the profiler)")
     for r in out["top"]:
-        log(f"[profile-score] {r['device_ms']:10.2f} ms  x{r['calls']:<6d} "
+        log(f"[{label}] {r['device_ms']:10.2f} ms  x{r['calls']:<6d} "
             f"{r['name']}")
-    log("[profile-score] the port's kernels: " + ", ".join(
+    log(f"[{label}] the port's kernels: " + ", ".join(
         f"{k} {r['device_ms']:.2f} ms over {r['calls']} calls"
         for k, r in out["port"].items()))
     return out
@@ -2244,6 +2275,416 @@ def grad_check(*, bh=8, n=512, d=128, bq=128, bk=64, budget=2):
         f"{budget}: forward equal to its composition; dq/dk/dv vs autograd "
         f"through the plain version max |err| "
         + " / ".join(f"{e:.3e}" for e in errs))
+
+
+# ---------------------------------------------------------------------------
+# the rest of the attention dispatch: long scoring, the XLA paths
+# ---------------------------------------------------------------------------
+
+
+def _with_impl(model, impl):
+    """The same model object's weights under another ``impl`` (an
+    ``LMModel`` holds only its config and device)."""
+    from repro_torch.models import LMModel
+
+    cfg = model.cfg
+    return LMModel(dataclasses.replace(cfg, energon=dataclasses.replace(
+        cfg.energon, impl=impl)), device=DEV)
+
+
+def score_long(model, params, *, n_seq=2, seq_len=8192, seed=8):
+    """``[score-long]``: ``LMModel.loss`` over ``n_seq`` × ``seq_len``
+    random tokens with impl "pallas", past ``chunk_threshold``, so every
+    layer takes the chunked path's kernel route: B11 on the dense prefix,
+    B9 → selection → B10 on the sparse layers. Launch counts zeroed just
+    before and read just after. Returns the results and the q/k/v that
+    layer 2 handed the kernels."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops
+
+    cfg = model.cfg
+    e = cfg.energon
+    need(seq_len * seq_len > e.chunk_threshold,
+         f"{seq_len} tokens do not pass chunk_threshold {e.chunk_threshold}")
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size - 1,
+                                        size=(n_seq, seq_len + 1)),
+                           device=DEV)
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    captured = {}
+    real = ops.chunked_block_attention
+
+    def capture(q, k, v, **kw):
+        captured.setdefault("qkv", (q, k, v))
+        return real(q, k, v, **kw)
+
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    ops.chunked_block_attention = capture
+    try:
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, metrics = model.loss(params, batch)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+    finally:
+        ops.chunked_block_attention = real
+    peak = mem_gb(torch.cuda.max_memory_allocated)
+    tokens = n_seq * seq_len
+    prefix, sparse = e.min_prune_layer, cfg.num_layers - e.min_prune_layer
+    log(f"[score-long] {cfg.name} LMModel.loss over {n_seq} × {seq_len} "
+        f"tokens (n_q·n_k {seq_len * seq_len} > chunk_threshold "
+        f"{e.chunk_threshold}: the chunked path; impl {e.impl!r}): loss "
+        f"{float(loss):.4f} (exactly {float(loss)!r}) in {wall:.3f} s "
+        f"({tokens / wall:.1f} tok/s), peak device memory {peak} GB")
+    log(f"[score-long] kernel launches: {json.dumps(launches)}")
+    need(bool(torch.isfinite(loss)), f"non-finite long loss {float(loss)}")
+    need(float(metrics["tokens"]) == tokens, "loss counted the wrong tokens")
+    want = {"flash_attention": prefix, "mpmrf_filter_scores": sparse,
+            "block_sparse_attention": sparse}
+    for name in KERNELS:
+        need(launches[name] == want.get(name, 0),
+             f"{name} launched {launches[name]} times in the long score, "
+             f"not {want.get(name, 0)}")
+    t0 = time.perf_counter()
+    logits, _ = model.apply(params, batch)
+    sync()
+    apply_wall = time.perf_counter() - t0
+    need(tuple(logits.shape) == (n_seq, seq_len, cfg.vocab_size),
+         f"long logits shape {tuple(logits.shape)}")
+    need(bool(torch.isfinite(logits).all()), "non-finite long logits")
+    log(f"[score-long] LMModel.apply: logits {tuple(logits.shape)} f32, all "
+        f"finite, in {apply_wall:.3f} s")
+    del logits
+    out = dict(loss=float(loss), wall_s=wall, tok_s=tokens / wall,
+               apply_wall_s=apply_wall, tokens=tokens, peak_memory_gb=peak,
+               launches=launches)
+    if DEV == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["profile"] = profile_scoring(model, params, batch,
+                                         label="profile-score-long")
+    return out, captured["qkv"]
+
+
+def long_route_vs_scan(q, k, v, *, bq, bk, ratio, layer):
+    """On layer ``layer``'s operands of the long score: the kernel route
+    (``ops.chunked_block_attention``) against the torch scan
+    (``energon_block_attention_chunked``): survivor tables bit-equal,
+    outputs within the gather tolerance, both timed."""
+    import torch
+
+    from repro_torch.core import chunked_attention as chk
+    from repro_torch.kernels import gather_within_tolerance
+    from repro_torch.kernels import ops
+
+    kw = dict(pruning_ratio=ratio, query_block=bq, key_block=bk)
+    out = ops.chunked_block_attention(q, k, v, **kw)
+    ref = chk.energon_block_attention_chunked(q[None], k[None], v[None],
+                                              **kw)[0]
+    # the two routes' survivor tables: B9's selection (keep_all at
+    # ρ ≤ 1) and the scan's
+    sel = dict(block_budget=max(1, math.ceil(k.shape[1] // bk / ratio)),
+               query_block=bq, key_block=bk, keep_all=ratio <= 1.0)
+    idx, val = ops.mpmrf_select_blocks(q, k, **sel)
+    ridx, rval = chk.select_blocks_from_scores(
+        *chk.mpmrf_block_scores_chunked(q[None], k[None], (2, 4),
+                                        query_block=bq, key_block=bk),
+        alphas=(0.0, 0.0), **sel)
+    sync()
+    need(torch.equal(idx, ridx[0]) and torch.equal(val, rval[0]),
+         f"[score-long] layer {layer}: the kernel route's survivor table "
+         f"differs from the torch scan's")
+    err = (out.float() - ref.float()).abs().max().item()
+    need(gather_within_tolerance(out.float(), ref.float()),
+         f"[score-long] layer {layer}: kernel route off the scan by "
+         f"{err:.3e}")
+    route_ms = time_ms(lambda: ops.chunked_block_attention(q, k, v, **kw),
+                       iters=5)
+    scan_ms = time_ms(lambda: chk.energon_block_attention_chunked(
+        q[None], k[None], v[None], **kw), iters=2, warmup=1)
+    log(f"[score-long] layer {layer} operands {tuple(q.shape)}: kernel route "
+        f"(B9 + selection + B10) ≡ torch scan — survivor tables bit-equal "
+        f"({int(val.sum())} survivor tiles), outputs max |err| {err:.3e} "
+        f"within the gather tolerance; kernel route {route_ms:.3f} ms, "
+        f"scan {scan_ms:.3f} ms")
+    return dict(err=err, route_ms=route_ms, scan_ms=scan_ms,
+                survivor_tiles=int(val.sum()))
+
+
+def xla_full(model, params, score_loss, *, n_seq=2, seq_len=2048, seed=9):
+    """``[xla-full]``: ``LMModel.loss`` over ``n_seq`` × ``seq_len`` tokens
+    with impl "mpmrf_block" (the direct XLA block path, no kernel); on
+    layer 2's q/k ``mpmrf_block_select``'s survivor table against
+    ``ops.mpmrf_select_blocks``' (B9) bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import filtering as flt
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops
+
+    xmodel = _with_impl(model, "mpmrf_block")
+    cfg = xmodel.cfg
+    e = cfg.energon
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size - 1,
+                                        size=(n_seq, seq_len + 1)),
+                           device=DEV)
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    captured = {}
+    real = flt.mpmrf_block_select
+
+    def capture(q, k, *a, **kw):
+        res = real(q, k, *a, **kw)
+        captured.setdefault("sel", (q, k, res))
+        return res
+
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    flt.mpmrf_block_select = capture
+    try:
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, _ = xmodel.loss(params, batch)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+    finally:
+        flt.mpmrf_block_select = real
+    peak = mem_gb(torch.cuda.max_memory_allocated)
+    tokens = n_seq * seq_len
+    log(f"[xla-full] {cfg.name} LMModel.loss over {n_seq} × {seq_len} "
+        f"tokens, impl 'mpmrf_block' (the XLA block path): loss "
+        f"{float(loss):.4f} (exactly {float(loss)!r}) in {wall:.3f} s "
+        f"({tokens / wall:.1f} tok/s), peak device memory {peak} GB; "
+        f"phase 12's pallas loss over 4 × 2048 tokens {score_loss!r}")
+    need(bool(torch.isfinite(loss)), f"non-finite XLA loss {float(loss)}")
+    need(sum(launches.values()) == 0,
+         f"[xla-full] kernels launched on the XLA path: {launches}")
+    q, k, res = captured["sel"]
+    batch_, heads, n, d = q.shape
+    n_kb = n // e.key_block
+    idx, val = ops.mpmrf_select_blocks(
+        q.reshape(-1, n, d), k.reshape(-1, n, d),
+        round_bits=e.round_bits, alphas=e.alphas,
+        block_budget=max(1, math.ceil(n_kb / e.pruning_ratio)),
+        query_block=e.query_block, key_block=e.key_block,
+        keep_first=e.keep_first, keep_diagonal=e.keep_diagonal)
+    sync()
+    xi = res.block_indices.reshape(idx.shape)
+    xv = res.block_valid.reshape(val.shape)
+    same = torch.equal(idx, xi) and torch.equal(val, xv)
+    diff = int((idx != xi).sum()) + int((val != xv).sum())
+    log(f"[xla-full] layer {e.min_prune_layer}: mpmrf_block_select's survivor "
+        f"table {tuple(xi.shape)} vs ops.mpmrf_select_blocks (B9): "
+        f"{'bit-equal' if same else f'{diff} entries differ'}; kernel "
+        f"launches 0")
+    need(same, "[xla-full] the XLA selection differs from B9's")
+    return dict(loss=float(loss), wall_s=wall, tok_s=tokens / wall,
+                peak_memory_gb=peak, tables_equal=same)
+
+
+def _fused_and_xla_tables(layer_cache, *, q_pre, t_pre, qpos, q_dec, t_dec,
+                          cl, energon):
+    """Survivor tables of the fused kernels (impl "pallas") and of the XLA
+    paths (impl "mpmrf_block") on one layer's live pool: the decode and
+    prefill tables each handed to its gather."""
+    import importlib
+
+    from repro_torch.core import sparse_attention as spa
+    from repro_torch.kernels import mpmrf_decode as dk
+    from repro_torch.kernels import mpmrf_prefill as pk
+
+    ea = importlib.import_module("repro_torch.core.energon_attention")
+    seen = {}
+    hooks = [(dk, "paged_decode_gather_attention", "dec-fused", 3, 4),
+             (spa, "paged_decode_block_gather_attention", "dec-xla", 3, 4),
+             (pk, "paged_prefill_gather_attention", "pre-fused", 4, 5),
+             (spa, "block_gather_attention", "pre-xla", 3, "block_valid")]
+    saved = [(m, name, getattr(m, name)) for m, name, *_ in hooks]
+
+    def hooked(real, key, i, j):
+        def fn(*a, **kw):
+            seen[key] = (a[i], kw[j] if isinstance(j, str) else a[j])
+            return real(*a, **kw)
+        return fn
+
+    try:
+        for m, name, key, i, j in hooks:
+            setattr(m, name, hooked(getattr(m, name), key, i, j))
+        for impl in ("pallas", "mpmrf_block"):
+            cfg = dataclasses.replace(energon, impl=impl)
+            ea.energon_paged_decode_attention(q_dec, layer_cache, t_dec, cl,
+                                              cfg)
+            ea.energon_paged_prefill_attention(q_pre, layer_cache, t_pre,
+                                               qpos, cfg)
+    finally:
+        for m, name, real in saved:
+            setattr(m, name, real)
+    return seen
+
+
+def profile_prefill_wave(engine, system, *, seed=3, n_req=8,
+                         prompt_len=512):
+    """The first tick after ``n_req`` fresh prompts arrive — their first
+    prefill wave, no slot decoding — under ``torch.profiler``: wall and
+    device time, idle share and the largest items
+    (``[profile-prefill-xla]``); then the drain, unprofiled."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime import Request
+
+    vocab = engine.model.cfg.vocab_size
+    rng = np.random.default_rng(seed)
+    for i in range(n_req):
+        body = rng.integers(1, vocab - 1, size=prompt_len - len(system))
+        engine.submit(Request(uid=3000 + i, prompt=system + body.tolist(),
+                              max_new_tokens=1))
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        t0 = time.perf_counter()
+        engine.tick()
+        sync()
+        wall = time.perf_counter() - t0
+    engine.run_until_drained()
+    split = device_split(prof, wall, top=8)
+    out = dict(wall_ms=wall * 1e3, device_ms=split["device_busy_s"] * 1e3,
+               idle_share=split["idle_share"], kernels=split["kernels"],
+               top=split["top"])
+    log(f"[profile-prefill-xla] one prefill wave of {n_req} slots × "
+        f"{engine.prefill_chunk} tokens: {out['wall_ms']:.1f} ms, device "
+        f"busy {out['device_ms']:.1f} ms, idle {out['idle_share']:.1%}, "
+        f"{out['kernels']} device kernels and copies (under the profiler)")
+    for r in out["top"]:
+        log(f"[profile-prefill-xla] {r['device_ms']:9.2f} ms  "
+            f"x{r['calls']:<6d} {r['name']}")
+    return out
+
+
+def xla_serve(model, params, prompts, streams, *, seed=0, new_tokens=32,
+              max_len=4096, chunk=128):
+    """``[xla-serve]``: phase 4's requests through a fresh graphed paged
+    ``ServeLoop`` built with the reference's default impl "mpmrf_block":
+    every request drains, none quarantined, no kernel launched; streams
+    recorded beside phase 4's (P rounds to bf16 on this path, so they may
+    part); then on layer 2's live operands of the last prefill wave and
+    decode step the XLA selections against the fused kernels' tables."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.models import attention as attn
+    from repro_torch.runtime import Request, ServeLoop
+
+    xmodel = _with_impl(model, "mpmrf_block")
+    cfg = xmodel.cfg
+    layer = cfg.energon.min_prune_layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    engine = ServeLoop(
+        xmodel, params, batch_slots=len(prompts), max_len=max_len,
+        eos_token=-1, seed=seed, prefill_chunk=chunk, prefix_sharing=True,
+        device=DEV,
+    )
+    captured = {}
+    real = {"prefill": attn.energon_paged_prefill_attention,
+            "decode": attn.energon_paged_decode_attention}
+
+    def capturing(kind):
+        def fn(q, cache, table, pos, cfg, **kw):
+            if kw.get("layer_index") == layer:
+                captured[kind] = (q.clone(), table.clone(), pos.clone())
+            return real[kind](q, cache, table, pos, cfg, **kw)
+        return fn
+
+    attn.energon_paged_prefill_attention = capturing("prefill")
+    attn.energon_paged_decode_attention = capturing("decode")
+    try:
+        # captured with the patches in place: the graphs' copies of layer
+        # 2's operands are refreshed by every replay
+        engine.capture_graphs()
+        graph = log_graphs("[graph] xla paged engine (impl mpmrf_block)",
+                           engine)
+        for i, p in enumerate(prompts):
+            engine.submit(Request(uid=i, prompt=list(p),
+                                  max_new_tokens=new_tokens))
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = engine.run_until_drained()
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+    finally:
+        attn.energon_paged_prefill_attention = real["prefill"]
+        attn.energon_paged_decode_attention = real["decode"]
+    m = engine.metrics
+    lat = m.latency_stats()
+    need(len(done) == len(prompts) and all(r.done for r in done)
+         and all(len(r.tokens_out) == new_tokens for r in done),
+         "[xla-serve] not every request drained")
+    need(m.failed_requests == 0,
+         f"[xla-serve] {m.failed_requests} requests quarantined")
+    need(sum(launches.values()) == 0,
+         f"[xla-serve] kernels launched on the XLA path: {launches}")
+    got = {r.uid: list(r.tokens_out) for r in done}
+    same = sum(a == b for u in streams for a, b in zip(got[u], streams[u]))
+    total = sum(len(s) for s in streams.values())
+    log(f"[xla-serve] {len(done)} requests drained in {wall:.2f} s; prefill "
+        f"{m.prefill_tokens_per_sec:.1f} tok/s, decode "
+        f"{m.decode_tokens_per_sec:.1f} tok/s, ttft p50 "
+        f"{lat['ttft_p50'] * 1e3:.1f} ms, itl p50 "
+        f"{lat['itl_p50'] * 1e3:.2f} ms; no kernel launched, none "
+        f"quarantined; streams sha1 {streams_digest(got)}, {same} of "
+        f"{total} tokens equal phase 4's (recorded: P rounds to bf16 on "
+        f"this path)")
+    # the live operands: the pool after the drain, layer 2's last inputs
+    q_pre, t_pre, qpos = captured["prefill"]
+    q_dec, t_dec, cl = captured["decode"]
+    layer_cache = {k: v[layer] for k, v in engine.cache.items()}
+    seen = _fused_and_xla_tables(layer_cache, q_pre=q_pre, t_pre=t_pre,
+                                 qpos=qpos, q_dec=q_dec, t_dec=t_dec, cl=cl,
+                                 energon=cfg.energon)
+    sync()
+    eq = {}
+    for kind in ("dec", "pre"):
+        (fi, fv), (xi, xv) = seen[f"{kind}-fused"], seen[f"{kind}-xla"]
+        eq[kind] = (torch.equal(fi, xi.reshape(fi.shape))
+                    and torch.equal(fv, xv.reshape(fv.shape)))
+    prof = None
+    if DEV == "cuda":
+        system = prompts[0][:SYSTEM_LEN]
+        prof = dict(prefill=profile_prefill_wave(engine, system),
+                    decode=profile_decode(engine, system, prompt_len=512,
+                                          ticks=4,
+                                          label="profile-decode-xla"))
+    log(f"[xla-serve] layer {layer}, live pool: XLA decode selection vs "
+        f"B1's table {'bit-equal' if eq['dec'] else 'DIFFERENT'}; XLA "
+        f"prefill selection vs B3's table "
+        f"{'bit-equal' if eq['pre'] else 'DIFFERENT'}")
+    need(all(eq.values()), f"[xla-serve] XLA ≠ fused survivor tables: {eq}")
+    out = dict(wall_s=wall, prefill_tok_s=m.prefill_tokens_per_sec,
+               decode_tok_s=m.decode_tokens_per_sec,
+               ttft_p50_ms=lat["ttft_p50"] * 1e3,
+               itl_p50_ms=lat["itl_p50"] * 1e3,
+               streams_sha1=streams_digest(got), tokens_equal=same,
+               tokens=total, profile=prof, **graph)
+    del engine, done, layer_cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["left_mib"] = (torch.cuda.memory_allocated() - before) / 2**20
+    return out
 
 
 #: the sources of the tile-engine and filter-engine kernels, always
@@ -2396,6 +2837,7 @@ def main(argv=None) -> int:
     telemetry = telemetry_in_turns(model, params, prompts, streams1,
                                    launches)
     chaos = chaos_drain(model, params, prompts, streams1)
+    xla_srv = xla_serve(model, params, prompts, streams1)
 
     # full-sequence scoring on the same model object and weights
     e = model.cfg.energon
@@ -2414,13 +2856,22 @@ def main(argv=None) -> int:
     del q, k, v
     grad_check()
 
+    # the rest of the attention dispatch: past chunk_threshold, and the
+    # reference's default impl
+    long, (q, k, v) = score_long(model, params)
+    long_fs = check_full_sequence(q, k, v, f"long-layer{layer}", results,
+                                  **blocks)
+    long_route = long_route_vs_scan(q, k, v, layer=layer, **blocks)
+    del q, k, v
+    xla_fs = xla_full(model, params, scoring["loss"])
+
     timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name, meta in KERNELS.items():
         entries = results[name]
         main_run, rand = entries[-1], entries[0]
         run = (launches if name in SERVE_KERNELS else ulaunches
-               if name in UNPAGED_KERNELS else scoring["launches"])
+               if name in UNPAGED_KERNELS else long["launches"])
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=run[name],
@@ -2440,6 +2891,10 @@ def main(argv=None) -> int:
                     "ptxas": ptxas, "card": smi}))
     log(json.dumps({"eager_graphed": eager_graphed, "card": smi}))
     log(json.dumps({"telemetry": telemetry, "chaos": chaos, "card": smi}))
+    log(json.dumps({"score_long": dict(long, captured=long_fs,
+                                       route_vs_scan=long_route),
+                    "xla_full": xla_fs, "xla_serve": xla_srv,
+                    "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,30 @@
 """Energon attention dispatch (port of ``repro.core.energon_attention``).
 
-Ported: the serving entry points over both cache layouts — paged
-(:func:`energon_paged_prefill_attention`,
-:func:`energon_paged_decode_attention`) and contiguous
-(:func:`energon_attention` at ``q_positions`` with resident planes,
-:func:`energon_decode_attention`) — whose fused branches run the
-hand-written CUDA kernels through :mod:`repro_torch.kernels.ops`, and
-whose dense branches serve the prefix layers; and
-:func:`energon_attention`'s full-sequence call (dense prefix layers,
-``impl="pallas"`` through B9 + B10). A config that would reach the
-reference's ``mpmrf_row`` / ``mpmrf_block`` XLA paths or the chunked
-path raises ``NotImplementedError``; those wait for a later slice.
+Every branch of the reference's dispatch, with its routing predicates,
+through the four entry points: :func:`energon_attention` (full-sequence
+and at ``q_positions``), :func:`energon_decode_attention`,
+:func:`energon_paged_decode_attention` and
+:func:`energon_paged_prefill_attention`. ``impl`` is one of
+
+* ``dense`` — dense attention (the unpruned prefix layers take it too);
+* ``mpmrf_row`` — per-row MP-MRF and masked sparse attention (also the
+  fallback for sequences not divisible into two or more blocks);
+* ``mpmrf_block`` — block MP-MRF and the block gathers, in torch (the
+  reference's XLA paths);
+* ``pallas`` — the hand-written CUDA kernels through
+  :mod:`repro_torch.kernels.ops`: B9 + B10 full-sequence, the fused
+  prefill / decode kernels where their engagement rules hold, the XLA
+  block path elsewhere, as in the reference.
+
+Past ``chunk_threshold`` the full-sequence call takes the chunked path
+(:mod:`repro_torch.core.chunked_attention`), which never builds an
+``[n_q, n_k]`` tensor. One route differs from the reference's there: a
+configured ``impl="pallas"`` call (causal, no window, no ``kv_length``)
+runs its sparse layers through B9 → Eq. 3 + top-B → B10 and its dense
+prefix layers through B11. The reference lowers that call through its
+XLA scan only because its Pallas kernels are a TPU-runtime path; B9
+computes exactly the scan's block planes, so the survivor tables are
+the same.
 """
 
 from __future__ import annotations
@@ -22,11 +36,16 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core import filtering as flt
+from repro_torch.core import quantization as qlib
 from repro_torch.core import sparse_attention as spa
 
 # Resident filter planes are allocated only for caches at least this long
 # (the reference's measured crossover, kept so one config drives both).
 FILTER_CACHE_AUTO_MIN_LEN = 1024
+IMPLS = ("dense", "mpmrf_row", "mpmrf_block", "pallas")
+#: B11's tiles on the chunked route's dense prefix layers (the
+#: reference's ``flash_attention`` defaults)
+FLASH_BLOCK = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,17 +86,29 @@ class EnergonConfig:
             threshold = FILTER_CACHE_AUTO_MIN_LEN
         return max_len >= threshold
 
+    def mpmrf(self, granularity: str,
+              n_kb: Optional[int] = None) -> flt.MPMRFConfig:
+        """The filter config of a row or block selection (block budget
+        ``ceil(n_kb / ρ)``; ρ ≤ 1 keeps everything)."""
+        budget = None
+        if granularity == "block" and n_kb is not None:
+            budget = max(1, math.ceil(n_kb / self.pruning_ratio))
+        return flt.MPMRFConfig(
+            round_bits=self.round_bits,
+            alphas=self.alphas,
+            granularity=granularity,
+            query_block=self.query_block,
+            key_block=self.key_block,
+            block_budget=budget,
+            keep_first=self.keep_first,
+            keep_diagonal=self.keep_diagonal,
+            reuse_partial=self.reuse_partial,
+            keep_all=self.pruning_ratio <= 1.0,
+        )
+
 
 def _zero_stats(batch: int, device) -> torch.Tensor:
     return torch.zeros((batch, 4), dtype=torch.int32, device=device)
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} waits for a later slice of the PyTorch port; the "
-        "port runs impl='pallas' through its kernels and the dense "
-        "prefix layers"
-    )
 
 
 def energon_attention(
@@ -98,166 +129,232 @@ def energon_attention(
 ):
     """Multi-head attention ``[B, H, n, d]`` with Energon sparsity.
 
-    Two calls are ported. The full-sequence call (``q_positions`` None;
-    query row i at absolute position ``q_offset + i``): layers below
-    ``cfg.min_prune_layer`` and ``impl="dense"`` take dense attention
-    under the causal mask, and ``impl="pallas"`` runs the Filtering Unit
-    (B9 + Eq. 3 + top-B) and the Attention Unit (B10) over
-    ``[B·H, n, d]``. The chunked-prefill call (``q_positions`` int32
-    ``[B, n_q]``, padding sentinels ≥ n_k wholly masked): with
-    ``impl="pallas"`` and the cache's resident planes in
+    Query row i sits at absolute position ``q_offset + i``, or at
+    ``q_positions`` int32 ``[B, n_q]`` (the chunked-prefill call: folded
+    GQA rows; padding sentinels ≥ n_k are wholly masked and ignored by
+    the caller). ``window`` is a sliding window (≤ 0: unbounded),
+    ``kv_length`` int ``[B]`` the true lengths of padded caches.
     ``filter_cache`` (``{"codes": int16 [B, H, n_k, d], "scale": f32
-    [B, H, n_k // cfg.decode_key_block]}``) it runs the fused prefill
-    kernels (B7 → selection → B8) before any ``[n_q, n_k]`` mask is
-    built; the unpruned prefix layers take the dense branch.
+    [B, H, n_k // cfg.decode_key_block]}``) holds the cache's resident
+    planes: every block selection reads them instead of re-quantizing
+    ``k``, and with ``impl="pallas"`` at ``q_positions`` the fused
+    prefill kernels (B7 → selection → B8) run before any ``[n_q, n_k]``
+    mask is built. Layers below ``cfg.min_prune_layer`` run dense.
 
-    Every other branch of the reference raises up front with the reason
-    (:func:`full_sequence_faults`): the row-granular fallback for
-    sequences not divisible into two or more blocks, the chunked
-    (flash-style) path past ``chunk_threshold``, the XLA block fallback
-    for windows and padded caches, and the ``mpmrf_row`` /
-    ``mpmrf_block`` impls. Telemetry reports zeros on these paths, as
-    the reference's pure-kernel path does.
+    With ``telemetry`` also returns int32 ``[B, 4]`` selection counts
+    (:func:`repro_torch.core.filtering.selection_stats`): the block
+    selections measure them; dense, row, chunked and the full-sequence
+    kernel path report zeros, as the reference's do.
     """
     n_q, n_k = q.shape[-2], k.shape[-2]
-    impl = "dense" if layer_index < cfg.min_prune_layer else cfg.impl
-    if q_positions is not None:
-        if (
-            impl == "pallas" and causal and kv_length is None
-            and n_q % cfg.query_block == 0 and n_k % cfg.key_block == 0
-            and n_k // cfg.key_block > 1
+
+    def ret(out, stats=None):
+        if not telemetry:
+            return out
+        return out, (stats if stats is not None
+                     else _zero_stats(q.shape[0], q.device))
+
+    impl = cfg.impl
+    if layer_index < cfg.min_prune_layer and impl != "dense":
+        impl = "dense"
+    # block paths need two or more whole blocks; others fall back to rows
+    if impl in ("mpmrf_block", "pallas") and (
+            n_q % cfg.query_block or n_k % cfg.key_block
+            or n_k // cfg.key_block <= 1):
+        impl = "mpmrf_row"
+
+    if (impl == "pallas" and q_positions is not None and causal
             and _fused_prefill_engaged(cfg, filter_cache is not None,
-                                       window, n_k)
-        ):
-            from repro_torch.kernels import ops as kops
+                                       window, kv_length, n_k)):
+        from repro_torch.kernels import ops as kops
 
-            n_kb = n_k // cfg.key_block
-            return kops.fused_prefill_attention(
-                q, k, v, filter_cache["codes"], filter_cache["scale"],
-                q_positions,
-                round_bits=cfg.round_bits,
-                alphas=cfg.alphas,
-                query_block=cfg.query_block,
-                key_block=cfg.key_block,
-                filter_block=cfg.decode_key_block,
-                block_budget=max(1, math.ceil(n_kb / cfg.pruning_ratio)),
-                keep_all=cfg.pruning_ratio <= 1.0,
-                keep_first=cfg.keep_first,
-                keep_diagonal=cfg.keep_diagonal,
-                diag_blocks=_prefill_diag_blocks(
-                    q_positions, cfg.query_block, cfg.key_block, n_k
-                ),
-                scale=scale,
-                telemetry=telemetry,
-            )
-        out = _positions_dense(q, k, v, cfg, impl, q_positions, causal,
-                               window, scale)
-    else:
-        faults = full_sequence_faults(cfg, impl, n_q, n_k, window=window,
-                                      kv_length=kv_length)
-        if faults:
-            raise _not_ported(
-                f"this full-sequence call ({'; '.join(faults)})")
-        if impl == "dense":
-            valid = None
-            if causal:
-                valid = flt.causal_valid_mask(n_q, n_k, q_offset, q.device)
-            out = spa.dense_attention(q, k, v, valid, scale)
-        else:
-            out = _pallas_attention(q, k, v, cfg, causal, q_offset, scale)
-    if telemetry:
-        return out, _zero_stats(q.shape[0], q.device)
-    return out
+        n_kb = n_k // cfg.key_block
+        return kops.fused_prefill_attention(
+            q, k, v, filter_cache["codes"], filter_cache["scale"],
+            q_positions,
+            round_bits=cfg.round_bits,
+            alphas=cfg.alphas,
+            query_block=cfg.query_block,
+            key_block=cfg.key_block,
+            filter_block=cfg.decode_key_block,
+            block_budget=max(1, math.ceil(n_kb / cfg.pruning_ratio)),
+            keep_all=cfg.pruning_ratio <= 1.0,
+            keep_first=cfg.keep_first,
+            keep_diagonal=cfg.keep_diagonal,
+            diag_blocks=_prefill_diag_blocks(
+                q_positions, cfg.query_block, cfg.key_block, n_k
+            ),
+            scale=scale,
+            telemetry=telemetry,
+        )
 
-
-def full_sequence_faults(
-    cfg: EnergonConfig, impl: str, n_q: int, n_k: int, *,
-    window: Optional[int] = None, kv_length=None,
-) -> List[str]:
-    """Why a full-sequence call with the effective ``impl`` would leave
-    the ported branches (dense, or the B9 + B10 kernels). Empty when it
-    can run."""
-    faults = []
-    fallback = ("the reference's XLA block fallback" if impl == "pallas"
-                else "a mask of the dense path not ported yet")
-    if kv_length is not None:
-        faults.append(f"kv_length (padded caches) takes {fallback}")
-    if window is not None:
-        faults.append(f"window={window} takes {fallback}")
-    if n_q * n_k > cfg.chunk_threshold:
-        faults.append(
-            f"n_q·n_k = {n_q}·{n_k} is past chunk_threshold="
-            f"{cfg.chunk_threshold}: the chunked (flash-style) path "
-            "(core/chunked_attention.py)")
-    if impl in ("mpmrf_row", "mpmrf_block"):
-        faults.append(f"impl={impl!r} (the XLA selection paths)")
-    elif impl == "pallas":
-        if n_q % cfg.query_block or n_k % cfg.key_block:
-            faults.append(
-                f"sequence {n_q}×{n_k} not divisible into "
-                f"{cfg.query_block}×{cfg.key_block} blocks: the reference "
-                "falls back to mpmrf_row")
-        elif n_k // cfg.key_block <= 1:
-            faults.append(
-                f"one key block only ({n_k} keys of {cfg.key_block}): the "
-                "reference falls back to mpmrf_row")
-    elif impl != "dense":
-        raise ValueError(f"unknown Energon impl: {impl}")
-    return faults
-
-
-def _positions_dense(q, k, v, cfg, impl, q_positions, causal, window, scale):
-    """Dense attention at per-row positions (the paged prefix layers)."""
-    n_q, n_k = q.shape[-2], k.shape[-2]
-    if impl != "dense":
-        raise _not_ported(f"energon_attention impl={impl!r} at q_positions")
-    if n_q * n_k > cfg.chunk_threshold:
+    # the q_positions form has no chunked variant: past the threshold it
+    # would materialize [n_q, n_k] masks
+    if q_positions is not None and n_q * n_k > cfg.chunk_threshold:
         raise ValueError(
             f"q_positions attention materializes [{n_q}, {n_k}] masks "
             f"past chunk_threshold={cfg.chunk_threshold}; lower the "
             "prefill chunk (or raise chunk_threshold)"
         )
-    qpos = q_positions[:, None, :, None]
-    kpos = torch.arange(n_k, device=q.device)[None, None, None, :]
-    valid = qpos < n_k
-    if causal:
-        valid = valid & (kpos <= qpos)
-    if window is not None and window > 0:
-        valid = valid & (kpos > qpos - window)
-    return spa.dense_attention(q, k, v, valid, scale)
+    if n_q * n_k > cfg.chunk_threshold:
+        return ret(_chunked_attention(
+            q, k, v, cfg, impl, causal=causal, window=window,
+            q_offset=q_offset, kv_length=kv_length, scale=scale))
+
+    valid = _full_valid_mask(q, n_k, causal=causal, window=window,
+                             q_offset=q_offset, q_positions=q_positions,
+                             kv_length=kv_length)
+
+    if impl == "dense":
+        return ret(spa.dense_attention(q, k, v, valid, scale))
+
+    if impl == "mpmrf_row":
+        res = flt.mpmrf_row_select(q, k, cfg.mpmrf("row"), valid)
+        return ret(spa.masked_sparse_attention(q, k, v, res.keep_mask, scale))
+
+    # window, padded-cache and per-row-position masks are not in the
+    # full-sequence kernels' contract: pallas takes the XLA block path
+    if impl == "mpmrf_block" or (impl == "pallas" and (
+            window is not None or kv_length is not None
+            or q_positions is not None)):
+        diag_blocks = None
+        if q_positions is not None:
+            diag_blocks = _prefill_diag_blocks(
+                q_positions, cfg.query_block, cfg.key_block, n_k)
+        # resident planes replace the fresh quantization, so the XLA and
+        # the fused selections score the same integer operands
+        k_quant = None
+        if (filter_cache is not None and cfg.decode_key_block > 0
+                and n_k % cfg.decode_key_block == 0):
+            k_quant = qlib.blockwise_quantized_view(
+                filter_cache["codes"], filter_cache["scale"],
+                cfg.decode_key_block)
+        res = flt.mpmrf_block_select(
+            q, k, cfg.mpmrf("block", n_k // cfg.key_block), valid,
+            diag_blocks=diag_blocks, k_quant=k_quant, with_stats=telemetry)
+        out = spa.block_gather_attention(
+            q, k, v, res.block_indices, valid, cfg.query_block,
+            cfg.key_block, scale, block_valid=res.block_valid)
+        return ret(out, flt.selection_stats(res) if telemetry else None)
+
+    if impl == "pallas":
+        return ret(_pallas_attention(q, k, v, cfg, causal, q_offset, scale))
+
+    raise ValueError(f"unknown Energon impl: {cfg.impl}")
+
+
+def _full_valid_mask(q, n_k, *, causal, window, q_offset, q_positions,
+                     kv_length) -> Optional[torch.Tensor]:
+    """The a-priori validity ``[B, H, n_q, n_k]`` of a direct call (None:
+    everything valid): causal / sliding window at ``q_offset`` or at
+    ``q_positions`` (sentinel rows ≥ n_k wholly invalid, so their scores
+    never reach the pooled planes the real rows share), and
+    ``kv_length``."""
+    n_q = q.shape[-2]
+    shape = q.shape[:-2] + (n_q, n_k)
+    kpos = torch.arange(n_k, device=q.device)
+    valid = None
+    if q_positions is not None:
+        qpos = q_positions[:, None, :, None]
+        valid = qpos < n_k
+        if causal:
+            valid = valid & (kpos <= qpos)
+        if window is not None and window > 0:
+            valid = valid & (kpos > qpos - window)
+    elif window is not None:
+        valid = flt.sliding_window_valid_mask(n_q, n_k, window, q_offset,
+                                              device=q.device)
+    elif causal:
+        valid = flt.causal_valid_mask(n_q, n_k, q_offset, q.device)
+    if kv_length is not None:
+        in_range = (kpos[None, :] < kv_length.to(q.device)[:, None]
+                    )[:, None, None, :]
+        valid = in_range if valid is None else valid & in_range
+    return None if valid is None else valid.expand(shape)
+
+
+def _chunked_attention(q, k, v, cfg, impl, *, causal, window, q_offset,
+                       kv_length, scale):
+    """The chunked path: the kernel route for a configured pallas call
+    that is causal with neither window nor ``kv_length`` (B9 + B10 on
+    the sparse layers, B11 on the dense prefix), the torch scan of
+    :mod:`repro_torch.core.chunked_attention` for every other call."""
+    from repro_torch.core import chunked_attention as chk
+
+    n_q, n_k = q.shape[-2], k.shape[-2]
+    kernels = (cfg.impl == "pallas" and causal and window is None
+               and kv_length is None)
+    if kernels and impl == "pallas":
+        from repro_torch.kernels import ops as kops
+
+        return _over_heads(kops.chunked_block_attention, q, k, v,
+                           round_bits=cfg.round_bits, alphas=cfg.alphas,
+                           pruning_ratio=cfg.pruning_ratio,
+                           query_block=cfg.query_block,
+                           key_block=cfg.key_block, causal=True,
+                           q_offset=q_offset, keep_first=cfg.keep_first,
+                           keep_diagonal=cfg.keep_diagonal, scale=scale)
+    if (kernels and impl == "dense" and n_q % FLASH_BLOCK == 0
+            and n_k % FLASH_BLOCK == 0):
+        from repro_torch.kernels import ops as kops
+
+        return _over_heads(kops.flash_attention, q, k, v, causal=True,
+                           q_offset=q_offset, scale=scale)
+    if impl in ("mpmrf_block", "pallas"):
+        return chk.energon_block_attention_chunked(
+            q, k, v, round_bits=cfg.round_bits, alphas=cfg.alphas,
+            pruning_ratio=cfg.pruning_ratio, query_block=cfg.query_block,
+            key_block=cfg.key_block, causal=causal, window=window,
+            q_offset=q_offset, kv_length=kv_length,
+            keep_first=cfg.keep_first, keep_diagonal=cfg.keep_diagonal,
+            scale=scale)
+    # dense / row: chunked dense (row-granular MP-MRF would build
+    # token-level masks at this size)
+    return chk.dense_attention_chunked(
+        q, k, v, causal=causal, window=window, q_offset=q_offset,
+        kv_length=kv_length, scale=scale)
+
+
+def _over_heads(fn, q, k, v, **kw):
+    """Run a ``[bh, n, d]`` kernel pipeline on ``[B, H, n, d]`` operands."""
+    batch, heads, n_q, d = q.shape
+    n_k = k.shape[-2]
+    out = fn(q.reshape(batch * heads, n_q, d),
+             k.reshape(batch * heads, n_k, d),
+             v.reshape(batch * heads, n_k, d), **kw)
+    return out.reshape(q.shape)
 
 
 def _pallas_attention(q, k, v, cfg, causal, q_offset, scale):
     """The Filtering Unit then the Attention Unit over ``[B·H, n, d]``."""
     from repro_torch.kernels import ops as kops
 
-    batch, heads, n_q, d = q.shape
     n_k = k.shape[-2]
     budget = max(1, math.ceil((n_k // cfg.key_block) / cfg.pruning_ratio))
-    qf = q.reshape(batch * heads, n_q, d)
-    kf = k.reshape(batch * heads, n_k, d)
-    vf = v.reshape(batch * heads, n_k, d)
-    idx, val = kops.mpmrf_select_blocks(
-        qf, kf,
-        round_bits=cfg.round_bits,
-        alphas=cfg.alphas,
-        block_budget=budget,
-        query_block=cfg.query_block,
-        key_block=cfg.key_block,
-        causal=causal,
-        q_offset=q_offset,
-        keep_first=cfg.keep_first,
-        keep_diagonal=cfg.keep_diagonal,
-    )
-    out = kops.block_sparse_attention(
-        qf, kf, vf, idx, val,
-        query_block=cfg.query_block,
-        key_block=cfg.key_block,
-        causal=causal,
-        q_offset=q_offset,
-        scale=scale,
-    )
-    return out.reshape(q.shape)
+
+    def pipeline(qf, kf, vf):
+        idx, val = kops.mpmrf_select_blocks(
+            qf, kf,
+            round_bits=cfg.round_bits,
+            alphas=cfg.alphas,
+            block_budget=budget,
+            query_block=cfg.query_block,
+            key_block=cfg.key_block,
+            causal=causal,
+            q_offset=q_offset,
+            keep_first=cfg.keep_first,
+            keep_diagonal=cfg.keep_diagonal,
+        )
+        return kops.block_sparse_attention(
+            qf, kf, vf, idx, val,
+            query_block=cfg.query_block,
+            key_block=cfg.key_block,
+            causal=causal,
+            q_offset=q_offset,
+            scale=scale,
+        )
+
+    return _over_heads(pipeline, q, k, v)
 
 
 def decode_live_budget(
@@ -287,8 +384,9 @@ def _decode_valid_mask(
 def _decode_block_plan(
     cfg: EnergonConfig, n_k: int, cache_length: torch.Tensor
 ):
-    """Static budget, keep_all and per-slot live budget of the block
-    decode paths."""
+    """Static budget, keep_all, per-slot live budget and filter config of
+    the block decode paths — one derivation for both layouts (paged ≡
+    unpaged depends on their lockstep)."""
     bk = cfg.decode_key_block
     n_kb = n_k // bk
     budget = max(1, math.ceil(n_kb / cfg.pruning_ratio))
@@ -296,7 +394,19 @@ def _decode_block_plan(
     live_budget = None
     if not keep_all:
         live_budget = decode_live_budget(cache_length, bk, cfg.pruning_ratio)
-    return budget, keep_all, live_budget
+    mcfg = flt.MPMRFConfig(
+        round_bits=cfg.round_bits,
+        alphas=cfg.alphas,
+        granularity="block",
+        query_block=1,
+        key_block=bk,
+        block_budget=budget,
+        keep_first=cfg.keep_first,
+        keep_diagonal=cfg.keep_diagonal,
+        reuse_partial=cfg.reuse_partial,
+        keep_all=keep_all,
+    )
+    return budget, keep_all, live_budget, mcfg
 
 
 def _fused_decode_engaged(
@@ -326,20 +436,33 @@ def _prefill_diag_blocks(
 
 
 def _fused_prefill_engaged(
-    cfg: EnergonConfig, filter_planes_resident: bool, window, n_k: int
+    cfg: EnergonConfig, filter_planes_resident: bool, window, kv_length,
+    n_k: int,
 ) -> bool:
-    """The fused prefill kernels additionally need a cache divisible
-    into the resident plane blocks (the reference's padded-cache
-    ``kv_length`` condition is checked by :func:`energon_attention`, its
-    one caller that takes ``kv_length``)."""
+    """The fused prefill kernels need what the decode ones do, no
+    ``kv_length`` (they mask by per-row positions alone) and a cache
+    divisible into the resident plane blocks."""
     return (
-        cfg.impl == "pallas"
-        and filter_planes_resident
-        and window is None
-        and len(cfg.round_bits) == 2
-        and cfg.reuse_partial
+        _fused_decode_engaged(cfg, filter_planes_resident, window)
+        and kv_length is None
         and cfg.decode_key_block > 0
         and n_k % cfg.decode_key_block == 0
+    )
+
+
+def _serving_prefill_fused(cfg: EnergonConfig, *, rows: int, cache_len: int,
+                           paged: bool) -> bool:
+    """Does a serving prefill chunk of ``rows`` folded rows over
+    ``cache_len`` cache rows take the fused kernels on the sparse
+    layers (the engagement rules of the two prefill entry points)?"""
+    n_k = cache_len
+    return (
+        _fused_prefill_engaged(cfg, cfg.filter_cache_engages(cache_len),
+                               None, None, n_k)
+        and rows % cfg.query_block == 0
+        and n_k % cfg.key_block == 0
+        and n_k // cfg.key_block > 1
+        and (not paged or cfg.key_block == cfg.decode_key_block)
     )
 
 
@@ -349,39 +472,29 @@ def serving_faults(
 ) -> List[str]:
     """Why serving ``chunk``-token prefill chunks (``group`` query heads
     per KV head) against ``cache_len``-row caches — paged, or contiguous
-    with ``paged=False`` — would fail mid-run: sparse layers that miss
-    the fused kernels' engagement rules raise, and the dense prefix
-    layers refuse masks past ``chunk_threshold``. Empty when every layer
-    can run."""
+    with ``paged=False`` — would fail mid-run: an unknown ``impl``; a
+    prefill whose layers build ``[G·chunk, cache_len]`` masks past
+    ``chunk_threshold`` (the dense prefix layers, and every layer the
+    fused prefill kernels do not take); and, where the fused decode
+    kernels engage, rows or key blocks the decode filter (B1 / B5) does
+    not take. Empty when every layer can run."""
+    if cfg.impl not in IMPLS:
+        return [f"impl={cfg.impl!r} is not one of {IMPLS}"]
     rows = group * chunk
     faults = []
-    if (cfg.impl == "dense" or cfg.min_prune_layer > 0) \
-            and rows * cache_len > cfg.chunk_threshold:
+    fused_prefill = (cfg.impl == "pallas" and _serving_prefill_fused(
+        cfg, rows=rows, cache_len=cache_len, paged=paged))
+    if ((cfg.min_prune_layer > 0 or not fused_prefill)
+            and rows * cache_len > cfg.chunk_threshold):
+        where = ("dense layers" if fused_prefill or cfg.impl == "dense"
+                 else "prefill layers off the fused kernels")
         faults.append(
-            f"dense layers would mask {rows} folded rows × {cache_len} "
+            f"{where} would mask {rows} folded rows × {cache_len} "
             f"keys, past chunk_threshold={cfg.chunk_threshold}: lower the "
             "prefill chunk or max_len")
-    if cfg.impl == "dense":
+    if not _fused_decode_engaged(cfg, cfg.filter_cache_engages(cache_len),
+                                 None):
         return faults
-    if cfg.impl != "pallas":
-        return faults + [f"impl={cfg.impl!r} is not ported yet (the port "
-                         "serves impl='pallas')"]
-    if not cfg.filter_cache_engages(cache_len):
-        threshold = cfg.filter_cache_min_len
-        faults.append(
-            f"filter planes are resident only from "
-            f"{FILTER_CACHE_AUTO_MIN_LEN if threshold is None else threshold}"
-            f" cache rows (max_len {cache_len}): raise max_len or set "
-            "filter_cache_min_len")
-    if paged and cfg.key_block != cfg.decode_key_block:
-        faults.append(f"key_block {cfg.key_block} must equal "
-                      f"decode_key_block {cfg.decode_key_block}")
-    if not paged and (cache_len % cfg.key_block
-                      or cache_len // cfg.key_block <= 1):
-        faults.append(
-            f"the {cache_len} cache rows must divide into two or more "
-            f"key blocks of {cfg.key_block} (else the reference falls back "
-            "to mpmrf_row)")
     from repro_torch.kernels.mpmrf_decode import (
         DECODE_FILTER_MAX_G, DECODE_FILTER_MAX_KEY_BLOCK,
     )
@@ -395,12 +508,6 @@ def serving_faults(
         faults.append(f"decode_key_block {dkb} must be a multiple of 8, "
                       f"<= {DECODE_FILTER_MAX_KEY_BLOCK} (the decode "
                       "filter's key tiles)")
-    if rows % cfg.query_block:
-        faults.append(f"query_block {cfg.query_block} must divide the "
-                      f"{rows} folded chunk rows (G={group} × chunk "
-                      f"{chunk})")
-    if len(cfg.round_bits) != 2 or not cfg.reuse_partial:
-        faults.append("the fused kernels take two rounds with reuse_partial")
     return faults
 
 
@@ -424,7 +531,8 @@ def energon_paged_prefill_attention(
     chunk attends the pool in place (filter through the block table,
     gather through survivor ∘ block table); otherwise the logical K/V
     view is gathered, zeroed past each slot's written extent, and
-    handed to :func:`energon_attention` (the dense prefix layers).
+    handed to :func:`energon_attention` with the gathered resident
+    planes, so the fused and the XLA selections read the same codes.
     """
     from repro_torch.runtime import paged_cache as pgc
 
@@ -437,7 +545,8 @@ def energon_paged_prefill_attention(
 
     fused = (
         layer_index >= cfg.min_prune_layer
-        and _fused_prefill_engaged(cfg, "k_codes" in cache, window, n_k)
+        and _fused_prefill_engaged(cfg, "k_codes" in cache, window, None,
+                                   n_k)
         and cfg.key_block == ps
         and n_q % cfg.query_block == 0
         and n_k // cfg.key_block > 1
@@ -463,11 +572,6 @@ def energon_paged_prefill_attention(
             scale=scale,
             telemetry=telemetry,
         )
-    if layer_index >= cfg.min_prune_layer and cfg.impl != "dense":
-        raise _not_ported(
-            f"paged prefill with impl={cfg.impl!r} outside the fused "
-            "kernels' engagement rule"
-        )
 
     k_log = pgc.gather_logical_rows(cache["k"], block_table, ps)
     v_log = pgc.gather_logical_rows(cache["v"], block_table, ps)
@@ -482,36 +586,28 @@ def energon_paged_prefill_attention(
     )[:, None, :, None]
     k_log = k_log * row_ok
     v_log = v_log * row_ok
+    filter_cache = None
+    if "k_codes" in cache:
+        # the pool's planes verbatim (not zeroed: the fused kernel reads
+        # raw pages too, and blocks past the extent are masked before
+        # pooling either way)
+        filter_cache = {
+            "codes": pgc.gather_logical_rows(cache["k_codes"], block_table,
+                                             ps),
+            "scale": pgc.gather_logical_scales(cache["k_scale"],
+                                               block_table),
+        }
     return energon_attention(
         q, k_log, v_log, cfg,
         causal=True, window=window, layer_index=layer_index,
-        q_positions=q_positions, scale=scale, telemetry=telemetry,
+        q_positions=q_positions, scale=scale, filter_cache=filter_cache,
+        telemetry=telemetry,
     )
 
 
-def _decode_route(
-    cfg: EnergonConfig, n_k: int, layer_index: int, window,
-    filter_planes_resident: bool,
-) -> str:
-    """Which decode branch runs — ``"dense"`` (prefix layers, dense impl,
-    ρ ≤ 1 outside the block path) or ``"fused"`` — for either cache
-    layout; branches not ported yet raise."""
-    if layer_index < cfg.min_prune_layer or cfg.impl == "dense":
-        return "dense"
-    bk = cfg.decode_key_block
-    if (cfg.impl in ("mpmrf_block", "pallas") and bk > 0 and n_k % bk == 0
-            and n_k // bk > 1):
-        if _fused_decode_engaged(cfg, filter_planes_resident, window):
-            return "fused"
-        raise _not_ported("the XLA block decode path")
-    if cfg.pruning_ratio <= 1.0:
-        return "dense"
-    raise _not_ported("row-granular MP-MRF decode")
-
-
-def _fused_decode_kwargs(cfg: EnergonConfig, n_k: int, cache_length,
-                         scale, telemetry) -> Dict[str, object]:
-    budget, keep_all, live_budget = _decode_block_plan(cfg, n_k, cache_length)
+def _fused_decode_kwargs(cfg: EnergonConfig, plan, scale,
+                         telemetry) -> Dict[str, object]:
+    budget, keep_all, live_budget, _ = plan
     return dict(
         round_bits=cfg.round_bits,
         alphas=cfg.alphas,
@@ -538,12 +634,15 @@ def energon_paged_decode_attention(
     scale: Optional[float] = None,
     telemetry: bool = False,
 ):
-    """One-token decode attention over the page pool.
+    """One-token decode attention over the page pool, bit-identical to
+    :func:`energon_decode_attention` on the equivalent logical contents.
 
     q ``[B, KV, G, d]``; ``cache_length`` int32 ``[B]``. Prefix layers
-    (and ``impl="dense"``, and ρ ≤ 1 outside the block path) attend the
-    transient logical view densely; sparse layers with resident planes
-    run the fused paged kernels.
+    and ``impl="dense"`` attend the transient logical view densely; the
+    block impls run the fused paged kernels where they engage, else the
+    block selection over the gathered resident planes and a gather of
+    the survivor pages; the row impl (and ρ ≤ 1 outside the block path)
+    runs on the logical view zeroed past each slot's length.
     """
     from repro_torch.runtime import paged_cache as pgc
 
@@ -551,23 +650,49 @@ def energon_paged_decode_attention(
     if bk <= 0:
         raise ValueError("paged decode needs decode_key_block > 0")
     n_k = block_table.shape[-1] * bk
-    route = _decode_route(cfg, n_k, layer_index, window, "k_codes" in cache)
-    if route == "fused":
-        from repro_torch.kernels import ops as kops
-
-        return kops.fused_paged_decode_attention(
-            q, cache["k"], cache["v"], cache["k_codes"], cache["k_scale"],
-            block_table, cache_length,
-            **_fused_decode_kwargs(cfg, n_k, cache_length, scale, telemetry),
-        )
     valid = _decode_valid_mask(q, n_k, cache_length, window)
-    out = spa.dense_attention(
-        q,
-        pgc.gather_logical_rows(cache["k"], block_table, bk),
-        pgc.gather_logical_rows(cache["v"], block_table, bk),
-        valid, scale,
-    )
-    return (out, _zero_stats(q.shape[0], q.device)) if telemetry else out
+
+    def logical(name):
+        return pgc.gather_logical_rows(cache[name], block_table, bk)
+
+    def ret(out, stats=None):
+        if not telemetry:
+            return out
+        return out, (stats if stats is not None
+                     else _zero_stats(q.shape[0], q.device))
+
+    if layer_index < cfg.min_prune_layer or cfg.impl == "dense":
+        return ret(spa.dense_attention(q, logical("k"), logical("v"), valid,
+                                       scale))
+    if cfg.impl in ("mpmrf_block", "pallas") and n_k // bk > 1:
+        plan = _decode_block_plan(cfg, n_k, cache_length)
+        if _fused_decode_engaged(cfg, "k_codes" in cache, window):
+            from repro_torch.kernels import ops as kops
+
+            return kops.fused_paged_decode_attention(
+                q, cache["k"], cache["v"], cache["k_codes"],
+                cache["k_scale"], block_table, cache_length,
+                **_fused_decode_kwargs(cfg, plan, scale, telemetry),
+            )
+        res = flt.mpmrf_paged_block_select(
+            q, cache, block_table, plan[3], valid, cache_length,
+            live_budget=plan[2], with_stats=telemetry)
+        out = spa.paged_decode_block_gather_attention(
+            q, cache["k"], cache["v"], res.block_indices, res.block_valid,
+            block_table, cache_length, bk, window=window, scale=scale)
+        return ret(out, flt.selection_stats(res) if telemetry else None)
+    if cfg.pruning_ratio <= 1.0:
+        return ret(spa.dense_attention(q, logical("k"), logical("v"), valid,
+                                       scale))
+    # the row selection quantizes K per head over the whole row axis:
+    # zero the rows past each slot's length (unmapped blocks alias page
+    # 0) as the unpaged cache holds zeros there
+    row_ok = (torch.arange(n_k, device=q.device)[None, :]
+              < cache_length[:, None])[:, None, :, None]
+    k_log = logical("k") * row_ok
+    res = flt.mpmrf_row_select(q, k_log, cfg.mpmrf("row"), valid)
+    return ret(spa.decode_sparse_attention(q, k_log, logical("v"),
+                                           res.keep_mask, scale))
 
 
 def energon_decode_attention(
@@ -589,22 +714,50 @@ def energon_decode_attention(
     ``[B, KV, n_k, d]``; ``cache_length`` int32 ``[B]`` (an idle slot's
     ``max_len + 1`` sentinel masks nothing); ``filter_cache`` the
     resident planes (``{"codes": int16 [B, KV, n_k, d], "scale": f32
-    [B, KV, n_k // cfg.decode_key_block]}``). Prefix layers (and
-    ``impl="dense"``, and ρ ≤ 1 outside the block path) attend densely;
-    sparse layers with resident planes run the fused kernels (B5 →
-    selection → B6).
+    [B, KV, n_k // cfg.decode_key_block]}``). Three sparse paths, as in
+    the reference: the fused kernels (B5 → selection → B6; ``pallas``
+    with resident planes and no window), the block path (``mpmrf_block``
+    / ``pallas`` over whole decode key blocks: select top-B blocks,
+    gather only the survivors) and the row path (a token mask over the
+    whole cache).
     """
     n_k = k_cache.shape[-2]
-    route = _decode_route(cfg, n_k, layer_index, window,
-                          filter_cache is not None)
-    if route == "fused":
-        from repro_torch.kernels import ops as kops
-
-        return kops.fused_decode_attention(
-            q, k_cache, v_cache, filter_cache["codes"], filter_cache["scale"],
-            cache_length,
-            **_fused_decode_kwargs(cfg, n_k, cache_length, scale, telemetry),
-        )
     valid = _decode_valid_mask(q, n_k, cache_length, window)
-    out = spa.dense_attention(q, k_cache, v_cache, valid, scale)
-    return (out, _zero_stats(q.shape[0], q.device)) if telemetry else out
+
+    def ret(out, stats=None):
+        if not telemetry:
+            return out
+        return out, (stats if stats is not None
+                     else _zero_stats(q.shape[0], q.device))
+
+    if layer_index < cfg.min_prune_layer or cfg.impl == "dense":
+        return ret(spa.dense_attention(q, k_cache, v_cache, valid, scale))
+    bk = cfg.decode_key_block
+    if (cfg.impl in ("mpmrf_block", "pallas") and bk > 0 and n_k % bk == 0
+            and n_k // bk > 1):
+        plan = _decode_block_plan(cfg, n_k, cache_length)
+        if _fused_decode_engaged(cfg, filter_cache is not None, window):
+            from repro_torch.kernels import ops as kops
+
+            return kops.fused_decode_attention(
+                q, k_cache, v_cache, filter_cache["codes"],
+                filter_cache["scale"], cache_length,
+                **_fused_decode_kwargs(cfg, plan, scale, telemetry),
+            )
+        k_quant = None
+        if filter_cache is not None:
+            k_quant = qlib.blockwise_quantized_view(
+                filter_cache["codes"], filter_cache["scale"], bk)
+        res = flt.mpmrf_decode_block_select(
+            q, k_cache, plan[3], valid, cache_length, k_quant=k_quant,
+            live_budget=plan[2], with_stats=telemetry)
+        out = spa.decode_block_gather_attention(
+            q, k_cache, v_cache, res.block_indices, res.block_valid,
+            cache_length, bk, window=window, scale=scale)
+        return ret(out, flt.selection_stats(res) if telemetry else None)
+    if cfg.pruning_ratio <= 1.0:
+        # ρ ≤ 1: nothing to prune, skip the filter
+        return ret(spa.dense_attention(q, k_cache, v_cache, valid, scale))
+    res = flt.mpmrf_row_select(q, k_cache, cfg.mpmrf("row"), valid)
+    return ret(spa.decode_sparse_attention(q, k_cache, v_cache,
+                                           res.keep_mask, scale))

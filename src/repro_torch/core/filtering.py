@@ -24,6 +24,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import quantization as qlib
+
 NEG_INF = -1e30
 
 
@@ -254,3 +256,233 @@ def selection_stats(res: FilterResult) -> torch.Tensor:
         pinned = red(res.sel_tier == 3)
         filled = red(res.sel_tier == 1)
     return torch.stack([selected, live, pinned, filled], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# the XLA selection paths: token-level rounds, row and block selection
+# --------------------------------------------------------------------------
+
+
+def _round_score_planes(q16, k16, cfg: MPMRFConfig):
+    """Yield the R rounds' real-unit token-score planes ``[..., n_q,
+    n_k]``. With ``reuse_partial`` (Fig. 7) the q plane is held at the
+    final width and each round adds the k remainder plane onto the
+    shifted int32 accumulator; without it every round re-scores."""
+    hi_bits = cfg.round_bits[-1]
+    if cfg.reuse_partial:
+        qp = q16.bit_plane(hi_bits)
+        q_max = qlib.plane_max(hi_bits)
+        acc = prev_bits = None
+        for bits in cfg.round_bits:
+            if acc is None:
+                acc = qlib.int_qk_matmul(qp, k16.bit_plane(bits),
+                                         (q_max, qlib.plane_max(bits)))
+            else:
+                rem_max = 2 ** (bits - prev_bits) - 1
+                acc = (acc << (bits - prev_bits)) + qlib.int_qk_matmul(
+                    qp, k16.lsb_remainder(prev_bits, bits), (q_max, rem_max))
+            prev_bits = bits
+            yield qlib.rescale_scores(
+                acc, q16.plane_scale(hi_bits), k16.plane_scale(bits))
+    else:
+        for bits in cfg.round_bits:
+            yield qlib.rescale_scores(
+                qlib.int_qk_matmul(q16.bit_plane(bits), k16.bit_plane(bits),
+                                   (qlib.plane_max(bits),) * 2),
+                q16.plane_scale(bits), k16.plane_scale(bits))
+
+
+def _multi_round_scores(q16, k16, cfg: MPMRFConfig, valid: torch.Tensor):
+    """Alg. 2's R rounds on token scores: returns ``(keep, final-round
+    scores)``; ``valid`` (causality / padding) can only shrink."""
+    keep = valid
+    scores = None
+    for alpha, scores in zip(cfg.alphas, _round_score_planes(q16, k16, cfg)):
+        if not cfg.keep_all:
+            # ">=" so a constant row keeps its max (θ == max)
+            keep = keep & (scores >= eq3_threshold(scores, alpha, keep))
+    return keep, scores
+
+
+def mpmrf_row_select(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    cfg: MPMRFConfig,
+    valid: Optional[torch.Tensor] = None,
+) -> FilterResult:
+    """Paper-faithful per-row MP-MRF (Alg. 2): q ``[..., n_q, d]`` with a
+    per-row scale, k ``[..., n_k, d]`` with a per-head scale; ``valid``
+    bool broadcastable to ``[..., n_q, n_k]``. Returns a token-level
+    ``keep_mask``."""
+    q16 = qlib.quantize_int16(q, axis=-1)
+    k16 = qlib.quantize_int16(k, axis=(-2, -1))
+    n_k = k.shape[-2]
+    shape = q.shape[:-1] + (n_k,)
+    valid = (torch.ones(shape, dtype=torch.bool, device=q.device)
+             if valid is None else valid.expand(shape))
+    keep, scores = _multi_round_scores(q16, k16, cfg, valid)
+    if cfg.keep_first:
+        first = torch.zeros_like(keep)
+        first[..., 0] = True
+        keep = keep | (first & valid)
+    return FilterResult(keep_mask=keep, block_indices=None, scores=scores)
+
+
+def pool_block_scores(
+    scores: torch.Tensor, bq: int, bk: int, valid: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token scores ``[..., n_q, n_k]`` → the max over each (bq × bk)
+    tile ``[..., n_qb, n_kb]`` and whether the tile has a valid pair."""
+    *lead, n_q, n_k = scores.shape
+    shape = (*lead, n_q // bq, bq, n_k // bk, bk)
+    tile_valid = valid.expand(scores.shape).reshape(shape)
+    blk = torch.where(tile_valid, scores.reshape(shape),
+                      NEG_INF).amax(dim=(-3, -1))
+    return blk, tile_valid.any(dim=-1).any(dim=-2)
+
+
+def mpmrf_block_select(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    cfg: MPMRFConfig,
+    valid: Optional[torch.Tensor] = None,
+    diag_blocks: Optional[torch.Tensor] = None,
+    k_quant=None,
+    with_stats: bool = False,
+) -> FilterResult:
+    """Block-granular MP-MRF: the rounds at token level, pooled to
+    (query block × key block), then :func:`prefill_block_select_from_planes`.
+    ``diag_blocks`` int ``[B, n_qb]`` overrides the keep_diagonal target
+    (queries at absolute positions); ``k_quant`` (a resident
+    :func:`~repro_torch.core.quantization.blockwise_quantized_view`)
+    replaces the fresh per-head k quantization."""
+    bq, bk = cfg.query_block, cfg.key_block
+    n_q, n_k = q.shape[-2], k.shape[-2]
+    if n_q % bq or n_k % bk:
+        raise ValueError(
+            f"sequence ({n_q},{n_k}) not divisible by blocks ({bq},{bk})")
+    n_kb = n_k // bk
+    q16 = qlib.quantize_int16(q, axis=-1)
+    k16 = qlib.quantize_int16(k, axis=(-2, -1)) if k_quant is None \
+        else k_quant
+    if valid is None:
+        valid = torch.ones(q.shape[:-1] + (n_k,), dtype=torch.bool,
+                           device=q.device)
+    round_scores = []
+    blk_valid = None
+    for tok_scores in _round_score_planes(q16, k16, cfg):
+        blk_scores, blk_valid = pool_block_scores(tok_scores, bq, bk, valid)
+        round_scores.append(blk_scores)
+    diag_mask = None
+    if cfg.keep_diagonal and diag_blocks is not None:
+        diag_mask = one_hot_bool(
+            torch.clamp(diag_blocks, 0, n_kb - 1), n_kb)[:, None]
+    return prefill_block_select_from_planes(
+        round_scores, blk_valid, cfg, diag_mask=diag_mask,
+        with_stats=with_stats)
+
+
+def mpmrf_decode_block_select(
+    q: torch.Tensor,
+    k_cache: Optional[torch.Tensor],
+    cfg: MPMRFConfig,
+    valid: torch.Tensor,
+    cache_length: torch.Tensor,
+    k_quant=None,
+    live_budget: Optional[torch.Tensor] = None,
+    with_stats: bool = False,
+) -> FilterResult:
+    """Block-granular MP-MRF over a padded cache (decode): k quantized
+    per ``cfg.key_block`` rows (or the resident ``k_quant`` view), the
+    rounds pooled over every query row (the folded GQA group shares one
+    selection), Eq. 3 per round, then the exact-budget
+    :func:`decode_block_tier_select`. Returns the survivor table
+    ``[..., 1, budget]``."""
+    bk = cfg.key_block
+    if cfg.block_budget is None:
+        raise ValueError("decode block selection needs cfg.block_budget")
+    if k_cache is None and k_quant is None:
+        raise ValueError("need k_cache or a resident k_quant view")
+    n_q = q.shape[-2]
+    n_k = (k_quant.codes if k_cache is None else k_cache).shape[-2]
+    if n_k % bk:
+        raise ValueError(f"cache length {n_k} not divisible by {bk}")
+    valid = valid.expand(q.shape[:-1] + (n_k,))
+    q16 = qlib.quantize_int16(q, axis=-1)
+    if k_quant is None:
+        codes, scales = qlib.quantize_int16_blocks(k_cache, bk)
+        k_quant = qlib.blockwise_quantized_view(codes, scales, bk)
+    blk_keep = blk_scores = blk_valid = None
+    for alpha, tok_scores in zip(cfg.alphas,
+                                 _round_score_planes(q16, k_quant, cfg)):
+        blk_scores, blk_valid = pool_block_scores(tok_scores, n_q, bk, valid)
+        if blk_keep is None:
+            blk_keep = blk_valid
+        if not cfg.keep_all:
+            blk_keep = blk_keep & (
+                blk_scores >= eq3_threshold(blk_scores, alpha, blk_keep))
+    batch = cache_length.shape[0]
+    tail = (1,) * (blk_scores.dim() - 2)
+    newest = ((cache_length - 1) // bk).reshape((batch,) + tail)
+    lb = None if live_budget is None else live_budget.reshape(
+        (batch,) + tail)
+    out = decode_block_tier_select(
+        blk_scores, blk_keep, blk_valid, newest, cfg.block_budget,
+        keep_first=cfg.keep_first, keep_diagonal=cfg.keep_diagonal,
+        live_budget=lb, with_tiers=with_stats)
+    block_indices, block_valid = out[:2]
+    return FilterResult(
+        keep_mask=blk_keep,
+        block_indices=block_indices,
+        scores=blk_scores,
+        block_valid=block_valid,
+        sel_tier=out[2] if with_stats else None,
+        live_mask=blk_valid if with_stats else None,
+    )
+
+
+def mpmrf_paged_block_select(
+    q: torch.Tensor,
+    cache: dict,
+    block_table: torch.Tensor,
+    cfg: MPMRFConfig,
+    valid: torch.Tensor,
+    cache_length: torch.Tensor,
+    live_budget: Optional[torch.Tensor] = None,
+    with_stats: bool = False,
+) -> FilterResult:
+    """:func:`mpmrf_decode_block_select` over the page pool: the per-slot
+    logical view of the resident planes (or of the float keys, without
+    them) is gathered through the block table — the gather is exact, so
+    paged and unpaged selection are bit-identical."""
+    from repro_torch.runtime import paged_cache as pgc
+
+    bk = cfg.key_block
+    if "k_codes" in cache:
+        k_quant = qlib.blockwise_quantized_view(
+            pgc.gather_logical_rows(cache["k_codes"], block_table, bk),
+            pgc.gather_logical_scales(cache["k_scale"], block_table), bk)
+        return mpmrf_decode_block_select(
+            q, None, cfg, valid, cache_length, k_quant=k_quant,
+            live_budget=live_budget, with_stats=with_stats)
+    return mpmrf_decode_block_select(
+        q, pgc.gather_logical_rows(cache["k"], block_table, bk), cfg, valid,
+        cache_length, live_budget=live_budget, with_stats=with_stats)
+
+
+def expand_block_mask(blk_mask: torch.Tensor, bq: int, bk: int
+                      ) -> torch.Tensor:
+    """A block keep-mask ``[..., n_qb, n_kb]`` at token granularity."""
+    return blk_mask.repeat_interleave(bq, dim=-2).repeat_interleave(bk, dim=-1)
+
+
+def sliding_window_valid_mask(n_q: int, n_k: int, window, offset: int = 0,
+                              device=None) -> torch.Tensor:
+    """Causal sliding-window validity ``[n_q, n_k]``; ``window <= 0``
+    means unbounded (plain causal)."""
+    qpos = torch.arange(n_q, device=device)[:, None] + offset
+    kpos = torch.arange(n_k, device=device)[None, :]
+    causal = kpos <= qpos
+    if window <= 0:
+        return causal
+    return causal & (kpos > qpos - window)

@@ -120,3 +120,77 @@ def blockwise_quantized_view(
     return QuantizedTensor(
         codes=codes.to(torch.int32), scale=row_scale, axis=(-2, -1)
     )
+
+
+def _check_exact_f32_matmul(device) -> None:
+    """The integer products below run as float32 matmuls, exact only at
+    full float32 precision: TF32 keeps 10 mantissa bits and would round
+    them silently. Raise rather than let it."""
+    if torch.get_float32_matmul_precision() != "highest" or (
+            device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError(
+            "the MP-MRF integer products run as float32 matmuls and need "
+            "full float32 precision, but TF32 is on "
+            "(torch.set_float32_matmul_precision / "
+            "torch.backends.cuda.matmul.allow_tf32)")
+
+
+def plane_max(bits: int) -> int:
+    """Largest magnitude of a ``bits``-bit plane (``code >> (16-bits)``)."""
+    return 2 ** (bits - 1)
+
+
+def int_qk_matmul(qp: torch.Tensor, kp: torch.Tensor,
+                  max_abs: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Integer-domain ``qp @ kpᵀ`` with the reference's int32
+    accumulators: qp ``[..., n_q, d]``, kp ``[..., n_k, d]`` integer
+    planes → ``[..., n_q, n_k]`` int32.
+
+    CUDA has no int32 matmul in torch, so the product runs in floating
+    point where it is exact. ``max_abs`` bounds the operands' magnitudes;
+    while ``d·max_q·max_k`` stays below 2^24 (planes of at most 8 bits
+    with d ≤ 256) every partial sum is an integer that float32 holds in
+    any summation order, else (or without a bound) float64 does, up to
+    2^53. The result wraps to int32 as the reference's accumulators do.
+    """
+    d = qp.shape[-1]
+    exact_f32 = max_abs is not None and d * max_abs[0] * max_abs[1] < 2 ** 24
+    dtype = torch.float32 if exact_f32 else torch.float64
+    if exact_f32:
+        _check_exact_f32_matmul(qp.device)
+    acc = torch.matmul(qp.to(dtype), kp.to(dtype).transpose(-1, -2))
+    if exact_f32:                   # |acc| < 2^24: no wrap to mirror
+        return acc.to(torch.int32)
+    return acc.to(torch.int64).to(torch.int32)
+
+
+def rescale_scores(
+    acc: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.Tensor
+) -> torch.Tensor:
+    """Integer accumulators → real units, ``acc·q_scale·k_scale`` in the
+    reference's association: ``q_scale`` keepdims ``[..., n_q, 1]``,
+    ``k_scale`` keepdims ``[..., n_k, 1]`` (moved onto the key axis)."""
+    if k_scale.dim() >= 2:
+        k_scale = k_scale.transpose(-1, -2)
+    return acc.float() * q_scale * k_scale
+
+
+def low_bit_scores(q: QuantizedTensor, k: QuantizedTensor,
+                   bits: int) -> torch.Tensor:
+    """Approximate scores ``[..., n_q, n_k]`` f32 from the ``bits``-bit
+    planes of ``q`` and ``k``: an exact integer product rescaled to real
+    units. Above 8 bits the reference accumulates in float32 by design
+    (int32 would overflow), and so does this."""
+    qp, kp = q.bit_plane(bits), k.bit_plane(bits)
+    if bits > 8:
+        acc = torch.matmul(qp.float(), kp.float().transpose(-1, -2))
+    else:
+        acc = int_qk_matmul(qp, kp, (plane_max(bits),) * 2)
+    return rescale_scores(acc, q.plane_scale(bits), k.plane_scale(bits))
+
+
+def fake_quantize(x: torch.Tensor, bits: int, axis: Axes = -1
+                  ) -> torch.Tensor:
+    """Quantize → truncate to ``bits`` → dequantize, in float32."""
+    qt = quantize_int16(x, axis=axis)
+    return qt.bit_plane(bits).float() * qt.plane_scale(bits)

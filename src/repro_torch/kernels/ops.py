@@ -28,6 +28,7 @@ slice of the port.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -88,9 +89,12 @@ def select_from_scores(
     key_block: int = 128,
     keep_first: bool = True,
     keep_diagonal: bool = True,
+    keep_all: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B9's block maxima → survivor table: the deferred rescale, two
-    Eq. 3 rounds, the keep-first / diagonal pins and top-B."""
+    Eq. 3 rounds (none with ``keep_all``: ρ ≤ 1 keeps every valid block,
+    as the chunked path's selection does; the direct path never sets
+    it), the keep-first / diagonal pins and top-B."""
     lo, hi = round_bits
     n_qb, n_kb = s0.shape[-2:]
     # factors deferred from the kernel, in the reference's order: the
@@ -103,8 +107,9 @@ def select_from_scores(
 
     blk_valid = s0 > NEG_INF / 2
     keep = blk_valid
-    keep = keep & (s0 >= flt.eq3_threshold(s0, alphas[0], keep))
-    keep = keep & (s1 >= flt.eq3_threshold(s1, alphas[1], keep))
+    if not keep_all:
+        keep = keep & (s0 >= flt.eq3_threshold(s0, alphas[0], keep))
+        keep = keep & (s1 >= flt.eq3_threshold(s1, alphas[1], keep))
     if keep_first:
         keep = keep.clone()
         keep[..., 0] = blk_valid[..., 0]
@@ -134,6 +139,7 @@ def mpmrf_select_blocks(
     q_offset: int = 0,
     keep_first: bool = True,
     keep_diagonal: bool = True,
+    keep_all: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Filtering Unit: quantize → B9 → block selection.
 
@@ -155,7 +161,7 @@ def mpmrf_select_blocks(
         s0, s1, k_scale, round_bits=round_bits, alphas=alphas,
         block_budget=block_budget, query_block=query_block,
         key_block=key_block, keep_first=keep_first,
-        keep_diagonal=keep_diagonal,
+        keep_diagonal=keep_diagonal, keep_all=keep_all,
     )
 
 
@@ -232,6 +238,40 @@ def energon_block_attention(
     ``[bh, n, d]`` operands, differentiable in q, k and v."""
     return _EnergonBlockAttention.apply(
         q, k, v, block_budget, query_block, key_block, causal
+    )
+
+
+def chunked_block_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    round_bits: Tuple[int, ...] = (2, 4),
+    alphas: Tuple[float, ...] = (0.0, 0.0),
+    pruning_ratio: float = 4.0,
+    query_block: int = 128,
+    key_block: int = 128,
+    causal: bool = True,
+    q_offset: int = 0,
+    keep_first: bool = True,
+    keep_diagonal: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The chunked path's block pipeline through the kernels: B9 →
+    selection (``keep_all`` at ρ ≤ 1) → B10 over ``[bh, n, d]``, the
+    same survivor table as ``core.chunked_attention``'s scan and the
+    same attention without any ``[n_q, n_k]`` tensor."""
+    n_kb = k.shape[-2] // key_block
+    idx, val = mpmrf_select_blocks(
+        q, k, round_bits=round_bits, alphas=alphas,
+        block_budget=max(1, math.ceil(n_kb / pruning_ratio)),
+        query_block=query_block, key_block=key_block, causal=causal,
+        q_offset=q_offset, keep_first=keep_first,
+        keep_diagonal=keep_diagonal, keep_all=pruning_ratio <= 1.0,
+    )
+    return block_sparse_attention(
+        q, k, v, idx, val, query_block=query_block, key_block=key_block,
+        causal=causal, q_offset=q_offset, scale=scale,
     )
 
 

@@ -475,6 +475,17 @@ def gather_logical_scales(
     return scale_pool[:, block_table.long()].movedim(1, 0)
 
 
+def compose_physical_blocks(
+    block_table: torch.Tensor, logical_indices: torch.Tensor
+) -> torch.Tensor:
+    """Survivor table ∘ block table: ``[B, mb]`` and logical block ids
+    ``[B, ..., budget]`` → the physical pages, same shape as the ids."""
+    bt = block_table.reshape(
+        block_table.shape[:1] + (1,) * (logical_indices.dim() - 2)
+        + block_table.shape[-1:])
+    return torch.take_along_dim(bt.long(), logical_indices.long(), dim=-1)
+
+
 def paged_row_targets(
     positions: torch.Tensor,
     block_table: torch.Tensor,

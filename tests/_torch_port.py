@@ -78,3 +78,29 @@ def dense_decode_twins(device, batch=3, heads=2, g=3, d=16, ps=8, mb=4,
         q, {"k": pool(k), "v": pool(v)}, table, cl, cfg, layer_index=0)
     unpaged = energon_decode_attention(q, k, v, cl, cfg, layer_index=0)
     return paged, unpaged, pgc.gather_logical_rows(pool(k), table, ps), k
+
+
+def chunked_tables(q, k, *, pruning_ratio, query_block, key_block,
+                   q_offset=0):
+    """The survivor tables of the chunked path's two routes on ``[B, H,
+    n, d]`` q/k (default rounds): the kernel route's
+    (``ops.mpmrf_select_blocks`` over ``[B·H, n, d]``, ``keep_all`` at
+    ρ ≤ 1) and the torch scan's, each ``[B·H, n_qb, budget]``."""
+    import math
+
+    from repro_torch.core import chunked_attention as chk
+    from repro_torch.kernels import ops
+
+    b, h, n_q, d = q.shape
+    budget = max(1, math.ceil(k.shape[-2] // key_block / pruning_ratio))
+    kw = dict(block_budget=budget, query_block=query_block,
+              key_block=key_block, keep_all=pruning_ratio <= 1.0)
+    kernel = ops.mpmrf_select_blocks(
+        q.reshape(b * h, n_q, d), k.reshape(b * h, -1, d),
+        q_offset=q_offset, **kw)
+    scan = chk.select_blocks_from_scores(
+        *chk.mpmrf_block_scores_chunked(
+            q, k, (2, 4), query_block=query_block, key_block=key_block,
+            q_offset=q_offset),
+        alphas=(0.0, 0.0), **kw)
+    return kernel, tuple(x.reshape(kernel[0].shape) for x in scan)

@@ -26,6 +26,7 @@ counts, the plain steps' streams and launches) and a chaos drain
 
 import dataclasses
 import gc
+import importlib
 
 import numpy as np
 import pytest
@@ -34,7 +35,7 @@ import torch
 from repro_torch.kernels import gather_within_tolerance
 # by its own name, from this directory (pytest puts it on the path): on
 # the GPU machine ``tests`` can name another installed package
-from _torch_port import dense_decode_twins
+from _torch_port import chunked_tables, dense_decode_twins
 
 pytestmark = pytest.mark.gpu
 
@@ -984,3 +985,181 @@ def test_a_graphed_step_needs_the_live_rows(smoke_bf16, paged, method, live):
     with pytest.raises(ValueError, match=f"needs inputs\\['{live}'\\]"):
         step.prepare(params, cache, inputs, index)
     assert step.captures == 0
+
+
+# --------------------------------------------------------------------------
+# the chunked kernel route, XLA ≡ fused selection, the XLA serve steps
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d,n,q_offset,ratio", [
+    (128, 4096, 0, 4.0), (128, 4096, 2048, 4.0), (64, 3072, 0, 2.0),
+    (128, 2560, 0, 1.0),
+])
+def test_chunked_kernel_route_equals_scan(cuda, d, n, q_offset, ratio):
+    """Past the threshold: B9 → selection → B10 against the torch scan
+    on bf16 operands — the survivor tables bit for bit, the outputs
+    within the gather tolerance (both keep P at f32); B11 against the
+    scan's dense chunks the same way."""
+    from repro_torch.core import chunked_attention as chk
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=cuda).manual_seed(n + d)
+    b, h = 1, 4
+    q = torch.randn((b, h, n - q_offset, d), generator=gen, device=cuda
+                    ).to(torch.bfloat16)
+    k, v = (torch.randn((b, h, n, d), generator=gen, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    kw = dict(pruning_ratio=ratio, query_block=128, key_block=64,
+              q_offset=q_offset)
+    ref = chk.energon_block_attention_chunked(q, k, v, **kw)
+    flat = lambda x: x.reshape(b * h, -1, d)
+    out = ops.chunked_block_attention(flat(q), flat(k), flat(v), **kw)
+    (kidx, kval), (idx, val) = chunked_tables(
+        q, k, pruning_ratio=ratio, query_block=128, key_block=64,
+        q_offset=q_offset)
+    assert torch.equal(kidx, idx) and torch.equal(kval, val)
+    assert gather_within_tolerance(out.float(), flat(ref).float())
+    dense = ops.flash_attention(flat(q), flat(k), flat(v), q_offset=q_offset)
+    dref = chk.dense_attention_chunked(q, k, v, q_offset=q_offset)
+    assert gather_within_tolerance(dense.float(), flat(dref).float())
+
+
+def _random_cache(cuda, *, batch=3, heads=2, n_k=1024, d=128, bk=64,
+                  seed=0):
+    from repro_torch.core import quantization as qlib
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    k, v = (torch.randn((batch, heads, n_k, d), generator=gen, device=cuda
+                        ).to(torch.bfloat16) for _ in range(2))
+    codes, scale = qlib.quantize_int16_blocks(k, bk)
+    mb = n_k // bk
+    table = torch.randperm(batch * mb, generator=gen, device=cuda).reshape(
+        batch, mb).to(torch.int32)
+    inv = torch.empty(batch * mb, dtype=torch.long, device=cuda)
+    inv[table.reshape(-1).long()] = torch.arange(batch * mb, device=cuda)
+
+    def pool(x):                 # [B, KV, n_k, ...] → [KV, pages·bk, ...]
+        x = x.reshape(batch, heads, mb, bk, -1).movedim(1, 0).reshape(
+            heads, batch * mb, bk, -1)[:, inv]
+        return x.reshape(heads, batch * mb * bk, -1)
+
+    cache = {"k": pool(k), "v": pool(v),
+             "k_codes": pool(codes),
+             "k_scale": scale.movedim(1, 0).reshape(heads, -1)[:, inv]}
+    return gen, k, v, codes, scale, table, cache
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "unpaged"])
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_xla_selection_equals_the_fused_kernels(cuda, monkeypatch, paged,
+                                                kind):
+    """``impl="mpmrf_block"`` (the XLA paths) and ``impl="pallas"`` (the
+    fused kernels) on the same cache select the same survivor blocks, bit
+    for bit, at the serving shapes' key blocks (64) and G = 5."""
+    from repro_torch.core import EnergonConfig
+    from repro_torch.core import sparse_attention as spa
+    from repro_torch.kernels import mpmrf_decode as dk
+    from repro_torch.kernels import mpmrf_prefill as pk
+
+    ea_mod = importlib.import_module("repro_torch.core.energon_attention")
+    gen, k, v, codes, scale, table, cache = _random_cache(cuda, seed=3)
+    batch, heads, n_k, d = k.shape
+    seen = {}
+
+    def hook(mod, name, key, pick):
+        real = getattr(mod, name)
+
+        def hooked(*a, **kw):
+            seen[key] = pick(a, kw)
+            return real(*a, **kw)
+
+        monkeypatch.setattr(mod, name, hooked)
+
+    if kind == "decode":
+        g = 5
+        q = torch.randn((batch, heads, g, d), generator=gen, device=cuda
+                        ).to(torch.bfloat16)
+        cl = torch.tensor([1, 700, n_k], dtype=torch.int32, device=cuda)
+        if paged:
+            hook(dk, "paged_decode_gather_attention", "fused",
+                 lambda a, kw: (a[3], a[4]))
+            hook(spa, "paged_decode_block_gather_attention", "xla",
+                 lambda a, kw: (a[3], a[4]))
+        else:
+            hook(dk, "decode_gather_attention", "fused",
+                 lambda a, kw: (a[3], a[4]))
+            hook(spa, "decode_block_gather_attention", "xla",
+                 lambda a, kw: (a[3], a[4]))
+        for impl in ("pallas", "mpmrf_block"):
+            cfg = EnergonConfig(impl=impl, key_block=64, decode_key_block=64,
+                                min_prune_layer=0)
+            if paged:
+                ea_mod.energon_paged_decode_attention(q, cache, table, cl,
+                                                      cfg)
+            else:
+                ea_mod.energon_decode_attention(
+                    q, k, v, cl, cfg,
+                    filter_cache={"codes": codes, "scale": scale})
+    else:
+        n_q = 5 * 128
+        q = torch.randn((batch, heads, n_q, d), generator=gen, device=cuda
+                        ).to(torch.bfloat16)
+        start = torch.tensor([0, 300, n_k - 128], device=cuda)
+        qpos = (start[:, None] + torch.arange(128, device=cuda)).repeat(
+            1, 5)
+        qpos = torch.where(qpos < n_k, qpos, n_k).to(torch.int32)
+        qpos[0, 100:128] = n_k                 # a ragged chunk's sentinels
+        if paged:
+            hook(pk, "paged_prefill_gather_attention", "fused",
+                 lambda a, kw: (a[4], a[5]))
+        else:
+            hook(pk, "prefill_gather_attention", "fused",
+                 lambda a, kw: (a[4], a[5]))
+        hook(spa, "block_gather_attention", "xla",
+             lambda a, kw: (a[3], kw["block_valid"]))
+        for impl in ("pallas", "mpmrf_block"):
+            cfg = EnergonConfig(impl=impl, key_block=64, decode_key_block=64,
+                                query_block=128, min_prune_layer=0)
+            if paged:
+                ea_mod.energon_paged_prefill_attention(q, cache, table, qpos,
+                                                       cfg)
+            else:
+                ea_mod.energon_attention(
+                    q, k, v, cfg, q_positions=qpos,
+                    filter_cache={"codes": codes, "scale": scale})
+    f_idx, f_val = seen["fused"]
+    x_idx, x_val = seen["xla"]
+    # a padded slot points at block 0 on both paths
+    assert torch.equal(f_idx, x_idx.reshape(f_idx.shape))
+    assert torch.equal(f_val, x_val.reshape(f_val.shape))
+
+
+@pytest.fixture(scope="module")
+def smoke_bf16_block():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs.registry import get_serve_config
+    from repro_torch.models import LMModel
+
+    base = get_serve_config("qwen3-14b", smoke=True)
+    cfg = dataclasses.replace(base, dtype="bfloat16", energon=(
+        dataclasses.replace(base.energon, impl="mpmrf_block")))
+    model = LMModel(cfg, device="cuda")
+    return cfg, model, model.init(seed=1)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(paged=False)],
+                         ids=["paged", "unpaged"])
+def test_graphed_xla_drain_equals_eager(smoke_bf16_block, kw):
+    """``impl="mpmrf_block"`` (the reference's default: the XLA selection
+    and gather paths, no kernel) replayed from CUDA graphs equals its
+    eager steps bit for bit: streams, cache, and no kernel launched."""
+    eager, eager_cache, eager_n, _ = _drain_twice(smoke_bf16_block, False,
+                                                  **kw)
+    graphed, cache, n, eng = _drain_twice(smoke_bf16_block, True, **kw)
+    assert [s.captures for s in eng.graphs] == [1, 1]
+    assert graphed == eager and len(graphed) == 10
+    for key in eager_cache:
+        assert torch.equal(cache[key], eager_cache[key]), key
+    assert sum(n.values()) == sum(eager_n.values()) == 0

@@ -39,6 +39,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.models import LMModel
 from repro_torch.models import layers as tlayers
 from tests._torch_port import jax_energon, jax_model_config, n, t
+from tests.test_torch_xla_paths import _normal
 
 BH, N, D, BLK = 4, 64, 16, 16
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -248,7 +249,14 @@ def test_lm_model_apply_and_loss_match_reference():
     "kv_length", "mpmrf_block", "mpmrf_row",
 ])
 def test_off_path_full_sequence_calls_raise(case):
-    cfg = EnergonConfig(impl="pallas", query_block=BLK, key_block=BLK)
+    """The full-sequence calls off the B9 + B10 kernels, which the port
+    once refused, now take the reference's branch — the row fallback
+    (ragged, one key block), the chunked path, the XLA block path
+    (window, kv_length) and the XLA impls — and match the JAX
+    ``energon_attention`` on the same inputs (the name is kept from the
+    refusal test these cases replace)."""
+    cfg = EnergonConfig(impl="pallas", query_block=BLK, key_block=BLK,
+                        pruning_ratio=2.0)
     length, kw = N, {}
     if case == "ragged":
         length = N - 8
@@ -259,9 +267,26 @@ def test_off_path_full_sequence_calls_raise(case):
     elif case == "window":
         kw = dict(window=32)
     elif case == "kv_length":
-        kw = dict(kv_length=torch.full((2,), N - 3))
+        kw = dict(kv_length=np.full((2,), N - 3, np.int32))
     else:
         cfg = dataclasses.replace(cfg, impl=case)
-    q, k, v = (t(x) for x in _qkv(10, (2, 2, length, D)))
-    with pytest.raises(NotImplementedError, match="full-sequence call"):
-        energon_attention(q, k, v, cfg, layer_index=5, **kw)
+    # exact-sum inputs: the row selections' Eq. 3 sums are exact, so no
+    # tie on θ flips with the summation order
+    q, k, v = _normal(10, *[(2, 2, length, D)] * 3)
+    jcfg = jax_energon(cfg)
+    arrays = {k_: jnp.asarray(v_) for k_, v_ in kw.items()
+              if isinstance(v_, np.ndarray)}
+    statics = {k_: v_ for k_, v_ in kw.items() if k_ not in arrays}
+    ref = jax.jit(lambda q, k, v, a: j_energon_attention(
+        q, k, v, jcfg, layer_index=5, **statics, **a))(q, k, v, arrays)
+    out = energon_attention(
+        t(q), t(k), t(v), cfg, layer_index=5,
+        **{k_: (t(v_) if isinstance(v_, np.ndarray) else v_)
+           for k_, v_ in kw.items()})
+    np.testing.assert_allclose(n(out), n(ref), **TOL)
+
+
+def test_unknown_impl_raises():
+    q, k, v = (t(x) for x in _qkv(10, (2, 2, N, D)))
+    with pytest.raises(ValueError, match="unknown Energon impl"):
+        energon_attention(q, k, v, EnergonConfig(impl="bogus"), layer_index=5)

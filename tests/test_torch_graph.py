@@ -3,7 +3,9 @@ the CPU at the serve-smoke size (the card's graphed ≡ eager checks are
 in ``test_torch_cuda.py``).
 
 * No host sync: ``LMModel.decode_step`` and ``prefill``, paged and
-  contiguous, run under a dispatch mode that fails on the ops that read
+  contiguous, with the fused kernels and on the XLA selection paths
+  (``mpmrf_block``, ``mpmrf_row``, pallas without resident planes), run
+  under a dispatch mode that fails on the ops that read
   a device value on the host or give a data-dependent shape (the
   parent's cache write plans made one ``nonzero`` per call, which CUDA
   graph capture refuses).
@@ -121,6 +123,32 @@ class HostSyncGuard(TorchDispatchMode):
 def test_serve_steps_make_no_host_sync(smoke, paged, method):
     _, model, params = smoke
     cache, pre, zero, dec, index = _filled(model, params, paged)
+    inputs, idx = (dec, index) if method == "decode_step" else (pre, zero)
+    with HostSyncGuard() as guard:
+        logits, _ = getattr(model, method)(params, cache, inputs, idx)
+    assert guard.seen == []
+    assert torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "unpaged"])
+@pytest.mark.parametrize("method", ["decode_step", "prefill"])
+@pytest.mark.parametrize("impl", ["mpmrf_block", "mpmrf_row",
+                                  "pallas_fresh"])
+def test_xla_serve_steps_make_no_host_sync(paged, method, impl):
+    """The same guard over the reference's XLA selection paths: the
+    block impl (resident planes), the row impl and pallas without
+    resident planes (the XLA block path, fresh quantization)."""
+    import dataclasses
+
+    cfg = get_serve_config("qwen3-14b", smoke=True)
+    over = (dict(impl="pallas", filter_cache_min_len=None)
+            if impl == "pallas_fresh" else dict(impl=impl))
+    cfg = dataclasses.replace(cfg, energon=dataclasses.replace(
+        cfg.energon, **over))
+    model = LMModel(cfg, device="cpu")
+    params = model.init(seed=0)
+    cache, pre, zero, dec, index = _filled(model, params, paged)
+    assert ("k_codes" in cache) == (impl == "mpmrf_block")
     inputs, idx = (dec, index) if method == "decode_step" else (pre, zero)
     with HostSyncGuard() as guard:
         logits, _ = getattr(model, method)(params, cache, inputs, idx)

@@ -6,8 +6,9 @@ In-port contracts, with stochastic requests in the mix: hybrid ≡ sync,
 shared ≡ unshared, and preempted (tight pool) ≡ ample pool — each
 request's stream must not depend on the schedule. Last, the
 full-width serving config's shape rules, at a narrow width: the launcher's
-defaults run every layer through the fused kernels, and ``ServeLoop``
-refuses shapes that would leave them."""
+defaults run every layer through the fused kernels, shapes the fused
+kernels do not take run the reference's fallbacks, and ``ServeLoop``
+refuses what would fail mid-run."""
 
 import dataclasses
 
@@ -153,16 +154,60 @@ def test_serve_launcher_defaults_run_the_fused_kernels(monkeypatch):
     assert calls["decode"] == engine.metrics.decode_dispatches > 0
 
 
-@pytest.mark.parametrize("max_len, chunk, fault", [
-    (128, 128, "filter planes"),
-    (4096, 64, "query_block 128 must divide the 320"),
-    (4096, 256, "chunk_threshold"),
+@pytest.mark.parametrize("impl, max_len, chunk, fault", [
+    ("pallas", 4096, 256, "dense layers would mask 1280 folded rows"),
+    ("mpmrf_block", 4096, 256, "prefill layers off the fused kernels"),
+    ("bogus", 4096, 128, "impl='bogus' is not one of"),
 ])
-def test_serve_loop_refuses_shapes_off_the_path(max_len, chunk, fault):
-    model = LMModel(_narrow_full_config(), device="cpu")
+def test_serve_loop_refuses_shapes_off_the_path(impl, max_len, chunk, fault):
+    """What still fails mid-run is refused up front: a prefill chunk
+    whose layers off the fused kernels (the dense prefix; every layer of
+    the XLA impls) would mask past ``chunk_threshold``, and an unknown
+    impl. Shapes the fused kernels do not take now take the reference's
+    fallbacks (``test_serve_loop_serves_shapes_off_the_fused_kernels``)."""
+    cfg = _narrow_full_config()
+    cfg = dataclasses.replace(cfg, energon=dataclasses.replace(
+        cfg.energon, impl=impl))
+    model = LMModel(cfg, device="cpu")
     with pytest.raises(ValueError, match=fault):
         ServeLoop(model, model.init(), max_len=max_len, prefill_chunk=chunk,
                   device="cpu")
+
+
+def _count_fused(monkeypatch, names):
+    calls = {name: 0 for name in names}
+    for name in names:
+        real = getattr(kops, name)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(kops, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("max_len, chunk, fused", [
+    # no resident planes below 1024 rows: the XLA block path, fresh
+    # quantization, in prefill and decode
+    (128, 128, ()),
+    # 320 folded rows do not divide into query blocks of 128: prefill
+    # falls back to the row path, decode stays fused
+    (4096, 64, ("fused_paged_decode_attention",)),
+])
+def test_serve_loop_serves_shapes_off_the_fused_kernels(monkeypatch, max_len,
+                                                        chunk, fused):
+    calls = _count_fused(monkeypatch, ("fused_paged_prefill_attention",
+                                       "fused_paged_decode_attention"))
+    cfg = dataclasses.replace(_narrow_full_config(), num_layers=3)
+    model = LMModel(cfg, device="cpu")
+    engine = ServeLoop(model, model.init(), batch_slots=1, max_len=max_len,
+                       prefill_chunk=chunk, eos_token=-1, device="cpu")
+    engine.submit(Request(uid=0, prompt=list(range(1, 71)),
+                          max_new_tokens=2))
+    done = engine.run_until_drained()
+    assert [len(r.tokens_out) for r in done] == [2]
+    assert {k for k, v in calls.items() if v} == set(fused)
 
 
 @pytest.mark.parametrize("model_overrides, energon_overrides, fault", [

@@ -564,13 +564,18 @@ def test_serve_launcher_unpaged_runs_the_fused_kernels(monkeypatch):
 
 
 @pytest.mark.parametrize("overrides, max_len, chunk, fault", [
-    ({}, 128, 128, "filter planes"),
-    ({}, 4096, 64, "query_block 128 must divide the 320"),
-    ({}, 4096, 256, "chunk_threshold"),
-    ({"key_block": 128}, 4100, 128, "two or more key blocks of 128"),
+    ({}, 4096, 256, "dense layers would mask 1280 folded rows"),
+    ({"impl": "mpmrf_block"}, 4096, 256,
+     "prefill layers off the fused kernels"),
+    ({"impl": "mpmrf_row"}, 4096, 256, "prefill layers off the fused"),
+    ({"impl": "bogus"}, 4096, 128, "impl='bogus' is not one of"),
 ])
 def test_unpaged_refuses_shapes_off_the_path(overrides, max_len, chunk,
                                              fault):
+    """What still fails mid-run is refused up front (the chunk_threshold
+    masks of the layers off the fused kernels, an unknown impl); shapes
+    the fused kernels do not take run the reference's fallbacks
+    (``test_unpaged_serves_shapes_off_the_fused_kernels``)."""
     cfg = narrow_full_config()
     cfg = dataclasses.replace(cfg, energon=dataclasses.replace(
         cfg.energon, **overrides))
@@ -578,6 +583,40 @@ def test_unpaged_refuses_shapes_off_the_path(overrides, max_len, chunk,
     with pytest.raises(ValueError, match=fault):
         ServeLoop(model, model.init(), max_len=max_len, prefill_chunk=chunk,
                   paged=False, device="cpu")
+
+
+@pytest.mark.parametrize("overrides, max_len, chunk, fused", [
+    # no resident planes below 1024 rows: the XLA block paths
+    ({}, 128, 128, ()),
+    # 320 folded rows off the query blocks: row prefill, fused decode
+    ({}, 4096, 64, ("fused_decode_attention",)),
+    # 4160 rows are not whole key blocks of 128: row prefill; decode
+    # blocks of 64 stay fused
+    ({"key_block": 128}, 4100, 128, ("fused_decode_attention",)),
+])
+def test_unpaged_serves_shapes_off_the_fused_kernels(monkeypatch, overrides,
+                                                     max_len, chunk, fused):
+    calls = {}
+    for name in ("fused_prefill_attention", "fused_decode_attention"):
+        real = getattr(tops, name)
+        calls[name] = 0
+
+        def counted(*a, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(tops, name, counted)
+    cfg = dataclasses.replace(narrow_full_config(), num_layers=3)
+    cfg = dataclasses.replace(cfg, energon=dataclasses.replace(
+        cfg.energon, **overrides))
+    model = LMModel(cfg, device="cpu")
+    engine = ServeLoop(model, model.init(), batch_slots=1, max_len=max_len,
+                       prefill_chunk=chunk, paged=False, eos_token=-1,
+                       device="cpu")
+    engine.submit(Request(uid=0, prompt=list(range(1, 71)),
+                          max_new_tokens=2))
+    assert [len(r.tokens_out) for r in engine.run_until_drained()] == [2]
+    assert {k for k, v in calls.items() if v} == set(fused)
 
 
 def test_unpaged_refuses_prefix_sharing(models):
