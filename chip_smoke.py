@@ -177,14 +177,43 @@ weights:
     ``ops.mpmrf_select_blocks``' (B9) bit for bit; the loss beside phase
     12's.
 
+The other dense configs, at published widths (random bf16 weights from
+seed 0), once qwen3-14b is released, each model released before the
+next:
+
+17. ``[starcoder2-serve]``: starcoder2-7b (LayerNorm, GELU, G = 9)
+    served as phase 4 (8 × 2048-token prompts, 256 shared, 32 greedy
+    tokens, chunk 128, graphed) but at max_len 3584: its dense prefix
+    layers mask ``[G·chunk, max_len]`` = ``[1152, max_len]``, within
+    ``chunk_threshold`` only up to 3640 rows. B1–B4 launch once per
+    layer 2–31 and dispatch; the streams' sha1; B1–B4 held against
+    their plain versions on layer 2's live pool (1152 folded rows a
+    chunk); decode ticks under the profiler
+    (``[profile-decode-starcoder2]``). ``[starcoder2-score]``: ``loss`` over 4 × 2048 tokens (B9 /
+    B10 on layers 2–31, 36 heads), then B9–B11 on layer 2's q/k/v.
+18. ``[gemma3-serve]``: gemma3-27b (GeGLU, the tied head, 5 windowed : 1
+    global layer, G = 2) with 4 slots, max_len 2048, 4 × 1536-token
+    prompts (past the window of 1024): B1–B4 on the 10 global layers
+    (5, 11, …, 59), the XLA paths on the 50 windowed layers past the
+    prefix; B1–B4 held against their plain versions on layer 5's live
+    pool; ``[profile-decode-gemma3]``. ``[gemma3-score]``: ``loss`` over 1 × 2048 (B9 / B10 on the
+    global layers, the direct XLA block path on the windowed ones),
+    then B9–B11 on layer 5's q/k/v.
+19. ``[phi3]``: phi3-mini-3.8b (head dim 96) on its shipped
+    ``mpmrf_block``: a short serve (4 × 1024 tokens, 16 new) and ``loss``
+    over 2 × 2048, no kernel launched; then a ``ServeLoop`` over it with
+    the fused path's config (2 layers) refused at construction, naming
+    the head dim, before any launch.
+
 The line before last is a JSON object listing each kernel's launches
-(B1–B4 in phase 4, B5–B8 in phase 8, B9–B11 in phase 15), error and
+(B1–B4 in phase 4, B5–B8 in phase 8, B9–B11 in phase 15; those of
+phases 17–18 beside them), error and
 times (those of the live pool, the captured layer or, B9–B11, the long
 score's layer 2; ``random`` holds phase 2's, 7's or 10's) and each time
 over its bound (``ms_over_bound``); the eager/graphed drains, the
 scoring results (with the ptxas report), the unpaged serve and the paged
-serve, the telemetry and chaos phases and the long-score / XLA phases
-are on the lines before it; the last line is
+serve, the telemetry and chaos phases, the long-score / XLA phases and
+the dense configs' phases are on the lines before it; the last line is
 ``{"ok": true, "device": ...}``.
 Any failure exits non-zero before printing either.
 """
@@ -1007,9 +1036,26 @@ def small_reference_check():
          f"small model logits differ by {rel:.3e} of their norm")
 
 
+def layer_paths(model):
+    """How a model's layers split over the attention dispatch: (the dense
+    prefix, the layers on the fused kernels, the sparse layers off them).
+    The fused kernels take global layers past the prefix with impl
+    "pallas"; windowed layers take the XLA paths."""
+    cfg = model.cfg
+    prefix = cfg.energon.min_prune_layer
+    windows = model.layer_windows() or [0] * cfg.num_layers
+    fused = (sum(1 for w in windows[prefix:] if w == 0)
+             if cfg.energon.impl == "pallas" else 0)
+    return prefix, fused, cfg.num_layers - prefix - fused
+
+
 def serve_full_width(cfg, *, seed=0, n_req=8, prompt_len=2048,
                      system_len=SYSTEM_LEN, new_tokens=32, max_len=4096,
-                     chunk=128):
+                     chunk=128, label="serve"):
+    """Serve ``n_req`` prompts through a graphed paged ``ServeLoop`` on a
+    model at ``cfg``'s widths (launch counts zeroed just before run 1,
+    read just after: B1–B4 once per fused layer and dispatch, the rest
+    never), then the same prompts again off the prefix cache."""
     import numpy as np
     import torch
 
@@ -1021,7 +1067,7 @@ def serve_full_width(cfg, *, seed=0, n_req=8, prompt_len=2048,
     model = LMModel(cfg, device=DEV)
     params = model.init(seed=seed)
     sync()
-    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model "
+    log(f"[{label}] {cfg.name}: {cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.num_heads}H/{cfg.num_kv_heads}KV, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype} weights "
         f"{mem_gb(torch.cuda.memory_allocated)} GB, init "
@@ -1032,7 +1078,8 @@ def serve_full_width(cfg, *, seed=0, n_req=8, prompt_len=2048,
     )
     need(engine.cuda_graphs, "the engine does not replay CUDA graphs")
     engine.capture_graphs()
-    log_graphs("[graph] paged engine", engine)
+    graph = log_graphs("[graph] paged engine" if label == "serve"
+                       else f"[graph] {label} engine", engine)
     rng = np.random.default_rng(seed)
     system = rng.integers(1, cfg.vocab_size - 1, size=system_len).tolist()
     prompts = [system + rng.integers(1, cfg.vocab_size - 1,
@@ -1055,7 +1102,7 @@ def serve_full_width(cfg, *, seed=0, n_req=8, prompt_len=2048,
     launches = dict(_build.launch_counts)
     m = engine.metrics
     lat = m.latency_stats()
-    log(f"[serve] run 1: {len(done)} requests drained in {wall:.2f} s; "
+    log(f"[{label}] run 1: {len(done)} requests drained in {wall:.2f} s; "
         f"prefill {m.prefill_tokens} tok in {m.prefill_time:.3f} s "
         f"({m.prefill_tokens_per_sec:.1f} tok/s), decode {m.decode_tokens} "
         f"tok in {m.decode_time:.3f} s ({m.decode_tokens_per_sec:.1f} tok/s); "
@@ -1063,12 +1110,14 @@ def serve_full_width(cfg, *, seed=0, n_req=8, prompt_len=2048,
         f" ms, itl p50/p95 {lat['itl_p50'] * 1e3:.2f}/"
         f"{lat['itl_p95'] * 1e3:.2f} ms; peak {m.peak_pages_in_use} pages, "
         f"peak device memory {mem_gb(torch.cuda.max_memory_allocated)} GB")
-    log(f"[serve] run 1 kernel launches: {json.dumps(launches)}")
+    log(f"[{label}] run 1 kernel launches: {json.dumps(launches)}")
     run1 = dict(
         prefill_tok_s=m.prefill_tokens_per_sec,
         decode_tok_s=m.decode_tokens_per_sec, wall_s=wall,
         ttft_p50_ms=lat["ttft_p50"] * 1e3, ttft_p95_ms=lat["ttft_p95"] * 1e3,
         itl_p50_ms=lat["itl_p50"] * 1e3, itl_p95_ms=lat["itl_p95"] * 1e3,
+        peak_memory_gb=float(mem_gb(torch.cuda.max_memory_allocated))
+        if DEV == "cuda" else None,
     )
     need(len(done) == n_req and all(r.done for r in done),
          "not every request drained")
@@ -1076,19 +1125,34 @@ def serve_full_width(cfg, *, seed=0, n_req=8, prompt_len=2048,
          f"a request stopped short of {new_tokens} tokens")
     need(m.failed_requests == 0,
          f"{m.failed_requests} requests quarantined (non-finite logits)")
-    for name in SERVE_KERNELS:
-        need(launches[name] > 0,
-             f"kernel {name} never launched on the serving path")
+    prefix, fused, off = layer_paths(model)
+    per = {"mpmrf_paged_filter_scores": m.decode_dispatches,
+           "paged_decode_gather_attention": m.decode_dispatches,
+           "mpmrf_paged_prefill_filter_scores": m.prefill_dispatches,
+           "paged_prefill_gather_attention": m.prefill_dispatches}
+    for name, n_calls in per.items():
+        need(n_calls > 0 and launches[name] == fused * n_calls,
+             f"{name} launched {launches[name]} times, not {fused} fused "
+             f"layers × {n_calls} dispatches")
     for name in UNPAGED_KERNELS + SCORE_KERNELS:
         need(launches[name] == 0, f"{name} launched on the paged path")
+    log(f"[{label}] run 1 paths: {prefix} dense prefix layers, {fused} "
+        f"layers on the fused kernels (B1/B2 {fused} × "
+        f"{m.decode_dispatches} decode steps, B3/B4 {fused} × "
+        f"{m.prefill_dispatches} prefill waves), {off} sparse layers on "
+        f"the XLA paths")
+    run1.update(graph=graph, dense_layers=prefix, fused_layers=fused,
+                xla_layers=off,
+                decode_dispatches=m.decode_dispatches,
+                prefill_dispatches=m.prefill_dispatches)
     streams1 = {r.uid: list(r.tokens_out) for r in done}
-    log(f"[serve] run 1 greedy streams, sha1 (to compare two trees' "
+    log(f"[{label}] run 1 greedy streams, sha1 (to compare two trees' "
         f"runs): {streams_digest(streams1)}")
 
     pf_tok, pf_time = m.prefill_tokens, m.prefill_time
     done2, wall2 = drive(100)
     streams2 = {r.uid - 100: list(r.tokens_out) for r in done2}
-    log(f"[serve] run 2 (same prompts, prefix cache warm): {len(done2)} "
+    log(f"[{label}] run 2 (same prompts, prefix cache warm): {len(done2)} "
         f"requests in {wall2:.2f} s; prefix hit-rate "
         f"{m.prefix_hit_rate:.2f}, {m.prefill_tokens_skipped} prefill tok "
         f"skipped, {m.prefill_tokens - pf_tok} recomputed in "
@@ -2118,11 +2182,13 @@ def small_scoring_check():
          f"small scoring logits differ by {rel:.3e} of their norm")
 
 
-def score_full_width(model, params, *, n_seq=4, seq_len=2048, seed=5):
+def score_full_width(model, params, *, n_seq=4, seq_len=2048, seed=5,
+                     label="score"):
     """``LMModel.loss`` over ``n_seq`` random sequences at full width, the
-    launch counts zeroed just before and read just after; then ``apply``
-    for the logits. Returns the results and the q/k/v (``[B·H, n, d]``)
-    that the first sparse layer handed to the kernels."""
+    launch counts zeroed just before and read just after (B9 and B10 once
+    per layer on the fused kernels, the rest never); then ``apply`` for
+    the logits. Returns the results and the q/k/v (``[B·H, n, d]``) that
+    the first such layer handed to the kernels (None if none did)."""
     import numpy as np
     import torch
 
@@ -2156,20 +2222,19 @@ def score_full_width(model, params, *, n_seq=4, seq_len=2048, seed=5):
     finally:
         ops.block_sparse_attention = real_bsa
     peak = mem_gb(torch.cuda.max_memory_allocated)
-    sparse_layers = cfg.num_layers - cfg.energon.min_prune_layer
+    _, sparse_layers, _ = layer_paths(model)
     tokens = n_seq * seq_len
-    log(f"[score] {cfg.name} LMModel.loss over {n_seq} × {seq_len} tokens "
+    log(f"[{label}] {cfg.name} LMModel.loss over {n_seq} × {seq_len} tokens "
         f"({cfg.num_layers} layers, impl {cfg.energon.impl!r}): loss "
         f"{float(loss):.4f} (exactly {float(loss)!r}) in {wall:.3f} s "
         f"({tokens / wall:.1f} tok/s), "
         f"peak device memory {peak} GB")
-    log(f"[score] kernel launches: {json.dumps(launches)}")
+    log(f"[{label}] kernel launches: {json.dumps(launches)}")
     need(bool(torch.isfinite(loss)), f"non-finite loss {float(loss)}")
     for name in ("mpmrf_filter_scores", "block_sparse_attention"):
         need(launches[name] == sparse_layers,
              f"{name} launched {launches[name]} times in scoring, not "
-             f"{sparse_layers} (layers {cfg.energon.min_prune_layer}–"
-             f"{cfg.num_layers - 1})")
+             f"{sparse_layers} (the layers on the fused kernels)")
     for name in SERVE_KERNELS + UNPAGED_KERNELS + ("flash_attention",):
         need(launches[name] == 0, f"{name} launched in scoring")
     need(float(metrics["tokens"]) == tokens, "loss counted the wrong tokens")
@@ -2181,7 +2246,7 @@ def score_full_width(model, params, *, n_seq=4, seq_len=2048, seed=5):
     need(tuple(logits.shape) == (n_seq, seq_len, cfg.vocab_size),
          f"logits shape {tuple(logits.shape)}")
     need(bool(torch.isfinite(logits).all()), "non-finite logits")
-    log(f"[score] LMModel.apply: logits {tuple(logits.shape)} f32, all "
+    log(f"[{label}] LMModel.apply: logits {tuple(logits.shape)} f32, all "
         f"finite, in {apply_wall:.3f} s (rms "
         f"{logits.pow(2).mean().sqrt().item():.3f})")
     del logits
@@ -2189,8 +2254,10 @@ def score_full_width(model, params, *, n_seq=4, seq_len=2048, seed=5):
                apply_wall_s=apply_wall, tokens=tokens, peak_memory_gb=peak,
                launches=launches)
     if DEV == "cuda":
-        out["profile"] = profile_scoring(model, params, batch)
-    return out, captured["qkv"]
+        out["profile"] = profile_scoring(
+            model, params, batch,
+            "profile-score" if label == "score" else f"profile-{label}")
+    return out, captured.get("qkv")
 
 
 def profile_scoring(model, params, batch, label="profile-score"):
@@ -2689,6 +2756,123 @@ def xla_serve(model, params, prompts, streams, *, seed=0, new_tokens=32,
 
 #: the sources of the tile-engine and filter-engine kernels, always
 #: rebuilt so that nvcc's -Xptxas -v report covers every instantiation
+#: the dense configs beside qwen3-14b: (arch, serve phase shapes, scoring
+#: sequences). starcoder2-7b's max_len is 3584, not 4096: its dense
+#: prefix layers mask [G·chunk, max_len] = [1152, max_len], within
+#: chunk_threshold (2048²) only up to 3640 rows; gemma3-27b's prompts
+#: outrun its window of 1024
+DENSE_PHASES = (
+    ("starcoder2-7b", dict(max_len=3584), dict(n_seq=4)),
+    ("gemma3-27b", dict(n_req=4, prompt_len=1536, max_len=2048),
+     dict(n_seq=1)),
+)
+
+
+def _free_device():
+    gc.collect()
+    if DEV == "cuda":
+        import torch
+
+        torch.cuda.empty_cache()
+
+
+def dense_config_phases(results, blocks):
+    """``[starcoder2-serve]`` / ``[starcoder2-score]`` and ``[gemma3-serve]``
+    / ``[gemma3-score]``: each config at published widths (random bf16
+    weights from seed 0) served through a graphed paged ``ServeLoop``
+    (B1–B4 on its layers on the fused kernels, the windowed layers on the
+    XLA paths), B1–B4 held against their plain versions on the live pool
+    of its first layer on the fused kernels, decode ticks under the
+    profiler (``[profile-decode-…]``), ``LMModel.loss`` (B9 / B10 on
+    those layers) and B9–B11 held against their plain versions on the
+    q/k/v that layer handed the kernels. Each model is released before
+    the next is built. Returns each phase's results and launches."""
+    from repro_torch.configs.registry import get_serve_config
+
+    out = {}
+    for arch, serve_kw, score_kw in DENSE_PHASES:
+        short = arch.split("-")[0]
+        engine, prompts, run1, launches, streams = serve_full_width(
+            get_serve_config(arch), label=f"{short}-serve", **serve_kw)
+        model, params = engine.model, engine.params
+        prefix, fused, _ = layer_paths(model)
+        windows = model.layer_windows() or [0] * model.cfg.num_layers
+        layer = next(i for i in range(prefix, len(windows))
+                     if windows[i] == 0)
+        check_case(live_pool_case(engine, prompts, layer),
+                   f"{short}-live-layer{layer}", results)
+        run1.update(launches=launches, streams_sha1=streams_digest(streams))
+        if DEV == "cuda":
+            run1["profile_decode"] = profile_decode(
+                engine, prompts[0][:SYSTEM_LEN],
+                n_req=serve_kw.get("n_req", 8),
+                prompt_len=serve_kw.get("prompt_len", 2048),
+                label=f"profile-decode-{short}")
+        del engine, prompts
+        _free_device()
+        scoring, (q, k, v) = score_full_width(
+            model, params, label=f"{short}-score", **score_kw)
+        scoring["captured"] = check_full_sequence(
+            q, k, v, f"{short}-captured-layer{layer}", results, **blocks)
+        out[f"{short}-serve"], out[f"{short}-score"] = run1, scoring
+        del model, params, q, k, v
+        _free_device()
+    out["phi3"] = phi3_phase()
+    return out
+
+
+def phi3_phase(n_req=4, prompt_len=1024, new_tokens=16, max_len=2048):
+    """``[phi3]``: phi3-mini-3.8b (head dim 96) at published widths on its
+    shipped ``mpmrf_block`` (the XLA paths): a short graphed serve and
+    ``LMModel.loss`` over 2 × 2048 tokens, no kernel launched in either;
+    then a ``ServeLoop`` over it with the fused path's config (2 layers)
+    refused at construction, naming the head dim, before any request or
+    launch."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.serving import on_fused_path
+    from repro_torch.kernels import _build
+    from repro_torch.models import LMModel
+    from repro_torch.runtime import ServeLoop
+
+    cfg = registry.get_serve_config("phi3-mini-3.8b")
+    need(cfg.energon.impl == "mpmrf_block" and cfg.head_dim == 96,
+         "phi3-mini's serving config is not its shipped mpmrf_block")
+    engine, _, run1, launches, _ = serve_full_width(
+        cfg, n_req=n_req, prompt_len=prompt_len, new_tokens=new_tokens,
+        max_len=max_len, label="phi3")
+    need(sum(launches.values()) == 0, "a kernel launched serving phi3")
+    model, params = engine.model, engine.params
+    del engine
+    _free_device()
+    scoring, qkv = score_full_width(model, params, n_seq=2, label="phi3")
+    need(qkv is None and sum(scoring["launches"].values()) == 0,
+         "a kernel launched scoring phi3")
+    del model, params
+    _free_device()
+
+    fused = dataclasses.replace(on_fused_path(registry.get_config(
+        "phi3-mini-3.8b")), num_layers=2)
+    model = LMModel(fused, device=DEV)
+    params = model.init(seed=0)
+    _build.reset_launch_counts()
+    try:
+        ServeLoop(model, params, batch_slots=n_req, max_len=max_len,
+                  prefill_chunk=128, eos_token=-1, device=DEV)
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+    need(refused is not None and "head_dim 96" in refused,
+         f"phi3's pallas engine was not refused for its head dim: "
+         f"{refused}")
+    need(sum(_build.launch_counts.values()) == 0,
+         "a kernel launched before the refusal")
+    log(f"[phi3] a pallas ServeLoop over phi3-mini (2 layers) refused at "
+        f"construction, no kernel launched: {refused}")
+    del model, params
+    _free_device()
+    return dict(serve=run1, score=scoring, pallas_refused=refused)
+
+
 ENGINE_SOURCES = ("mpmrf_decode", "mpmrf_prefill", "mpmrf_filter",
                   "block_sparse_attention", "flash_attention")
 #: the engines' kernels and their instantiation counts: head dims ×
@@ -2865,6 +3049,14 @@ def main(argv=None) -> int:
     del q, k, v
     xla_fs = xla_full(model, params, scoring["loss"])
 
+    # the other dense configs, once qwen3-14b is released
+    del model, params
+    _free_device()
+    log(f"[dense] qwen3-14b released: "
+        f"{mem_gb(torch.cuda.memory_allocated)} GB still allocated")
+    dense_results = {name: [] for name in KERNELS}
+    dense = dense_config_phases(dense_results, blocks)
+
     timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name, meta in KERNELS.items():
@@ -2875,7 +3067,10 @@ def main(argv=None) -> int:
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=run[name],
-            max_abs_err=max(r["err"] for r in entries),
+            launches_dense_configs={
+                phase: r["launches"][name] for phase, r in dense.items()
+                if "launches" in r},
+            max_abs_err=max(r["err"] for r in entries + dense_results[name]),
             **{k: main_run[k] for k in timed_keys},
             **{k: main_run[k] for k in ("device_ms", "library_device_ms")
                if k in main_run},
@@ -2895,6 +3090,7 @@ def main(argv=None) -> int:
                                        route_vs_scan=long_route),
                     "xla_full": xla_fs, "xla_serve": xla_srv,
                     "card": smi}))
+    log(json.dumps({"dense_configs": dense, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

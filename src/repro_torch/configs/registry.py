@@ -1,19 +1,25 @@
 """Architecture registry: ``--arch <id>`` resolution for the launchers.
 
-Only the archs this port serves are registered. ``get_config`` returns
-the shipped config; ``get_serve_config`` the one with the fused paged
-Energon kernels engaged (the path the port implements).
+The dense archs of the reference are registered. ``get_config`` returns
+the shipped config; ``get_serve_config`` the serving one, with the
+fused paged Energon kernels engaged where the kernels take the shapes
+(phi3-mini's head dim of 96 keeps its shipped ``mpmrf_block``).
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import qwen3_14b
+from repro_torch.configs import (
+    gemma3_27b, phi3_mini_3_8b, qwen3_14b, starcoder2_7b,
+)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "qwen3-14b": qwen3_14b,
+    "starcoder2-7b": starcoder2_7b,
+    "gemma3-27b": gemma3_27b,
+    "phi3-mini-3.8b": phi3_mini_3_8b,
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -5,8 +5,9 @@ numpy arrays (the caller runs ``jax.tree.map(np.asarray, params)``),
 maps one to one onto the port's parameter dict: the same names and
 layouts (``wq [d, H, hd]``, ``wk``/``wv [d, KV, hd]``, ``wo [H, hd, d]``,
 ``mlp.w_up/w_gate/w_down``, ``embed.table``, ``lm_head.w``,
-``final_norm.scale``, the q/k norms), blocks stacked on a leading
-``[L]`` axis. Leaves are cast to the model dtype on the target device.
+``final_norm.scale`` (and LayerNorm's ``bias``), the q/k norms), blocks
+stacked on a leading ``[L]`` axis; a tied head has no ``lm_head``.
+Leaves are cast to the model dtype on the target device.
 """
 
 from __future__ import annotations
@@ -35,9 +36,29 @@ def to_torch_tree(tree: Any, device: DeviceLike = None,
 
 
 def convert_params(np_params: Mapping, model) -> dict:
-    """Reference parameter pytree (numpy leaves) → ``model``'s params."""
-    expected = {"embed", "final_norm", "lm_head", "blocks"}
-    missing = expected - set(np_params)
-    if missing:
-        raise KeyError(f"reference params lack {sorted(missing)}")
+    """Reference parameter pytree (numpy leaves) → ``model``'s params.
+    The tree must hold exactly the leaves, of the shapes, that
+    ``model.init`` makes: a tied head has no ``lm_head``, LayerNorm a
+    ``bias`` beside its ``scale``, the plain GELU MLP no ``w_gate``."""
+    mismatch = _tree_mismatch(np_params, model.param_shapes(), "")
+    if mismatch:
+        raise KeyError("reference params do not fit the model: "
+                       + "; ".join(mismatch))
     return to_torch_tree(np_params, model.device, model.dtype)
+
+
+def _tree_mismatch(tree, shapes, path: str) -> list:
+    if not isinstance(shapes, Mapping):
+        if isinstance(tree, Mapping):
+            return [f"{path} is a subtree, expected a {shapes} leaf"]
+        got = tuple(np.shape(tree))
+        return [] if got == shapes else [f"{path} is {got}, not {shapes}"]
+    if not isinstance(tree, Mapping):
+        return [f"{path} is a leaf, expected a subtree"]
+    name = (lambda k: f"{path}.{k}") if path else str
+    out = [f"lacks {name(k)}" for k in shapes if k not in tree]
+    out += [f"has {name(k)}, which the model does not use"
+            for k in tree if k not in shapes]
+    for k in shapes.keys() & tree.keys():
+        out += _tree_mismatch(tree[k], shapes[k], name(k))
+    return out

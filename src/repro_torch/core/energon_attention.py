@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -316,12 +316,15 @@ def _chunked_attention(q, k, v, cfg, impl, *, causal, window, q_offset,
 
 
 def _over_heads(fn, q, k, v, **kw):
-    """Run a ``[bh, n, d]`` kernel pipeline on ``[B, H, n, d]`` operands."""
+    """Run a ``[bh, n, d]`` kernel pipeline on ``[B, H, n, d]`` operands.
+    The kernels take contiguous rows: one sequence's heads-first view of
+    the attention block's heads-last layout reshapes to a strided view,
+    not a copy."""
     batch, heads, n_q, d = q.shape
     n_k = k.shape[-2]
-    out = fn(q.reshape(batch * heads, n_q, d),
-             k.reshape(batch * heads, n_k, d),
-             v.reshape(batch * heads, n_k, d), **kw)
+    out = fn(q.reshape(batch * heads, n_q, d).contiguous(),
+             k.reshape(batch * heads, n_k, d).contiguous(),
+             v.reshape(batch * heads, n_k, d).contiguous(), **kw)
     return out.reshape(q.shape)
 
 
@@ -468,37 +471,98 @@ def _serving_prefill_fused(cfg: EnergonConfig, *, rows: int, cache_len: int,
 
 def serving_faults(
     cfg: EnergonConfig, *, group: int, cache_len: int, chunk: int,
-    paged: bool = True,
+    paged: bool = True, head_dim: Optional[int] = None,
+    dtype: Optional[torch.dtype] = None, cuda_kernels: bool = False,
+    windows: Optional[Sequence[int]] = None,
 ) -> List[str]:
     """Why serving ``chunk``-token prefill chunks (``group`` query heads
     per KV head) against ``cache_len``-row caches — paged, or contiguous
-    with ``paged=False`` — would fail mid-run: an unknown ``impl``; a
-    prefill whose layers build ``[G·chunk, cache_len]`` masks past
-    ``chunk_threshold`` (the dense prefix layers, and every layer the
-    fused prefill kernels do not take); and, where the fused decode
-    kernels engage, rows or key blocks the decode filter (B1 / B5) does
-    not take. Empty when every layer can run."""
+    with ``paged=False`` — would fail mid-run. Empty when every layer can
+    run. The reasons:
+
+    * an unknown ``impl``;
+    * a prefill whose layers build ``[G·chunk, cache_len]`` masks past
+      ``chunk_threshold``: the dense prefix layers, the windowed layers
+      (``windows``, per layer, 0 ⇒ global: the fused kernels take no
+      window) and every layer the fused prefill kernels do not take;
+    * where the fused decode kernels engage, rows or key blocks the
+      decode filter (B1 / B5) does not take;
+    * with ``cuda_kernels`` (the kernels launch: a CUDA device), every
+      ``head_dim``, ``dtype`` or block shape that a fused kernel on the
+      path refuses, by the wrappers' own checks. On the CPU the plain
+      versions take every shape.
+    """
     if cfg.impl not in IMPLS:
         return [f"impl={cfg.impl!r} is not one of {IMPLS}"]
     rows = group * chunk
     faults = []
     fused_prefill = (cfg.impl == "pallas" and _serving_prefill_fused(
         cfg, rows=rows, cache_len=cache_len, paged=paged))
-    if ((cfg.min_prune_layer > 0 or not fused_prefill)
+    windowed = windows is not None and any(w > 0 for w in windows)
+    if ((cfg.min_prune_layer > 0 or not fused_prefill or windowed)
             and rows * cache_len > cfg.chunk_threshold):
-        where = ("dense layers" if fused_prefill or cfg.impl == "dense"
-                 else "prefill layers off the fused kernels")
+        if not fused_prefill:
+            where = ("dense layers" if cfg.impl == "dense"
+                     else "prefill layers off the fused kernels")
+        elif windowed:
+            where = "windowed layers (and the dense prefix)"
+        else:
+            where = "dense layers"
         faults.append(
             f"{where} would mask {rows} folded rows × {cache_len} "
             f"keys, past chunk_threshold={cfg.chunk_threshold}: lower the "
             "prefill chunk or max_len")
-    if not _fused_decode_engaged(cfg, cfg.filter_cache_engages(cache_len),
-                                 None):
+    # the fused kernels run on the global layers past the dense prefix
+    fused_layers = windows is None or any(
+        w <= 0 for w in windows[cfg.min_prune_layer:])
+    fused_decode = fused_layers and _fused_decode_engaged(
+        cfg, cfg.filter_cache_engages(cache_len), None)
+    decode_faults = _decode_filter_faults(cfg, group) if fused_decode else []
+    faults += decode_faults
+    if not cuda_kernels or not fused_layers:
         return faults
+    from repro_torch.kernels.flash_attention import check_tile_engine
+    from repro_torch.kernels.mpmrf_decode import (
+        check_decode_filter_launch, check_decode_gather_launch,
+    )
+    from repro_torch.kernels.mpmrf_filter import check_filter_launch
+
+    checks = []
+    if fused_decode and not decode_faults:
+        dkb = cfg.decode_key_block
+        checks += [
+            lambda: check_decode_filter_launch(group, head_dim, dkb,
+                                               cfg.round_bits),
+            lambda: check_decode_gather_launch(group, head_dim, dkb, dtype),
+        ]
+    if fused_prefill:
+        n_kb = cache_len // cfg.key_block
+        budget = max(1, math.ceil(n_kb / cfg.pruning_ratio))
+        checks += [
+            lambda: check_filter_launch(head_dim, cfg.query_block,
+                                        cfg.key_block, cfg.round_bits),
+            # B4's kept survivor lists: two ids a slot, a count, a position
+            lambda: check_tile_engine(head_dim, dtype, cfg.query_block,
+                                      cfg.key_block, 2 * budget + 1),
+        ]
+    for check in checks:
+        try:
+            check()
+        except ValueError as exc:
+            reason = f"the CUDA kernels refuse: {exc}"
+            if reason not in faults:
+                faults.append(reason)
+    return faults
+
+
+def _decode_filter_faults(cfg: EnergonConfig, group: int) -> List[str]:
+    """The decode filter's (B1 / B5) row and key-block limits, refused on
+    every device where the fused decode engages."""
     from repro_torch.kernels.mpmrf_decode import (
         DECODE_FILTER_MAX_G, DECODE_FILTER_MAX_KEY_BLOCK,
     )
 
+    faults = []
     if group > DECODE_FILTER_MAX_G:
         faults.append(f"the decode kernels take at most "
                       f"{DECODE_FILTER_MAX_G} query heads per KV head "

@@ -48,17 +48,14 @@ def engine_smem_bytes(d: int, query_block: int, table_slots: int = 0) -> int:
     return ring + (4 * (table_slots + 1) if table_slots else 0)
 
 
-def check_attention_launch(q, k, v, query_block, key_block,
-                           table_slots=0, *, rows_of_q=True) -> None:
+def check_tile_engine(d, dtype, query_block, key_block,
+                      table_slots=0) -> None:
     """What the tile engine's kernels (B4 / B8, B10, B11) take: bf16
-    operands, one warp per 16 query rows (query_block ≤ 128), key blocks
-    of multiples of 8 rows (the engine pads a partial tile with masked
-    keys), and the engine's shared memory. ``rows_of_q``: K/V are
-    ``[bh, n_k, d]`` beside q (B10, B11); the gathers check their own
-    pool or cache layout."""
-    d = q.shape[-1]
-    _require(q.is_cuda, f"unsupported device {q.device}")
-    _require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
+    operands, a head dim it is built for, one warp per 16 query rows
+    (query_block ≤ 128), key blocks of multiples of 8 rows (the engine
+    pads a partial tile with masked keys), and the engine's shared
+    memory for ``table_slots`` kept survivor ids."""
+    _require(dtype == torch.bfloat16,
              "the CUDA attention kernels take bfloat16 q/K/V")
     _require(d in FILTER_HEAD_DIMS, f"head_dim {d} not in {FILTER_HEAD_DIMS}")
     _require(query_block % 16 == 0 and query_block <= 128,
@@ -67,6 +64,17 @@ def check_attention_launch(q, k, v, query_block, key_block,
     smem = engine_smem_bytes(d, query_block, table_slots)
     _require(smem <= SMEM_LIMIT,
              f"the tile engine's {smem} bytes exceed shared memory")
+
+
+def check_attention_launch(q, k, v, query_block, key_block,
+                           table_slots=0, *, rows_of_q=True) -> None:
+    """:func:`check_tile_engine` on CUDA operands of one dtype.
+    ``rows_of_q``: K/V are ``[bh, n_k, d]`` beside q (B10, B11); the
+    gathers check their own pool or cache layout."""
+    d = q.shape[-1]
+    _require(q.is_cuda, f"unsupported device {q.device}")
+    _require(q.dtype == k.dtype == v.dtype, "q/K/V dtypes differ")
+    check_tile_engine(d, q.dtype, query_block, key_block, table_slots)
     if rows_of_q:
         _require(k.shape == v.shape and k.shape[0] == q.shape[0]
                  and k.shape[-1] == d, "q/K/V shapes disagree")

@@ -101,6 +101,17 @@ def check_decode_filter_launch(g, d, key_block, round_bits) -> None:
     check_plane_widths(round_bits)
 
 
+def check_decode_gather_launch(g, d, key_block, dtype) -> None:
+    """What the split decode gather (B2 / B6) takes: bf16 q/K/V, at most
+    16 folded query rows, head dims up to 128 in multiples of 8, and key
+    blocks of multiples of 4."""
+    _require(dtype == torch.bfloat16,
+             "the CUDA attention kernels take bfloat16 q/K/V")
+    _require(g <= 16 and d <= 128 and d % 8 == 0,
+             f"needs G <= 16 and head_dim <= 128, divisible by 8 (G={g}, d={d})")
+    _require(key_block % 4 == 0, "key_block must be a multiple of 4")
+
+
 def _check_cuda(*tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     for t in tensors:
@@ -320,11 +331,9 @@ def paged_decode_gather_attention(
     bh, g, d = q.shape
     budget = block_indices.shape[-1]
     mb = block_table.shape[-1]
-    _require(q.dtype == k_pages.dtype == v_pages.dtype == torch.bfloat16,
-             "the CUDA gather kernel takes bfloat16 q/K/V")
-    _require(g <= 16 and d <= 128 and d % 8 == 0,
-             f"needs G <= 16 and head_dim <= 128, divisible by 8 (G={g}, d={d})")
-    _require(key_block % 4 == 0, "key_block must be a multiple of 4")
+    _require(q.dtype == k_pages.dtype == v_pages.dtype,
+             "q/K/V dtypes differ")
+    check_decode_gather_launch(g, d, key_block, q.dtype)
     _require(tuple(k_pages.shape[1:]) == (key_block, d),
              "K/V pages must be [P, key_block, d]")
     _require(block_indices.dtype == block_valid.dtype == block_table.dtype
@@ -469,13 +478,11 @@ def decode_gather_attention(
     bh, g, d = q.shape
     n_k = k_cache.shape[-2]
     budget = block_indices.shape[-1]
-    _require(q.dtype == k_cache.dtype == v_cache.dtype == torch.bfloat16,
-             "the CUDA gather kernel takes bfloat16 q/K/V")
-    _require(g <= 16 and d <= 128 and d % 8 == 0,
-             f"needs G <= 16 and head_dim <= 128, divisible by 8 (G={g}, d={d})")
-    _require(key_block % 4 == 0 and n_k % key_block == 0,
-             f"key_block {key_block} must be a multiple of 4 dividing "
-             f"the {n_k} cache rows")
+    _require(q.dtype == k_cache.dtype == v_cache.dtype,
+             "q/K/V dtypes differ")
+    check_decode_gather_launch(g, d, key_block, q.dtype)
+    _require(n_k % key_block == 0,
+             f"key_block {key_block} must divide the {n_k} cache rows")
     _require(tuple(k_cache.shape) == tuple(v_cache.shape) == (bh, n_k, d),
              "K/V caches must be [bh, n_k, d]")
     _require(block_indices.dtype == block_valid.dtype == cache_length.dtype

@@ -513,7 +513,8 @@ def fused_paged_prefill_attention(
     bh = batch * heads
 
     q16 = qlib.quantize_int16(q, axis=-1)
-    qp = q16.bit_plane(round_bits[-1]).reshape(bh, n_q, d)
+    # one slot's planes reshape to a strided view: the kernels take rows
+    qp = q16.bit_plane(round_bits[-1]).reshape(bh, n_q, d).contiguous()
     qs = q16.scale.reshape(bh, n_q, 1)
     qpos_bh = q_positions.to(torch.int32).repeat_interleave(heads, dim=0)
     bt_bh = _head_offset_table(block_table, heads, num_pages)
@@ -586,7 +587,8 @@ def fused_prefill_attention(
     bh = batch * heads
 
     q16 = qlib.quantize_int16(q, axis=-1)
-    qp = q16.bit_plane(round_bits[-1]).reshape(bh, n_q, d)
+    # one slot's planes reshape to a strided view: the kernels take rows
+    qp = q16.bit_plane(round_bits[-1]).reshape(bh, n_q, d).contiguous()
     qs = q16.scale.reshape(bh, n_q, 1)
     qpos_bh = q_positions.to(torch.int32).repeat_interleave(heads, dim=0)
     ks_row = torch.repeat_interleave(

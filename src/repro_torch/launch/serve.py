@@ -1,14 +1,18 @@
 """Serving launcher: chunked prefill + batched sparse decode over the
 paged KV cache (or, with ``--unpaged``, the contiguous one), on the GPU.
 
-``python -m repro_torch.launch.serve --arch qwen3-14b`` serves synthetic
+``python -m repro_torch.launch.serve --arch qwen3-14b`` (or
+``starcoder2-7b``, ``gemma3-27b``, ``phi3-mini-3.8b``) serves synthetic
 requests at full width (random weights from ``--seed``) through the
-fused paged kernels (``--unpaged``: their contiguous twins) and reports
+fused paged kernels (``--unpaged``: their contiguous twins; phi3-mini,
+whose head dim the kernels do not take, on the XLA paths) and reports
 prefill and decode throughput and latency percentiles. ``--smoke`` uses
 the reduced widths; ``--layers`` cuts depth only; ``--device cpu`` runs
 the kernels' plain versions.
 ``--max-len`` and ``--prefill-chunk`` default to shapes on which every
-layer runs (4096 / 128 at full width, 128 / 64 at smoke widths);
+layer runs (4096 / 128 at full width, 128 / 64 at smoke widths; the
+longest max_len below 4096 whose dense prefix masks stay within
+``chunk_threshold``: 3584 for starcoder2-7b's G = 9);
 ``ServeLoop`` refuses shapes that would leave the fused kernels.
 ``--deadline-ms``, ``--queue-limit`` and ``--chaos-seed`` exercise the
 request lifecycle and fault containment; ``--obs``, ``--metrics-out``
@@ -25,8 +29,10 @@ import time
 
 
 def main(argv=None):
+    from repro_torch.configs.registry import ARCH_NAMES
+
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the model to this many layers (depth only)")
@@ -83,11 +89,17 @@ def main(argv=None):
     )
 
     device = resolve_device(args.device)
-    if args.max_len is None:
-        args.max_len = 128 if args.smoke else 4096
     if args.prefill_chunk is None:
         args.prefill_chunk = 64 if args.smoke else 128
     cfg = get_serve_config(args.arch, smoke=args.smoke)
+    if args.max_len is None:
+        # at most 4096, and within what the dense prefix layers may mask
+        # ([G·chunk, max_len] up to chunk_threshold: 3584 for G = 9)
+        e = cfg.energon
+        fit = e.chunk_threshold // (
+            cfg.num_heads // cfg.num_kv_heads * args.prefill_chunk)
+        args.max_len = min(128 if args.smoke else 4096,
+                           fit // e.decode_key_block * e.decode_key_block)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if device.type == "cuda":

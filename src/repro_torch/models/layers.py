@@ -1,6 +1,6 @@
 """Shared neural layers (port of ``repro.models.layers``): initializers,
-RMSNorm, RoPE, the SwiGLU MLP, embedding, LM head and the
-cross-entropy loss.
+RMSNorm and LayerNorm, RoPE, the SwiGLU / GeGLU / GELU MLPs, embedding,
+the LM head (untied and tied) and the cross-entropy loss.
 
 Parameters are plain dicts of tensors with the reference's layouts, so
 :mod:`repro_torch.convert` can carry a reference pytree across as is.
@@ -39,12 +39,33 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return x * inv * params["scale"].to(x.dtype)
 
 
+def layernorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm with f32 statistics, applied in the input dtype (the
+    reference's rounding: ``F.layer_norm`` rounds differently in bf16)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    out = (x - mu.to(x.dtype)) * inv
+    return out * params["scale"].to(x.dtype) + params["bias"].to(x.dtype)
+
+
 def apply_norm(kind: str, params, x: torch.Tensor) -> torch.Tensor:
-    """The block norm by config name (LayerNorm waits for the families
-    that use it)."""
     if kind == "rmsnorm":
         return rmsnorm(params, x)
-    raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    if kind == "layernorm":
+        return layernorm(params, x)
+    raise ValueError(f"unknown norm {kind}")
+
+
+def init_norm(kind: str, d: int, dtype, device) -> dict:
+    """RMSNorm's unit scale; LayerNorm's too, and its zero bias."""
+    if kind not in ("rmsnorm", "layernorm"):
+        raise ValueError(f"unknown norm {kind}")
+    params = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        params["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return params
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -66,12 +87,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+#: the MLPs with a gate projection (``w_gate``); ``gelu`` has none
+GATED_ACTIVATIONS = ("swiglu", "geglu")
+#: the tanh GELU's √(2/π) and 0.044715 rounded to each dtype, as the
+#: reference's weakly typed constants are
+_GELU_CONSTANTS = {
+    dt: tuple(torch.tensor(c, dtype=dt).item()
+              for c in (math.sqrt(2.0 / math.pi), 0.044715))
+    for dt in (torch.float32, torch.bfloat16, torch.float16)
+}
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default tanh form, op for op in x's dtype.
+    ``F.gelu(approximate="tanh")`` rounds once, and so parts from the
+    reference in the last bf16 bit."""
+    c, k = _GELU_CONSTANTS[x.dtype]
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
 def apply_mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
-    """SwiGLU MLP (the gated activations of the other archs wait for
-    their slice)."""
-    if activation != "swiglu":
-        raise NotImplementedError(f"activation {activation!r}")
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    """SwiGLU, GeGLU or plain GELU MLP (:func:`gelu`'s tanh form)."""
+    up = x @ params["w_up"]
+    if activation == "swiglu":
+        h = F.silu(x @ params["w_gate"]) * up
+    elif activation == "geglu":
+        h = gelu(x @ params["w_gate"]) * up
+    elif activation == "gelu":
+        h = gelu(up)
+    else:
+        raise ValueError(f"unknown activation {activation}")
     return h @ params["w_down"]
 
 
@@ -84,6 +129,12 @@ def lm_logits(params, x: torch.Tensor) -> torch.Tensor:
     accumulated in f32, as the reference's
     ``preferred_element_type=float32``."""
     return x.float() @ params["w"].float()
+
+
+def tied_lm_logits(embed_params, x: torch.Tensor) -> torch.Tensor:
+    """The tied head: logits against the embedding table, ``x @ tableᵀ``
+    with f32 accumulation as :func:`lm_logits`."""
+    return x.float() @ embed_params["table"].float().T
 
 
 def softmax_cross_entropy(

@@ -35,12 +35,6 @@ class LMModel:
             raise NotImplementedError(
                 f"family {cfg.family!r} waits for a later slice of the port"
             )
-        if (cfg.norm != "rmsnorm" or cfg.tie_embeddings
-                or cfg.activation != "swiglu"):
-            raise NotImplementedError(
-                "this slice ports the rmsnorm/SwiGLU, untied-head dense "
-                "family"
-            )
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.dtype]
@@ -55,14 +49,13 @@ class LMModel:
         (the numbers differ from ``jax.random``'s; tests carry reference
         weights across with :mod:`repro_torch.convert` instead)."""
         cfg, dev, dt = self.cfg, self.device, self.dtype
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        # the meta device (``param_shapes``) draws nothing
+        gen = (None if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(seed))
         d, f, n_l = cfg.d_model, cfg.d_ff, cfg.num_layers
 
         def tn(shape, std):
             return L.trunc_normal(shape, std, gen, dev, dt)
-
-        def ones(*shape):
-            return torch.ones(shape, dtype=dt, device=dev)
 
         def stacked(make):
             first = make()
@@ -72,25 +65,45 @@ class LMModel:
                 _assign_layer(out, make(), i)
             return out
 
+        def norm():
+            return L.init_norm(cfg.norm, d, dt, dev)
+
+        def mlp():
+            out = {"w_up": tn((d, f), d ** -0.5),
+                   "w_down": tn((f, d), f ** -0.5)}
+            if cfg.activation in L.GATED_ACTIVATIONS:
+                out["w_gate"] = tn((d, f), d ** -0.5)
+            return out
+
         def block():
             return {
-                "norm_attn": {"scale": ones(d)},
+                "norm_attn": norm(),
                 "attn": attn_lib.init_attention(
                     gen, dev, d, cfg.num_heads, cfg.num_kv_heads,
                     cfg.head_dim, use_qk_norm=cfg.use_qk_norm, dtype=dt,
                 ),
-                "norm_mlp": {"scale": ones(d)},
-                "mlp": {"w_up": tn((d, f), d ** -0.5),
-                        "w_down": tn((f, d), f ** -0.5),
-                        "w_gate": tn((d, f), d ** -0.5)},
+                "norm_mlp": norm(),
+                "mlp": mlp(),
             }
 
-        return {
+        params = {
             "embed": {"table": tn((cfg.vocab_size, d), 1.0)},
-            "final_norm": {"scale": ones(d)},
-            "lm_head": {"w": tn((d, cfg.vocab_size), d ** -0.5)},
-            "blocks": stacked(block),
+            "final_norm": norm(),
         }
+        if not cfg.tie_embeddings:       # a tied head reads embed.table
+            params["lm_head"] = {"w": tn((d, cfg.vocab_size), d ** -0.5)}
+        params["blocks"] = stacked(block)
+        return params
+
+    def param_shapes(self) -> Dict[str, Any]:
+        """:meth:`init`'s tree with each leaf's shape, built on the meta
+        device (nothing is allocated)."""
+        def shapes(tree):
+            if isinstance(tree, dict):
+                return {k: shapes(v) for k, v in tree.items()}
+            return tuple(tree.shape)
+
+        return shapes(LMModel(self.cfg, device="meta").init())
 
     # ------------------------------------------------------------------
     # forward (scoring)
@@ -103,7 +116,7 @@ class LMModel:
             return tfm.apply_block(
                 layer_params, x, cfg.energon,
                 activation=cfg.activation, norm=cfg.norm,
-                **self._attn_kwargs(layer_idx, window or None),  # 0 ⇒ global
+                **self._attn_kwargs(layer_idx, window),
             )
 
         return block_fn
@@ -254,15 +267,21 @@ class LMModel:
         return x * (self.cfg.d_model ** 0.5)
 
     def _logits_out(self, params, x: torch.Tensor) -> torch.Tensor:
-        x = L.rmsnorm(params["final_norm"], x)
+        x = L.apply_norm(self.cfg.norm, params["final_norm"], x)
+        if self.cfg.tie_embeddings:
+            return L.tied_lm_logits(params["embed"], x)
         return L.lm_logits(params["lm_head"], x)
 
     def _attn_kwargs(self, layer_idx: int, window) -> Dict[str, Any]:
+        """A layer's attention arguments. A global layer of a windowed
+        model (window 0) passes no window, so the fused kernels take it
+        (the reference passes its scanned 0 and routes the layer to the
+        XLA paths; their survivor tables are the same)."""
         cfg = self.cfg
         return dict(
             num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
             rope_theta=cfg.rope_theta, use_qk_norm=cfg.use_qk_norm,
-            window=window, layer_index=layer_idx,
+            window=window or None, layer_index=layer_idx,
         )
 
     def _write_plan(self, cache, positions, block_table, active=None):

@@ -505,6 +505,9 @@ class ServeLoop:
         faults = serving_faults(
             cfg.energon, group=cfg.num_heads // cfg.num_kv_heads,
             cache_len=rows, chunk=self.prefill_chunk, paged=self.paged,
+            head_dim=cfg.head_dim, dtype=model.dtype,
+            cuda_kernels=self.device.type == "cuda",
+            windows=model.layer_windows(),
         )
         if faults:
             layout = "paged" if self.paged else "contiguous"

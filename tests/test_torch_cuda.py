@@ -473,13 +473,17 @@ def _twin_gathers(cuda, d, bk, bh, n_kb, seed):
         torch.int32)
 
 
-#: (G, d, key block, budget) of the split decode gather: G 1 / 5 / 16,
+#: (G, d, key block, budget) of the split decode gather: G 1 / 5 / 16
+#: (and the dense configs' 2 and 9 at d 128),
 #: every head-dim instantiation and two zero-padded heads (8 on the
 #: mma.sync path, 40 on wgmma), one or two ring tiles per page; budget 7
 #: (two splits, the second short) and 133 (27 splits of 5)
 DECODE_SHAPES = [(1, 16, 16, 7), (5, 32, 64, 7), (16, 64, 16, 7),
                  (5, 128, 64, 7), (16, 128, 128, 7), (5, 40, 16, 7),
-                 (1, 8, 64, 7), (5, 128, 16, 7), (5, 128, 16, 133)]
+                 (1, 8, 64, 7), (5, 128, 16, 7), (5, 128, 16, 133),
+                 # the dense configs' groups at their serving shape:
+                 # gemma3-27b (G 2), starcoder2-7b (G 9)
+                 (2, 128, 64, 7), (9, 128, 64, 7), (9, 128, 64, 133)]
 
 
 @pytest.mark.parametrize("g,d,bk,budget", DECODE_SHAPES)
@@ -581,6 +585,71 @@ def test_prefill_gathers_match_plain_and_each_other(cuda, d, bq, bk):
         q, qpos, kp, vp, idx, val, table, **kw))
 
 
+@pytest.mark.parametrize("g", [2, 5, 9])
+def test_prefill_kernels_at_folded_group_rows(cuda, g):
+    """B3 and B4 at the dense configs' serving shape: chunks of 128
+    tokens folded over G query heads (G·128 rows: 256 for gemma3-27b,
+    640 for qwen3-14b, 1152 for starcoder2-7b) in query blocks of 128,
+    d 128, pages of 64. B3 = its plain version bit for bit; B4 within
+    the gather tolerance of its plain version, overall and on the rows
+    at positions < 32; both the same when run twice. Row 0's chunk is a
+    sequence's first, row 1 ends in sentinel rows."""
+    from repro_torch.kernels import mpmrf_prefill as pk
+
+    bh, mb, chunk, d, bk, bq, budget = 6, 32, 128, 128, 64, 128, 8
+    c = _case(cuda, bh=bh, g=g, d=d, bk=bk, mb=mb, n_q=chunk, bq=bq,
+              seed=40 + g)
+    n_k = mb * bk
+    gen = torch.Generator(device=cuda).manual_seed(g)
+    off = torch.randint(0, n_k // chunk, (bh, 1), generator=gen,
+                        device=cuda) * chunk
+    off[0] = 0
+    pos = off + torch.arange(chunk, device=cuda)
+    pos[1, -9:] = n_k
+    qpos = pos.repeat(1, g).to(torch.int32)             # row (h, c) → c
+    q = torch.randn((bh, g * chunk, d), generator=gen, device=cuda)
+    qp, qs = _planes(q)
+    kw = dict(query_block=bq, key_block=bk)
+    args = (qp, qs, qpos, c["codes"], c["scale"], c["table"])
+    s = pk.paged_prefill_filter_scores(*args, **kw)
+    r = pk.paged_prefill_filter_scores_plain(*args, **kw)
+    assert torch.equal(s[0], r[0]) and torch.equal(s[1], r[1])
+    again = pk.paged_prefill_filter_scores(*args, **kw)
+    assert torch.equal(s[0], again[0]) and torch.equal(s[1], again[1])
+    idx = torch.argsort(-s[1], dim=-1, stable=True)[..., :budget].to(
+        torch.int32)
+    val = (torch.gather(s[1], 2, idx.long()) > -5e29).to(torch.int32)
+    gargs = (q.to(torch.bfloat16), qpos, c["k"], c["v"], idx, val,
+             c["table"])
+    out = pk.paged_prefill_gather_attention(*gargs, **kw)
+    ref = pk.paged_prefill_gather_attention_plain(*gargs, **kw)
+    assert gather_within_tolerance(out.float(), ref.float())
+    early = (qpos < 32).nonzero(as_tuple=True)
+    assert gather_within_tolerance(out[early].float(), ref[early].float())
+    assert torch.equal(out, pk.paged_prefill_gather_attention(*gargs, **kw))
+
+
+def test_pallas_engine_at_head_dim_96_is_refused_before_any_launch(cuda):
+    """phi3-mini-3.8b on the fused path (2 layers, full width, bf16): the
+    kernels take no head dim 96, so ``ServeLoop`` refuses the engine at
+    construction, naming the head dim, and nothing has launched."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.serving import on_fused_path
+    from repro_torch.kernels import _build
+    from repro_torch.models import LMModel
+    from repro_torch.runtime import ServeLoop
+
+    cfg = dataclasses.replace(
+        on_fused_path(registry.get_config("phi3-mini-3.8b")), num_layers=2)
+    assert cfg.head_dim == 96 and cfg.dtype == "bfloat16"
+    model = LMModel(cfg, device="cuda")
+    _build.reset_launch_counts()
+    with pytest.raises(ValueError, match="head_dim 96 not in"):
+        ServeLoop(model, model.init(seed=0), batch_slots=2, max_len=2048,
+                  prefill_chunk=128, device="cuda")
+    assert sum(_build.launch_counts.values()) == 0
+
+
 def test_dense_decode_paged_equals_unpaged(cuda):
     """The prefix layers' dense decode over the paged view and over the
     contiguous cache, same rows, at the serving path's shape (8 slots × 8
@@ -639,7 +708,10 @@ def _decode_filter_case(cuda, g, d, bk, round_bits, repeats, n_kb, seed):
 #: reaching 255, past int8)
 DECODE_FILTER_GRID = [(g, d, bk, rb) for g in (1, 2, 5, 8, 16)
                       for d in (16, 32, 64, 128) for bk in (16, 64)
-                      for rb in ((2, 4), (1, 8), (0, 8))]
+                      for rb in ((2, 4), (1, 8), (0, 8))] + [
+    # starcoder2-7b's G 9 (two n8 tiles, seven rows padded) at its
+    # serving shape
+    (9, 128, 64, rb) for rb in ((2, 4), (1, 8), (0, 8))]
 
 
 def _check_decode_filters(cuda, g, d, bk, round_bits, repeats, n_kb, seed):
@@ -1163,3 +1235,64 @@ def test_graphed_xla_drain_equals_eager(smoke_bf16_block, kw):
     for key in eager_cache:
         assert torch.equal(cache[key], eager_cache[key]), key
     assert sum(n.values()) == sum(eager_n.values()) == 0
+
+
+@pytest.fixture(scope="module")
+def gemma_bf16():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs.registry import get_serve_config
+    from repro_torch.models import LMModel
+
+    cfg = dataclasses.replace(get_serve_config("gemma3-27b", smoke=True),
+                              dtype="bfloat16")
+    model = LMModel(cfg, device="cuda")
+    return cfg, model, model.init(seed=1)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(paged=False)],
+                         ids=["paged", "unpaged"])
+def test_graphed_windowed_drain_equals_eager(gemma_bf16, kw):
+    """gemma3-27b's serve-smoke model (5 windowed layers on the XLA paths,
+    global layer 5 on the fused kernels, the tied head, GeGLU) replayed
+    from CUDA graphs equals its eager steps bit for bit: streams past the
+    window of 16, cache and launch counts, the fused kernels launched."""
+    eager, eager_cache, eager_n, _ = _drain_twice(gemma_bf16, False, **kw)
+    graphed, cache, n, eng = _drain_twice(gemma_bf16, True, **kw)
+    assert [s.captures for s in eng.graphs] == [1, 1]
+    assert graphed == eager and len(graphed) == 10
+    for key in eager_cache:
+        assert torch.equal(cache[key], eager_cache[key]), key
+    assert n == eager_n and all(
+        n[k] > 0 for k in (("mpmrf_paged_filter_scores",
+                            "paged_decode_gather_attention")
+                           if kw.get("paged", True) else
+                           ("mpmrf_decode_filter_scores",
+                            "decode_gather_attention")))
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "unpaged"])
+def test_one_slot_and_one_sequence_run_the_kernels(gemma_bf16, paged):
+    """One slot and one scored sequence, whose heads reshape to strided
+    views: the kernels get contiguous operands and launch (a one-sequence
+    ``loss`` once raised at B9), graphed, and every token comes."""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import Request, ServeLoop
+
+    cfg, model, params = gemma_bf16
+    prompt = list(range(1, 40))
+
+    engine = ServeLoop(model, params, batch_slots=1, max_len=SERVE_LEN,
+                       prefill_chunk=SERVE_CHUNK, eos_token=-1, paged=paged,
+                       device="cuda")
+    engine.submit(Request(uid=0, prompt=prompt, max_new_tokens=6))
+    _build.reset_launch_counts()
+    done = engine.run_until_drained()
+    assert len(done[0].tokens_out) == 6 and done[0].error is None
+    assert sum(_build.launch_counts.values()) > 0
+    toks = torch.randint(1, cfg.vocab_size - 1, (1, 64), device="cuda")
+    _build.reset_launch_counts()
+    loss, _ = model.loss(params, {"inputs": toks, "targets": toks})
+    assert torch.isfinite(loss)
+    assert _build.launch_counts["mpmrf_filter_scores"] == 1
+    assert _build.launch_counts["block_sparse_attention"] == 1
