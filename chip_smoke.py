@@ -199,17 +199,30 @@ next:
     pool; ``[profile-decode-gemma3]``. ``[gemma3-score]``: ``loss`` over 1 × 2048 (B9 / B10 on the
     global layers, the direct XLA block path on the windowed ones),
     then B9–B11 on layer 5's q/k/v.
-19. ``[phi3]``: phi3-mini-3.8b (head dim 96) on its shipped
-    ``mpmrf_block``: a short serve (4 × 1024 tokens, 16 new) and ``loss``
-    over 2 × 2048, no kernel launched; then a ``ServeLoop`` over it with
-    the fused path's config (2 layers) refused at construction, naming
-    the head dim, before any launch.
+19. ``[phi3-…]``: phi3-mini-3.8b (head dim 96, G = 1, 32 layers) on
+    the fused kernels, which run d 96 on their d-128 instantiation with
+    zero-filled columns: phase 4's requests served paged
+    (``[phi3-serve]``: B1–B4, 30 launches a step or wave), B1–B4 against
+    their plain versions on layer 2's live pool and timed at d 96, the
+    decode ticks profiled; the same requests unpaged
+    (``[phi3-unpaged]``: B5–B8, streams equal to the paged run's), B5–B8
+    against their plain versions and B1–B4 on layer 2's captured rows;
+    the same requests on the shipped ``mpmrf_block`` (``[phi3-xla]``,
+    the A/B partner: prefill tok/s and ITL beside the fused run's);
+    ``loss`` over 2 × 2048 (``[phi3-score]``: B9 / B10, 30 each) and
+    B9–B11 against their plain versions on layer 2's q/k/v, timed at
+    d 96; ``loss`` over 1 × 4096, past ``chunk_threshold``
+    (``[phi3-score-long]``: B11 on layers 0–1, B9 → selection → B10 on
+    2–31), the kernel route's survivor tables equal to the scan's; last,
+    ``ServeLoop``s at head dims 8 and 192 refused at construction,
+    naming the head dim, before any launch.
 
 The line before last is a JSON object listing each kernel's launches
 (B1–B4 in phase 4, B5–B8 in phase 8, B9–B11 in phase 15; those of
-phases 17–18 beside them), error and
+phases 17–19 beside them), error and
 times (those of the live pool, the captured layer or, B9–B11, the long
-score's layer 2; ``random`` holds phase 2's, 7's or 10's) and each time
+score's layer 2; ``random`` holds phase 2's, 7's or 10's; ``d96`` phase
+19's at head dim 96, bounded by the d-96 work) and each time
 over its bound (``ms_over_bound``); the eager/graphed drains, the
 scoring results (with the ptxas report), the unpaged serve and the paged
 serve, the telemetry and chaos phases, the long-score / XLA phases and
@@ -1654,7 +1667,7 @@ def check_same_rows(c, o, label, gen):
 
 
 def serve_unpaged(model, params, prompts, paged_streams, *, seed=0,
-                  new_tokens=32, max_len=4096, chunk=128):
+                  new_tokens=32, max_len=4096, chunk=128, label="unpaged"):
     """The same requests through ``ServeLoop(paged=False)`` on the same
     model: launch counts zeroed just before and read just after; every
     request drains, none quarantined, with the paged run's greedy stream.
@@ -1710,7 +1723,7 @@ def serve_unpaged(model, params, prompts, paged_streams, *, seed=0,
     m = engine.metrics
     lat = m.latency_stats()
     peak = mem_gb(torch.cuda.max_memory_allocated)
-    log(f"[unpaged] {len(done)} requests drained in {wall:.2f} s; prefill "
+    log(f"[{label}] {len(done)} requests drained in {wall:.2f} s; prefill "
         f"{m.prefill_tokens} tok in {m.prefill_time:.3f} s "
         f"({m.prefill_tokens_per_sec:.1f} tok/s), decode {m.decode_tokens} "
         f"tok in {m.decode_time:.3f} s ({m.decode_tokens_per_sec:.1f} "
@@ -1718,7 +1731,7 @@ def serve_unpaged(model, params, prompts, paged_streams, *, seed=0,
         f"{lat['itl_p50'] * 1e3:.2f} ms; contiguous cache "
         f"{engine.batch_slots} × {engine.max_len} rows; peak device memory "
         f"{peak} GB")
-    log(f"[unpaged] kernel launches: {json.dumps(launches)}")
+    log(f"[{label}] kernel launches: {json.dumps(launches)}")
     need(len(done) == len(prompts) and all(r.done for r in done),
          "unpaged: not every request drained")
     need(m.failed_requests == 0,
@@ -1738,7 +1751,7 @@ def serve_unpaged(model, params, prompts, paged_streams, *, seed=0,
              f"{cfg.num_layers - 1} of every dispatch)")
     for name in SERVE_KERNELS + SCORE_KERNELS:
         need(launches[name] == 0, f"{name} launched on the unpaged path")
-    log(f"[unpaged] streams equal the paged run's, token for token; B5/B6 "
+    log(f"[{label}] streams equal the paged run's, token for token; B5/B6 "
         f"{sparse} × {m.decode_dispatches} decode steps, B7/B8 {sparse} × "
         f"{m.prefill_dispatches} prefill waves; B1–B4, B9–B11 never")
     out = dict(
@@ -2359,7 +2372,8 @@ def _with_impl(model, impl):
         cfg.energon, impl=impl)), device=DEV)
 
 
-def score_long(model, params, *, n_seq=2, seq_len=8192, seed=8):
+def score_long(model, params, *, n_seq=2, seq_len=8192, seed=8,
+               label="score-long"):
     """``[score-long]``: ``LMModel.loss`` over ``n_seq`` × ``seq_len``
     random tokens with impl "pallas", past ``chunk_threshold``, so every
     layer takes the chunked path's kernel route: B11 on the dense prefix,
@@ -2406,12 +2420,12 @@ def score_long(model, params, *, n_seq=2, seq_len=8192, seed=8):
     peak = mem_gb(torch.cuda.max_memory_allocated)
     tokens = n_seq * seq_len
     prefix, sparse = e.min_prune_layer, cfg.num_layers - e.min_prune_layer
-    log(f"[score-long] {cfg.name} LMModel.loss over {n_seq} × {seq_len} "
+    log(f"[{label}] {cfg.name} LMModel.loss over {n_seq} × {seq_len} "
         f"tokens (n_q·n_k {seq_len * seq_len} > chunk_threshold "
         f"{e.chunk_threshold}: the chunked path; impl {e.impl!r}): loss "
         f"{float(loss):.4f} (exactly {float(loss)!r}) in {wall:.3f} s "
         f"({tokens / wall:.1f} tok/s), peak device memory {peak} GB")
-    log(f"[score-long] kernel launches: {json.dumps(launches)}")
+    log(f"[{label}] kernel launches: {json.dumps(launches)}")
     need(bool(torch.isfinite(loss)), f"non-finite long loss {float(loss)}")
     need(float(metrics["tokens"]) == tokens, "loss counted the wrong tokens")
     want = {"flash_attention": prefix, "mpmrf_filter_scores": sparse,
@@ -2427,7 +2441,7 @@ def score_long(model, params, *, n_seq=2, seq_len=8192, seed=8):
     need(tuple(logits.shape) == (n_seq, seq_len, cfg.vocab_size),
          f"long logits shape {tuple(logits.shape)}")
     need(bool(torch.isfinite(logits).all()), "non-finite long logits")
-    log(f"[score-long] LMModel.apply: logits {tuple(logits.shape)} f32, all "
+    log(f"[{label}] LMModel.apply: logits {tuple(logits.shape)} f32, all "
         f"finite, in {apply_wall:.3f} s")
     del logits
     out = dict(loss=float(loss), wall_s=wall, tok_s=tokens / wall,
@@ -2437,11 +2451,12 @@ def score_long(model, params, *, n_seq=2, seq_len=8192, seed=8):
         gc.collect()
         torch.cuda.empty_cache()
         out["profile"] = profile_scoring(model, params, batch,
-                                         label="profile-score-long")
+                                         label=f"profile-{label}")
     return out, captured["qkv"]
 
 
-def long_route_vs_scan(q, k, v, *, bq, bk, ratio, layer):
+def long_route_vs_scan(q, k, v, *, bq, bk, ratio, layer,
+                       label="score-long"):
     """On layer ``layer``'s operands of the long score: the kernel route
     (``ops.chunked_block_attention``) against the torch scan
     (``energon_block_attention_chunked``): survivor tables bit-equal,
@@ -2467,17 +2482,17 @@ def long_route_vs_scan(q, k, v, *, bq, bk, ratio, layer):
         alphas=(0.0, 0.0), **sel)
     sync()
     need(torch.equal(idx, ridx[0]) and torch.equal(val, rval[0]),
-         f"[score-long] layer {layer}: the kernel route's survivor table "
+         f"[{label}] layer {layer}: the kernel route's survivor table "
          f"differs from the torch scan's")
     err = (out.float() - ref.float()).abs().max().item()
     need(gather_within_tolerance(out.float(), ref.float()),
-         f"[score-long] layer {layer}: kernel route off the scan by "
+         f"[{label}] layer {layer}: kernel route off the scan by "
          f"{err:.3e}")
     route_ms = time_ms(lambda: ops.chunked_block_attention(q, k, v, **kw),
                        iters=5)
     scan_ms = time_ms(lambda: chk.energon_block_attention_chunked(
         q[None], k[None], v[None], **kw), iters=2, warmup=1)
-    log(f"[score-long] layer {layer} operands {tuple(q.shape)}: kernel route "
+    log(f"[{label}] layer {layer} operands {tuple(q.shape)}: kernel route "
         f"(B9 + selection + B10) ≡ torch scan — survivor tables bit-equal "
         f"({int(val.sum())} survivor tiles), outputs max |err| {err:.3e} "
         f"within the gather tolerance; kernel route {route_ms:.3f} ms, "
@@ -2817,60 +2832,134 @@ def dense_config_phases(results, blocks):
         out[f"{short}-serve"], out[f"{short}-score"] = run1, scoring
         del model, params, q, k, v
         _free_device()
-    out["phi3"] = phi3_phase()
     return out
 
 
-def phi3_phase(n_req=4, prompt_len=1024, new_tokens=16, max_len=2048):
-    """``[phi3]``: phi3-mini-3.8b (head dim 96) at published widths on its
-    shipped ``mpmrf_block`` (the XLA paths): a short graphed serve and
-    ``LMModel.loss`` over 2 × 2048 tokens, no kernel launched in either;
-    then a ``ServeLoop`` over it with the fused path's config (2 layers)
-    refused at construction, naming the head dim, before any request or
-    launch."""
+#: head dims the phi3 phase's refusal check builds engines at: the
+#: reference's test models' 8 and 192 (past 128)
+REFUSED_HEAD_DIMS = (8, 192)
+
+
+def phi3_phase(results, blocks):
+    """``[phi3-…]``: phi3-mini-3.8b (head dim 96, MHA: G = 1, 32 layers)
+    at published widths (random bf16 weights from seed 0) on the fused
+    kernels, which run d 96 on their d-128 instantiation:
+
+    * ``[phi3-serve]``: phase 4's requests (8 × 2048 tokens, 256 shared,
+      32 greedy tokens, max_len 4096, chunk 128) through a graphed paged
+      ``ServeLoop``: B1/B2 launched 30 times a decode step and B3/B4 30
+      times a prefill wave (layers 2–31); B1–B4 held against their plain
+      versions on layer 2's live pool and timed at d 96
+      (``[kernels:phi3-live-layer2]``, ``[time:phi3-live-layer2]``);
+      decode ticks under the profiler (``[profile-decode-phi3]``);
+    * ``[phi3-unpaged]``: the same requests through
+      ``ServeLoop(paged=False)`` (B5–B8), streams equal to the paged
+      run's; B5–B8 held against their plain versions on layer 2's
+      captured queries and live contiguous cache, timed, and against
+      B1–B4 on the same rows laid out as pages (``[same-rows:…]``);
+    * ``[phi3-xla]``: the same requests on the shipped ``mpmrf_block``
+      (the XLA paths, no kernel), the fused runs' A/B partner: prefill
+      tok/s and ITL side by side;
+    * ``[phi3-score]``: ``LMModel.loss`` over 2 × 2048 tokens (B9 / B10,
+      30 launches each), then B9–B11 on layer 2's q/k/v against their
+      plain versions, timed at d 96 (``[full-seq:phi3-captured-layer2]``);
+    * ``[phi3-score-long]``: ``loss`` over 1 × 4096 tokens, phi3-mini-4k's
+      context, past ``chunk_threshold``: B11 on layers 0–1, B9 →
+      selection → B10 on layers 2–31; on layer 2's operands the kernel
+      route's survivor tables equal the torch scan's;
+    * a ``ServeLoop`` at each of REFUSED_HEAD_DIMS refused at
+      construction, naming the head dim, before any launch.
+
+    Returns each run's results (with its launches) by phase name."""
+    import torch
+
     from repro_torch.configs import registry
-    from repro_torch.configs.serving import on_fused_path
     from repro_torch.kernels import _build
     from repro_torch.models import LMModel
     from repro_torch.runtime import ServeLoop
 
     cfg = registry.get_serve_config("phi3-mini-3.8b")
-    need(cfg.energon.impl == "mpmrf_block" and cfg.head_dim == 96,
-         "phi3-mini's serving config is not its shipped mpmrf_block")
-    engine, _, run1, launches, _ = serve_full_width(
-        cfg, n_req=n_req, prompt_len=prompt_len, new_tokens=new_tokens,
-        max_len=max_len, label="phi3")
-    need(sum(launches.values()) == 0, "a kernel launched serving phi3")
+    need(cfg.energon.impl == "pallas" and cfg.head_dim == 96,
+         "phi3-mini's serving config is not the fused path at head dim 96")
+    out = {}
+    engine, prompts, run1, launches, streams = serve_full_width(
+        cfg, label="phi3-serve")
     model, params = engine.model, engine.params
+    layer = cfg.energon.min_prune_layer
+    check_case(live_pool_case(engine, prompts, layer),
+               f"phi3-live-layer{layer}", results)
+    run1.update(launches=launches, streams_sha1=streams_digest(streams))
+    if DEV == "cuda":
+        run1["profile_decode"] = profile_decode(
+            engine, prompts[0][:SYSTEM_LEN], label="profile-decode-phi3")
+    out["phi3-serve"] = run1
     del engine
     _free_device()
-    scoring, qkv = score_full_width(model, params, n_seq=2, label="phi3")
-    need(qkv is None and sum(scoring["launches"].values()) == 0,
-         "a kernel launched scoring phi3")
-    del model, params
+
+    uengine, unpaged, ulaunches, captured = serve_unpaged(
+        model, params, prompts, streams, label="phi3-unpaged")
+    case = captured_contiguous_case(uengine, captured, layer)
+    del uengine, captured
+    _free_device()
+    gen = torch.Generator(device=DEV).manual_seed(96)
+    label = f"phi3-captured-layer{layer}"
+    unpaged["same_rows"] = check_same_rows(
+        case, check_contiguous(case, label, results), label, gen)
+    out["phi3-unpaged"] = dict(unpaged, launches=ulaunches)
+    del case
     _free_device()
 
-    fused = dataclasses.replace(on_fused_path(registry.get_config(
-        "phi3-mini-3.8b")), num_layers=2)
-    model = LMModel(fused, device=DEV)
-    params = model.init(seed=0)
-    _build.reset_launch_counts()
-    try:
-        ServeLoop(model, params, batch_slots=n_req, max_len=max_len,
-                  prefill_chunk=128, eos_token=-1, device=DEV)
-        refused = None
-    except ValueError as exc:
-        refused = str(exc)
-    need(refused is not None and "head_dim 96" in refused,
-         f"phi3's pallas engine was not refused for its head dim: "
-         f"{refused}")
-    need(sum(_build.launch_counts.values()) == 0,
-         "a kernel launched before the refusal")
-    log(f"[phi3] a pallas ServeLoop over phi3-mini (2 layers) refused at "
-        f"construction, no kernel launched: {refused}")
-    del model, params
+    xla = dataclasses.replace(cfg, energon=dataclasses.replace(
+        cfg.energon, impl="mpmrf_block"))
+    xengine, _, xrun, xlaunches, _ = serve_full_width(xla, label="phi3-xla")
+    need(sum(xlaunches.values()) == 0, "a kernel launched on mpmrf_block")
+    del xengine
     _free_device()
-    return dict(serve=run1, score=scoring, pallas_refused=refused)
+    log(f"[phi3-xla] fused (pallas) / XLA (mpmrf_block) on the same "
+        f"requests: prefill {run1['prefill_tok_s']:.1f} / "
+        f"{xrun['prefill_tok_s']:.1f} tok/s, decode "
+        f"{run1['decode_tok_s']:.1f} / {xrun['decode_tok_s']:.1f} tok/s, "
+        f"ITL p50 {run1['itl_p50_ms']:.2f} / {xrun['itl_p50_ms']:.2f} ms")
+    out["phi3-xla"] = dict(xrun, launches=xlaunches)
+
+    scoring, (q, k, v) = score_full_width(model, params, n_seq=2,
+                                          label="phi3-score")
+    scoring["captured"] = check_full_sequence(
+        q, k, v, f"phi3-captured-layer{layer}", results, **blocks)
+    out["phi3-score"] = scoring
+    del q, k, v
+    _free_device()
+    long, (q, k, v) = score_long(model, params, n_seq=1, seq_len=4096,
+                                 label="phi3-score-long")
+    long["route_vs_scan"] = long_route_vs_scan(
+        q, k, v, layer=layer, label="phi3-score-long", **blocks)
+    out["phi3-score-long"] = long
+    del model, params, q, k, v
+    _free_device()
+
+    refused = {}
+    for d in REFUSED_HEAD_DIMS:
+        model = LMModel(dataclasses.replace(cfg, num_layers=2, head_dim=d),
+                        device=DEV)
+        params = model.init(seed=0)
+        _build.reset_launch_counts()
+        try:
+            ServeLoop(model, params, batch_slots=8, max_len=4096,
+                      prefill_chunk=128, eos_token=-1, device=DEV)
+            refused[d] = None
+        except ValueError as exc:
+            refused[d] = str(exc)
+        need(refused[d] is not None and f"head_dim {d} " in refused[d],
+             f"a pallas engine at head dim {d} was not refused for it: "
+             f"{refused[d]}")
+        need(sum(_build.launch_counts.values()) == 0,
+             "a kernel launched before the refusal")
+        log(f"[phi3] a pallas ServeLoop at head dim {d} (2 layers) refused "
+            f"at construction, no kernel launched: {refused[d]}")
+        del model, params
+        _free_device()
+    out["phi3-refused"] = refused
+    return out
 
 
 ENGINE_SOURCES = ("mpmrf_decode", "mpmrf_prefill", "mpmrf_filter",
@@ -2896,7 +2985,7 @@ def engine_ptxas():
     the filter engine (B3/B7 per head dim, product path and layout, B9
     per head dim and product path, B1/B5 per head dim and layout) from
     nvcc's ``-Xptxas -v`` report; fails on any spill at d 128, the model
-    paths' head dim."""
+    paths' instantiation (phi3-mini's head dim 96 runs it too)."""
     from repro_torch.kernels import _build
 
     pat = re.compile(r"Compiling entry function "
@@ -3056,6 +3145,8 @@ def main(argv=None) -> int:
         f"{mem_gb(torch.cuda.memory_allocated)} GB still allocated")
     dense_results = {name: [] for name in KERNELS}
     dense = dense_config_phases(dense_results, blocks)
+    d96 = {name: [] for name in KERNELS}
+    dense.update(phi3_phase(d96, blocks))
 
     timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -3070,13 +3161,19 @@ def main(argv=None) -> int:
             launches_dense_configs={
                 phase: r["launches"][name] for phase, r in dense.items()
                 if "launches" in r},
-            max_abs_err=max(r["err"] for r in entries + dense_results[name]),
+            max_abs_err=max(r["err"] for r in entries + dense_results[name]
+                            + d96[name]),
             **{k: main_run[k] for k in timed_keys},
             **{k: main_run[k] for k in ("device_ms", "library_device_ms")
                if k in main_run},
             ms_over_bound=main_run["ms"] / main_run["bound_ms"],
             random=dict({k: rand[k] for k in ("err",) + timed_keys},
                         ms_over_bound=rand["ms"] / rand["bound_ms"]),
+            # phi3-mini's live / captured layer 2 at head dim 96, its
+            # bound from the d-96 work
+            d96=dict({k: d96[name][-1][k] for k in ("err",) + timed_keys},
+                     ms_over_bound=d96[name][-1]["ms"]
+                     / d96[name][-1]["bound_ms"]),
         ))
     log(json.dumps({"serve": run1, "profile": prof, "card": smi}))
     log(json.dumps({"unpaged": dict(unpaged, same_rows=same_rows,

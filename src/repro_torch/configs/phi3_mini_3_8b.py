@@ -34,11 +34,9 @@ def smoke() -> ModelConfig:
 
 
 def serve() -> ModelConfig:
-    """The shipped ``mpmrf_block`` config (the XLA paths). Its head dim
-    of 96 is outside the CUDA kernels' head dims, so a ``pallas`` engine
-    at full width is refused at construction; this returns the fused
-    path's config once the kernels take d 96."""
-    return CONFIG
+    """Full-width config on the fused paged serving path (MHA: G = 1;
+    head dim 96, which the kernels run on their d-128 instantiation)."""
+    return on_fused_path(CONFIG)
 
 
 def serve_smoke() -> ModelConfig:

@@ -2,8 +2,7 @@
 
 The dense archs of the reference are registered. ``get_config`` returns
 the shipped config; ``get_serve_config`` the serving one, with the
-fused paged Energon kernels engaged where the kernels take the shapes
-(phi3-mini's head dim of 96 keeps its shipped ``mpmrf_block``).
+fused paged Energon kernels engaged.
 """
 
 from __future__ import annotations

@@ -29,10 +29,11 @@ __global__ void __launch_bounds__(256) block_sparse_attention_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ idx,
     const int32_t* __restrict__ val, __nv_bfloat16* __restrict__ out,
-    int n_q, int n_k, int bq, int rows, int bk, int budget, int causal,
-    int q_offset, float sm_scale) {
+    int n_q, int n_k, int d, int bq, int rows, int bk, int budget,
+    int causal, int q_offset, float sm_scale) {
   // rows: this block's query rows (flash::block_rows), a part of the
-  // query block of bq rows whose survivor table it reads
+  // query block of bq rows whose survivor table it reads; d: the
+  // operands' head dim (≤ D, the instantiation)
   const int n_qb = n_q / bq;
   const int x = gridDim.x - 1 - blockIdx.x, b = blockIdx.y;
   const int qb = x * rows / bq;
@@ -42,7 +43,7 @@ __global__ void __launch_bounds__(256) block_sparse_attention_kernel(
   int* kept = reinterpret_cast<int*>(
       smem + (size_t)(rows + 2 * flash::STAGES * flash::KT) * D);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  flash::issue_q<D>(smem, q + row0 * D, rows);
+  flash::issue_q<D>(smem, q + row0 * d, rows, d);
 
   // the kept survivor blocks, in table order, and their count
   if (warp == 0) {
@@ -72,25 +73,25 @@ __global__ void __launch_bounds__(256) block_sparse_attention_kernel(
     src = kpos0;
     nv = min(flash::KT, bk - c * flash::KT);
   };
-  const size_t krow0 = (size_t)b * n_k * D;
-  flash::run<D>(k + krow0, v + krow0, out + row0 * D, smem, rows,
+  const size_t krow0 = (size_t)b * n_k * d;
+  flash::run<D>(k + krow0, v + krow0, out + row0 * d, smem, rows,
                 flash::Contiguous{q_first}, q_last, causal != 0, sm_scale,
-                kept[budget] * per, tiles);
+                kept[budget] * per, tiles, d);
 }
 
 template <int D>
 static void launch(dim3 grid, int threads, size_t smem, cudaStream_t stream,
                    const void* q, const void* k, const void* v,
                    const void* idx, const void* val, void* out, int n_q,
-                   int n_k, int bq, int rows, int bk, int budget, int causal,
-                   int q_offset, float sm_scale) {
+                   int n_k, int d, int bq, int rows, int bk, int budget,
+                   int causal, int q_offset, float sm_scale) {
   static size_t given[64];
   flash::allow_smem(block_sparse_attention_kernel<D>, smem, given);
   block_sparse_attention_kernel<D><<<grid, threads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const int32_t*)idx, (const int32_t*)val,
-      (__nv_bfloat16*)out, n_q, n_k, bq, rows, bk, budget, causal, q_offset,
-      sm_scale);
+      (__nv_bfloat16*)out, n_q, n_k, d, bq, rows, bk, budget, causal,
+      q_offset, sm_scale);
 }
 
 extern "C" int block_sparse_attention(
@@ -99,29 +100,30 @@ extern "C" int block_sparse_attention(
     int bk, int budget, int causal, int q_offset, float sm_scale,
     void* stream) {
   cudaGetLastError();
-  const int rows = flash::block_rows(d, bq);
+  const int D = mpmrf::kernel_head_dim(d);
+  const int rows = flash::block_rows(D, bq);
   const dim3 grid(n_q / rows, bh);
   const int threads = 2 * rows;  // one warp per 16 query rows
   // the engine's stage and ring, then the kept list and its count
   const size_t smem =
-      flash::smem_bytes(d, rows) + sizeof(int) * (budget + 1);
+      flash::smem_bytes(D, rows) + sizeof(int) * (budget + 1);
   cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
+  switch (D) {
     case 16:
       launch<16>(grid, threads, smem, st, q, k, v, idx, val, out, n_q, n_k,
-                 bq, rows, bk, budget, causal, q_offset, sm_scale);
+                 d, bq, rows, bk, budget, causal, q_offset, sm_scale);
       break;
     case 32:
       launch<32>(grid, threads, smem, st, q, k, v, idx, val, out, n_q, n_k,
-                 bq, rows, bk, budget, causal, q_offset, sm_scale);
+                 d, bq, rows, bk, budget, causal, q_offset, sm_scale);
       break;
     case 64:
       launch<64>(grid, threads, smem, st, q, k, v, idx, val, out, n_q, n_k,
-                 bq, rows, bk, budget, causal, q_offset, sm_scale);
+                 d, bq, rows, bk, budget, causal, q_offset, sm_scale);
       break;
     case 128:
       launch<128>(grid, threads, smem, st, q, k, v, idx, val, out, n_q, n_k,
-                  bq, rows, bk, budget, causal, q_offset, sm_scale);
+                  d, bq, rows, bk, budget, causal, q_offset, sm_scale);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -12,6 +12,13 @@
 // same parts: its G ≤ 16 query rows are too few for an m-tile, so its
 // keys go on the products' M side.
 //
+// - Head dims: the operands hold rows of d = a.d columns, and a block
+//   runs the instantiation D = mpmrf::kernel_head_dim(d) ≥ d: it reads d
+//   columns of each row and zero-fills columns d .. D − 1 of its query
+//   stage and of its code / plane tiles (zero codes derive zero planes),
+//   so every int8 dot over them adds exact zeros and the scores are those
+//   of the d-column dots, bit for bit. Shared memory, the product path
+//   and the tiles' layout are the instantiation's.
 // - Blocks: one block owns a (bh row, query block) pair, or one run of
 //   it: the query block's visible key blocks (those at or below its
 //   largest live position) are cut into min(S, T) contiguous runs of
@@ -126,6 +133,7 @@ struct Args {
   int lo, hi;                // B1/B3/B5/B7 plane widths
   int msb_shift, hi_shift;   // their packed shifts of the codes' high bytes
   int shift, causal, q_offset;  // B9
+  int d;                     // the operands' head dim (row stride), ≤ D
 };
 
 // Offset, in bytes, of 16-byte chunk c of row r of an int8 tile of
@@ -456,23 +464,28 @@ __device__ __forceinline__ void filter_block(const Args& a) {
   if (n <= 0) return;
 
   // --- staging ----------------------------------------------------------------
+  const int d = a.d;
   if constexpr (kCodes) {  // the int32 plane narrowed to int8 on load
-    const int32_t* q = static_cast<const int32_t*>(a.q_plane) + row0 * D;
+    const int32_t* q = static_cast<const int32_t*>(a.q_plane) + row0 * d;
 #pragma unroll 2
     for (int i = tid; i < bq * C; i += nthr) {
       const int r = i / C, c = i % C;
-      const int4* src = reinterpret_cast<const int4*>(q + r * D + 16 * c);
-      *reinterpret_cast<uint4*>(qs_tile + off<D>(bq, r, c)) =
-          make_uint4(narrow4(src[0]), narrow4(src[1]), narrow4(src[2]),
-                     narrow4(src[3]));
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);  // a padded column
+      if (16 * c < d) {
+        const int4* src = reinterpret_cast<const int4*>(q + r * d + 16 * c);
+        x = make_uint4(narrow4(src[0]), narrow4(src[1]), narrow4(src[2]),
+                       narrow4(src[3]));
+      }
+      *reinterpret_cast<uint4*>(qs_tile + off<D>(bq, r, c)) = x;
     }
     flash::fence_async_smem();
   } else {                 // int8 already: copied with the first tile
-    const int8_t* q = static_cast<const int8_t*>(a.q_plane) + row0 * D;
+    const int8_t* q = static_cast<const int8_t*>(a.q_plane) + row0 * d;
     for (int i = tid; i < bq * C; i += nthr) {
       const int r = i / C, c = i % C;
+      const bool in = 16 * c < d;
       flash::cp_async16(flash::smem_u32(qs_tile + off<D>(bq, r, c)),
-                        q + r * D + 16 * c, true);
+                        in ? q + r * d + 16 * c : q, in);
     }
   }
 
@@ -490,11 +503,21 @@ __device__ __forceinline__ void filter_block(const Args& a) {
         const int blk = next_blk;
         if (t + 1 < n) next_blk = block_id(t + 1);
         const uint8_t* src =
-            static_cast<const uint8_t*>(a.k0) + (size_t)blk * bk * 2 * D;
+            static_cast<const uint8_t*>(a.k0) + (size_t)blk * bk * 2 * d;
         uint8_t* dst = ring + (t % CODE_STAGES) * code_stage;
-        for (int i = tid; i < bk * D / 8; i += nthr)
-          flash::cp_async16(flash::smem_u32(dst + 16 * i), src + 16 * i,
-                            true);
+        if (d == D) {  // the block's codes are one contiguous run
+          for (int i = tid; i < bk * D / 8; i += nthr)
+            flash::cp_async16(flash::smem_u32(dst + 16 * i), src + 16 * i,
+                              true);
+        } else {       // rows of 2·d bytes into rows of 2·D, zero-filled
+          constexpr int CC = D / 8;  // 16-byte chunks of a row's codes
+          for (int i = tid; i < bk * CC; i += nthr) {
+            const int r = i / CC, c = i % CC;
+            const bool in = 8 * c < d;
+            flash::cp_async16(flash::smem_u32(dst + 16 * i),
+                              in ? src + r * 2 * d + 16 * c : src, in);
+          }
+        }
         if constexpr (K == Kind::kPrefill) {  // the tile's row scales
           const float* ks = a.k_scale + (size_t)blk * bk;
           for (int i = tid; i < bk / 4; i += nthr)
@@ -504,17 +527,18 @@ __device__ __forceinline__ void filter_block(const Args& a) {
           cp_async4(flash::smem_u32(dst + bk * 2 * D), a.k_scale + blk);
         }
       } else {
-        const size_t krow = ((size_t)b * n_k + (size_t)(j0 + t) * bk) * D;
+        const size_t krow = ((size_t)b * n_k + (size_t)(j0 + t) * bk) * d;
         const int8_t* msb = static_cast<const int8_t*>(a.k0) + krow;
         const int8_t* rem = a.k_rem + krow;
         uint8_t* dst = ring + (t % PLANE_STAGES) * 2 * plane_tile;
         for (int i = tid; i < bk * C; i += nthr) {
           const int r = i / C, c = i % C;
           const int o = off<D>(bk, r, c);
-          flash::cp_async16(flash::smem_u32(dst + o), msb + r * D + 16 * c,
-                            true);
+          const bool in = 16 * c < d;
+          flash::cp_async16(flash::smem_u32(dst + o),
+                            in ? msb + r * d + 16 * c : msb, in);
           flash::cp_async16(flash::smem_u32(dst + plane_tile + o),
-                            rem + r * D + 16 * c, true);
+                            in ? rem + r * d + 16 * c : rem, in);
         }
       }
     }
@@ -832,7 +856,8 @@ __device__ __forceinline__ void decode_block(const Args& a) {
     for (int j = tid; j < n_kb; j += nthr) ids[j] = a.table[out0 + j];
   }
   const bool two = G > 8;  // a second n8 tile
-  const int32_t* q = static_cast<const int32_t*>(a.q_plane) + (size_t)b * G * D;
+  const int d = a.d;       // columns d .. D − 1: zero (see the top)
+  const int32_t* q = static_cast<const int32_t*>(a.q_plane) + (size_t)b * G * d;
   uint32_t qb[2][KS][2];
   float qsf[4];
   bool live[4];
@@ -843,9 +868,12 @@ __device__ __forceinline__ void decode_block(const Args& a) {
     const int row = 8 * nt + g;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      const int32_t* p = q + row * D + 32 * kk + 4 * tig;
-      qb[nt][kk][0] = row < G ? narrow4(*reinterpret_cast<const int4*>(p)) : 0u;
-      qb[nt][kk][1] = row < G && D >= 32
+      const int col = 32 * kk + 4 * tig;
+      const int32_t* p = q + row * d + col;
+      qb[nt][kk][0] = row < G && col < d
+                          ? narrow4(*reinterpret_cast<const int4*>(p))
+                          : 0u;
+      qb[nt][kk][1] = row < G && D >= 32 && col + 16 < d
                           ? narrow4(*reinterpret_cast<const int4*>(p + 16))
                           : 0u;
     }
@@ -878,14 +906,26 @@ __device__ __forceinline__ void decode_block(const Args& a) {
     if (t < n) {
       const int blk = kPaged ? ids[j0 + t] : b * n_kb + j0 + t;
       const uint8_t* src =
-          static_cast<const uint8_t*>(a.k0) + (size_t)blk * bk * 2 * D;
+          static_cast<const uint8_t*>(a.k0) + (size_t)blk * bk * 2 * d;
       uint8_t* dst = ring + (t % DECODE_STAGES) * stage;
-      for (int i = tid; i < bk * P; i += nthr) {
-        const int r = i / P, c = i % P;
-        flash::cp_async16(flash::smem_u32(dst + code_off<D>(r, 2 * c)),
-                          src + 32 * i, true);
-        flash::cp_async16(flash::smem_u32(dst + code_off<D>(r, 2 * c + 1)),
-                          src + 32 * i + 16, true);
+      if (d == D) {  // the page's codes are one contiguous run
+        for (int i = tid; i < bk * P; i += nthr) {
+          const int r = i / P, c = i % P;
+          flash::cp_async16(flash::smem_u32(dst + code_off<D>(r, 2 * c)),
+                            src + 32 * i, true);
+          flash::cp_async16(flash::smem_u32(dst + code_off<D>(r, 2 * c + 1)),
+                            src + 32 * i + 16, true);
+        }
+      } else {       // rows of 2·d bytes; a piece of padded columns: zeros
+        for (int i = tid; i < bk * P; i += nthr) {
+          const int r = i / P, c = i % P;
+          const bool in = 16 * c < d;
+          const uint8_t* piece = in ? src + r * 2 * d + 32 * c : src;
+          flash::cp_async16(flash::smem_u32(dst + code_off<D>(r, 2 * c)),
+                            piece, in);
+          flash::cp_async16(flash::smem_u32(dst + code_off<D>(r, 2 * c + 1)),
+                            in ? piece + 16 : src, in);
+        }
       }
       if (tid == 0) cp_async4(flash::smem_u32(dst + bk * 2 * D), a.k_scale + blk);
     }

@@ -29,8 +29,10 @@ template <int D>
 __global__ void __launch_bounds__(256) flash_attention_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    int n_q, int n_k, int bq, int causal, int q_offset, float sm_scale) {
-  // bq: this block's query rows (flash::block_rows)
+    int n_q, int n_k, int d, int bq, int causal, int q_offset,
+    float sm_scale) {
+  // bq: this block's query rows (flash::block_rows); d: the operands'
+  // head dim (≤ D, the instantiation)
   const int qb = gridDim.x - 1 - blockIdx.x, b = blockIdx.y;
   const size_t row0 = (size_t)b * n_q + (size_t)qb * bq;
   const int q_first = q_offset + qb * bq;
@@ -38,27 +40,27 @@ __global__ void __launch_bounds__(256) flash_attention_kernel(
   if (causal) last = min(last, q_first + bq - 1);
   const int n_tiles = last < 0 ? 0 : last / flash::KT + 1;
   __nv_bfloat16* smem = flash::smem_base();
-  flash::issue_q<D>(smem, q + row0 * D, bq);
+  flash::issue_q<D>(smem, q + row0 * d, bq, d);
   const auto tiles = [n_k](int t, int& src, int& kpos0, int& nv) {
     kpos0 = src = t * flash::KT;
     nv = min(flash::KT, n_k - kpos0);
   };
-  const size_t krow0 = (size_t)b * n_k * D;
-  flash::run<D>(k + krow0, v + krow0, out + row0 * D, smem, bq,
+  const size_t krow0 = (size_t)b * n_k * d;
+  flash::run<D>(k + krow0, v + krow0, out + row0 * d, smem, bq,
                 flash::Contiguous{q_first}, q_first + bq - 1, causal != 0,
-                sm_scale, n_tiles, tiles);
+                sm_scale, n_tiles, tiles, d);
 }
 
 template <int D>
 static void launch(dim3 grid, int threads, size_t smem, cudaStream_t stream,
                    const void* q, const void* k, const void* v, void* out,
-                   int n_q, int n_k, int bq, int causal, int q_offset,
+                   int n_q, int n_k, int d, int bq, int causal, int q_offset,
                    float sm_scale) {
   static size_t given[64];
   flash::allow_smem(flash_attention_kernel<D>, smem, given);
   flash_attention_kernel<D><<<grid, threads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, n_q, n_k, bq, causal,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, n_q, n_k, d, bq, causal,
       q_offset, sm_scale);
 }
 
@@ -70,27 +72,28 @@ extern "C" int flash_attention(
     void* stream) {
   (void)bk;
   cudaGetLastError();
-  bq = flash::block_rows(d, bq);
+  const int D = mpmrf::kernel_head_dim(d);
+  bq = flash::block_rows(D, bq);
   const dim3 grid(n_q / bq, bh);
   const int threads = 2 * bq;  // one warp per 16 query rows
-  const size_t smem = flash::smem_bytes(d, bq);
+  const size_t smem = flash::smem_bytes(D, bq);
   cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
+  switch (D) {
     case 16:
-      launch<16>(grid, threads, smem, st, q, k, v, out, n_q, n_k, bq, causal,
-                 q_offset, sm_scale);
+      launch<16>(grid, threads, smem, st, q, k, v, out, n_q, n_k, d, bq,
+                 causal, q_offset, sm_scale);
       break;
     case 32:
-      launch<32>(grid, threads, smem, st, q, k, v, out, n_q, n_k, bq, causal,
-                 q_offset, sm_scale);
+      launch<32>(grid, threads, smem, st, q, k, v, out, n_q, n_k, d, bq,
+                 causal, q_offset, sm_scale);
       break;
     case 64:
-      launch<64>(grid, threads, smem, st, q, k, v, out, n_q, n_k, bq, causal,
-                 q_offset, sm_scale);
+      launch<64>(grid, threads, smem, st, q, k, v, out, n_q, n_k, d, bq,
+                 causal, q_offset, sm_scale);
       break;
     case 128:
-      launch<128>(grid, threads, smem, st, q, k, v, out, n_q, n_k, bq, causal,
-                  q_offset, sm_scale);
+      launch<128>(grid, threads, smem, st, q, k, v, out, n_q, n_k, d, bq,
+                  causal, q_offset, sm_scale);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -18,8 +18,12 @@
 // - Ring: STAGES stages of one K and one V tile of KT keys, filled by
 //   16-byte cp.async.cg copies issued STAGES − 1 tiles ahead of the
 //   tile being computed, one __syncthreads per tile. Keys past a tile's
-//   valid count, and columns past the operands' head dim (a decode head
-//   padded to the next instantiation), are zero-filled.
+//   valid count are zero-filled.
+// - Head dims: the operands hold rows of d columns (their row stride),
+//   and the block runs the instantiation D = mpmrf::kernel_head_dim(d)
+//   ≥ d; Q, K and V columns d .. D − 1 are zero-filled in shared memory,
+//   so every product over them adds exact zeros, and only d columns of
+//   each output row are written.
 // - Layout: every bf16 tile (Q/O stage, K, V) is stored as 64-column
 //   blocks of 128-byte rows with the 16-byte chunks XOR-swizzled by the
 //   row (the 128-byte swizzle of wgmma and TMA), so the eight rows an
@@ -82,18 +86,19 @@ inline void allow_smem(Kernel kernel, size_t smem, size_t (&given)[64]) {
   if (kept) given[dev] = smem;
 }
 
-// Query rows per block: one warpgroup of 64 for the wgmma path (a
-// query block of 128 takes two blocks, which then run two to an SM),
-// else the query block, one warp per 16 rows.
-inline int block_rows(int d, int bq) {
-  return d >= 64 && bq % 64 == 0 ? 64 : bq;
+// Query rows per block of the instantiation D: one warpgroup of 64 for
+// the wgmma path (a query block of 128 takes two blocks, which then run
+// two to an SM), else the query block, one warp per 16 rows.
+inline int block_rows(int D, int bq) {
+  return D >= 64 && bq % 64 == 0 ? 64 : bq;
 }
 
-// Dynamic shared memory of one block of `rows` query rows: the Q/O
-// stage and the ring (kernels/flash_attention.py::engine_smem_bytes
-// mirrors it). At d 128 it is 112 KB, so two blocks share an SM.
-inline size_t smem_bytes(int d, int rows) {
-  return sizeof(__nv_bfloat16) * (size_t)d * (rows + 2 * STAGES * KT);
+// Dynamic shared memory of one block of `rows` query rows of the
+// instantiation D: the Q/O stage and the ring
+// (kernels/flash_attention.py::engine_smem_bytes mirrors it). At D 128
+// it is 112 KB, so two blocks share an SM.
+inline size_t smem_bytes(int D, int rows) {
+  return sizeof(__nv_bfloat16) * (size_t)D * (rows + 2 * STAGES * KT);
 }
 
 // Offset, in 16-byte chunks, of chunk c of row r of a tile of `rows`
@@ -340,12 +345,12 @@ __device__ __forceinline__ void fold(float* s, float (&m)[2], float (&l)[2],
 
 // acc / max(l, 1e-30) rounded once to bf16 (o: D/2 floats, 8-column
 // tile t at o[4t..4t+3]), staged in rows 16w .. 16w + 15 of the bq-row
-// stage `qs` (w: this warp) and written to the 16 contiguous rows at
-// `out`.
+// stage `qs` (w: this warp) and written to the 16 rows at `out`, row
+// stride and head dim ld ≤ D (columns past ld are not written).
 template <int D>
 __device__ __forceinline__ void store_rows(const float* o, const float (&l)[2],
                                            __nv_bfloat16* qs, int bq,
-                                           __nv_bfloat16* out) {
+                                           __nv_bfloat16* out, int ld) {
   const int lane = threadIdx.x & 31, g = lane >> 2, qd = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16;
   float den[2];
@@ -368,9 +373,10 @@ __device__ __forceinline__ void store_rows(const float* o, const float (&l)[2],
   __syncwarp();
   constexpr int C = D / 8;
   for (int i = lane; i < 16 * C; i += 32)
-    *reinterpret_cast<int4*>(out + (i / C) * D + (i % C) * 8) =
-        *reinterpret_cast<const int4*>(qs + swz<D>(bq, r0 + i / C, i % C) *
-                                                8);
+    if ((i % C) * 8 < ld)
+      *reinterpret_cast<int4*>(out + (i / C) * ld + (i % C) * 8) =
+          *reinterpret_cast<const int4*>(qs + swz<D>(bq, r0 + i / C, i % C) *
+                                                  8);
 }
 
 // --- the two product paths ----------------------------------------------------
@@ -515,33 +521,32 @@ struct Group {
 // ld ≤ D) into the KT × D tile `dst`; rows nv..KT-1 and columns past ld
 // are zero-filled (a masked key's p = 0 must meet a finite V row, and a
 // padded column adds nothing to a product). With a block of THREADS
-// threads (0: any) and an unpadded head (ld = D), each thread's chunk
-// and swizzle repeat every step when the step spans a multiple of 8
-// rows, so its offsets are computed once.
+// threads (0: any) whose steps span a multiple of 8 rows, each thread
+// keeps one chunk column and its swizzle for every step, so its offsets
+// (and whether its column is padded) are computed once.
 template <int D, int THREADS>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src, int nv,
                                           int ld) {
   constexpr int C = D / 8;
   if constexpr (THREADS > 0 && THREADS % (8 * C) == 0 && C >= 8) {
-    if (ld == D) {
-      constexpr int STEP = THREADS / C;  // rows per step
-      const int r0 = threadIdx.x / C, c = threadIdx.x % C;
-      const uint32_t d0 = smem_u32(dst + swz<D>(KT, r0, c) * 8);
-      const __nv_bfloat16* s0 = src + r0 * D + c * 8;
+    constexpr int STEP = THREADS / C;  // rows per step
+    const int r0 = threadIdx.x / C, c = threadIdx.x % C;
+    const bool col = c * 8 < ld;       // not a padded column
+    const uint32_t d0 = smem_u32(dst + swz<D>(KT, r0, c) * 8);
+    const __nv_bfloat16* s0 = src + r0 * ld + c * 8;
 #pragma unroll
-      for (int j = 0; j < KT / STEP; ++j) {
-        const bool in = r0 + j * STEP < nv;
-        cp_async16(d0 + j * STEP * 128, in ? s0 + j * STEP * D : src, in);
-      }
-      return;
+    for (int j = 0; j < KT / STEP; ++j) {
+      const bool in = col && r0 + j * STEP < nv;
+      cp_async16(d0 + j * STEP * 128, in ? s0 + j * STEP * ld : src, in);
     }
-  }
-  for (int i = threadIdx.x; i < KT * C; i += blockDim.x) {
-    const int r = i / C, c = i % C;
-    const bool in = r < nv && c * 8 < ld;
-    cp_async16(smem_u32(dst + swz<D>(KT, r, c) * 8),
-               in ? src + r * ld + c * 8 : src, in);
+  } else {
+    for (int i = threadIdx.x; i < KT * C; i += blockDim.x) {
+      const int r = i / C, c = i % C;
+      const bool in = r < nv && c * 8 < ld;
+      cp_async16(smem_u32(dst + swz<D>(KT, r, c) * 8),
+                 in ? src + r * ld + c * 8 : src, in);
+    }
   }
 }
 
@@ -555,16 +560,19 @@ __device__ __forceinline__ __nv_bfloat16* smem_base() {
 }
 
 // Copy this warp's 16 query rows (from `q`, the block's first row; row
-// stride D) into the bq-row stage `qs` (uncommitted: the first tile's
-// group carries them).
+// stride and head dim ld ≤ D, columns past it zero-filled) into the
+// bq-row stage `qs` (uncommitted: the first tile's group carries them).
 template <int D>
 __device__ __forceinline__ void issue_q(__nv_bfloat16* qs,
-                                        const __nv_bfloat16* q, int bq) {
+                                        const __nv_bfloat16* q, int bq,
+                                        int ld) {
   constexpr int C = D / 8;
   const int r0 = (threadIdx.x >> 5) * 16;
-  for (int i = threadIdx.x & 31; i < 16 * C; i += 32)
+  for (int i = threadIdx.x & 31; i < 16 * C; i += 32) {
+    const bool in = (i % C) * 8 < ld;
     cp_async16(smem_u32(qs + swz<D>(bq, r0 + i / C, i % C) * 8),
-               q + (size_t)(r0 + i / C) * D + (i % C) * 8, true);
+               in ? q + (size_t)(r0 + i / C) * ld + (i % C) * 8 : q, in);
+  }
 }
 
 // The key loop of one block, into `rows` (init'ed here). `tiles(t, src,
@@ -582,7 +590,7 @@ __device__ __forceinline__ void key_loop(Rows& rows,
                                          const Pos& pos, int q_last,
                                          bool causal, float sm_scale,
                                          int n_tiles, const Tiles& tiles,
-                                         int ld = D) {
+                                         int ld) {
   __nv_bfloat16* ring = smem + bq * D;
   auto kst = [&](int t) { return ring + (t % STAGES) * 2 * KT * D; };
   auto issue = [&](int t) {
@@ -615,7 +623,7 @@ __device__ __forceinline__ void key_loop(Rows& rows,
 }
 
 // key_loop on the block's product path, then the epilogue: block row r
-// is written to out + r·D.
+// is written to out + r·ld (ld: the operands' head dim, ≤ D).
 template <int D, class Pos, class Tiles>
 __device__ __forceinline__ void run(const __nv_bfloat16* __restrict__ k,
                                     const __nv_bfloat16* __restrict__ v,
@@ -623,21 +631,21 @@ __device__ __forceinline__ void run(const __nv_bfloat16* __restrict__ k,
                                     __nv_bfloat16* smem, int bq,
                                     const Pos& pos, int q_last, bool causal,
                                     float sm_scale, int n_tiles,
-                                    const Tiles& tiles) {
-  __nv_bfloat16* rows_out = out + (size_t)(threadIdx.x >> 5) * 16 * D;
+                                    const Tiles& tiles, int ld) {
+  __nv_bfloat16* rows_out = out + (size_t)(threadIdx.x >> 5) * 16 * ld;
   if constexpr (D >= 64) {
     if (bq == 64) {
       Group<D> rows;
       key_loop<D>(rows, k, v, smem, bq, pos, q_last, causal, sm_scale,
-                  n_tiles, tiles);
-      store_rows<D>(rows.o, rows.l, smem, bq, rows_out);
+                  n_tiles, tiles, ld);
+      store_rows<D>(rows.o, rows.l, smem, bq, rows_out, ld);
       return;
     }
   }
   Warp<D> rows;
   key_loop<D>(rows, k, v, smem, bq, pos, q_last, causal, sm_scale, n_tiles,
-              tiles);
-  store_rows<D>(rows.o, rows.l, smem, bq, rows_out);
+              tiles, ld);
+  store_rows<D>(rows.o, rows.l, smem, bq, rows_out, ld);
 }
 
 }  // namespace flash

@@ -20,6 +20,19 @@
 
 namespace mpmrf {
 
+// The instantiation that runs head dim d: the least of 16, 32, 64 and
+// 128 that is ≥ d, or 0 for a head dim no kernel takes (d % 16 ≠ 0, or
+// past 128). The kernels read and write d columns (the operands' row
+// stride) and zero-fill columns d .. D − 1 in shared memory, which adds
+// exact zeros to every product, so one instantiation serves every d it
+// covers. Every launch dispatches on it; its Python mirror is
+// kernels/mpmrf_decode.py::kernel_head_dim. (16-byte cp.async rows of
+// int8 planes need d % 16 == 0.)
+__host__ __device__ inline int kernel_head_dim(int d) {
+  if (d < 16 || d > 128 || d % 16 != 0) return 0;
+  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 128;
+}
+
 template <bool kPaged>
 __device__ __forceinline__ int block_of(const int32_t* __restrict__ table,
                                         int b, int j, int mb) {

@@ -277,8 +277,9 @@ static int filter_scores(const void* q_plane, const void* q_scale,
   a.hi = hi;
   a.msb_shift = msb_shift;
   a.hi_shift = hi_shift;
+  a.d = d;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
+  switch (mpmrf::kernel_head_dim(d)) {
     case 16: return launch_filter<16, kPaged>(a, bh, st);
     case 32: return launch_filter<32, kPaged>(a, bh, st);
     case 64: return launch_filter<64, kPaged>(a, bh, st);
@@ -323,14 +324,13 @@ static int gather_attention(const void* q, const void* k, const void* v,
   cudaGetLastError();
   const int splits =
       budget > split_slots ? (budget + split_slots - 1) / split_slots : 1;
-  if (g < 1 || g > 16 || d < 8 || d > 128 || d % 8 != 0 || split_slots < 1 ||
-      splits > 32)
+  const int dp = mpmrf::kernel_head_dim(d);
+  if (g < 1 || g > 16 || dp == 0 || split_slots < 1 || splits > 32)
     return (int)cudaErrorInvalidValue;
   float* part_acc = (float*)work;
   float* part_ml = part_acc + (size_t)bh * splits * g * d;
   const dim3 grid(splits, bh);
   cudaStream_t st = (cudaStream_t)stream;
-  const int dp = d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 128;
   switch (dp) {
     case 16:
       launch_split<16, kPaged>(grid, st, q, k, v, idx, val, block_table,

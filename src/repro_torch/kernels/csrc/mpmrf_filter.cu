@@ -75,9 +75,10 @@ extern "C" int mpmrf_filter_scores(
   a.shift = shift;
   a.causal = causal;
   a.q_offset = q_offset;
+  a.d = d;
   const int n_qb = n_q / bq;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
+  switch (mpmrf::kernel_head_dim(d)) {
     case 16: return launch<16>(a, bh, n_qb, st);
     case 32: return launch<32>(a, bh, n_qb, st);
     case 64: return launch<64>(a, bh, n_qb, st);

@@ -88,9 +88,11 @@ __global__ void __launch_bounds__(256) prefill_gather_kernel(
     const __nv_bfloat16* __restrict__ v_pages,
     const int32_t* __restrict__ idx, const int32_t* __restrict__ val,
     const int32_t* __restrict__ block_table, __nv_bfloat16* __restrict__ out,
-    int n_q, int bq, int rows, int bk, int budget, int mb, float sm_scale) {
+    int n_q, int d, int bq, int rows, int bk, int budget, int mb,
+    float sm_scale) {
   // rows: this block's query rows (flash::block_rows), a part of the
-  // query block of bq rows whose survivor table it reads
+  // query block of bq rows whose survivor table it reads; d: the
+  // operands' head dim (≤ D, the instantiation)
   const int n_qb = n_q / bq, n_k = mb * bk;
   const int x = blockIdx.x, b = blockIdx.y;
   const int qb = x * rows / bq;
@@ -136,12 +138,12 @@ __global__ void __launch_bounds__(256) prefill_gather_kernel(
   __syncthreads();
   const int q_last = info[1];
   if (q_last < 0) {  // every row a sentinel
-    int4* o = reinterpret_cast<int4*>(out + row0 * D);
-    for (int i = threadIdx.x; i < rows * D / 8; i += blockDim.x)
+    int4* o = reinterpret_cast<int4*>(out + row0 * d);
+    for (int i = threadIdx.x; i < rows * d / 8; i += blockDim.x)
       o[i] = make_int4(0, 0, 0, 0);
     return;
   }
-  flash::issue_q<D>(smem, q + row0 * D, rows);
+  flash::issue_q<D>(smem, q + row0 * d, rows, d);
   const int per = (bk + flash::KT - 1) / flash::KT;  // ring tiles per page
   const auto tiles = [kept_kb, kept_src, bk, per](int t, int& src,
                                                   int& kpos0, int& nv) {
@@ -150,8 +152,8 @@ __global__ void __launch_bounds__(256) prefill_gather_kernel(
     kpos0 = kept_kb[s] * bk + c * flash::KT;
     nv = min(flash::KT, bk - c * flash::KT);
   };
-  flash::run<D>(k_pages, v_pages, out + row0 * D, smem, rows, pos, q_last,
-                true, sm_scale, info[0] * per, tiles);
+  flash::run<D>(k_pages, v_pages, out + row0 * d, smem, rows, pos, q_last,
+                true, sm_scale, info[0] * per, tiles, d);
 }
 
 template <int D, bool kPaged>
@@ -175,8 +177,8 @@ static void launch_gather(dim3 grid, int threads, size_t smem,
                           cudaStream_t stream, const void* q,
                           const void* q_pos, const void* k, const void* v,
                           const void* idx, const void* val,
-                          const void* block_table, void* out, int n_q, int bq,
-                          int rows, int bk, int budget, int mb,
+                          const void* block_table, void* out, int n_q, int d,
+                          int bq, int rows, int bk, int budget, int mb,
                           float sm_scale) {
   static size_t given[64];
   flash::allow_smem(prefill_gather_kernel<D, kPaged>, smem, given);
@@ -184,7 +186,7 @@ static void launch_gather(dim3 grid, int threads, size_t smem,
       (const __nv_bfloat16*)q, (const int32_t*)q_pos,
       (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const int32_t*)idx,
       (const int32_t*)val, (const int32_t*)block_table, (__nv_bfloat16*)out,
-      n_q, bq, rows, bk, budget, mb, sm_scale);
+      n_q, d, bq, rows, bk, budget, mb, sm_scale);
 }
 
 // mb: blocks per bh row (table width, or n_kb of the contiguous cache)
@@ -213,9 +215,10 @@ static int filter_scores(const void* q_plane, const void* q_scale,
   a.hi = hi;
   a.msb_shift = msb_shift;
   a.hi_shift = hi_shift;
+  a.d = d;
   const int n_qb = n_q / bq;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
+  switch (mpmrf::kernel_head_dim(d)) {
     case 16: return launch_filter<16, kPaged>(a, bh, n_qb, st);
     case 32: return launch_filter<32, kPaged>(a, bh, n_qb, st);
     case 64: return launch_filter<64, kPaged>(a, bh, n_qb, st);
@@ -231,33 +234,34 @@ static int gather_attention(const void* q, const void* q_pos, const void* k,
                             int n_q, int d, int bq, int bk, int budget, int mb,
                             float sm_scale, void* stream) {
   cudaGetLastError();
-  const int rows = flash::block_rows(d, bq);
+  const int D = mpmrf::kernel_head_dim(d);
+  const int rows = flash::block_rows(D, bq);
   const dim3 grid(n_q / rows, bh);
   const int threads = 2 * rows;  // one warp per 16 query rows
   // the engine's stage and ring, then the kept lists, their count and
   // the block's largest live position
   const size_t smem =
-      flash::smem_bytes(d, rows) + sizeof(int) * (2 * (size_t)budget + 2);
+      flash::smem_bytes(D, rows) + sizeof(int) * (2 * (size_t)budget + 2);
   cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
+  switch (D) {
     case 16:
       launch_gather<16, kPaged>(grid, threads, smem, st, q, q_pos, k, v, idx,
-                                val, block_table, out, n_q, bq, rows, bk,
+                                val, block_table, out, n_q, d, bq, rows, bk,
                                 budget, mb, sm_scale);
       break;
     case 32:
       launch_gather<32, kPaged>(grid, threads, smem, st, q, q_pos, k, v, idx,
-                                val, block_table, out, n_q, bq, rows, bk,
+                                val, block_table, out, n_q, d, bq, rows, bk,
                                 budget, mb, sm_scale);
       break;
     case 64:
       launch_gather<64, kPaged>(grid, threads, smem, st, q, q_pos, k, v, idx,
-                                val, block_table, out, n_q, bq, rows, bk,
+                                val, block_table, out, n_q, d, bq, rows, bk,
                                 budget, mb, sm_scale);
       break;
     case 128:
       launch_gather<128, kPaged>(grid, threads, smem, st, q, q_pos, k, v,
-                                 idx, val, block_table, out, n_q, bq, rows,
+                                 idx, val, block_table, out, n_q, d, bq, rows,
                                  bk, budget, mb, sm_scale);
       break;
     default:

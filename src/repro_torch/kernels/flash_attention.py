@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.mpmrf_decode import (
-    FILTER_HEAD_DIMS, NEG_INF, _check_cuda, _require,
+    NEG_INF, _check_cuda, _require, check_head_dim, kernel_head_dim,
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -39,25 +39,29 @@ def row_chunk(per_row: int, budget: int = 1 << 28) -> int:
 
 
 def engine_smem_bytes(d: int, query_block: int, table_slots: int = 0) -> int:
-    """Shared memory of one B10/B11 block: its bf16 Q/O stage (64 rows
-    on the wgmma path, d ≥ 64 and query blocks of 64 or 128, else the
-    query block), a ring of STAGES K and V tiles of KEY_TILE rows, and
-    (B10) the kept survivor list of ``table_slots`` ids and its count."""
-    rows = 64 if d >= 64 and query_block % 64 == 0 else query_block
-    ring = 2 * d * (rows + 2 * STAGES * KEY_TILE)
+    """Shared memory of one B10/B11 block at head dim ``d``, laid out for
+    its instantiation D = ``kernel_head_dim(d)``: its bf16 Q/O stage (64
+    rows on the wgmma path, D ≥ 64 and query blocks of 64 or 128, else
+    the query block), a ring of STAGES K and V tiles of KEY_TILE rows,
+    and (B10) the kept survivor list of ``table_slots`` ids and its
+    count (``csrc/flash_common.cuh::smem_bytes``)."""
+    check_head_dim(d)
+    D = kernel_head_dim(d)
+    rows = 64 if D >= 64 and query_block % 64 == 0 else query_block
+    ring = 2 * D * (rows + 2 * STAGES * KEY_TILE)
     return ring + (4 * (table_slots + 1) if table_slots else 0)
 
 
 def check_tile_engine(d, dtype, query_block, key_block,
                       table_slots=0) -> None:
     """What the tile engine's kernels (B4 / B8, B10, B11) take: bf16
-    operands, a head dim it is built for, one warp per 16 query rows
+    operands, a head dim the kernels take, one warp per 16 query rows
     (query_block ≤ 128), key blocks of multiples of 8 rows (the engine
     pads a partial tile with masked keys), and the engine's shared
     memory for ``table_slots`` kept survivor ids."""
     _require(dtype == torch.bfloat16,
              "the CUDA attention kernels take bfloat16 q/K/V")
-    _require(d in FILTER_HEAD_DIMS, f"head_dim {d} not in {FILTER_HEAD_DIMS}")
+    check_head_dim(d)
     _require(query_block % 16 == 0 and query_block <= 128,
              f"query_block {query_block} must be a multiple of 16, <= 128")
     _require(key_block % 8 == 0, "key_block must be a multiple of 8")

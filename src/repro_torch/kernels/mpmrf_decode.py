@@ -35,7 +35,8 @@ _SIGNATURES = {
     "paged_decode_gather_attention": [_P] * 10 + [_I] * 7 + [_F, _P],
     "decode_gather_attention": [_P] * 9 + [_I] * 7 + [_F, _P],
 }
-FILTER_HEAD_DIMS = (16, 32, 64, 128)
+#: the kernels' instantiations, by head dim (see :func:`kernel_head_dim`)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 #: the decode filter's (B1 / B5) query rows per bh row (two n8 tiles)
 #: and key blocks (m16 tiles, the last one half of 8 keys, up to 128:
 #: the page ring's shared memory)
@@ -61,6 +62,28 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def kernel_head_dim(d: int) -> int:
+    """The instantiation that runs head dim ``d``: the least of
+    KERNEL_HEAD_DIMS ≥ d, or 0 for a head dim no kernel takes (d % 16 ≠ 0,
+    or past 128). Every kernel (B1–B11) reads and writes d columns of its
+    operands and zero-fills columns d … D − 1 in shared memory, which add
+    exact zeros to every product, so d 80, 96 and 112 run the D = 128
+    instantiation and d 48 the D = 64 one. 16-byte copies of int8 plane
+    rows need d % 16 == 0. Mirrors ``csrc/mpmrf_common.cuh::
+    kernel_head_dim``, on which every launch dispatches."""
+    if not (0 < d <= KERNEL_HEAD_DIMS[-1] and d % 16 == 0):
+        return 0
+    return next(D for D in KERNEL_HEAD_DIMS if D >= d)
+
+
+def check_head_dim(d: int) -> None:
+    """Refuse a head dim that no kernel takes (:func:`kernel_head_dim`),
+    naming it."""
+    if not kernel_head_dim(d):
+        raise ValueError(f"head_dim {d} must be a multiple of 16, <= "
+                         f"{KERNEL_HEAD_DIMS[-1]}")
+
+
 def check_plane_widths(round_bits) -> None:
     """Plane widths the filter kernels derive from the codes' high bytes:
     msb = code >> (16 − lo) and hi = code >> (16 − hi) fit int8 for
@@ -83,7 +106,7 @@ def plane_shifts(round_bits) -> Tuple[int, int]:
 
 def check_decode_filter_launch(g, d, key_block, round_bits) -> None:
     """What the decode kind of the filter engine (B1 / B5) takes: at most
-    16 folded query rows (two n8 tiles), a head dim it is built for, key
+    16 folded query rows (two n8 tiles), a head dim the kernels take, key
     blocks of 8-key multiples up to 128 (the reference's test models use
     16, the card's serving path 64) and plane widths it derives from the
     codes' high bytes. ``serving_faults`` refuses the rows and key blocks
@@ -93,8 +116,7 @@ def check_decode_filter_launch(g, d, key_block, round_bits) -> None:
         raise ValueError(f"the decode filter takes 1 to "
                          f"{DECODE_FILTER_MAX_G} query rows per bh row "
                          f"(G={g})")
-    if d not in FILTER_HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {FILTER_HEAD_DIMS}")
+    check_head_dim(d)
     if key_block % 8 or not 0 < key_block <= DECODE_FILTER_MAX_KEY_BLOCK:
         raise ValueError(f"key_block {key_block} must be a multiple of 8, "
                          f"<= {DECODE_FILTER_MAX_KEY_BLOCK}")
@@ -103,12 +125,13 @@ def check_decode_filter_launch(g, d, key_block, round_bits) -> None:
 
 def check_decode_gather_launch(g, d, key_block, dtype) -> None:
     """What the split decode gather (B2 / B6) takes: bf16 q/K/V, at most
-    16 folded query rows, head dims up to 128 in multiples of 8, and key
-    blocks of multiples of 4."""
+    16 folded query rows, a head dim the kernels take and key blocks of
+    multiples of 4."""
     _require(dtype == torch.bfloat16,
              "the CUDA attention kernels take bfloat16 q/K/V")
-    _require(g <= 16 and d <= 128 and d % 8 == 0,
-             f"needs G <= 16 and head_dim <= 128, divisible by 8 (G={g}, d={d})")
+    _require(g <= 16, f"the decode gather takes at most 16 query rows per "
+             f"bh row (G={g})")
+    check_head_dim(d)
     _require(key_block % 4 == 0, "key_block must be a multiple of 4")
 
 

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.mpmrf_decode import (
-    FILTER_HEAD_DIMS, NEG_INF, _check_cuda, _require, check_plane_widths,
+    NEG_INF, _check_cuda, _require, check_head_dim, check_plane_widths,
 )
 from repro_torch.kernels.flash_attention import row_chunk
 
@@ -35,13 +35,14 @@ def _lib():
 
 
 def check_filter_launch(d, query_block, key_block, round_bits=None):
-    """What the filter engine takes for B3 / B7 / B9: a head dim it is
-    built for, query blocks of 16-row m-tiles up to 128 rows (at most
-    eight warps), key blocks of 8-key n-tiles up to 128 (the ring's
-    shared memory) and, for B3 / B7, plane widths whose planes derive
-    from the codes' high bytes (``check_plane_widths``). The decode
-    kind's limits are ``mpmrf_decode.check_decode_filter_launch``."""
-    _require(d in FILTER_HEAD_DIMS, f"head_dim {d} not in {FILTER_HEAD_DIMS}")
+    """What the filter engine takes for B3 / B7 / B9: a head dim the
+    kernels take (``mpmrf_decode.kernel_head_dim``), query blocks of
+    16-row m-tiles up to 128 rows (at most eight warps), key blocks of
+    8-key n-tiles up to 128 (the ring's shared memory) and, for B3 / B7,
+    plane widths whose planes derive from the codes' high bytes
+    (``check_plane_widths``). The decode kind's limits are
+    ``mpmrf_decode.check_decode_filter_launch``."""
+    check_head_dim(d)
     _require(query_block % 16 == 0 and 0 < query_block <= 128,
              f"query_block {query_block} must be a multiple of 16, <= 128")
     _require(key_block % 8 == 0 and 0 < key_block <= 128,

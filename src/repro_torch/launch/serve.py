@@ -4,8 +4,7 @@ paged KV cache (or, with ``--unpaged``, the contiguous one), on the GPU.
 ``python -m repro_torch.launch.serve --arch qwen3-14b`` (or
 ``starcoder2-7b``, ``gemma3-27b``, ``phi3-mini-3.8b``) serves synthetic
 requests at full width (random weights from ``--seed``) through the
-fused paged kernels (``--unpaged``: their contiguous twins; phi3-mini,
-whose head dim the kernels do not take, on the XLA paths) and reports
+fused paged kernels (``--unpaged``: their contiguous twins) and reports
 prefill and decode throughput and latency percentiles. ``--smoke`` uses
 the reduced widths; ``--layers`` cuts depth only; ``--device cpu`` runs
 the kernels' plain versions.

@@ -12,7 +12,6 @@ import math
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 # Φ(-2), Φ(2): the standard normal truncated to [-2, 2]
 _LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
@@ -106,11 +105,28 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA computes it: x · (1 / (1 + exp(−x))) op by
+    op, each op's f32 result rounded to x's dtype (as torch's ops in x's
+    dtype round), with XLA's denormal mode on top. XLA flushes subnormal
+    operands and results to zero, which changes exactly two kinds of
+    output: |x| < 2^−125, whose x · 0.5 (or x itself) is subnormal, and
+    1 + exp(−x) > 2^126, whose reciprocal is; both give x · 0 (±0).
+    ``F.silu`` rounds once and keeps subnormals, and so parts from the
+    reference in bf16 on 1866 of the 65280 finite inputs; this matches
+    it on all of them (``tests/test_torch_dense_configs.py``)."""
+    a = 1.0 + torch.exp(-x)
+    y = x * torch.reciprocal(a)
+    flushed = (x.abs() < 2.0 ** -125) | (a > 2.0 ** 126)
+    return torch.where(flushed, x * 0.0, y)
+
+
 def apply_mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
-    """SwiGLU, GeGLU or plain GELU MLP (:func:`gelu`'s tanh form)."""
+    """SwiGLU (:func:`silu`), GeGLU or plain GELU MLP (:func:`gelu`'s
+    tanh form)."""
     up = x @ params["w_up"]
     if activation == "swiglu":
-        h = F.silu(x @ params["w_gate"]) * up
+        h = silu(x @ params["w_gate"]) * up
     elif activation == "geglu":
         h = gelu(x @ params["w_gate"]) * up
     elif activation == "gelu":

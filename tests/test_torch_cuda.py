@@ -2,6 +2,10 @@
 and the contiguous twins B5–B8 against the paged B1–B4 on the same rows;
 the split decode gather (B2 / B6) and the tile-engine prefill gather
 (B4 / B8) across their instantiations, edge rows and tables, twice.
+Every kernel's grid holds head dim 96 (phi3-mini's, run on the d-128
+instantiation with zero-filled columns) beside 16, 32, 64 and 128, and
+80 and 112 at one shape each; phi3-mini at full width (3 layers) serves
+on B1–B4 with the plain versions' first tokens.
 
 Marked ``gpu``: on a host without CUDA every case skips. On the GPU
 machine run ``PYTHONPATH=src python -m pytest --noconftest -m gpu
@@ -137,7 +141,11 @@ def _planes_full_sequence(cuda, bh, n, d, seed):
 FILTER_SHAPES = [(16, 16, 16), (32, 48, 64), (64, 64, 128), (128, 128, 64),
                  (128, 16, 128), (64, 128, 16), (32, 64, 64),
                  (128, 128, 128), (128, 64, 64), (128, 128, 16),
-                 (16, 16, 8), (64, 32, 24)]
+                 (16, 16, 8), (64, 32, 24),
+                 # head dims padded to an instantiation: d 96 on both
+                 # paths, 80 / 112 on wgmma / mma.sync, 48 padded to 64
+                 (96, 128, 64), (96, 32, 16), (80, 128, 64), (112, 48, 24),
+                 (48, 64, 64)]
 
 
 @pytest.mark.parametrize("causal,q_offset", [(True, 0), (True, 48),
@@ -174,7 +182,9 @@ PREFILL_FILTER_SHAPES = [(16, 16, 16, (2, 4)), (32, 48, 64, (2, 4)),
                          (64, 128, 16, (3, 7)), (128, 128, 64, (1, 8)),
                          (128, 64, 128, (2, 4)), (128, 48, 16, (2, 4)),
                          (32, 16, 8, (2, 4)), (128, 64, 24, (2, 4)),
-                         (128, 128, 64, (0, 8)), (64, 32, 16, (0, 8))]
+                         (128, 128, 64, (0, 8)), (64, 32, 16, (0, 8)),
+                         (96, 128, 64, (2, 4)), (96, 32, 16, (0, 8)),
+                         (80, 128, 64, (2, 4)), (112, 64, 24, (1, 8))]
 
 
 @pytest.mark.parametrize("d,bq,bk,round_bits", PREFILL_FILTER_SHAPES)
@@ -245,9 +255,11 @@ def _qkv(cuda, bh, n, d, seed):
 
 #: every instantiation and tiling of the B10/B11 tile engine: d ∈ {16,
 #: 32, 64, 128}, one to eight warps, a key block of 8 (one ring tile
-#: padded with masked keys), of 16, of one ring tile (64) and of two (128)
+#: padded with masked keys), of 16, of one ring tile (64) and of two
+#: (128); d 96 on the wgmma and the mma.sync path, 80 and 112
 ENGINE_SHAPES = [(16, 16, 8), (32, 32, 16), (64, 64, 64), (128, 128, 64),
-                 (128, 128, 128)]
+                 (128, 128, 128), (96, 128, 64), (96, 32, 16),
+                 (80, 64, 64), (112, 128, 128)]
 EARLY_ROWS = 32   # where two or three keys carry a row: bf16 P fails here
 
 
@@ -396,7 +408,7 @@ def _contiguous_case(cuda, d, bk, bh=6, g=4, n_kb=8, n_q=64, seed=5):
     )
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
 def test_contiguous_decode_kernels_match_plain_and_paged(cuda, d):
     from repro_torch.kernels import mpmrf_decode as dk
 
@@ -423,7 +435,7 @@ def test_contiguous_decode_kernels_match_plain_and_paged(cuda, d):
     assert torch.equal(out, paged)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
 def test_contiguous_prefill_kernels_match_plain_and_paged(cuda, d):
     from repro_torch.kernels import mpmrf_prefill as pk
 
@@ -475,12 +487,15 @@ def _twin_gathers(cuda, d, bk, bh, n_kb, seed):
 
 #: (G, d, key block, budget) of the split decode gather: G 1 / 5 / 16
 #: (and the dense configs' 2 and 9 at d 128),
-#: every head-dim instantiation and two zero-padded heads (8 on the
-#: mma.sync path, 40 on wgmma), one or two ring tiles per page; budget 7
-#: (two splits, the second short) and 133 (27 splits of 5)
+#: every head-dim instantiation and zero-padded heads (48 on the d-64
+#: instantiation; phi3-mini's 96 at G 1, its serving shape, and at G 5
+#: over 27 splits; 80 and 112 on the d-128 one), one or two ring tiles
+#: per page; budget 7 (two splits, the second short) and 133 (27 splits
+#: of 5)
 DECODE_SHAPES = [(1, 16, 16, 7), (5, 32, 64, 7), (16, 64, 16, 7),
-                 (5, 128, 64, 7), (16, 128, 128, 7), (5, 40, 16, 7),
-                 (1, 8, 64, 7), (5, 128, 16, 7), (5, 128, 16, 133),
+                 (5, 128, 64, 7), (16, 128, 128, 7), (5, 48, 16, 7),
+                 (1, 96, 64, 7), (5, 96, 16, 133), (1, 80, 64, 7),
+                 (16, 112, 128, 7), (5, 128, 16, 7), (5, 128, 16, 133),
                  # the dense configs' groups at their serving shape:
                  # gemma3-27b (G 2), starcoder2-7b (G 9)
                  (2, 128, 64, 7), (9, 128, 64, 7), (9, 128, 64, 133)]
@@ -530,7 +545,8 @@ def test_split_decode_gathers_match_plain_and_each_other(cuda, g, d, bk,
 #: (64) and two (128) ring tiles
 PREFILL_SHAPES = [(16, 16, 16), (32, 48, 64), (64, 64, 64), (128, 128, 64),
                   (128, 128, 128), (128, 48, 16), (64, 128, 16),
-                  (128, 16, 64)]
+                  (128, 16, 64), (96, 128, 64), (96, 48, 16),
+                  (80, 64, 128), (112, 16, 64)]
 
 
 @pytest.mark.parametrize("d,bq,bk", PREFILL_SHAPES)
@@ -629,25 +645,82 @@ def test_prefill_kernels_at_folded_group_rows(cuda, g):
     assert torch.equal(out, pk.paged_prefill_gather_attention(*gargs, **kw))
 
 
-def test_pallas_engine_at_head_dim_96_is_refused_before_any_launch(cuda):
-    """phi3-mini-3.8b on the fused path (2 layers, full width, bf16): the
-    kernels take no head dim 96, so ``ServeLoop`` refuses the engine at
-    construction, naming the head dim, and nothing has launched."""
+def test_pallas_engine_at_head_dim_192_is_refused_before_any_launch(cuda):
+    """phi3-mini-3.8b's fused config at head dim 192 (2 layers, full
+    width, bf16): the kernels take no head dim past 128, so ``ServeLoop``
+    refuses the engine at construction, naming the head dim, and nothing
+    has launched."""
     from repro_torch.configs import registry
-    from repro_torch.configs.serving import on_fused_path
     from repro_torch.kernels import _build
     from repro_torch.models import LMModel
     from repro_torch.runtime import ServeLoop
 
-    cfg = dataclasses.replace(
-        on_fused_path(registry.get_config("phi3-mini-3.8b")), num_layers=2)
-    assert cfg.head_dim == 96 and cfg.dtype == "bfloat16"
+    cfg = dataclasses.replace(registry.get_serve_config("phi3-mini-3.8b"),
+                              num_layers=2, head_dim=192)
+    assert cfg.energon.impl == "pallas" and cfg.dtype == "bfloat16"
     model = LMModel(cfg, device="cuda")
     _build.reset_launch_counts()
-    with pytest.raises(ValueError, match="head_dim 96 not in"):
+    with pytest.raises(ValueError, match="head_dim 192 must be a multiple"):
         ServeLoop(model, model.init(seed=0), batch_slots=2, max_len=2048,
                   prefill_chunk=128, device="cuda")
     assert sum(_build.launch_counts.values()) == 0
+
+
+def test_phi3_serves_on_the_kernels_at_full_width(cuda):
+    """phi3-mini-3.8b's serving config at full width (head dim 96, G 1),
+    cut to 3 layers so that layer 2 runs the fused kernels: ``ServeLoop``
+    builds, serves two 1100-token prompts on B1–B4 (each launched once
+    per decode step or prefill wave), and gives the first tokens of the
+    same engine with the plain versions swapped in (eager steps both)."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mpmrf_decode as dk
+    from repro_torch.kernels import mpmrf_prefill as pk
+    from repro_torch.models import LMModel
+    from repro_torch.runtime import Request, ServeLoop
+
+    cfg = dataclasses.replace(registry.get_serve_config("phi3-mini-3.8b"),
+                              num_layers=3)
+    assert cfg.head_dim == 96 and cfg.num_heads == cfg.num_kv_heads
+    model = LMModel(cfg, device="cuda")
+    params = model.init(seed=0)
+    gen = np.random.default_rng(3)
+    prompts = [gen.integers(1, cfg.vocab_size - 1, size=1100).tolist()
+               for _ in range(2)]
+
+    def drain():
+        engine = ServeLoop(model, params, batch_slots=2, max_len=2048,
+                           prefill_chunk=128, eos_token=-1,
+                           cuda_graphs=False, device="cuda")
+        for uid, p in enumerate(prompts):
+            engine.submit(Request(uid=uid, prompt=p, max_new_tokens=4))
+        _build.reset_launch_counts()
+        done = engine.run_until_drained()
+        m = engine.metrics
+        return ({r.uid: r.tokens_out for r in done}, dict(
+            _build.launch_counts), m.decode_dispatches, m.prefill_dispatches)
+
+    streams, n, steps, waves = drain()
+    assert n["mpmrf_paged_filter_scores"] == steps > 0
+    assert n["paged_decode_gather_attention"] == steps
+    assert n["mpmrf_paged_prefill_filter_scores"] == waves > 0
+    assert n["paged_prefill_gather_attention"] == waves
+    swaps = [(dk, "paged_filter_scores"),
+             (dk, "paged_decode_gather_attention"),
+             (pk, "paged_prefill_filter_scores"),
+             (pk, "paged_prefill_gather_attention")]
+    saved = [(m, name, getattr(m, name)) for m, name in swaps]
+    try:
+        for m, name in swaps:
+            setattr(m, name, getattr(m, name + "_plain"))
+        plain, n_plain, _, _ = drain()
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+    assert sum(n_plain.values()) == 0
+    assert all(len(s) == 4 for s in streams.values())
+    assert {u: s[:2] for u, s in streams.items()} == {
+        u: s[:2] for u, s in plain.items()}
 
 
 def test_dense_decode_paged_equals_unpaged(cuda):
@@ -707,11 +780,13 @@ def _decode_filter_case(cuda, g, d, bk, round_bits, repeats, n_kb, seed):
 #: at lo 1 and lo = 0 (the code's sign as msb, and a remainder plane
 #: reaching 255, past int8)
 DECODE_FILTER_GRID = [(g, d, bk, rb) for g in (1, 2, 5, 8, 16)
-                      for d in (16, 32, 64, 128) for bk in (16, 64)
+                      for d in (16, 32, 64, 96, 128) for bk in (16, 64)
                       for rb in ((2, 4), (1, 8), (0, 8))] + [
     # starcoder2-7b's G 9 (two n8 tiles, seven rows padded) at its
     # serving shape
-    (9, 128, 64, rb) for rb in ((2, 4), (1, 8), (0, 8))]
+    (9, 128, 64, rb) for rb in ((2, 4), (1, 8), (0, 8))] + [
+    # the other head dims the d-128 instantiation runs padded
+    (1, 80, 64, (2, 4)), (5, 112, 64, (2, 4))]
 
 
 def _check_decode_filters(cuda, g, d, bk, round_bits, repeats, n_kb, seed):
@@ -1066,7 +1141,7 @@ def test_a_graphed_step_needs_the_live_rows(smoke_bf16, paged, method, live):
 
 @pytest.mark.parametrize("d,n,q_offset,ratio", [
     (128, 4096, 0, 4.0), (128, 4096, 2048, 4.0), (64, 3072, 0, 2.0),
-    (128, 2560, 0, 1.0),
+    (128, 2560, 0, 1.0), (96, 4096, 0, 4.0),
 ])
 def test_chunked_kernel_route_equals_scan(cuda, d, n, q_offset, ratio):
     """Past the threshold: B9 → selection → B10 against the torch scan

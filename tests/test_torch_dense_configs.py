@@ -2,14 +2,17 @@
 bias, the plain GELU MLP, G = 3 at smoke widths), gemma3-27b (GeGLU, the
 tied head, 5 windowed : 1 global layer, window 16 at smoke widths) and
 phi3-mini-3.8b (MHA) — in the port against the reference, on the CPU.
+The model tests also run phi3-mini at its published head dim of 96 (2
+MHA heads, 3 layers), which the CUDA kernels take padded to 128.
 
 The configs equal the reference's field for field; the init trees have
-the reference's leaves and shapes. LayerNorm and the GELU / GeGLU MLPs
-match the JAX functions on the same inputs. On each serve-smoke config
-(impl pallas: layers 0–1 dense, the global layers past them on the
-fused kernels' plain versions, the windowed ones on the XLA block path)
-with the reference's weights carried across by ``repro_torch.convert``:
-``apply`` logits and ``loss``, paged ``prefill`` and ``decode_step``
+the reference's leaves and shapes. LayerNorm and the GELU / GeGLU /
+SwiGLU MLPs match the JAX functions on the same inputs, and SiLU
+matches ``jax.nn.silu`` bit for bit on every finite bf16 input. On each
+serve-smoke config (impl pallas: layers 0–1 dense, the global layers
+past them on the fused kernels' plain versions, the windowed ones on
+the XLA block path) with the reference's weights carried across by
+``repro_torch.convert``: ``apply`` logits and ``loss``, paged ``prefill`` and ``decode_step``
 logits, and greedy ``ServeLoop`` streams equal to the JAX engine's,
 with every prompt past gemma3's window. Last, gemma3's windowed serve
 steps under the graph dispatch guard.
@@ -61,9 +64,7 @@ def test_configs_equal_the_reference(arch):
     assert jax_model_config(port.smoke()) == ref.smoke()
     assert registry.get_config(arch) is port.CONFIG
     serve = registry.get_serve_config(arch)
-    # phi3's head dim 96 keeps its shipped config until the kernels take it
-    assert serve.energon.impl == ("mpmrf_block" if arch == "phi3-mini-3.8b"
-                                  else "pallas")
+    assert serve.energon.impl == "pallas"     # phi3's head dim 96 too
     LMModel(port.CONFIG, device="meta")        # every full config builds
     LMModel(port.smoke(), device="cpu")
 
@@ -138,7 +139,7 @@ def test_layernorm_and_mlps_match_the_reference(dtype):
     assert out.dtype == tdt
     np.testing.assert_allclose(n(out.float()), np.asarray(ref, np.float32),
                                **tol)
-    for act in ("gelu", "geglu"):
+    for act in ("gelu", "geglu", "swiglu"):
         ref = JL.apply_mlp(j(mlp), j(x), act)
         out = L.apply_mlp(p(mlp), p(x), act)
         np.testing.assert_allclose(n(out.float()),
@@ -146,11 +147,43 @@ def test_layernorm_and_mlps_match_the_reference(dtype):
                                    err_msg=act)
 
 
-@pytest.fixture(scope="module", params=list(ARCHS))
+#: phi3-mini's serve-smoke config at its published head dim: 2 MHA heads
+#: × 96 (the kernels' padded head dim), 3 layers, blocks of 16
+PHI3_D96 = "phi3-mini-3.8b-d96"
+
+
+def _serve_smoke(name):
+    if name == PHI3_D96:
+        return dataclasses.replace(
+            registry.get_serve_config("phi3-mini-3.8b", smoke=True),
+            num_layers=3, d_model=192, num_heads=2, num_kv_heads=2,
+            head_dim=96)
+    return registry.get_serve_config(name, smoke=True)
+
+
+def test_silu_matches_jax_on_every_finite_bf16():
+    """``layers.silu`` against ``jax.nn.silu`` on all 65280 finite bf16
+    inputs, bit for bit. XLA computes x · (1 / (1 + exp(−x))) op by op,
+    each op in f32 rounded to bf16, and flushes subnormal operands and
+    results to zero; ``F.silu`` (one rounding, subnormals kept) parts
+    from it on 1866 of them, the op-by-op chain without the flush on
+    511."""
+    bits = np.arange(1 << 16, dtype=np.uint16)
+    x = jnp.asarray(bits).view(jnp.bfloat16)
+    x = x[np.isfinite(np.asarray(x, np.float32))]
+    assert x.shape == (65280,)
+    ref = np.asarray(jax.nn.silu(x)).view(np.uint16)
+    tx = torch.from_numpy(np.asarray(x).view(np.int16).copy()).view(
+        torch.bfloat16)
+    out = L.silu(tx).view(torch.int16).numpy().view(np.uint16)
+    assert int((out != ref).sum()) == 0
+
+
+@pytest.fixture(scope="module", params=list(ARCHS) + [PHI3_D96])
 def pair(request):
     """The arch's serve-smoke config in both packages, the reference's
     weights carried across."""
-    cfg = registry.get_serve_config(request.param, smoke=True)
+    cfg = _serve_smoke(request.param)
     jmodel = JaxLMModel(jax_model_config(cfg))
     jparams = jmodel.init(jax.random.PRNGKey(0))
     model = LMModel(cfg, device="cpu")

@@ -22,6 +22,9 @@ from repro_torch.kernels import mpmrf_filter as fk
     pytest.param(64, 128, 128, (2, 4), id="64-128-128"),
     pytest.param(128, 128, 64, (2, 4), id="128-128-64"),
     pytest.param(128, 32, 24, (2, 4), id="128-32-24"),
+    # head dims between the instantiations run the next one up, padded
+    pytest.param(96, 128, 64, (2, 4), id="96-128-64"),
+    pytest.param(48, 32, 16, (2, 4), id="48-32-16"),
     # lo = 0: the msb plane is the code's sign, a shift by 7
     pytest.param(128, 128, 64, (0, 8), id="128-128-64-lo0-hi8"),
 ])
@@ -33,7 +36,7 @@ def test_filter_engine_admits(d, bq, bk, round_bits):
 
 
 @pytest.mark.parametrize("d,bq,bk,round_bits,message", [
-    (8, 16, 16, None, "head_dim 8 not in (16, 32, 64, 128)"),
+    (8, 16, 16, None, "head_dim 8 must be a multiple of 16, <= 128"),
     (128, 24, 64, None, "query_block 24 must be a multiple of 16, <= 128"),
     (128, 256, 64, None, "query_block 256 must be a multiple of 16, <= 128"),
     (128, 128, 4, None, "key_block 4 must be a multiple of 8, <= 128"),
@@ -96,13 +99,14 @@ def test_plane_shifts_derive_both_planes_from_the_high_byte(lo, hi):
 
 @pytest.mark.parametrize("g,d,bk,round_bits", [
     (1, 16, 8, (2, 4)), (5, 128, 64, (2, 4)), (16, 64, 16, (0, 8)),
-    (8, 32, 128, (1, 8)), (9, 128, 24, (3, 7)),
+    (8, 32, 128, (1, 8)), (9, 128, 24, (3, 7)), (1, 96, 64, (2, 4)),
+    (16, 112, 16, (0, 8)),
 ])
 def test_decode_filter_admits(g, d, bk, round_bits):
-    """The decode kind takes 1–16 rows (one or two n8 tiles), the filter
-    head dims, key blocks of 8-key multiples up to 128 (16 in the
-    reference's test models, 64 on the card's serving path) and every
-    0 ≤ lo < hi ≤ 8."""
+    """The decode kind takes 1–16 rows (one or two n8 tiles), every head
+    dim 16·k ≤ 128 (phi3-mini's 96 at G = 1 among them), key blocks of
+    8-key multiples up to 128 (16 in the reference's test models, 64 on
+    the card's serving path) and every 0 ≤ lo < hi ≤ 8."""
     dk.check_decode_filter_launch(g, d, bk, round_bits)
 
 
@@ -111,7 +115,7 @@ def test_decode_filter_admits(g, d, bk, round_bits):
      "the decode filter takes 1 to 16 query rows per bh row (G=17)"),
     (0, 128, 64, (2, 4),
      "the decode filter takes 1 to 16 query rows per bh row (G=0)"),
-    (5, 8, 16, (2, 4), "head_dim 8 not in (16, 32, 64, 128)"),
+    (5, 8, 16, (2, 4), "head_dim 8 must be a multiple of 16, <= 128"),
     (5, 128, 4, (2, 4), "key_block 4 must be a multiple of 8, <= 128"),
     (5, 128, 20, (2, 4), "key_block 20 must be a multiple of 8, <= 128"),
     (5, 128, 256, (2, 4), "key_block 256 must be a multiple of 8, <= 128"),

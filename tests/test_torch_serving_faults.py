@@ -3,14 +3,15 @@ it would fail mid-run — for the shapes the CUDA kernels refuse and for
 windowed layers, on the CPU.
 
 Told that the kernels launch (a CUDA device), it gives one reason each
-for a head dim outside the kernels' (phi3-mini's 96, the reference test
-models' 8), an fp32 engine and a query block past the filter's 128; on
-the CPU, where the plain versions take every shape, it gives none for
-the same configs. A windowed model whose windowed layers (off the fused
-kernels) would mask past ``chunk_threshold`` is refused at construction;
-the same model without windows is not. The card's twin, a ``pallas``
-engine at head dim 96 refused before any launch, is in
-``test_torch_cuda.py``."""
+for a head dim the kernels do not take (192, past 128; the reference
+test models' 8), an fp32 engine and a query block past the filter's
+128; on the CPU, where the plain versions take every shape, it gives
+none for the same configs; phi3-mini's full-width pallas engine (head
+dim 96, G = 1) gets none on either. A windowed model whose windowed
+layers (off the fused kernels) would mask past ``chunk_threshold`` is
+refused at construction; the same model without windows is not. The
+card's twin, a ``pallas`` engine at head dim 192 refused before any
+launch, is in ``test_torch_cuda.py``."""
 
 import dataclasses
 
@@ -29,14 +30,14 @@ GROUP, CHUNK, CACHE = 5, 128, 4096
 
 
 @pytest.mark.parametrize("overrides, reason", [
-    (dict(head_dim=96), "head_dim 96 not in (16, 32, 64, 128)"),
-    (dict(head_dim=8), "head_dim 8 not in (16, 32, 64, 128)"),
+    (dict(head_dim=192), "head_dim 192 must be a multiple of 16, <= 128"),
+    (dict(head_dim=8), "head_dim 8 must be a multiple of 16, <= 128"),
     (dict(dtype=torch.float32), "take bfloat16 q/K/V"),
     # G·chunk = 1280 rows in query blocks of 256: the fused prefill
     # engages, and its filter takes query blocks up to 128
     (dict(query_block=256, chunk=256, cache_len=2048),
      "query_block 256 must be a multiple of 16, <= 128"),
-], ids=["hd96", "hd8", "fp32", "qb256"])
+], ids=["hd192", "hd8", "fp32", "qb256"])
 def test_kernel_shapes_are_refused_where_the_kernels_launch(overrides,
                                                             reason):
     kw = dict(group=GROUP, chunk=CHUNK, cache_len=CACHE, head_dim=128,
@@ -59,7 +60,7 @@ def test_kernel_shapes_are_refused_where_the_kernels_launch(overrides,
 def test_no_kernel_reason_where_no_kernel_launches():
     """The XLA impls launch no kernel; nor does a model whose sparse
     layers are all windowed."""
-    kw = dict(group=GROUP, chunk=CHUNK, cache_len=CACHE, head_dim=96,
+    kw = dict(group=GROUP, chunk=CHUNK, cache_len=CACHE, head_dim=8,
               dtype=torch.float32, cuda_kernels=True)
     xla = dataclasses.replace(ENERGON, impl="mpmrf_block")
     assert serving_faults(xla, **kw) == []
@@ -93,6 +94,17 @@ def test_windowed_prefill_past_the_threshold_is_refused_at_construction():
     engine = ServeLoop(plain, plain.init(), max_len=2048, prefill_chunk=128,
                        device="cpu")
     assert engine.max_len == 2048
+
+
+def test_phi3_pallas_engine_is_not_refused():
+    """phi3-mini's serving config: the fused path at head dim 96 and
+    G = 1, the phase shapes of the card (chunk 128, max_len 4096)."""
+    cfg = get_serve_config("phi3-mini-3.8b")
+    assert cfg.energon.impl == "pallas" and cfg.head_dim == 96
+    for paged in (True, False):
+        assert serving_faults(
+            cfg.energon, group=1, chunk=CHUNK, cache_len=CACHE, paged=paged,
+            head_dim=96, dtype=torch.bfloat16, cuda_kernels=True) == []
 
 
 def test_cpu_engines_are_not_newly_refused():
