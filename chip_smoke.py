@@ -159,6 +159,25 @@ weights:
     layer 2's live operands of the last prefill wave and decode step,
     the XLA prefill and decode selections against the fused kernels'
     (B3's, B1's) survivor tables, bit for bit.
+9f. (after 9e) ``[tp-serve]``: phase 4's requests through a lone
+    graphed paged engine (prefix sharing on) on a ``(1, 4)`` mesh of the
+    one card (``cuda:0`` × 4, the serve CLI's ``--mesh 1x4
+    --simulate-devices 4``): the pools are four head shards of 2 KV
+    heads, B1–B4 launch four times a fused layer and dispatch (bh = 16 a
+    launch), the streams' sha1 must be phase 4's; prefill / decode
+    tok/s, ITL p50/p95 and the bytes of a shard; then B1–B4 against their
+    plain versions, and timed, on shard 0's live pool of layer 2
+    (``tp-shard0-layer2``); decode ticks under the profiler
+    (``[profile-decode-tp]``).
+9g. ``[mesh-serve]``: a ``ReplicatedServeLoop`` on a ``(2, 2)`` mesh of
+    the one card (two replicas of 8 slots, TP 2 each): phase 4's
+    requests give phase 4's streams; the placement, merged tokens (the
+    replicas' sum), merged peak pages (their max) and each replica's
+    tok/s; B1–B4 launched once a fused layer, dispatch and shard. Then a
+    mixed-temperature trace (8 × 512-token prompts on a 64-token system
+    prompt, temperatures 0 / 0.8 / 1.0 in turn, 16 tokens each) through
+    the replicas and through a single eager engine: the sampled streams
+    must be equal.
 15. ``[score-long]``: ``LMModel.loss`` over 2 × 8192 tokens with impl
     "pallas": n_q·n_k is 16× ``chunk_threshold``, so every layer takes
     the chunked path's kernel route — B11 on layers 0–1 (2 launches), B9
@@ -222,8 +241,10 @@ The line before last is a JSON object listing each kernel's launches
 phases 17–19 beside them), error and
 times (those of the live pool, the captured layer or, B9–B11, the long
 score's layer 2; ``random`` holds phase 2's, 7's or 10's; ``d96`` phase
-19's at head dim 96, bounded by the d-96 work) and each time
-over its bound (``ms_over_bound``); the eager/graphed drains, the
+19's at head dim 96, bounded by the d-96 work; ``tp_shard``, B1–B4 only,
+phase 9f's shard; ``launches_mesh`` the launches of phases 9f and 9g)
+and each time over its bound (``ms_over_bound``); the mesh phases, the
+eager/graphed drains, the
 scoring results (with the ptxas report), the unpaged serve and the paged
 serve, the telemetry and chaos phases, the long-score / XLA phases and
 the dense configs' phases are on the lines before it; the last line is
@@ -1195,9 +1216,10 @@ def streams_digest(streams):
     return hashlib.sha1(text.encode()).hexdigest()
 
 
-def live_pool_case(engine, prompts, layer):
+def live_pool_case(engine, prompts, layer, shard=None):
     """Kernel operands on the live pool of ``layer`` after serving: each
-    finished request's registered pages form its block table."""
+    finished request's registered pages form its block table. With
+    ``shard``, that head shard of a sharded pool (bh = B·KV/M rows)."""
     import torch
 
     model = engine.model
@@ -1216,6 +1238,8 @@ def live_pool_case(engine, prompts, layer):
     chunk = engine.prefill_chunk
     gen = torch.Generator(device=DEV).manual_seed(7)
     pool = engine.cache
+    if shard is not None:
+        pool = {name: leaf[shard] for name, leaf in pool.items()}
     # the last prompt chunk of each request, tiled over the G groups
     pos = (cl.long()[:, None] - chunk
            + torch.arange(chunk, device=DEV)[None, :])
@@ -2769,6 +2793,247 @@ def xla_serve(model, params, prompts, streams, *, seed=0, new_tokens=32,
     return out
 
 
+MESH_TP = 4              # [tp-serve]: a (1, 4) mesh of the one card
+MESH_GRID = (2, 2)       # [mesh-serve]: two replicas, TP 2 each
+
+
+def _sim_mesh(shape):
+    """A ``shape`` mesh whose every entry is the one card (the serve
+    CLI's ``--simulate-devices``)."""
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh(shape, ("data", "model"), [DEV] * (shape[0] * shape[1]))
+
+
+def _submit_all(engine, prompts, new_tokens, uid0=0, temps=None):
+    from repro_torch.runtime import Request
+
+    for i, p in enumerate(prompts):
+        engine.submit(Request(uid=uid0 + i, prompt=list(p),
+                              max_new_tokens=new_tokens,
+                              temperature=0.0 if temps is None
+                              else temps[i]))
+
+
+def _mesh_launches(label, launches, model, decode_dispatches,
+                   prefill_dispatches, shards):
+    """B1–B4 launched once per fused layer, dispatch and head shard; the
+    other kernels never."""
+    _, fused, _ = layer_paths(model)
+    per = {"mpmrf_paged_filter_scores": decode_dispatches,
+           "paged_decode_gather_attention": decode_dispatches,
+           "mpmrf_paged_prefill_filter_scores": prefill_dispatches,
+           "paged_prefill_gather_attention": prefill_dispatches}
+    for name, n_calls in per.items():
+        need(n_calls > 0 and launches[name] == fused * n_calls * shards,
+             f"[{label}] {name} launched {launches[name]} times, not "
+             f"{fused} fused layers × {n_calls} dispatches × {shards} "
+             f"shards")
+    for name in UNPAGED_KERNELS + SCORE_KERNELS:
+        need(launches[name] == 0, f"[{label}] {name} launched")
+
+
+def tp_serve(model, params, prompts, streams, results, *, seed=0,
+             new_tokens=32, max_len=4096, chunk=128):
+    """``[tp-serve]``: phase 4's requests through a lone graphed paged
+    ``ServeLoop`` (prefix sharing on) on a ``(1, 4)`` mesh of the one
+    card: the pools are four head shards (2 KV heads each), B1–B4 launch
+    four times a fused layer and dispatch at bh = B·KV/4, and the
+    streams must be phase 4's. Then B1–B4 against their plain versions
+    on shard 0's live pool of layer 2 (``[kernels:tp-shard0-…]``), and
+    decode ticks under the profiler (``[profile-decode-tp]``)."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import ServeLoop
+    from repro_torch.runtime.paged_cache import attention_cache_shard_bytes
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    mesh = _sim_mesh((1, MESH_TP))
+    engine = ServeLoop(
+        model, params, batch_slots=len(prompts), max_len=max_len,
+        eos_token=-1, seed=seed, prefill_chunk=chunk, prefix_sharing=True,
+        device=DEV, mesh=mesh,
+    )
+    need(engine.cuda_graphs or DEV != "cuda",
+         "[tp-serve] the engine does not replay graphs")
+    need(isinstance(engine.cache["k"], tuple)
+         and len(engine.cache["k"]) == MESH_TP,
+         "[tp-serve] the pool is not split into head shards")
+    shard_bytes = attention_cache_shard_bytes(engine.cache)
+    engine.capture_graphs()
+    graph = log_graphs(f"[graph] tp engine ({mesh}; "
+                       f"{engine.graph_mode})", engine)
+    _submit_all(engine, prompts, new_tokens)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = engine.run_until_drained()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    m = engine.metrics
+    lat = m.latency_stats()
+    got = {r.uid: list(r.tokens_out) for r in done}
+    need(len(done) == len(prompts) and m.failed_requests == 0,
+         "[tp-serve] not every request drained")
+    need(got == streams, f"[tp-serve] streams sha1 {streams_digest(got)} "
+         f"differ from phase 4's {streams_digest(streams)}")
+    _mesh_launches("tp-serve", launches, model, m.decode_dispatches,
+                   m.prefill_dispatches, MESH_TP)
+    bh = len(prompts) * model.cfg.num_kv_heads // MESH_TP
+    log(f"[tp-serve] {len(done)} requests on a (1, {MESH_TP}) mesh of "
+        f"{DEV} in {wall:.2f} s; streams sha1 {streams_digest(got)} (= "
+        f"phase 4's); prefill {m.prefill_tokens_per_sec:.1f} tok/s, decode "
+        f"{m.decode_tokens_per_sec:.1f} tok/s, ttft p50 "
+        f"{lat['ttft_p50'] * 1e3:.1f} ms, itl p50/p95 "
+        f"{lat['itl_p50'] * 1e3:.2f}/{lat['itl_p95'] * 1e3:.2f} ms; pool "
+        f"{MESH_TP} shards of {shard_bytes[0] / 2**30:.3f} GiB; peak device "
+        f"memory {mem_gb(torch.cuda.max_memory_allocated)} GB")
+    log(f"[tp-serve] launches (bh {bh} a shard): " + ", ".join(
+        f"{KERNELS[k]['id']} {launches[k]}" for k in SERVE_KERNELS)
+        + f" = fused layers × dispatches × {MESH_TP} shards")
+    layer = model.cfg.energon.min_prune_layer
+    check_case(live_pool_case(engine, prompts, layer, shard=0),
+               f"tp-shard0-layer{layer}", results)
+    prof = None
+    if DEV == "cuda":
+        prof = profile_decode(engine, prompts[0][:SYSTEM_LEN],
+                              label="profile-decode-tp")
+    out = dict(profile_decode=prof,wall_s=wall, prefill_tok_s=m.prefill_tokens_per_sec,
+               decode_tok_s=m.decode_tokens_per_sec,
+               ttft_p50_ms=lat["ttft_p50"] * 1e3,
+               itl_p50_ms=lat["itl_p50"] * 1e3,
+               itl_p95_ms=lat["itl_p95"] * 1e3,
+               shard_bytes=shard_bytes, bh_per_shard=bh,
+               graph_mode=engine.graph_mode,
+               launches={k: launches[k] for k in SERVE_KERNELS},
+               streams_sha1=streams_digest(got), **graph)
+    del engine, done
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["left_mib"] = (torch.cuda.memory_allocated() - before) / 2**20
+    return out
+
+
+def mixed_trace(vocab, *, seed=12, n_req=8, prompt_len=512, system_len=64):
+    """The ``[mesh-serve]`` sampled trace: prompts on one shared system
+    prompt, temperatures 0 / 0.8 / 1.0 in turn."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    system = rng.integers(1, vocab - 1, size=system_len).tolist()
+    prompts = [system + rng.integers(1, vocab - 1,
+                                     size=prompt_len - system_len).tolist()
+               for _ in range(n_req)]
+    return prompts, [(0.0, 0.8, 1.0)[i % 3] for i in range(n_req)]
+
+
+def mesh_serve(model, params, prompts, streams, *, seed=0, new_tokens=32,
+               max_len=4096, chunk=128, mixed_len=512, mixed_tokens=16):
+    """``[mesh-serve]``: a ``ReplicatedServeLoop`` on a ``(2, 2)`` mesh of
+    the one card (two replicas of 8 slots, each TP 2): phase 4's requests
+    give phase 4's streams; placement, merged tokens (the replicas' sum),
+    merged peak pages (their max) and each replica's tok/s. Then a short
+    mixed-temperature trace through the same replicas and through a
+    single (eager) engine: the sampled streams must be equal."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import ReplicatedServeLoop, ServeLoop
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    kw = dict(batch_slots=len(prompts), max_len=max_len, eos_token=-1,
+              prefill_chunk=chunk, prefix_sharing=True, device=DEV)
+    loop = ReplicatedServeLoop(model, params, mesh=_sim_mesh(MESH_GRID),
+                               seed=seed, **kw)
+    loop.capture_graphs()
+    graphs = [log_graphs(f"[graph] mesh replica {e.replica_id} "
+                         f"({e.graph_mode})", e) for e in loop.engines]
+    _submit_all(loop, prompts, new_tokens)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = loop.run_until_drained()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    got = {r.uid: list(r.tokens_out) for r in done}
+    need(len(done) == len(prompts), "[mesh-serve] not every request drained")
+    need(got == streams, f"[mesh-serve] streams sha1 {streams_digest(got)} "
+         f"differ from phase 4's {streams_digest(streams)}")
+    merged = loop.merged_metrics()
+    per = [e.metrics for e in loop.engines]
+    need(merged.decode_tokens == sum(p.decode_tokens for p in per)
+         == len(prompts) * (new_tokens - 1),
+         "[mesh-serve] merged decode tokens are not the replicas' sum")
+    need(merged.peak_pages_in_use == max(p.peak_pages_in_use for p in per),
+         "[mesh-serve] merged peak pages are not the replicas' max")
+    _mesh_launches("mesh-serve", launches, model,
+                   sum(p.decode_dispatches for p in per),
+                   sum(p.prefill_dispatches for p in per), MESH_GRID[1])
+    placement = [loop.placement[u] for u in sorted(loop.placement)]
+    log(f"[mesh-serve] {len(done)} requests on a {MESH_GRID[0]}x"
+        f"{MESH_GRID[1]} mesh of {DEV} in {wall:.2f} s; streams sha1 "
+        f"{streams_digest(got)} (= phase 4's); placement (uid 0…"
+        f"{len(prompts) - 1} → replica) {placement}; merged "
+        f"{merged.prefill_tokens} prefill + {merged.decode_tokens} decode "
+        f"tok, peak {merged.peak_pages_in_use} pages (max of "
+        f"{[p.peak_pages_in_use for p in per]}); " + "; ".join(
+            f"replica {r}: prefill {p.prefill_tokens_per_sec:.1f} tok/s, "
+            f"decode {p.decode_tokens_per_sec:.1f} tok/s"
+            for r, p in enumerate(per)))
+    log("[mesh-serve] launches: " + ", ".join(
+        f"{KERNELS[k]['id']} {launches[k]}" for k in SERVE_KERNELS)
+        + f" = fused layers × dispatches × {MESH_GRID[1]} shards")
+    out = dict(
+        wall_s=wall, placement=placement,
+        merged_prefill_tokens=merged.prefill_tokens,
+        merged_decode_tokens=merged.decode_tokens,
+        merged_peak_pages=merged.peak_pages_in_use,
+        replica_peak_pages=[p.peak_pages_in_use for p in per],
+        replica_prefill_tok_s=[p.prefill_tokens_per_sec for p in per],
+        replica_decode_tok_s=[p.decode_tokens_per_sec for p in per],
+        merged_prefill_tok_s=merged.prefill_tokens_per_sec,
+        merged_decode_tok_s=merged.decode_tokens_per_sec,
+        peak_memory_gb=mem_gb(torch.cuda.max_memory_allocated),
+        launches={k: launches[k] for k in SERVE_KERNELS},
+        graph_gib=sum(g["graph_gib"] for g in graphs),
+        streams_sha1=streams_digest(got))
+    mixed, temps = mixed_trace(model.cfg.vocab_size, prompt_len=mixed_len)
+    _submit_all(loop, mixed, mixed_tokens, uid0=1000, temps=temps)
+    loop.run_until_drained()
+    sampled = {r.uid: list(r.tokens_out) for r in loop.completed
+               if r.uid >= 1000}
+    mixed_place = [loop.placement[1000 + i] for i in range(len(mixed))]
+    out["mixed_placement"] = mixed_place
+    del loop, done
+    gc.collect()
+    torch.cuda.empty_cache()
+    single = ServeLoop(model, params, seed=seed, cuda_graphs=False, **kw)
+    _submit_all(single, mixed, mixed_tokens, uid0=1000, temps=temps)
+    ref = {r.uid: list(r.tokens_out) for r in single.run_until_drained()}
+    need(sampled == ref and len(ref) == len(mixed),
+         "[mesh-serve] the mixed-temperature streams of the (2, 2) mesh "
+         "differ from the single engine's")
+    log(f"[mesh-serve] mixed trace ({len(mixed)} × {len(mixed[0])} tokens, "
+        f"temperatures {temps}, {mixed_tokens} tokens each): placement "
+        f"{mixed_place}; sampled streams sha1 {streams_digest(sampled)} = "
+        f"the single engine's")
+    out["mixed_sha1"] = streams_digest(sampled)
+    del single
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["left_mib"] = (torch.cuda.memory_allocated() - before) / 2**20
+    return out
+
+
 #: the sources of the tile-engine and filter-engine kernels, always
 #: rebuilt so that nvcc's -Xptxas -v report covers every instantiation
 #: the dense configs beside qwen3-14b: (arch, serve phase shapes, scoring
@@ -3111,6 +3376,11 @@ def main(argv=None) -> int:
                                    launches)
     chaos = chaos_drain(model, params, prompts, streams1)
     xla_srv = xla_serve(model, params, prompts, streams1)
+    # serving over a mesh of the one card: a lone TP engine, then replicas
+    tp_results = {name: [] for name in SERVE_KERNELS}
+    mesh = dict(tp_serve=tp_serve(model, params, prompts, streams1,
+                                  tp_results),
+                mesh_serve=mesh_serve(model, params, prompts, streams1))
 
     # full-sequence scoring on the same model object and weights
     e = model.cfg.energon
@@ -3161,8 +3431,10 @@ def main(argv=None) -> int:
             launches_dense_configs={
                 phase: r["launches"][name] for phase, r in dense.items()
                 if "launches" in r},
+            launches_mesh={phase: r["launches"].get(name, 0)
+                           for phase, r in mesh.items()},
             max_abs_err=max(r["err"] for r in entries + dense_results[name]
-                            + d96[name]),
+                            + d96[name] + tp_results.get(name, [])),
             **{k: main_run[k] for k in timed_keys},
             **{k: main_run[k] for k in ("device_ms", "library_device_ms")
                if k in main_run},
@@ -3174,6 +3446,12 @@ def main(argv=None) -> int:
             d96=dict({k: d96[name][-1][k] for k in ("err",) + timed_keys},
                      ms_over_bound=d96[name][-1]["ms"]
                      / d96[name][-1]["bound_ms"]),
+            # [tp-serve]'s shard 0 of layer 2's live pool (bh = B·KV/4)
+            **({"tp_shard": dict(
+                {k: tp_results[name][-1][k] for k in ("err",) + timed_keys},
+                ms_over_bound=tp_results[name][-1]["ms"]
+                / tp_results[name][-1]["bound_ms"])}
+               if name in tp_results else {}),
         ))
     log(json.dumps({"serve": run1, "profile": prof, "card": smi}))
     log(json.dumps({"unpaged": dict(unpaged, same_rows=same_rows,
@@ -3188,6 +3466,7 @@ def main(argv=None) -> int:
                     "xla_full": xla_fs, "xla_serve": xla_srv,
                     "card": smi}))
     log(json.dumps({"dense_configs": dense, "card": smi}))
+    log(json.dumps({"mesh": mesh, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

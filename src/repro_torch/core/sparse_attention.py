@@ -9,13 +9,14 @@ before P·V. The fused kernels keep P at f32, so in bf16 the two differ
 by more than the kernels' gather tolerance; their survivor tables are
 what must agree bit for bit.
 
-The reference's ``merge_partial_attention`` / ``partial_attention_stats``
-serve only tensor parallelism and wait for that slice.
+Last, the flash-style partial statistics and their log-sum-exp merge
+(:func:`partial_attention_stats`, :func:`merge_partial_attention`):
+attention split over shards of the keys, merged exactly.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -178,16 +179,14 @@ def paged_decode_block_gather_attention(
     logical survivor table composed with the block table names the
     physical pages, and only those are gathered (the same tiles, so the
     same bits, as the unpaged path). q ``[B, KV, n_q, d]``; pools
-    ``[KV, pool_rows, d]``."""
+    ``[KV, pool_rows, d]`` (or their head shards)."""
     from repro_torch.runtime import paged_cache as pgc
 
     bk = key_block
-    kv, pool_rows, d = k_pool.shape
     idx = block_indices[..., 0, :]                        # [B, KV, budget]
-    phys = pgc.compose_physical_blocks(block_table, idx).long()
-    heads = torch.arange(kv, device=q.device)[None, :, None]
-    kg = k_pool.reshape(kv, pool_rows // bk, bk, d)[heads, phys]
-    vg = v_pool.reshape(kv, pool_rows // bk, bk, d)[heads, phys]
+    phys = pgc.compose_physical_blocks(block_table, idx)
+    kg = pgc.gather_pages(k_pool, phys, bk)
+    vg = pgc.gather_pages(v_pool, phys, bk)
     return _gathered_decode_attention(
         q, kg, vg, idx.long(), block_valid, cache_length, bk, window=window,
         scale=scale)
@@ -225,3 +224,42 @@ def _gathered_decode_attention(
     flat = scores.reshape(*scores.shape[:-2], budget * bk)
     probs = _masked_softmax(flat, flat <= NEG_INF / 2).reshape(scores.shape)
     return torch.einsum("...qjk,...jkd->...qd", probs.to(vg.dtype), vg)
+
+
+def merge_partial_attention(
+    outs: torch.Tensor,
+    maxes: torch.Tensor,
+    sums: torch.Tensor,
+    axis: int = 0,
+) -> torch.Tensor:
+    """Log-sum-exp merge of flash-style partial attention results: every
+    shard computed (unnormalized out, running max, running denominator)
+    over its own keys; the merge is exact up to rounding. outs ``[S, …,
+    n_q, d]``, maxes / sums ``[S, …, n_q, 1]`` with the S shards on
+    ``axis``."""
+    g_max = maxes.amax(dim=axis, keepdim=True)
+    corr = torch.exp(maxes - g_max)
+    num = (outs * corr).sum(dim=axis)
+    den = (sums * corr).sum(dim=axis)
+    return num / torch.clamp(den, min=1e-30)
+
+
+def partial_attention_stats(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    keep_mask: torch.Tensor,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One shard's flash statistics for :func:`merge_partial_attention`:
+    ``(exp(s − m)·V, m, Σ exp(s − m))`` over the keys ``keep_mask``
+    admits, scores in f32 (the max is NEG_INF on a row with none)."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    scores = torch.where(keep_mask, scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    exp = torch.where(keep_mask, torch.exp(scores - m), 0.0)
+    s = exp.sum(dim=-1, keepdim=True)
+    out = torch.matmul(exp.to(v.dtype), v)
+    return out, m, s

@@ -22,8 +22,16 @@ head: the pools fold the KV-head axis into the page axis
 reads ``table[b] + h·P``. The contiguous kernels read
 ``[B·KV, n_k, d]`` directly.
 
-The reference's ``shard_map`` tensor-parallel branch waits for a later
-slice of the port.
+Tensor parallelism (the reference's ``shard_map`` branch): under an
+active serve mesh whose model axis M > 1 divides the KV heads
+(:func:`_tp_mesh`), the fused paged ops run their shard-local core once
+per shard — shard s gets q's KV-head group s and its slice of the pools
+(a head-sharded pool's own shard) on model-axis device s, the block
+table and lengths copied there — and concatenate the outputs over heads
+on q's device (the reference's ``all_gather``) and add the selection
+stats (its ``psum``: integer counts, so exact). Each (slot, KV head) row
+of the kernels and of the selection is independent of the others, so
+the sharded call gives the unsharded one's bits.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 
 from repro_torch.core import filtering as flt
 from repro_torch.core import quantization as qlib
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import block_sparse_attention as bsa_kernel
 from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import mpmrf_decode as dec_kernel
@@ -42,6 +51,60 @@ from repro_torch.kernels import mpmrf_filter as filt_kernel
 from repro_torch.kernels import mpmrf_prefill as pre_kernel
 
 NEG_INF = -1e30
+
+
+def _tp_mesh(kv_heads: int):
+    """The active serve mesh, iff the fused paged ops should run per
+    shard over its 'model' axis: M > 1 and dividing the KV heads — the
+    condition under which :func:`~repro_torch.distributed.sharding.
+    paged_pool_spec` shards the pools by head. (Where it shards page
+    rows the port keeps the pool whole, and the ops run unsharded, as
+    the reference's do.)"""
+    mesh = shd.get_active_mesh()
+    if mesh is None or "model" not in mesh.axis_names:
+        return None
+    tp = mesh.shape["model"]
+    if tp <= 1 or kv_heads % tp:
+        return None
+    return mesh
+
+
+def _over_kv_shards(core, q, pools, replicated, telemetry, **kw):
+    """``core(q, *pools, *replicated, **kw) -> (out, stats_or_None)`` on
+    the whole pool, or once per model-axis shard under :func:`_tp_mesh`:
+    q's KV-head group and the pools' head slice (a tuple leaf's own
+    shard) on the shard's device, the replicated operands copied there;
+    outputs concatenated over heads on q's device, stats summed."""
+    mesh = _tp_mesh(q.shape[1])
+    sharded = [isinstance(p, tuple) for p in pools]
+    if mesh is None:
+        if any(sharded):
+            raise ValueError(
+                "a head-sharded pool needs its serve mesh active "
+                "(repro_torch.distributed.sharding.active_mesh)")
+        out, stats = core(q, *pools, *replicated, **kw)
+        return (out, stats) if telemetry else out
+    devices = mesh.devices[0]
+    m = len(devices)
+    if any(len(p) != m for p, sh in zip(pools, sharded) if sh):
+        raise ValueError(f"pool shards do not match the mesh's {m} "
+                         "model-axis devices")
+    per = q.shape[1] // m
+    outs, total = [], None
+    for s in range(m):
+        heads = slice(s * per, (s + 1) * per)
+        parts = [p[s] if sh else p[heads].to(devices[s])
+                 for p, sh in zip(pools, sharded)]
+        dev = parts[0].device
+        out, stats = core(
+            q[:, heads].to(dev), *parts,
+            *(None if r is None else r.to(dev) for r in replicated), **kw)
+        outs.append(out.to(q.device))
+        if stats is not None:
+            stats = stats.to(q.device)
+            total = stats if total is None else total + stats
+    out = torch.cat(outs, dim=1)
+    return (out, total) if telemetry else out
 
 
 def flash_attention(
@@ -325,10 +388,10 @@ def _fused_decode_select(
 
 def fused_paged_decode_attention(
     q: torch.Tensor,
-    k_pool: torch.Tensor,
-    v_pool: torch.Tensor,
-    k_codes: torch.Tensor,
-    k_scale: torch.Tensor,
+    k_pool,
+    v_pool,
+    k_codes,
+    k_scale,
     block_table: torch.Tensor,
     cache_length: torch.Tensor,
     *,
@@ -346,13 +409,34 @@ def fused_paged_decode_attention(
     """Fused decode over the shared page pool (B1 → selection → B2).
 
     q ``[B, KV, G, d]``; k_pool/v_pool/k_codes ``[KV, pool_rows, d]``;
-    k_scale f32 ``[KV, num_pages]``; block_table int32 ``[B, mb]``;
-    cache_length int32 ``[B]``; live_budget optional int32 ``[B]``.
-    Returns ``[B, KV, G, d]`` (V's dtype); with ``telemetry`` also int32
-    ``[B, 4]`` selection stats summed over heads.
+    k_scale f32 ``[KV, num_pages]`` (each pool leaf whole, or under an
+    active mesh a tuple of its head shards); block_table int32
+    ``[B, mb]``; cache_length int32 ``[B]``; live_budget optional int32
+    ``[B]``. Returns ``[B, KV, G, d]`` (V's dtype); with ``telemetry``
+    also int32 ``[B, 4]`` selection stats summed over heads. Under a
+    tensor-parallel mesh, one :func:`_paged_decode_core` per shard.
     """
     if len(round_bits) != 2:
         raise ValueError("fused decode kernel supports 2-round configs")
+    return _over_kv_shards(
+        _paged_decode_core, q, (k_pool, v_pool, k_codes, k_scale),
+        (block_table, cache_length, live_budget), telemetry,
+        round_bits=tuple(round_bits), alphas=tuple(alphas),
+        key_block=key_block, block_budget=block_budget, keep_all=keep_all,
+        keep_first=keep_first, keep_diagonal=keep_diagonal, scale=scale,
+        with_stats=telemetry,
+    )
+
+
+def _paged_decode_core(
+    q, k_pool, v_pool, k_codes, k_scale, block_table, cache_length,
+    live_budget, *, round_bits, alphas, key_block, block_budget, keep_all,
+    keep_first, keep_diagonal, scale, with_stats,
+):
+    """Shard-local fused paged decode: the pipeline of
+    :func:`fused_paged_decode_attention` over whatever KV-head slice of
+    the pools it is given (the whole pools on one device). Returns
+    ``(out, stats_or_None)``."""
     batch, heads, g, d = q.shape
     bk = key_block
     num_pages = k_pool.shape[-2] // bk
@@ -368,14 +452,14 @@ def fused_paged_decode_attention(
         qp, qs,
         k_codes.reshape(heads * num_pages, bk, d),
         k_scale.reshape(heads * num_pages, 1),
-        bt_bh, cl_bh, round_bits=tuple(round_bits), key_block=bk,
+        bt_bh, cl_bh, round_bits=round_bits, key_block=bk,
     )
     idx, val, stats = _fused_decode_select(
         s0, s1, cl_bh,
         alphas=alphas, key_block=bk, block_budget=block_budget,
         keep_all=keep_all, keep_first=keep_first,
         keep_diagonal=keep_diagonal, live_budget=live_budget, heads=heads,
-        with_stats=telemetry,
+        with_stats=with_stats,
     )
     out = dec_kernel.paged_decode_gather_attention(
         q.reshape(bh, g, d).contiguous(),
@@ -383,9 +467,9 @@ def fused_paged_decode_attention(
         v_pool.reshape(heads * num_pages, bk, d),
         idx, val, bt_bh, cl_bh, key_block=bk, scale=scale,
     ).reshape(batch, heads, g, d)
-    if telemetry:
-        return out, stats.reshape(batch, heads, 4).sum(1, dtype=torch.int32)
-    return out
+    if with_stats:
+        stats = stats.reshape(batch, heads, 4).sum(1, dtype=torch.int32)
+    return out, stats
 
 
 def fused_decode_attention(
@@ -478,10 +562,10 @@ def _fused_prefill_select(
 
 def fused_paged_prefill_attention(
     q: torch.Tensor,
-    k_pool: torch.Tensor,
-    v_pool: torch.Tensor,
-    k_codes: torch.Tensor,
-    k_scale: torch.Tensor,
+    k_pool,
+    v_pool,
+    k_codes,
+    k_scale,
     block_table: torch.Tensor,
     q_positions: torch.Tensor,
     *,
@@ -503,10 +587,29 @@ def fused_paged_prefill_attention(
     :func:`fused_paged_decode_attention` with page size == key_block;
     q_positions int32 ``[B, n_q]``; diag_blocks optional int32
     ``[B, n_qb]``. Returns ``[B, KV, n_q, d]``; with ``telemetry`` also
-    int32 ``[B, 4]`` stats summed over heads and query blocks.
+    int32 ``[B, 4]`` stats summed over heads and query blocks. Under a
+    tensor-parallel mesh, one :func:`_paged_prefill_core` per shard.
     """
     if len(round_bits) != 2:
         raise ValueError("fused prefill kernel supports 2-round configs")
+    return _over_kv_shards(
+        _paged_prefill_core, q, (k_pool, v_pool, k_codes, k_scale),
+        (block_table, q_positions, diag_blocks), telemetry,
+        round_bits=tuple(round_bits), alphas=tuple(alphas),
+        query_block=query_block, key_block=key_block,
+        block_budget=block_budget, keep_all=keep_all, keep_first=keep_first,
+        keep_diagonal=keep_diagonal, scale=scale, with_stats=telemetry,
+    )
+
+
+def _paged_prefill_core(
+    q, k_pool, v_pool, k_codes, k_scale, block_table, q_positions,
+    diag_blocks, *, round_bits, alphas, query_block, key_block,
+    block_budget, keep_all, keep_first, keep_diagonal, scale, with_stats,
+):
+    """Shard-local fused paged prefill: the pipeline of
+    :func:`fused_paged_prefill_attention` over whatever KV-head slice of
+    the pools it is given. Returns ``(out, stats_or_None)``."""
     batch, heads, n_q, d = q.shape
     bk = key_block
     num_pages = k_pool.shape[-2] // bk
@@ -523,7 +626,7 @@ def fused_paged_prefill_attention(
         qp, qs, qpos_bh,
         k_codes.reshape(heads * num_pages, bk, d),
         k_scale.reshape(heads * num_pages, 1),
-        bt_bh, round_bits=tuple(round_bits), query_block=query_block,
+        bt_bh, round_bits=round_bits, query_block=query_block,
         key_block=bk,
     )
     idx, val, stats = _fused_prefill_select(
@@ -531,7 +634,7 @@ def fused_paged_prefill_attention(
         query_block=query_block, key_block=bk, block_budget=block_budget,
         keep_all=keep_all, keep_first=keep_first,
         keep_diagonal=keep_diagonal, diag_blocks=diag_blocks, heads=heads,
-        with_stats=telemetry,
+        with_stats=with_stats,
     )
     out = pre_kernel.paged_prefill_gather_attention(
         q.reshape(bh, n_q, d).contiguous(), qpos_bh,
@@ -539,9 +642,9 @@ def fused_paged_prefill_attention(
         v_pool.reshape(heads * num_pages, bk, d),
         idx, val, bt_bh, query_block=query_block, key_block=bk, scale=scale,
     ).reshape(batch, heads, n_q, d)
-    if telemetry:
-        return out, stats.reshape(batch, heads, 4).sum(1, dtype=torch.int32)
-    return out
+    if with_stats:
+        stats = stats.reshape(batch, heads, 4).sum(1, dtype=torch.int32)
+    return out, stats
 
 
 def fused_prefill_attention(

@@ -17,14 +17,52 @@ longest max_len below 4096 whose dense prefix masks stay within
 request lifecycle and fault containment; ``--obs``, ``--metrics-out``
 and ``--trace-out`` attach the observability layer (event trace,
 metrics registry, sparsity telemetry) and write its JSON snapshot and
-Chrome trace.
+Chrome trace. ``--mesh DxM`` serves over a ``(data, model)`` mesh: D
+engine replicas behind one queue (``ReplicatedServeLoop``; a lone
+tensor-parallel engine for D = 1), each splitting its page pools by KV
+head over M devices; ``--simulate-devices N`` makes the mesh's devices N
+entries of the one device (``cuda:0`` × N on one card), and is never
+implied.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import re
 import time
+
+
+def _parse_mesh(spec: str):
+    m = re.fullmatch(r"(\d+)x(\d+)", spec.strip().lower())
+    if m is None:
+        raise SystemExit(f"--mesh wants DxM (e.g. 2x2), got {spec!r}")
+    return int(m.group(1)), int(m.group(2))
+
+
+def _mesh(args, device):
+    """The ``--mesh`` mesh over the host's devices of ``device``'s type
+    (or ``--simulate-devices`` entries of ``device``), or None."""
+    if args.mesh is None:
+        return None
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    shape = _parse_mesh(args.mesh)
+    need = shape[0] * shape[1]
+    if args.simulate_devices is not None:
+        devices = [device] * args.simulate_devices
+    elif device.type == "cuda":
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    else:
+        devices = [device]
+    if len(devices) < need:
+        raise SystemExit(
+            f"--mesh {args.mesh} needs {need} devices, have {len(devices)} "
+            f"(try --simulate-devices {need})")
+    return make_mesh(shape, ("data", "model"), devices)
 
 
 def main(argv=None):
@@ -75,6 +113,15 @@ def main(argv=None):
     ap.add_argument("--obs", action="store_true",
                     help="attach the observability layer (event trace, "
                          "sparsity telemetry, metrics registry)")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="serve over a (data, model) device mesh, e.g. "
+                         "2x2: D engine replicas behind one admission "
+                         "queue, each tensor-parallel over M devices "
+                         "(page pools split by KV head)")
+    ap.add_argument("--simulate-devices", type=int, default=None,
+                    metavar="N",
+                    help="the mesh's devices are N entries of the one "
+                         "device (cuda:0 × N on one card)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -83,11 +130,13 @@ def main(argv=None):
     from repro_torch.device import resolve_device
     from repro_torch.models import LMModel
     from repro_torch.runtime import (
-        FaultInjector, FaultSpec, QueueFull, Request, ServeLoop,
-        attention_cache_bytes,
+        FaultInjector, FaultSpec, QueueFull, ReplicatedServeLoop, Request,
+        ServeLoop, attention_cache_bytes,
     )
+    from repro_torch.runtime.paged_cache import attention_cache_shard_bytes
 
     device = resolve_device(args.device)
+    mesh = _mesh(args, device)
     if args.prefill_chunk is None:
         args.prefill_chunk = 64 if args.smoke else 128
     cfg = get_serve_config(args.arch, smoke=args.smoke)
@@ -117,8 +166,8 @@ def main(argv=None):
             alloc_failure=0.05, step_exception=0.05, nan_logits=0.01,
             nan_prefill=0.01, preempt_storm=0.05,
         ))
-    engine = ServeLoop(
-        model, params, batch_slots=args.batch_slots, max_len=args.max_len,
+    engine_kw = dict(
+        batch_slots=args.batch_slots, max_len=args.max_len,
         eos_token=cfg.vocab_size - 1, seed=args.seed,
         prefill_chunk=args.prefill_chunk, scheduler=args.scheduler,
         admission_lookahead=args.admission_lookahead,
@@ -130,6 +179,19 @@ def main(argv=None):
                             if args.deadline_ms is not None else None),
         fault_injector=injector, observability=obs, device=device,
     )
+    replicated = mesh is not None and mesh.shape["data"] > 1
+    if replicated:
+        engine = ReplicatedServeLoop(model, params, mesh=mesh, **engine_kw)
+    else:
+        engine = ServeLoop(model, params, mesh=mesh, **engine_kw)
+    engines = engine.engines if replicated else [engine]
+    if mesh is not None:
+        d, m = mesh.shape.values()
+        print(f"[serve] mesh {d}x{m} (data x model) over "
+              f"{len(mesh.physical_devices)} physical "
+              f"{mesh.devices[0][0].type} device(s)"
+              + (f", {d} engine replicas" if replicated else "")
+              + f"; steps {engines[0].graph_mode}")
     engine.capture_graphs()      # before the clock: no request waits
     rng = np.random.default_rng(args.seed)
     system = rng.integers(1, cfg.vocab_size - 1,
@@ -147,10 +209,11 @@ def main(argv=None):
     t0 = time.perf_counter()
     done = engine.run_until_drained()
     dt = time.perf_counter() - t0
-    m = engine.metrics
+    m = engine.merged_metrics() if replicated else engine.metrics
+    eng0 = engines[0]
     total = sum(len(r.tokens_out) for r in done)
     print(f"[serve] {cfg.name} ({cfg.num_layers} layers) on "
-          f"{engine.device}: {len(done)} requests, {total} tokens in "
+          f"{eng0.device}: {len(done)} requests, {total} tokens in "
           f"{dt:.2f}s ({total / dt:.1f} tok/s end-to-end)")
     print(f"[serve] prefill: {m.prefill_tokens} tok in "
           f"{m.prefill_dispatches} dispatches "
@@ -164,15 +227,27 @@ def main(argv=None):
           f"{lat['itl_p50'] * 1e3:.1f}/{lat['itl_p95'] * 1e3:.1f} ms "
           f"(decode-attributed p95 {lat['itl_decode_p95'] * 1e3:.1f} ms), "
           f"queue p95 {lat['queue_wait_p95'] * 1e3:.1f} ms")
-    nbytes = attention_cache_bytes(engine.cache)
-    if engine.paged:
-        print(f"[serve] cache (paged): {engine.layout.num_pages} pages, "
-              f"{nbytes} B pool, peak {m.peak_pages_in_use} pages in use, "
+    nbytes = attention_cache_bytes(eng0.cache)
+    if eng0.paged:
+        shards = attention_cache_shard_bytes(eng0.cache)
+        per = " per replica" if replicated else ""
+        print(f"[serve] cache (paged): {eng0.layout.num_pages} pages, "
+              f"{nbytes} B pool{per}"
+              + (f" ({len(shards)} head shards of {shards[0]} B)"
+                 if len(shards) > 1 else "")
+              + f", peak {m.peak_pages_in_use} pages in use, "
               f"{m.preemptions} preemptions")
     else:
-        print(f"[serve] cache (contiguous): {engine.batch_slots} slots × "
-              f"{engine.max_len} rows, {nbytes} B")
-    if engine.sharing:
+        print(f"[serve] cache (contiguous): {eng0.batch_slots} slots × "
+              f"{eng0.max_len} rows, {nbytes} B")
+    if replicated:
+        counts = [list(engine.placement.values()).count(r)
+                  for r in range(engine.n_replicas)]
+        print("[serve] replicas: " + " | ".join(
+            f"r{e.replica_id}: {counts[e.replica_id]} req, "
+            f"{e.metrics.decode_tokens} tok, {e.metrics.ticks} ticks"
+            for e in engine.engines))
+    if eng0.sharing:
         print(f"[serve] prefix cache: hit-rate {m.prefix_hit_rate:.2f} "
               f"({m.prefix_hits}/{m.prefix_lookups} admissions), "
               f"{m.pages_shared} pages shared, "

@@ -25,6 +25,11 @@ that the cache allocates after each layer's leaf (:func:`stacked_leaf`)
 and that no leaf shows, so no kernel and no reader ever sees them —
 what the reference's all-zero one-hot rows do. Kept rows are distinct,
 so no write has two sources except the scratch, which nothing reads.
+
+On a tensor-parallel mesh the paged blocks take the pool as head shards
+(each leaf a tuple, :mod:`repro_torch.distributed.sharding`): each
+shard's K/V rows and planes are written on its device, and the
+attention entry points run the fused ops once per shard.
 """
 
 from __future__ import annotations
@@ -423,12 +428,18 @@ class PagedWrite:
     wrote (0 for a dropped one, read but never written); ``pages [KV,
     B·C]`` that page's row of the ``[KV·num_pages + 1, ps·hd]`` codes
     view (and of the scales), a dropped token's the scratch page. The
-    plan is the same for every layer, so the model computes it once per
-    call (:func:`paged_write_plan`)."""
+    plan is the same for every layer — and on a head-sharded pool, where
+    KV counts one shard's heads, for every shard —, so the model
+    computes it once per call (:func:`paged_write_plan`)."""
 
     rows: torch.Tensor
     page: torch.Tensor
     pages: torch.Tensor
+
+    def to(self, device) -> "PagedWrite":
+        """The plan on ``device`` (itself where it lives there)."""
+        return PagedWrite(*(t.to(device) for t in
+                            (self.rows, self.page, self.pages)))
 
 
 def paged_write_plan(
@@ -479,28 +490,49 @@ def _project_update_fold_paged(
 
     The filter planes are refreshed at the write: a decode append
     (C = 1) re-quantizes exactly the one page each writing slot touched;
-    a prefill chunk re-quantizes the whole pool. Returns
+    a prefill chunk re-quantizes the whole pool. A head-sharded pool is
+    written shard by shard, each on its device with its heads' K/V rows
+    (``write`` then plans one shard's heads, the same for every shard),
+    so a decode append re-quantizes one page per shard and a prefill
+    chunk each shard's pool: the work of the whole pool. Returns
     ``q_folded [B, KV, G·C, hd]``.
     """
-    chunk = x.shape[1]
-    ps = filter_block
-    if ps <= 0:
+    if filter_block <= 0:
         raise ValueError("paged cache needs a positive page size")
     q, k, v = _project_qkv(params, x, positions, use_qk_norm, rope_theta)
+    shards = pgc.pool_shards(cache)
+    if shards is None:
+        _write_pool(cache, k, v, write, x.shape[1], filter_block)
+    else:
+        per = num_kv_heads // len(shards)
+        for s, part in enumerate(shards):
+            dev = part["k"].device
+            heads = slice(s * per, (s + 1) * per)
+            _write_pool(part, k[:, :, heads].to(dev), v[:, :, heads].to(dev),
+                        write.to(dev), x.shape[1], filter_block)
+    return _fold_groups(q, num_heads, num_kv_heads)
+
+
+def _write_pool(cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                v: torch.Tensor, write: PagedWrite, chunk: int,
+                ps: int) -> None:
+    """A chunk's K/V rows ``[B, C, KV, hd]`` into one layer's pool (or
+    shard: KV its heads) where ``write`` says, and its planes
+    refreshed."""
     k_pool, v_pool = cache["k"], cache["v"]
-    hd = k_pool.shape[-1]
+    kv, hd = k_pool.shape[0], k_pool.shape[-1]
     # [B, C, KV, hd] → [KV, B·C, hd]
     _rows_with_scratch(k_pool, hd)[write.rows] = (
-        k.reshape(-1, num_kv_heads, hd).transpose(0, 1).to(k_pool.dtype))
+        k.reshape(-1, kv, hd).transpose(0, 1).to(k_pool.dtype))
     _rows_with_scratch(v_pool, hd)[write.rows] = (
-        v.reshape(-1, num_kv_heads, hd).transpose(0, 1).to(v_pool.dtype))
+        v.reshape(-1, kv, hd).transpose(0, 1).to(v_pool.dtype))
 
     if "k_codes" in cache:
         num_pages = cache["k_scale"].shape[-1]
         if chunk == 1:
             # the one page each slot's append touched (a dropped append
             # re-quantizes page 0 into the scratch page)
-            sel = k_pool.view(num_kv_heads, num_pages, ps, hd)[:, write.page]
+            sel = k_pool.view(kv, num_pages, ps, hd)[:, write.page]
             new_codes, new_scale = qlib.quantize_int16_blocks(sel, ps)
             _rows_with_scratch(cache["k_codes"], ps * hd)[write.pages] = (
                 new_codes.reshape(*write.pages.shape, ps * hd))
@@ -509,8 +541,6 @@ def _project_update_fold_paged(
             codes, scales = qlib.quantize_int16_blocks(k_pool, ps)
             cache["k_codes"].copy_(codes)
             cache["k_scale"].copy_(scales)
-
-    return _fold_groups(q, num_heads, num_kv_heads)
 
 
 def _unfold_heads_out(

@@ -240,16 +240,18 @@ class LMModel:
 
     def reset_pages(self, cache, page_mask: torch.Tensor):
         """Zero the rows, codes and scales of the masked physical pages
-        (``page_mask`` bool ``[num_pages]``), in place: a reused page must
-        not quantize a new occupant's rows against stale ones."""
+        (``page_mask`` bool ``[num_pages]``), in place — on every shard of
+        a head-sharded pool: a reused page must not quantize a new
+        occupant's rows against stale ones."""
         ps = self.cfg.energon.decode_key_block
-        pages = torch.nonzero(page_mask.to(self.device)).reshape(-1)
-        for key in ("k", "v", "k_codes"):
-            if key in cache:
-                t = cache[key]
-                t.view(*t.shape[:-2], -1, ps, t.shape[-1])[:, :, pages] = 0
-        if "k_scale" in cache:
-            cache["k_scale"][:, :, pages] = 0
+        for part in pgc.pool_shards(cache) or [cache]:
+            pages = torch.nonzero(page_mask.to(part["k"].device)).reshape(-1)
+            for key in ("k", "v", "k_codes"):
+                if key in part:
+                    t = part[key]
+                    t.view(*t.shape[:-2], -1, ps, t.shape[-1])[:, :, pages] = 0
+            if "k_scale" in part:
+                part["k_scale"][:, :, pages] = 0
         return cache
 
     def clone_pages(self, cache, src_pages, dst_pages):
@@ -286,15 +288,19 @@ class LMModel:
 
     def _write_plan(self, cache, positions, block_table, active=None):
         """The call's fixed-shape cache write plan (the same for every
-        layer)."""
+        layer; on a head-sharded pool, one shard's heads, the same for
+        every shard)."""
         cfg = self.cfg
-        rows = cache["k"].shape[-2]
+        leaf = cache["k"]
+        if isinstance(leaf, tuple):
+            leaf = leaf[0]
+        rows = leaf.shape[-2]
         if block_table is None:
             return attn_lib.cache_write_plan(positions, rows,
                                              cfg.num_kv_heads)
         return attn_lib.paged_write_plan(
             positions, block_table, cfg.energon.decode_key_block, rows,
-            cfg.num_kv_heads, write_mask=active,
+            leaf.shape[-3], write_mask=active,
         )
 
     @torch.no_grad()

@@ -22,9 +22,12 @@ from repro_torch.models import layers as L
 
 
 def layer_slice(tree, i: int):
-    """Layer ``i`` of a stacked parameter/cache tree (views, no copy)."""
+    """Layer ``i`` of a stacked parameter/cache tree (views, no copy); a
+    tuple leaf (a pool's head shards) gives each shard's layer."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(t[i] for t in tree)
     return tree[i]
 
 

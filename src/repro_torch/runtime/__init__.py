@@ -1,5 +1,7 @@
 """Serving runtime of the port: page pool, admission queue, engine,
-fault tolerance."""
+replicated engines, fault tolerance. (The reference's ``sample_tokens``
+has no counterpart: the port draws by request from ``sampling_seed``;
+the training loop waits for the training slice.)"""
 
 from repro_torch.runtime.fault_tolerance import (
     FaultInjector,
@@ -12,11 +14,17 @@ from repro_torch.runtime.fault_tolerance import (
     retry_step,
 )
 from repro_torch.runtime.paged_cache import (
+    AllocatorInvariantError,
     PageAllocator,
     PagedLayout,
     attention_cache_bytes,
+    clone_page_rows,
 )
 from repro_torch.runtime.pending import PendingQueue
+from repro_torch.runtime.replicated_serve import (
+    ReplicatedServeLoop,
+    replica_home,
+)
 from repro_torch.runtime.serve_loop import (
     EngineMetrics,
     EngineStalled,
@@ -28,6 +36,7 @@ from repro_torch.runtime.serve_loop import (
 )
 
 __all__ = [
+    "AllocatorInvariantError",
     "EngineMetrics",
     "EngineStalled",
     "FaultInjector",
@@ -37,6 +46,7 @@ __all__ = [
     "PendingQueue",
     "PreemptionHandler",
     "QueueFull",
+    "ReplicatedServeLoop",
     "Request",
     "RetryPolicy",
     "ServeLoop",
@@ -44,7 +54,9 @@ __all__ = [
     "StragglerMonitor",
     "TransientStepError",
     "attention_cache_bytes",
+    "clone_page_rows",
     "make_prefill_step",
     "make_serve_step",
+    "replica_home",
     "retry_step",
 ]

@@ -34,6 +34,12 @@ A ``telemetry`` step captures ``model.<method>(..., telemetry=True)``:
 the same kernels, plus the selection counts of every layer, returned as
 a third output that the replay overwrites like the logits.
 
+A step over a head-sharded pool whose shards share the one device (a
+simulated mesh, ``cuda:0`` × M) captures like any other: its shards'
+kernels run in turn on the capture stream. One graph captures one
+device's stream, so a mesh over several cards runs its steps eagerly
+(``ServeLoop.graph_mode``).
+
 A failed capture or replay raises; nothing falls back to the eager step.
 The logits a replay returns live in the graph's static output, which the
 next replay of either step overwrites: a caller that keeps rows across
@@ -76,8 +82,8 @@ class _Captured:
 
 
 def _first_ptr(tree) -> int:
-    while isinstance(tree, dict):
-        tree = tree[min(tree)]
+    while isinstance(tree, (dict, tuple)):
+        tree = tree[min(tree)] if isinstance(tree, dict) else tree[0]
     return tree.data_ptr()
 
 
@@ -107,10 +113,12 @@ def run_idle(model, method: str, params, cache, static, index,
     cache bit for bit as it was: its writes land in the scratch target,
     its re-quantization reproduces each block's codes, and the scales
     (where only an all-zero block's would move) are put back."""
-    scales = cache["k_scale"].clone() if "k_scale" in cache else None
+    leaf = cache.get("k_scale", ())       # a tuple: a pool's head shards
+    parts = leaf if isinstance(leaf, tuple) else (leaf,)
+    scales = [p.clone() for p in parts]
     getattr(model, method)(params, cache, static, index, telemetry=telemetry)
-    if scales is not None:
-        cache["k_scale"].copy_(scales)
+    for part, saved in zip(parts, scales):
+        part.copy_(saved)
 
 
 class GraphedStep:

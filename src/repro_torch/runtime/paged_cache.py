@@ -15,7 +15,12 @@ torch counterparts of the reference's logical→physical indirection.
 
 Pool leaf layout (per layer): ``k``/``v``/``k_codes`` are
 ``[KV, num_pages · page_size, head_dim]`` — page p owns rows
-``[p·ps, (p+1)·ps)`` — and ``k_scale`` is ``[KV, num_pages]``.
+``[p·ps, (p+1)·ps)`` — and ``k_scale`` is ``[KV, num_pages]``. On a
+tensor-parallel mesh each leaf is a tuple of M head shards ``[KV/M,
+…]``, one per model-axis device
+(:func:`repro_torch.distributed.sharding.shard_paged_cache`); the
+helpers below take either layout, and those that gather give what the
+whole pool gives, on the first shard's device.
 """
 
 from __future__ import annotations
@@ -453,8 +458,29 @@ def logical_row_ids(block_table: torch.Tensor, page_size: int) -> torch.Tensor:
     return block_table.long()[..., r // page_size] * page_size + (r % page_size)
 
 
+def pool_shards(cache) -> Optional[List[Dict[str, torch.Tensor]]]:
+    """The per-shard caches of a head-sharded pool (each leaf a tuple of
+    M shards), shard s as a plain dict of its leaves; None for a whole
+    pool."""
+    if not isinstance(cache.get("k"), tuple):
+        return None
+    return [{name: leaf[s] for name, leaf in cache.items()}
+            for s in range(len(cache["k"]))]
+
+
+def _over_shards(fn, leaf, *args, dim: int = 1):
+    """``fn(leaf, *args)``, or for a tuple of head shards each shard's
+    result on the first shard's device, concatenated on ``dim`` (the
+    heads of the result)."""
+    if not isinstance(leaf, tuple):
+        return fn(leaf, *args)
+    dev = leaf[0].device
+    return torch.cat([fn(part, *(a.to(part.device) for a in args)).to(dev)
+                      for part in leaf], dim=dim)
+
+
 def gather_logical_rows(
-    pool: torch.Tensor, block_table: torch.Tensor, page_size: int
+    pool, block_table: torch.Tensor, page_size: int
 ) -> torch.Tensor:
     """Per-slot logical view of a row-major pool leaf:
     ``[KV, pool_rows, ...]`` → ``[B, KV, mb·ps, ...]`` (a transient
@@ -462,17 +488,40 @@ def gather_logical_rows(
     into a contiguous ``[B, KV, …]`` tensor — the layout of the
     contiguous cache — so that the dense attention over it multiplies
     operands laid out as the unpaged path's and rounds as they do (a
-    permuted view sends cuBLAS down another summation order)."""
-    rows = logical_row_ids(block_table, page_size)        # [B, n_log]
-    heads = torch.arange(pool.shape[0], device=pool.device)
-    return pool[heads[None, :, None], rows[:, None, :]]
+    permuted view sends cuBLAS down another summation order). A
+    head-sharded leaf gives the same tensor, its shards' heads
+    concatenated."""
+    def one(part, table):
+        rows = logical_row_ids(table, page_size)          # [B, n_log]
+        heads = torch.arange(part.shape[0], device=part.device)
+        return part[heads[None, :, None], rows[:, None, :]]
+
+    return _over_shards(one, pool, block_table)
 
 
 def gather_logical_scales(
-    scale_pool: torch.Tensor, block_table: torch.Tensor
+    scale_pool, block_table: torch.Tensor
 ) -> torch.Tensor:
-    """``[KV, num_pages]`` → ``[B, KV, mb]``."""
-    return scale_pool[:, block_table.long()].movedim(1, 0)
+    """``[KV, num_pages]`` → ``[B, KV, mb]`` (head shards concatenated)."""
+    return _over_shards(
+        lambda part, table: part[:, table.long()].movedim(1, 0),
+        scale_pool, block_table)
+
+
+def gather_pages(pool, pages: torch.Tensor, page_size: int) -> torch.Tensor:
+    """Whole pages of a pool leaf ``[KV, pool_rows, d]`` (or its head
+    shards), per slot and KV head: ``pages [B, KV, n]`` physical page
+    ids → ``[B, KV, n, ps, d]``."""
+    if isinstance(pool, tuple):
+        per, dev = pool[0].shape[0], pool[0].device
+        return torch.cat([
+            gather_pages(part, pages[:, s * per:(s + 1) * per].to(
+                part.device), page_size).to(dev)
+            for s, part in enumerate(pool)], dim=1)
+    kv, rows, d = pool.shape
+    heads = torch.arange(kv, device=pool.device)[None, :, None]
+    return pool.reshape(kv, rows // page_size, page_size, d)[
+        heads, pages.long()]
 
 
 def compose_physical_blocks(
@@ -511,33 +560,39 @@ def paged_row_targets(
 
 
 def clone_page_rows(
-    cache: Dict[str, torch.Tensor],
+    cache: Dict[str, object],
     page_size: int,
     src_pages: Sequence[int],
     dst_pages: Sequence[int],
-) -> Dict[str, torch.Tensor]:
+) -> Dict[str, object]:
     """Copy-on-write on device: duplicate whole physical pages (K/V
     rows, codes, per-page scale) across every layer of a paged cache
-    (leaves ``[L, KV, pool_rows, hd]`` / scales ``[L, KV, num_pages]``),
-    **in place**. Destinations need no prior zeroing."""
+    (leaves ``[L, KV, pool_rows, hd]`` / scales ``[L, KV, num_pages]``,
+    or their head shards, each on its own device), **in place**.
+    Destinations need no prior zeroing."""
     if not len(src_pages):
         return cache
-    leaf = cache["k"]
-    dev = leaf.device
-    src = torch.as_tensor(np.asarray(src_pages, np.int64), device=dev)
-    dst = torch.as_tensor(np.asarray(dst_pages, np.int64), device=dev)
-    for key in ("k", "v", "k_codes"):
-        if key in cache:
-            t = cache[key]
-            pages = t.view(*t.shape[:-2], -1, page_size, t.shape[-1])
-            pages[..., dst, :, :] = pages[..., src, :, :]
-    if "k_scale" in cache:
-        cache["k_scale"][..., dst] = cache["k_scale"][..., src]
+    for part in pool_shards(cache) or [cache]:
+        dev = part["k"].device
+        src = torch.as_tensor(np.asarray(src_pages, np.int64), device=dev)
+        dst = torch.as_tensor(np.asarray(dst_pages, np.int64), device=dev)
+        for key in ("k", "v", "k_codes"):
+            if key in part:
+                t = part[key]
+                pages = t.view(*t.shape[:-2], -1, page_size, t.shape[-1])
+                pages[..., dst, :, :] = pages[..., src, :, :]
+        if "k_scale" in part:
+            part["k_scale"][..., dst] = part["k_scale"][..., src]
     return cache
 
 
+def _leaf_bytes(leaf) -> int:
+    return leaf.numel() * leaf.element_size()
+
+
 def attention_cache_bytes(cache) -> int:
-    """Total bytes of the K/V + filter leaves of a serving cache."""
+    """Total bytes of the K/V + filter leaves of a serving cache (every
+    shard of a sharded pool)."""
     if not isinstance(cache, dict):
         return 0
     total = 0
@@ -545,5 +600,15 @@ def attention_cache_bytes(cache) -> int:
         if isinstance(leaf, dict):
             total += attention_cache_bytes(leaf)
         elif key in ("k", "v", "k_codes", "k_scale"):
-            total += leaf.numel() * leaf.element_size()
+            parts = leaf if isinstance(leaf, tuple) else (leaf,)
+            total += sum(_leaf_bytes(p) for p in parts)
     return total
+
+
+def attention_cache_shard_bytes(cache) -> List[int]:
+    """:func:`attention_cache_bytes` per head shard of a pool (one entry
+    for a whole pool)."""
+    shards = pool_shards(cache)
+    if shards is None:
+        return [attention_cache_bytes(cache)]
+    return [attention_cache_bytes(part) for part in shards]

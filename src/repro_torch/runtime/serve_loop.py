@@ -62,8 +62,14 @@ shared page pool (default) or the contiguous per-slot cache
   separate ``telemetry=True`` steps whose stats ride the tick's one
   device-to-host copy. An engine built without an injector, a retry
   policy or observability dispatches exactly the steps it did before.
-
-The device mesh waits for a later slice of the port.
+* **Tensor parallelism** (``mesh=``, a ``(1, M)``
+  :class:`~repro_torch.launch.mesh.Mesh`): the page pools split by KV
+  head over the model axis (:mod:`repro_torch.distributed.sharding`),
+  the params stay whole on the mesh's first device, and each dispatch
+  runs with the mesh active, so the fused paged ops run once per shard
+  and concatenate the heads: the streams are the single-device engine's,
+  bit for bit. N engines behind one queue, one per mesh row, are
+  :class:`~repro_torch.runtime.replicated_serve.ReplicatedServeLoop`.
 """
 
 from __future__ import annotations
@@ -80,6 +86,8 @@ import torch
 
 from repro_torch.core.energon_attention import serving_faults
 from repro_torch.device import DeviceLike, resolve_device, synchronize
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import indexed_device
 from repro_torch.observability import Observability
 from repro_torch.observability.metrics import (
     DEFAULT_LATENCY_BOUNDS,
@@ -198,7 +206,11 @@ class EngineMetrics:
     counters. Counters are attributes over an optional
     :class:`MetricsRegistry` (``registry=None``: plain ints); the raw
     records are capped at ``max_request_records``, the registry's
-    histograms see every observation."""
+    histograms see every observation. ``replica`` namespaces every
+    registry name as ``replica{r}/serve_*``, so replicas can share one
+    registry or merge into one without summing their gauges.
+    ``graph_mode`` says how the engine ran its steps (``graphed``,
+    ``eager``, or eager because its mesh spans several cards)."""
 
     prefill_tokens = _CounterAttr()
     decode_tokens = _CounterAttr()
@@ -220,9 +232,12 @@ class EngineMetrics:
     shed_requests = _CounterAttr()
 
     def __init__(self, registry: Optional[MetricsRegistry] = None,
-                 max_request_records: int = 1024):
-        self._ns = "serve_"
+                 max_request_records: int = 1024,
+                 replica: Optional[int] = None):
+        self.replica = replica
+        self._ns = "serve_" if replica is None else f"replica{replica}/serve_"
         self.registry = registry
+        self.graph_mode = "eager"
         self._counters: Dict[str, int] = {}
         self.prefill_time = 0.0
         self.decode_time = 0.0
@@ -352,26 +367,47 @@ def sampling_seed(seed: int, uid: int, n_sampled: int) -> int:
     return h ^ (h >> 17)
 
 
-def make_serve_step(model, *, device: DeviceLike = None):
+def make_serve_step(model, *, device: DeviceLike = None, mesh=None):
     """The one-token decode step as one dispatch: the port of the
     reference's ``make_serve_step`` (a jitted ``decode_step`` that
     donates the cache). On CUDA a :class:`GraphedStep` that captures
     ``model.decode_step`` per input signature on first use and replays
     it, updating the cache in place; on the CPU, where graphs do not
-    exist, ``model.decode_step`` itself."""
-    dev = resolve_device(device)
-    if dev.type != "cuda":
-        return model.decode_step
-    return GraphedStep(model, "decode_step", dev)
+    exist, ``model.decode_step`` itself. With ``mesh`` the step runs on
+    the mesh's first device with the mesh active (a head-sharded cache's
+    fused ops run per shard), graphed where every shard shares that
+    card."""
+    return _make_step(model, "decode_step", device, mesh)
 
 
-def make_prefill_step(model, *, device: DeviceLike = None):
+def make_prefill_step(model, *, device: DeviceLike = None, mesh=None):
     """The chunked-prefill wave as one dispatch (the reference's
     ``make_prefill_step``), as :func:`make_serve_step` is for decode."""
-    dev = resolve_device(device)
-    if dev.type != "cuda":
-        return model.prefill
-    return GraphedStep(model, "prefill", dev)
+    return _make_step(model, "prefill", device, mesh)
+
+
+def _make_step(model, method: str, device: DeviceLike, mesh):
+    dev = resolve_device(device) if mesh is None else mesh.devices[0][0]
+    graphed = dev.type == "cuda" and (
+        mesh is None or len(mesh.physical_devices) == 1)
+    step = GraphedStep(model, method, dev) if graphed else getattr(
+        model, method)
+    if mesh is None:
+        return step
+
+    def on_mesh(*args, **kwargs):
+        with shd.active_mesh(mesh):
+            return step(*args, **kwargs)
+
+    return on_mesh
+
+
+def _on_device(tree, device: torch.device):
+    """A parameter tree's tensors on ``device`` (the same tensors where
+    they live there)."""
+    if isinstance(tree, dict):
+        return {k: _on_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
 
 
 def _poison_logits(logits: torch.Tensor, mask: np.ndarray) -> torch.Tensor:
@@ -420,7 +456,15 @@ class ServeLoop:
     ``stall_patience`` zero-progress ticks raise :class:`EngineStalled`
     (default 1, 32 with an injector). ``observability`` records the event
     trace, the metrics registry and, with its ``device_telemetry``, the
-    steps' selection counts."""
+    steps' selection counts.
+
+    Tensor parallelism: ``mesh``, a ``(1, M)``
+    :class:`~repro_torch.launch.mesh.Mesh`, splits the page pools by KV
+    head over its model axis and runs the engine on its first device
+    (``device`` may only name that one); ``replica_id`` namespaces the
+    metrics (``replica{r}/serve_*``). A mesh whose shards share one card
+    replays graphs like a single-device engine; one over several cards
+    runs its steps eagerly (``graph_mode``)."""
 
     def __init__(
         self,
@@ -447,15 +491,39 @@ class ServeLoop:
         observability: Optional[Observability] = None,
         device: DeviceLike = None,
         cuda_graphs: Optional[bool] = None,
+        mesh=None,
+        replica_id: Optional[int] = None,
     ):
+        self.mesh = mesh
+        self.replica_id = replica_id
         self.device = resolve_device(device)
+        cards = 1
+        if mesh is not None:
+            primary = mesh.devices[0][0]
+            if device is not None and indexed_device(self.device) != primary:
+                raise ValueError(f"a mesh engine runs on its mesh's first "
+                                 f"device {primary}, not {self.device}")
+            self.device = primary
+            cards = len(mesh.physical_devices)
         if cuda_graphs is None:
-            cuda_graphs = self.device.type == "cuda"
+            cuda_graphs = self.device.type == "cuda" and cards == 1
         if cuda_graphs and self.device.type != "cuda":
             raise ValueError(f"cuda_graphs needs a CUDA device, not "
                              f"{self.device}")
+        if cuda_graphs and cards > 1:
+            raise ValueError(
+                f"one CUDA graph captures one device's stream: a mesh over "
+                f"{cards} cards runs its steps eagerly (cuda_graphs=False)")
         self.cuda_graphs = bool(cuda_graphs)
-        if model.device != self.device:
+        self.graph_mode = ("graphed" if self.cuda_graphs else
+                           f"eager (the mesh spans {cards} cards)"
+                           if cards > 1 and self.device.type == "cuda"
+                           else "eager")
+        # a mesh engine's params live on its mesh's first device (for a
+        # replica on another card than the model's, a copy of them)
+        same = (model.device.type == self.device.type if mesh is not None
+                else model.device == self.device)
+        if not same:
             raise ValueError(
                 f"model lives on {model.device}, engine on {self.device}"
             )
@@ -502,6 +570,8 @@ class ServeLoop:
         self.seed = seed
         self.prefill_chunk = max(1, min(prefill_chunk, max_len))
         cfg = model.cfg
+        # per (slot, KV head) row, so a head shard's launches (B·KV/M
+        # rows) take what the whole pool's do
         faults = serving_faults(
             cfg.energon, group=cfg.num_heads // cfg.num_kv_heads,
             cache_len=rows, chunk=self.prefill_chunk, paged=self.paged,
@@ -538,6 +608,8 @@ class ServeLoop:
                                                 max_len=self.max_len)
         else:
             self.cache = model.init_cache(batch_slots, self.max_len)
+        if mesh is not None:
+            self._install_mesh(mesh)
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self._temps = np.zeros((batch_slots,), np.float32)
         self._lengths = np.zeros((batch_slots,), np.int64)
@@ -547,7 +619,9 @@ class ServeLoop:
         self.pending = PendingQueue()
         self.completed: List[Request] = []
         self.metrics = EngineMetrics(
-            registry=observability.registry if observability else None)
+            registry=observability.registry if observability else None,
+            replica=replica_id)
+        self.metrics.graph_mode = self.graph_mode
         # --- lifecycle / fault tolerance ---------------------------------
         #: queued requests past which `submit` pushes back (preemption
         #: requeues bypass it: evicting a live slot must never fail)
@@ -573,6 +647,25 @@ class ServeLoop:
                 self.allocator.tracer = observability.trace
             if fault_injector is not None:
                 fault_injector.tracer = observability.trace
+
+    def _install_mesh(self, mesh) -> None:
+        """Lay the engine out on a tensor-parallel mesh (the reference's
+        ``_install_mesh``): the params whole on the mesh's first device
+        — splitting the weights would split the output projection's
+        contraction into a cross-device sum and change its bits — and
+        the page pools split by KV head over the model axis (whole on
+        the first device where the heads do not divide it). Only the
+        paged cache takes a mesh, and only a TP one: the data axis is
+        the replica axis, one engine per row."""
+        if not self.paged:
+            raise ValueError("mesh serving requires the paged cache")
+        if "data" in mesh.axis_names and mesh.shape["data"] > 1:
+            raise ValueError(
+                "ServeLoop takes a TP-only mesh (data axis == 1); use "
+                "ReplicatedServeLoop to span the data axis")
+        self.params = _on_device(self.params, self.device)
+        self.cache = shd.shard_paged_cache(self.cache, mesh,
+                                           self.layout.page_size)
 
     def _emit(self, name: str, **kw):
         """A trace event, iff observability is attached."""
@@ -659,13 +752,15 @@ class ServeLoop:
                  if self.paged else {})
         index = self._cache_index()
         chunk = np.zeros((batch, self.prefill_chunk), np.int32)
-        self._prefill.prepare(self.params, self.cache, {
-            "tokens": self._tensor(chunk), "positions": self._tensor(chunk),
-            **table}, index)
-        self._decode.prepare(self.params, self.cache, {
-            "tokens": self._tensor(np.zeros((batch, 1), np.int32)),
-            "active": self._tensor(np.zeros((batch,), bool), torch.bool),
-            **table}, index)
+        with shd.active_mesh(self.mesh):
+            self._prefill.prepare(self.params, self.cache, {
+                "tokens": self._tensor(chunk),
+                "positions": self._tensor(chunk), **table}, index)
+            self._decode.prepare(self.params, self.cache, {
+                "tokens": self._tensor(np.zeros((batch, 1), np.int32)),
+                "active": self._tensor(np.zeros((batch,), bool),
+                                       torch.bool),
+                **table}, index)
 
     # --- lifecycle internals -------------------------------------------
     def _finish_terminal(self, req: Request, state: str,
@@ -706,6 +801,13 @@ class ServeLoop:
                 self._evict_slot(i, "expired", "deadline exceeded")
 
     def _dispatch(self, fn, *args):
+        """One step dispatch with the engine's mesh active (restored
+        after, so replica engines on other meshes interleave ticks on
+        one host)."""
+        with shd.active_mesh(self.mesh):
+            return self._dispatch_impl(fn, *args)
+
+    def _dispatch_impl(self, fn, *args):
         """One step dispatch under the engine's retry policy. The
         injector's fault site sits before the call, so a retry
         re-dispatches against an unchanged cache; an engine with neither

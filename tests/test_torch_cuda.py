@@ -26,7 +26,12 @@ outgrown, the cache across a capture, engines capturing on one stream
 and giving back their graphs' memory, and the refusal of inputs that do
 not say which rows are live; the telemetry variants (graphed ≡ eager
 counts, the plain steps' streams and launches) and a chaos drain
-(graphed ≡ eager outcomes and event trace)."""
+(graphed ≡ eager outcomes and event trace).
+
+Serving over a mesh of the one card (``cuda:0`` × M): a lone engine on
+``(1, 2)`` and ``(1, 4)`` meshes, graphed ≡ eager ≡ the single-device
+engine (streams, the pool's rows across its shards, B1–B4 launched once
+per shard), and a ``(2, 2)`` replicated drain ≡ the single engine."""
 
 import dataclasses
 import gc
@@ -898,7 +903,9 @@ def _drain_twice(smoke, graphs, **kw):
         engine.run_until_drained()
     torch.cuda.synchronize()
     streams = {r.uid: list(r.tokens_out) for r in engine.completed}
-    cache = {k: v.clone() for k, v in engine.cache.items()}
+    # a head-sharded pool's shards, concatenated: the whole pool's layout
+    cache = {k: torch.cat(v, dim=1) if isinstance(v, tuple) else v.clone()
+             for k, v in engine.cache.items()}
     return streams, cache, dict(_build.launch_counts), engine
 
 
@@ -1371,3 +1378,80 @@ def test_one_slot_and_one_sequence_run_the_kernels(gemma_bf16, paged):
     assert torch.isfinite(loss)
     assert _build.launch_counts["mpmrf_filter_scores"] == 1
     assert _build.launch_counts["block_sparse_attention"] == 1
+
+
+# --------------------------------------------------------------------------
+# serving over a mesh of the one card
+# --------------------------------------------------------------------------
+
+PAGED_KERNELS = ("mpmrf_paged_filter_scores", "paged_decode_gather_attention",
+                 "mpmrf_paged_prefill_filter_scores",
+                 "paged_prefill_gather_attention")
+
+
+def _card_mesh(d, m):
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh((d, m), ("data", "model"), ["cuda:0"] * (d * m))
+
+
+@pytest.fixture(scope="module")
+def smoke_kv4_bf16(smoke_bf16):
+    """The serve-smoke model with four KV heads (G 2): a (1, 4) mesh
+    splits it one head a shard."""
+    from repro_torch.models import LMModel
+
+    cfg = dataclasses.replace(smoke_bf16[0], num_kv_heads=4)
+    model = LMModel(cfg, device="cuda")
+    return cfg, model, model.init(seed=2)
+
+
+@pytest.mark.parametrize("kv,m", [(2, 2), (4, 4)],
+                         ids=["kv2-mesh1x2", "kv4-mesh1x4"])
+def test_tp_mesh_graphed_equals_eager_and_single_engine(
+        smoke_bf16, smoke_kv4_bf16, kv, m):
+    smoke = smoke_bf16 if kv == 2 else smoke_kv4_bf16
+    single, single_cache, single_n, _ = _drain_twice(smoke, True)
+    eager, eager_cache, eager_n, eng_e = _drain_twice(
+        smoke, False, mesh=_card_mesh(1, m))
+    graphed, cache, n, eng = _drain_twice(smoke, True, mesh=_card_mesh(1, m))
+    assert eng.cuda_graphs and eng.graph_mode == "graphed"
+    assert not eng_e.cuda_graphs
+    assert [s.captures for s in eng.graphs] == [1, 1]
+    assert len(eng.cache["k"]) == m
+    assert graphed == eager == single and len(single) == 10
+    for key in single_cache:
+        assert torch.equal(eager_cache[key], single_cache[key]), key
+        assert torch.equal(cache[key], single_cache[key]), key
+    assert n == eager_n
+    for name in PAGED_KERNELS:
+        assert n[name] == m * single_n[name] > 0, name
+
+
+def test_replicated_mesh_drain_equals_single_engine(smoke_bf16):
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import ReplicatedServeLoop, Request
+
+    cfg, model, params = smoke_bf16
+    single, _, single_n, _ = _drain_twice(smoke_bf16, True)
+    loop = ReplicatedServeLoop(
+        model, params, mesh=_card_mesh(2, 2), batch_slots=3,
+        max_len=SERVE_LEN, eos_token=cfg.vocab_size - 1,
+        prefill_chunk=SERVE_CHUNK, device="cuda")
+    loop.capture_graphs()
+    _build.reset_launch_counts()
+    for rnd in range(2):
+        for r in _serve_trace(cfg.vocab_size):
+            loop.submit(Request(**dict(r, uid=r["uid"] + 100 * rnd)))
+        loop.run_until_drained()
+    torch.cuda.synchronize()
+    streams = {r.uid: list(r.tokens_out) for r in loop.completed}
+    assert streams == single
+    assert all(e.cuda_graphs and len(e.cache["k"]) == 2
+               for e in loop.engines)
+    assert len(set(loop.placement.values())) == 2
+    n = dict(_build.launch_counts)
+    assert all(n[name] > 0 for name in PAGED_KERNELS)
+    merged = loop.merged_metrics()
+    assert merged.decode_tokens == sum(e.metrics.decode_tokens
+                                       for e in loop.engines)

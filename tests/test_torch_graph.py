@@ -15,6 +15,8 @@ in ``test_torch_cuda.py``).
   cache bit for bit as the parent's ``nonzero`` plans did (kept below as
   the oracle); nothing reads the scratch; a leaf without it is refused
   where the write would reach past it.
+* The same over a head-sharded pool (a tensor-parallel mesh), whose step
+  gives the whole pool's logits and rows.
 * A step on idle inputs, as warm-up and capture run it, leaves the cache
   bit for bit as it was.
 * Launch accounting across replays: a capture's launches, set aside,
@@ -154,6 +156,38 @@ def test_xla_serve_steps_make_no_host_sync(paged, method, impl):
         logits, _ = getattr(model, method)(params, cache, inputs, idx)
     assert guard.seen == []
     assert torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("method", ["decode_step", "prefill"])
+@pytest.mark.parametrize("impl", ["pallas", "mpmrf_block"])
+def test_sharded_serve_steps_make_no_host_sync(method, impl):
+    """The same guard over a step on a head-sharded pool (a ``(1, 2)``
+    mesh of the CPU, active): per-shard writes, the fused ops once per
+    shard (pallas), the shards' gathers (the dense prefix, mpmrf_block).
+    The step's logits and every shard's leaves are the whole pool's
+    step's, bit for bit."""
+    import dataclasses
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = get_serve_config("qwen3-14b", smoke=True)
+    cfg = dataclasses.replace(cfg, energon=dataclasses.replace(
+        cfg.energon, impl=impl))
+    model = LMModel(cfg, device="cpu")
+    params = model.init(seed=0)
+    cache, pre, zero, dec, index = _filled(model, params, paged=True)
+    mesh = make_mesh((1, 2), devices=["cpu", "cpu"])
+    sharded = shd.shard_paged_cache(cache, mesh, cfg.energon.decode_key_block)
+    inputs, idx = (dec, index) if method == "decode_step" else (pre, zero)
+    ref, _ = getattr(model, method)(params, cache, inputs, idx)
+    with shd.active_mesh(mesh), HostSyncGuard() as guard:
+        logits, _ = getattr(model, method)(params, sharded, inputs, idx)
+    assert guard.seen == []
+    assert torch.equal(logits, ref)
+    for name, leaf in cache.items():
+        assert isinstance(sharded[name], tuple)
+        assert torch.equal(torch.cat(sharded[name], dim=1), leaf), name
 
 
 # --------------------------------------------------------------------------
