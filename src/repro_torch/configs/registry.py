@@ -1,6 +1,6 @@
 """Architecture registry: ``--arch <id>`` resolution for the launchers.
 
-The dense archs of the reference are registered. ``get_config`` returns
+The dense and MoE archs of the reference are registered. ``get_config`` returns
 the shipped config; ``get_serve_config`` the serving one, with the
 fused paged Energon kernels engaged.
 """
@@ -10,7 +10,8 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.configs import (
-    gemma3_27b, phi3_mini_3_8b, qwen3_14b, starcoder2_7b,
+    gemma3_27b, olmoe_1b_7b, phi3_mini_3_8b, qwen3_14b,
+    qwen3_moe_235b_a22b, starcoder2_7b,
 )
 from repro_torch.configs.base import ModelConfig
 
@@ -19,6 +20,8 @@ _MODULES = {
     "starcoder2-7b": starcoder2_7b,
     "gemma3-27b": gemma3_27b,
     "phi3-mini-3.8b": phi3_mini_3_8b,
+    "olmoe-1b-7b": olmoe_1b_7b,
+    "qwen3-moe-235b-a22b": qwen3_moe_235b_a22b,
 }
 
 ARCH_NAMES = tuple(_MODULES)

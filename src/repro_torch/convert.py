@@ -5,9 +5,11 @@ numpy arrays (the caller runs ``jax.tree.map(np.asarray, params)``),
 maps one to one onto the port's parameter dict: the same names and
 layouts (``wq [d, H, hd]``, ``wk``/``wv [d, KV, hd]``, ``wo [H, hd, d]``,
 ``mlp.w_up/w_gate/w_down``, ``embed.table``, ``lm_head.w``,
-``final_norm.scale`` (and LayerNorm's ``bias``), the q/k norms), blocks
-stacked on a leading ``[L]`` axis; a tied head has no ``lm_head``.
-Leaves are cast to the model dtype on the target device.
+``final_norm.scale`` (and LayerNorm's ``bias``), the q/k norms, an MoE
+block's ``moe.router/w_up/w_gate/w_down``), blocks stacked on a leading
+``[L]`` axis; a tied head has no ``lm_head``. Each leaf takes the dtype
+``model.init`` gives it — the model dtype, but an MoE router's float32 —
+on the target device.
 """
 
 from __future__ import annotations
@@ -21,11 +23,15 @@ from repro_torch.device import DeviceLike, resolve_device
 
 
 def to_torch_tree(tree: Any, device: DeviceLike = None,
-                  dtype: torch.dtype = torch.float32) -> Any:
-    """Nested dicts of numpy arrays → the same dicts of tensors."""
+                  dtype: Any = torch.float32) -> Any:
+    """Nested dicts of numpy arrays → the same dicts of tensors; float
+    leaves cast to ``dtype``, one dtype or a tree of them beside
+    ``tree``'s leaves."""
     dev = resolve_device(device)
     if isinstance(tree, Mapping):
-        return {k: to_torch_tree(v, dev, dtype) for k, v in tree.items()}
+        return {k: to_torch_tree(
+            v, dev, dtype[k] if isinstance(dtype, Mapping) else dtype)
+            for k, v in tree.items()}
     arr = np.asarray(tree)
     if arr.dtype.kind == "f" or arr.dtype.name == "bfloat16":
         # numpy has no bfloat16; float32 holds every bf16 value exactly
@@ -44,7 +50,7 @@ def convert_params(np_params: Mapping, model) -> dict:
     if mismatch:
         raise KeyError("reference params do not fit the model: "
                        + "; ".join(mismatch))
-    return to_torch_tree(np_params, model.device, model.dtype)
+    return to_torch_tree(np_params, model.device, model.param_dtypes())
 
 
 def _tree_mismatch(tree, shapes, path: str) -> list:

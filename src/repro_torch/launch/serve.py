@@ -129,6 +129,7 @@ def main(argv=None):
     from repro_torch.configs.registry import get_serve_config
     from repro_torch.device import resolve_device
     from repro_torch.models import LMModel
+    from repro_torch.models.moe import mesh_fault
     from repro_torch.runtime import (
         FaultInjector, FaultSpec, QueueFull, ReplicatedServeLoop, Request,
         ServeLoop, attention_cache_bytes,
@@ -140,6 +141,9 @@ def main(argv=None):
     if args.prefill_chunk is None:
         args.prefill_chunk = 64 if args.smoke else 128
     cfg = get_serve_config(args.arch, smoke=args.smoke)
+    fault = mesh_fault(cfg, mesh)
+    if fault:
+        raise SystemExit(f"--mesh {args.mesh}: {fault}")
     if args.max_len is None:
         # at most 4096, and within what the dense prefix layers may mask
         # ([G·chunk, max_len] up to chunk_threshold: 3584 for G = 9)

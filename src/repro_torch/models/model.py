@@ -1,15 +1,18 @@
-"""LMModel — the dense-family surface (port of
+"""LMModel — the dense and MoE families' surface (port of
 ``repro.models.model.LMModel``): weight init, whole-sequence logits and
 loss (``apply`` / ``loss``, forward only), cache management, chunked
 prefill and one-token decode over the shared page pool (with
 ``inputs['block_table']``) or the contiguous per-slot cache (without).
+An MoE model's blocks hold ``"moe"`` (router f32, experts in the model
+dtype) in place of ``"mlp"``; its auxiliary loss joins ``apply`` and
+``loss``.
 
 Parameters are a plain dict with the reference pytree's layout and
 names, blocks stacked on a leading ``[L]`` axis — so a reference
 checkpoint converts leaf by leaf (:mod:`repro_torch.convert`). Caches
 are updated in place; ``prefill`` / ``decode_step`` return them for
-parity with the reference's functional signatures. Other families wait
-for later slices.
+parity with the reference's functional signatures. The other families
+(ssm, hybrid, vlm, audio) wait for later slices.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime import paged_cache as pgc
 
@@ -31,13 +35,27 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 class LMModel:
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"family {cfg.family!r} waits for a later slice of the port"
             )
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.dtype]
+
+    def _moe_cfg(self) -> Optional[moe_lib.MoEConfig]:
+        cfg = self.cfg
+        if cfg.family != "moe":
+            return None
+        return moe_lib.MoEConfig(
+            num_experts=cfg.num_experts,
+            experts_per_token=cfg.experts_per_token,
+            d_model=cfg.d_model,
+            d_ff=cfg.d_ff,
+            activation=cfg.activation,
+            capacity_factor=cfg.capacity_factor,
+            quantized_weight_gather=cfg.moe_quantized_gather,
+        )
 
     # ------------------------------------------------------------------
     # init
@@ -75,16 +93,22 @@ class LMModel:
                 out["w_gate"] = tn((d, f), d ** -0.5)
             return out
 
+        moe_cfg = self._moe_cfg()
+
         def block():
-            return {
+            out = {
                 "norm_attn": norm(),
                 "attn": attn_lib.init_attention(
                     gen, dev, d, cfg.num_heads, cfg.num_kv_heads,
                     cfg.head_dim, use_qk_norm=cfg.use_qk_norm, dtype=dt,
                 ),
                 "norm_mlp": norm(),
-                "mlp": mlp(),
             }
+            if moe_cfg is not None:     # the router in f32
+                out["moe"] = moe_lib.init_moe(moe_cfg, gen, dev, dt)
+            else:
+                out["mlp"] = mlp()
+            return out
 
         params = {
             "embed": {"table": tn((cfg.vocab_size, d), 1.0)},
@@ -98,24 +122,27 @@ class LMModel:
     def param_shapes(self) -> Dict[str, Any]:
         """:meth:`init`'s tree with each leaf's shape, built on the meta
         device (nothing is allocated)."""
-        def shapes(tree):
-            if isinstance(tree, dict):
-                return {k: shapes(v) for k, v in tree.items()}
-            return tuple(tree.shape)
+        return _tree_map(lambda a: tuple(a.shape), self._meta_params())
 
-        return shapes(LMModel(self.cfg, device="meta").init())
+    def param_dtypes(self) -> Dict[str, Any]:
+        """:meth:`init`'s tree with each leaf's dtype: the model dtype,
+        but an MoE router's float32."""
+        return _tree_map(lambda a: a.dtype, self._meta_params())
+
+    def _meta_params(self) -> Dict[str, Any]:
+        return LMModel(self.cfg, device="meta").init()
 
     # ------------------------------------------------------------------
     # forward (scoring)
     # ------------------------------------------------------------------
 
     def _tfm_block_fn(self):
-        cfg = self.cfg
+        cfg, moe_cfg = self.cfg, self._moe_cfg()
 
         def block_fn(layer_params, x, window, layer_idx):
             return tfm.apply_block(
                 layer_params, x, cfg.energon,
-                activation=cfg.activation, norm=cfg.norm,
+                activation=cfg.activation, norm=cfg.norm, moe_cfg=moe_cfg,
                 **self._attn_kwargs(layer_idx, window),
             )
 
@@ -125,17 +152,18 @@ class LMModel:
     def apply(self, params, batch: Dict[str, torch.Tensor]):
         """Whole-sequence logits of ``batch['inputs'] [B, n]`` (int
         tokens). Returns ``(logits [B, n, V] f32, aux)``; ``aux`` is the
-        reference's auxiliary loss, 0 for the dense family. Forward only:
+        reference's auxiliary loss — the MoE layers' load-balancing
+        losses summed in layer order, exactly 0 for the dense family.
+        Forward only:
         the sparse layers run the kernels, which have no backward here
         (``kernels.ops.energon_block_attention`` is the differentiable
         pipeline)."""
         cfg = self.cfg
         x = self._embed(params, batch["inputs"])
-        x = tfm.apply_stack(
+        x, aux = tfm.apply_stack(
             params["blocks"], x, self.layer_windows(), self._tfm_block_fn(),
             prefix_layers=cfg.energon.min_prune_layer,
         )
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return self._logits_out(params, x), aux
 
     @torch.no_grad()
@@ -316,7 +344,7 @@ class LMModel:
         (:func:`repro_torch.core.filtering.selection_stats`; zeros for
         the dense prefix layers). Logits and cache are the same bits
         either way."""
-        cfg = self.cfg
+        cfg, moe_cfg = self.cfg, self._moe_cfg()
         x = self._embed(params, inputs["tokens"])
         chunk = x.shape[1]
         positions = inputs.get("positions")
@@ -342,7 +370,7 @@ class LMModel:
                 )
             return tfm.block_step(layer_params, x, attn,
                                   activation=cfg.activation, norm=cfg.norm,
-                                  telemetry=telemetry)
+                                  telemetry=telemetry, moe_cfg=moe_cfg)
 
         return self._serve_out(params, cache, tfm.apply_stack_decode(
             params["blocks"], x, cache, self.layer_windows(), step_fn,
@@ -368,7 +396,7 @@ class LMModel:
         writes nothing — the engine's idle-slot sentinel). Returns
         ``(logits [B, 1, V] f32, cache)``; with ``telemetry`` also the
         int32 ``[L, B, 4]`` stats, as :meth:`prefill`."""
-        cfg = self.cfg
+        cfg, moe_cfg = self.cfg, self._moe_cfg()
         x = self._embed(params, inputs["tokens"])
         block_table = inputs.get("block_table")
         cache_index = cache_index.to(torch.int32)
@@ -389,7 +417,7 @@ class LMModel:
                 )
             return tfm.block_step(layer_params, x, attn,
                                   activation=cfg.activation, norm=cfg.norm,
-                                  telemetry=telemetry)
+                                  telemetry=telemetry, moe_cfg=moe_cfg)
 
         return self._serve_out(params, cache, tfm.apply_stack_decode(
             params["blocks"], x, cache, self.layer_windows(), step_fn,
@@ -410,3 +438,9 @@ def _assign_layer(out, layer, i: int) -> None:
             _assign_layer(out[k], layer[k], i)
     else:
         out[i].copy_(layer)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)

@@ -88,6 +88,7 @@ from repro_torch.core.energon_attention import serving_faults
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch.mesh import indexed_device
+from repro_torch.models.moe import mesh_fault
 from repro_torch.observability import Observability
 from repro_torch.observability.metrics import (
     DEFAULT_LATENCY_BOUNDS,
@@ -499,6 +500,9 @@ class ServeLoop:
         self.device = resolve_device(device)
         cards = 1
         if mesh is not None:
+            fault = mesh_fault(model.cfg, mesh)
+            if fault:
+                raise ValueError(fault)
             primary = mesh.devices[0][0]
             if device is not None and indexed_device(self.device) != primary:
                 raise ValueError(f"a mesh engine runs on its mesh's first "

@@ -31,7 +31,12 @@ counts, the plain steps' streams and launches) and a chaos drain
 Serving over a mesh of the one card (``cuda:0`` × M): a lone engine on
 ``(1, 2)`` and ``(1, 4)`` meshes, graphed ≡ eager ≡ the single-device
 engine (streams, the pool's rows across its shards, B1–B4 launched once
-per shard), and a ``(2, 2)`` replicated drain ≡ the single engine."""
+per shard), and a ``(2, 2)`` replicated drain ≡ the single engine.
+
+The MoE layer at olmoe-1b-7b's widths (64 experts top-8): replayed from
+a CUDA graph ≡ eager, bit for bit, at the decode step's and the prefill
+wave's shapes, and the same bits on three replays; olmoe's smoke model's
+prefill and decode step on the card against the CPU."""
 
 import dataclasses
 import gc
@@ -1455,3 +1460,130 @@ def test_replicated_mesh_drain_equals_single_engine(smoke_bf16):
     merged = loop.merged_metrics()
     assert merged.decode_tokens == sum(e.metrics.decode_tokens
                                        for e in loop.engines)
+
+
+# --------------------------------------------------------------------------
+# the MoE layer (olmoe-1b-7b's widths) and the MoE model on the card
+# --------------------------------------------------------------------------
+
+#: olmoe-1b-7b's MoE serve shapes: a decode step of 8 slots, a prefill
+#: wave of 8 slots × 128 rows
+MOE_SHAPES = {"decode": (8, 1), "prefill": (8, 128)}
+
+
+@pytest.fixture(scope="module")
+def olmoe_layer():
+    """One MoE layer at olmoe-1b-7b's published widths (64 experts top-8,
+    d 2048, d_ff 1024): random bf16 experts and an f32 router from a
+    seed, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import LMModel
+    from repro_torch.models import moe
+
+    cfg = LMModel(get_config("olmoe-1b-7b"), device="meta")._moe_cfg()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = moe.init_moe(cfg, gen, "cuda", torch.bfloat16)
+    return cfg, params
+
+
+def _moe_input(cfg, kind, seed=1):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, n = MOE_SHAPES[kind]
+    return torch.randn((b, n, cfg.d_model), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+
+
+def _captured_moe(cfg, params, x):
+    """``apply_moe`` on the static input ``x`` captured in a CUDA graph
+    (warmed up on a side stream first): the graph and its outputs."""
+    from repro_torch.models import moe
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            moe.apply_moe(params, x, cfg)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, metrics = moe.apply_moe(params, x, cfg)
+    return graph, out, metrics
+
+
+@pytest.mark.parametrize("kind", list(MOE_SHAPES))
+def test_moe_layer_graphed_equals_eager(olmoe_layer, kind):
+    """The routing, dispatch, expert bmm and combine replayed from a CUDA
+    graph give the eager call's bits, output and metrics, at the decode
+    step's and the prefill wave's shapes."""
+    from repro_torch.models import moe
+
+    cfg, params = olmoe_layer
+    x = _moe_input(cfg, kind)
+    graph, out, metrics = _captured_moe(cfg, params, x)
+    x.copy_(_moe_input(cfg, kind, seed=2))      # a replay reads the new x
+    graph.replay()
+    torch.cuda.synchronize()
+    eager, eager_metrics = moe.apply_moe(params, x, cfg)
+    assert torch.equal(out, eager) and torch.isfinite(out).all()
+    for key in eager_metrics:
+        assert torch.equal(metrics[key], eager_metrics[key]), key
+    if kind == "decode":       # capacity 1: 64 assignments into 64 experts
+        assert 0 < float(eager_metrics["moe_drop_fraction"]) < 1
+
+
+@pytest.mark.parametrize("kind", list(MOE_SHAPES))
+def test_moe_combine_bits_are_stable_across_replays(olmoe_layer, kind):
+    """Three replays on the same input give the same bits: the combine
+    sums each token's K contributions in a fixed order (no atomics)."""
+    cfg, params = olmoe_layer
+    x = _moe_input(cfg, kind)
+    graph, out, _ = _captured_moe(cfg, params, x)
+    seen = []
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        seen.append(out.clone())
+    assert all(torch.equal(seen[0], s) for s in seen[1:])
+
+
+def test_olmoe_smoke_decode_step_matches_the_cpu(cuda):
+    """olmoe's smoke model (fp32, impl mpmrf_row at ρ = 1, contiguous
+    cache): a prefill chunk then one decode step on the card against the
+    same calls on the CPU, logits within 1e-4 (ρ = 1 keeps every row, so
+    a code on a rounding boundary cannot flip a selection)."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import LMModel
+
+    cfg = get_smoke_config("olmoe-1b-7b")
+    cfg = dataclasses.replace(cfg, energon=dataclasses.replace(
+        cfg.energon, pruning_ratio=1.0))
+    cpu = LMModel(cfg, device="cpu")
+    params = cpu.init(seed=0)
+    card = LMModel(cfg, device="cuda")
+    card_params = _to(params, "cuda")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(1, cfg.vocab_size - 1, size=(2, 16)).astype(np.int32)
+    outs = {}
+    for dev, model, p in (("cpu", cpu, params), ("cuda", card, card_params)):
+        cache = model.init_cache(2, 64)
+        zero = torch.zeros(2, dtype=torch.int32, device=dev)
+        pos = torch.arange(16, dtype=torch.int32, device=dev).expand(2, 16)
+        pre, cache = model.prefill(
+            p, cache, {"tokens": torch.from_numpy(toks).to(dev),
+                       "positions": pos.contiguous()}, zero)
+        nxt = pre[:, -1].argmax(-1).to(torch.int32)[:, None]
+        dec, _ = model.decode_step(
+            p, cache, {"tokens": nxt}, torch.full((2,), 16, dtype=torch.int32,
+                                                  device=dev))
+        outs[dev] = (pre.cpu(), dec.cpu())
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
