@@ -258,6 +258,33 @@ The MoE family, once the dense configs are released:
     clear of near-ties, the output within 2^-7 on the rows routed alike;
     the drop fraction, the layer's time beside its bound, its device
     items, and its share of a decode tick.
+21. ``[moe-ep-…]``: expert parallelism on phase 20's model, weights and
+    requests, on meshes of the one card. ``[moe-ep-serve-1x2]`` /
+    ``[moe-ep-serve-1x4]``: a lone graphed engine, its experts split
+    over the model axis (views) and its pool by KV head; B1–B4 launched
+    14 × M times a step or wave; the streams' sha1 beside phase 20's,
+    with the share of tokens equal (the expert-parallel layer rounds
+    each shard's partial to bf16 before the cross-shard sum: these bits
+    differ by design); on ``(1, 4)`` B1–B4 against their plain versions
+    on shard 0's live pool (bh 32) and decode ticks under the profiler,
+    their device ms beside phase 20's. ``[moe-ep-eager]``: an eager
+    ``(1, 4)`` engine gives the graphed streams. ``[moe-ep-layer]``:
+    layer 2's MoE on phase 20's captured inputs on ``(1, 2)`` and ``(1,
+    4)``, within 2^-7 of the single-device layer, its cross-shard sum
+    the f32 sum of the partials rounded once, bit for bit, its time.
+    ``[moe-ep-replicas]``: ``(2, 2)`` replicas serve every request.
+22. ``[qwen3moe-…]``: qwen3-moe-235b-a22b at published widths (d 4096,
+    64 / 4 heads of 128: G 16, 128 experts top-8 of d_ff 1536, vocab
+    151936), cut to ``QWEN3MOE_LAYERS`` layers (random bf16 weights from
+    seed 0): phase 4's requests in chunks of 64 (1024 folded rows at G
+    16) through a graphed paged engine, B1–B4 against their plain
+    versions on layer 2's live pool (bh 32) and timed beside their
+    bounds, an eager engine ≡ graphed; ``[qwen3moe-unpaged]`` (B5–B8,
+    streams = paged); ``[qwen3moe-score]`` (``loss`` over 2 × 2048:
+    B9 / B10, aux > 0; B9–B11 on layer 2's q/k/v); ``[qwen3moe-moe-
+    layer]`` (drop fractions, card vs CPU f32); ``[qwen3moe-ep-1x4]``
+    (32 experts and 1 KV head a shard, B1–B4 at bh 8). Every phase's
+    device-memory peak must stay within 70 GB.
 
 The line before last is a JSON object listing each kernel's launches
 (B1–B4 in phase 4, B5–B8 in phase 8, B9–B11 in phase 15; those of
@@ -265,13 +292,15 @@ phases 17–19 beside them), error and
 times (those of the live pool, the captured layer or, B9–B11, the long
 score's layer 2; ``random`` holds phase 2's, 7's or 10's; ``d96`` phase
 19's at head dim 96, bounded by the d-96 work; ``tp_shard``, B1–B4 only,
-phase 9f's shard; ``launches_mesh`` the launches of phases 9f and 9g;
-``launches_moe`` phase 20's)
+phase 9f's shard; ``g16`` phase 22's at G 16; ``launches_mesh`` the
+launches of phases 9f and 9g; ``launches_moe`` phase 20's,
+``launches_moe_ep`` phase 21's, ``launches_qwen3moe`` phase 22's)
 and each time over its bound (``ms_over_bound``); the mesh phases, the
 eager/graphed drains, the
 scoring results (with the ptxas report), the unpaged serve and the paged
 serve, the telemetry and chaos phases, the long-score / XLA phases and
-the dense configs' and the MoE phases are on the lines before it; the
+the dense configs', the MoE and the expert-parallel / qwen3-moe phases
+are on the lines before it; the
 last line is
 ``{"ok": true, "device": ...}``.
 Any failure exits non-zero before printing either.
@@ -1127,14 +1156,18 @@ def serve_full_width(cfg, *, seed=0, n_req=8, prompt_len=2048,
     from repro_torch.runtime import Request, ServeLoop
 
     t0 = time.perf_counter()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     model = LMModel(cfg, device=DEV)
     params = model.init(seed=seed)
     sync()
+    init_peak = (float(mem_gb(torch.cuda.max_memory_allocated))
+                 if DEV == "cuda" else None)
     log(f"[{label}] {cfg.name}: {cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.num_heads}H/{cfg.num_kv_heads}KV, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype} weights "
         f"{mem_gb(torch.cuda.memory_allocated)} GB, init "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s (peak {init_peak} GB)")
     engine = ServeLoop(
         model, params, batch_slots=n_req, max_len=max_len, eos_token=-1,
         seed=seed, prefill_chunk=chunk, prefix_sharing=True, device=DEV,
@@ -1180,7 +1213,7 @@ def serve_full_width(cfg, *, seed=0, n_req=8, prompt_len=2048,
         ttft_p50_ms=lat["ttft_p50"] * 1e3, ttft_p95_ms=lat["ttft_p95"] * 1e3,
         itl_p50_ms=lat["itl_p50"] * 1e3, itl_p95_ms=lat["itl_p95"] * 1e3,
         peak_memory_gb=float(mem_gb(torch.cuda.max_memory_allocated))
-        if DEV == "cuda" else None,
+        if DEV == "cuda" else None, init_peak_gb=init_peak,
     )
     need(len(done) == n_req and all(r.done for r in done),
          "not every request drained")
@@ -3273,12 +3306,13 @@ MOE_GAP = 1e-6
 
 def olmoe_eager(model, params, prompts, streams, layer, *, seed=0,
                 new_tokens=32, max_len=4096, chunk=128,
-                label="olmoe-eager"):
+                label="olmoe-eager", mesh=None):
     """Phase 4's requests through an eager (``cuda_graphs=False``) paged
-    engine on the MoE model: the streams must be the graphed engine's.
-    Layer ``layer``'s MoE inputs of the last prefill wave (every slot's
-    last chunk: 1024 distinct rows) and the last decode step are kept
-    (bf16, ``[8, 128, d]`` / ``[8, 1, d]``)."""
+    engine on the MoE model (on ``mesh``, if given): the streams must be
+    the graphed engine's. Layer ``layer``'s MoE inputs of the last
+    prefill wave (every slot's last chunk: 8 × ``chunk`` distinct rows)
+    and the last decode step are kept (bf16, ``[8, chunk, d]`` / ``[8, 1,
+    d]``)."""
     import torch
 
     from repro_torch.models import moe as moe_lib
@@ -3287,7 +3321,7 @@ def olmoe_eager(model, params, prompts, streams, layer, *, seed=0,
     engine = ServeLoop(
         model, params, batch_slots=len(prompts), max_len=max_len,
         eos_token=-1, seed=seed, prefill_chunk=chunk, prefix_sharing=True,
-        device=DEV, cuda_graphs=False,
+        device=DEV, cuda_graphs=False, mesh=mesh,
     )
     router = params["blocks"]["moe"]["router"][layer]
     router0 = params["blocks"]["moe"]["router"][0]
@@ -3475,7 +3509,7 @@ def tag_moe_items(profile, moe_items, layers, label):
     return total
 
 
-def olmoe_phase(results, blocks):
+def olmoe_phase(results, blocks, ep_results):
     """``[olmoe-…]``: olmoe-1b-7b (MoE: 64 experts top-8, d_ff 1024 an
     expert; MHA, G = 1, 16 layers) at published widths and full depth
     (random bf16 weights from seed 0, the router f32) on the fused
@@ -3502,7 +3536,9 @@ def olmoe_phase(results, blocks):
       1024) and decode (T = 8) inputs, card against CPU
       (:func:`moe_layer_check`).
 
-    Returns each run's results (with its launches) by phase name."""
+    Then phase 21 on the same model (:func:`moe_ep_phase`, B1–B4 of its
+    ``(1, 4)`` shard into ``ep_results``). Returns each run's results
+    (with its launches) by phase name, phase 20's and phase 21's."""
     import torch
 
     from repro_torch.configs import registry
@@ -3574,6 +3610,417 @@ def olmoe_phase(results, blocks):
     layer_out["prefill"].pop("all_items", None)
     layer_out["decode"].pop("all_items", None)
     out["olmoe-moe-layer"] = layer_out
+    # phase 21 on the same model, weights, requests and captured inputs
+    ep = moe_ep_phase(model, params, prompts, streams, moe_inputs, layer,
+                      run1.get("profile_decode"), ep_results)
+    del model, params, moe_inputs
+    _free_device()
+    return out, ep
+
+
+#: [moe-ep-…]: the model axes of the one-card meshes olmoe is served on
+MOE_EP_MESHES = (2, 4)
+#: a phase's device-memory peak may not pass this (GB, of the card's 80)
+PEAK_LIMIT_GB = 70.0
+
+
+def _peak_gb():
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else 0.0
+
+
+def ep_serve(model, params, prompts, streams, m, *, label, results=None,
+             profile=False, seed=0, new_tokens=32, max_len=4096, chunk=128):
+    """Phase 20's requests (or phase 22's) through a lone graphed paged
+    ``ServeLoop`` on a ``(1, m)`` mesh of the one card: the pool split by
+    KV head and the experts by the model axis (views of the stacked
+    leaves), every MoE layer on the expert-parallel path. Launch counts
+    zeroed just before the drain and read just after: B1–B4 once per
+    fused layer, dispatch and shard. The streams' sha1 is printed beside
+    the single-device engine's, with the share of tokens equal (the
+    expert-parallel layer rounds each shard's partial to bf16 before the
+    cross-shard sum, so these bits differ by design). With ``results``,
+    B1–B4 against their plain versions on shard 0's live pool of layer
+    2; with ``profile``, decode ticks under the profiler."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import ServeLoop
+
+    _free_device()
+    mesh = _sim_mesh((1, m))
+    engine = ServeLoop(
+        model, params, batch_slots=len(prompts), max_len=max_len,
+        eos_token=-1, seed=seed, prefill_chunk=chunk, prefix_sharing=True,
+        device=DEV, mesh=mesh,
+    )
+    need(engine.cuda_graphs or DEV != "cuda",
+         f"[{label}] the engine does not replay graphs")
+    experts = engine.params["blocks"]["moe"]["w_up"]
+    need(isinstance(experts, tuple) and len(experts) == m
+         and experts[0].untyped_storage().data_ptr()
+         == params["blocks"]["moe"]["w_up"].untyped_storage().data_ptr(),
+         f"[{label}] the experts are not {m} views of the stacked leaves")
+    kv_shards = len(engine.cache["k"]) if isinstance(
+        engine.cache["k"], tuple) else 1
+    engine.capture_graphs()
+    graph = log_graphs(f"[graph] {label} engine ({mesh}; "
+                       f"{engine.graph_mode})", engine)
+    _submit_all(engine, prompts, new_tokens)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = engine.run_until_drained()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    mt = engine.metrics
+    lat = mt.latency_stats()
+    got = {r.uid: list(r.tokens_out) for r in done}
+    need(len(done) == len(prompts) and mt.failed_requests == 0
+         and all(len(v) == new_tokens for v in got.values()),
+         f"[{label}] not every request drained to {new_tokens} tokens")
+    _mesh_launches(label, launches, model, mt.decode_dispatches,
+                   mt.prefill_dispatches, kv_shards)
+    equal = sum(a == b for u in streams for a, b in zip(streams[u], got[u]))
+    total = sum(len(v) for v in streams.values())
+    cfg = model.cfg
+    bh = len(prompts) * cfg.num_kv_heads // kv_shards
+    peak = _peak_gb()
+    log(f"[{label}] {len(done)} requests on a (1, {m}) mesh of {DEV} "
+        f"({cfg.num_experts // m} experts and {cfg.num_kv_heads // kv_shards}"
+        f" KV heads a shard) in {wall:.2f} s; prefill "
+        f"{mt.prefill_tokens_per_sec:.1f} tok/s, decode "
+        f"{mt.decode_tokens_per_sec:.1f} tok/s, ttft p50 "
+        f"{lat['ttft_p50'] * 1e3:.1f} ms, itl p50/p95 "
+        f"{lat['itl_p50'] * 1e3:.2f}/{lat['itl_p95'] * 1e3:.2f} ms; peak "
+        f"device memory {peak!r} GB")
+    log(f"[{label}] greedy streams sha1 {streams_digest(got)}, the "
+        f"single-device engine's {streams_digest(streams)}: {equal} of "
+        f"{total} tokens equal (the layer's bits differ by design; a "
+        f"greedy token flips only where they cross a near-tie)")
+    log(f"[{label}] launches (bh {bh} a shard): " + ", ".join(
+        f"{KERNELS[k]['id']} {launches[k]}" for k in SERVE_KERNELS)
+        + f" = fused layers × dispatches × {kv_shards} shards")
+    out = dict(wall_s=wall, prefill_tok_s=mt.prefill_tokens_per_sec,
+               decode_tok_s=mt.decode_tokens_per_sec,
+               ttft_p50_ms=lat["ttft_p50"] * 1e3,
+               itl_p50_ms=lat["itl_p50"] * 1e3,
+               itl_p95_ms=lat["itl_p95"] * 1e3, peak_memory_gb=peak,
+               bh_per_shard=bh, graph_mode=engine.graph_mode,
+               tokens_equal_single=equal, tokens=total,
+               streams_sha1=streams_digest(got),
+               launches={k: launches[k] for k in SERVE_KERNELS}, **graph)
+    layer = cfg.energon.min_prune_layer
+    if results is not None:
+        check_case(live_pool_case(engine, prompts, layer, shard=0),
+                   f"{label}-shard0-layer{layer}", results)
+    if profile and DEV == "cuda":
+        out["profile_decode"] = profile_decode(
+            engine, prompts[0][:SYSTEM_LEN], label=f"profile-decode-{label}")
+    del engine, done
+    _free_device()
+    return out, got
+
+
+def ep_layer_check(model, params, inputs, layer, meshes=MOE_EP_MESHES,
+                   label="moe-ep-layer"):
+    """Layer ``layer``'s MoE on its captured bf16 inputs (the prefill
+    wave's and the decode step's) on ``(1, M)`` meshes of the card
+    against the single-device layer on the same inputs: the routing is
+    one and the same call, so every row is routed alike, and the output
+    must come within 2^-7; the cross-shard sum must equal, bit for bit,
+    the shards' partials added in f32 in shard order and rounded once
+    (recomputed on the host in numpy); the drop fraction the
+    single-device one to 1e-6. Each layer timed beside the single one."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import moe as moe_lib
+
+    mcfg = model._moe_cfg()
+    p = {name: w[layer] for name, w in params["blocks"]["moe"].items()}
+    out = {}
+    real = moe_lib.cross_shard_sum
+    for m in meshes:
+        mesh = _sim_mesh((1, m))
+        for kind in ("prefill", "decode"):
+            x = inputs[kind]
+            single, smet = moe_lib.apply_moe(p, x, mcfg)
+            seen = {}
+
+            def spy(partials, dtype, device):
+                seen["partials"] = [q.clone() for q in partials]
+                seen["out"] = real(partials, dtype, device)
+                return seen["out"]
+
+            moe_lib.cross_shard_sum = spy
+            try:
+                with shd.active_mesh(mesh):
+                    y, met = moe_lib.apply_moe(p, x, mcfg)
+            finally:
+                moe_lib.cross_shard_sum = real
+            parts = [q.float().cpu().numpy() for q in seen["partials"]]
+            acc = parts[0].copy()
+            for q in parts[1:]:
+                acc += q
+            rule = torch.from_numpy(acc).to(y.dtype)
+            need(len(parts) == m and torch.equal(
+                rule, y.cpu().reshape(rule.shape)),
+                f"[{label}] 1x{m} {kind}: the cross-shard sum is not the "
+                f"f32 sum of the partials rounded once")
+            chain = seen["partials"][0]
+            for q in seen["partials"][1:]:
+                chain = chain + q
+            chain_diff = int((chain != seen["out"]).sum())
+            err = float((y.float() - single.float()).abs().max())
+            differ = int((y != single).sum())
+            need(bool(torch.isfinite(y).all()) and torch.allclose(
+                y.float(), single.float(), atol=2.0 ** -7, rtol=2.0 ** -7),
+                f"[{label}] 1x{m} {kind}: the expert-parallel layer is "
+                f"{err} from the single-device one")
+            drop, sdrop = (float(met["moe_drop_fraction"]),
+                           float(smet["moe_drop_fraction"]))
+            need(abs(drop - sdrop) <= 1e-6,
+                 f"[{label}] 1x{m} {kind}: drop fraction {drop} / {sdrop}")
+
+            def ep_call():
+                with shd.active_mesh(mesh):
+                    return moe_lib.apply_moe(p, x, mcfg, metrics=False)
+
+            ms = time_ms(ep_call)
+            single_ms = time_ms(lambda: moe_lib.apply_moe(p, x, mcfg,
+                                                          metrics=False))
+            out[f"1x{m}-{kind}"] = dict(
+                tokens=x.shape[0] * x.shape[1], max_abs_err=err,
+                elements_differing=differ, elements=y.numel(),
+                chain_of_bf16_adds_differs=chain_diff, drop_fraction=drop,
+                ms=ms, single_ms=single_ms)
+            log(f"[{label}] 1x{m} {kind} (T = {x.shape[0] * x.shape[1]}): "
+                f"within 2^-7 of the single-device layer (max |Δ| {err:.3g}, "
+                f"{differ} of {y.numel()} elements differ); cross-shard sum "
+                f"= the f32 sum rounded once, bit for bit (a chain of bf16 "
+                f"adds differs on {chain_diff}); drop fraction {drop:.4f}; "
+                f"{ms:.3f} ms a call (single device {single_ms:.3f} ms)")
+    return out
+
+
+def ep_replicas(model, params, prompts, *, seed=0, new_tokens=32,
+                max_len=4096, chunk=128, label="moe-ep-replicas"):
+    """A ``ReplicatedServeLoop`` on a ``(2, 2)`` mesh of the one card: two
+    replicas of 8 slots, each expert-parallel and tensor-parallel over
+    its ``(1, 2)`` row; every request drains to its tokens. (Its streams
+    need not be the lone engine's: a replica's MoE couples its own
+    slots through capacity.)"""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import ReplicatedServeLoop
+
+    _free_device()
+    loop = ReplicatedServeLoop(
+        model, params, mesh=_sim_mesh((2, 2)), seed=seed,
+        batch_slots=len(prompts), max_len=max_len, eos_token=-1,
+        prefill_chunk=chunk, prefix_sharing=True, device=DEV)
+    need(all(isinstance(e.params["blocks"]["moe"]["w_up"], tuple)
+             and len(e.params["blocks"]["moe"]["w_up"]) == 2
+             for e in loop.engines),
+         f"[{label}] a replica's experts are not split over its row")
+    loop.capture_graphs()
+    _submit_all(loop, prompts, new_tokens)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = loop.run_until_drained()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    got = {r.uid: list(r.tokens_out) for r in done}
+    need(len(done) == len(prompts)
+         and all(len(v) == new_tokens for v in got.values()),
+         f"[{label}] not every request drained")
+    per = [e.metrics for e in loop.engines]
+    _mesh_launches(label, launches, model,
+                   sum(p.decode_dispatches for p in per),
+                   sum(p.prefill_dispatches for p in per), 2)
+    merged = loop.merged_metrics()
+    placement = [loop.placement[u] for u in sorted(loop.placement)]
+    log(f"[{label}] {len(done)} requests on a 2x2 mesh of {DEV} in "
+        f"{wall:.2f} s; placement {placement}; streams sha1 "
+        f"{streams_digest(got)}; merged prefill "
+        f"{merged.prefill_tokens_per_sec:.1f} tok/s, decode "
+        f"{merged.decode_tokens_per_sec:.1f} tok/s")
+    out = dict(wall_s=wall, placement=placement,
+               streams_sha1=streams_digest(got),
+               merged_prefill_tok_s=merged.prefill_tokens_per_sec,
+               merged_decode_tok_s=merged.decode_tokens_per_sec,
+               launches={k: launches[k] for k in SERVE_KERNELS})
+    del loop, done
+    _free_device()
+    return out
+
+
+def moe_ep_phase(model, params, prompts, streams, moe_inputs, layer,
+                 tick, results):
+    """``[moe-ep-…]``: olmoe-1b-7b (phase 20's model, 64 experts, 16 KV
+    heads) on meshes of the one card, graphed, with phase 20's requests:
+    ``[moe-ep-serve-1x2]`` / ``[moe-ep-serve-1x4]`` (B1–B4 14 × M a step
+    or wave; on ``(1, 4)`` B1–B4 against their plain versions on shard
+    0's live pool, bh 32, and decode ticks under the profiler beside
+    phase 20's ``tick``), ``[moe-ep-eager]`` (an eager ``(1, 4)`` engine
+    gives the graphed streams), ``[moe-ep-layer]`` (layer 2's
+    expert-parallel MoE on phase 20's captured inputs:
+    :func:`ep_layer_check`) and ``[moe-ep-replicas]`` (``(2, 2)``)."""
+    out, graphed = {}, {}
+    for m in MOE_EP_MESHES:
+        label = f"moe-ep-serve-1x{m}"
+        out[label], graphed[m] = ep_serve(
+            model, params, prompts, streams, m, label=label,
+            results=results if m == MOE_EP_MESHES[-1] else None,
+            profile=m == MOE_EP_MESHES[-1])
+    prof = out[f"moe-ep-serve-1x{MOE_EP_MESHES[-1]}"].get("profile_decode")
+    if prof is not None and tick is not None:
+        log(f"[moe-ep-serve] a graphed decode tick on the (1, "
+            f"{MOE_EP_MESHES[-1]}) mesh: {prof['device_ms']:.3f} ms of device "
+            f"time over {prof['kernels_per_tick']:.0f} kernels, idle "
+            f"{prof['idle_share']:.1%}; phase 20's single-device tick "
+            f"{tick['device_ms']:.3f} ms over {tick['kernels_per_tick']:.0f}"
+            f", idle {tick['idle_share']:.1%}")
+    m = MOE_EP_MESHES[-1]
+    out["moe-ep-eager"], _ = olmoe_eager(
+        model, params, prompts, graphed[m], layer, label="moe-ep-eager",
+        mesh=_sim_mesh((1, m)))
+    _free_device()
+    out["moe-ep-layer"] = ep_layer_check(model, params, moe_inputs, layer)
+    out["moe-ep-replicas"] = ep_replicas(model, params, prompts)
+    return out
+
+
+#: [qwen3moe-…]: the depth served at qwen3-moe-235b-a22b's full width
+#: (of 94 layers): the deepest whose phase peaks stay within PEAK_LIMIT_GB
+QWEN3MOE_LAYERS = 11
+#: its prefill chunk: G·chunk = 16 × 64 = 1024 folded rows keep the dense
+#: prefix's [G·chunk, max_len] masks within chunk_threshold at max_len 4096
+QWEN3MOE_CHUNK = 64
+
+
+def qwen3moe_phase(results, blocks, layers=QWEN3MOE_LAYERS):
+    """``[qwen3moe-…]``: qwen3-moe-235b-a22b at published widths (d 4096,
+    64 / 4 heads of 128: G 16, 128 experts top-8 of d_ff 1536, vocab
+    151936; random bf16 weights from seed 0, the router f32), cut to
+    ``layers`` layers, on the fused kernels:
+
+    * ``[qwen3moe-serve]``: phase 4's requests (8 × 2048 tokens, 256
+      shared, 32 greedy tokens, max_len 4096) in chunks of 64 through a
+      graphed paged engine: B1/B2 and B3/B4 launched ``layers`` − 2 times a
+      step / wave; B1–B4 against their plain versions on layer 2's live
+      pool (bh 32, G 16, 1024 folded prefill rows), timed beside their
+      bounds; decode ticks under the profiler; ``[qwen3moe-eager]`` (an
+      eager engine gives the graphed streams, keeping layer 2's MoE
+      inputs);
+    * ``[qwen3moe-unpaged]``: B5–B8, streams equal to the paged run's;
+      B5–B8 against their plain versions on layer 2's captured rows;
+    * ``[qwen3moe-score]``: ``loss`` over 2 × 2048 tokens (B9 / B10),
+      loss finite, aux > 0; B9–B11 on layer 2's q/k/v;
+    * ``[qwen3moe-moe-layer]``: layer 2's MoE on its captured inputs
+      (T = 512 / 8), card against CPU f32: drop fractions, time vs bound;
+    * ``[qwen3moe-ep-1x4]``: the requests on a ``(1, 4)`` mesh of the
+      card: 32 experts and 1 KV head a shard, B1–B4 at bh 8 a shard.
+
+    Every phase's device-memory peak must stay within PEAK_LIMIT_GB.
+    Returns each run's results (with its launches) by phase name."""
+    from repro_torch.configs.registry import get_serve_config
+
+    cfg = get_serve_config("qwen3-moe-235b-a22b")
+    full = cfg.num_layers
+    need((cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+          cfg.num_experts, cfg.experts_per_token, cfg.d_ff, cfg.vocab_size)
+         == (4096, 64, 4, 128, 128, 8, 1536, 151936)
+         and cfg.energon.impl == "pallas",
+         "qwen3-moe's serving config is not the published widths on the "
+         "fused path")
+    cfg = dataclasses.replace(cfg, num_layers=layers)
+    log(f"[qwen3moe] depth cut to {layers} of {full} layers (widths "
+        f"unchanged); prefill chunk {QWEN3MOE_CHUNK}")
+    out, peaks = {}, {}
+    engine, prompts, run1, launches, streams = serve_full_width(
+        cfg, label="qwen3moe-serve", chunk=QWEN3MOE_CHUNK,
+        run2_must_equal=False)
+    peaks["init"], peaks["serve"] = run1["init_peak_gb"], _peak_gb()
+    model, params = engine.model, engine.params
+    n_params = sum(w.numel() for w in _leaves(params))
+    n_bytes = sum(w.numel() * w.element_size() for w in _leaves(params))
+    log(f"[qwen3moe-serve] {n_params / 1e9:.3f} B parameters "
+        f"({n_bytes / 1e9:.2f} GB) at {layers} layers")
+    layer = cfg.energon.min_prune_layer
+    check_case(live_pool_case(engine, prompts, layer),
+               f"qwen3moe-live-layer{layer}", results)
+    run1.update(launches=launches, streams_sha1=streams_digest(streams),
+                parameters=n_params, layers=layers)
+    if DEV == "cuda":
+        run1["profile_decode"] = profile_decode(
+            engine, prompts[0][:SYSTEM_LEN], label="profile-decode-qwen3moe")
+    del engine
+    _free_device()
+    run1["eager"], moe_inputs = olmoe_eager(
+        model, params, prompts, streams, layer, chunk=QWEN3MOE_CHUNK,
+        label="qwen3moe-eager")
+    moe_inputs.pop("first-wave-layer0", None)
+    out["qwen3moe-serve"] = run1
+    _free_device()
+
+    if DEV == "cuda":
+        import torch
+
+        torch.cuda.reset_peak_memory_stats()
+    uengine, unpaged, ulaunches, captured = serve_unpaged(
+        model, params, prompts, streams, chunk=QWEN3MOE_CHUNK,
+        label="qwen3moe-unpaged")
+    peaks["unpaged"] = _peak_gb()
+    case = captured_contiguous_case(uengine, captured, layer)
+    del uengine, captured
+    _free_device()
+    check_contiguous(case, f"qwen3moe-captured-layer{layer}", results)
+    out["qwen3moe-unpaged"] = dict(unpaged, launches=ulaunches)
+    del case
+    _free_device()
+
+    scoring, (q, k, v) = score_full_width(model, params, n_seq=2,
+                                          label="qwen3moe-score")
+    peaks["score"] = _peak_gb()
+    need(scoring["aux"] > 0 and math.isfinite(scoring["aux"]),
+         f"qwen3-moe's aux loss {scoring['aux']} is not > 0")
+    scoring["captured"] = check_full_sequence(
+        q, k, v, f"qwen3moe-captured-layer{layer}", results, **blocks)
+    out["qwen3moe-score"] = scoring
+    del q, k, v
+    _free_device()
+
+    layer_out = moe_layer_check(model, params, moe_inputs, layer,
+                                label="qwen3moe-moe-layer")
+    for kind in ("prefill", "decode"):
+        layer_out[kind].pop("all_items", None)
+    out["qwen3moe-moe-layer"] = layer_out
+    _free_device()
+
+    if DEV == "cuda":
+        import torch
+
+        torch.cuda.reset_peak_memory_stats()
+    ep, _ = ep_serve(model, params, prompts, streams, 4,
+                     label="qwen3moe-ep-1x4", chunk=QWEN3MOE_CHUNK)
+    peaks["ep"] = ep["peak_memory_gb"]
+    ep["drop_fraction"] = {kind: layer_out[kind]["drop_fraction"]
+                           for kind in ("prefill", "decode")}
+    out["qwen3moe-ep-1x4"] = ep
+    peaks = {k: float(v) for k, v in peaks.items() if v is not None}
+    log(f"[qwen3moe] {layers} layers: device-memory peaks (GB) "
+        f"{json.dumps(peaks)}; drop fractions prefill "
+        f"{layer_out['prefill']['drop_fraction']:.4f} / decode "
+        f"{layer_out['decode']['drop_fraction']:.4f}")
+    need(DEV != "cuda" or max(peaks.values()) <= PEAK_LIMIT_GB,
+         f"[qwen3moe] a phase peaked past {PEAK_LIMIT_GB} GB: {peaks}")
+    out["qwen3moe-serve"]["peaks_gb"] = peaks
     del model, params, moe_inputs
     _free_device()
     return out
@@ -3778,9 +4225,13 @@ def main(argv=None) -> int:
     d96 = {name: [] for name in KERNELS}
     dense.update(phi3_phase(d96, blocks))
 
-    # the MoE family, once the dense configs are released
+    # the MoE family, once the dense configs are released; expert
+    # parallelism on the olmoe model; then qwen3-moe at G 16
     moe_results = {name: [] for name in KERNELS}
-    moe = olmoe_phase(moe_results, blocks)
+    ep_results = {name: [] for name in SERVE_KERNELS}
+    moe, moe_ep = olmoe_phase(moe_results, blocks, ep_results)
+    g16 = {name: [] for name in KERNELS}
+    qwen3moe = qwen3moe_phase(g16, blocks)
 
     timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -3799,9 +4250,16 @@ def main(argv=None) -> int:
                            for phase, r in mesh.items()},
             launches_moe={phase: r["launches"][name]
                           for phase, r in moe.items() if "launches" in r},
+            launches_moe_ep={phase: r["launches"].get(name, 0)
+                             for phase, r in moe_ep.items()
+                             if "launches" in r},
+            launches_qwen3moe={phase: r["launches"].get(name, 0)
+                               for phase, r in qwen3moe.items()
+                               if "launches" in r},
             max_abs_err=max(r["err"] for r in entries + dense_results[name]
                             + d96[name] + tp_results.get(name, [])
-                            + moe_results[name]),
+                            + moe_results[name] + ep_results.get(name, [])
+                            + g16[name]),
             **{k: main_run[k] for k in timed_keys},
             **{k: main_run[k] for k in ("device_ms", "library_device_ms")
                if k in main_run},
@@ -3813,6 +4271,11 @@ def main(argv=None) -> int:
             d96=dict({k: d96[name][-1][k] for k in ("err",) + timed_keys},
                      ms_over_bound=d96[name][-1]["ms"]
                      / d96[name][-1]["bound_ms"]),
+            # qwen3-moe's live / captured layer 2 at G 16 (bh 32 a decode,
+            # 1024 folded prefill rows; B9–B11 at bh 128)
+            g16=dict({k: g16[name][-1][k] for k in ("err",) + timed_keys},
+                     ms_over_bound=g16[name][-1]["ms"]
+                     / g16[name][-1]["bound_ms"]),
             # [tp-serve]'s shard 0 of layer 2's live pool (bh = B·KV/4)
             **({"tp_shard": dict(
                 {k: tp_results[name][-1][k] for k in ("err",) + timed_keys},
@@ -3835,6 +4298,7 @@ def main(argv=None) -> int:
     log(json.dumps({"dense_configs": dense, "card": smi}))
     log(json.dumps({"mesh": mesh, "card": smi}))
     log(json.dumps({"moe": moe, "card": smi}))
+    log(json.dumps({"moe_ep": moe_ep, "qwen3moe": qwen3moe, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

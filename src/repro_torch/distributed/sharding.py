@@ -15,6 +15,11 @@ axis) the port keeps the pool whole on the mesh's first device: the
 reference computes those layers unsharded too (its fused ops' tensor
 parallelism does not engage), so only the memory placement differs.
 
+Expert parallelism: :func:`shard_experts` gives each model-axis device
+its experts of the MoE leaves (the reference's ``P("model", …)`` slices
+of ``w_up`` / ``w_gate`` / ``w_down``), which ``models/moe.py`` runs
+shard by shard wherever :func:`expert_shards` says the reference would.
+
 The training rules (parameter, batch and activation specs) wait for the
 training slice of the port.
 """
@@ -133,3 +138,75 @@ def shard_paged_cache(cache: Dict[str, torch.Tensor], mesh,
             shards.append(part)
         out[name] = tuple(shards)
     return out
+
+
+# --------------------------------------------------------------------------
+# expert parallelism
+# --------------------------------------------------------------------------
+
+#: the expert leaves of an MoE block (``[L, E, …]`` stacked)
+EXPERT_LEAVES = ("w_up", "w_gate", "w_down")
+
+
+def expert_shards(num_experts: int, mesh) -> int:
+    """M where an MoE layer of ``num_experts`` runs expert-parallel on
+    ``mesh`` (the reference's ``apply_moe`` condition: a model axis M > 1
+    that divides the experts), else 1."""
+    if mesh is None or "model" not in mesh.axis_names:
+        return 1
+    m = mesh.shape["model"]
+    return m if m > 1 and num_experts % m == 0 else 1
+
+
+def _shard_on(part: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """An expert shard on ``device``: the view ``part`` where it lives
+    there (a stacked ``[L, E/M, …]`` slice is not contiguous, but each
+    layer's is, and it is never made so: at qwen3-moe's width one
+    layer's copy is 4.83 GB), else a copy of those experts alone."""
+    if part.device == device:
+        return part
+    out = torch.empty(part.shape, dtype=part.dtype, device=device)
+    out.copy_(part)
+    return out
+
+
+def expert_leaf_shards(leaf, num_experts: int, devices):
+    """One layer's expert leaf ``[E, …]`` as a tuple of M shards, shard s
+    holding experts ``[s·E/M, (s+1)·E/M)`` on ``devices[s]``: a tuple
+    from :func:`shard_experts` as it is, a whole leaf sliced."""
+    m = len(devices)
+    if isinstance(leaf, tuple):
+        if len(leaf) != m:
+            raise ValueError(f"{len(leaf)} expert shards on a model axis "
+                             f"of {m}")
+        return leaf
+    per = num_experts // m
+    return tuple(_shard_on(leaf[s * per:(s + 1) * per], dev)
+                 for s, dev in enumerate(devices))
+
+
+def shard_experts(params: Dict[str, object], mesh) -> Dict[str, object]:
+    """A model's parameter tree with each MoE expert leaf ``[L, E, …]``
+    split over row 0 of ``mesh``'s model axis: a tuple of M leaves ``[L,
+    E/M, …]``, shard s on model-axis device s (views on the leaf's own
+    device, copies of the shard's experts elsewhere). The router and
+    every other leaf stay as they are (whole, on the first device). A
+    tree without MoE blocks, or a mesh on which the experts do not run
+    expert-parallel, is returned as is."""
+    blocks = params.get("blocks")
+    moe = blocks.get("moe") if isinstance(blocks, dict) else None
+    if moe is None:
+        return params
+    e = moe["w_up"].shape[1]
+    m = expert_shards(e, mesh)
+    if m == 1:
+        return params
+    devices = mesh.devices[0]
+    per = e // m
+    sharded = dict(moe)
+    for name in EXPERT_LEAVES:
+        if name in moe:
+            sharded[name] = tuple(
+                _shard_on(moe[name][:, s * per:(s + 1) * per], dev)
+                for s, dev in enumerate(devices))
+    return dict(params, blocks=dict(blocks, moe=sharded))

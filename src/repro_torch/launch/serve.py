@@ -2,7 +2,8 @@
 paged KV cache (or, with ``--unpaged``, the contiguous one), on the GPU.
 
 ``python -m repro_torch.launch.serve --arch qwen3-14b`` (or
-``starcoder2-7b``, ``gemma3-27b``, ``phi3-mini-3.8b``) serves synthetic
+``starcoder2-7b``, ``gemma3-27b``, ``phi3-mini-3.8b``, ``olmoe-1b-7b``,
+``qwen3-moe-235b-a22b``) serves synthetic
 requests at full width (random weights from ``--seed``) through the
 fused paged kernels (``--unpaged``: their contiguous twins) and reports
 prefill and decode throughput and latency percentiles. ``--smoke`` uses
@@ -11,7 +12,8 @@ the kernels' plain versions.
 ``--max-len`` and ``--prefill-chunk`` default to shapes on which every
 layer runs (4096 / 128 at full width, 128 / 64 at smoke widths; the
 longest max_len below 4096 whose dense prefix masks stay within
-``chunk_threshold``: 3584 for starcoder2-7b's G = 9);
+``chunk_threshold``: 3584 for starcoder2-7b's G = 9; chunks of 64 at
+qwen3-moe-235b-a22b's G = 16, so that its max_len stays 4096);
 ``ServeLoop`` refuses shapes that would leave the fused kernels.
 ``--deadline-ms``, ``--queue-limit`` and ``--chaos-seed`` exercise the
 request lifecycle and fault containment; ``--obs``, ``--metrics-out``
@@ -20,9 +22,10 @@ metrics registry, sparsity telemetry) and write its JSON snapshot and
 Chrome trace. ``--mesh DxM`` serves over a ``(data, model)`` mesh: D
 engine replicas behind one queue (``ReplicatedServeLoop``; a lone
 tensor-parallel engine for D = 1), each splitting its page pools by KV
-head over M devices; ``--simulate-devices N`` makes the mesh's devices N
-entries of the one device (``cuda:0`` × N on one card), and is never
-implied.
+head over M devices — and an MoE model's experts, where M divides them
+(olmoe-1b-7b, qwen3-moe-235b-a22b: expert parallelism); ``--simulate-
+devices N`` makes the mesh's devices N entries of the one device
+(``cuda:0`` × N on one card), and is never implied.
 """
 
 from __future__ import annotations
@@ -129,7 +132,6 @@ def main(argv=None):
     from repro_torch.configs.registry import get_serve_config
     from repro_torch.device import resolve_device
     from repro_torch.models import LMModel
-    from repro_torch.models.moe import mesh_fault
     from repro_torch.runtime import (
         FaultInjector, FaultSpec, QueueFull, ReplicatedServeLoop, Request,
         ServeLoop, attention_cache_bytes,
@@ -138,18 +140,17 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     mesh = _mesh(args, device)
-    if args.prefill_chunk is None:
-        args.prefill_chunk = 64 if args.smoke else 128
     cfg = get_serve_config(args.arch, smoke=args.smoke)
-    fault = mesh_fault(cfg, mesh)
-    if fault:
-        raise SystemExit(f"--mesh {args.mesh}: {fault}")
+    group = cfg.num_heads // cfg.num_kv_heads
+    if args.prefill_chunk is None:
+        # chunks of 128 at full width, but 64 at G = 16 (qwen3-moe), whose
+        # dense prefix would cap max_len at 2048 with 128
+        args.prefill_chunk = 64 if args.smoke or group >= 16 else 128
     if args.max_len is None:
         # at most 4096, and within what the dense prefix layers may mask
         # ([G·chunk, max_len] up to chunk_threshold: 3584 for G = 9)
         e = cfg.energon
-        fit = e.chunk_threshold // (
-            cfg.num_heads // cfg.num_kv_heads * args.prefill_chunk)
+        fit = e.chunk_threshold // (group * args.prefill_chunk)
         args.max_len = min(128 if args.smoke else 4096,
                            fit // e.decode_key_block * e.decode_key_block)
     if args.layers is not None:

@@ -23,11 +23,14 @@ def trunc_normal(shape, std: float, generator: torch.Generator, device,
     """``std`` × a standard normal truncated to [-2, 2] (the reference's
     ``std * jax.random.truncated_normal(key, -2, 2)``), drawn by inverse
     CDF in float32 from ``generator`` and cast to ``dtype``."""
-    u = torch.rand(shape, generator=generator, device=device,
+    # in place, op for op the out-of-place chain (the same bits): one f32
+    # buffer of the leaf's size at a time (an expert leaf of qwen3-moe is
+    # 3.2 GB in f32)
+    x = torch.rand(shape, generator=generator, device=device,
                    dtype=torch.float32)
-    u = _LO + (_HI - _LO) * u
-    x = torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)
-    return (std * torch.clamp(x, -2.0, 2.0)).to(dtype)
+    x.mul_(_HI - _LO).add_(_LO).mul_(2.0).sub_(1.0).erfinv_()
+    x.mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(std)
+    return x.to(dtype)
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -79,6 +79,7 @@ class LMModel:
             first = make()
             out = _stack_like(first, n_l)
             _assign_layer(out, first, 0)
+            del first        # one layer's draws alive at a time
             for i in range(1, n_l):
                 _assign_layer(out, make(), i)
             return out

@@ -13,10 +13,19 @@ capacity, in the reference as here.
 The expert FFNs are batched matmuls over ``[E, C, d]`` buffers (the
 reference computes them outside any Pallas kernel). The dispatch and the
 combine make no host sync and no data-dependent shape, so a serve step
-through this layer replays from a CUDA graph. The expert-parallel paths
-of the reference (``_apply_moe_sharded``, ``_apply_moe_serve_2d``) are
-not ported: :func:`mesh_fault` names the meshes on which the reference
-would take them.
+through this layer replays from a CUDA graph.
+
+Expert parallelism (:func:`apply_moe_sharded`, the reference's
+``_apply_moe_sharded``) engages as the reference's does: wherever the
+active serve mesh's model axis M is > 1 and divides the experts. Shard s
+holds experts ``[s·E/M, (s+1)·E/M)`` and runs them on model-axis device
+s; each shard's partial output rounds to the layer's dtype, and the
+partials add in f32 in shard order and round once (the reference's
+``psum`` over 'model', as XLA computes it). A data axis > 1 inside one
+call — the reference's batch-sharded capacity, ZeRO expert gathers and
+int8 ``_quantized_all_gather`` of training — and the ``"serve"`` rules
+profile's ``_apply_moe_serve_2d`` (dry-run only) are not ported; no
+serving path of the reference reaches them.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 
 
@@ -113,69 +123,164 @@ def route(params, xt: torch.Tensor, cfg: MoEConfig):
     return probs, top_p, top_e, flat_pos, flat_pos < cap, cap
 
 
+def _experts_combine(p, xt: torch.Tensor, expert: torch.Tensor,
+                     pos: torch.Tensor, keep: torch.Tensor,
+                     weight: torch.Tensor, n_exp: int, cap: int,
+                     activation: str) -> torch.Tensor:
+    """Dispatch ``xt [T, d]``'s T·K assignments to ``n_exp`` experts of
+    ``p`` (``[n_exp, …]`` leaves), run them and combine: ``[T, d]`` f32.
+    ``expert`` / ``pos`` ``[T·K]`` are each assignment's buffer row,
+    ``keep`` whether it owns it, ``weight`` its router prob.
+
+    A kept assignment owns its ``(expert, pos)`` row; a dropped one
+    writes to the scratch row past the ``n_exp·C`` buffer rows (the
+    reference adds a zeroed row at its ``(expert, pos)``, which leaves
+    that row as is — a plain write there would overwrite a kept one).
+    Every assignment gathers its ``(expert, pos)`` output at weight 0
+    where dropped (a NaN there spreads, as in the reference); each
+    token's K contributions add in f32 left to right from zeros — no
+    atomics, the same bits on every replay."""
+    t, d = xt.shape
+    k = expert.numel() // t
+    slot = torch.where(keep, expert * cap + pos,
+                       torch.full_like(expert, n_exp * cap))
+    buf = torch.zeros((n_exp * cap + 1, d), dtype=xt.dtype, device=xt.device)
+    buf.index_put_((slot,), xt[:, None].expand(t, k, d).reshape(t * k, d))
+    out_buf = expert_ffn(p, buf[:n_exp * cap].view(n_exp, cap, d),
+                         activation)
+    gathered = out_buf[expert, pos]
+    w = (weight * keep.float())[:, None]
+    combined = (gathered.float() * w).view(t, k, d)
+    out = torch.zeros((t, d), dtype=torch.float32, device=xt.device)
+    for j in range(k):
+        out = out + combined[:, j]
+    return out
+
+
+def _aux_loss(probs: torch.Tensor, top_e: torch.Tensor,
+              cfg: MoEConfig) -> torch.Tensor:
+    """The load-balancing auxiliary loss (Switch-style)."""
+    e = cfg.num_experts
+    me = probs.mean(dim=0)
+    ce = (top_e[:, 0, None] == torch.arange(e, device=probs.device)).float(
+    ).mean(dim=0)
+    return cfg.router_aux_weight * e * torch.sum(me * ce)
+
+
 def apply_moe(params, x: torch.Tensor, cfg: MoEConfig, metrics: bool = True
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x ``[B, n, d]`` → (out ``[B, n, d]``, ``{"moe_aux_loss",
-    "moe_drop_fraction"}``), op for op the reference's
+    "moe_drop_fraction"}``), op for op the reference's ``apply_moe``:
+    :func:`apply_moe_sharded` where the active mesh's model axis is > 1
+    and divides the experts, else the single-device
     ``_apply_moe_reference``. ``metrics=False`` skips the metrics (an
     empty dict; the serve steps discard them, and the reference's jit
     drops their ops)."""
+    mesh = shd.get_active_mesh()
+    if shd.expert_shards(cfg.num_experts, mesh) > 1:
+        return apply_moe_sharded(params, x, cfg, mesh, metrics=metrics)
+    if isinstance(params["w_up"], tuple):
+        raise ValueError(
+            "expert shards need their serve mesh active "
+            "(repro_torch.distributed.sharding.active_mesh)")
     batch, n, d = x.shape
     t = batch * n
     xt = x.reshape(t, d)
-    e, k = cfg.num_experts, cfg.experts_per_token
     probs, top_p, top_e, flat_pos, keep, cap = route(params, xt, cfg)
     flat_e = top_e.reshape(-1)
     safe_pos = torch.where(keep, flat_pos, 0).long()
-    # Dispatch into [E, C, d]: a kept assignment owns its (e, pos) row;
-    # a dropped one writes to the scratch row past the E·C buffer rows
-    # (the reference adds a zeroed row at (e, 0), which leaves that row
-    # as is — a plain write there would overwrite a kept one)
-    slot = torch.where(keep, flat_e * cap + safe_pos,
-                       torch.full_like(flat_e, e * cap))
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf.index_put_((slot,), xt[:, None].expand(t, k, d).reshape(t * k, d))
-    out_buf = expert_ffn(params, buf[:e * cap].view(e, cap, d),
-                         cfg.activation)
-
-    # Combine: gather each slot's output at (e, safe_pos) and weight it
-    # by its router prob, 0 where dropped (a NaN there spreads, as in the
-    # reference); each token's K contributions summed in f32 left to
-    # right from zeros — no atomics, the same bits on every replay
-    gathered = out_buf[flat_e, safe_pos]
-    w = (top_p.reshape(-1) * keep.float())[:, None]
-    combined = (gathered.float() * w).view(t, k, d)
-    out = torch.zeros((t, d), dtype=torch.float32, device=x.device)
-    for j in range(k):
-        out = out + combined[:, j]
+    out = _experts_combine(params, xt, flat_e, safe_pos, keep,
+                           top_p.reshape(-1), cfg.num_experts, cap,
+                           cfg.activation)
     out = out.reshape(batch, n, d).to(x.dtype)
     if not metrics:
         return out, {}
-
-    # load-balancing auxiliary loss (Switch-style)
-    me = probs.mean(dim=0)
-    ce = (top_e[:, 0, None] == torch.arange(e, device=x.device)).float(
-    ).mean(dim=0)
-    aux = cfg.router_aux_weight * e * torch.sum(me * ce)
     return out, {
-        "moe_aux_loss": aux,
+        "moe_aux_loss": _aux_loss(probs, top_e, cfg),
         "moe_drop_fraction": 1.0 - keep.float().mean(),
     }
 
 
-def mesh_fault(cfg, mesh) -> Optional[str]:
-    """Why a model of ``cfg`` (a ``ModelConfig``) cannot serve on
-    ``mesh``, or None. The reference runs an MoE layer on its
-    expert-parallel paths (whose cross-shard sums round in bf16)
-    wherever the active mesh's model axis is > 1 and divides the
-    experts, and the port has only the single-device path. A mesh whose
-    model axis is 1 runs the single-device path in the reference too."""
-    if cfg.family != "moe" or mesh is None or "model" not in mesh.axis_names:
-        return None
-    m = mesh.shape["model"]
-    if m > 1 and cfg.num_experts % m == 0:
-        return (f"{cfg.name}: an MoE model ({cfg.num_experts} experts) on a "
-                f"mesh with model axis {m} takes the reference's "
-                f"expert-parallel paths, which the port does not have yet; "
-                f"serve it on a mesh whose model axis is 1")
-    return None
+def shard_route(flat_e: torch.Tensor, flat_pos: torch.Tensor,
+                keep: torch.Tensor, s: int, e_local: int):
+    """Shard s's view of the call's routing (:func:`route`'s ``[T·K]``
+    experts, positions and keep): ``(safe_e, safe_pos, keep_s)``, its
+    local expert and buffer row of each assignment it keeps, 0 and 0
+    elsewhere. Every reference shard routes the same replicated tokens
+    with the replicated router, so its shard-local cumsum (foreign
+    experts in a trash class) gives each of its experts the global
+    positions, and ``keep_s = keep ∧ lo ≤ expert < lo + E/M``."""
+    lo = s * e_local
+    keep_s = keep & (flat_e >= lo) & (flat_e < lo + e_local)
+    safe_e = torch.where(keep_s, flat_e - lo, 0)
+    safe_pos = torch.where(keep_s, flat_pos, 0).long()
+    return safe_e, safe_pos, keep_s
+
+
+def cross_shard_sum(partials, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """The shards' partial outputs (each in the layer's dtype) added in
+    f32 in shard order on ``device`` and rounded once to ``dtype``: what
+    the reference's ``psum`` over 'model' gives on XLA's CPU, bf16
+    partials included (not a chain of bf16 adds)."""
+    acc = partials[0].to(device).float()
+    for part in partials[1:]:
+        acc = acc + part.to(device).float()
+    return acc.to(dtype)
+
+
+def apply_moe_sharded(params, x: torch.Tensor, cfg: MoEConfig, mesh,
+                      metrics: bool = True
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's ``_apply_moe_sharded`` on a ``(1, M)`` serve mesh:
+    route once on x's device (the mesh's first), then on each model-axis
+    device s dispatch the assignments shard s keeps (:func:`shard_route`)
+    into ``[E/M, C, d]``, run its experts and combine its K slots in f32,
+    rounded to x's dtype; the partials meet in :func:`cross_shard_sum`.
+    Capacity is the whole call's (a data axis of 1: every shard holds
+    every token). The expert leaves are the shards of
+    :func:`~repro_torch.distributed.sharding.shard_experts` (tuples of
+    M) or whole ``[E, …]`` leaves, sliced here. ``moe_aux_loss`` is the
+    single-device one (the reference's ``pmean`` over a data axis of 1);
+    ``moe_drop_fraction`` is 1 − Σ_s mean(keep_s), summed in shard
+    order."""
+    if mesh.shape.get("data", 1) > 1:
+        raise ValueError(
+            f"an MoE call on a mesh with data axis {mesh.shape['data']} "
+            f"(model axis {mesh.shape['model']}) takes the reference's "
+            f"batch-sharded capacity, ZeRO all-gathers of the experts and "
+            f"the int8 _quantized_all_gather forward: training and dry-run "
+            f"paths the port has not taken yet (ROADMAP A11); serve on "
+            f"(1, M) meshes, or replicas over the data axis")
+    devices = mesh.devices[0]
+    m = len(devices)
+    e, d = cfg.num_experts, x.shape[-1]
+    e_local = e // m
+    shards = {}
+    for name in shd.EXPERT_LEAVES:
+        if name in params:
+            shards[name] = shd.expert_leaf_shards(params[name], e, devices)
+    batch, n, _ = x.shape
+    t = batch * n
+    xt = x.reshape(t, d)
+    probs, top_p, top_e, flat_pos, keep, cap = route(params, xt, cfg)
+    flat_e, weight = top_e.reshape(-1), top_p.reshape(-1)
+    partials, kept = [], []
+    for s, dev in enumerate(devices):
+        safe_e, safe_pos, keep_s = shard_route(flat_e, flat_pos, keep, s,
+                                               e_local)
+        p_s = {name: leaves[s] for name, leaves in shards.items()}
+        part = _experts_combine(
+            p_s, xt.to(dev), safe_e.to(dev), safe_pos.to(dev),
+            keep_s.to(dev), weight.to(dev), e_local, cap, cfg.activation)
+        partials.append(part.to(x.dtype))
+        if metrics:
+            kept.append(keep_s.float().mean())
+    out = cross_shard_sum(partials, x.dtype, x.device).reshape(batch, n, d)
+    if not metrics:
+        return out, {}
+    total = kept[0]
+    for part in kept[1:]:
+        total = total + part
+    return out, {"moe_aux_loss": _aux_loss(probs, top_e, cfg),
+                 "moe_drop_fraction": 1.0 - total}

@@ -67,8 +67,13 @@ shared page pool (default) or the contiguous per-slot cache
   head over the model axis (:mod:`repro_torch.distributed.sharding`),
   the params stay whole on the mesh's first device, and each dispatch
   runs with the mesh active, so the fused paged ops run once per shard
-  and concatenate the heads: the streams are the single-device engine's,
-  bit for bit. N engines behind one queue, one per mesh row, are
+  and concatenate the heads: a dense model's streams are the
+  single-device engine's, bit for bit. An MoE model's experts split over
+  the model axis too, where it divides them, and its layers run the
+  reference's expert-parallel path (``models/moe.py::apply_moe_sharded``,
+  whose cross-shard sum rounds once to the model dtype: its streams are
+  the reference's mesh engine's, not the single-device one's). N engines
+  behind one queue, one per mesh row, are
   :class:`~repro_torch.runtime.replicated_serve.ReplicatedServeLoop`.
 """
 
@@ -88,7 +93,6 @@ from repro_torch.core.energon_attention import serving_faults
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch.mesh import indexed_device
-from repro_torch.models.moe import mesh_fault
 from repro_torch.observability import Observability
 from repro_torch.observability.metrics import (
     DEFAULT_LATENCY_BOUNDS,
@@ -500,9 +504,6 @@ class ServeLoop:
         self.device = resolve_device(device)
         cards = 1
         if mesh is not None:
-            fault = mesh_fault(model.cfg, mesh)
-            if fault:
-                raise ValueError(fault)
             primary = mesh.devices[0][0]
             if device is not None and indexed_device(self.device) != primary:
                 raise ValueError(f"a mesh engine runs on its mesh's first "
@@ -656,9 +657,12 @@ class ServeLoop:
         """Lay the engine out on a tensor-parallel mesh (the reference's
         ``_install_mesh``): the params whole on the mesh's first device
         — splitting the weights would split the output projection's
-        contraction into a cross-device sum and change its bits — and
-        the page pools split by KV head over the model axis (whole on
-        the first device where the heads do not divide it). Only the
+        contraction into a cross-device sum and change its bits —, but
+        an MoE block's experts split over the model axis where it
+        divides them (``shard_experts``: views on a one-card mesh), as
+        the reference's expert-parallel layer slices them; the page
+        pools split by KV head over the model axis (whole on the first
+        device where the heads do not divide it). Only the
         paged cache takes a mesh, and only a TP one: the data axis is
         the replica axis, one engine per row."""
         if not self.paged:
@@ -667,7 +671,8 @@ class ServeLoop:
             raise ValueError(
                 "ServeLoop takes a TP-only mesh (data axis == 1); use "
                 "ReplicatedServeLoop to span the data axis")
-        self.params = _on_device(self.params, self.device)
+        self.params = shd.shard_experts(
+            _on_device(self.params, self.device), mesh)
         self.cache = shd.shard_paged_cache(self.cache, mesh,
                                            self.layout.page_size)
 

@@ -36,7 +36,13 @@ per shard), and a ``(2, 2)`` replicated drain ≡ the single engine.
 The MoE layer at olmoe-1b-7b's widths (64 experts top-8): replayed from
 a CUDA graph ≡ eager, bit for bit, at the decode step's and the prefill
 wave's shapes, and the same bits on three replays; olmoe's smoke model's
-prefill and decode step on the card against the CPU."""
+prefill and decode step on the card against the CPU.
+
+Expert parallelism (``cuda:0`` × M): an MoE engine's graphed drain ≡
+its eager drain on ``(1, 2)`` and ``(1, 4)``; olmoe's layer on a ``(1,
+4)`` mesh against the port's expert-parallel layer on ``cpu`` × 4 in
+f32; and B1–B4 at qwen3-moe-235b-a22b's G 16 (decode bh 32; prefill
+chunks of 64, 1024 folded rows) against their plain versions."""
 
 import dataclasses
 import gc
@@ -620,9 +626,43 @@ def test_prefill_kernels_at_folded_group_rows(cuda, g):
     the gather tolerance of its plain version, overall and on the rows
     at positions < 32; both the same when run twice. Row 0's chunk is a
     sequence's first, row 1 ends in sentinel rows."""
+    _check_folded_prefill(cuda, g, 128)
+
+
+def test_prefill_kernels_at_qwen3_moe_folded_rows(cuda):
+    """The same at qwen3-moe-235b-a22b's serving shape: G 16, chunks of
+    64 (1024 folded rows, eight query blocks of 128)."""
+    _check_folded_prefill(cuda, 16, 64)
+
+
+def test_decode_kernels_at_qwen3_moe_group(cuda):
+    """B1 and B2 at qwen3-moe-235b-a22b's decode shape: bh 32 (8 slots ×
+    4 KV heads), G 16 (the decode filter's limit), d 128, pages of 64,
+    lengths up to 4096, budget 16: B1 = its plain version bit for bit,
+    B2 within the gather tolerance, twice the same."""
+    from repro_torch.kernels import mpmrf_decode as dk
+
+    c = _case(cuda, bh=32, g=16, d=128, bk=64, mb=64, seed=16)
+    qp, qs = _planes(c["q_dec"])
+    args = (qp, qs, c["codes"], c["scale"], c["table"], c["cl"])
+    s = dk.paged_filter_scores(*args, key_block=64)
+    r = dk.paged_filter_scores_plain(*args, key_block=64)
+    assert torch.equal(s[0], r[0]) and torch.equal(s[1], r[1])
+    idx = torch.argsort(-s[1], dim=-1, stable=True)[:, :16].to(torch.int32)
+    val = (torch.gather(s[1], 1, idx.long()) > -5e29).to(torch.int32)
+    gargs = (c["q_dec"].to(torch.bfloat16), c["k"], c["v"], idx, val,
+             c["table"], c["cl"])
+    out = dk.paged_decode_gather_attention(*gargs, key_block=64)
+    ref = dk.paged_decode_gather_attention_plain(*gargs, key_block=64)
+    assert gather_within_tolerance(out.float(), ref.float())
+    assert torch.equal(out, dk.paged_decode_gather_attention(
+        *gargs, key_block=64))
+
+
+def _check_folded_prefill(cuda, g, chunk):
     from repro_torch.kernels import mpmrf_prefill as pk
 
-    bh, mb, chunk, d, bk, bq, budget = 6, 32, 128, 128, 64, 128, 8
+    bh, mb, d, bk, bq, budget = 6, 32, 128, 64, 128, 8
     c = _case(cuda, bh=bh, g=g, d=d, bk=bk, mb=mb, n_q=chunk, bq=bq,
               seed=40 + g)
     n_k = mb * bk
@@ -889,7 +929,7 @@ def _serve_trace(vocab, seed=11):
     return out
 
 
-def _drain_twice(smoke, graphs, **kw):
+def _drain_twice(smoke, graphs, chunk=SERVE_CHUNK, **kw):
     """The trace served twice on one engine (the second round finds the
     first's prefixes cached): streams, the cache's leaves, the kernels'
     launch counts of both rounds, and the engine."""
@@ -899,7 +939,7 @@ def _drain_twice(smoke, graphs, **kw):
     cfg, model, params = smoke
     engine = ServeLoop(model, params, batch_slots=3, max_len=SERVE_LEN,
                        eos_token=cfg.vocab_size - 1,
-                       prefill_chunk=SERVE_CHUNK, device="cuda",
+                       prefill_chunk=chunk, device="cuda",
                        cuda_graphs=graphs, **kw)
     _build.reset_launch_counts()
     for rnd in range(2):
@@ -1464,6 +1504,7 @@ def test_replicated_mesh_drain_equals_single_engine(smoke_bf16):
 
 # --------------------------------------------------------------------------
 # the MoE layer (olmoe-1b-7b's widths) and the MoE model on the card
+
 # --------------------------------------------------------------------------
 
 #: olmoe-1b-7b's MoE serve shapes: a decode step of 8 slots, a prefill
@@ -1587,3 +1628,74 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# --------------------------------------------------------------------------
+# expert parallelism on a mesh of the one card
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def olmoe_smoke_bf16():
+    """olmoe-1b-7b's serve-smoke model (3 layers, 8 experts top-2, 4 / 4
+    heads of 16) in bf16 on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs.registry import get_serve_config
+    from repro_torch.models import LMModel
+
+    cfg = dataclasses.replace(get_serve_config("olmoe-1b-7b", smoke=True),
+                              dtype="bfloat16", num_layers=3)
+    model = LMModel(cfg, device="cuda")
+    return cfg, model, model.init(seed=3)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_ep_mesh_graphed_equals_eager(olmoe_smoke_bf16, m):
+    """An MoE engine on ``cuda:0`` × M: the experts split over the model
+    axis (views), the expert-parallel layer in every step; the graphed
+    drain gives the eager drain's streams and launches, and B1–B4 run
+    once per shard (M divides the 4 KV heads). Chunks of 16: at G 1 the
+    fused prefill needs the query block's 16 rows."""
+    graphed, _, n, eng = _drain_twice(olmoe_smoke_bf16, True, chunk=16,
+                                      mesh=_card_mesh(1, m))
+    eager, _, eager_n, _ = _drain_twice(olmoe_smoke_bf16, False, chunk=16,
+                                        mesh=_card_mesh(1, m))
+    assert eng.cuda_graphs and [s.captures for s in eng.graphs] == [1, 1]
+    assert isinstance(eng.params["blocks"]["moe"]["w_up"], tuple)
+    assert graphed == eager and len(graphed) == 10
+    assert n == eager_n
+    for name in PAGED_KERNELS:
+        assert n[name] > 0 and n[name] % m == 0, name
+
+
+@pytest.mark.parametrize("kind", list(MOE_SHAPES))
+def test_ep_layer_on_the_card_matches_the_cpu(olmoe_layer, kind):
+    """olmoe-1b-7b's MoE layer on a ``cuda:0`` × 4 mesh (16 experts a
+    shard) against the port's expert-parallel layer on ``cpu`` × 4 in
+    f32 from the same bf16 tensors: within 2^-7 on the rows routed alike
+    (the tolerance of ``chip_smoke.py``'s ``[olmoe-moe-layer]``), which
+    are most rows."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+
+    cfg, params = olmoe_layer
+    x = _moe_input(cfg, kind, seed=5)
+    with shd.active_mesh(_card_mesh(1, 4)):
+        out, _ = moe.apply_moe(params, x, cfg)
+    p_cpu = {k: v.float().cpu() for k, v in params.items()}
+    with shd.active_mesh(make_mesh((1, 4), ("data", "model"), ["cpu"] * 4)):
+        ref, _ = moe.apply_moe(p_cpu, x.float().cpu(), cfg)
+    d, k = cfg.d_model, cfg.experts_per_token
+    xt = x.reshape(-1, d)
+    _, _, top_e, _, keep, _ = moe.route(params, xt, cfg)
+    _, _, c_top_e, _, c_keep, _ = moe.route(p_cpu, xt.float().cpu(), cfg)
+    alike = ((top_e.cpu() == c_top_e).all(-1)
+             & (keep.cpu() == c_keep).view(-1, k).all(-1))
+    assert alike.float().mean() > 0.9
+    got, want = out.float().cpu().reshape(-1, d), ref.reshape(-1, d)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got[alike], want[alike], atol=2.0 ** -7,
+                               rtol=2.0 ** -7)
+

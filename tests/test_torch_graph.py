@@ -15,6 +15,8 @@ in ``test_torch_cuda.py``).
   cache bit for bit as the parent's ``nonzero`` plans did (kept below as
   the oracle); nothing reads the scratch; a leaf without it is refused
   where the write would reach past it.
+* The same over an MoE step on the expert-parallel path (experts and
+  pool split over a ``(1, 2)`` mesh).
 * The same over a head-sharded pool (a tensor-parallel mesh), whose step
   gives the whole pool's logits and rows.
 * A step on idle inputs, as warm-up and capture run it, leaves the cache
@@ -188,6 +190,35 @@ def test_sharded_serve_steps_make_no_host_sync(method, impl):
     for name, leaf in cache.items():
         assert isinstance(sharded[name], tuple)
         assert torch.equal(torch.cat(sharded[name], dim=1), leaf), name
+
+
+@pytest.mark.parametrize("method", ["decode_step", "prefill"])
+def test_expert_parallel_serve_steps_make_no_host_sync(method):
+    """The same guard over an MoE step on a ``(1, 2)`` mesh of the CPU:
+    the pool split by KV head, the experts by the model axis
+    (``shard_experts``), every layer's MoE through the expert-parallel
+    path — routing once, each shard's dispatch, experts and combine, the
+    cross-shard sum. Its logits are finite and, in fp32, within 1e-5 of
+    the single-device step's (the cross-shard sum adds the top-k
+    contributions in another order)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+
+    model = LMModel(get_serve_config("olmoe-1b-7b", smoke=True),
+                    device="cpu")
+    params = model.init(seed=0)
+    cache, pre, zero, dec, index = _filled(model, params, paged=True)
+    mesh = make_mesh((1, 2), devices=["cpu", "cpu"])
+    sharded = shd.shard_paged_cache(cache, mesh, 16)
+    ep = shd.shard_experts(params, mesh)
+    assert isinstance(ep["blocks"]["moe"]["w_down"], tuple)
+    inputs, idx = (dec, index) if method == "decode_step" else (pre, zero)
+    ref, _ = getattr(model, method)(params, cache, inputs, idx)
+    with shd.active_mesh(mesh), HostSyncGuard() as guard:
+        logits, _ = getattr(model, method)(ep, sharded, inputs, idx)
+    assert guard.seen == []
+    assert torch.isfinite(logits).all()
+    torch.testing.assert_close(logits, ref, atol=1e-5, rtol=1e-5)
 
 
 # --------------------------------------------------------------------------

@@ -25,9 +25,11 @@ against the reference, on the CPU.
   coupled through expert capacity, sentinel rows included). The port is
   held to what the reference does, not to those contracts.
 * The MoE serve steps under the graph dispatch guard; an MoE model on a
-  mesh whose model axis is > 1 refused before any dispatch, by
-  ``ServeLoop`` and the launcher; replicas on a ``(2, 1)`` mesh giving
-  the reference's replicated streams.
+  mesh whose model axis is > 1 served by ``ServeLoop`` and the launcher
+  on the expert-parallel path (its parity with the reference's mesh
+  engines is ``test_torch_moe_ep.py``'s), a data axis > 1 inside one
+  MoE call refused; replicas on a ``(2, 1)`` mesh giving the reference's
+  replicated streams.
 
 Tolerances: the layer at atol = rtol = 1e-5, logits at 1e-4 and the
 loss at rtol 1e-5, as ``test_torch_dense_configs.py`` (both sides
@@ -50,6 +52,7 @@ from repro.runtime import Request as JaxRequest
 from repro.runtime import ServeLoop as JaxServeLoop
 from repro_torch.configs import registry
 from repro_torch.convert import convert_params
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import LMModel
 from repro_torch.models import moe
 from repro_torch.runtime import ReplicatedServeLoop, Request, ServeLoop
@@ -557,35 +560,63 @@ def test_moe_serve_steps_make_no_host_sync(paged, method):
 # --------------------------------------------------------------------------
 
 
-def test_an_moe_engine_on_a_tensor_parallel_mesh_is_refused(monkeypatch):
-    model = LMModel(registry.get_serve_config("olmoe-1b-7b", smoke=True),
-                    device="cpu")
-    params = model.init(seed=0)
+def test_an_moe_engine_serves_on_a_tensor_parallel_mesh(olmoe):
+    """A lone engine on a ``(1, 2)`` mesh serves the MoE model: its pool
+    split by KV head, its experts by the model axis (views of the stacked
+    leaves), every layer through the expert-parallel path
+    (``tests/test_torch_moe_ep.py`` holds its streams to the reference's
+    mesh engine). What stays refused is a data axis > 1 inside one MoE
+    call — the reference's training and dry-run paths, queued in ROADMAP
+    A11 — and a lone engine on such a mesh (replicas take the data
+    axis)."""
+    model, params = olmoe["model"], olmoe["params"]
     calls = []
-    for method in ("prefill", "decode_step", "init_paged_cache"):
-        monkeypatch.setattr(model, method,
-                            lambda *a, _m=method, **k: calls.append(_m))
-    with pytest.raises(ValueError, match="expert-parallel"):
-        ServeLoop(model, params, mesh=cpu_mesh(1, 2), batch_slots=2,
-                  max_len=MAX_LEN, prefill_chunk=CHUNK, device="cpu")
-    assert calls == []
-    # a model axis that does not divide the experts runs the reference's
-    # single-device path there too
-    assert moe.mesh_fault(model.cfg, cpu_mesh(1, 3)) is None
-    assert moe.mesh_fault(model.cfg, cpu_mesh(2, 1)) is None
-    dense = registry.get_serve_config("qwen3-14b", smoke=True)
-    assert moe.mesh_fault(dense, cpu_mesh(1, 2)) is None
+    real = moe.apply_moe_sharded
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    kw = dict(batch_slots=2, max_len=MAX_LEN, prefill_chunk=CHUNK,
+              eos_token=EOS, device="cpu")
+    moe.apply_moe_sharded = spy
+    try:
+        engine = ServeLoop(model, params, mesh=cpu_mesh(1, 2), **kw)
+        streams = _drain(engine, olmoe["trace"][:3], Request)
+    finally:
+        moe.apply_moe_sharded = real
+    assert [len(streams[u]) for u in range(3)] == [
+        new for _, new in TRACE_SPEC[:3]]
+    assert calls and len(calls) % model.cfg.num_layers == 0
+    ep = engine.params["blocks"]["moe"]
+    assert isinstance(ep["w_up"], tuple) and len(ep["w_up"]) == 2
+    assert ep["w_up"][0].untyped_storage().data_ptr() == \
+        params["blocks"]["moe"]["w_up"].untyped_storage().data_ptr()
+    assert isinstance(engine.cache["k"], tuple)
+    with pytest.raises(ValueError, match="TP-only mesh"):
+        ServeLoop(model, params, mesh=cpu_mesh(2, 2), **kw)
+    x = torch.zeros((1, 4, model.cfg.d_model))
+    layer = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+    with shd.active_mesh(cpu_mesh(2, 2)):
+        with pytest.raises(ValueError, match="ZeRO all-gathers"):
+            moe.apply_moe(layer, x, model._moe_cfg())
 
 
-def test_the_launcher_refuses_an_moe_model_on_a_mesh(monkeypatch):
+def test_the_launcher_serves_an_moe_model_on_a_mesh(capsys):
+    """``--mesh 1x2 --simulate-devices 2`` serves olmoe (smoke widths, on
+    the CPU) through one expert-parallel, tensor-parallel engine, and
+    ``--mesh 2x2`` through two such replicas."""
     from repro_torch.launch import serve
 
-    built = []
-    monkeypatch.setattr(LMModel, "init", lambda *a, **k: built.append(1))
-    with pytest.raises(SystemExit, match="expert-parallel"):
+    for spec, replicas in (("1x2", ""), ("2x2", ", 2 engine replicas")):
         serve.main(["--arch", "olmoe-1b-7b", "--smoke", "--device", "cpu",
-                    "--mesh", "1x2", "--simulate-devices", "2"])
-    assert built == []
+                    "--mesh", spec, "--simulate-devices", "4",
+                    "--requests", "2", "--new-tokens", "2",
+                    "--prompt-len", "6"])
+        out = capsys.readouterr().out
+        d, m = spec.split("x")
+        assert f"[serve] mesh {d}x{m} (data x model) over 1 physical cpu " \
+               f"device(s){replicas}" in out
 
 
 @pytest.mark.parametrize("slots", [1, 2])
