@@ -286,6 +286,47 @@ The MoE family, once the dense configs are released:
     (32 experts and 1 KV head a shard, B1–B4 at bh 8). Every phase's
     device-memory peak must stay within 70 GB.
 
+The vlm / audio and the recurrent families, once qwen3-moe is released,
+each model released before the next, every phase's device-memory peak
+within 70 GB and the card's name and power limit on a line of its own:
+
+23. ``[musicgen-…]``: musicgen-medium at published widths and full depth
+    (48 layers, d 1536, 24 / 24 heads of 64: G 1 on the d-64 kernels,
+    LayerNorm, GELU, vocab 2048; random bf16 weights from seed 0) on the
+    fused kernels: 8 × 1024-token prompts (256 shared), 32 greedy tokens,
+    max_len 2048, through a graphed paged engine (``[musicgen-serve]``:
+    B1/B2 46 launches a step, B3/B4 46 a wave), B1–B4 against their
+    plain versions on layer 2's live pool, an eager engine with the
+    graphed streams (``[musicgen-eager]``), the same requests unpaged
+    (``[musicgen-unpaged]``: B5–B8, the paged streams; B5–B8 on layer
+    2's captured rows), ``loss`` over 4 × 2048 of the frontend stub's
+    embeddings (``[musicgen-score]``: B9 / B10 46 each) and B9–B11 on
+    layer 2's q/k/v.
+24. ``[llava-…]``: llava-next-34b at published widths (d 7168, 56 / 8
+    heads of 128: G 7, d_ff 20480, vocab 64000) cut to ``LLAVA_LAYERS``
+    layers: 4 × 2048-token prompts served paged (896 folded rows a chunk
+    of 128) and unpaged, B1–B4 on layer 2's live pool at G 7, B5–B8 on
+    its captured rows, ``loss`` over 2 × 2048 stub embeddings, B9–B11.
+25. ``[zamba2-…]``: zamba2-7b at published widths and full depth (81
+    Mamba2 layers — 13 groups of 5 + 1, 3 tail layers —, d 3584, SSM
+    state 64 with heads of 64, one shared block of 32 / 32 heads of 112)
+    from the contiguous cache: 4 prompts of 512 tokens admitted by one
+    sequential wave (511 whole-batch decode steps under an ``active``
+    mask), 32 greedy tokens, max_len 1024 (the shared block's planes
+    resident), graphed: B5 / B6 13 launches a decode step, waves
+    included, no other kernel; decode ticks under the profiler
+    (``[profile-decode-zamba2]``); B5–B8 against their plain versions on
+    group 0's shared cache (d 112); the prompts' first 64 tokens through
+    a graphed and an eager engine (``[zamba2-eager]``: equal streams);
+    ``loss`` over 2 × 2048 (B9 / B10 13 each) and B9–B11 on the first
+    shared block's q/k/v.
+26. ``[xlstm-…]``: xlstm-1.3b at published widths and full depth (48
+    layers in 6 groups of 7 mLSTM + 1 sLSTM, d 2048, 4 heads: mLSTM
+    heads of 1024; impl dense): the same traffic and eager pair,
+    ``loss`` over 1 × 2048 (not profiled); no kernel launched at all (an
+    attention path taken by mistake would launch one);
+    ``[profile-decode-xlstm]``.
+
 The line before last is a JSON object listing each kernel's launches
 (B1–B4 in phase 4, B5–B8 in phase 8, B9–B11 in phase 15; those of
 phases 17–19 beside them), error and
@@ -294,15 +335,16 @@ score's layer 2; ``random`` holds phase 2's, 7's or 10's; ``d96`` phase
 19's at head dim 96, bounded by the d-96 work; ``tp_shard``, B1–B4 only,
 phase 9f's shard; ``g16`` phase 22's at G 16; ``launches_mesh`` the
 launches of phases 9f and 9g; ``launches_moe`` phase 20's,
-``launches_moe_ep`` phase 21's, ``launches_qwen3moe`` phase 22's)
+``launches_moe_ep`` phase 21's, ``launches_qwen3moe`` phase 22's,
+``launches_families`` phases 23–26)
 and each time over its bound (``ms_over_bound``); the mesh phases, the
 eager/graphed drains, the
 scoring results (with the ptxas report), the unpaged serve and the paged
 serve, the telemetry and chaos phases, the long-score / XLA phases and
 the dense configs', the MoE and the expert-parallel / qwen3-moe phases
-are on the lines before it; the
-last line is
-``{"ok": true, "device": ...}``.
+and the vlm / audio and recurrent families' (``{"families": …}``) are
+on the lines before it; the last line is ``{"ok": true, "device":
+...}``.
 Any failure exits non-zero before printing either.
 """
 
@@ -1128,8 +1170,15 @@ def layer_paths(model):
     """How a model's layers split over the attention dispatch: (the dense
     prefix, the layers on the fused kernels, the sparse layers off them).
     The fused kernels take global layers past the prefix with impl
-    "pallas"; windowed layers take the XLA paths."""
+    "pallas"; windowed layers take the XLA paths. A hybrid model's
+    attention is its shared block, once a group at layer index 10**9
+    (sparse); an ssm model has none."""
     cfg = model.cfg
+    if cfg.family in ("ssm", "hybrid"):
+        sites = (cfg.num_layers // cfg.hybrid_attn_every
+                 if cfg.family == "hybrid" else 0)
+        fused = sites if cfg.energon.impl == "pallas" else 0
+        return 0, fused, sites - fused
     prefix = cfg.energon.min_prune_layer
     windows = model.layer_windows() or [0] * cfg.num_layers
     fused = (sum(1 for w in windows[prefix:] if w == 0)
@@ -2289,7 +2338,7 @@ def small_scoring_check():
 
 
 def score_full_width(model, params, *, n_seq=4, seq_len=2048, seed=5,
-                     label="score"):
+                     label="score", profile=True):
     """``LMModel.loss`` over ``n_seq`` random sequences at full width, the
     launch counts zeroed just before and read just after (B9 and B10 once
     per layer on the fused kernels, the rest never); then ``apply`` for
@@ -2307,6 +2356,13 @@ def score_full_width(model, params, *, n_seq=4, seq_len=2048, seed=5,
                                         size=(n_seq, seq_len + 1)),
                            device=DEV)
     batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    if cfg.uses_embeddings_input:
+        # a vlm / audio model scores its frontend stub's embeddings
+        from repro_torch.models.multimodal import frontend_embeddings
+
+        batch["embeddings"] = frontend_embeddings(
+            cfg.frontend, n_seq, seq_len, cfg.d_model, model.dtype,
+            device=DEV)
     captured = {}
     real_bsa = ops.block_sparse_attention
 
@@ -2330,8 +2386,9 @@ def score_full_width(model, params, *, n_seq=4, seq_len=2048, seed=5,
     peak = mem_gb(torch.cuda.max_memory_allocated)
     _, sparse_layers, _ = layer_paths(model)
     tokens = n_seq * seq_len
-    log(f"[{label}] {cfg.name} LMModel.loss over {n_seq} × {seq_len} tokens "
-        f"({cfg.num_layers} layers, impl {cfg.energon.impl!r}): loss "
+    what = "stub embeddings" if "embeddings" in batch else "tokens"
+    log(f"[{label}] {cfg.name} LMModel.loss over {n_seq} × {seq_len} "
+        f"{what} ({cfg.num_layers} layers, impl {cfg.energon.impl!r}): loss "
         f"{float(loss):.4f} (exactly {float(loss)!r}; ce "
         f"{float(metrics['ce'])!r}, aux {float(metrics['aux'])!r}) in "
         f"{wall:.3f} s ({tokens / wall:.1f} tok/s), "
@@ -2361,7 +2418,7 @@ def score_full_width(model, params, *, n_seq=4, seq_len=2048, seed=5,
                aux=float(metrics["aux"]), wall_s=wall, tok_s=tokens / wall,
                apply_wall_s=apply_wall, tokens=tokens, peak_memory_gb=peak,
                launches=launches)
-    if DEV == "cuda":
+    if DEV == "cuda" and profile:
         out["profile"] = profile_scoring(
             model, params, batch,
             "profile-score" if label == "score" else f"profile-{label}")
@@ -4026,6 +4083,397 @@ def qwen3moe_phase(results, blocks, layers=QWEN3MOE_LAYERS):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the vlm / audio and the recurrent families
+# ---------------------------------------------------------------------------
+
+#: llava-next-34b's depth on the card (of 60 layers): the deepest cut
+#: whose phases peak within PEAK_LIMIT_GB (1.12 GB of bf16 weights a
+#: layer, 1.84 GB for the embedding and the head; on an H100 80GB at 50
+#: layers the unpaged serve peaked at 64.7 GB, each layer adding ≈ 1.22)
+LLAVA_LAYERS = 54
+#: [musicgen-…] / [llava-…]: (serve, score) traffic
+FAMILY_PHASES = (
+    ("musicgen-medium", None,
+     dict(n_req=8, prompt_len=1024, max_len=2048), dict(n_seq=4)),
+    ("llava-next-34b", LLAVA_LAYERS,
+     dict(n_req=4, prompt_len=2048, max_len=4096), dict(n_seq=2)),
+)
+#: [zamba2-…] / [xlstm-…]: (arch, scored sequences); the requests
+#: admitted together by one sequential wave and their prompt length
+#: (max_len 1024: the shared block's planes resident); the profiled
+#: drain's prompt length and the eager-vs-graphed pair's traffic (an
+#: eager step launches each of its 4000–9000 kernels from the host: on
+#: an H100 a wave of 511 eager zamba2 steps took ≈ 2 min)
+RECURRENT_PHASES = (("zamba2-7b", 2), ("xlstm-1.3b", 1))
+RECURRENT_REQUESTS, RECURRENT_PROMPT, RECURRENT_MAX_LEN = 4, 512, 1024
+RECURRENT_PROFILE_PROMPT = 128
+RECURRENT_EAGER = dict(prompt_len=64, new_tokens=16)
+
+
+def card_name():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def card_line(label):
+    """The card's name and power limit on a line of the phase's own."""
+    if DEV != "cuda":
+        return None
+    smi = card_name()
+    log(f"[{label}] card: {smi}")
+    return smi
+
+
+def drain_stats(engine, done, wall):
+    """A drained engine's tok/s, TTFT and ITL percentiles."""
+    m = engine.metrics
+    lat = m.latency_stats()
+    return dict(
+        requests=len(done), wall_s=wall,
+        prefill_tok_s=m.prefill_tokens_per_sec,
+        decode_tok_s=m.decode_tokens_per_sec,
+        ttft_p50_ms=lat["ttft_p50"] * 1e3, ttft_p95_ms=lat["ttft_p95"] * 1e3,
+        itl_p50_ms=lat["itl_p50"] * 1e3, itl_p95_ms=lat["itl_p95"] * 1e3,
+        prefill_dispatches=m.prefill_dispatches,
+        decode_dispatches=m.decode_dispatches,
+        prefill_tokens=m.prefill_tokens, decode_tokens=m.decode_tokens)
+
+
+def log_drain(label, what, st):
+    log(f"[{label}] {what}: {st['requests']} requests in {st['wall_s']:.2f} "
+        f"s; prefill {st['prefill_tokens']} tok in "
+        f"{st['prefill_dispatches']} dispatches ({st['prefill_tok_s']:.1f} "
+        f"tok/s), decode {st['decode_tokens']} tok in "
+        f"{st['decode_dispatches']} dispatches ({st['decode_tok_s']:.1f} "
+        f"tok/s); ttft p50/p95 {st['ttft_p50_ms']:.1f}/"
+        f"{st['ttft_p95_ms']:.1f} ms, itl p50/p95 {st['itl_p50_ms']:.2f}/"
+        f"{st['itl_p95_ms']:.2f} ms")
+
+
+def drain(engine, prompts, new_tokens):
+    """Submit ``prompts`` and drain: the finished requests and the wall
+    seconds."""
+    _submit_all(engine, prompts, new_tokens)
+    t0 = time.perf_counter()
+    done = engine.run_until_drained()
+    sync()
+    need(len(done) == len(prompts) and all(r.done for r in done),
+         "not every request drained")
+    need(engine.metrics.failed_requests == 0,
+         f"{engine.metrics.failed_requests} requests quarantined "
+         f"(non-finite logits)")
+    return done, time.perf_counter() - t0
+
+
+def eager_drain(model, params, prompts, streams, *, label, paged,
+                new_tokens=32, max_len=4096, chunk=128):
+    """The requests through a fresh eager (``cuda_graphs=False``) engine:
+    its streams must be the graphed engine's (sha1); with ``streams``
+    None, a fresh graphed engine's on the same requests first."""
+    from repro_torch.runtime import ServeLoop
+
+    if streams is None:
+        graphed = ServeLoop(
+            model, params, batch_slots=len(prompts), max_len=max_len,
+            eos_token=-1, prefill_chunk=chunk, paged=paged, device=DEV)
+        need(graphed.cuda_graphs, "the engine does not replay CUDA graphs")
+        done, _ = drain(graphed, prompts, new_tokens)
+        streams = {r.uid: list(r.tokens_out) for r in done}
+        del graphed
+        _free_device()
+
+    engine = ServeLoop(
+        model, params, batch_slots=len(prompts), max_len=max_len,
+        eos_token=-1, prefill_chunk=chunk, paged=paged, device=DEV,
+        cuda_graphs=False)
+    done, wall = drain(engine, prompts, new_tokens)
+    st = drain_stats(engine, done, wall)
+    eager = {r.uid: list(r.tokens_out) for r in done}
+    st["streams_sha1"] = streams_digest(eager)
+    log_drain(label, "eager engine", st)
+    log(f"[{label}] eager streams sha1 {st['streams_sha1']} (graphed "
+        f"{streams_digest(streams)})")
+    need(eager == streams,
+         f"[{label}] the eager engine's streams differ from the graphed "
+         f"engine's")
+    del engine
+    _free_device()
+    return st
+
+
+def family_phase(arch, layers, serve_kw, score_kw, results, blocks):
+    """``[musicgen-…]`` / ``[llava-…]``: a vlm or audio model at published
+    widths (random bf16 weights from seed 0; llava cut to ``layers``
+    layers, depth only) on the fused kernels, the dense stack with the
+    ``embeddings`` input: served through a graphed paged engine (B1/B2
+    and B3/B4 once per layer past the prefix and dispatch), B1–B4 held
+    against their plain versions on layer 2's live pool, an eager engine
+    (musicgen) with the graphed streams, the same requests unpaged (B5–B8,
+    the paged streams) with B5–B8 on layer 2's captured rows, and
+    ``loss`` over the frontend stub's embeddings (B9 / B10 once per such
+    layer) with B9–B11 on layer 2's q/k/v. Every device-memory peak
+    within PEAK_LIMIT_GB. Returns each run's results by phase name."""
+    import torch
+
+    from repro_torch.configs.registry import get_serve_config
+
+    short = arch.split("-")[0]
+    cfg = get_serve_config(arch)
+    full = cfg.num_layers
+    need(cfg.family in ("vlm", "audio") and cfg.energon.impl == "pallas",
+         f"{arch}'s serving config is not a vlm / audio model on the fused "
+         f"path")
+    if layers is not None and layers != full:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        log(f"[{short}] depth cut to {layers} of {full} layers (widths "
+            f"unchanged)")
+    card = card_line(short)
+    out, peaks = {}, {}
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    engine, prompts, run1, launches, streams = serve_full_width(
+        cfg, label=f"{short}-serve", **serve_kw)
+    peaks["init"], peaks["serve"] = run1["init_peak_gb"], _peak_gb()
+    model, params = engine.model, engine.params
+    n_params = sum(w.numel() for w in _leaves(params))
+    _, fused, _ = layer_paths(model)
+    log(f"[{short}-serve] {n_params / 1e9:.3f} B parameters at "
+        f"{cfg.num_layers} layers; launches a decode step: B1/B2 {fused} "
+        f"each, a prefill wave: B3/B4 {fused} each")
+    layer = cfg.energon.min_prune_layer
+    check_case(live_pool_case(engine, prompts, layer),
+               f"{short}-live-layer{layer}", results)
+    run1.update(launches=launches, streams_sha1=streams_digest(streams),
+                parameters=n_params, layers=cfg.num_layers, card=card,
+                launches_per_step=fused)
+    del engine
+    _free_device()
+    max_len, chunk = serve_kw.get("max_len", 4096), 128
+    if arch == "musicgen-medium":
+        run1["eager"] = eager_drain(model, params, prompts, streams,
+                                    label=f"{short}-eager", paged=True,
+                                    max_len=max_len)
+    out[f"{short}-serve"] = run1
+
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    uengine, unpaged, ulaunches, captured = serve_unpaged(
+        model, params, prompts, streams, max_len=max_len, chunk=chunk,
+        label=f"{short}-unpaged")
+    peaks["unpaged"] = _peak_gb()
+    case = captured_contiguous_case(uengine, captured, layer)
+    del uengine, captured
+    _free_device()
+    check_contiguous(case, f"{short}-captured-layer{layer}", results)
+    out[f"{short}-unpaged"] = dict(unpaged, launches=ulaunches)
+    del case
+    _free_device()
+
+    scoring, (q, k, v) = score_full_width(model, params,
+                                          label=f"{short}-score", **score_kw)
+    peaks["score"] = _peak_gb()
+    scoring["captured"] = check_full_sequence(
+        q, k, v, f"{short}-captured-layer{layer}", results, **blocks)
+    out[f"{short}-score"] = scoring
+    del q, k, v, model, params
+    _free_device()
+    peaks = {k: float(v) for k, v in peaks.items() if v is not None}
+    log(f"[{short}] {cfg.num_layers} layers: device-memory peaks (GB) "
+        f"{json.dumps(peaks)}")
+    need(DEV != "cuda" or max(peaks.values()) <= PEAK_LIMIT_GB,
+         f"[{short}] a phase peaked past {PEAK_LIMIT_GB} GB: {peaks}")
+    out[f"{short}-serve"]["peaks_gb"] = peaks
+    return out
+
+
+def shared_block_case(engine, captured, chunk=128):
+    """The hybrid's shared block, group 0, after a drain: the last decode
+    step's queries over its live contiguous cache (B5 / B6's operands),
+    and for B7 / B8 a chunk of the cache's own keys at each row's last
+    written positions (so that their scores are live)."""
+    import torch
+
+    e = engine.model.cfg.energon
+    cache = {k: v[0] for k, v in engine.cache["shared_attn"].items()}
+    batch, heads, n_k, d = cache["k"].shape
+    bh = batch * heads
+    q_dec, cl = captured
+    cl = cl.to(torch.int32).repeat_interleave(heads)
+    k = cache["k"].reshape(bh, n_k, d)
+    end = cl.long().clamp(min=chunk, max=n_k)
+    pos = end[:, None] - chunk + torch.arange(chunk, device=DEV)[None, :]
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    q_pre = k[torch.arange(bh, device=DEV)[:, None], pos]
+    q_pre = q_pre + 0.1 * torch.randn(q_pre.shape, generator=gen,
+                                      device=DEV, dtype=q_pre.dtype)
+    return ContiguousCase(
+        q_dec=q_dec.reshape(bh, -1, d).to(k.dtype).contiguous(), cl=cl,
+        q_pre=q_pre.contiguous(), qpos=pos.to(torch.int32), k=k,
+        v=cache["v"].reshape(bh, n_k, d),
+        codes=cache["k_codes"].reshape(bh, n_k, d),
+        scale=cache["k_scale"].reshape(bh, -1), bk=e.decode_key_block,
+        pk=e.key_block, bq=e.query_block, ratio=e.pruning_ratio)
+
+
+def recurrent_phase(arch, n_seq, results, blocks):
+    """``[zamba2-…]`` / ``[xlstm-…]``: a recurrent model at published
+    widths and full depth (random bf16 weights from seed 0; the Mamba2
+    ``a_log`` / ``dt_bias`` / ``d_skip`` f32), served from the contiguous
+    cache through sequential admission waves: RECURRENT_REQUESTS prompts
+    of RECURRENT_PROMPT tokens admitted together (one wave of
+    RECURRENT_PROMPT − 1 whole-batch decode steps under an ``active``
+    mask), 32 greedy tokens each, max_len RECURRENT_MAX_LEN, graphed;
+    the prompts' first 64 tokens through a graphed and an eager engine
+    with equal streams. zamba2's shared block decodes
+    through B5 / B6 (13 launches each a decode step, waves included; head
+    dim 112 on the d-128 kernels, G 1), no other kernel; B5–B8 held
+    against their plain versions on group 0's shared cache after the
+    drain; ``loss`` over ``n_seq`` × 2048 tokens (B9 / B10 13 each) and
+    B9–B11 on the first shared block's q/k/v. xlstm runs no kernel at
+    all (every count 0). Decode ticks under the profiler. Returns each
+    run's results by phase name."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_serve_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops
+    from repro_torch.models import LMModel
+    from repro_torch.runtime import ServeLoop
+
+    short = arch.split("-")[0]
+    label = f"{short}-serve"
+    cfg = get_serve_config(arch)
+    card = card_line(short)
+    peaks = {}
+    t0 = time.perf_counter()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = LMModel(cfg, device=DEV)
+    params = model.init(seed=0)
+    sync()
+    peaks["init"] = _peak_gb()
+    n_params = sum(w.numel() for w in _leaves(params))
+    n_bytes = sum(w.numel() * w.element_size() for w in _leaves(params))
+    need(not model.supports_prefill and not model.supports_paged,
+         f"{arch} is not served by sequential waves")
+    _, fused, _ = layer_paths(model)
+    log(f"[{label}] {cfg.name} ({cfg.family}): {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} heads, vocab "
+        f"{cfg.vocab_size}, impl {cfg.energon.impl!r}; {n_params / 1e9:.3f} "
+        f"B parameters ({n_bytes / 1e9:.2f} GB), init "
+        f"{time.perf_counter() - t0:.1f} s; attention sites {fused}")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size - 1,
+                            size=RECURRENT_PROMPT).tolist()
+               for _ in range(RECURRENT_REQUESTS)]
+    kw = dict(batch_slots=RECURRENT_REQUESTS, max_len=RECURRENT_MAX_LEN,
+              eos_token=-1, seed=0, device=DEV)
+    engine = ServeLoop(model, params, **kw)
+    need(engine.cuda_graphs and not engine.paged and len(engine.graphs) == 1,
+         "the recurrent engine is not one graphed contiguous decode step")
+    captured, calls = {}, [0]
+    real = ops.fused_decode_attention
+
+    def capturing(q, *args, **kwargs):
+        if calls[0] % max(fused, 1) == 0:       # group 0's shared block
+            captured["decode"] = (q.clone(), args[4].clone())
+        calls[0] += 1
+        return real(q, *args, **kwargs)
+
+    ops.fused_decode_attention = capturing
+    try:
+        engine.capture_graphs()
+        graph = log_graphs(f"[graph] {short} engine", engine)
+        _build.reset_launch_counts()
+        done, wall = drain(engine, prompts, 32)
+        launches = dict(_build.launch_counts)
+    finally:
+        ops.fused_decode_attention = real
+    peaks["serve"] = _peak_gb()
+    run1 = drain_stats(engine, done, wall)
+    log_drain(label, "graphed engine, sequential waves", run1)
+    streams = {r.uid: list(r.tokens_out) for r in done}
+    steps = run1["decode_dispatches"] + run1["prefill_dispatches"]
+    log(f"[{label}] kernel launches: {json.dumps(launches)}")
+    need(run1["prefill_dispatches"] == RECURRENT_PROMPT - 1,
+         f"one wave of {RECURRENT_PROMPT}-token prompts took "
+         f"{run1['prefill_dispatches']} dispatches, not "
+         f"{RECURRENT_PROMPT - 1}")
+    for name in KERNELS:
+        want = (fused * steps if name in ("mpmrf_decode_filter_scores",
+                                          "decode_gather_attention") else 0)
+        need(launches[name] == want,
+             f"[{label}] {name} launched {launches[name]} times, not {want}"
+             f" ({fused} attention sites × {steps} decode steps)")
+    log(f"[{label}] launches a decode step (waves included): B5/B6 "
+        f"{fused} each, every other kernel 0; greedy streams sha1 "
+        f"{streams_digest(streams)}; peak device memory "
+        f"{peaks['serve']:.2f} GB")
+    run1.update(graph=graph, launches=launches, launches_per_step=fused,
+                streams_sha1=streams_digest(streams), parameters=n_params,
+                card=card)
+    if DEV == "cuda":
+        run1["profile_decode"] = profile_decode(
+            engine, [], n_req=RECURRENT_REQUESTS,
+            prompt_len=RECURRENT_PROFILE_PROMPT,
+            label=f"profile-decode-{short}")
+    if fused:
+        case = shared_block_case(engine, captured["decode"])
+        del engine
+        _free_device()
+        check_contiguous(case, f"{short}-captured-shared0", results)
+        del case
+    else:
+        del engine
+    _free_device()
+    short_prompts = [p[:RECURRENT_EAGER["prompt_len"]] for p in prompts]
+    run1["eager"] = eager_drain(
+        model, params, short_prompts, None, label=f"{short}-eager",
+        paged=None, max_len=RECURRENT_MAX_LEN,
+        new_tokens=RECURRENT_EAGER["new_tokens"])
+    peaks["eager"] = _peak_gb()
+    out = {label: run1}
+
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    # xLSTM's sLSTM runs 2048 cell steps a layer from the host: not
+    # profiled (the profiler's cost per event would dominate)
+    scoring, qkv = score_full_width(model, params, n_seq=n_seq,
+                                    label=f"{short}-score",
+                                    profile=bool(fused))
+    peaks["score"] = _peak_gb()
+    if fused:
+        scoring["captured"] = check_full_sequence(
+            *qkv, f"{short}-captured-shared0", results, **blocks)
+    out[f"{short}-score"] = scoring
+    del model, params, qkv
+    _free_device()
+    peaks = {k: float(v) for k, v in peaks.items()}
+    log(f"[{short}] device-memory peaks (GB) {json.dumps(peaks)}")
+    need(DEV != "cuda" or max(peaks.values()) <= PEAK_LIMIT_GB,
+         f"[{short}] a phase peaked past {PEAK_LIMIT_GB} GB: {peaks}")
+    run1["peaks_gb"] = peaks
+    return out
+
+
+def new_family_phases(results, blocks):
+    """Phases 23–26: musicgen-medium, llava-next-34b, zamba2-7b and
+    xlstm-1.3b, each model released before the next."""
+    out = {}
+    for arch, layers, serve_kw, score_kw in FAMILY_PHASES:
+        out.update(family_phase(arch, layers, serve_kw, score_kw, results,
+                                blocks))
+    for arch, n_seq in RECURRENT_PHASES:
+        out.update(recurrent_phase(arch, n_seq, results, blocks))
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4119,11 +4567,7 @@ def main(argv=None) -> int:
 
     from repro_torch.kernels import _build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_name()
     log(smi)
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, device "
@@ -4233,6 +4677,10 @@ def main(argv=None) -> int:
     g16 = {name: [] for name in KERNELS}
     qwen3moe = qwen3moe_phase(g16, blocks)
 
+    # the vlm / audio and recurrent families, once qwen3-moe is released
+    family_results = {name: [] for name in KERNELS}
+    families = new_family_phases(family_results, blocks)
+
     timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name, meta in KERNELS.items():
@@ -4256,10 +4704,13 @@ def main(argv=None) -> int:
             launches_qwen3moe={phase: r["launches"].get(name, 0)
                                for phase, r in qwen3moe.items()
                                if "launches" in r},
+            launches_families={phase: r["launches"].get(name, 0)
+                               for phase, r in families.items()
+                               if "launches" in r},
             max_abs_err=max(r["err"] for r in entries + dense_results[name]
                             + d96[name] + tp_results.get(name, [])
                             + moe_results[name] + ep_results.get(name, [])
-                            + g16[name]),
+                            + g16[name] + family_results[name]),
             **{k: main_run[k] for k in timed_keys},
             **{k: main_run[k] for k in ("device_ms", "library_device_ms")
                if k in main_run},
@@ -4299,6 +4750,7 @@ def main(argv=None) -> int:
     log(json.dumps({"mesh": mesh, "card": smi}))
     log(json.dumps({"moe": moe, "card": smi}))
     log(json.dumps({"moe_ep": moe_ep, "qwen3moe": qwen3moe, "card": smi}))
+    log(json.dumps({"families": families, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

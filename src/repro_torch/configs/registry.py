@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution for the launchers.
 
-The dense and MoE archs of the reference are registered. ``get_config`` returns
-the shipped config; ``get_serve_config`` the serving one, with the
-fused paged Energon kernels engaged.
+Every arch of the reference is registered. ``get_config`` returns the
+shipped config; ``get_serve_config`` the serving one, with the fused
+Energon kernels engaged (xlstm-1.3b, attention-free, serves its shipped
+config).
 """
 
 from __future__ import annotations
@@ -10,8 +11,9 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.configs import (
-    gemma3_27b, olmoe_1b_7b, phi3_mini_3_8b, qwen3_14b,
-    qwen3_moe_235b_a22b, starcoder2_7b,
+    gemma3_27b, llava_next_34b, musicgen_medium, olmoe_1b_7b,
+    phi3_mini_3_8b, qwen3_14b, qwen3_moe_235b_a22b, starcoder2_7b,
+    xlstm_1_3b, zamba2_7b,
 )
 from repro_torch.configs.base import ModelConfig
 
@@ -22,6 +24,10 @@ _MODULES = {
     "phi3-mini-3.8b": phi3_mini_3_8b,
     "olmoe-1b-7b": olmoe_1b_7b,
     "qwen3-moe-235b-a22b": qwen3_moe_235b_a22b,
+    "llava-next-34b": llava_next_34b,
+    "musicgen-medium": musicgen_medium,
+    "zamba2-7b": zamba2_7b,
+    "xlstm-1.3b": xlstm_1_3b,
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -7,9 +7,13 @@ layouts (``wq [d, H, hd]``, ``wk``/``wv [d, KV, hd]``, ``wo [H, hd, d]``,
 ``mlp.w_up/w_gate/w_down``, ``embed.table``, ``lm_head.w``,
 ``final_norm.scale`` (and LayerNorm's ``bias``), the q/k norms, an MoE
 block's ``moe.router/w_up/w_gate/w_down``), blocks stacked on a leading
-``[L]`` axis; a tied head has no ``lm_head``. Each leaf takes the dtype
-``model.init`` gives it — the model dtype, but an MoE router's float32 —
-on the target device.
+``[L]`` axis; a tied head has no ``lm_head``. The recurrent families'
+cells (``mlstm`` / ``slstm``, ``mamba_pre`` / ``mamba_post`` /
+``mamba_tail``) are stacked on their group axes, and the hybrid's
+``shared`` block is not stacked. Each leaf takes the dtype
+``model.init`` gives it — the model dtype, but an MoE router's and a
+Mamba2 cell's ``a_log`` / ``dt_bias`` / ``d_skip`` float32 — on the
+target device.
 """
 
 from __future__ import annotations

@@ -1,12 +1,17 @@
 """Serving launcher: chunked prefill + batched sparse decode over the
 paged KV cache (or, with ``--unpaged``, the contiguous one), on the GPU.
 
-``python -m repro_torch.launch.serve --arch qwen3-14b`` (or
-``starcoder2-7b``, ``gemma3-27b``, ``phi3-mini-3.8b``, ``olmoe-1b-7b``,
-``qwen3-moe-235b-a22b``) serves synthetic
-requests at full width (random weights from ``--seed``) through the
-fused paged kernels (``--unpaged``: their contiguous twins) and reports
-prefill and decode throughput and latency percentiles. ``--smoke`` uses
+``python -m repro_torch.launch.serve --arch qwen3-14b`` (or any other
+arch of the registry: ``starcoder2-7b``, ``gemma3-27b``,
+``phi3-mini-3.8b``, ``olmoe-1b-7b``, ``qwen3-moe-235b-a22b``,
+``llava-next-34b``, ``musicgen-medium``, ``zamba2-7b``, ``xlstm-1.3b``)
+serves synthetic requests at full width (random weights from
+``--seed``) through the fused paged kernels (``--unpaged``: their
+contiguous twins) and reports prefill and decode throughput and latency
+percentiles. The recurrent families (``zamba2-7b``, ``xlstm-1.3b``)
+have no chunked prefill and no page pool: they serve from the
+contiguous cache, admitting prompts token by token (the header says
+``prefill (sequential)``), on one device only. ``--smoke`` uses
 the reduced widths; ``--layers`` cuts depth only; ``--device cpu`` runs
 the kernels' plain versions.
 ``--max-len`` and ``--prefill-chunk`` default to shapes on which every
@@ -220,7 +225,8 @@ def main(argv=None):
     print(f"[serve] {cfg.name} ({cfg.num_layers} layers) on "
           f"{eng0.device}: {len(done)} requests, {total} tokens in "
           f"{dt:.2f}s ({total / dt:.1f} tok/s end-to-end)")
-    print(f"[serve] prefill: {m.prefill_tokens} tok in "
+    mode = "chunked" if model.supports_prefill else "sequential"
+    print(f"[serve] prefill ({mode}): {m.prefill_tokens} tok in "
           f"{m.prefill_dispatches} dispatches "
           f"({m.prefill_tokens_per_sec:.1f} tok/s)")
     print(f"[serve] decode: {m.decode_tokens} tok in {m.decode_dispatches} "

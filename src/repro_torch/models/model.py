@@ -1,18 +1,38 @@
-"""LMModel — the dense and MoE families' surface (port of
-``repro.models.model.LMModel``): weight init, whole-sequence logits and
-loss (``apply`` / ``loss``, forward only), cache management, chunked
-prefill and one-token decode over the shared page pool (with
-``inputs['block_table']``) or the contiguous per-slot cache (without).
-An MoE model's blocks hold ``"moe"`` (router f32, experts in the model
-dtype) in place of ``"mlp"``; its auxiliary loss joins ``apply`` and
-``loss``.
+"""LMModel — one config-driven surface for every family of the
+reference (port of ``repro.models.model.LMModel``): weight init,
+whole-sequence logits and loss (``apply`` / ``loss``, forward only),
+cache management, chunked prefill and one-token decode.
+
+Families:
+  dense / moe / vlm / audio — the decoder transformer stack, served over
+      the shared page pool (with ``inputs['block_table']``) or the
+      contiguous per-slot cache (without). An MoE model's blocks hold
+      ``"moe"`` (router f32, experts in the model dtype) in place of
+      ``"mlp"``; its auxiliary loss joins ``apply`` and ``loss``. vlm /
+      audio read ``embeddings [B, n, d_model]`` in place of tokens where
+      given (the modality frontend is a stub,
+      :mod:`repro_torch.models.multimodal`), cast to the model dtype
+      without the token path's √d_model scale.
+  ssm    — xLSTM: groups of (m × mLSTM + s × sLSTM), ``mlstm``
+      ``[groups, m]`` and ``slstm`` ``[groups]``.
+  hybrid — zamba2: groups of (period − 1 Mamba2 layers, the one shared
+      attention block, one Mamba2 layer), then the tail Mamba2 layers:
+      ``mamba_pre`` ``[groups, period − 1]``, ``mamba_post`` ``[groups]``,
+      ``mamba_tail`` ``[tail]``, ``shared`` one unstacked block. The
+      shared block runs at layer index 10**9, so it is sparse.
+
+The recurrent families (ssm, hybrid) have no chunked prefill
+(:attr:`LMModel.supports_prefill`) and no page pool: the serving loop
+admits their prompts token by token through ``decode_step`` under an
+``active`` mask, and their recurrent state advances only on the active
+slots.
 
 Parameters are a plain dict with the reference pytree's layout and
-names, blocks stacked on a leading ``[L]`` axis — so a reference
-checkpoint converts leaf by leaf (:mod:`repro_torch.convert`). Caches
-are updated in place; ``prefill`` / ``decode_step`` return them for
-parity with the reference's functional signatures. The other families
-(ssm, hybrid, vlm, audio) wait for later slices.
+names, stacked layers on leading axes — so a reference checkpoint
+converts leaf by leaf (:mod:`repro_torch.convert`). Caches are updated
+in place, every leaf allocated once (the graphed steps replay over
+them); ``prefill`` / ``decode_step`` return them for parity with the
+reference's functional signatures.
 """
 
 from __future__ import annotations
@@ -26,19 +46,22 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime import paged_cache as pgc
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+#: the families that run the decoder transformer stack
+TRANSFORMER_FAMILIES = ("dense", "moe", "vlm", "audio")
+#: the shared attention block's layer index (sparse, never windowed)
+SHARED_LAYER = 10**9
 
 
 class LMModel:
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} waits for a later slice of the port"
-            )
+        if cfg.family not in TRANSFORMER_FAMILIES + ("ssm", "hybrid"):
+            raise ValueError(f"unknown family {cfg.family}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.dtype]
@@ -75,12 +98,12 @@ class LMModel:
         def tn(shape, std):
             return L.trunc_normal(shape, std, gen, dev, dt)
 
-        def stacked(make):
+        def stacked(make, n=n_l):
             first = make()
-            out = _stack_like(first, n_l)
+            out = _stack_like(first, n)
             _assign_layer(out, first, 0)
             del first        # one layer's draws alive at a time
-            for i in range(1, n_l):
+            for i in range(1, n):
                 _assign_layer(out, make(), i)
             return out
 
@@ -117,8 +140,44 @@ class LMModel:
         }
         if not cfg.tie_embeddings:       # a tied head reads embed.table
             params["lm_head"] = {"w": tn((d, cfg.vocab_size), d ** -0.5)}
-        params["blocks"] = stacked(block)
+        if cfg.family in TRANSFORMER_FAMILIES:
+            params["blocks"] = stacked(block)
+        elif cfg.family == "ssm":
+            m_per, groups = self._xlstm_layout()
+
+            def cell(init):
+                return lambda: {"norm": norm(), "cell": init(
+                    gen, dev, d, cfg.num_heads, dt)}
+
+            params["mlstm"] = stacked(
+                lambda: stacked(cell(ssm_lib.init_mlstm), m_per), groups)
+            params["slstm"] = stacked(cell(ssm_lib.init_slstm), groups)
+        else:
+            period, groups, tail = self._hybrid_layout()
+
+            def mamba():
+                return {"norm": norm(), "cell": ssm_lib.init_mamba2(
+                    gen, dev, d, cfg.ssm_state, cfg.ssm_head_dim,
+                    dtype=dt)}
+
+            params["mamba_pre"] = stacked(
+                lambda: stacked(mamba, period - 1), groups)
+            params["mamba_post"] = stacked(mamba, groups)
+            if tail:
+                params["mamba_tail"] = stacked(mamba, tail)
+            params["shared"] = block()
         return params
+
+    def _xlstm_layout(self):
+        """(mLSTM layers a group, groups) of the ssm family."""
+        m_per, s_per = self.cfg.xlstm_group
+        return m_per, self.cfg.num_layers // (m_per + s_per)
+
+    def _hybrid_layout(self):
+        """(period, groups, tail layers) of the hybrid family."""
+        period = self.cfg.hybrid_attn_every
+        groups = self.cfg.num_layers // period
+        return period, groups, self.cfg.num_layers - groups * period
 
     def param_shapes(self) -> Dict[str, Any]:
         """:meth:`init`'s tree with each leaf's shape, built on the meta
@@ -127,7 +186,8 @@ class LMModel:
 
     def param_dtypes(self) -> Dict[str, Any]:
         """:meth:`init`'s tree with each leaf's dtype: the model dtype,
-        but an MoE router's float32."""
+        but an MoE router's and a Mamba2 cell's ``a_log`` / ``dt_bias`` /
+        ``d_skip`` float32."""
         return _tree_map(lambda a: a.dtype, self._meta_params())
 
     def _meta_params(self) -> Dict[str, Any]:
@@ -152,20 +212,69 @@ class LMModel:
     @torch.no_grad()
     def apply(self, params, batch: Dict[str, torch.Tensor]):
         """Whole-sequence logits of ``batch['inputs'] [B, n]`` (int
-        tokens). Returns ``(logits [B, n, V] f32, aux)``; ``aux`` is the
-        reference's auxiliary loss — the MoE layers' load-balancing
-        losses summed in layer order, exactly 0 for the dense family.
-        Forward only:
-        the sparse layers run the kernels, which have no backward here
+        tokens; a vlm / audio model reads ``batch['embeddings'] [B, n,
+        d_model]`` instead where given). Returns ``(logits [B, n, V]
+        f32, aux)``; ``aux`` is the reference's auxiliary loss — the MoE
+        layers' load-balancing losses summed in layer order, exactly 0
+        for every other family. Forward only: the sparse layers run the
+        kernels, which have no backward here
         (``kernels.ops.energon_block_attention`` is the differentiable
-        pipeline)."""
+        pipeline), so the reference's remat has nothing to do."""
         cfg = self.cfg
-        x = self._embed(params, batch["inputs"])
-        x, aux = tfm.apply_stack(
-            params["blocks"], x, self.layer_windows(), self._tfm_block_fn(),
-            prefix_layers=cfg.energon.min_prune_layer,
-        )
+        x = self._embed_in(params, batch, "inputs")
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.family in TRANSFORMER_FAMILIES:
+            x, aux = tfm.apply_stack(
+                params["blocks"], x, self.layer_windows(),
+                self._tfm_block_fn(),
+                prefix_layers=cfg.energon.min_prune_layer,
+            )
+        elif cfg.family == "ssm":
+            x = self._apply_xlstm(params, x)
+        else:
+            x = self._apply_hybrid(params, x)
         return self._logits_out(params, x), aux
+
+    def _apply_xlstm(self, params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        m_per, groups = self._xlstm_layout()
+        for g in range(groups):
+            for j in range(m_per):
+                p = params["mlstm"]
+                p = tfm.layer_slice(tfm.layer_slice(p, g), j)
+                x = x + ssm_lib.mlstm_seq(
+                    p["cell"], L.apply_norm(cfg.norm, p["norm"], x),
+                    cfg.num_heads)
+            p = tfm.layer_slice(params["slstm"], g)
+            x = x + ssm_lib.slstm_seq(
+                p["cell"], L.apply_norm(cfg.norm, p["norm"], x),
+                cfg.num_heads)
+        return x
+
+    def _mamba_layers(self, params):
+        """Each Mamba2 layer's parameters in the hybrid's layer order,
+        with None where the shared attention block runs."""
+        period, groups, tail = self._hybrid_layout()
+        for g in range(groups):
+            pre = tfm.layer_slice(params["mamba_pre"], g)
+            for j in range(period - 1):
+                yield ("mamba_pre", g, j), tfm.layer_slice(pre, j)
+            yield ("shared_attn", g), None
+            yield ("mamba_post", g), tfm.layer_slice(params["mamba_post"], g)
+        for t in range(tail):
+            yield ("mamba_tail", t), tfm.layer_slice(params["mamba_tail"], t)
+
+    def _apply_hybrid(self, params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        block_fn = self._tfm_block_fn()
+        for _, p in self._mamba_layers(params):
+            if p is None:      # the shared block, weights shared
+                x, _ = block_fn(params["shared"], x, None, SHARED_LAYER)
+                continue
+            x = x + ssm_lib.mamba2_seq(
+                p["cell"], L.apply_norm(cfg.norm, p["norm"], x),
+                cfg.ssm_state, cfg.ssm_head_dim)
+        return x
 
     @torch.no_grad()
     def loss(self, params, batch: Dict[str, torch.Tensor]):
@@ -202,44 +311,104 @@ class LMModel:
         return max_len
 
     @property
-    def supports_paged(self) -> bool:
-        e = self.cfg.energon
-        return e.decode_key_block > 0 and e.impl in (
-            "mpmrf_row", "mpmrf_block", "pallas"
-        )
+    def supports_prefill(self) -> bool:
+        """True when the family has a multi-token chunked-prefill path.
+        The recurrent families (ssm, hybrid) carry sequential state and
+        admit prompts token by token in the serving loop."""
+        return self.cfg.family in TRANSFORMER_FAMILIES
 
-    def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
-        """Contiguous per-slot caches stacked ``[L, B, KV, rows, hd]``
-        (rows = :meth:`decode_cache_len`); the filter planes exist only
-        when the crossover gate engages at that length."""
+    @property
+    def supports_paged(self) -> bool:
+        """True when the family can serve from the shared page pool: a
+        positional KV cache (an attention family: recurrent state is
+        O(1) per slot), a positive ``decode_key_block`` (pages are decode
+        key blocks) and a non-dense impl."""
+        e = self.cfg.energon
+        return self.supports_prefill and e.decode_key_block > 0 and (
+            e.impl in ("mpmrf_row", "mpmrf_block", "pallas"))
+
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
+        """The decode cache of ``batch`` slots, each leaf allocated once
+        by :func:`attention.stacked_leaf`. An attention family's
+        contiguous per-slot K/V caches are stacked ``[L, B, KV, rows,
+        hd]`` (rows = :meth:`decode_cache_len`), the filter planes only
+        where the crossover gate engages at that length. The ssm family's
+        recurrent states are stacked ``[groups, m]`` (``mlstm``) and
+        ``[groups]`` (``slstm``); the hybrid's ``[groups, period − 1]``
+        (``mamba_pre``), ``[groups]`` (``mamba_post``, and
+        ``shared_attn``: one contiguous K/V cache a group, gated as the
+        dense one) and ``[tail]`` (``mamba_tail``)."""
         cfg = self.cfg
         rows = self.decode_cache_len(max_len)
-        filter_block = (cfg.energon.decode_key_block
-                        if cfg.energon.filter_cache_engages(rows) else 0)
-        one = attn_lib.init_kv_cache(
-            batch, cfg.num_kv_heads, rows, cfg.head_dim, self.dtype,
-            "meta", filter_block=filter_block,
-        )
-        scratch = attn_lib.contiguous_scratch(cfg.head_dim)
-        return {
-            k: attn_lib.stacked_leaf(cfg.num_layers, v.shape, v.dtype,
-                                     self.device, scratch.get(k, 0))
-            for k, v in one.items()
+
+        def stack(n, tree, scratch=None):
+            lead = n if isinstance(n, tuple) else (n,)
+            return {k: attn_lib.stacked_leaf(
+                lead[0], lead[1:] + tuple(v.shape), v.dtype, self.device,
+                (scratch or {}).get(k, 0)) for k, v in tree.items()}
+
+        def attn_cache(n):
+            filter_block = (cfg.energon.decode_key_block
+                            if cfg.energon.filter_cache_engages(rows) else 0)
+            one = attn_lib.init_kv_cache(
+                batch, cfg.num_kv_heads, rows, cfg.head_dim, self.dtype,
+                "meta", filter_block=filter_block,
+            )
+            return stack(n, one, attn_lib.contiguous_scratch(cfg.head_dim))
+
+        if cfg.family in TRANSFORMER_FAMILIES:
+            return attn_cache(cfg.num_layers)
+        d, dt = cfg.d_model, self.dtype
+        if cfg.family == "ssm":
+            m_per, groups = self._xlstm_layout()
+            return {
+                "mlstm": stack((groups, m_per), ssm_lib.mlstm_init_state(
+                    batch, d, cfg.num_heads, dt, "meta")),
+                "slstm": stack(groups, ssm_lib.slstm_init_state(
+                    batch, d, device="meta")),
+            }
+        period, groups, tail = self._hybrid_layout()
+        state = ssm_lib.mamba2_init_state(
+            batch, d, cfg.ssm_state, cfg.ssm_head_dim, dtype=dt,
+            device="meta")
+        cache = {
+            "mamba_pre": stack((groups, period - 1), state),
+            "mamba_post": stack(groups, state),
+            "shared_attn": attn_cache(groups),
         }
+        if tail:
+            cache["mamba_tail"] = stack(tail, state)
+        return cache
+
+    #: the batch axis of each recurrent-state cache key's leaves (their
+    #: leading axes are the stacked layer-group axes)
+    _STATE_BATCH_AXES = {
+        "mlstm": 2, "slstm": 1,
+        "mamba_pre": 2, "mamba_post": 1, "mamba_tail": 1,
+    }
+    #: the attention serve-cache keys (K/V rows and the filter planes)
+    _ATTN_CACHE_KEYS = ("k", "v", "k_codes", "k_scale")
 
     def reset_decode_slots(self, cache, reset_mask: torch.Tensor):
-        """Zero, in place, the K/V rows, codes and scales of the masked
-        slots (``reset_mask`` bool ``[B]``) of a contiguous cache: a block
-        mixing a new prompt's rows with its previous occupant's stale ones
-        would quantize the real rows against an inflated absmax. Only
-        ``impl="dense"``, which never quantizes, keeps the stale rows
-        (positional writes overwrite them before they are read)."""
+        """Zero, in place, the decode state of the masked slots
+        (``reset_mask`` bool ``[B]``): recurrent states accumulate, and a
+        freshly admitted slot must not inherit its previous occupant's.
+        The K/V rows, codes and scales of the masked slots are zeroed
+        too: a block mixing a new prompt's rows with its previous
+        occupant's stale ones would quantize the real rows against an
+        inflated absmax. Only ``impl="dense"``, which never quantizes,
+        keeps the stale rows (positional writes overwrite them before
+        they are read). The reset slots are the mask's True ones."""
+        mask = reset_mask.to(self.device)
+        for key, ax in self._STATE_BATCH_AXES.items():
+            for leaf in cache.get(key, {}).values():
+                _zero_slots(leaf, mask, ax)
         if self.cfg.energon.impl == "dense":
             return cache
-        slots = torch.nonzero(reset_mask.to(self.device)).reshape(-1)
-        for key in ("k", "v", "k_codes", "k_scale"):
-            if key in cache:
-                cache[key][:, slots] = 0
+        attn = cache.get("shared_attn", cache)
+        for key in self._ATTN_CACHE_KEYS:
+            if key in attn:
+                _zero_slots(attn[key], mask, 1)
         return cache
 
     def init_paged_cache(
@@ -251,7 +420,8 @@ class LMModel:
         cfg = self.cfg
         if not self.supports_paged:
             raise ValueError(
-                f"paged cache unsupported for impl={cfg.energon.impl!r}"
+                f"paged cache unsupported for family={cfg.family!r} / "
+                f"impl={cfg.energon.impl!r}"
             )
         ps = cfg.energon.decode_key_block
         gate_len = max_len if max_len is not None else num_pages * ps
@@ -296,6 +466,15 @@ class LMModel:
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         x = L.embed_tokens(params["embed"], tokens).to(self.dtype)
         return x * (self.cfg.d_model ** 0.5)
+
+    def _embed_in(self, params, inputs: Dict[str, torch.Tensor],
+                  tokens: str) -> torch.Tensor:
+        """The stack's input: ``inputs['embeddings']`` cast to the model
+        dtype (unscaled) where the family reads embeddings and they are
+        given, else the scaled embedding of ``inputs[tokens]``."""
+        if self.cfg.uses_embeddings_input and "embeddings" in inputs:
+            return inputs["embeddings"].to(self.dtype)
+        return self._embed(params, inputs[tokens])
 
     def _logits_out(self, params, x: torch.Tensor) -> torch.Tensor:
         x = L.apply_norm(self.cfg.norm, params["final_norm"], x)
@@ -344,9 +523,14 @@ class LMModel:
         stats is int32 ``[L, B, 4]`` per-layer selection counts
         (:func:`repro_torch.core.filtering.selection_stats`; zeros for
         the dense prefix layers). Logits and cache are the same bits
-        either way."""
+        either way. A vlm / audio model reads ``inputs['embeddings'] [B,
+        C, d_model]`` in place of the tokens where given. The recurrent
+        families have no chunked prefill (:attr:`supports_prefill`)."""
         cfg, moe_cfg = self.cfg, self._moe_cfg()
-        x = self._embed(params, inputs["tokens"])
+        if not self.supports_prefill:
+            raise NotImplementedError(
+                f"chunked prefill not supported for family {cfg.family!r}")
+        x = self._embed_in(params, inputs, "tokens")
         chunk = x.shape[1]
         positions = inputs.get("positions")
         if positions is None:
@@ -389,18 +573,35 @@ class LMModel:
     @torch.no_grad()
     def decode_step(self, params, cache, inputs: Dict[str, torch.Tensor],
                     cache_index: torch.Tensor, telemetry: bool = False):
-        """One-token decode: ``inputs['tokens'] [B, 1]``; ``cache_index
-        [B]`` current lengths. With ``inputs['block_table']`` the page
-        pool is read and optional ``inputs['active'] [B]`` drops inactive
-        slots' appends; without it the contiguous cache is written
-        positionally, as in the reference (an index ≥ the cache rows
-        writes nothing — the engine's idle-slot sentinel). Returns
-        ``(logits [B, 1, V] f32, cache)``; with ``telemetry`` also the
-        int32 ``[L, B, 4]`` stats, as :meth:`prefill`."""
+        """One-token decode: ``inputs['tokens'] [B, 1]`` (a vlm / audio
+        model reads ``inputs['embeddings'] [B, 1, d_model]`` instead
+        where given); ``cache_index [B]`` current lengths. With
+        ``inputs['block_table']`` the page pool is read and optional
+        ``inputs['active'] [B]`` drops inactive slots' appends; without
+        it the contiguous cache is written positionally, as in the
+        reference (an index ≥ the cache rows writes nothing — the
+        engine's idle-slot sentinel). A recurrent family's state
+        advances, in place, only on the ``active`` slots (every slot
+        without it); the hybrid's shared block decodes over its
+        contiguous cache. Returns ``(logits [B, 1, V] f32, cache)``; with
+        ``telemetry`` also the int32 ``[L, B, 4]`` stats, as
+        :meth:`prefill` — ``[0, B, 4]`` for a recurrent family, as the
+        reference reports (its attention, if any, lives inside the group
+        scans)."""
         cfg, moe_cfg = self.cfg, self._moe_cfg()
-        x = self._embed(params, inputs["tokens"])
-        block_table = inputs.get("block_table")
+        x = self._embed_in(params, inputs, "tokens")
         cache_index = cache_index.to(torch.int32)
+        if cfg.family == "ssm":
+            x = self._decode_xlstm(params, cache, x, inputs.get("active"))
+        elif cfg.family == "hybrid":
+            x = self._decode_hybrid(params, cache, x, cache_index,
+                                    inputs.get("active"))
+        if cfg.family not in TRANSFORMER_FAMILIES:
+            if telemetry:
+                x = (x, torch.zeros((0, x.shape[0], 4), dtype=torch.int32,
+                                    device=x.device))
+            return self._serve_out(params, cache, x, telemetry)
+        block_table = inputs.get("block_table")
         write = self._write_plan(cache, cache_index[:, None], block_table,
                                  inputs.get("active"))
         if block_table is None:
@@ -424,6 +625,76 @@ class LMModel:
             params["blocks"], x, cache, self.layer_windows(), step_fn,
             prefix_layers=cfg.energon.min_prune_layer, telemetry=telemetry,
         ), telemetry)
+
+    def _decode_xlstm(self, params, cache, x: torch.Tensor,
+                      active: Optional[torch.Tensor]) -> torch.Tensor:
+        cfg = self.cfg
+        m_per, groups = self._xlstm_layout()
+        for g in range(groups):
+            for j in range(m_per + 1):      # m_per mLSTM layers, 1 sLSTM
+                key = "mlstm" if j < m_per else "slstm"
+                step = ssm_lib.mlstm_step if j < m_per else ssm_lib.slstm_step
+                p = tfm.layer_slice(params[key], g)
+                st = tfm.layer_slice(cache[key], g)
+                if j < m_per:
+                    p, st = tfm.layer_slice(p, j), tfm.layer_slice(st, j)
+                h, new = step(p["cell"], L.apply_norm(cfg.norm, p["norm"], x),
+                              st, cfg.num_heads)
+                x = x + h
+                _advance_state(st, new, active)
+        return x
+
+    def _decode_hybrid(self, params, cache, x: torch.Tensor,
+                       cache_index: torch.Tensor,
+                       active: Optional[torch.Tensor]) -> torch.Tensor:
+        cfg = self.cfg
+        shared = cache["shared_attn"]
+        write = attn_lib.cache_write_plan(
+            cache_index[:, None], shared["k"].shape[-2], cfg.num_kv_heads)
+
+        def attn(kv_cache):
+            return lambda p, xn: attn_lib.decode_attention_block(
+                p, xn, kv_cache, cache_index, write, cfg.energon,
+                **self._attn_kwargs(SHARED_LAYER, None))
+
+        for where, p in self._mamba_layers(params):
+            st = cache[where[0]]
+            for i in where[1:]:
+                st = tfm.layer_slice(st, i)
+            if p is None:      # the shared block over group g's cache
+                x = tfm.block_step(params["shared"], x, attn(st),
+                                   activation=cfg.activation, norm=cfg.norm)
+                continue
+            h, new = ssm_lib.mamba2_step(
+                p["cell"], L.apply_norm(cfg.norm, p["norm"], x), st,
+                cfg.ssm_state, cfg.ssm_head_dim)
+            x = x + h
+            _advance_state(st, new, active)
+        return x
+
+
+def _advance_state(state: Dict[str, torch.Tensor],
+                   new: Dict[str, torch.Tensor],
+                   active: Optional[torch.Tensor]) -> None:
+    """Write a layer's new recurrent state into its cache leaves (batch
+    axis 0), in place; with ``active`` only on the active slots, the
+    others keep theirs — a whole-batch step must not advance a slot
+    that did not really consume a token. No host sync: a graphed step
+    captures it."""
+    for key, leaf in state.items():
+        if active is None:
+            leaf.copy_(new[key])
+        else:
+            keep = active.reshape((-1,) + (1,) * (leaf.dim() - 1))
+            leaf.copy_(torch.where(keep, new[key], leaf))
+
+
+def _zero_slots(leaf: torch.Tensor, mask: torch.Tensor, axis: int) -> None:
+    """Zero, in place, ``leaf``'s entries of the ``mask`` slots (bool
+    ``[B]`` on batch ``axis``)."""
+    shape = [1] * leaf.dim()
+    shape[axis] = -1
+    leaf.masked_fill_(mask.reshape(shape), 0)
 
 
 def _stack_like(tree, n: int):

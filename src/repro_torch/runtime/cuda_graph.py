@@ -19,9 +19,11 @@ Capture, on the device's one capture stream:
   never freed once handed out), the cached SM count, occupancy and
   shared-memory attributes, cuBLAS's workspace;
 * warm-up and capture run with every slot inactive — decode with
-  ``active`` all false (paged) or every index at the cache-rows sentinel
+  ``active`` all false (paged, and a recurrent family's, whose state
+  then advances on no slot) or every index at the cache-rows sentinel
   (contiguous), prefill with every position at the sentinel — so every
-  K/V write lands in the cache's scratch target and no live row changes.
+  K/V write lands in the cache's scratch target and no live row or
+  state changes.
   They still re-quantize blocks whose rows they did not change, which
   gives those blocks their codes again; only an all-zero block's scale
   moves from the reset value 0 to the quantizer's floor, so the scales
@@ -93,11 +95,13 @@ def idle_inputs(model, method: str, cache, inputs: Dict[str, torch.Tensor],
     slot is inactive, so no K/V write lands on a cache row: tokens 0,
     block tables 0, paged ``active`` false, prefill positions and
     contiguous decode indices at the cache-rows sentinel."""
+    attn = cache.get("shared_attn", cache)
     if "block_table" in inputs:
         ps = model.cfg.energon.decode_key_block
         sentinel = inputs["block_table"].shape[-1] * ps
     else:
-        sentinel = cache["k"].shape[-2]
+        # an attention-free cache (xLSTM's) reads no index
+        sentinel = attn["k"].shape[-2] if "k" in attn else 0
     static = {k: torch.zeros_like(v) for k, v in inputs.items()}
     index = torch.zeros_like(cache_index)
     if "positions" in static:
@@ -113,7 +117,8 @@ def run_idle(model, method: str, params, cache, static, index,
     cache bit for bit as it was: its writes land in the scratch target,
     its re-quantization reproduces each block's codes, and the scales
     (where only an all-zero block's would move) are put back."""
-    leaf = cache.get("k_scale", ())       # a tuple: a pool's head shards
+    # a tuple: a pool's head shards; a hybrid's in its shared block
+    leaf = cache.get("shared_attn", cache).get("k_scale", ())
     parts = leaf if isinstance(leaf, tuple) else (leaf,)
     scales = [p.clone() for p in parts]
     getattr(model, method)(params, cache, static, index, telemetry=telemetry)
@@ -177,8 +182,11 @@ class GraphedStep:
         key = tuple(sorted((k, tuple(v.shape)) for k, v in inputs.items()))
         cap = self._graphs.get(key)
         if cap is None:
+            # a recurrent state advances on the active slots only
             live = ("positions" if self.method == "prefill" else
-                    "active" if "block_table" in inputs else None)
+                    "active" if ("block_table" in inputs
+                                 or not self.model.supports_prefill)
+                    else None)
             if live is not None and live not in inputs:
                 raise ValueError(
                     f"a graphed {self.method} needs inputs[{live!r}]: "

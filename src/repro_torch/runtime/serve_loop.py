@@ -535,9 +535,12 @@ class ServeLoop:
         self.paged = model.supports_paged if paged is None else bool(paged)
         if self.paged and not model.supports_paged:
             raise ValueError(
-                "paged serving needs decode_key_block > 0 and a non-dense "
-                "impl"
+                "paged serving needs an attention family with "
+                "decode_key_block > 0 and a non-dense impl"
             )
+        if mesh is not None and not self.paged:
+            # the recurrent families' caches, and the contiguous one
+            raise ValueError("mesh serving requires the paged cache")
         # prefix sharing aliases pages through block tables: paged only
         if prefix_sharing is None:
             prefix_sharing = self.paged
@@ -558,8 +561,9 @@ class ServeLoop:
         self._prefill = self._decode = None
         if self.cuda_graphs:
             pool = torch.cuda.graph_pool_handle()
-            self._prefill = GraphedStep(model, "prefill", self.device, pool,
-                                        telemetry=self._telemetry)
+            if model.supports_prefill:
+                self._prefill = GraphedStep(model, "prefill", self.device,
+                                            pool, telemetry=self._telemetry)
             self._decode = GraphedStep(model, "decode_step", self.device,
                                        pool, telemetry=self._telemetry)
         self.batch_slots = batch_slots
@@ -576,10 +580,12 @@ class ServeLoop:
         self.prefill_chunk = max(1, min(prefill_chunk, max_len))
         cfg = model.cfg
         # per (slot, KV head) row, so a head shard's launches (B·KV/M
-        # rows) take what the whole pool's do
+        # rows) take what the whole pool's do; a model without chunked
+        # prefill admits one token a step
         faults = serving_faults(
             cfg.energon, group=cfg.num_heads // cfg.num_kv_heads,
-            cache_len=rows, chunk=self.prefill_chunk, paged=self.paged,
+            cache_len=rows, paged=self.paged,
+            chunk=self.prefill_chunk if model.supports_prefill else 1,
             head_dim=cfg.head_dim, dtype=model.dtype,
             cuda_kernels=self.device.type == "cuda",
             windows=model.layer_windows(),
@@ -762,9 +768,10 @@ class ServeLoop:
         index = self._cache_index()
         chunk = np.zeros((batch, self.prefill_chunk), np.int32)
         with shd.active_mesh(self.mesh):
-            self._prefill.prepare(self.params, self.cache, {
-                "tokens": self._tensor(chunk),
-                "positions": self._tensor(chunk), **table}, index)
+            if self._prefill is not None:
+                self._prefill.prepare(self.params, self.cache, {
+                    "tokens": self._tensor(chunk),
+                    "positions": self._tensor(chunk), **table}, index)
             self._decode.prepare(self.params, self.cache, {
                 "tokens": self._tensor(np.zeros((batch, 1), np.int32)),
                 "active": self._tensor(np.zeros((batch,), bool),
@@ -979,14 +986,16 @@ class ServeLoop:
                 self._reset_pages(new_pages)
             self.metrics.peak_pages_in_use = self.allocator.peak_pages_in_use
         elif admitted_slots:
+            # admitted slots must not inherit their previous occupants'
+            # recurrent state or stale K/V rows: one masked pass a wave
             mask = np.zeros((self.batch_slots,), bool)
             mask[admitted_slots] = True
             self.model.reset_decode_slots(self.cache, self._tensor(
                 mask, torch.bool))
-        for i, req in sequential:
-            # a one-token prompt writes nothing before its first decode
-            req._next_input = req.prompt[-1] if req.prompt else self.eos
-            req.state = "decode"
+        if sequential:
+            # token by token, synchronously under both schedulers: there
+            # is no chunk structure to interleave
+            self._sequential_prefill_wave(sequential)
         if chunked:
             if self._hybrid:
                 self._enqueue_prefill_jobs(chunked)
@@ -1001,7 +1010,8 @@ class ServeLoop:
         cover it."""
         resumed = bool(req.tokens_out)
         seq_tokens = req.prompt + req.tokens_out[:-1] if resumed else req.prompt
-        use_chunked = resumed or len(req.prompt) > 1
+        use_chunked = resumed or (self.model.supports_prefill
+                                  and len(req.prompt) > 1)
         skip = 0
         if self.paged:
             skip = self._admit_pages(i, req, seq_tokens, use_chunked,
@@ -1076,11 +1086,14 @@ class ServeLoop:
             self.metrics.prefill_tokens_skipped += skip
         return skip
 
-    @staticmethod
-    def _chunked_len(req: Request) -> int:
+    def _chunked_len(self, req: Request) -> int:
         """Rows a request's first admission wrote by chunked prefill (a
-        one-token prompt's row is written by its first decode step)."""
-        return len(req.prompt) if len(req.prompt) > 1 else 0
+        one-token prompt's row is written by its first decode step; a
+        model without chunked prefill writes every row by decode steps,
+        so a resumed request replays them all)."""
+        return (len(req.prompt)
+                if len(req.prompt) > 1 and self.model.supports_prefill
+                else 0)
 
     def _resume(self, i: int, req: Request):
         """A restored slot decodes once its rows reach what it had
@@ -1165,6 +1178,44 @@ class ServeLoop:
             for st in torch.stack(stats_chunks).cpu().numpy():
                 self.obs.record_prefill_stats(st)
         self._complete_prefill(admitted, last_logits)
+
+    def _sequential_prefill_wave(self, admitted):
+        """Token-by-token admission for models without chunked prefill
+        (the recurrent families) and one-token prompts: every admitted
+        slot marches together, token t of each prompt riding one
+        whole-batch decode step (the graphed one where graphs are on),
+        so a wave costs max(Lᵢ) − 1 dispatches. The ``active`` mask
+        advances the recurrent state of exactly the slots that consumed
+        a token; on the contiguous cache the other slots step at the
+        ``max_len`` sentinel, which writes no K/V row (the reference
+        writes a row at a live neighbour's length, which its next token
+        overwrites, block planes re-quantized from the float rows)."""
+        t0 = time.perf_counter()
+        n_steps = max(len(req.prompt) - 1 for _, req in admitted)
+        for t in range(n_steps):
+            tokens = np.full((self.batch_slots, 1), self.eos, np.int32)
+            active = np.zeros((self.batch_slots,), bool)
+            for i, req in admitted:
+                if t < len(req.prompt) - 1:
+                    tokens[i, 0] = req.prompt[t]
+                    active[i] = True
+            inputs = {"tokens": self._tensor(tokens),
+                      "active": self._tensor(active, torch.bool)}
+            # only a contiguous cache takes a step here: a paged model
+            # admits only one-token prompts this way, which take none
+            index = np.where(active, self._lengths, self.max_len)
+            out = self._dispatch(self._step_fn("decode_step"), self.params,
+                                 self.cache, inputs, self._tensor(index))
+            self.cache = out[1]
+            self._lengths += active
+            self.metrics.prefill_dispatches += 1
+            self.metrics.prefill_tokens += int(active.sum())
+        if n_steps > 0:
+            synchronize(self.device)
+            self.metrics.prefill_time += time.perf_counter() - t0
+        for i, req in admitted:
+            req._next_input = req.prompt[-1] if req.prompt else self.eos
+            req.state = "decode"
 
     def _complete_prefill(self, entries, last_logits):
         """The shared tail of a sync wave and of hybrid job completion,

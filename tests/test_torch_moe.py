@@ -96,10 +96,16 @@ def test_configs_equal_the_reference(arch):
 
 
 def test_other_families_are_still_refused():
+    """Every family of the reference builds (dense, moe, vlm, audio, ssm
+    and hybrid); a family the reference does not know is refused, as the
+    reference refuses it."""
     cfg = registry.get_smoke_config("olmoe-1b-7b")
-    for family in ("ssm", "hybrid", "vlm", "audio"):
-        with pytest.raises(NotImplementedError, match=family):
+    for family in ("rnn", "encoder"):
+        with pytest.raises(ValueError, match=f"unknown family {family}"):
             LMModel(dataclasses.replace(cfg, family=family), device="cpu")
+    for arch in ("llava-next-34b", "musicgen-medium", "zamba2-7b",
+                 "xlstm-1.3b"):
+        LMModel(registry.get_smoke_config(arch), device="cpu")
 
 
 def _shapes(tree):
