@@ -327,6 +327,38 @@ within 70 GB and the card's name and power limit on a line of its own:
     attention path taken by mistake would launch one);
     ``[profile-decode-xlstm]``.
 
+Training, once the last family is released (no kernel has a backward,
+as no Pallas kernel of the reference has one, so these phases launch
+none of B1–B11):
+
+27. ``[train]``: qwen3-14b at published widths (d 5120, 40 / 8 heads of
+    128, d_ff 17408, vocab 151936, the untied head) cut to
+    ``TRAIN_LAYERS`` layers, its shipped training config (bf16, remat
+    full, mpmrf_block ρ 4 from layer 2), through launch/train.py's loop
+    (``make_loop``): 4 steps of 4 × 2048 tokens in 2 microbatches,
+    AdamW with warmup-cosine. Every loss and grad norm finite; median
+    step ms, tokens/s, 6·N·tokens/s as a share of the bf16 dense peak,
+    the device-memory peak (within 70 GB) and the loss of every step.
+    Then a run preempted after step 2, which saves its step-2 checkpoint
+    into a temporary directory as it stops, and a fresh loop that
+    resumes from it (and saves no checkpoint of its own: the card's
+    machine takes 45 GiB of disk writes a call): the restored state's
+    every leaf equal to the saved state's bit for bit (an exact digest
+    of the bits on the device), the data state at step 2, and the
+    resumed steps 3–4's losses within
+    ``TRAIN_LOSS_RTOL`` of the uninterrupted run's.
+28. ``[train-lm]``: the 100M ``repro_torch.train_lm`` config at its full
+    size (12L, d 768, f32, remat dots, mpmrf_row from layer 2): 60 steps
+    of 8 × 512, warmup_cosine(3e-4, 6, 60), first on a 200k-token corpus
+    (``[train-lm-200k]``, printed, not gated: its tokens are seen ≈ 1.2
+    times, too few to learn from, so the loss only falls toward the
+    uniform ln 32768), then on 50k (``[train-lm-50k]``,
+    ``TRAIN_LM_CORPUS``): the last logged loss at least 0.25 below the
+    first (the reference's ``test_training_learns`` margin); median step
+    ms, tokens/s, peak.
+29. A ``pallas`` model's ``loss`` under grad refused, on the card as on
+    the CPU, before any kernel launch; without grad it scores on B9.
+
 The line before last is a JSON object listing each kernel's launches
 (B1–B4 in phase 4, B5–B8 in phase 8, B9–B11 in phase 15; those of
 phases 17–19 beside them), error and
@@ -342,8 +374,8 @@ eager/graphed drains, the
 scoring results (with the ptxas report), the unpaged serve and the paged
 serve, the telemetry and chaos phases, the long-score / XLA phases and
 the dense configs', the MoE and the expert-parallel / qwen3-moe phases
-and the vlm / audio and recurrent families' (``{"families": …}``) are
-on the lines before it; the last line is ``{"ok": true, "device":
+and the vlm / audio and recurrent families' (``{"families": …}``) and the
+training phases' (``{"training": …}``) are on the lines before it; the last line is ``{"ok": true, "device":
 ...}``.
 Any failure exits non-zero before printing either.
 """
@@ -4482,6 +4514,333 @@ def _leaves(tree):
         yield tree
 
 
+#: qwen3-14b's depth in ``[train]``: the deepest whose phase peak stays
+#: within ``PEAK_LIMIT_GB`` (width never cut)
+TRAIN_LAYERS = 6
+#: the ``[train]`` traffic: launch/train.py's arguments
+TRAIN_RUN = dict(steps=4, seq_len=2048, global_batch=4, microbatches=2,
+                 lr=3e-4)
+#: the ``[train]`` corpus (zipf tokens): one ``default_rng`` a token on
+#: the host, so kept small; 4 steps of 4 × 2049-token windows
+TRAIN_CORPUS = 50_000
+#: the resumed steps' losses against the uninterrupted run's: the
+#: backward's scatter-adds (the embedding's, the gathers') sum in bf16
+#: in an order the atomics choose, so two runs part in the last bits
+TRAIN_LOSS_RTOL = 5e-3
+#: the dense bf16 peak of one H100 SXM (NVIDIA's data sheet, without
+#: sparsity, at 700 W), for 6·N·tokens/s as a share of it
+BF16_PEAK_FLOPS = 989e12
+#: ``[train-lm]``: 60 steps of 8 × 512 tokens on a 50k-token zipf
+#: corpus, and the reference's test_training_learns margin. Over a
+#: 32768-token vocabulary no (prev, cur) context of the order-2 chain
+#: recurs inside the corpus (199973 distinct of 199999 at 200k tokens:
+#: tests/test_torch_data.py), so the model learns only from seeing the
+#: same windows again: ≈ 5 visits a token at 50k, ≈ 1.2 at 200k, where
+#: the loss only falls toward the uniform ln 32768 = 10.397, within
+#: noise of the margin: that run is printed, not gated
+TRAIN_LM_STEPS, TRAIN_LM_CORPUS, TRAIN_LM_MARGIN = 60, 50_000, 0.25
+
+
+def state_digest(params, opt_state) -> dict:
+    """An exact 64-bit digest of each leaf's bits of a train state
+    (params and AdamW state): Σ bitsᵢ · wᵢ mod 2^64 with odd weights wᵢ
+    of the position, on the device in slices. A change of any one
+    element changes it (an odd weight times a nonzero difference below
+    2^32 is nonzero mod 2^64)."""
+    import torch
+
+    from repro_torch.optim.adamw import tree_leaves
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    tree = {"params": params, "step": opt_state.step, "mu": opt_state.mu,
+            "nu": opt_state.nu}
+    out = {}
+    for name, leaf in tree_leaves(tree):
+        flat = leaf.detach().reshape(-1).view(ints[leaf.element_size()])
+        acc = torch.zeros((), dtype=torch.int64, device=leaf.device)
+        for start in range(0, flat.numel(), 1 << 26):
+            part = flat[start:start + (1 << 26)].to(torch.int64)
+            pos = torch.arange(start, start + part.numel(),
+                               dtype=torch.int64, device=leaf.device)
+            acc += (part * (pos * 0x1E3779B97F4A7C15 + 0x632BE5AB | 1)).sum()
+        out[name] = int(acc)
+    return out
+
+
+def _record_steps(loop, stop_after=None):
+    """Wrap ``loop.step_fn`` to keep each step's loss, grad norm and lr
+    (and request a preemption after ``stop_after`` steps)."""
+    seen = []
+    real = loop.step_fn
+
+    def step(*args):
+        out = real(*args)
+        seen.append({k: float(out[2][k]) for k in ("loss", "grad_norm",
+                                                    "lr")})
+        if stop_after is not None and len(seen) == stop_after:
+            loop.preemption.request_stop()
+        return out
+
+    loop.step_fn = step
+    return seen
+
+
+def _param_count(cfg) -> int:
+    from repro_torch.models import LMModel
+
+    return sum(math.prod(s) for s in _leaves(
+        LMModel(cfg, device="meta").param_shapes()))
+
+
+def train_phase(layers=TRAIN_LAYERS):
+    """``[train]``: qwen3-14b at full width cut to ``layers``, through
+    launch/train.py's loop (bf16, remat full, mpmrf_block ρ 4 from layer
+    2; 4 steps of 4 × 2048 tokens in 2 microbatches): the uninterrupted
+    run, then a run preempted after step 2 (its checkpoint at step 2 in
+    a temporary directory) and a fresh loop that resumes from it and
+    writes no checkpoint of its own (one of ≈ 35 GB fits the machine's
+    45 GiB of disk writes a call; two do not)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import list_checkpoints, step_dir
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as launch_train
+
+    full = get_config("qwen3-14b")
+    cfg = dataclasses.replace(full, num_layers=layers)
+    smi = card_line("train")
+    n_params = _param_count(cfg)
+    tokens = TRAIN_RUN["global_batch"] * TRAIN_RUN["seq_len"]
+    log(f"[train] {cfg.name} at full width (d {cfg.d_model}, "
+        f"{cfg.num_heads} / {cfg.num_kv_heads} heads of {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), depth cut to {layers} "
+        f"of {full.num_layers} layers: {n_params / 1e9:.3f} B parameters, "
+        f"{cfg.dtype}, remat {cfg.remat}, {cfg.energon.impl} ρ "
+        f"{cfg.energon.pruning_ratio} from layer "
+        f"{cfg.energon.min_prune_layer}; {TRAIN_RUN}")
+    kw = dict(TRAIN_RUN, device=DEV, corpus=TRAIN_CORPUS, log_every=1)
+    out = dict(layers=layers, of=full.num_layers, params=n_params, card=smi)
+
+    # the uninterrupted run
+    _free_device()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    loop = launch_train.make_loop(cfg, **kw)
+    whole = _record_steps(loop)
+    t0 = time.perf_counter()
+    res = loop.run()
+    wall = time.perf_counter() - t0
+    peak = _peak_gb()
+    need(res["final_step"] == TRAIN_RUN["steps"] and len(whole) == 4,
+         f"[train] ran {res['final_step']} steps")
+    need(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+             for s in whole), f"[train] non-finite loss or grad norm: {whole}")
+    step_s = res["median_step_time"]
+    tok_s = tokens / step_s
+    share = 6 * n_params * tok_s / BF16_PEAK_FLOPS
+    for i, s in enumerate(whole, 1):
+        log(f"[train] step {i}: loss {s['loss']!r} grad_norm "
+            f"{s['grad_norm']!r} lr {s['lr']:.3e} "
+            f"({res['history'][i - 1]['sec'] * 1e3:.1f} ms)")
+    log(f"[train] median step {step_s * 1e3:.1f} ms, {tok_s:.1f} tokens/s, "
+        f"6·N·tokens/s = {share * 100:.2f} % of the bf16 dense peak "
+        f"({BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s), peak {peak:.1f} GB, "
+        f"wall {wall:.1f} s (4 steps, the first with the allocator's "
+        f"growth) [{smi}]")
+    need(peak <= PEAK_LIMIT_GB,
+         f"[train] peak {peak:.1f} GB over {PEAK_LIMIT_GB} GB")
+    out.update(steps=whole, step_ms=step_s * 1e3, tok_s=tok_s,
+               flops_share=share, peak_gb=peak, wall_s=wall,
+               step_ms_each=[h["sec"] * 1e3 for h in res["history"]])
+    out["profile"] = profile_train_step(loop, res["params"],
+                                        res["opt_state"])
+    del loop, res
+    _free_device()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        # preempted after step 2: the loop saves step 2 as it stops
+        loop = launch_train.make_loop(cfg, checkpoint_dir=tmp,
+                                      checkpoint_every=10**9, **kw)
+        first = _record_steps(loop, stop_after=2)
+        t0 = time.perf_counter()
+        res = loop.run()
+        saved_s = time.perf_counter() - t0
+        need(res["final_step"] == 2
+             and [s for s, _ in list_checkpoints(tmp)] == [2],
+             f"[train] the preempted run stopped at {res['final_step']}, "
+             f"checkpoints {list_checkpoints(tmp)}")
+        digest = state_digest(res["params"], res["opt_state"])
+        del loop, res
+        _free_device()
+        size = sum(os.path.getsize(os.path.join(step_dir(tmp, 2), f))
+                   for f in ("arrays.npz", "manifest.json"))
+
+        # a fresh loop resumes from the step-2 checkpoint
+        loop = launch_train.make_loop(cfg, checkpoint_dir=tmp,
+                                      checkpoint_every=10**9, **kw)
+        real_init = loop._init_state
+        restored = {}
+
+        def init_and_check():
+            t0 = time.perf_counter()
+            params, opt, start = real_init()
+            restored.update(start=start, data=dict(loop.dataset.state),
+                            seconds=time.perf_counter() - t0,
+                            equal=state_digest(params, opt) == digest)
+            # the card's machine takes 45 GiB of disk writes a call: the
+            # phase writes the one checkpoint, so the resumed run (which
+            # would save again as it ends) saves none of its own
+            loop.checkpointer = None
+            return params, opt, start
+
+        loop._init_state = init_and_check
+        resumed = _record_steps(loop)
+        res = loop.run()
+        need(restored.get("start") == 2 and restored["data"] == {"step": 2},
+             f"[train] resumed at {restored}")
+        need(restored["equal"], "[train] the restored state differs from "
+             "the saved one")
+        need(res["final_step"] == 4 and len(resumed) == 2,
+             f"[train] the resumed run ended at {res['final_step']}")
+        del loop, res
+        _free_device()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ref = [s["loss"] for s in whole[2:]]
+    got = [s["loss"] for s in resumed]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+    log(f"[train] preempted after step 2 (losses {[s['loss'] for s in first]!r}"
+        f"; the uninterrupted run's {[s['loss'] for s in whole[:2]]!r}), "
+        f"checkpoint {size / 1e9:.2f} GB in {saved_s:.1f} s of that run's "
+        f"wall; a fresh loop restored step 2 in {restored['seconds']:.1f} s, "
+        f"every leaf's bits equal to the saved state's (exact digest)")
+    log(f"[train] resumed steps 3–4: losses {got!r} vs uninterrupted "
+        f"{ref!r}, |Δ|/|ref| {max(rel):.2e} (tolerance {TRAIN_LOSS_RTOL})")
+    need(max(rel) <= TRAIN_LOSS_RTOL,
+         f"[train] resumed losses {got} vs {ref}")
+    need(all(math.isfinite(s["grad_norm"]) for s in first + resumed),
+         "[train] non-finite grad norm after the resume")
+    out.update(preempted=first, resumed=resumed, resume_rel=max(rel),
+               checkpoint_gb=size / 1e9, preempted_wall_s=saved_s,
+               restore_s=restored["seconds"])
+    return out
+
+
+def profile_train_step(loop, params, opt_state, label="profile-train"):
+    """One more train step of ``loop``'s model and optimizer, on its next
+    batch, under ``torch.profiler``: device time by kernel and the
+    device's idle share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime import make_train_step
+
+    step = make_train_step(loop.model, loop.cfg.optimizer,
+                           num_microbatches=loop.cfg.num_microbatches)
+    batch = next(loop.dataset)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        t0 = time.perf_counter()
+        step(params, opt_state, batch)
+        sync()
+        wall = time.perf_counter() - t0
+    out = dict(wall_s=wall, **device_split(prof, wall, top=15))
+    log(f"[{label}] one train step: wall {wall:.3f} s, device busy "
+        f"{out['device_busy_s']:.3f} s over {out['kernels']} kernels, "
+        f"idle {out['idle_share']:.1%} (under the profiler)")
+    for r in out["top"]:
+        log(f"[{label}] {r['device_ms']:10.2f} ms  x{r['calls']:<6d} "
+            f"{r['name']}")
+    need(not out["port"], f"[{label}] a kernel of the port ran: "
+         f"{out['port']}")
+    return out
+
+
+def train_lm_phase(corpus=TRAIN_LM_CORPUS, gated=True):
+    """``[train-lm]``: the 100M train_lm config at its full size (12L, d
+    768, f32, remat dots, mpmrf_row from layer 2), 60 steps of 8 × 512
+    on a ``corpus``-token corpus, warmup_cosine(3e-4, 6, 60); the loss
+    must fall by ``TRAIN_LM_MARGIN`` where ``gated``."""
+    import torch
+
+    from repro_torch import train_lm
+
+    label = f"train-lm-{corpus // 1000}k"
+    smi = card_line(label)
+    _free_device()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    res = train_lm.run(steps=TRAIN_LM_STEPS, device=DEV,
+                       corpus_tokens=corpus)
+    peak = _peak_gb()
+    hist = res["history"]
+    losses = [(h["step"], h["loss"]) for h in hist]
+    fell = hist[0]["loss"] - hist[-1]["loss"]
+    step_s = res["median_step_time"]
+    tok_s = res["batch"] * res["seq"] / step_s
+    log(f"[{label}] {res['n_params'] / 1e6:.1f} M parameters, "
+        f"{TRAIN_LM_STEPS} steps of {res['batch']} × {res['seq']} on "
+        f"{corpus} corpus tokens: logged losses {losses!r}, fell by "
+        f"{fell:.3f}{'' if gated else ' (recorded, not gated)'}; median "
+        f"step {step_s * 1e3:.1f} ms, {tok_s:.1f} tokens/s, peak "
+        f"{peak:.2f} GB, wall {res['seconds']:.1f} s [{smi}]")
+    need(all(math.isfinite(l) for _, l in losses), f"[{label}] non-finite")
+    need(not gated or fell >= TRAIN_LM_MARGIN,
+         f"[{label}] loss {hist[0]['loss']} -> {hist[-1]['loss']}: fell "
+         f"by less than {TRAIN_LM_MARGIN}")
+    need(peak <= PEAK_LIMIT_GB, f"[{label}] peak {peak:.1f} GB")
+    out = dict(params=res["n_params"], corpus=corpus, losses=losses,
+               fell=fell, gated=gated, step_ms=step_s * 1e3, tok_s=tok_s,
+               peak_gb=peak, wall_s=res["seconds"], card=smi)
+    del res
+    _free_device()
+    return out
+
+
+def pallas_grad_refused():
+    """A ``pallas`` model's ``loss`` under grad raises on the card, as on
+    the CPU, before any full-sequence kernel launches; without grad it
+    scores through B9 / B10."""
+    import torch
+
+    from repro_torch.configs.registry import get_serve_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import LMModel
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_serve_config("qwen3-14b", smoke=True),
+                              dtype="bfloat16")
+    model = LMModel(cfg, device=DEV)
+    params = model.init(seed=0)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    toks = torch.randint(1, cfg.vocab_size, (2, 256), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    batch = {"inputs": toks, "targets": toks}
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        loss, _ = model.loss(params, batch)
+    scored = dict(_build.launch_counts)
+    _build.reset_launch_counts()
+    try:
+        adamw.accumulate_gradients(model.loss, params, batch, 1)
+    except NotImplementedError as exc:
+        message = str(exc)
+    else:
+        raise SmokeFailure("[train] a pallas loss under grad was not refused")
+    launched = {k: v for k, v in _build.launch_counts.items() if v}
+    need("mpmrf_block" in message and not launched,
+         f"[train] refusal {message!r}, launches {launched}")
+    need(bool(torch.isfinite(loss)) and scored[SCORE_KERNELS[0]] > 0,
+         f"[train] the pallas score without grad: {float(loss)}, {scored}")
+    log(f"[train] pallas loss under grad refused before any launch "
+        f"({message[:60]}…); without grad it scores through B9 "
+        f"({scored[SCORE_KERNELS[0]]} launches)")
+    return dict(refused=True, score_launches=scored)
+
+
 ENGINE_SOURCES = ("mpmrf_decode", "mpmrf_prefill", "mpmrf_filter",
                   "block_sparse_attention", "flash_attention")
 #: the engines' kernels and their instantiation counts: head dims ×
@@ -4681,6 +5040,13 @@ def main(argv=None) -> int:
     family_results = {name: [] for name in KERNELS}
     families = new_family_phases(family_results, blocks)
 
+    # training, once the last family's model is released: no kernel has
+    # a backward, so these phases launch none of B1–B11
+    training = dict(train=train_phase(),
+                    train_lm_200k=train_lm_phase(200_000, gated=False),
+                    train_lm=train_lm_phase(),
+                    pallas_refused=pallas_grad_refused())
+
     timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name, meta in KERNELS.items():
@@ -4751,6 +5117,7 @@ def main(argv=None) -> int:
     log(json.dumps({"moe": moe, "card": smi}))
     log(json.dumps({"moe_ep": moe_ep, "qwen3moe": qwen3moe, "card": smi}))
     log(json.dumps({"families": families, "card": smi}))
+    log(json.dumps({"training": training, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

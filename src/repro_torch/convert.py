@@ -14,6 +14,11 @@ cells (``mlstm`` / ``slstm``, ``mamba_pre`` / ``mamba_post`` /
 ``model.init`` gives it — the model dtype, but an MoE router's and a
 Mamba2 cell's ``a_log`` / ``dt_bias`` / ``d_skip`` float32 — on the
 target device.
+
+An optimizer state crosses the same way: :func:`convert_opt_state`
+takes the reference's ``AdamWState`` (numpy leaves) to the port's, and
+:func:`to_numpy_tree` brings any tree of the port back as numpy, so the
+two packages can start training from one state.
 """
 
 from __future__ import annotations
@@ -43,6 +48,52 @@ def to_torch_tree(tree: Any, device: DeviceLike = None,
             device=dev, dtype=dtype
         )
     return torch.from_numpy(np.array(arr)).to(dev)
+
+
+def _tensor_of(arr, dev) -> torch.Tensor:
+    """A numpy leaf as a tensor of its own dtype (bf16 kept)."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(arr, dtype=np.float32)).to(
+            device=dev, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(dev)
+
+
+def convert_opt_state(np_state, params):
+    """The reference's ``AdamWState`` (numpy leaves: ``step``, ``mu``,
+    ``nu`` — a factored moment's ``{"row", "col"}`` dicts included —,
+    ``compression_error``) → the port's, each leaf in its own dtype on
+    the params' device."""
+    from repro_torch.optim import AdamWState
+    from repro_torch.optim.adamw import tree_leaves
+
+    dev = tree_leaves(params)[0][1].device
+
+    def tree(x):
+        if x is None:
+            return None
+        if isinstance(x, Mapping):
+            return {k: tree(v) for k, v in x.items()}
+        return _tensor_of(x, dev)
+
+    return AdamWState(
+        step=_tensor_of(np_state.step, dev).to(torch.int32),
+        mu=tree(np_state.mu), nu=tree(np_state.nu),
+        compression_error=tree(np_state.compression_error))
+
+
+def to_numpy_tree(tree: Any) -> Any:
+    """A tree of the port (dicts, NamedTuples such as ``AdamWState``,
+    None subtrees) with each tensor leaf as numpy — bf16 as f32, which
+    holds it exactly."""
+    if tree is None:
+        return None
+    if isinstance(tree, Mapping):
+        return {k: to_numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_numpy_tree(v) for v in tree))
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def convert_params(np_params: Mapping, model) -> dict:

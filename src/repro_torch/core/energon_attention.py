@@ -25,6 +25,15 @@ prefix layers through B11. The reference lowers that call through its
 XLA scan only because its Pallas kernels are a TPU-runtime path; B9
 computes exactly the scan's block planes, so the survivor tables are
 the same.
+
+Under autograd (grad enabled and q, k or v requiring grad — the rule is
+the grad mode, never the device, so the CPU and the card behave alike)
+the CUDA kernels, which have no backward, are never entered: the
+chunked route takes the torch scan, the reference's own differentiable
+route there, and the direct ``pallas`` route raises, as the reference's
+``jax.grad`` through its ``pallas_call`` does. Without the refusal the
+kernels' outputs would carry no gradient to q/k/v on the card, while
+the CPU's plain versions would differentiate.
 """
 
 from __future__ import annotations
@@ -283,7 +292,7 @@ def _chunked_attention(q, k, v, cfg, impl, *, causal, window, q_offset,
 
     n_q, n_k = q.shape[-2], k.shape[-2]
     kernels = (cfg.impl == "pallas" and causal and window is None
-               and kv_length is None)
+               and kv_length is None and not _under_autograd(q, k, v))
     if kernels and impl == "pallas":
         from repro_torch.kernels import ops as kops
 
@@ -328,9 +337,23 @@ def _over_heads(fn, q, k, v, **kw):
     return out.reshape(q.shape)
 
 
+def _under_autograd(*tensors: torch.Tensor) -> bool:
+    """Would autograd record an op on ``tensors``?"""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _pallas_attention(q, k, v, cfg, causal, q_offset, scale):
-    """The Filtering Unit then the Attention Unit over ``[B·H, n, d]``."""
+    """The Filtering Unit then the Attention Unit over ``[B·H, n, d]``.
+    Refused under autograd: the kernels have no backward."""
     from repro_torch.kernels import ops as kops
+
+    if _under_autograd(q, k, v):
+        raise NotImplementedError(
+            "impl='pallas' runs the full-sequence CUDA kernels (B9, B10), "
+            "which have no backward, as the reference's pallas_call has "
+            "no transpose: train with impl='mpmrf_block' (or "
+            "'mpmrf_row' / 'dense'), or call the differentiable "
+            "kernels.ops.energon_block_attention directly")
 
     n_k = k.shape[-2]
     budget = max(1, math.ceil((n_k // cfg.key_block) / cfg.pruning_ratio))

@@ -20,8 +20,8 @@ its experts of the MoE leaves (the reference's ``P("model", …)`` slices
 of ``w_up`` / ``w_gate`` / ``w_down``), which ``models/moe.py`` runs
 shard by shard wherever :func:`expert_shards` says the reference would.
 
-The training rules (parameter, batch and activation specs) wait for the
-training slice of the port.
+The training rules (parameter, batch and activation specs) are ROADMAP
+A5: the port's train step runs on one device and refuses a mesh.
 """
 
 from __future__ import annotations

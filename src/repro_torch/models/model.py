@@ -1,7 +1,8 @@
 """LMModel — one config-driven surface for every family of the
 reference (port of ``repro.models.model.LMModel``): weight init,
-whole-sequence logits and loss (``apply`` / ``loss``, forward only),
-cache management, chunked prefill and one-token decode.
+whole-sequence logits and loss (``apply`` / ``loss``, differentiable
+in the params, rematerialized per ``cfg.remat``), cache management,
+chunked prefill and one-token decode.
 
 Families:
   dense / moe / vlm / audio — the decoder transformer stack, served over
@@ -209,24 +210,29 @@ class LMModel:
 
         return block_fn
 
-    @torch.no_grad()
     def apply(self, params, batch: Dict[str, torch.Tensor]):
         """Whole-sequence logits of ``batch['inputs'] [B, n]`` (int
         tokens; a vlm / audio model reads ``batch['embeddings'] [B, n,
         d_model]`` instead where given). Returns ``(logits [B, n, V]
         f32, aux)``; ``aux`` is the reference's auxiliary loss — the MoE
         layers' load-balancing losses summed in layer order, exactly 0
-        for every other family. Forward only: the sparse layers run the
-        kernels, which have no backward here
-        (``kernels.ops.energon_block_attention`` is the differentiable
-        pipeline), so the reference's remat has nothing to do."""
+        for every other family.
+
+        Differentiable in ``params`` (and ``embeddings``): each layer
+        runs under ``cfg.remat`` (:func:`transformer.remat_fn`; the
+        recurrent families checkpoint their blocks whenever remat is not
+        ``"none"``, as the reference does). The CUDA kernels have no
+        backward, as the reference's Pallas kernels have none: under
+        grad the direct ``impl="pallas"`` route raises, and the chunked
+        route takes the torch scan
+        (:func:`repro_torch.core.energon_attention.energon_attention`)."""
         cfg = self.cfg
         x = self._embed_in(params, batch, "inputs")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family in TRANSFORMER_FAMILIES:
             x, aux = tfm.apply_stack(
                 params["blocks"], x, self.layer_windows(),
-                self._tfm_block_fn(),
+                self._tfm_block_fn(), remat=cfg.remat,
                 prefix_layers=cfg.energon.min_prune_layer,
             )
         elif cfg.family == "ssm":
@@ -235,48 +241,61 @@ class LMModel:
             x = self._apply_hybrid(params, x)
         return self._logits_out(params, x), aux
 
+    def _block_remat(self, fn):
+        """A recurrent family's block under its checkpoint: the whole
+        block recomputed whenever ``cfg.remat`` is not ``"none"``."""
+        return tfm.remat_fn(fn, "none" if self.cfg.remat == "none"
+                            else "full")
+
     def _apply_xlstm(self, params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        m_per, groups = self._xlstm_layout()
-        for g in range(groups):
-            for j in range(m_per):
-                p = params["mlstm"]
-                p = tfm.layer_slice(tfm.layer_slice(p, g), j)
-                x = x + ssm_lib.mlstm_seq(
-                    p["cell"], L.apply_norm(cfg.norm, p["norm"], x),
-                    cfg.num_heads)
-            p = tfm.layer_slice(params["slstm"], g)
-            x = x + ssm_lib.slstm_seq(
-                p["cell"], L.apply_norm(cfg.norm, p["norm"], x),
-                cfg.num_heads)
+
+        def residual(seq):
+            def block(p, x):
+                return x + seq(p["cell"], L.apply_norm(cfg.norm, p["norm"],
+                                                       x), cfg.num_heads)
+            return self._block_remat(block)
+
+        mlstm_block = residual(ssm_lib.mlstm_seq)
+        slstm_block = residual(ssm_lib.slstm_seq)
+        for group, sp in zip(tfm.unstack(params["mlstm"]),
+                             tfm.unstack(params["slstm"])):
+            for mp in tfm.unstack(group):
+                x = mlstm_block(mp, x)
+            x = slstm_block(sp, x)
         return x
 
     def _mamba_layers(self, params):
         """Each Mamba2 layer's parameters in the hybrid's layer order,
         with None where the shared attention block runs."""
         period, groups, tail = self._hybrid_layout()
+        pre, post = (tfm.unstack(params[k]) for k in ("mamba_pre",
+                                                      "mamba_post"))
         for g in range(groups):
-            pre = tfm.layer_slice(params["mamba_pre"], g)
-            for j in range(period - 1):
-                yield ("mamba_pre", g, j), tfm.layer_slice(pre, j)
+            for j, p in enumerate(tfm.unstack(pre[g])):
+                yield ("mamba_pre", g, j), p
             yield ("shared_attn", g), None
-            yield ("mamba_post", g), tfm.layer_slice(params["mamba_post"], g)
-        for t in range(tail):
-            yield ("mamba_tail", t), tfm.layer_slice(params["mamba_tail"], t)
+            yield ("mamba_post", g), post[g]
+        if tail:
+            for t, p in enumerate(tfm.unstack(params["mamba_tail"])):
+                yield ("mamba_tail", t), p
 
     def _apply_hybrid(self, params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         block_fn = self._tfm_block_fn()
-        for _, p in self._mamba_layers(params):
-            if p is None:      # the shared block, weights shared
-                x, _ = block_fn(params["shared"], x, None, SHARED_LAYER)
-                continue
-            x = x + ssm_lib.mamba2_seq(
+        # the shared block's weights are shared: every group's call
+        # reads the same leaves, and their gradients add up there
+        shared_block = self._block_remat(
+            lambda p, x: block_fn(p, x, None, SHARED_LAYER)[0])
+        mamba_block = self._block_remat(
+            lambda p, x: x + ssm_lib.mamba2_seq(
                 p["cell"], L.apply_norm(cfg.norm, p["norm"], x),
-                cfg.ssm_state, cfg.ssm_head_dim)
+                cfg.ssm_state, cfg.ssm_head_dim))
+        for _, p in self._mamba_layers(params):
+            x = (shared_block(params["shared"], x) if p is None
+                 else mamba_block(p, x))
         return x
 
-    @torch.no_grad()
     def loss(self, params, batch: Dict[str, torch.Tensor]):
         """Mean cross-entropy of ``batch['targets'] [B, n]`` under
         :meth:`apply`'s logits (optional ``batch['mask']``). Returns

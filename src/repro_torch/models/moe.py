@@ -250,7 +250,7 @@ def apply_moe_sharded(params, x: torch.Tensor, cfg: MoEConfig, mesh,
             f"(model axis {mesh.shape['model']}) takes the reference's "
             f"batch-sharded capacity, ZeRO all-gathers of the experts and "
             f"the int8 _quantized_all_gather forward: training and dry-run "
-            f"paths the port has not taken yet (ROADMAP A11); serve on "
+            f"paths the port has not taken yet (ROADMAP A5); serve on "
             f"(1, M) meshes, or replicas over the data axis")
     devices = mesh.devices[0]
     m = len(devices)

@@ -9,15 +9,29 @@ Python loop that hands each layer views of its slice. Layers below
 scans do. A layer that holds ``"moe"`` runs the MoE FFN in place of the
 MLP; the full-sequence stack sums its auxiliary loss over the layers in
 layer order, the serve stack discards it (as the reference's serve
-steps do). The full-sequence stack is forward only: rematerialization
-waits for the training slice.
+steps do).
+
+The full-sequence stack is differentiable and rematerializes per layer
+(``remat``, the reference's ``cfg.remat``): ``"full"`` keeps only each
+layer's input and recomputes the layer in the backward
+(``torch.utils.checkpoint``, non-reentrant), ``"dots"`` also keeps the
+outputs of the products without batch dims (a selective policy that
+saves ``mm`` / ``addmm``: the projections, the MLP, the head — the
+counterpart of ``dots_with_no_batch_dims_saveable``; batched products,
+``bmm``, the attention scores and the experts, are recomputed),
+``"none"`` keeps everything. The reference's two-level √L scan and its
+``_barrier`` only decide where XLA places the saved carries; a Python
+loop over layers saves exactly what the per-layer checkpoint saves, so
+it is their counterpart.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+import functools
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core import EnergonConfig
 from repro_torch.models import attention as attn
@@ -111,23 +125,71 @@ def _layers(params_stacked, windows, prefix_layers: int):
                0 if i < prefix_layers else prefix_layers)
 
 
+def unstack(tree) -> List[Any]:
+    """The layers of a stacked tree, each leaf ``unbind``-ed once along
+    its leading axis: the same views as :func:`layer_slice`, but under
+    autograd one ``UnbindBackward`` stacks the layers' gradients into
+    the leaf, where an indexing per layer would each scatter into a zero
+    tensor of the whole leaf."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v) for k, v in tree.items()}
+        count = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(count)]
+    return list(tree.unbind(0))
+
+
+#: the ops whose outputs ``remat="dots"`` saves: the products without
+#: batch dims (``x @ w`` over ``[B, n, d]`` runs as one ``mm``)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_fn(fn, remat: str):
+    """``fn`` under the rematerialization policy ``remat`` (``none`` /
+    ``full`` / ``dots``). Outside autograd the checkpoint is skipped:
+    it saves nothing there."""
+    if remat == "none":
+        return fn
+    if remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {remat!r}")
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
+
+
 def apply_stack(
     params_stacked: Dict[str, Any],
     x: torch.Tensor,
     windows: Optional[Sequence[int]],
     block_fn,
     *,
+    remat: str = "none",
     prefix_layers: int = 0,
 ):
     """Run ``block_fn(params, x, window, layer_idx) -> (x, aux)`` over
-    the stacked layers (``windows``: per-layer sizes, 0 ⇒ global).
-    Returns ``(x, aux)``, the layers' auxiliary losses summed in f32 in
-    layer order from 0 (the reference's scan carry; exactly 0 where no
-    layer has one)."""
+    the stacked layers (``windows``: per-layer sizes, 0 ⇒ global), each
+    layer under ``remat`` (:func:`remat_fn`); layers below
+    ``prefix_layers`` run with layer index 0, the rest with
+    ``prefix_layers``. Returns ``(x, aux)``, the layers' auxiliary
+    losses summed in f32 in layer order from 0 (the reference's scan
+    carry; exactly 0 where no layer has one)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer, window, layer_idx in _layers(params_stacked, windows,
-                                            prefix_layers):
-        x, a = block_fn(layer, x, window, layer_idx)
+    fn = remat_fn(block_fn, remat)
+    for i, layer in enumerate(unstack(params_stacked)):
+        window = None if windows is None else windows[i]
+        x, a = fn(layer, x, window, 0 if i < prefix_layers else prefix_layers)
         if a is not None:
             aux = aux + a
     return x, aux

@@ -1,7 +1,7 @@
-"""Serving runtime of the port: page pool, admission queue, engine,
-replicated engines, fault tolerance. (The reference's ``sample_tokens``
-has no counterpart: the port draws by request from ``sampling_seed``;
-the training loop waits for the training slice.)"""
+"""Runtime of the port: page pool, admission queue, serving engine,
+replicated engines, fault tolerance and the training loop. (The
+reference's ``sample_tokens`` has no counterpart: the port draws by
+request from ``sampling_seed``.)"""
 
 from repro_torch.runtime.fault_tolerance import (
     FaultInjector,
@@ -34,6 +34,11 @@ from repro_torch.runtime.serve_loop import (
     make_prefill_step,
     make_serve_step,
 )
+from repro_torch.runtime.train_loop import (
+    TrainConfig,
+    TrainLoop,
+    make_train_step,
+)
 
 __all__ = [
     "AllocatorInvariantError",
@@ -52,11 +57,14 @@ __all__ = [
     "ServeLoop",
     "StepFailure",
     "StragglerMonitor",
+    "TrainConfig",
+    "TrainLoop",
     "TransientStepError",
     "attention_cache_bytes",
     "clone_page_rows",
     "make_prefill_step",
     "make_serve_step",
+    "make_train_step",
     "replica_home",
     "retry_step",
 ]

@@ -42,7 +42,11 @@ Expert parallelism (``cuda:0`` × M): an MoE engine's graphed drain ≡
 its eager drain on ``(1, 2)`` and ``(1, 4)``; olmoe's layer on a ``(1,
 4)`` mesh against the port's expert-parallel layer on ``cpu`` × 4 in
 f32; and B1–B4 at qwen3-moe-235b-a22b's G 16 (decode bh 32; prefill
-chunks of 64, 1024 folded rows) against their plain versions."""
+chunks of 64, 1024 folded rows) against their plain versions.
+
+Training: one train step of a narrow model on the card against the
+same step on the CPU, and the ``pallas`` loss refused under grad on the
+card as on the CPU."""
 
 import dataclasses
 import gc
@@ -1699,3 +1703,71 @@ def test_ep_layer_on_the_card_matches_the_cpu(olmoe_layer, kind):
     torch.testing.assert_close(got[alike], want[alike], atol=2.0 ** -7,
                                rtol=2.0 ** -7)
 
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+
+def test_one_train_step_on_the_card_matches_the_cpu(cuda):
+    """qwen3-14b's smoke model (fp32, mpmrf_row at ρ = 1, remat "dots"):
+    one ``make_train_step`` step of 2 microbatches on the card against
+    the same step on the CPU from the same weights and batch. The loss
+    within rtol 1e-5 and the grad norm within 1e-4 (the same f32 graph
+    in other summation orders, TF32 off); the params within 1e-5 on all
+    but 0.1 % of each leaf and every one within 2·lr (a first AdamW step
+    moves a weight by ≈ lr·sign(g), which a gradient near 0 may flip)."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import LMModel
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.runtime import make_train_step
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_smoke_config("qwen3-14b")
+    cfg = dataclasses.replace(cfg, remat="dots", energon=dataclasses.replace(
+        cfg.energon, pruning_ratio=1.0))
+    lr = 1e-3
+    rng = np.random.default_rng(3)
+    batch = {k: rng.integers(1, 255, size=(4, 64)).astype(np.int32)
+             for k in ("inputs", "targets")}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = LMModel(cfg, device=dev)
+        params = _to(LMModel(cfg, device="cpu").init(seed=0), dev)
+        opt = AdamWConfig(learning_rate=lr)
+        step = make_train_step(model, opt, num_microbatches=2)
+        params, state, m = step(params, adamw.init(params, opt), batch)
+        out[dev] = (_to(params, "cpu"), float(m["loss"]),
+                    float(m["grad_norm"]))
+    (p_cpu, loss_cpu, gn_cpu), (p_card, loss_card, gn_card) = (
+        out["cpu"], out["cuda"])
+    np.testing.assert_allclose(loss_card, loss_cpu, rtol=1e-5)
+    np.testing.assert_allclose(gn_card, gn_cpu, rtol=1e-4)
+    leaves = lambda tree: (
+        [x for v in tree.values() for x in leaves(v)]
+        if isinstance(tree, dict) else [tree])
+    for a, b in zip(leaves(p_card), leaves(p_cpu)):
+        diff = (a - b).abs()
+        assert float((diff > 1e-5).float().mean()) <= 1e-3
+        assert float(diff.max()) <= 2 * lr
+
+
+def test_pallas_loss_under_grad_is_refused_on_the_card(cuda):
+    """The CUDA kernels have no backward: the direct pallas route raises
+    under grad on the card as on the CPU, and scores without grad."""
+    from repro_torch.configs.registry import get_serve_config
+    from repro_torch.models import LMModel
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_serve_config("qwen3-14b", smoke=True),
+                              dtype="bfloat16")
+    model = LMModel(cfg, device="cuda")
+    params = model.init(seed=0)
+    toks = torch.randint(1, 255, (2, 64), device="cuda", dtype=torch.int32)
+    batch = {"inputs": toks, "targets": toks}
+    with torch.no_grad():
+        loss, _ = model.loss(params, batch)
+    assert torch.isfinite(loss)
+    with pytest.raises(NotImplementedError, match="mpmrf_block"):
+        adamw.accumulate_gradients(model.loss, params, batch, 1)

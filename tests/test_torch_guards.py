@@ -61,6 +61,20 @@ def test_serve_launcher_defaults_to_cuda():
         serve.main(["--arch", "qwen3-14b", "--smoke", "--requests", "1"])
 
 
+@pytest.mark.parametrize("launcher", ["train", "train_lm"])
+def test_train_launchers_default_to_cuda(launcher):
+    _no_gpu()
+    from repro_torch import train_lm
+    from repro_torch.launch import train
+
+    main, argv = {
+        "train": (train.main, ["--arch", "qwen3-14b", "--smoke"]),
+        "train_lm": (train_lm.main, ["--small"]),
+    }[launcher]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+
+
 def test_kernel_wrappers_take_only_cpu_or_cuda_tensors():
     from repro_torch.kernels import mpmrf_decode as dk
 

@@ -573,7 +573,7 @@ def test_an_moe_engine_serves_on_a_tensor_parallel_mesh(olmoe):
     (``tests/test_torch_moe_ep.py`` holds its streams to the reference's
     mesh engine). What stays refused is a data axis > 1 inside one MoE
     call — the reference's training and dry-run paths, queued in ROADMAP
-    A11 — and a lone engine on such a mesh (replicas take the data
+    A5 — and a lone engine on such a mesh (replicas take the data
     axis)."""
     model, params = olmoe["model"], olmoe["params"]
     calls = []
