@@ -62,6 +62,16 @@ cuts qwen3-14b's depth, never its width). Phases:
    trace that misses some says so); then decode ticks alone under the
    profiler (``[profile-decode]``): wall and device time per tick, idle
    share, device kernels per tick and the largest items.
+6b. ``[op-costs]``: one eager decode step and one eager prefill wave of
+   the same engine (8 slots at position 2048; 8 × 128 rows) walked by
+   ``repro_torch.analysis.op_costs`` on the card and on the meta device
+   at the same shapes: FLOPs, traffic bytes and B1–B4's launches equal
+   exactly on both (the kernels priced from their shapes by
+   ``analysis.kernel_traffic``), the card walk's launches those the
+   wrappers counted, no collective; each step's roofline bound
+   (``analysis.roofline``, the H100's data-sheet rates) and the graphed
+   tick's device ms of ``[profile-decode]`` over it (printed, not
+   gated).
 
 Then the contiguous (unpaged) cache, on the same model object and
 weights, once the paged engine is released:
@@ -142,6 +152,15 @@ model object and weights, once the serving engines are released:
 13. Phase 10's checks and times again on the q/k/v that layer 2 handed
     the kernels in phase 12, and the sparse pair (B9 + selection + B10)
     timed against B11 on them (a measurement, not a claimed speedup).
+13b. ``[dryrun-peak]``: phase 12's ``loss`` walked on the meta device
+    (the dry run's machinery): its arguments' bytes plus the walk's peak
+    of live bytes against ``torch.cuda.max_memory_allocated()`` over the
+    same call on the card (after ``reset_peak_memory_stats``, less what
+    was allocated before, plus the arguments): the ratio within
+    ``PEAK_RATIO``. The same, before phase 27, for its train step
+    (``launch/dryrun.py::lower_cell`` at ``TRAIN_LAYERS`` layers, 4 ×
+    2048 tokens in 2 microbatches, against one ``make_train_step`` step
+    on the card).
 14. ``ops.energon_block_attention`` forward and backward at a small size:
     the forward equals its composition, the gradients autograd through
     the plain block-sparse attention.
@@ -374,9 +393,12 @@ eager/graphed drains, the
 scoring results (with the ptxas report), the unpaged serve and the paged
 serve, the telemetry and chaos phases, the long-score / XLA phases and
 the dense configs', the MoE and the expert-parallel / qwen3-moe phases
-and the vlm / audio and recurrent families' (``{"families": …}``) and the
-training phases' (``{"training": …}``) are on the lines before it; the last line is ``{"ok": true, "device":
-...}``.
+and the vlm / audio and recurrent families' (``{"families": …}``), the
+training phases' (``{"training": …}``) and the analysis tools'
+(``{"analysis": …}``: ``[op-costs]``, ``[dryrun-peak]``) are on the lines
+before it; each kernel's bytes and operations come from
+``repro_torch.analysis.kernel_traffic`` on the case's data; the last
+line is ``{"ok": true, "device": ...}``.
 Any failure exits non-zero before printing either.
 """
 
@@ -396,9 +418,6 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
-H100_BYTES_PER_S = 3.35e12        # HBM3, SXM data sheet
-H100_BF16_FLOPS = 989e12          # dense tensor-core peak
-H100_INT8_OPS = 1979e12           # dense tensor-core peak
 SMALL_REL_TOL = 2.5e-3
 #: query rows where two or three keys carry the softmax: B10/B11 (the
 #: first 32 rows) and B4/B8 (the rows at positions < 32) are held to the
@@ -667,44 +686,21 @@ def trace_items(fn, iters=20):
     return items
 
 
-def row_blocks(idx, n_kb):
-    """A survivor table's blocks as ids unique across its bh rows
-    (b·n_kb + idx)."""
-    import torch
-
-    b = torch.arange(idx.shape[0], device=idx.device).reshape(
-        -1, *([1] * (idx.dim() - 1)))
-    return b * n_kb + idx.long()
-
-
-def distinct_blocks(blocks, valid):
-    """Key blocks a gather must read at least once: the distinct ids
-    among the valid slots (the query blocks of one bh row share many of
-    their survivors, which the card reads from memory once)."""
-    import torch
-
-    return int(torch.unique(blocks[valid > 0]).numel())
-
-
-def bound(nbytes, ops, peak):
-    """The least time the card could take: the larger of bytes over the
-    memory rate and operations over the operands' peak rate (ms)."""
-    tb, to = nbytes / H100_BYTES_PER_S * 1e3, ops / peak * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
 def time_kernels(label, entries, rows, *, iters=20, plain_iters=5):
     """Time each kernel of ``rows`` (name, kernel, plain version, library
-    call or None, bytes, operations, peak rate), its plain version and
-    its library call with CUDA events, bound it, and write the numbers
-    into ``entries[name]``."""
-    for name, fn, plain, lib, nbytes, ops_n, peak in rows:
+    call or None, and its ``repro_torch.analysis.kernel_traffic`` price:
+    bytes, operations, peak rate), its plain version and its library
+    call with CUDA events, bound it, and write the numbers into
+    ``entries[name]``."""
+    from repro_torch.analysis.kernel_traffic import bound_ms
+
+    for name, fn, plain, lib, traffic in rows:
         r = entries[name]
         r["ms"] = time_ms(fn, iters=iters)
         r["plain_ms"] = time_ms(plain, iters=plain_iters, warmup=1)
         r["library_ms"] = (time_ms(lib, iters=iters) if lib is not None
                            else None)
-        r["bound_ms"], r["bound_by"] = bound(nbytes, ops_n, peak)
+        r["bound_ms"], r["bound_by"] = bound_ms(*traffic)
         lib_txt = ("n/a" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f}")
         was = EARLIER_MS.get(name, {}).get(label.split("-")[0])
@@ -819,6 +815,7 @@ def check_case(case, label, results):
     """Hold B1–B4 against their plain versions on ``case``; time them."""
     import torch
 
+    from repro_torch.analysis import kernel_traffic as kt
     from repro_torch.core.energon_attention import (
         _prefill_diag_blocks, decode_live_budget,
     )
@@ -930,67 +927,31 @@ def check_case(case, label, results):
                             c.v_pages[ppages], pidx, pval, c.bq, c.bk, n_k)
 
     # --- bounds from this case's data ------------------------------------
-    live_blocks = int(((c.cl.long() + c.bk - 1) // c.bk).sum())
-    b1_bytes = (qp.numel() * 4 + qs.numel() * 4 + c.bt.numel() * 4
-                + c.cl.numel() * 4 + live_blocks * c.bk * d * 2
-                + live_blocks * 4 + 2 * s0.numel() * 4)
-    b1_ops = live_blocks * g * c.bk * d * 2 * 2
-    n_valid = int(val.sum())
-    b2_bytes = (c.q_dec.numel() * 2 + 3 * idx.numel() * 4 + c.cl.numel() * 4
-                + n_valid * c.bk * d * 2 * 2 + c.q_dec.numel() * 2)
-    b2_flops = n_valid * g * c.bk * d * 2 * 2
-    valid_rows = c.qpos < n_k
-    pairs = int(torch.where(valid_rows, c.qpos.long() + 1, 0).sum())
-    # pages a query block can see, counted once per bh row
-    seen = torch.where(valid_rows, c.qpos, -1).amax(dim=1)
-    seen_pages = int(((seen.long() + c.bk) // c.bk).clamp(min=0).sum())
-    b3_bytes = (qpp.numel() * 4 + qps.numel() * 4 + c.qpos.numel() * 4
-                + c.bt.numel() * 4 + seen_pages * (c.bk * d * 2 + 4)
-                + 2 * p0.numel() * 4)
-    b3_ops = pairs * d * 2 * 2
-    n_pvalid = int(pval.sum())
-    b4_bytes = (c.q_pre.numel() * 2 * 2 + c.qpos.numel() * 4
-                + 2 * pidx.numel() * 4
-                + distinct_blocks(ppages, pval) * c.bk * d * 2 * 2)
-    b4_flops = n_pvalid * c.bq * c.bk * d * 2 * 2
+    bh, n_valid, n_pvalid = c.q_dec.shape[0], int(val.sum()), int(pval.sum())
+    t1 = kt.decode_filter(bh, g, d, c.bk, mb, paged=True,
+                          live_blocks=kt.live_block_count(c.cl, c.bk))
+    t2 = kt.decode_gather(bh, g, d, c.bk, idx.shape[-1], paged=True,
+                          valid_slots=n_valid)
+    t3 = kt.prefill_filter(
+        bh, n_q, d, c.bq, c.bk, mb, paged=True,
+        seen_blocks=kt.seen_block_count(c.qpos, c.bk, n_k),
+        pairs=kt.row_pair_count(c.qpos, n_k))
+    t4 = kt.prefill_gather(
+        bh, n_q, d, c.bq, c.bk, pidx.shape[-1],
+        distinct_blocks=kt.distinct_block_count(ppages, pval),
+        valid_slots=n_pvalid)
 
     time_kernels(label, {name: results[name][-1] for name in SERVE_KERNELS}, (
-        ("mpmrf_paged_filter_scores", b1, b1p, None, b1_bytes, b1_ops,
-         H100_INT8_OPS),
-        ("paged_decode_gather_attention", b2, b2p, sdpa_dec, b2_bytes,
-         b2_flops, H100_BF16_FLOPS),
-        ("mpmrf_paged_prefill_filter_scores", b3, b3p, None, b3_bytes,
-         b3_ops, H100_INT8_OPS),
-        ("paged_prefill_gather_attention", b4, b4p, sdpa_pre, b4_bytes,
-         b4_flops, H100_BF16_FLOPS),
+        ("mpmrf_paged_filter_scores", b1, b1p, None, t1),
+        ("paged_decode_gather_attention", b2, b2p, sdpa_dec, t2),
+        ("mpmrf_paged_prefill_filter_scores", b3, b3p, None, t3),
+        ("paged_prefill_gather_attention", b4, b4p, sdpa_pre, t4),
     ))
 
 
 # ---------------------------------------------------------------------------
 # the full-sequence kernels (B9–B11) on one layer's [B·H, n, d] operands
 # ---------------------------------------------------------------------------
-
-
-def causal_pairs(n_q, n_k, q_offset):
-    """(query, key) pairs the causal mask admits: row i sees keys
-    0 .. q_offset + i (at most n_k)."""
-    import torch
-
-    rows = torch.arange(n_q) + q_offset
-    return int(torch.clamp(rows + 1, 0, n_k).sum())
-
-
-def survivor_pairs(idx, val, bq, bk, q_offset):
-    """Causally admitted (query, key) pairs inside the valid survivor
-    tiles of a ``[bh, n_qb, B]`` table."""
-    import torch
-
-    n_qb = idx.shape[1]
-    qpos = (q_offset + torch.arange(n_qb, device=idx.device)[:, None] * bq
-            + torch.arange(bq, device=idx.device))             # [n_qb, bq]
-    seen = torch.clamp(qpos[None, :, None, :] - idx.long()[..., None] * bk
-                       + 1, 0, bk)                            # [bh,n_qb,B,bq]
-    return int((seen.sum(-1) * val).sum())
 
 
 def check_full_sequence(q, k, v, label, results, *, bq, bk, ratio,
@@ -1004,6 +965,7 @@ def check_full_sequence(q, k, v, label, results, *, bq, bk, ratio,
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.analysis import kernel_traffic as kt
     from repro_torch.kernels import block_sparse_attention as bsa
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gather_within_tolerance
@@ -1105,22 +1067,18 @@ def check_full_sequence(q, k, v, label, results, *, bq, bk, ratio,
             q[None], k[None], v[None], is_causal=True)
 
     # --- bounds from this case's data ----------------------------------------
-    pairs = causal_pairs(n_q, n_k, q_offset) * bh
-    b9_bytes = 3 * q.numel() + qs.numel() * 4 + 2 * s0.numel() * 4
-    b9_ops = pairs * d * 2 * 2            # two rounds of multiply-add
-    b10_bytes = (q.numel() * 2 * 2 + 2 * idx.numel() * 4
-                 + distinct_blocks(row_blocks(idx, n_kb), val) * bk * d * 2 * 2)
-    b10_flops = survivor_pairs(idx, val, bq, bk, q_offset) * d * 2 * 2
-    b11_bytes = (q.numel() + k.numel() + v.numel() + q.numel()) * 2
-    b11_flops = pairs * d * 2 * 2
+    t9 = kt.sequence_filter(bh, n_q, n_k, d, bq, bk, q_offset=q_offset)
+    t10 = kt.block_sparse(
+        bh, n_q, d, bq, bk, idx.shape[-1],
+        distinct_blocks=kt.distinct_block_count(kt.row_blocks(idx, n_kb),
+                                                val),
+        survivor_pairs=kt.survivor_pair_count(idx, val, bq, bk, q_offset))
+    t11 = kt.flash(bh, n_q, n_k, d, q_offset=q_offset)
 
     time_kernels(label, entry, (
-        ("mpmrf_filter_scores", b9, b9p, None, b9_bytes, b9_ops,
-         H100_INT8_OPS),
-        ("block_sparse_attention", b10, b10p, sdpa_sparse, b10_bytes,
-         b10_flops, H100_BF16_FLOPS),
-        ("flash_attention", b11, b11p, sdpa_dense, b11_bytes, b11_flops,
-         H100_BF16_FLOPS),
+        ("mpmrf_filter_scores", b9, b9p, None, t9),
+        ("block_sparse_attention", b10, b10p, sdpa_sparse, t10),
+        ("flash_attention", b11, b11p, sdpa_dense, t11),
     ), iters=10, plain_iters=3)
     timing = {name: r["ms"] for name, r in entry.items()}
     return dict(survivor_tiles=kept, causal_tiles=causal_tiles,
@@ -1631,6 +1589,7 @@ def check_contiguous(c, label, results, *, timed=True, gather=True):
     :func:`check_same_rows`."""
     import torch
 
+    from repro_torch.analysis import kernel_traffic as kt
     from repro_torch.kernels import gather_within_tolerance
     from repro_torch.kernels import mpmrf_decode as dk
     from repro_torch.kernels import mpmrf_prefill as pk
@@ -1721,39 +1680,27 @@ def check_contiguous(c, label, results, *, timed=True, gather=True):
         c.pk, n_k)
 
     # --- bounds from this case's data ------------------------------------
-    n_kb = n_k // c.bk
-    live_blocks = int(((c.cl.long() + c.bk - 1) // c.bk).clamp(
-        max=n_kb).sum())
-    b5_bytes = (qp.numel() * 4 + qs.numel() * 4 + c.cl.numel() * 4
-                + live_blocks * (c.bk * d * 2 + 4) + 2 * s0.numel() * 4)
-    b5_ops = live_blocks * g * c.bk * d * 2 * 2
-    n_valid = int(val.sum())
-    b6_bytes = (c.q_dec.numel() * 2 * 2 + 2 * idx.numel() * 4
-                + c.cl.numel() * 4 + n_valid * c.bk * d * 2 * 2)
-    b6_flops = n_valid * g * c.bk * d * 2 * 2
-    valid_rows = c.qpos < n_k
-    pairs = int(torch.where(valid_rows, c.qpos.long() + 1, 0).sum())
-    seen = torch.where(valid_rows, c.qpos, -1).amax(dim=1)
-    seen_blocks = int(((seen.long() + c.pk) // c.pk).clamp(min=0).sum())
-    b7_bytes = (qpp.numel() * 4 + qps.numel() * 4 + c.qpos.numel() * 4
-                + seen_blocks * c.pk * (d * 2 + 4) + 2 * p0.numel() * 4)
-    b7_ops = pairs * d * 2 * 2
-    n_pvalid = int(pval.sum())
-    b8_bytes = (c.q_pre.numel() * 2 * 2 + c.qpos.numel() * 4
-                + 2 * pidx.numel() * 4
-                + distinct_blocks(row_blocks(pidx, n_k // c.pk), pval)
-                * c.pk * d * 2 * 2)
-    b8_flops = n_pvalid * c.bq * c.pk * d * 2 * 2
+    n_kb, n_pkb = n_k // c.bk, n_k // c.pk
+    t5 = kt.decode_filter(
+        bh, g, d, c.bk, n_kb, paged=False,
+        live_blocks=kt.live_block_count(c.cl, c.bk, n_kb))
+    t6 = kt.decode_gather(bh, g, d, c.bk, idx.shape[-1], paged=False,
+                          valid_slots=int(val.sum()))
+    t7 = kt.prefill_filter(
+        bh, n_q, d, c.bq, c.pk, n_pkb, paged=False,
+        seen_blocks=kt.seen_block_count(c.qpos, c.pk, n_k),
+        pairs=kt.row_pair_count(c.qpos, n_k))
+    t8 = kt.prefill_gather(
+        bh, n_q, d, c.bq, c.pk, pidx.shape[-1],
+        distinct_blocks=kt.distinct_block_count(
+            kt.row_blocks(pidx, n_pkb), pval),
+        valid_slots=int(pval.sum()))
 
     time_kernels(label, {n: results[n][-1] for n in UNPAGED_KERNELS}, (
-        ("mpmrf_decode_filter_scores", b5, b5p, None, b5_bytes, b5_ops,
-         H100_INT8_OPS),
-        ("decode_gather_attention", b6, b6p, sdpa_dec, b6_bytes, b6_flops,
-         H100_BF16_FLOPS),
-        ("mpmrf_prefill_filter_scores", b7, b7p, None, b7_bytes, b7_ops,
-         H100_INT8_OPS),
-        ("prefill_gather_attention", b8, b8p, sdpa_pre, b8_bytes, b8_flops,
-         H100_BF16_FLOPS),
+        ("mpmrf_decode_filter_scores", b5, b5p, None, t5),
+        ("decode_gather_attention", b6, b6p, sdpa_dec, t6),
+        ("mpmrf_prefill_filter_scores", b7, b7p, None, t7),
+        ("prefill_gather_attention", b8, b8p, sdpa_pre, t8),
     ))
     return ops_in
 
@@ -3472,6 +3419,8 @@ def moe_layer_check(model, params, inputs, layer, label="olmoe-moe-layer"):
     all E experts), and its device items, are printed."""
     import torch
 
+    from repro_torch.analysis import kernel_traffic as kt
+    from repro_torch.core.performance_model import H100_PEAK_FLOPS_BF16
     from repro_torch.models import moe as moe_lib
 
     mcfg = model._moe_cfg()
@@ -3526,7 +3475,7 @@ def moe_layer_check(model, params, inputs, layer, label="olmoe-moe-layer"):
         nbytes = (n_w * e * d * mcfg.d_ff * 2 + d * e * 4
                   + 2 * t * d * 2)
         ops = 2 * n_w * e * cap * d * mcfg.d_ff
-        bms, by = bound(nbytes, ops, H100_BF16_FLOPS)
+        bms, by = kt.bound_ms(nbytes, ops, H100_PEAK_FLOPS_BF16)
         items = trace_items(lambda: moe_lib.apply_moe(p, x, mcfg), iters=1)
         out[kind] = dict(
             all_items={name[:90]: us / 1e3
@@ -4529,7 +4478,6 @@ TRAIN_CORPUS = 50_000
 TRAIN_LOSS_RTOL = 5e-3
 #: the dense bf16 peak of one H100 SXM (NVIDIA's data sheet, without
 #: sparsity, at 700 W), for 6·N·tokens/s as a share of it
-BF16_PEAK_FLOPS = 989e12
 #: ``[train-lm]``: 60 steps of 8 × 512 tokens on a 50k-token zipf
 #: corpus, and the reference's test_training_learns margin. Over a
 #: 32768-token vocabulary no (prev, cur) context of the order-2 chain
@@ -4606,6 +4554,7 @@ def train_phase(layers=TRAIN_LAYERS):
     import torch
 
     from repro_torch.checkpoint import list_checkpoints, step_dir
+    from repro_torch.core.performance_model import H100_PEAK_FLOPS_BF16
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import train as launch_train
 
@@ -4640,14 +4589,14 @@ def train_phase(layers=TRAIN_LAYERS):
              for s in whole), f"[train] non-finite loss or grad norm: {whole}")
     step_s = res["median_step_time"]
     tok_s = tokens / step_s
-    share = 6 * n_params * tok_s / BF16_PEAK_FLOPS
+    share = 6 * n_params * tok_s / H100_PEAK_FLOPS_BF16
     for i, s in enumerate(whole, 1):
         log(f"[train] step {i}: loss {s['loss']!r} grad_norm "
             f"{s['grad_norm']!r} lr {s['lr']:.3e} "
             f"({res['history'][i - 1]['sec'] * 1e3:.1f} ms)")
     log(f"[train] median step {step_s * 1e3:.1f} ms, {tok_s:.1f} tokens/s, "
         f"6·N·tokens/s = {share * 100:.2f} % of the bf16 dense peak "
-        f"({BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s), peak {peak:.1f} GB, "
+        f"({H100_PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s), peak {peak:.1f} GB, "
         f"wall {wall:.1f} s (4 steps, the first with the allocator's "
         f"growth) [{smi}]")
     need(peak <= PEAK_LIMIT_GB,
@@ -4841,6 +4790,258 @@ def pallas_grad_refused():
     return dict(refused=True, score_launches=scored)
 
 
+# ---------------------------------------------------------------------------
+# the analysis tools held against the card: [op-costs], [dryrun-peak]
+# ---------------------------------------------------------------------------
+
+#: predicted / measured peak device memory of a [dryrun-peak] cell
+PEAK_RATIO = (0.9, 1.1)
+
+
+def _ops_that_differ(a, b):
+    """The ATen ops (and kernels) whose traffic or FLOPs differ between
+    two walks: {name: (traffic a, traffic b, flops a, flops b)}."""
+    out = {}
+    for name in sorted(set(a.traffic_by_op) | set(b.traffic_by_op)):
+        row = (a.traffic_by_op.get(name, 0.0), b.traffic_by_op.get(name, 0.0),
+               a.flops_by_op.get(name, 0.0), b.flops_by_op.get(name, 0.0))
+        if row[0] != row[1] or row[2] != row[3]:
+            out[name] = row
+    return out
+
+
+def op_costs_phase(engine, decode_profile):
+    """``[op-costs]``: one eager decode step and one eager prefill wave of
+    phase 4's paged engine (its model, weights, pool and shapes: B slots,
+    every slot 2048 tokens in, a chunk of ``prefill_chunk`` rows) walked
+    by ``repro_torch.analysis.op_costs`` on the card, then on the meta
+    device at the same shapes (the meta model's own pool). FLOPs, traffic
+    and B1–B4's launches must be equal exactly on both (one program, its
+    kernels priced from shapes), the card walk's launches those that
+    ``_build.launch_counts`` counted in it, and no collective. Then each
+    step's roofline bound (``analysis.roofline``, H100 data-sheet rates)
+    beside the graphed tick's device ms of ``[profile-decode]``, and their
+    ratio: printed, not gated."""
+    import torch
+
+    from repro_torch.analysis import build_report, compute_costs, param_counts
+    from repro_torch.analysis.op_costs import meta_like
+    from repro_torch.kernels import _build
+    from repro_torch.models import LMModel
+
+    model, params = engine.model, engine.params
+    cfg = model.cfg
+    b, c, max_len = engine.batch_slots, engine.prefill_chunk, engine.max_len
+    num_pages, mb = engine.layout.num_pages, engine.layout.max_blocks
+    _, sparse_layers, _ = layer_paths(model)
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    at = max_len // 2
+    table = (torch.arange(b * mb, device=DEV).reshape(b, mb)
+             % num_pages).to(torch.int32)
+    index = torch.full((b,), at, dtype=torch.int32, device=DEV)
+
+    def tokens(n):
+        return torch.randint(1, cfg.vocab_size - 1, (b, n), generator=gen,
+                             device=DEV, dtype=torch.int32)
+
+    steps = (
+        ("decode", "decode_step", SERVE_KERNELS[:2], b,
+         {"tokens": tokens(1), "block_table": table,
+          "active": torch.ones((b,), dtype=torch.bool, device=DEV)}),
+        ("prefill", "prefill", SERVE_KERNELS[2:], b * c,
+         {"tokens": tokens(c), "block_table": table,
+          "positions": (at + torch.arange(c, device=DEV, dtype=torch.int32)
+                        ).expand(b, c).contiguous()}),
+    )
+    meta = LMModel(cfg, device="meta")
+    mcache = meta.init_paged_cache(num_pages, max_len=max_len)
+    mparams = meta_like(params)
+    n_active = param_counts(cfg)["active_non_embedding"]
+    smi = card_line("op-costs")
+    out = dict(card=smi)
+    for kind, method, kernels, n_tok, inputs in steps:
+        sync()
+        _build.reset_launch_counts()
+        card = compute_costs(getattr(model, method), params, engine.cache,
+                             inputs, index)
+        sync()
+        counted = {k: v for k, v in _build.launch_counts.items() if v}
+        on_meta = compute_costs(getattr(meta, method), mparams, mcache,
+                                meta_like(inputs), meta_like(index))
+        need(card.launches == counted,
+             f"[op-costs] {kind}: the walk's launches {card.launches} are "
+             f"not the wrappers' count {counted}")
+        need(counted == {k: sparse_layers for k in kernels},
+             f"[op-costs] {kind}: launches {counted}, not {sparse_layers} "
+             f"of each of {kernels}")
+        need(card.flops == on_meta.flops
+             and card.traffic_bytes == on_meta.traffic_bytes
+             and card.launches == on_meta.launches,
+             f"[op-costs] {kind}: card FLOPs {card.flops!r} / bytes "
+             f"{card.traffic_bytes!r} / launches {card.launches}, meta "
+             f"{on_meta.flops!r} / {on_meta.traffic_bytes!r} / "
+             f"{on_meta.launches}; ops that differ "
+             f"{_ops_that_differ(card, on_meta)}")
+        need(card.total_collective_bytes == 0,
+             f"[op-costs] {kind}: collective bytes {card.collective_bytes}")
+        report = build_report(
+            arch=cfg.name, shape=f"{kind}-step", mesh_name="1x1", chips=1,
+            parsed_flops=card.flops, parsed_traffic_bytes=card.traffic_bytes,
+            parsed_collective_bytes=card.collective_bytes,
+            model_flops=2.0 * n_active * n_tok)
+        bound = report.bound_time_s * 1e3
+        kernel_ms = sum(k.bound_ms for k in card.kernels.values())
+        out[kind] = dict(
+            flops=card.flops, traffic_bytes=card.traffic_bytes,
+            launches=card.launches, ops=card.num_ops,
+            peak_live_gb=card.peak_live_bytes / 1e9,
+            meta_peak_live_gb=on_meta.peak_live_bytes / 1e9,
+            walk_s=card.seconds, meta_walk_s=on_meta.seconds,
+            bound_ms=bound, dominant=report.dominant,
+            compute_ms=report.compute_s * 1e3,
+            memory_ms=report.memory_s * 1e3, kernels_bound_ms=kernel_ms,
+            top_traffic={k: v for k, v in sorted(
+                card.traffic_by_op.items(), key=lambda kv: -kv[1])[:6]})
+        log(f"[op-costs] {cfg.name} eager {kind} ({b} slots"
+            f"{'' if kind == 'decode' else f' × {c} rows'}, at {at}): "
+            f"{card.num_ops} ops + {sum(counted.values())} kernel launches; "
+            f"FLOPs {card.flops:.6e}, traffic {card.traffic_bytes / 1e9:.4f} "
+            f"GB, launches {counted} — equal exactly on the card and on the "
+            f"meta device (walks {card.seconds:.1f} s / "
+            f"{on_meta.seconds:.1f} s); peak live {card.peak_live_bytes / 1e9:.3f}"
+            f" GB (meta {on_meta.peak_live_bytes / 1e9:.3f}); roofline bound "
+            f"{bound:.3f} ms ({report.dominant}: compute "
+            f"{report.compute_s * 1e3:.3f}, memory "
+            f"{report.memory_s * 1e3:.3f}; B1–B4's own {kernel_ms:.4f} ms)")
+        log(f"[op-costs] {kind} traffic by op, GB: " + ", ".join(
+            f"{k} {v / 1e9:.3f}" for k, v in out[kind]["top_traffic"].items()))
+    tick = decode_profile["device_ms"]
+    out["decode"]["tick_device_ms"] = tick
+    out["decode"]["tick_over_bound"] = tick / out["decode"]["bound_ms"]
+    log(f"[op-costs] the graphed decode tick's device time "
+        f"{tick:.2f} ms ([profile-decode]) is "
+        f"{out['decode']['tick_over_bound']:.2f}× the eager step's roofline "
+        f"bound {out['decode']['bound_ms']:.3f} ms [{smi}]")
+    return out
+
+
+def measure_peak(fn, arg_bytes):
+    """``fn()``'s device-memory peak on the card with its arguments
+    counted: ``max_memory_allocated`` after ``reset_peak_memory_stats``,
+    less what was allocated before the call, plus the arguments' bytes
+    (so that other tensors alive on the card do not count)."""
+    import torch
+
+    gc.collect()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    wall = time.perf_counter() - t0
+    del out
+    peak = torch.cuda.max_memory_allocated()
+    return dict(base_gb=base / 1e9, peak_gb=peak / 1e9, wall_s=wall,
+                measured_gb=(peak - base + arg_bytes) / 1e9)
+
+
+def _peak_verdict(label, predicted, args, measured, out):
+    ratio = predicted / (measured["measured_gb"] * 1e9)
+    out.update(measured, predicted_gb=predicted / 1e9, args_gb=args / 1e9,
+               ratio=ratio)
+    log(f"[dryrun-peak] {label}: predicted {predicted / 1e9:.3f} GB "
+        f"(arguments {args / 1e9:.3f} + the walk's temp "
+        f"{(predicted - args) / 1e9:.3f}), measured "
+        f"{measured['measured_gb']:.3f} GB (max_memory_allocated "
+        f"{measured['peak_gb']:.3f} − {measured['base_gb']:.3f} allocated "
+        f"before + the arguments), ratio {ratio:.4f} (gate "
+        f"{PEAK_RATIO[0]}–{PEAK_RATIO[1]})")
+    need(PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1],
+         f"[dryrun-peak] {label}: predicted / measured {ratio:.4f}")
+    return out
+
+
+def dryrun_peak_score(model, params, *, n_seq=4, seq_len=2048, seed=5):
+    """``[dryrun-peak]`` on phase 12's call: ``LMModel.loss`` over
+    ``n_seq`` × ``seq_len`` tokens at full width, walked on the meta
+    device (``analysis.op_costs``, the dry run's machinery: parameters
+    from the meta model's init, the batch's shapes and dtypes), its
+    arguments + peak live bytes against the card's peak over the same
+    call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import compute_costs
+    from repro_torch.analysis.op_costs import meta_like
+    from repro_torch.launch.dryrun import leaf_bytes
+    from repro_torch.models import LMModel
+
+    cfg = model.cfg
+    smi = card_line("dryrun-peak")
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size - 1,
+                                        size=(n_seq, seq_len + 1)),
+                           device=DEV)
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    meta = LMModel(cfg, device="meta")
+    walk = compute_costs(meta.loss, meta.init(), meta_like(batch))
+    args = leaf_bytes((params, batch))
+    measured = measure_peak(lambda: model.loss(params, batch), args)
+    out = dict(cell=f"{cfg.name} loss {n_seq} x {seq_len}, "
+               f"{cfg.num_layers} layers, impl {cfg.energon.impl}",
+               walk_s=walk.seconds, launches=walk.launches, card=smi)
+    return _peak_verdict(out["cell"], args + walk.peak_live_bytes, args,
+                         measured, out)
+
+
+def dryrun_peak_train(layers=TRAIN_LAYERS):
+    """``[dryrun-peak]`` on phase 27's step: ``launch/dryrun.lower_cell``
+    of qwen3-14b at full width cut to ``layers``, 4 × 2048 tokens in 2
+    microbatches (its shipped training config, AdamW without the >20B
+    diet), against one step of ``make_train_step`` on the card from the
+    same constructors (random tokens)."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import LMModel
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import make_train_step
+
+    cfg = dataclasses.replace(get_config("qwen3-14b"), num_layers=layers)
+    shape = ShapeConfig("train_4x2048", TRAIN_RUN["seq_len"],
+                        TRAIN_RUN["global_batch"], "train")
+    num_mb = TRAIN_RUN["microbatches"]
+    smi = card_line("dryrun-peak")
+    art = dryrun.lower_cell(cfg.name, shape, cfg=cfg, microbatches=num_mb)
+    mem = art["memory_analysis"]
+    _free_device()
+    model = LMModel(cfg, device=DEV)
+    params = model.init()
+    opt_cfg = dryrun.optimizer_config(cfg)
+    opt_state = adamw.init(params, opt_cfg)
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    batch = {k: torch.randint(1, cfg.vocab_size - 1, v.shape, generator=gen,
+                              dtype=v.dtype, device=DEV)
+             for k, v in dryrun.input_specs(cfg, shape, DEV).items()}
+    step = make_train_step(model, opt_cfg, num_microbatches=num_mb)
+    args = dryrun.leaf_bytes((params, opt_state, batch))
+    need(args == mem["argument_size_in_bytes"],
+         f"[dryrun-peak] train arguments {args} on the card, "
+         f"{mem['argument_size_in_bytes']} in the dry run")
+    measured = measure_peak(lambda: step(params, opt_state, batch), args)
+    del model, params, opt_state, batch, step
+    _free_device()
+    out = dict(cell=f"{cfg.name} train step at {layers} of 40 layers, "
+               f"{shape.global_batch} x {shape.seq_len} tokens in {num_mb} "
+               f"microbatches", walk_s=art["compile_seconds"],
+               num_ops=art["num_ops"], card=smi)
+    return _peak_verdict(out["cell"], args + mem["temp_size_in_bytes"],
+                         args, measured, out)
+
+
 ENGINE_SOURCES = ("mpmrf_decode", "mpmrf_prefill", "mpmrf_filter",
                   "block_sparse_attention", "flash_attention")
 #: the engines' kernels and their instantiation counts: head dims ×
@@ -4958,6 +5159,7 @@ def main(argv=None) -> int:
                results)
     prof = profile_drain(engine, prompts[0][:SYSTEM_LEN])
     prof["decode"] = profile_decode(engine, prompts[0][:SYSTEM_LEN])
+    analysis = dict(op_costs=op_costs_phase(engine, prof["decode"]))
 
     # the contiguous cache on the same model object and weights; the
     # paged engine (and its page pool) goes first
@@ -5007,6 +5209,7 @@ def main(argv=None) -> int:
                                       results, **blocks)
     pair = time_sparse_pair(q, k, v, layer=layer, **blocks)
     del q, k, v
+    analysis["dryrun_peak"] = dict(score=dryrun_peak_score(model, params))
     grad_check()
 
     # the rest of the attention dispatch: past chunk_threshold, and the
@@ -5042,6 +5245,7 @@ def main(argv=None) -> int:
 
     # training, once the last family's model is released: no kernel has
     # a backward, so these phases launch none of B1–B11
+    analysis["dryrun_peak"]["train"] = dryrun_peak_train()
     training = dict(train=train_phase(),
                     train_lm_200k=train_lm_phase(200_000, gated=False),
                     train_lm=train_lm_phase(),
@@ -5118,6 +5322,7 @@ def main(argv=None) -> int:
     log(json.dumps({"moe_ep": moe_ep, "qwen3moe": qwen3moe, "card": smi}))
     log(json.dumps({"families": families, "card": smi}))
     log(json.dumps({"training": training, "card": smi}))
+    log(json.dumps({"analysis": analysis, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

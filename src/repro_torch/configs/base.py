@@ -1,8 +1,10 @@
-"""Model configuration schema (a copy of ``repro.configs.base``).
+"""Model configuration schema and the shape matrix (a copy of
+``repro.configs.base``).
 
 One frozen dataclass describes an architecture; ``configs/<arch>.py``
 instantiates it with the published hyperparameters, plus a ``smoke()``
-reduction used by CPU tests.
+reduction used by CPU tests. :class:`ShapeConfig` is one input-shape
+cell of the (arch × shape) matrix that ``launch/dryrun.py`` lowers.
 """
 
 from __future__ import annotations
@@ -58,3 +60,39 @@ class ModelConfig:
     @property
     def uses_embeddings_input(self) -> bool:
         return self.family in ("vlm", "audio")
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell of the benchmark matrix."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+# long_500k is only runnable for sub-quadratic archs (see DESIGN.md §5).
+LONG_CONTEXT_ARCHS = ("xlstm-1.3b", "zamba2-7b", "gemma3-27b")
+
+
+def shapes_for_arch(arch_name: str):
+    shapes = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if arch_name in LONG_CONTEXT_ARCHS:
+        shapes.append(LONG_500K)
+    return tuple(shapes)

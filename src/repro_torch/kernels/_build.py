@@ -31,7 +31,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterator, List, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -55,6 +55,10 @@ launch_counts: Dict[str, int] = {
     "block_sparse_attention": 0,
     "flash_attention": 0,
 }
+
+#: set only by ``repro_torch.analysis.op_costs`` while it walks a call:
+#: ``kernels/ops.py`` hands it every kernel call instead of making it
+cost_hook: Optional[Callable] = None
 
 _libs: Dict[str, ctypes.CDLL] = {}
 #: wall seconds of the last build and nvcc's resource report per source

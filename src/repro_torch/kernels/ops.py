@@ -44,6 +44,7 @@ import torch
 from repro_torch.core import filtering as flt
 from repro_torch.core import quantization as qlib
 from repro_torch.distributed import sharding as shd
+from repro_torch.kernels import _build
 from repro_torch.kernels import block_sparse_attention as bsa_kernel
 from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import mpmrf_decode as dec_kernel
@@ -51,6 +52,18 @@ from repro_torch.kernels import mpmrf_filter as filt_kernel
 from repro_torch.kernels import mpmrf_prefill as pre_kernel
 
 NEG_INF = -1e30
+
+
+def _launch(name: str, kernel, *args, **kw):
+    """Every kernel call of the pipelines below: ``kernel(*args, **kw)``
+    (B1–B11 by their ``_build.launch_counts`` name). An op-cost walk
+    (:mod:`repro_torch.analysis.op_costs`) sets ``_build.cost_hook`` for
+    its duration, and the hook then prices the launch from its shapes
+    and makes the call itself."""
+    hook = _build.cost_hook
+    if hook is None:
+        return kernel(*args, **kw)
+    return hook(name, kernel, args, kw)
 
 
 def _tp_mesh(kv_heads: int):
@@ -119,7 +132,8 @@ def flash_attention(
     block_k: int = 128,
 ) -> torch.Tensor:
     """Dense flash attention over ``[bh, n, d]`` operands (B11)."""
-    return fa_kernel.flash_attention(
+    return _launch(
+        "flash_attention", fa_kernel.flash_attention,
         q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
         q_offset=q_offset, scale=scale, block_q=block_q, block_k=block_k,
     )
@@ -215,8 +229,8 @@ def mpmrf_select_blocks(
         raise ValueError("the filter kernel takes the 2-round config")
     q_plane, k_msb, k_rem, q_scale, k_scale = full_sequence_planes(
         q, k, round_bits)
-    s0, s1 = filt_kernel.mpmrf_filter_scores(
-        q_plane, k_msb, k_rem, q_scale, shift=round_bits[1] - round_bits[0],
+    s0, s1 = _launch(
+        "mpmrf_filter_scores", filt_kernel.mpmrf_filter_scores, q_plane, k_msb, k_rem, q_scale, shift=round_bits[1] - round_bits[0],
         query_block=query_block, key_block=key_block, causal=causal,
         q_offset=q_offset,
     )
@@ -244,7 +258,8 @@ def block_sparse_attention(
     """The Attention Unit over ``[bh, n, d]`` operands (B10)."""
     if block_valid is None:
         block_valid = torch.ones_like(block_indices, dtype=torch.int32)
-    return bsa_kernel.block_sparse_attention(
+    return _launch(
+        "block_sparse_attention", bsa_kernel.block_sparse_attention,
         q.contiguous(), k.contiguous(), v.contiguous(),
         block_indices.to(torch.int32).contiguous(),
         block_valid.to(torch.int32).contiguous(),
@@ -448,8 +463,8 @@ def _paged_decode_core(
     cl_bh = cache_length.to(torch.int32).repeat_interleave(heads)
     bt_bh = _head_offset_table(block_table, heads, num_pages)
 
-    s0, s1 = dec_kernel.paged_filter_scores(
-        qp, qs,
+    s0, s1 = _launch(
+        "mpmrf_paged_filter_scores", dec_kernel.paged_filter_scores, qp, qs,
         k_codes.reshape(heads * num_pages, bk, d),
         k_scale.reshape(heads * num_pages, 1),
         bt_bh, cl_bh, round_bits=round_bits, key_block=bk,
@@ -461,8 +476,9 @@ def _paged_decode_core(
         keep_diagonal=keep_diagonal, live_budget=live_budget, heads=heads,
         with_stats=with_stats,
     )
-    out = dec_kernel.paged_decode_gather_attention(
-        q.reshape(bh, g, d).contiguous(),
+    out = _launch(
+        "paged_decode_gather_attention",
+        dec_kernel.paged_decode_gather_attention, q.reshape(bh, g, d).contiguous(),
         k_pool.reshape(heads * num_pages, bk, d),
         v_pool.reshape(heads * num_pages, bk, d),
         idx, val, bt_bh, cl_bh, key_block=bk, scale=scale,
@@ -512,7 +528,8 @@ def fused_decode_attention(
     qs = q16.scale.reshape(bh, g, 1)
     cl_bh = cache_length.to(torch.int32).repeat_interleave(heads)
 
-    s0, s1 = dec_kernel.mpmrf_decode_filter_scores(
+    s0, s1 = _launch(
+        "mpmrf_decode_filter_scores", dec_kernel.mpmrf_decode_filter_scores,
         qp, qs, k_codes.reshape(bh, n_k, d),
         k_block_scale.reshape(bh, n_k // bk), cl_bh,
         round_bits=tuple(round_bits), key_block=bk,
@@ -524,7 +541,8 @@ def fused_decode_attention(
         keep_diagonal=keep_diagonal, live_budget=live_budget, heads=heads,
         with_stats=telemetry,
     )
-    out = dec_kernel.decode_gather_attention(
+    out = _launch(
+        "decode_gather_attention", dec_kernel.decode_gather_attention,
         q.reshape(bh, g, d).contiguous(),
         k_cache.reshape(bh, n_k, d), v_cache.reshape(bh, n_k, d),
         idx, val, cl_bh, key_block=bk, scale=scale,
@@ -622,8 +640,9 @@ def _paged_prefill_core(
     qpos_bh = q_positions.to(torch.int32).repeat_interleave(heads, dim=0)
     bt_bh = _head_offset_table(block_table, heads, num_pages)
 
-    s0, s1 = pre_kernel.paged_prefill_filter_scores(
-        qp, qs, qpos_bh,
+    s0, s1 = _launch(
+        "mpmrf_paged_prefill_filter_scores",
+        pre_kernel.paged_prefill_filter_scores, qp, qs, qpos_bh,
         k_codes.reshape(heads * num_pages, bk, d),
         k_scale.reshape(heads * num_pages, 1),
         bt_bh, round_bits=round_bits, query_block=query_block,
@@ -636,8 +655,9 @@ def _paged_prefill_core(
         keep_diagonal=keep_diagonal, diag_blocks=diag_blocks, heads=heads,
         with_stats=with_stats,
     )
-    out = pre_kernel.paged_prefill_gather_attention(
-        q.reshape(bh, n_q, d).contiguous(), qpos_bh,
+    out = _launch(
+        "paged_prefill_gather_attention",
+        pre_kernel.paged_prefill_gather_attention, q.reshape(bh, n_q, d).contiguous(), qpos_bh,
         k_pool.reshape(heads * num_pages, bk, d),
         v_pool.reshape(heads * num_pages, bk, d),
         idx, val, bt_bh, query_block=query_block, key_block=bk, scale=scale,
@@ -698,7 +718,8 @@ def fused_prefill_attention(
         k_block_scale.float(), filter_block, dim=-1
     ).reshape(bh, n_k)
 
-    s0, s1 = pre_kernel.mpmrf_prefill_filter_scores(
+    s0, s1 = _launch(
+        "mpmrf_prefill_filter_scores", pre_kernel.mpmrf_prefill_filter_scores,
         qp, qs, qpos_bh, k_codes.reshape(bh, n_k, d), ks_row,
         round_bits=tuple(round_bits), query_block=query_block,
         key_block=key_block,
@@ -710,7 +731,8 @@ def fused_prefill_attention(
         keep_diagonal=keep_diagonal, diag_blocks=diag_blocks, heads=heads,
         with_stats=telemetry,
     )
-    out = pre_kernel.prefill_gather_attention(
+    out = _launch(
+        "prefill_gather_attention", pre_kernel.prefill_gather_attention,
         q.reshape(bh, n_q, d).contiguous(), qpos_bh,
         k_cache.reshape(bh, n_k, d), v_cache.reshape(bh, n_k, d),
         idx, val, query_block=query_block, key_block=key_block, scale=scale,
