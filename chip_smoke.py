@@ -377,6 +377,25 @@ none of B1–B11):
     ms, tokens/s, peak.
 29. A ``pallas`` model's ``loss`` under grad refused, on the card as on
     the CPU, before any kernel launch; without grad it scores on B9.
+30. ``[mesh-train]``: qwen3-14b at published widths cut to
+    ``MESH_TRAIN_LAYERS``, through launch/train.py's loop: 2 steps of 4 ×
+    2048 tokens in 2 microbatches on one device, then the same on a
+    ``(2, 2)`` mesh of ``cuda:0`` × 4 (ZeRO over 'data', heads / MLP /
+    vocabulary over 'model', the rows one after another): the first
+    step's losses within ``MESH_LOSS_RTOL``, the updated parameters
+    within 2·steps·lr and the share off by more than 2e-5 within
+    ``MESH_PARAM_SHARE``, each device's shard bytes equal to
+    ``param_shardings``' reckoning, both runs' peaks within 70 GB, the
+    step ms side by side with the card's name and power limit.
+31. ``[mesh-train-moe]``: olmoe-1b-7b at published widths cut to
+    ``MESH_MOE_LAYERS`` on the ``(2, 2)`` mesh (ZeRO + 64 experts over
+    'model', each data row's own capacity): one train step with exact
+    and one with int8 expert gathers, each loss against the one-device
+    loss of the same per-row capacity, layer 0's drop fraction.
+32. ``[mesh-train-resume]``: a checkpoint written on ``(2, 2)`` (the
+    logical arrays, fingerprint ``data=2xmodel=2``) restored on ``(1,
+    1)`` and ``(4, 1)``: every logical leaf bit-equal (exact digest), and
+    a further step each (qwen3-14b's smoke widths in bf16).
 
 The line before last is a JSON object listing each kernel's launches
 (B1–B4 in phase 4, B5–B8 in phase 8, B9–B11 in phase 15; those of
@@ -4679,6 +4698,327 @@ def train_phase(layers=TRAIN_LAYERS):
     return out
 
 
+# --------------------------------------------------------------------------
+# training over a (data, model) mesh of the one card (ROADMAP A5)
+# --------------------------------------------------------------------------
+
+#: the ``(data, model)`` mesh the mesh phases train on: ``cuda:0`` × 4
+MESH_TRAIN_GRID = (2, 2)
+#: qwen3-14b's depth in ``[mesh-train]``: the deepest whose phase peak
+#: (the one-device run's and the mesh run's) stays within PEAK_LIMIT_GB:
+#: at 6 the one-device run peaks 65.66 GB, the mesh run 62.91, and a 7th
+#: layer adds ≈ 5.3 GB (``[train]``)
+MESH_TRAIN_LAYERS = 6
+#: ``[mesh-train]``'s traffic: two steps of launch/train.py's loop, each
+#: microbatch's 2 sequences one a data row
+MESH_TRAIN_RUN = dict(steps=2, seq_len=2048, global_batch=4, microbatches=2,
+                      lr=3e-4)
+#: the first step's mesh loss against the one-device loss: the model is
+#: bf16, and a row-parallel partial (``wo``, ``w_down``) rounds to bf16
+#: per shard before the f32 sum over 'model', where one device rounds the
+#: whole product once (CPU rehearsal at smoke widths in bf16: 4e-5)
+MESH_LOSS_RTOL = 2e-3
+#: the updated parameters against the one-device run's: every element
+#: within 2·steps·lr (tests/test_torch_train_loop.py's bound: a step
+#: moves a weight by ≈ lr·sign(g), and a gradient within a rounding of 0
+#: may flip); the share off by more than 2e-5 is that test's 0.1 % in
+#: f32, but a bf16 weight's ulp is above 2e-5 from |w| ≥ 2^-9, so a
+#: flipped or re-rounded update counts: gated at 5 % (CPU rehearsal at
+#: smoke widths in bf16: 0.42 %; the card at 6 layers: 1.83 %, every
+#: element within the bound)
+MESH_PARAM_ATOL, MESH_PARAM_SHARE = 2e-5, 0.05
+#: ``[mesh-train-moe]``: olmoe-1b-7b's depth (peak 28.96 GB at 4), its
+#: batch (4 × 1024: one data row holds 2 sequences) and the loss
+#: tolerance with the int8 expert gathers against the one-device run
+#: (weights within 1/254 of each row's max)
+MESH_MOE_LAYERS = 4
+MESH_MOE_BATCH, MESH_MOE_SEQ = 4, 1024
+MESH_MOE_QUANT_RTOL = 2e-2
+
+
+def _host_leaves(params):
+    """``path → CPU tensor`` of a (logical) parameter tree."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    return {k: v.detach().to("cpu") for k, v in tree_leaves(params)}
+
+
+def mesh_train_phase(layers=MESH_TRAIN_LAYERS):
+    """``[mesh-train]``: qwen3-14b at full width cut to ``layers`` through
+    launch/train.py's loop (bf16, remat full, mpmrf_block ρ 4 from layer
+    2): two steps on one device, then the same two steps on a ``(2, 2)``
+    mesh of ``cuda:0`` × 4 (ZeRO over 'data', heads / MLP / vocabulary
+    over 'model'; the rows run one after another). The first step's
+    losses agree within ``MESH_LOSS_RTOL``, the updated parameters as
+    ``MESH_PARAM_*`` say, each device addresses the bytes
+    ``param_shardings`` gives it, and both runs peak within
+    ``PEAK_LIMIT_GB``. No CUDA kernel runs (no kernel has a backward)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import LMModel
+
+    full = get_config("qwen3-14b")
+    cfg = dataclasses.replace(full, num_layers=layers)
+    smi = card_line("mesh-train")
+    mesh = _sim_mesh(MESH_TRAIN_GRID)
+    kw = dict(MESH_TRAIN_RUN, device=DEV, corpus=TRAIN_CORPUS, log_every=1)
+    n_params = _param_count(cfg)
+    log(f"[mesh-train] {cfg.name} at full width (d {cfg.d_model}, "
+        f"{cfg.num_heads} / {cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}), depth cut to {layers} of {full.num_layers}: "
+        f"{n_params / 1e9:.3f} B parameters, {cfg.dtype}; {MESH_TRAIN_RUN}; "
+        f"mesh {mesh}")
+    out = dict(layers=layers, of=full.num_layers, params=n_params,
+               grid=list(MESH_TRAIN_GRID), card=smi)
+    runs = {}
+    launches = {}
+    for name, m in (("one-device", None), ("mesh", mesh)):
+        _free_device()
+        if DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        loop = launch_train.make_loop(cfg, mesh=m, **kw)
+        seen = _record_steps(loop)
+        t0 = time.perf_counter()
+        res = loop.run()
+        wall = time.perf_counter() - t0
+        peak = _peak_gb()
+        launches[name] = sum(_build.launch_counts.values())
+        need(res["final_step"] == 2 and len(seen) == 2,
+             f"[mesh-train] {name} ran {res['final_step']} steps")
+        need(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+                 for s in seen), f"[mesh-train] {name}: non-finite {seen}")
+        step_ms = [h["sec"] * 1e3 for h in res["history"]]
+        runs[name] = dict(steps=seen, step_ms=step_ms, peak_gb=peak,
+                          wall_s=wall)
+        log(f"[mesh-train] {name}: losses "
+            f"{[s['loss'] for s in seen]!r}, grad norms "
+            f"{[s['grad_norm'] for s in seen]!r}, steps "
+            f"{', '.join(f'{x:.1f}' for x in step_ms)} ms (the first with "
+            f"the allocator's growth), peak {peak:.2f} GB [{smi}]")
+        need(peak <= PEAK_LIMIT_GB,
+             f"[mesh-train] {name} peak {peak:.1f} GB over {PEAK_LIMIT_GB}")
+        if m is None:
+            ref = _host_leaves(res["params"])
+        else:
+            got = shd.device_bytes(res["params"], mesh)
+            model = LMModel(cfg, device="meta")
+            want = shd.reckoned_bytes(model.param_shapes(),
+                                      model.param_dtypes(), mesh)
+            held = sum(t.numel() * t.element_size()
+                       for _, leaf in shd.sharded_leaves(res["params"])
+                       for t in leaf.shards.values())
+            log(f"[mesh-train] shard bytes by device (data, model): "
+                + ", ".join(f"({i}, {j}) {got[i][j] / 1e9:.4f} GB"
+                            for i in range(len(got))
+                            for j in range(len(got[0])))
+                + f"; param_shardings' reckoning {want / 1e9:.4f} GB each; "
+                f"held once on the card {held / 1e9:.4f} GB (a replicated "
+                f"shard once)")
+            need(all(b == want for row in got for b in row),
+                 f"[mesh-train] shard bytes {got} vs reckoning {want}")
+            out.update(device_bytes=got, reckoned_bytes=want, held_bytes=held)
+            new = _host_leaves(shd.gather_tree(res["params"], "cpu"))
+        del loop, res
+        _free_device()
+    one, many = runs["one-device"], runs["mesh"]
+    l1, l2 = one["steps"][0]["loss"], many["steps"][0]["loss"]
+    rel = abs(l2 - l1) / abs(l1)
+    bound = 2 * MESH_TRAIN_RUN["steps"] * MESH_TRAIN_RUN["lr"]
+    off = total = 0
+    worst = 0.0
+    for key, a in ref.items():
+        d = (new[key].float() - a.float()).abs()
+        off += int((d > MESH_PARAM_ATOL).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()))
+    share = off / total
+    log(f"[mesh-train] first step's loss: mesh {l2!r} vs one device {l1!r}, "
+        f"|Δ|/|ref| {rel:.2e} (tolerance {MESH_LOSS_RTOL})")
+    log(f"[mesh-train] params after 2 steps: {share:.4%} of {total} "
+        f"elements off by > {MESH_PARAM_ATOL} (gate {MESH_PARAM_SHARE:.0%}), "
+        f"max |Δ| {worst:.3e} (bound 2·steps·lr = {bound:.1e})")
+    log(f"[mesh-train] step ms: mesh {many['step_ms'][1]:.1f} vs one device "
+        f"{one['step_ms'][1]:.1f} (second steps; x"
+        f"{many['step_ms'][1] / one['step_ms'][1]:.2f}); CUDA kernel "
+        f"launches {launches} [{smi}]")
+    need(rel <= MESH_LOSS_RTOL, f"[mesh-train] loss {l2} vs {l1}")
+    need(share <= MESH_PARAM_SHARE and worst <= bound,
+         f"[mesh-train] params: {share:.4%} off, max {worst}")
+    need(not any(launches.values()),
+         f"[mesh-train] a kernel of the port ran: {launches}")
+    out.update(runs, loss_rel=rel, param_share_off=share,
+               param_max_abs=worst, launches=launches)
+    return out
+
+
+def _row_split_loss(model, params, batch, rows):
+    """The one-device loss with the mesh's per-row capacity: each data
+    row's tokens through the single-device model on their own (an MoE
+    call's capacity from its rows), the token losses summed over the
+    rows over the batch's count, plus the rows' mean aux loss."""
+    import torch
+
+    per = batch["inputs"].shape[0] // rows
+    nll = aux = 0.0
+    for r in range(rows):
+        part = {k: torch.as_tensor(v[r * per:(r + 1) * per]).to(DEV)
+                for k, v in batch.items()}
+        with torch.no_grad():
+            _, m = model.loss(params, part)
+        nll += float(m["ce"]) * float(m["tokens"])
+        aux += float(m["aux"]) / rows
+    return nll / batch["targets"].size + aux
+
+
+def mesh_train_moe_phase(layers=MESH_MOE_LAYERS):
+    """``[mesh-train-moe]``: olmoe-1b-7b at full width cut to ``layers``
+    on the ``(2, 2)`` mesh: ZeRO over 'data' and its 64 experts over
+    'model' (EP), each data row with its own capacity; one train step
+    with exact and with int8 expert gathers (``quantized_weight_gather``),
+    each step's loss against the one-device loss of the same per-row
+    capacity (``_row_split_loss``), and layer 0's drop fraction."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import TokenDataset
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import _build
+    from repro_torch.models import LMModel
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.runtime import make_train_step
+
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    smi = card_line("mesh-train-moe")
+    mesh = _sim_mesh(MESH_TRAIN_GRID)
+    rows = MESH_TRAIN_GRID[0]
+    ds = TokenDataset(cfg.vocab_size, seq_len=MESH_MOE_SEQ,
+                      global_batch=MESH_MOE_BATCH, source="zipf",
+                      corpus_tokens=TRAIN_CORPUS)
+    batch = next(ds)
+    _free_device()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = LMModel(cfg, device=DEV)
+    params = model.init(seed=0)
+    ref = _row_split_loss(model, params, batch, rows)
+    with torch.no_grad():           # layer 0's MoE on the batch, per row
+        x = model._embed(params, torch.as_tensor(batch["inputs"]).to(DEV))
+        blk = {k: v[0] for k, v in params["blocks"]["norm_mlp"].items()}
+        moe0 = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+        _, met = moe_lib.apply_moe_sharded(
+            moe0, L.apply_norm(cfg.norm, blk, x), model._moe_cfg(), mesh)
+    drop = float(met["moe_drop_fraction"])
+    log(f"[mesh-train-moe] {cfg.name} at full width (d {cfg.d_model}, "
+        f"{cfg.num_experts} experts top-{cfg.experts_per_token} of d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}), depth cut to {layers} of "
+        f"{full.num_layers}, {cfg.dtype}; {MESH_MOE_BATCH} × {MESH_MOE_SEQ} "
+        f"tokens on {mesh}; one-device loss at the rows' capacity {ref!r}; "
+        f"layer 0's drop fraction {drop:.4f} (capacity factor "
+        f"{cfg.capacity_factor}, {MESH_MOE_BATCH // rows} sequences a row)")
+    out = dict(layers=layers, of=full.num_layers, one_device_loss=ref,
+               drop_fraction_layer0=drop, card=smi)
+    specs = shd.param_shardings(params, mesh)
+    for quantized in (False, True):
+        qcfg = dataclasses.replace(cfg, moe_quantized_gather=quantized)
+        qmodel = LMModel(qcfg, device=DEV)
+        placed = shd.shard_tree(params, specs, mesh)
+        opt = AdamWConfig(learning_rate=3e-4)
+        state = adamw.init(placed, opt)
+        step = make_train_step(qmodel, opt, mesh=mesh)
+        _build.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        placed, state, m = step(placed, state, batch)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        loss = float(m["loss"])
+        rel = abs(loss - ref) / abs(ref)
+        tol = MESH_MOE_QUANT_RTOL if quantized else MESH_LOSS_RTOL
+        name = "int8 gathers" if quantized else "exact gathers"
+        launches = sum(_build.launch_counts.values())
+        log(f"[mesh-train-moe] {name}: loss {loss!r} (aux {float(m['aux'])!r})"
+            f" vs one device {ref!r}, |Δ|/|ref| {rel:.2e} (tolerance {tol}), "
+            f"grad norm {float(m['grad_norm'])!r}, step {ms:.1f} ms (its "
+            f"first: allocations included), CUDA kernel launches {launches} "
+            f"[{smi}]")
+        need(math.isfinite(float(m["grad_norm"])) and rel <= tol,
+             f"[mesh-train-moe] {name}: loss {loss} vs {ref}")
+        need(launches == 0, f"[mesh-train-moe] a kernel ran: {launches}")
+        out["int8" if quantized else "exact"] = dict(
+            loss=loss, rel=rel, grad_norm=float(m["grad_norm"]), step_ms=ms)
+        del placed, state, step
+        _free_device()
+    peak = _peak_gb()
+    log(f"[mesh-train-moe] peak {peak:.2f} GB")
+    need(peak <= PEAK_LIMIT_GB, f"[mesh-train-moe] peak {peak:.1f} GB")
+    out["peak_gb"] = peak
+    del model, params
+    _free_device()
+    return out
+
+
+def mesh_train_resume_phase():
+    """``[mesh-train-resume]``: qwen3-14b's smoke widths in bf16 train two
+    steps on the ``(2, 2)`` mesh and checkpoint (the logical arrays and
+    the mesh's fingerprint); loops on ``(1, 1)`` and ``(4, 1)`` restore
+    it, their gathered state bit-equal to the saved one (exact digest),
+    and each trains one more step. Small widths: ``[train]`` writes the
+    call's one large checkpoint."""
+    import json as _json
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import step_dir
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime.train_loop import gather_state
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3-14b"),
+                              dtype="bfloat16")
+    kw = dict(seq_len=256, global_batch=4, lr=3e-4, device=DEV,
+              corpus=20_000, log_every=1)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    out = {}
+    try:
+        loop = launch_train.make_loop(cfg, steps=2, checkpoint_dir=tmp,
+                                      checkpoint_every=2,
+                                      mesh=_sim_mesh(MESH_TRAIN_GRID), **kw)
+        res = loop.run()
+        saved = state_digest(*gather_state(res["params"], res["opt_state"],
+                                           DEV))
+        with open(os.path.join(step_dir(tmp, 2), "manifest.json")) as f:
+            fingerprint = _json.load(f)["mesh"]
+        need(fingerprint == "data=2xmodel=2",
+             f"[mesh-train-resume] manifest mesh {fingerprint}")
+        for shape in ((1, 1), (4, 1)):
+            loop = launch_train.make_loop(cfg, steps=3, checkpoint_dir=tmp,
+                                          mesh=_sim_mesh(shape), **kw)
+            params, opt, start = loop._init_state()
+            equal = state_digest(*gather_state(params, opt, DEV)) == saved
+            _, _, m = loop.step_fn(params, opt, next(loop.dataset))
+            loss = float(m["loss"])
+            log(f"[mesh-train-resume] written on (2, 2) "
+                f"({fingerprint}), restored on {shape}: step {start}, every "
+                f"logical leaf's bits equal {equal}; its next step's loss "
+                f"{loss!r}")
+            need(start == 2 and equal,
+                 f"[mesh-train-resume] {shape}: start {start}, equal {equal}")
+            need(math.isfinite(loss), f"[mesh-train-resume] loss {loss}")
+            out[f"{shape[0]}x{shape[1]}"] = dict(equal=equal, next_loss=loss)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _free_device()
+    return out
+
+
 def profile_train_step(loop, params, opt_state, label="profile-train"):
     """One more train step of ``loop``'s model and optimizer, on its next
     batch, under ``torch.profiler``: device time by kernel and the
@@ -5250,6 +5590,10 @@ def main(argv=None) -> int:
                     train_lm_200k=train_lm_phase(200_000, gated=False),
                     train_lm=train_lm_phase(),
                     pallas_refused=pallas_grad_refused())
+    # training over a (2, 2) mesh of the card: no kernel runs either
+    training.update(mesh_train=mesh_train_phase(),
+                    mesh_train_moe=mesh_train_moe_phase(),
+                    mesh_train_resume=mesh_train_resume_phase())
 
     timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []

@@ -20,16 +20,35 @@ its experts of the MoE leaves (the reference's ``P("model", …)`` slices
 of ``w_up`` / ``w_gate`` / ``w_down``), which ``models/moe.py`` runs
 shard by shard wherever :func:`expert_shards` says the reference would.
 
-The training rules (parameter, batch and activation specs) are ROADMAP
-A5: the port's train step runs on one device and refuses a mesh.
+The training half (reference ``:26-336, 390-470``): the rule tables,
+``MESH_MAP`` and the rules profile, :func:`logical_axes_for` and the
+param / batch / cache specs, spec for spec the reference's on the
+port's dict trees (a path is the tuple of keys down to the leaf). Specs
+are tuples with one entry per dim: a mesh axis name, a tuple of them, or
+None. Where the reference hands a pytree of ``NamedSharding`` s to pjit,
+the port lays the tree out by hand: :func:`shard_tree` turns each leaf
+into a :class:`ShardedLeaf`, the distinct shards its spec names, each
+on the first mesh device of its replica group (an axis the spec does
+not name replicates the shard over it, and the controller holds it
+once), and :func:`gather_tree` turns it back. The train step reads a
+layer's shards through :func:`row_views`: the ZeRO all-gather over
+'data' (and, for a recurrent cell, over 'model') as collectives whose
+backward is the reduce-scatter of the gradients
+(:mod:`repro_torch.distributed.collectives`).
+
+A three-axis mesh (``pod``), the pipeline and the ``"serve"`` profile's
+2-D expert layout are ROADMAP A5b.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional, Tuple
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.distributed import collectives as col
 
 _ACTIVE_MESH = None
 
@@ -210,3 +229,512 @@ def shard_experts(params: Dict[str, object], mesh) -> Dict[str, object]:
                 _shard_on(moe[name][:, s * per:(s + 1) * per], dev)
                 for s, dev in enumerate(devices))
     return dict(params, blocks=dict(blocks, moe=sharded))
+
+
+# --------------------------------------------------------------------------
+# training rules (the reference's tables, verbatim)
+# --------------------------------------------------------------------------
+
+# name → trailing-dim logical axes (path-context dependent for qkv).
+_ATTN_RULES = {
+    "wq": ("embed", "heads", None),
+    "wk": ("embed", "kv_heads", None),
+    "wv": ("embed", "kv_heads", None),
+    "wo": ("heads", None, "embed"),
+}
+_SSM_RULES = {
+    # mLSTM qkv: ZeRO over data only; sLSTM's matrices replicate over
+    # 'model' (a model-sharded dim of the recurrence would all-reduce
+    # every timestep), ZeRO over 'data'.
+    "wq": ("embed", None, None),
+    "wk": ("embed", None, None),
+    "wv": ("embed", None, None),
+    "w_up": ("embed", "mlp"),
+    "w_down": ("mlp", "embed"),
+    "w_in": ("embed", "mlp"),
+    "w_out": ("mlp", "embed"),
+    "w_x": ("embed", None),
+    "r_h": (None, None, None, None),
+    "conv": (None, "mlp"),
+    "w_if": ("mlp", None),
+}
+_GENERIC_RULES = {
+    # the embedding table vocab-sharded (the lookup: a masked local
+    # gather + a sum over 'model', layers.embed_tokens), the LM head's
+    # vocab sharded (logits vocab-sharded), the MoE router replicated
+    # (every model shard routes alike), the dense MLP
+    "table": ("vocab", None),
+    "w": (None, "vocab"),
+    "router": (None, None),
+    "w_up": ("embed", "mlp"),
+    "w_gate": ("embed", "mlp"),
+    "w_down": ("mlp", "embed"),
+}
+_MOE_RULES = {
+    "w_up": ("experts", "embed", None),
+    "w_gate": ("experts", "embed", None),
+    "w_down": ("experts", None, "embed"),
+}
+_MOE_SERVE_RULES = {  # 2D expert TP: experts→model × d_ff→data
+    "w_up": ("experts", None, "expert_ff"),
+    "w_gate": ("experts", None, "expert_ff"),
+    "w_down": ("experts", "expert_ff", None),
+}
+_REPLICATED = {"scale", "bias", "b_if", "a_log", "dt_bias", "d_skip"}
+
+MESH_MAP = {
+    "embed": "data",
+    "embed_tp": "model",
+    "heads": "model",
+    "kv_heads": None,
+    "mlp": "model",
+    "vocab": "model",
+    "experts": "model",
+    "expert_ff": None,      # serve profile: → "data" (2D expert TP)
+    None: None,
+}
+
+#: what a three-axis mesh and the serve profile's 2-D experts wait for
+A5B = ("ROADMAP A5b (a named-axis mesh with 'pod', pipeline.py, "
+       "make_production_mesh, the \"serve\" profile's _apply_moe_serve_2d, "
+       "launch/dryrun.py --mesh)")
+
+# "train" ZeRO-shards weights over 'data'; "serve" keeps them resident
+# and 2D-shards the MoE expert FFNs (experts→model × d_ff→data)
+_RULES_PROFILE = "train"
+
+
+def set_rules_profile(profile: str) -> None:
+    global _RULES_PROFILE
+    if profile not in ("train", "serve"):
+        raise ValueError(profile)
+    _RULES_PROFILE = profile
+
+
+def get_rules_profile() -> str:
+    return _RULES_PROFILE
+
+
+def _mesh_map():
+    if _RULES_PROFILE == "serve":
+        m = dict(MESH_MAP)
+        m["embed"] = None
+        m["expert_ff"] = "data"
+        return m
+    return MESH_MAP
+
+
+def _names(path) -> Tuple[str, ...]:
+    """A path as its keys: a tuple of keys, or a ``/``-joined string."""
+    if isinstance(path, str):
+        return tuple(k for k in path.split("/") if k)
+    return tuple(str(k) for k in path)
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    if isinstance(leaf, (tuple, list, torch.Size)):
+        return tuple(leaf)
+    return tuple(leaf.shape)
+
+
+def logical_axes_for(path, ndim: int) -> Tuple[Optional[str], ...]:
+    """Trailing-rule lookup for a leaf of rank ``ndim`` at ``path``;
+    leading (stacked layer / group) dims → None. A factored moment's
+    ``row`` / ``col`` statistic inherits its parameter's rule with the
+    reduced dim removed (row drops the last axis, col the one before)."""
+    names = _names(path)
+    name = names[-1] if names else ""
+    if name in ("row", "col") and len(names) >= 2:
+        parent = logical_axes_for(names[:-1], ndim + 1)
+        reduced = parent[:-1] if name == "row" else parent[:-2] + parent[-1:]
+        return ((None,) * (ndim - len(reduced)) + reduced
+                if len(reduced) <= ndim else (None,) * ndim)
+    if name in _REPLICATED:
+        return (None,) * ndim
+    rules = None
+    if name in ("wq", "wk", "wv", "wo"):
+        rules = _ATTN_RULES if "attn" in names else _SSM_RULES
+    elif name in ("w_up", "w_gate", "w_down") and "moe" in names:
+        rules = _MOE_SERVE_RULES if _RULES_PROFILE == "serve" else _MOE_RULES
+    elif name in _SSM_RULES and "cell" in names:
+        rules = _SSM_RULES
+    elif name in _GENERIC_RULES:
+        rules = _GENERIC_RULES
+    if rules is None or name not in rules:
+        return (None,) * ndim
+    trailing = rules[name]
+    if len(trailing) > ndim:
+        return (None,) * ndim
+    return (None,) * (ndim - len(trailing)) + tuple(trailing)
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    """Mesh axes used for data parallelism ('pod' folds into DP)."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def _dp_size(mesh) -> int:
+    return math.prod(mesh.shape[a] for a in data_axes(mesh))
+
+
+def _dp(mesh):
+    """The data axes as one spec entry: a lone axis as its name (as
+    ``PartitionSpec`` normalizes a one-axis tuple)."""
+    dp = data_axes(mesh)
+    return dp[0] if len(dp) == 1 else dp
+
+
+def param_pspec(path, leaf, mesh) -> Tuple[Optional[str], ...]:
+    """The reference's ``param_pspec``: each dim's logical axis through
+    ``MESH_MAP``, None where the mesh lacks the axis or its size does
+    not divide the dim (the divisibility guard: such a leaf stays whole
+    over that axis)."""
+    shape = _shape(leaf)
+    mesh_map = _mesh_map()
+    spec = []
+    for size, ax in zip(shape, logical_axes_for(path, len(shape))):
+        mesh_ax = mesh_map.get(ax)
+        if (mesh_ax is None or mesh_ax not in mesh.axis_names
+                or size % mesh.shape[mesh_ax]):
+            spec.append(None)
+        else:
+            spec.append(mesh_ax)
+    return tuple(spec)
+
+
+def _map_with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def param_shardings(params_shapes: Any, mesh):
+    """The spec of every leaf of a parameter (or moment) tree; leaves
+    are tensors or shapes (:meth:`LMModel.param_shapes`)."""
+    return _map_with_path(lambda p, leaf: param_pspec(p, leaf, mesh),
+                          params_shapes)
+
+
+def batch_pspec(leaf, mesh) -> Tuple:
+    """Batch dim 0 over every DP axis when it divides, else replicated."""
+    shape = _shape(leaf)
+    if len(shape) == 0 or shape[0] % _dp_size(mesh):
+        return (None,) * len(shape)
+    return (_dp(mesh),) + (None,) * (len(shape) - 1)
+
+
+def batch_shardings(batch_shapes: Any, mesh):
+    return _map_with_path(lambda _, leaf: batch_pspec(leaf, mesh),
+                          batch_shapes)
+
+
+def kv_cache_pspec(shape, mesh) -> Tuple:
+    """An attention cache ``[..., B, KV, max_len, hd]``: batch over DP
+    when divisible; 'model' prefers KV heads, else the sequence; a batch
+    that does not shard spreads the sequence over 'data' too."""
+    dp = _dp(mesh)
+    dp_size = _dp_size(mesh)
+    ndim = len(shape)
+    spec = [None] * ndim
+    batch_dim, kv_dim, seq_dim = ndim - 4, ndim - 3, ndim - 2
+    has_model = "model" in mesh.axis_names
+    batch_sharded = shape[batch_dim] % dp_size == 0 and shape[batch_dim] > 1
+    if batch_sharded:
+        spec[batch_dim] = dp
+    if has_model and shape[kv_dim] % mesh.shape["model"] == 0:
+        spec[kv_dim] = "model"
+    elif has_model and shape[seq_dim] % mesh.shape["model"] == 0:
+        spec[seq_dim] = "model"
+    if (not batch_sharded and "data" in mesh.axis_names
+            and spec[seq_dim] is None
+            and shape[seq_dim] % mesh.shape["data"] == 0):
+        spec[seq_dim] = "data"
+    elif (not batch_sharded and "data" in mesh.axis_names
+          and spec[seq_dim] == "model"
+          and shape[seq_dim] % (
+              mesh.shape["model"] * mesh.shape["data"]) == 0):
+        spec[seq_dim] = ("data", "model")
+    return tuple(spec)
+
+
+def cache_pspec(path, leaf, mesh) -> Tuple:
+    """Decode-cache specs: ``k`` / ``v`` / ``k_codes`` by
+    :func:`kv_cache_pspec`; ``k_scale`` ``[..., B, KV, n_kb]`` batch over
+    DP; any other state its first dim that DP divides (and > 1)."""
+    dp = _dp(mesh)
+    dp_size = _dp_size(mesh)
+    names = _names(path)
+    shape = _shape(leaf)
+    spec = [None] * len(shape)
+    if names and names[-1] in ("k", "v", "k_codes") and len(shape) >= 4:
+        return kv_cache_pspec(shape, mesh)
+    if names and names[-1] == "k_scale" and len(shape) >= 3:
+        b_dim = len(shape) - 3
+        if shape[b_dim] % dp_size == 0:
+            spec[b_dim] = dp
+        return tuple(spec)
+    for d, size in enumerate(shape):
+        if size % dp_size == 0 and size > 1:
+            spec[d] = dp
+            break
+    return tuple(spec)
+
+
+def cache_shardings(cache_shapes: Any, mesh):
+    return _map_with_path(lambda p, leaf: cache_pspec(p, leaf, mesh),
+                          cache_shapes)
+
+
+# --------------------------------------------------------------------------
+# the explicit layout
+# --------------------------------------------------------------------------
+
+
+def _axis_dim(spec, axis: str) -> Optional[int]:
+    for i, ax in enumerate(spec):
+        if ax == axis:
+            return i
+    return None
+
+
+class ShardedLeaf:
+    """One leaf laid out over a ``(data, model)`` mesh: ``shards`` maps
+    each distinct shard's index ``(i, j)`` — its data and model
+    coordinates, 0 on an axis ``spec`` does not name — to its tensor on
+    ``mesh.devices[i][j]``. ``shape`` is the logical leaf's."""
+
+    __slots__ = ("spec", "shape", "mesh", "shards")
+
+    def __init__(self, spec, shape, mesh, shards: Dict[Tuple[int, int],
+                                                       torch.Tensor]):
+        self.spec = tuple(spec)
+        self.shape = tuple(shape)
+        self.mesh = mesh
+        self.shards = shards
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def data_dim(self) -> Optional[int]:
+        return _axis_dim(self.spec, "data")
+
+    def model_dim(self) -> Optional[int]:
+        return _axis_dim(self.spec, "model")
+
+    def index(self, i: int, j: int) -> Tuple[int, int]:
+        """The shard that mesh device ``(i, j)`` addresses."""
+        return (i if "data" in self.spec else 0,
+                j if "model" in self.spec else 0)
+
+    def slices(self, key: Tuple[int, int]) -> Tuple[slice, ...]:
+        """The logical slice each dim of shard ``key`` covers."""
+        out = []
+        for dim, ax in enumerate(self.spec):
+            size = self.shape[dim]
+            if ax in ("data", "model"):
+                n = self.mesh.shape[ax]
+                k = key[0] if ax == "data" else key[1]
+                out.append(slice(k * size // n, (k + 1) * size // n))
+            else:
+                out.append(slice(None))
+        return tuple(out)
+
+    def map(self, fn, *others: "ShardedLeaf") -> "ShardedLeaf":
+        """A leaf of the same layout whose shard ``k`` is ``fn(shard,
+        *(o.shards[k]))``."""
+        return ShardedLeaf(self.spec, self.shape, self.mesh, {
+            k: fn(t, *(o.shards[k] for o in others))
+            for k, t in self.shards.items()})
+
+    def device_bytes(self, i: int, j: int) -> int:
+        """The bytes mesh device ``(i, j)`` addresses (its shard, a
+        replicated one counted on every device of its group)."""
+        t = self.shards[self.index(i, j)]
+        return t.numel() * t.element_size()
+
+    def __repr__(self) -> str:
+        return (f"ShardedLeaf({self.shape}, spec={self.spec}, "
+                f"{len(self.shards)} shards)")
+
+
+def shard_leaf(x: torch.Tensor, spec, mesh) -> ShardedLeaf:
+    """``x`` (logical, any device) laid out over ``mesh`` by ``spec``."""
+    if any(ax not in (None, "data", "model") for ax in spec):
+        raise ValueError(f"spec {spec} on a (data, model) mesh: {A5B}")
+    d_n = mesh.shape["data"] if "data" in spec else 1
+    m_n = mesh.shape["model"] if "model" in spec else 1
+    leaf = ShardedLeaf(spec, x.shape, mesh, {})
+    for i in range(d_n):
+        for j in range(m_n):
+            part = x[leaf.slices((i, j))]
+            dev = mesh.devices[i][j]
+            leaf.shards[(i, j)] = part.to(dev, copy=True).contiguous()
+    return leaf
+
+
+def shard_tree(tree: Any, specs: Any, mesh) -> Any:
+    """Logical tensors → :class:`ShardedLeaf` s placed by ``specs`` (a
+    tree of the same structure, e.g. :func:`param_shardings`'). A
+    factored moment's ``{"row", "col"}`` dict is a subtree like any
+    other."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
+    return shard_leaf(tree, specs, mesh)
+
+
+def gather_leaf(leaf: ShardedLeaf, device=None) -> torch.Tensor:
+    """The logical tensor of ``leaf`` on ``device`` (default: the mesh's
+    first device)."""
+    device = leaf.mesh.devices[0][0] if device is None else device
+    first = next(iter(leaf.shards.values()))
+    out = torch.empty(leaf.shape, dtype=first.dtype, device=device)
+    for key, t in leaf.shards.items():
+        out[leaf.slices(key)] = t.detach().to(device)
+    return out
+
+
+def gather_tree(tree: Any, device=None) -> Any:
+    """:func:`shard_tree`'s inverse: every :class:`ShardedLeaf` as its
+    logical tensor on ``device`` (other leaves as they are)."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, ShardedLeaf):
+        return gather_leaf(tree, device)
+    return tree
+
+
+def sharded_leaves(tree: Any, prefix: str = ""):
+    """``(path, ShardedLeaf)`` pairs in insertion order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from sharded_leaves(v, f"{prefix}/{k}" if prefix else k)
+    elif isinstance(tree, ShardedLeaf):
+        yield prefix, tree
+
+
+def device_bytes(tree: Any, mesh) -> List[List[int]]:
+    """The bytes each mesh device addresses of a sharded tree (a D × M
+    grid): what ``param_shardings`` gives each device."""
+    d_n, m_n = mesh.shape["data"], mesh.shape["model"]
+    out = [[0] * m_n for _ in range(d_n)]
+    for _, leaf in sharded_leaves(tree):
+        for i in range(d_n):
+            for j in range(m_n):
+                out[i][j] += leaf.device_bytes(i, j)
+    return out
+
+
+def reckoned_bytes(shapes: Any, dtypes: Any, mesh) -> int:
+    """What ``param_shardings`` gives every device, from shapes and
+    dtypes alone: each leaf's bytes over the product of the mesh axes
+    its :func:`param_pspec` names (the same on every device)."""
+    total = 0
+
+    def add(path, shape):
+        nonlocal total
+        spec = param_pspec(path, shape, mesh)
+        split = math.prod(mesh.shape[a] for a in spec if a is not None)
+        dtype = dtypes
+        for k in path:
+            dtype = dtype[k]
+        total += math.prod(shape) * dtype.itemsize // split
+
+    _map_with_path(add, shapes)
+    return total
+
+
+def unstack_sharded(leaf: ShardedLeaf) -> List[ShardedLeaf]:
+    """The layers of a stacked leaf ``[L, …]`` (its first dim never
+    sharded), each shard ``unbind`` -ed once: views, whose gradients
+    stack back into the shard."""
+    if leaf.spec[0] is not None:
+        raise ValueError(f"a stacked leaf sharded on its layer axis: "
+                         f"{leaf.spec}")
+    parts = {k: t.unbind(0) for k, t in leaf.shards.items()}
+    count = leaf.shape[0]
+    return [ShardedLeaf(leaf.spec[1:], leaf.shape[1:], leaf.mesh,
+                        {k: v[i] for k, v in parts.items()})
+            for i in range(count)]
+
+
+def batch_rows(batch_size: int, mesh) -> int:
+    """The data rows a batch of ``batch_size`` splits over: D where D
+    divides it (the reference's batch_pspec), else 1 — a replicated
+    batch, which every row would compute alike."""
+    d = _dp_size(mesh)
+    return d if batch_size % d == 0 and batch_size > 1 else 1
+
+
+def row_views(tree: Any, mesh, rows: Sequence[int], *, whole: bool = False,
+              quantized: bool = False) -> List[Any]:
+    """Each data row's view of a sharded (sub)tree: every
+    :class:`ShardedLeaf` all-gathered over 'data' onto the row (ZeRO: a
+    layer gathers its shards before use, and the gather's backward
+    reduce-scatters the rows' gradients into the shards), or broadcast
+    to it where the spec replicates over 'data'. A leaf the spec shards
+    over 'model' becomes a tuple of M tensors, shard j on the row's
+    device j (the tensor-parallel layers split their compute there),
+    unless ``whole``, which all-gathers it over 'model' onto the row's
+    first device as well; every other leaf — and every leaf on a model
+    axis of 1 — is one tensor there.
+    ``quantized`` gathers over 'data' with int8 codes
+    (:func:`collectives.quantized_all_gather`)."""
+    if isinstance(tree, dict):
+        per_key = {k: row_views(v, mesh, rows, whole=whole,
+                                quantized=quantized)
+                   for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()}
+                for i in range(len(rows))]
+    leaf = tree
+    a, b = leaf.data_dim(), leaf.model_dim()
+    js = range(mesh.shape["model"]) if b is not None else [0]
+    gather = col.quantized_all_gather if quantized else col.all_gather
+    per_j = []
+    for j in js:
+        targets = [mesh.devices[r][j] for r in rows]
+        if a is not None:
+            parts = [leaf.shards[(d, j)] for d in range(mesh.shape["data"])]
+            per_j.append(gather(parts, a, targets))
+        else:
+            per_j.append(col.broadcast(leaf.shards[(0, j)], targets))
+    out = []
+    for i, r in enumerate(rows):
+        if b is None or len(per_j) == 1:
+            out.append(per_j[0][i])
+            continue
+        shards = tuple(p[i] for p in per_j)
+        if whole:
+            out.append(col.all_gather(shards, b, [mesh.devices[r][0]])[0])
+        else:
+            out.append(shards)
+    return out
+
+
+# --------------------------------------------------------------------------
+# the reference's constraints, and what the explicit layout does instead
+# --------------------------------------------------------------------------
+
+
+def constrain(x, spec_names, allow_uneven: bool = False):
+    """The reference pins an activation to a symbolic spec for GSPMD.
+    The port has no partitioner: an activation lives where the code that
+    made it put it (a data row's rows on the row's devices, a model
+    shard's heads on its device), so this returns ``x`` as it is."""
+    return x
+
+
+def constrain_activations(x, mesh):
+    """The reference pins ``[B, n, d]`` activations to batch-DP; the
+    port's mesh step holds each data row's rows on that row
+    (:func:`batch_rows`), so ``x`` is returned as it is."""
+    return x
+
+
+def constrain_like_params(grads, params_template=None):
+    """The reference pins gradients to the parameters' specs so the DP
+    sync lowers to a reduce-scatter. The port's gradients arrive in the
+    shards' layout already — :func:`row_views`' gathers reduce-scatter
+    them in their backward — so they are returned as they are."""
+    return grads

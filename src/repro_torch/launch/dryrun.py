@@ -18,9 +18,10 @@ that the step allocated. ``fits`` holds arguments + temp against one
 80 GB card, and ``roofline`` the H100 roofline (its memory term from
 ``analysis.memory_model``, as the reference's tables take it).
 
-The production meshes (16×16, 2×16×16), ``--mesh single|multi``, the
-``"serve"`` rules profile and ``_apply_moe_serve_2d`` need the training
-half of ``distributed/sharding.py`` (ROADMAP A5).
+The production meshes (16×16, 2×16×16), ``--mesh single|multi`` (each
+device's share from ``distributed/sharding.py``'s specs), the
+``"serve"`` rules profile and ``_apply_moe_serve_2d`` are ROADMAP A5b:
+``--mesh`` is refused, naming it.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-14b --shape train_4k
@@ -242,7 +243,14 @@ def main(argv=None):
     ap.add_argument("--shape")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--mesh", default=None, choices=("single", "multi"),
+                    help="the production meshes: ROADMAP A5b, refused")
     args = ap.parse_args(argv)
+    if args.mesh is not None:
+        from repro_torch.distributed.sharding import A5B
+
+        raise SystemExit(f"--mesh {args.mesh}: the production meshes are "
+                         f"{A5B}")
     out = args.out or os.path.normpath(os.path.join(ARTIFACT_DIR, MESH_NAME))
 
     if args.all:

@@ -1,9 +1,12 @@
-"""Device meshes for serving (port of ``repro.launch.mesh``).
+"""Device meshes for serving and training (port of ``repro.launch.mesh``).
 
 A :class:`Mesh` is a ``(data, model)`` grid of ``torch.device`` s with
-one host controller over it: the ``data`` axis holds engine replicas
-(one row each), the ``model`` axis the KV-head shards of a replica's
-page pools. Devices may repeat — ``cuda:0`` four times is how four
+one host controller over it. Serving: the ``data`` axis holds engine
+replicas (one row each), the ``model`` axis the KV-head shards of a
+replica's page pools. Training: the ``data`` axis splits the batch and
+ZeRO-shards the weights, the ``model`` axis splits heads, MLP columns,
+the vocabulary and the experts (``distributed/sharding.py``). Devices
+may repeat — ``cuda:0`` four times is how four
 devices are simulated on one card, ``cpu`` four times in the CPU tests
 (the reference's ``--xla_force_host_platform_device_count``). The class
 is the port's own: ``torch.distributed.DeviceMesh`` needs one process
@@ -39,9 +42,11 @@ class Mesh:
 
     def __init__(self, devices: Sequence[Sequence], axis_names=AXES):
         rows = tuple(tuple(indexed_device(d) for d in row) for row in devices)
-        if len(tuple(axis_names)) != 2:
-            raise ValueError(f"a serving mesh has two axes, got "
-                             f"{tuple(axis_names)}")
+        if tuple(axis_names) != AXES:
+            raise ValueError(
+                f"the port's mesh has the two axes {AXES}, got "
+                f"{tuple(axis_names)}: a 'pod' axis and three-axis meshes "
+                f"are ROADMAP A5b")
         if not rows or not rows[0] or any(len(r) != len(rows[0])
                                           for r in rows):
             raise ValueError("mesh devices must form a non-empty grid")
@@ -70,6 +75,9 @@ def make_mesh(shape: Tuple[int, int], axis_names=AXES,
               devices: Optional[Sequence] = None) -> Mesh:
     """A ``shape = (D, M)`` mesh over the first D·M of ``devices``
     (default: every CUDA device of the host), row-major."""
+    if len(tuple(shape)) != 2:
+        raise ValueError(f"a mesh of shape {tuple(shape)}: the port's mesh "
+                         f"has two axes; three-axis meshes are ROADMAP A5b")
     d, m = shape
     if devices is None:
         devices = [torch.device("cuda", i)
@@ -80,3 +88,20 @@ def make_mesh(shape: Tuple[int, int], axis_names=AXES,
                          f"{len(devices)}")
     return Mesh([devices[r * m:(r + 1) * m] for r in range(d)], axis_names)
 
+
+
+def make_host_mesh(model_axis: int = 1, devices: Optional[Sequence] = None
+                   ) -> Mesh:
+    """A ``(n // model_axis, model_axis)`` mesh over the host's n
+    devices (default every CUDA device; a list such as ``["cpu"] * 8``
+    or ``["cuda:0"] * 4`` simulates n), as the reference's
+    ``make_host_mesh`` spans ``jax.devices()``."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    if model_axis < 1 or len(devices) < model_axis:
+        raise ValueError(f"a model axis of {model_axis} over "
+                         f"{len(devices)} devices")
+    return make_mesh((len(devices) // model_axis, model_axis), AXES,
+                     devices)

@@ -44,8 +44,22 @@ import time
 def _parse_mesh(spec: str):
     m = re.fullmatch(r"(\d+)x(\d+)", spec.strip().lower())
     if m is None:
-        raise SystemExit(f"--mesh wants DxM (e.g. 2x2), got {spec!r}")
+        raise SystemExit(f"--mesh wants DxM (e.g. 2x2), got {spec!r}; a "
+                         f"three-axis (pod) mesh is ROADMAP A5b")
     return int(m.group(1)), int(m.group(2))
+
+
+def mesh_devices(args, device) -> list:
+    """A mesh's devices: ``--simulate-devices`` entries of ``device``,
+    else the host's devices of its type."""
+    import torch
+
+    if args.simulate_devices is not None:
+        return [device] * args.simulate_devices
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
 
 
 def _mesh(args, device):
@@ -53,19 +67,11 @@ def _mesh(args, device):
     (or ``--simulate-devices`` entries of ``device``), or None."""
     if args.mesh is None:
         return None
-    import torch
-
     from repro_torch.launch.mesh import make_mesh
 
     shape = _parse_mesh(args.mesh)
     need = shape[0] * shape[1]
-    if args.simulate_devices is not None:
-        devices = [device] * args.simulate_devices
-    elif device.type == "cuda":
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
-    else:
-        devices = [device]
+    devices = mesh_devices(args, device)
     if len(devices) < need:
         raise SystemExit(
             f"--mesh {args.mesh} needs {need} devices, have {len(devices)} "

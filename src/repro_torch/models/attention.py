@@ -29,7 +29,11 @@ so no write has two sources except the scratch, which nothing reads.
 On a tensor-parallel mesh the paged blocks take the pool as head shards
 (each leaf a tuple, :mod:`repro_torch.distributed.sharding`): each
 shard's K/V rows and planes are written on its device, and the
-attention entry points run the fused ops once per shard.
+attention entry points run the fused ops once per shard. In training,
+a mesh row's ``wq`` / ``wo`` head shards (M-tuples) split the
+full-sequence block the same way: shard j runs its query heads against
+the KV heads their groups read, and the row-parallel ``wo`` partials
+add over 'model'.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from repro_torch.core import (
     energon_paged_prefill_attention,
 )
 from repro_torch.core import quantization as qlib
+from repro_torch.distributed import collectives as col
 from repro_torch.models import layers as L
 from repro_torch.runtime import paged_cache as pgc
 
@@ -116,7 +121,14 @@ def attention_block(
     layer_index: int = 10**9,
 ) -> torch.Tensor:
     """Full-sequence causal attention at positions 0 .. n−1.
-    x ``[B, n, d]`` → ``[B, n, d]``."""
+    x ``[B, n, d]`` → ``[B, n, d]``. Head-sharded weights (``wq`` /
+    ``wo`` M-tuples, a mesh row's view) take
+    :func:`_attention_block_tp`."""
+    if isinstance(params["wq"], tuple):
+        return _attention_block_tp(
+            params, x, energon, num_heads=num_heads,
+            num_kv_heads=num_kv_heads, rope_theta=rope_theta,
+            use_qk_norm=use_qk_norm, window=window, layer_index=layer_index)
     batch, n, _ = x.shape
     positions = torch.arange(n, device=x.device)[None, :]
     q, k, v = _project_qkv(params, x, positions, use_qk_norm, rope_theta)
@@ -130,6 +142,53 @@ def attention_block(
     wo = params["wo"]
     out = out.transpose(1, 2).reshape(batch, n, -1)     # [B, n, H·hd]
     return out @ wo.reshape(-1, wo.shape[-1])
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    d, h, hd = w.shape
+    return (x @ w.reshape(d, h * hd)).reshape(*x.shape[:-1], h, hd)
+
+
+def _attention_block_tp(params, x: torch.Tensor, energon: EnergonConfig, *,
+                        num_heads: int, num_kv_heads: int, rope_theta: float,
+                        use_qk_norm: bool, window: Optional[int],
+                        layer_index: int) -> torch.Tensor:
+    """:func:`attention_block` with the query heads over 'model' (the
+    reference's head-sharded q/k/v constraints and row-parallel ``wo``):
+    K/V are projected whole on x's device (``kv_heads`` → None), and
+    shard j, on its device, projects its H/M query heads, reads the KV
+    heads of their groups (head h reads h // G) and runs
+    :func:`energon_attention` on them; the shards' ``wo`` partials (in
+    x's dtype) add over 'model' in f32, rounded once."""
+    devices = [w.device for w in params["wq"]]
+    m = len(devices)
+    batch, n, _ = x.shape
+    per, groups = num_heads // m, num_heads // num_kv_heads
+    positions = torch.arange(n, device=x.device)[None, :]
+    k, v = _project(x, params["wk"]), _project(x, params["wv"])
+    if use_qk_norm:
+        k = L.rmsnorm(params["k_norm"], k)
+    k = L.apply_rope(k, positions, rope_theta)
+    xs = col.broadcast(x, devices)
+    ks = col.broadcast(k.transpose(1, 2), devices)      # [B, KV, n, hd]
+    vs = col.broadcast(v.transpose(1, 2), devices)
+    q_norms = (col.broadcast(params["q_norm"]["scale"], devices)
+               if use_qk_norm else None)
+    parts = []
+    for j, dev in enumerate(devices):
+        q = _project(xs[j], params["wq"][j])
+        if use_qk_norm:
+            q = L.rmsnorm({"scale": q_norms[j]}, q)
+        q = L.apply_rope(q, torch.arange(n, device=dev)[None, :], rope_theta)
+        heads = torch.arange(j * per, (j + 1) * per, device=dev) // groups
+        out = energon_attention(
+            q.transpose(1, 2), ks[j].index_select(1, heads),
+            vs[j].index_select(1, heads), energon, causal=True,
+            window=window, layer_index=layer_index)
+        wo = params["wo"][j]
+        out = out.transpose(1, 2).reshape(batch, n, -1)
+        parts.append(out @ wo.reshape(-1, wo.shape[-1]))
+    return col.all_reduce(parts, x.device)
 
 
 def init_kv_cache(

@@ -4,6 +4,18 @@ the LM head (untied and tied) and the cross-entropy loss.
 
 Parameters are plain dicts of tensors with the reference's layouts, so
 :mod:`repro_torch.convert` can carry a reference pytree across as is.
+
+On a training mesh a data row's view of a weight that the model axis
+shards is a tuple of M tensors, shard j on the row's device j
+(:func:`repro_torch.distributed.sharding.row_views`); the layers below
+then split their compute as the reference's specs do: the embedding
+vocab-parallel (a masked local gather, then a sum over 'model'), the
+LM head vocab-sharded (a tuple of logit shards), the cross-entropy over
+those shards (a cross-shard max and log-sum-exp, the gold logit read on
+its owning shard), and the MLP column- then row-parallel (a sum over
+'model'). Every cross-shard sum is a
+:mod:`~repro_torch.distributed.collectives` op: f32 in shard order,
+rounded once.
 """
 
 from __future__ import annotations
@@ -12,6 +24,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.distributed import collectives as col
 
 # Φ(-2), Φ(2): the standard normal truncated to [-2, 2]
 _LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
@@ -124,9 +138,7 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return torch.where(flushed, x * 0.0, y)
 
 
-def apply_mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
-    """SwiGLU (:func:`silu`), GeGLU or plain GELU MLP (:func:`gelu`'s
-    tanh form)."""
+def _mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
     up = x @ params["w_up"]
     if activation == "swiglu":
         h = silu(x @ params["w_gate"]) * up
@@ -139,34 +151,103 @@ def apply_mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
     return h @ params["w_down"]
 
 
+def _devices(shards) -> list:
+    return [t.device for t in shards]
+
+
+def apply_mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
+    """SwiGLU (:func:`silu`), GeGLU or plain GELU MLP (:func:`gelu`'s
+    tanh form). With M-tuple weights (a mesh row's view): shard j runs
+    the columns of ``w_up`` / ``w_gate`` and the rows of ``w_down`` it
+    holds on its device, and the partial outputs (in x's dtype) meet in
+    an f32 sum over 'model'."""
+    if not isinstance(params["w_up"], tuple):
+        return _mlp(params, x, activation)
+    devices = _devices(params["w_up"])
+    xs = col.broadcast(x, devices)
+    parts = [_mlp({k: w[j] for k, w in params.items()}, xs[j], activation)
+             for j in range(len(devices))]
+    return col.all_reduce(parts, x.device)
+
+
 def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens.long()]
+    """The table's rows of ``tokens``. A vocab-sharded table (an M-tuple
+    of ``[V/M, d]``) is the reference's ``_sharded_embed_lookup``: shard
+    j gathers the rows it owns, zero elsewhere, and the shards' rows add
+    over 'model' on the tokens' device."""
+    table = params["table"]
+    if not isinstance(table, tuple):
+        return table[tokens.long()]
+    per = table[0].shape[0]
+    parts = []
+    for j, shard in enumerate(table):
+        local = tokens.long().to(shard.device) - j * per
+        ok = (local >= 0) & (local < per)
+        rows = shard[local.clamp(0, per - 1)]
+        parts.append(rows.masked_fill(~ok[..., None], 0))
+    return col.all_reduce(parts, tokens.device)
 
 
-def lm_logits(params, x: torch.Tensor) -> torch.Tensor:
+def lm_logits(params, x: torch.Tensor):
     """Logits in float32: products of the stored-precision operands
     accumulated in f32, as the reference's
-    ``preferred_element_type=float32``."""
-    return x.float() @ params["w"].float()
+    ``preferred_element_type=float32``. A vocab-sharded head (an M-tuple
+    of ``[d, V/M]``) gives an M-tuple of logit shards ``[…, V/M]``."""
+    w = params["w"]
+    if not isinstance(w, tuple):
+        return x.float() @ w.float()
+    xs = col.broadcast(x, _devices(w))
+    return tuple(xj.float() @ wj.float() for xj, wj in zip(xs, w))
 
 
-def tied_lm_logits(embed_params, x: torch.Tensor) -> torch.Tensor:
+def tied_lm_logits(embed_params, x: torch.Tensor):
     """The tied head: logits against the embedding table, ``x @ tableᵀ``
-    with f32 accumulation as :func:`lm_logits`."""
-    return x.float() @ embed_params["table"].float().T
+    with f32 accumulation as :func:`lm_logits` (vocab-sharded with the
+    table)."""
+    table = embed_params["table"]
+    if not isinstance(table, tuple):
+        return x.float() @ table.float().T
+    xs = col.broadcast(x, _devices(table))
+    return tuple(xj.float() @ tj.float().T for xj, tj in zip(xs, table))
+
+
+def token_nll(logits, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's ``logsumexp − gold logit`` in f32, on the labels'
+    device. Vocab shards (a tuple): the max over every shard (exact),
+    each shard's ``Σ exp(logit − max)`` summed over 'model' in f32, the
+    gold logit read on the shard that owns the label."""
+    if not isinstance(logits, tuple):
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return logz - gold
+    dev = labels.device
+    devices = _devices(logits)
+    per = logits[0].shape[-1]
+    with torch.no_grad():
+        top = logits[0].amax(dim=-1).to(dev)
+        for part in logits[1:]:
+            top = torch.maximum(top, part.amax(dim=-1).to(dev))
+    tops = [top.to(d) for d in devices]
+    sums = [torch.exp(part - t[..., None]).sum(dim=-1)
+            for part, t in zip(logits, tops)]
+    logz = top + torch.log(col.all_reduce(sums, dev))
+    golds = []
+    for j, part in enumerate(logits):
+        local = labels.long().to(part.device) - j * per
+        ok = (local >= 0) & (local < per)
+        g = torch.gather(part, -1, local.clamp(0, per - 1)[..., None])[..., 0]
+        golds.append(g.masked_fill(~ok, 0.0))
+    return logz - col.all_reduce(golds, dev)
 
 
 def softmax_cross_entropy(
-    logits: torch.Tensor, labels: torch.Tensor,
-    mask: Optional[torch.Tensor] = None,
+    logits, labels: torch.Tensor, mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean cross-entropy over the valid positions, in float32 (the
-    reference's logsumexp minus the gold logit). Returns
-    ``(loss, #valid_tokens)``."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    reference's logsumexp minus the gold logit; vocab shards as
+    :func:`token_nll`). Returns ``(loss, #valid_tokens)``."""
+    nll = token_nll(logits, labels)
     mask = torch.ones_like(nll) if mask is None else mask.float()
     total = torch.clamp(mask.sum(), min=1.0)
     return (nll * mask).sum() / total, total

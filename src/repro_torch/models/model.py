@@ -44,6 +44,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -210,7 +212,7 @@ class LMModel:
 
         return block_fn
 
-    def apply(self, params, batch: Dict[str, torch.Tensor]):
+    def apply(self, params, batch: Dict[str, torch.Tensor], mesh=None):
         """Whole-sequence logits of ``batch['inputs'] [B, n]`` (int
         tokens; a vlm / audio model reads ``batch['embeddings'] [B, n,
         d_model]`` instead where given). Returns ``(logits [B, n, V]
@@ -225,7 +227,19 @@ class LMModel:
         backward, as the reference's Pallas kernels have none: under
         grad the direct ``impl="pallas"`` route raises, and the chunked
         route takes the torch scan
-        (:func:`repro_torch.core.energon_attention.energon_attention`)."""
+        (:func:`repro_torch.core.energon_attention.energon_attention`).
+
+        With ``mesh`` ``params`` is a sharded tree
+        (:func:`~repro_torch.distributed.sharding.shard_tree`) and the
+        call runs over the mesh (:meth:`_mesh_forward`); the logits come
+        back gathered on the mesh's first device."""
+        if mesh is not None:
+            rows, logits, aux, _ = self._mesh_forward(params, batch, mesh)
+            dev = mesh.devices[0][0]
+            whole = [torch.cat([s.to(dev) for s in lg], dim=-1)
+                     if isinstance(lg, tuple) else lg.to(dev)
+                     for lg in logits]
+            return torch.cat(whole, dim=0), aux
         cfg = self.cfg
         x = self._embed_in(params, batch, "inputs")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -296,10 +310,18 @@ class LMModel:
                  else mamba_block(p, x))
         return x
 
-    def loss(self, params, batch: Dict[str, torch.Tensor]):
+    def loss(self, params, batch: Dict[str, torch.Tensor], mesh=None):
         """Mean cross-entropy of ``batch['targets'] [B, n]`` under
         :meth:`apply`'s logits (optional ``batch['mask']``). Returns
-        ``(loss, metrics)`` with ``loss`` / ``ce`` / ``aux`` / ``tokens``."""
+        ``(loss, metrics)`` with ``loss`` / ``ce`` / ``aux`` / ``tokens``.
+
+        With ``mesh`` (``params`` sharded): each data row's summed token
+        losses over 'model''s vocab shards, added over the rows in f32
+        and divided by the whole batch's count — the global mean, not a
+        mean of the rows' means — plus the aux loss (an MoE layer's, the
+        mean over the rows where its experts run per row)."""
+        if mesh is not None:
+            return self._mesh_loss(params, batch, mesh)
         logits, aux = self.apply(params, batch)
         ce, n_tokens = L.softmax_cross_entropy(
             logits, batch["targets"], batch.get("mask")
@@ -307,6 +329,171 @@ class LMModel:
         total = ce + aux
         return total, {"loss": total, "ce": ce, "aux": aux,
                        "tokens": n_tokens}
+
+    # ------------------------------------------------------------------
+    # training over a (data, model) mesh
+    # ------------------------------------------------------------------
+
+    def _mesh_loss(self, params, batch, mesh):
+        rows, logits, aux, split = self._mesh_forward(params, batch, mesh)
+        dev = mesh.devices[0][0]
+        targets = split(batch["targets"])
+        masks = (split(batch["mask"]) if batch.get("mask") is not None
+                 else [None] * len(rows))
+        sums = []
+        for lg, tg, mk in zip(logits, targets, masks):
+            nll = L.token_nll(lg, tg)
+            sums.append((nll if mk is None else nll * mk.float()).sum())
+        mask = batch.get("mask")
+        count = (float(batch["targets"].numel()) if mask is None
+                 else torch.as_tensor(mask).float().sum().to(dev))
+        total = torch.clamp(torch.as_tensor(count, dtype=torch.float32,
+                                            device=dev), min=1.0)
+        ce = col.all_reduce(sums, dev) / total
+        loss = ce + aux
+        return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": total}
+
+    def _mesh_forward(self, params, batch, mesh):
+        """The stack over ``mesh`` for a sharded ``params``: the batch
+        splits over the data rows (:func:`~repro_torch.distributed.
+        sharding.batch_rows`; row r's rows on its first device), every
+        layer reads its weights through ``row_views`` (the ZeRO gather
+        over 'data', and the model-axis shards the tensor-parallel
+        layers split over), and the rows run one after another. Returns
+        ``(rows, logits per row — an M-tuple of vocab shards where the
+        head is vocab-sharded —, aux on the first device, split)``:
+        ``split(t)`` cuts a batch tensor into the rows' parts."""
+        cfg = self.cfg
+        key = "embeddings" if (cfg.uses_embeddings_input
+                               and "embeddings" in batch) else "inputs"
+        n_rows = shd.batch_rows(batch[key].shape[0], mesh)
+        rows = list(range(n_rows))
+        per = batch[key].shape[0] // n_rows
+
+        def split(t):
+            t = torch.as_tensor(t)
+            return [t[r * per:(r + 1) * per].to(mesh.devices[r][0])
+                    for r in rows]
+
+        if key == "embeddings":
+            x_rows = [e.to(self.dtype) for e in split(batch[key])]
+        else:
+            embed = shd.row_views({"embed": params["embed"]}, mesh, rows)
+            x_rows = [self._embed(e, tok)
+                      for e, tok in zip(embed, split(batch[key]))]
+        aux = torch.zeros((), dtype=torch.float32, device=mesh.devices[0][0])
+        if cfg.family in TRANSFORMER_FAMILIES:
+            fn = tfm.remat_fn(self._mesh_block_fn(mesh, rows), cfg.remat)
+            windows = self.layer_windows()
+            prefix = cfg.energon.min_prune_layer
+            for i, layer in enumerate(tfm.unstack(params["blocks"])):
+                window = None if windows is None else windows[i]
+                x_rows, a = fn(layer, x_rows, window,
+                               0 if i < prefix else prefix)
+                if a is not None:
+                    aux = aux + a
+        elif cfg.family == "ssm":
+            x_rows = self._mesh_xlstm(params, x_rows, mesh, rows)
+        else:
+            x_rows = self._mesh_hybrid(params, x_rows, mesh, rows)
+        head = {"final_norm": params["final_norm"],
+                "head": params["embed"] if cfg.tie_embeddings
+                else params["lm_head"]}
+        logits = []
+        for view, x in zip(shd.row_views(head, mesh, rows), x_rows):
+            x = L.apply_norm(cfg.norm, view["final_norm"], x)
+            logits.append(L.tied_lm_logits(view["head"], x)
+                          if cfg.tie_embeddings
+                          else L.lm_logits(view["head"], x))
+        return rows, logits, aux, split
+
+    def _mesh_block_fn(self, mesh, rows):
+        """One decoder layer over the rows: ``(layer shards, x_rows,
+        window, layer_idx) -> (x_rows, aux)``. Attention and the MLP run
+        per row with the model axis splitting heads and columns; an MoE
+        layer whose experts divide over 'model' runs per row with the
+        row's capacity (:func:`moe.moe_rows`, int8 ZeRO gathers under
+        ``quantized_weight_gather``), any other the reference's
+        single-device MoE over every row's tokens at once (its capacity
+        the whole batch's, as GSPMD computes it)."""
+        cfg, moe_cfg = self.cfg, self._moe_cfg()
+
+        def block_fn(layer, x_rows, window, layer_idx):
+            kw = self._attn_kwargs(layer_idx, window)
+            views = shd.row_views(
+                {k: layer[k] for k in ("norm_attn", "attn", "norm_mlp")},
+                mesh, rows)
+            xs, h_in = [], []
+            for view, x in zip(views, x_rows):
+                x = x + attn_lib.attention_block(
+                    view["attn"], L.apply_norm(cfg.norm, view["norm_attn"],
+                                               x), cfg.energon, **kw)
+                xs.append(x)
+                h_in.append(L.apply_norm(cfg.norm, view["norm_mlp"], x))
+            aux = None
+            if moe_cfg is None:
+                mlp = shd.row_views(layer["mlp"], mesh, rows)
+                outs = [L.apply_mlp(v, h, cfg.activation)
+                        for v, h in zip(mlp, h_in)]
+            elif shd.expert_shards(moe_cfg.num_experts, mesh) > 1:
+                experts = shd.row_views(
+                    layer["moe"], mesh, rows,
+                    quantized=moe_cfg.quantized_weight_gather)
+                outs, met = moe_lib.moe_rows(experts, h_in, moe_cfg, mesh,
+                                             rows)
+                aux = met["moe_aux_loss"]
+            else:
+                view = shd.row_views(layer["moe"], mesh, rows[:1])[0]
+                dev = h_in[0].device
+                whole = col.all_gather(h_in, 0, [dev])[0]
+                out, met = moe_lib.apply_moe(view, whole, moe_cfg)
+                outs = [o.to(h.device) for o, h in
+                        zip(out.split(h_in[0].shape[0]), h_in)]
+                aux = met["moe_aux_loss"]
+            return [x + o for x, o in zip(xs, outs)], aux
+
+        return block_fn
+
+    def _mesh_cell_block(self, seq, mesh, rows):
+        """A recurrent residual block over the rows, ``(layer shards,
+        x_rows) -> x_rows``: the cell's weights gathered whole onto each
+        row (over 'data' and 'model'), ``x + seq(cell, norm(x))`` run
+        batch-parallel on the row's first device (the reference's
+        ``slstm_seq`` shard_map; mLSTM and Mamba2 alike)."""
+        cfg = self.cfg
+
+        def block(p, x_rows):
+            views = shd.row_views(p, mesh, rows, whole=True)
+            return [x + seq(v["cell"], L.apply_norm(cfg.norm, v["norm"], x))
+                    for v, x in zip(views, x_rows)]
+
+        return self._block_remat(block)
+
+    def _mesh_xlstm(self, params, x_rows, mesh, rows):
+        h = self.cfg.num_heads
+        mlstm = self._mesh_cell_block(
+            lambda c, x: ssm_lib.mlstm_seq(c, x, h), mesh, rows)
+        slstm = self._mesh_cell_block(
+            lambda c, x: ssm_lib.slstm_seq(c, x, h), mesh, rows)
+        for group, sp in zip(tfm.unstack(params["mlstm"]),
+                             tfm.unstack(params["slstm"])):
+            for mp in tfm.unstack(group):
+                x_rows = mlstm(mp, x_rows)
+            x_rows = slstm(sp, x_rows)
+        return x_rows
+
+    def _mesh_hybrid(self, params, x_rows, mesh, rows):
+        cfg = self.cfg
+        block_fn = self._mesh_block_fn(mesh, rows)
+        shared = self._block_remat(
+            lambda p, xr: block_fn(p, xr, None, SHARED_LAYER)[0])
+        mamba = self._mesh_cell_block(
+            lambda c, x: ssm_lib.mamba2_seq(c, x, cfg.ssm_state,
+                                            cfg.ssm_head_dim), mesh, rows)
+        for _, p in self._mamba_layers(params):
+            x_rows = (shared(params["shared"], x_rows) if p is None
+                      else mamba(p, x_rows))
+        return x_rows
 
     # ------------------------------------------------------------------
     # serving caches

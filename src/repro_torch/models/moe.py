@@ -21,11 +21,15 @@ active serve mesh's model axis M is > 1 and divides the experts. Shard s
 holds experts ``[s·E/M, (s+1)·E/M)`` and runs them on model-axis device
 s; each shard's partial output rounds to the layer's dtype, and the
 partials add in f32 in shard order and round once (the reference's
-``psum`` over 'model', as XLA computes it). A data axis > 1 inside one
-call — the reference's batch-sharded capacity, ZeRO expert gathers and
-int8 ``_quantized_all_gather`` of training — and the ``"serve"`` rules
-profile's ``_apply_moe_serve_2d`` (dry-run only) are not ported; no
-serving path of the reference reaches them.
+``psum`` over 'model', as XLA computes it). With a data axis D > 1 (the
+train step, or a direct call on a ``(D, M)`` mesh) each data row routes
+its own tokens with the capacity of its ``t_local = B/D · n`` rows
+(reference ``:222-224``), its experts all-gathered over 'data' first
+(the train step's :func:`~repro_torch.distributed.sharding.row_views`,
+int8 on the wire under ``quantized_weight_gather``), and the aux loss
+and drop fraction are means over the rows (the reference's ``pmean``).
+The active-mesh dispatch (:func:`apply_moe`) keeps to ``(1, M)`` meshes;
+the ``"serve"`` rules profile's ``_apply_moe_serve_2d`` is ROADMAP A5b.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 
@@ -48,8 +53,8 @@ class MoEConfig:
     activation: str = "swiglu"
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
-    # int8-compressed expert-weight gathers of the reference's sharded
-    # training path; the single-device path ignores it
+    # int8-compressed ZeRO expert-weight gathers of the sharded training
+    # path (an exact f32 reduce-scatter backward); elsewhere unread
     quantized_weight_gather: bool = False
 
 
@@ -177,7 +182,20 @@ def apply_moe(params, x: torch.Tensor, cfg: MoEConfig, metrics: bool = True
     empty dict; the serve steps discard them, and the reference's jit
     drops their ops)."""
     mesh = shd.get_active_mesh()
+    if mesh is not None and shd.get_rules_profile() == "serve" \
+            and shd.expert_shards(cfg.num_experts, mesh) > 1:
+        raise NotImplementedError(
+            f"the \"serve\" rules profile's _apply_moe_serve_2d is "
+            f"{shd.A5B}")
     if shd.expert_shards(cfg.num_experts, mesh) > 1:
+        if mesh.shape.get("data", 1) > 1:
+            raise ValueError(
+                f"an MoE call on an active mesh with data axis "
+                f"{mesh.shape['data']}: the active mesh serves on (1, M); "
+                f"the data axis — per-row capacity, the ZeRO all-gathers of "
+                f"the experts and the int8 _quantized_all_gather — is the "
+                f"train step's (runtime/train_loop.make_train_step(mesh=…)) "
+                f"or apply_moe_sharded's on a (D, M) mesh")
         return apply_moe_sharded(params, x, cfg, mesh, metrics=metrics)
     if isinstance(params["w_up"], tuple):
         raise ValueError(
@@ -222,65 +240,107 @@ def cross_shard_sum(partials, dtype: torch.dtype,
     """The shards' partial outputs (each in the layer's dtype) added in
     f32 in shard order on ``device`` and rounded once to ``dtype``: what
     the reference's ``psum`` over 'model' gives on XLA's CPU, bf16
-    partials included (not a chain of bf16 adds)."""
-    acc = partials[0].to(device).float()
-    for part in partials[1:]:
-        acc = acc + part.to(device).float()
-    return acc.to(dtype)
+    partials included (not a chain of bf16 adds) —
+    :func:`collectives.all_reduce`."""
+    return col.all_reduce([p.to(dtype) for p in partials], device)
 
 
-def apply_moe_sharded(params, x: torch.Tensor, cfg: MoEConfig, mesh,
-                      metrics: bool = True
-                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The reference's ``_apply_moe_sharded`` on a ``(1, M)`` serve mesh:
-    route once on x's device (the mesh's first), then on each model-axis
-    device s dispatch the assignments shard s keeps (:func:`shard_route`)
-    into ``[E/M, C, d]``, run its experts and combine its K slots in f32,
-    rounded to x's dtype; the partials meet in :func:`cross_shard_sum`.
-    Capacity is the whole call's (a data axis of 1: every shard holds
-    every token). The expert leaves are the shards of
-    :func:`~repro_torch.distributed.sharding.shard_experts` (tuples of
-    M) or whole ``[E, …]`` leaves, sliced here. ``moe_aux_loss`` is the
-    single-device one (the reference's ``pmean`` over a data axis of 1);
-    ``moe_drop_fraction`` is 1 − Σ_s mean(keep_s), summed in shard
-    order."""
-    if mesh.shape.get("data", 1) > 1:
-        raise ValueError(
-            f"an MoE call on a mesh with data axis {mesh.shape['data']} "
-            f"(model axis {mesh.shape['model']}) takes the reference's "
-            f"batch-sharded capacity, ZeRO all-gathers of the experts and "
-            f"the int8 _quantized_all_gather forward: training and dry-run "
-            f"paths the port has not taken yet (ROADMAP A5); serve on "
-            f"(1, M) meshes, or replicas over the data axis")
-    devices = mesh.devices[0]
+def _moe_row(params, x: torch.Tensor, cfg: MoEConfig, devices,
+             metrics: bool):
+    """One data row's expert-parallel MoE on its model devices: route
+    ``x``'s tokens once on x's device (capacity from these tokens), then
+    on each device s dispatch the assignments shard s keeps
+    (:func:`shard_route`) into ``[E/M, C, d]``, run its experts and
+    combine its K slots in f32, rounded to x's dtype; the partials meet
+    in :func:`cross_shard_sum` (f32 in shard order, rounded once; its
+    backward broadcasts). Returns ``(out, aux, kept)``: kept =
+    Σ_s mean(keep_s) in shard order (None, None without metrics)."""
     m = len(devices)
     e, d = cfg.num_experts, x.shape[-1]
     e_local = e // m
-    shards = {}
-    for name in shd.EXPERT_LEAVES:
-        if name in params:
-            shards[name] = shd.expert_leaf_shards(params[name], e, devices)
+    shards = {name: shd.expert_leaf_shards(params[name], e, devices)
+              for name in shd.EXPERT_LEAVES if name in params}
     batch, n, _ = x.shape
-    t = batch * n
-    xt = x.reshape(t, d)
+    xt = x.reshape(batch * n, d)
     probs, top_p, top_e, flat_pos, keep, cap = route(params, xt, cfg)
-    flat_e, weight = top_e.reshape(-1), top_p.reshape(-1)
+    flat_e = top_e.reshape(-1)
+    xts = col.broadcast(xt, devices)
+    weights = col.broadcast(top_p.reshape(-1), devices)
     partials, kept = [], []
     for s, dev in enumerate(devices):
         safe_e, safe_pos, keep_s = shard_route(flat_e, flat_pos, keep, s,
                                                e_local)
         p_s = {name: leaves[s] for name, leaves in shards.items()}
         part = _experts_combine(
-            p_s, xt.to(dev), safe_e.to(dev), safe_pos.to(dev),
-            keep_s.to(dev), weight.to(dev), e_local, cap, cfg.activation)
+            p_s, xts[s], safe_e.to(dev), safe_pos.to(dev), keep_s.to(dev),
+            weights[s], e_local, cap, cfg.activation)
         partials.append(part.to(x.dtype))
         if metrics:
             kept.append(keep_s.float().mean())
     out = cross_shard_sum(partials, x.dtype, x.device).reshape(batch, n, d)
     if not metrics:
-        return out, {}
+        return out, None, None
     total = kept[0]
     for part in kept[1:]:
         total = total + part
-    return out, {"moe_aux_loss": _aux_loss(probs, top_e, cfg),
-                 "moe_drop_fraction": 1.0 - total}
+    return out, _aux_loss(probs, top_e, cfg), total
+
+
+def _row_mean(values, device) -> torch.Tensor:
+    """The rows' scalars averaged: summed in f32 in row order on
+    ``device`` over their count (the reference's ``pmean`` over the data
+    axes)."""
+    return col.all_reduce([v.reshape(()) for v in values], device) \
+        / len(values)
+
+
+def moe_rows(row_params, x_rows, cfg: MoEConfig, mesh, rows,
+             metrics: bool = True):
+    """The reference's ``_apply_moe_sharded`` over the data rows
+    ``rows`` of a ``(D, M)`` mesh: row r's tokens ``x_rows[i]`` [B/D, n,
+    d] on its devices with ``row_params[i]`` (its experts as M-tuples,
+    already gathered over 'data', or whole leaves, sliced here).
+    Returns ``(out_rows, metrics)``, ``moe_aux_loss`` and
+    ``moe_drop_fraction`` the means over the rows."""
+    outs, aux, kept = [], [], []
+    for i, r in enumerate(rows):
+        out, a, k = _moe_row(row_params[i], x_rows[i], cfg,
+                             mesh.devices[r], metrics)
+        outs.append(out)
+        aux.append(a)
+        kept.append(k)
+    if not metrics:
+        return outs, {}
+    dev = x_rows[0].device
+    return outs, {"moe_aux_loss": _row_mean(aux, dev),
+                  "moe_drop_fraction": 1.0 - _row_mean(kept, dev)}
+
+
+def apply_moe_sharded(params, x: torch.Tensor, cfg: MoEConfig, mesh,
+                      metrics: bool = True
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's ``_apply_moe_sharded`` on a ``(D, M)`` mesh whose
+    model axis divides the experts, for whole parameters and the whole
+    ``x [B, n, d]``: the batch splits over the D data rows where D
+    divides it (else one row computes it, as every replicated row
+    would), each row routing its own tokens with their capacity
+    (:func:`moe_rows`), and the rows' outputs come back concatenated on
+    x's device. The expert leaves are whole ``[E, …]`` leaves (sliced
+    per shard) or the serve mesh's M-tuples
+    (:func:`~repro_torch.distributed.sharding.shard_experts`). On a
+    ``(1, M)`` mesh ``moe_aux_loss`` is the single-device loss and
+    ``moe_drop_fraction`` 1 − Σ_s mean(keep_s), summed in shard
+    order."""
+    n_rows = shd.batch_rows(x.shape[0], mesh)
+    if n_rows == 1:
+        out, aux, kept = _moe_row(params, x, cfg, mesh.devices[0], metrics)
+        if not metrics:
+            return out, {}
+        return out, {"moe_aux_loss": aux, "moe_drop_fraction": 1.0 - kept}
+    per = x.shape[0] // n_rows
+    rows = list(range(n_rows))
+    x_rows = [x[r * per:(r + 1) * per].to(mesh.devices[r][0]) for r in rows]
+    outs, met = moe_rows([params] * n_rows, x_rows, cfg, mesh, rows,
+                         metrics)
+    out = torch.cat([o.to(x.device) for o in outs], dim=0)
+    return out, met

@@ -34,6 +34,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.core import EnergonConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -135,6 +136,8 @@ def unstack(tree) -> List[Any]:
         parts = {k: unstack(v) for k, v in tree.items()}
         count = len(next(iter(parts.values())))
         return [{k: v[i] for k, v in parts.items()} for i in range(count)]
+    if isinstance(tree, shd.ShardedLeaf):     # a mesh's shards, each unbound
+        return shd.unstack_sharded(tree)
     return list(tree.unbind(0))
 
 

@@ -12,6 +12,15 @@ trees: a functional update would hold a second copy of every parameter
 and moment, and casting the whole gradient tree to f32 at once (as the
 reference's first line does) would add 4 bytes per parameter. The
 arithmetic per element is the reference's.
+
+A tree laid out over a ``(data, model)`` mesh holds
+:class:`~repro_torch.distributed.sharding.ShardedLeaf` leaves: the
+moments mirror their parameters' shards (ZeRO), gradients arrive in the
+same layout, and :func:`update` runs shard by shard. The global norm
+sums every logical element once (a replicated shard is held once); the
+factored second moment's ``row`` / ``col`` means run over the whole
+logical axis (the shards' partial sums added in f32), and weight decay
+follows the logical leaf's rank.
 """
 
 from __future__ import annotations
@@ -21,6 +30,8 @@ import math
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.distributed.sharding import ShardedLeaf, shard_leaf
 
 _F32 = torch.float32
 
@@ -79,40 +90,70 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
-def _is_factorable(p: torch.Tensor) -> bool:
-    return p.dim() >= 2 and p.shape[-1] > 1 and p.shape[-2] > 1
+def _is_factorable(p) -> bool:
+    return len(p.shape) >= 2 and p.shape[-1] > 1 and p.shape[-2] > 1
 
 
-def _zeros(p: torch.Tensor, dtype=_F32, shape=None) -> torch.Tensor:
+def _each(fn: Callable) -> Callable:
+    """``fn`` over tensors, and shard by shard over sharded leaves."""
+    def wrapped(p, *rest):
+        if isinstance(p, ShardedLeaf):
+            return p.map(fn, *rest)
+        return fn(p, *rest)
+    return wrapped
+
+
+def _zeros(p, dtype=_F32, shape=None):
+    if isinstance(p, ShardedLeaf):
+        return p.map(lambda t: _zeros(t, dtype))
     return torch.zeros(p.shape if shape is None else shape, dtype=dtype,
                        device=p.device)
 
 
-def _init_nu(p: torch.Tensor, cfg: AdamWConfig):
+def _sharded_zeros(p: ShardedLeaf, spec, shape) -> ShardedLeaf:
+    """Zeros of ``shape`` laid out by ``spec`` on ``p``'s mesh."""
+    return shard_leaf(torch.zeros(shape, dtype=_F32,
+                                  device=p.mesh.devices[0][0]), spec, p.mesh)
+
+
+def _init_nu(p, cfg: AdamWConfig):
     if cfg.factored_second_moment and _is_factorable(p):
-        return {"row": _zeros(p, shape=p.shape[:-1]),
-                "col": _zeros(p, shape=p.shape[:-2] + p.shape[-1:])}
+        row, col = p.shape[:-1], p.shape[:-2] + p.shape[-1:]
+        if isinstance(p, ShardedLeaf):  # the reference's row / col specs
+            return {"row": _sharded_zeros(p, p.spec[:-1], row),
+                    "col": _sharded_zeros(p, p.spec[:-2] + p.spec[-1:], col)}
+        return {"row": _zeros(p, shape=row), "col": _zeros(p, shape=col)}
     return _zeros(p)
 
 
+def _tensors(x) -> List[torch.Tensor]:
+    """A leaf's tensors: itself, or a sharded leaf's shards in key
+    order."""
+    if isinstance(x, ShardedLeaf):
+        return [x.shards[k] for k in sorted(x.shards)]
+    return [x]
+
+
 def init(params: Any, cfg: AdamWConfig) -> AdamWState:
-    """Zero moments beside each parameter, on its device; the step an
-    int32 scalar on the first parameter's device."""
-    first = tree_leaves(params)[0][1]
+    """Zero moments beside each parameter (each shard), on its device;
+    the step an int32 scalar on the first parameter's device."""
+    first = _tensors(tree_leaves(params)[0][1])[0]
     mu_dtype = _dtype(cfg.momentum_dtype)
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=first.device),
         mu=tree_map(lambda p: _zeros(p, mu_dtype), params),
         nu=tree_map(lambda p: _init_nu(p, cfg), params),
-        compression_error=(tree_map(_zeros, params)
+        compression_error=(tree_map(lambda p: _zeros(p), params)
                            if cfg.grad_compression else None),
     )
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """√(Σ leaves' sums of squares), each in f32."""
-    sums = [x.to(_F32, copy=True).square_().sum()
-            for _, x in tree_leaves(tree)]
+    """√(Σ leaves' sums of squares), each in f32; a sharded leaf's
+    shards each once, on the first leaf's device."""
+    parts = [t for _, x in tree_leaves(tree) for t in _tensors(x)]
+    dev = parts[0].device
+    sums = [x.to(_F32, copy=True).square_().sum().to(dev) for x in parts]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
@@ -162,6 +203,73 @@ def _update_leaf(p, g, m, v, *, scale, lr, bc1, bc2, cfg: AdamWConfig
     p.copy_(delta.mul_(lr).neg_().add_(p))
 
 
+def _on_device(kw: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
+    """The update's scalar tensors on a shard's device."""
+    return {k: v.to(device) if isinstance(v, torch.Tensor) else v
+            for k, v in kw.items()}
+
+
+def _update_factored_sharded(p: ShardedLeaf, g: ShardedLeaf,
+                             m: ShardedLeaf, v: Dict[str, ShardedLeaf], *,
+                             scale, lr, bc1, bc2, cfg: AdamWConfig) -> None:
+    """:func:`_update_leaf`'s factored step for a sharded parameter. The
+    mean of g² over the last (row) and second-to-last (col) logical axes
+    adds each shard's partial sums in f32 in shard order, the stats are
+    updated as logical tensors (O(rows + cols)) and written back to
+    their own shards, and ``row_mean`` runs over the whole row axis;
+    then each shard takes its slice of v̂ = row/row_mean ⊗ col."""
+    from repro_torch.distributed.sharding import gather_leaf
+
+    b1, b2 = cfg.b1, cfg.b2
+    keys = sorted(p.shards)
+    dev = p.shards[keys[0]].device
+    r_n, c_n = p.shape[-2], p.shape[-1]
+    row_sum = torch.zeros(p.shape[:-1], dtype=_F32, device=dev)
+    col_sum = torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=_F32,
+                          device=dev)
+
+    def g32_of(k):
+        g32 = g.shards[k].to(_F32, copy=True)
+        if scale is not None:
+            g32.mul_(scale.to(g32.device))
+        return g32
+
+    for k in keys:
+        sl = p.slices(k)
+        g2 = g32_of(k).square_()
+        row_sum[sl[:-1]] += g2.sum(dim=-1).to(dev)
+        col_sum[sl[:-2] + sl[-1:]] += g2.sum(dim=-2).to(dev)
+    stats = {}
+    for name, total, n in (("row", row_sum, c_n), ("col", col_sum, r_n)):
+        stat = gather_leaf(v[name], dev)
+        stat.mul_(b2).add_(total / n, alpha=1 - b2)
+        for key, shard in v[name].shards.items():
+            shard.copy_(stat[v[name].slices(key)])
+        stats[name] = stat / bc2.to(dev)
+    row_mean = torch.mean(stats["row"], dim=-1, keepdim=True)
+    row_n = stats["row"] / torch.clamp(row_mean, min=1e-30)
+    for k in keys:
+        sl = p.slices(k)
+        pk, mk = p.shards[k], m.shards[k]
+        kw = _on_device(dict(lr=lr, bc1=bc1), pk.device)
+        g32 = g32_of(k)
+        m32 = mk.float()
+        m32.mul_(b1).add_(g32, alpha=1 - b1)
+        if m32 is not mk:
+            mk.copy_(m32)
+            m32 = mk.float()
+        del g32
+        v_hat = (row_n[sl[:-1]][..., None]
+                 * stats["col"][sl[:-2] + sl[-1:]][..., None, :]
+                 ).to(pk.device)
+        denom = v_hat.sqrt_().add_(cfg.eps)
+        delta = torch.div(m32, kw["bc1"]).div_(denom)
+        del v_hat, denom
+        if cfg.weight_decay > 0 and p.ndim >= 2:   # the logical rank
+            delta.add_(pk, alpha=cfg.weight_decay)
+        pk.copy_(delta.mul_(kw["lr"]).neg_().add_(pk))
+
+
 def update(grads: Any, state: AdamWState, params: Any, cfg: AdamWConfig
            ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step. Writes ``params`` and the moments in place, leaf
@@ -180,6 +288,16 @@ def update(grads: Any, state: AdamWState, params: Any, cfg: AdamWConfig
               bc2=1.0 - torch.pow(cfg.b2, stepf), cfg=cfg)
 
     def one(p, g, m, v):
+        if not isinstance(p, ShardedLeaf):
+            one_tensor(p, g, m, v, kw)
+        elif isinstance(v, dict):
+            _update_factored_sharded(p, g, m, v, **kw)
+        else:
+            for k in sorted(p.shards):
+                one_tensor(p.shards[k], g.shards[k], m.shards[k],
+                           v.shards[k], _on_device(kw, p.shards[k].device))
+
+    def one_tensor(p, g, m, v, kw):
         if cfg.chunked_update and p.dim() >= 3 and p.shape[0] >= 8:
             # slice by slice over the stacked layer axis: the f32
             # temporaries shrink from O(L·weights) to O(weights)
@@ -225,16 +343,14 @@ def _grads(loss_fn: Callable, params: Any, batch: Dict[str, torch.Tensor]):
     """``(loss, grads, metrics)`` of ``loss_fn(params, batch)`` through
     ``torch.autograd.grad`` on detached aliases of the parameters (the
     caller's tensors never require grad and gather no ``.grad``)."""
-    leaves = tree_leaves(params)
-    inputs = [p.detach().requires_grad_() for _, p in leaves]
-    it = iter(inputs)
-    alias = tree_map(lambda _: next(it), params)
+    alias = tree_map(_each(lambda p: p.detach().requires_grad_()), params)
+    inputs = [t for _, x in tree_leaves(alias) for t in _tensors(x)]
     loss, metrics = loss_fn(alias, batch)
     grads = torch.autograd.grad(loss, inputs, allow_unused=True)
-    grads = iter([torch.zeros_like(x) if g is None else g
-                  for x, g in zip(inputs, grads)])
+    found = {id(x): torch.zeros_like(x) if g is None else g
+             for x, g in zip(inputs, grads)}
     detach = lambda x: x.detach() if isinstance(x, torch.Tensor) else x
-    return (loss.detach(), tree_map(lambda _: next(grads), params),
+    return (loss.detach(), tree_map(_each(lambda a: found[id(a)]), alias),
             {k: detach(v) for k, v in metrics.items()})
 
 
@@ -254,7 +370,8 @@ def accumulate_gradients(
         return _grads(loss_fn, params, batch)
     acc_dt = _dtype(accum_dtype)
     acc = tree_map(lambda p: _zeros(p, acc_dt), params)
-    loss_sum = torch.zeros((), dtype=_F32, device=tree_leaves(params)[0][1]
+    loss_sum = torch.zeros((), dtype=_F32,
+                           device=_tensors(tree_leaves(params)[0][1])[0]
                            .device)
     micro = {k: x.reshape((num_microbatches, x.shape[0] // num_microbatches)
                           + tuple(x.shape[1:])) for k, x in batch.items()}
@@ -262,9 +379,9 @@ def accumulate_gradients(
     for i in range(num_microbatches):
         loss, grads, metrics = _grads(loss_fn, params,
                                       {k: x[i] for k, x in micro.items()})
-        tree_map(lambda a, g: a.add_(g), acc, grads)
+        tree_map(_each(lambda a, g: a.add_(g)), acc, grads)
         del grads
         loss_sum = loss_sum + loss
     scale = 1.0 / num_microbatches
-    tree_map(lambda a: a.mul_(scale), acc)
+    tree_map(_each(lambda a: a.mul_(scale)), acc)
     return loss_sum * scale, acc, metrics

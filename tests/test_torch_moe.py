@@ -572,9 +572,9 @@ def test_an_moe_engine_serves_on_a_tensor_parallel_mesh(olmoe):
     leaves), every layer through the expert-parallel path
     (``tests/test_torch_moe_ep.py`` holds its streams to the reference's
     mesh engine). What stays refused is a data axis > 1 inside one MoE
-    call — the reference's training and dry-run paths, queued in ROADMAP
-    A5 — and a lone engine on such a mesh (replicas take the data
-    axis)."""
+    call through the active mesh — the train step's per-row path
+    (``moe.moe_rows``) takes it instead — and a lone engine on such a
+    mesh (replicas take the data axis)."""
     model, params = olmoe["model"], olmoe["params"]
     calls = []
     real = moe.apply_moe_sharded

@@ -18,8 +18,9 @@ as ``.npz`` / JSON files.
   the shards' bf16 values, rounded once — not a chain of bf16 adds.
 * The single-device path stays put: a model axis that does not divide
   the experts (M 3 on 8), and a ``(2, 1)`` mesh, give the port's own
-  single-device layer bit for bit; a data axis > 1 inside one call is
-  refused, naming what is queued.
+  single-device layer bit for bit; a data axis > 1 inside one call
+  through the active (serving) mesh is refused, naming the train
+  step's path that takes it.
 * Placement: on ``cpu × M`` the expert shards are views of the stacked
   leaves (one storage), the router stays whole; on another device a
   shard is a copy of its experts alone.

@@ -3,8 +3,9 @@ train step, ``TrainLoop`` and the launchers.
 
 * Three ``make_train_step`` steps with 1 and 2 microbatches from one
   state (a smoke model, ``mpmrf_row`` at ρ = 1): params, moments and
-  metrics against the reference's step; a mesh refused, naming ROADMAP
-  A5, by the step and by the launcher.
+  metrics against the reference's step; the same steps on a ``(2, 2)``
+  mesh of the CPU equal the one-device steps, and the launcher trains
+  on a mesh (``--model-axis``).
 * ``TrainLoop``: a resume from a checkpoint restores the saved state
   bit for bit and continues as the uninterrupted run; a requested
   preemption stops and saves; a tiny dense model's loss falls over 60
@@ -38,7 +39,7 @@ from repro_torch.convert import convert_opt_state, to_numpy_tree
 from repro_torch.core import EnergonConfig
 from repro_torch.data import TokenDataset
 from repro_torch.models import LMModel
-from repro_torch.optim import AdamWConfig
+from repro_torch.optim import AdamWConfig, adamw
 from repro_torch.runtime import (
     Request, ServeLoop, TrainConfig, TrainLoop, make_train_step,
 )
@@ -90,15 +91,35 @@ def _check_close(port, ref, atol, rtol=0.0, bound=None, share=1e-3):
         assert diff.max() <= limit, (diff.max(), limit)
 
 
-def test_a_mesh_is_refused_naming_a5():
-    model = LMModel(registry.get_smoke_config("qwen3-14b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        make_train_step(model, AdamWConfig(), mesh=object())
+def test_a_mesh_train_step_equals_the_one_device_step():
     from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.train_loop import gather_state, shard_state
 
-    with pytest.raises(SystemExit, match="A5"):
-        train.main(["--arch", "qwen3-14b", "--smoke", "--device", "cpu",
-                    "--model-axis", "2"])
+    cfg = _rho1(registry.get_smoke_config("qwen3-14b"))
+    model = LMModel(cfg, device="cpu")
+    opt = AdamWConfig(learning_rate=1e-3)
+    params = model.init(seed=0)
+    state = adamw.init(params, opt)
+    mesh = make_mesh((2, 2), devices=["cpu"] * 4)
+    placed, placed_state = shard_state(model.init(seed=0),
+                                       adamw.init(model.init(seed=0), opt),
+                                       mesh)
+    one = make_train_step(model, opt)
+    sharded = make_train_step(model, opt, mesh=mesh)
+    for i in range(2):
+        batch = _batch(cfg, batch=4, seed=40 + i)
+        params, state, m = one(params, state, batch)
+        placed, placed_state, pm = sharded(placed, placed_state, batch)
+        np.testing.assert_allclose(float(pm["loss"]), float(m["loss"]),
+                                   rtol=1e-5)
+    got, _ = gather_state(placed, placed_state)
+    _check_close(got, params, atol=2e-5, bound=2 * 2 * 1e-3)
+    out = train.main(["--arch", "qwen3-14b", "--smoke", "--device", "cpu",
+                      "--model-axis", "2", "--simulate-devices", "2",
+                      "--steps", "2", "--seq-len", "16", "--global-batch",
+                      "2"])
+    assert out["final_step"] == 2
 
 
 def _tiny(remat="none", impl="dense"):
