@@ -2923,12 +2923,13 @@ MESH_TP = 4              # [tp-serve]: a (1, 4) mesh of the one card
 MESH_GRID = (2, 2)       # [mesh-serve]: two replicas, TP 2 each
 
 
-def _sim_mesh(shape):
+def _sim_mesh(shape, axes=None):
     """A ``shape`` mesh whose every entry is the one card (the serve
-    CLI's ``--simulate-devices``)."""
+    CLI's ``--simulate-devices``): ``(data, model)`` for two sizes,
+    ``(pod, data, model)`` for three, else over ``axes``."""
     from repro_torch.launch.mesh import make_mesh
 
-    return make_mesh(shape, ("data", "model"), [DEV] * (shape[0] * shape[1]))
+    return make_mesh(shape, axes, [DEV] * math.prod(shape))
 
 
 def _submit_all(engine, prompts, new_tokens, uid0=0, temps=None):
@@ -3950,6 +3951,110 @@ def moe_ep_phase(model, params, prompts, streams, moe_inputs, layer,
     _free_device()
     out["moe-ep-layer"] = ep_layer_check(model, params, moe_inputs, layer)
     out["moe-ep-replicas"] = ep_replicas(model, params, prompts)
+    out["serve-2d"] = serve_2d_serve(model, params, prompts, streams,
+                                     out[f"moe-ep-serve-1x{m}"])
+    out["serve-2d-layer"] = serve_2d_layer_check(model, params, moe_inputs,
+                                                 layer)
+    return out
+
+
+#: ``[serve-2d]``: the graphed engine's mesh, and the 2-D layer's mesh
+SERVE_2D_MESH, SERVE_2D_GRID = (1, 4), (2, 2)
+#: the 2-D layer in f32 against the single-device layer (the CPU test's
+#: tolerance, tests/test_torch_distributed.py): the same routing, each
+#: output element's down-projection split over D d_ff slices and summed
+#: in another order
+SERVE_2D_F32_ATOL = 1e-5
+
+
+def serve_2d_serve(model, params, prompts, streams, ep):
+    """``[serve-2d]``: phase 20's requests through one graphed paged
+    ``ServeLoop`` on a ``(1, 4)`` mesh of the card under the ``"serve"``
+    rules profile: every MoE layer through ``apply_moe_serve_2d`` (the
+    capture's calls counted; ``apply_moe_sharded`` never), B1–B4 on
+    every shard (:func:`ep_serve`'s checks), decode ticks under the
+    profiler, beside ``ep``, the same mesh's expert-parallel run. The
+    2-D path sums the partials in f32 and rounds once, where EP rounds
+    each to bf16: the streams are compared, not gated."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import moe as moe_lib
+
+    calls = {"serve_2d": 0, "sharded": 0}
+    real_2d, real_ep = moe_lib.apply_moe_serve_2d, moe_lib.apply_moe_sharded
+
+    def spy_2d(*a, **kw):
+        calls["serve_2d"] += 1
+        return real_2d(*a, **kw)
+
+    def spy_ep(*a, **kw):
+        calls["sharded"] += 1
+        return real_ep(*a, **kw)
+
+    shd.set_rules_profile("serve")
+    moe_lib.apply_moe_serve_2d, moe_lib.apply_moe_sharded = spy_2d, spy_ep
+    try:
+        out, _ = ep_serve(model, params, prompts, streams, SERVE_2D_MESH[1],
+                          label="serve-2d", profile=DEV == "cuda")
+    finally:
+        moe_lib.apply_moe_serve_2d, moe_lib.apply_moe_sharded = (real_2d,
+                                                                 real_ep)
+        shd.set_rules_profile("train")
+    need(calls["serve_2d"] > 0 and calls["sharded"] == 0,
+         f"[serve-2d] the MoE layers took {calls}, not the 2-D path alone")
+    tick = out.get("profile_decode", {}).get("device_ms", float("nan"))
+    ep_tick = ep.get("profile_decode", {}).get("device_ms", float("nan"))
+    log(f"[serve-2d] 2-D experts on (1, {SERVE_2D_MESH[1]}) (apply_moe_"
+        f"serve_2d traced {calls['serve_2d']} times by the captures and "
+        f"eager steps): prefill {out['prefill_tok_s']:.1f} tok/s, decode "
+        f"{out['decode_tok_s']:.1f} tok/s, decode tick {tick:.3f} ms of "
+        f"device time; expert parallelism on the same mesh: prefill "
+        f"{ep['prefill_tok_s']:.1f} tok/s, decode {ep['decode_tok_s']:.1f} "
+        f"tok/s, tick {ep_tick:.3f} ms")
+    out.update(calls=calls, ep_prefill_tok_s=ep["prefill_tok_s"],
+               ep_decode_tok_s=ep["decode_tok_s"], ep_tick_ms=ep_tick)
+    return out
+
+
+def serve_2d_layer_check(model, params, inputs, layer,
+                         label="serve-2d-layer"):
+    """Layer ``layer``'s MoE in f32 on its captured inputs (the prefill
+    wave's and the decode step's, widened) through ``apply_moe_serve_2d``
+    on a ``(2, 2)`` mesh of the card (experts over 'model' × d_ff over
+    'data') against the single-device layer: within
+    ``SERVE_2D_F32_ATOL``, the drop fraction within 1e-6; each timed
+    beside the single-device layer (bf16, metrics off)."""
+    import torch
+
+    from repro_torch.models import moe as moe_lib
+
+    mcfg = model._moe_cfg()
+    p = {name: w[layer] for name, w in params["blocks"]["moe"].items()}
+    p32 = {name: w.float() for name, w in p.items()}
+    mesh = _sim_mesh(SERVE_2D_GRID)
+    out = {}
+    for kind in ("prefill", "decode"):
+        x = inputs[kind]
+        single, smet = moe_lib.apply_moe(p32, x.float(), mcfg)
+        y, met = moe_lib.apply_moe_serve_2d(p32, x.float(), mcfg, mesh)
+        err = float((y - single).abs().max())
+        drop, sdrop = (float(met["moe_drop_fraction"]),
+                       float(smet["moe_drop_fraction"]))
+        ms = time_ms(lambda: moe_lib.apply_moe_serve_2d(p, x, mcfg, mesh,
+                                                        metrics=False))
+        single_ms = time_ms(lambda: moe_lib.apply_moe(p, x, mcfg,
+                                                      metrics=False))
+        t = x.shape[0] * x.shape[1]
+        log(f"[{label}] {SERVE_2D_GRID[0]}x{SERVE_2D_GRID[1]} {kind} (T = "
+            f"{t}) in f32: max |Δ| {err:.3g} from the single-device layer "
+            f"(tolerance {SERVE_2D_F32_ATOL}), drop fraction {drop:.4f} / "
+            f"{sdrop:.4f}; bf16 {ms:.3f} ms a call (single device "
+            f"{single_ms:.3f} ms)")
+        need(bool(torch.isfinite(y).all()) and err <= SERVE_2D_F32_ATOL,
+             f"[{label}] {kind}: the 2-D layer is {err} from one device")
+        need(abs(drop - sdrop) <= 1e-6,
+             f"[{label}] {kind}: drop fraction {drop} / {sdrop}")
+        out[kind] = dict(tokens=t, max_abs_err=err, drop_fraction=drop,
+                         ms=ms, single_ms=single_ms)
     return out
 
 
@@ -4743,12 +4848,15 @@ def _host_leaves(params):
     return {k: v.detach().to("cpu") for k, v in tree_leaves(params)}
 
 
-def mesh_train_phase(layers=MESH_TRAIN_LAYERS):
+def mesh_train_phase(layers=MESH_TRAIN_LAYERS, grid=MESH_TRAIN_GRID,
+                     run=MESH_TRAIN_RUN, label="mesh-train"):
     """``[mesh-train]``: qwen3-14b at full width cut to ``layers`` through
     launch/train.py's loop (bf16, remat full, mpmrf_block ρ 4 from layer
-    2): two steps on one device, then the same two steps on a ``(2, 2)``
-    mesh of ``cuda:0`` × 4 (ZeRO over 'data', heads / MLP / vocabulary
-    over 'model'; the rows run one after another). The first step's
+    2): the ``run``'s steps on one device, then the same steps on a
+    ``grid`` mesh of ``cuda:0`` (``(2, 2)``: ZeRO over 'data', heads /
+    MLP / vocabulary over 'model'; with three sizes ``(pod, data,
+    model)``, the batch over the pod × data rows, pod major, ZeRO over
+    'data' alone; the rows run one after another). The first step's
     losses agree within ``MESH_LOSS_RTOL``, the updated parameters as
     ``MESH_PARAM_*`` say, each device addresses the bytes
     ``param_shardings`` gives it, and both runs peak within
@@ -4763,17 +4871,17 @@ def mesh_train_phase(layers=MESH_TRAIN_LAYERS):
 
     full = get_config("qwen3-14b")
     cfg = dataclasses.replace(full, num_layers=layers)
-    smi = card_line("mesh-train")
-    mesh = _sim_mesh(MESH_TRAIN_GRID)
-    kw = dict(MESH_TRAIN_RUN, device=DEV, corpus=TRAIN_CORPUS, log_every=1)
+    smi = card_line(label)
+    mesh = _sim_mesh(grid)
+    kw = dict(run, device=DEV, corpus=TRAIN_CORPUS, log_every=1)
     n_params = _param_count(cfg)
-    log(f"[mesh-train] {cfg.name} at full width (d {cfg.d_model}, "
+    log(f"[{label}] {cfg.name} at full width (d {cfg.d_model}, "
         f"{cfg.num_heads} / {cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}), depth cut to {layers} of {full.num_layers}: "
-        f"{n_params / 1e9:.3f} B parameters, {cfg.dtype}; {MESH_TRAIN_RUN}; "
-        f"mesh {mesh}")
+        f"{n_params / 1e9:.3f} B parameters, {cfg.dtype}; {run}; mesh "
+        f"{mesh}, {len(mesh.rows)} data rows")
     out = dict(layers=layers, of=full.num_layers, params=n_params,
-               grid=list(MESH_TRAIN_GRID), card=smi)
+               grid=list(grid), card=smi)
     runs = {}
     launches = {}
     for name, m in (("one-device", None), ("mesh", mesh)):
@@ -4788,39 +4896,39 @@ def mesh_train_phase(layers=MESH_TRAIN_LAYERS):
         wall = time.perf_counter() - t0
         peak = _peak_gb()
         launches[name] = sum(_build.launch_counts.values())
-        need(res["final_step"] == 2 and len(seen) == 2,
-             f"[mesh-train] {name} ran {res['final_step']} steps")
+        need(res["final_step"] == run["steps"] and len(seen) == run["steps"],
+             f"[{label}] {name} ran {res['final_step']} steps")
         need(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
-                 for s in seen), f"[mesh-train] {name}: non-finite {seen}")
+                 for s in seen), f"[{label}] {name}: non-finite {seen}")
         step_ms = [h["sec"] * 1e3 for h in res["history"]]
         runs[name] = dict(steps=seen, step_ms=step_ms, peak_gb=peak,
                           wall_s=wall)
-        log(f"[mesh-train] {name}: losses "
+        log(f"[{label}] {name}: losses "
             f"{[s['loss'] for s in seen]!r}, grad norms "
             f"{[s['grad_norm'] for s in seen]!r}, steps "
             f"{', '.join(f'{x:.1f}' for x in step_ms)} ms (the first with "
             f"the allocator's growth), peak {peak:.2f} GB [{smi}]")
         need(peak <= PEAK_LIMIT_GB,
-             f"[mesh-train] {name} peak {peak:.1f} GB over {PEAK_LIMIT_GB}")
+             f"[{label}] {name} peak {peak:.1f} GB over {PEAK_LIMIT_GB}")
         if m is None:
             ref = _host_leaves(res["params"])
         else:
             got = shd.device_bytes(res["params"], mesh)
+            flat = [(c, b) for c, b in zip(mesh.coords(), _leaves_of(got))]
             model = LMModel(cfg, device="meta")
             want = shd.reckoned_bytes(model.param_shapes(),
                                       model.param_dtypes(), mesh)
             held = sum(t.numel() * t.element_size()
                        for _, leaf in shd.sharded_leaves(res["params"])
                        for t in leaf.shards.values())
-            log(f"[mesh-train] shard bytes by device (data, model): "
-                + ", ".join(f"({i}, {j}) {got[i][j] / 1e9:.4f} GB"
-                            for i in range(len(got))
-                            for j in range(len(got[0])))
+            log(f"[{label}] shard bytes by device "
+                f"({', '.join(mesh.axis_names)}): "
+                + ", ".join(f"{c} {b / 1e9:.4f} GB" for c, b in flat)
                 + f"; param_shardings' reckoning {want / 1e9:.4f} GB each; "
                 f"held once on the card {held / 1e9:.4f} GB (a replicated "
                 f"shard once)")
-            need(all(b == want for row in got for b in row),
-                 f"[mesh-train] shard bytes {got} vs reckoning {want}")
+            need(all(b == want for _, b in flat),
+                 f"[{label}] shard bytes {got} vs reckoning {want}")
             out.update(device_bytes=got, reckoned_bytes=want, held_bytes=held)
             new = _host_leaves(shd.gather_tree(res["params"], "cpu"))
         del loop, res
@@ -4828,7 +4936,7 @@ def mesh_train_phase(layers=MESH_TRAIN_LAYERS):
     one, many = runs["one-device"], runs["mesh"]
     l1, l2 = one["steps"][0]["loss"], many["steps"][0]["loss"]
     rel = abs(l2 - l1) / abs(l1)
-    bound = 2 * MESH_TRAIN_RUN["steps"] * MESH_TRAIN_RUN["lr"]
+    bound = 2 * run["steps"] * run["lr"]
     off = total = 0
     worst = 0.0
     for key, a in ref.items():
@@ -4837,23 +4945,32 @@ def mesh_train_phase(layers=MESH_TRAIN_LAYERS):
         total += d.numel()
         worst = max(worst, float(d.max()))
     share = off / total
-    log(f"[mesh-train] first step's loss: mesh {l2!r} vs one device {l1!r}, "
+    log(f"[{label}] first step's loss: mesh {l2!r} vs one device {l1!r}, "
         f"|Δ|/|ref| {rel:.2e} (tolerance {MESH_LOSS_RTOL})")
-    log(f"[mesh-train] params after 2 steps: {share:.4%} of {total} "
-        f"elements off by > {MESH_PARAM_ATOL} (gate {MESH_PARAM_SHARE:.0%}), "
-        f"max |Δ| {worst:.3e} (bound 2·steps·lr = {bound:.1e})")
-    log(f"[mesh-train] step ms: mesh {many['step_ms'][1]:.1f} vs one device "
+    log(f"[{label}] params after {run['steps']} steps: {share:.4%} of "
+        f"{total} elements off by > {MESH_PARAM_ATOL} (gate "
+        f"{MESH_PARAM_SHARE:.0%}), max |Δ| {worst:.3e} (bound 2·steps·lr = "
+        f"{bound:.1e})")
+    log(f"[{label}] step ms: mesh {many['step_ms'][1]:.1f} vs one device "
         f"{one['step_ms'][1]:.1f} (second steps; x"
-        f"{many['step_ms'][1] / one['step_ms'][1]:.2f}); CUDA kernel "
+        f"{many['step_ms'][1] / one['step_ms'][1]:.2f}); peaks "
+        f"{many['peak_gb']:.2f} / {one['peak_gb']:.2f} GB; CUDA kernel "
         f"launches {launches} [{smi}]")
-    need(rel <= MESH_LOSS_RTOL, f"[mesh-train] loss {l2} vs {l1}")
+    need(rel <= MESH_LOSS_RTOL, f"[{label}] loss {l2} vs {l1}")
     need(share <= MESH_PARAM_SHARE and worst <= bound,
-         f"[mesh-train] params: {share:.4%} off, max {worst}")
+         f"[{label}] params: {share:.4%} off, max {worst}")
     need(not any(launches.values()),
-         f"[mesh-train] a kernel of the port ran: {launches}")
+         f"[{label}] a kernel of the port ran: {launches}")
     out.update(runs, loss_rel=rel, param_share_off=share,
                param_max_abs=worst, launches=launches)
     return out
+
+
+def _leaves_of(nested):
+    """A nested list's leaves, row-major."""
+    if isinstance(nested, list):
+        return [x for part in nested for x in _leaves_of(part)]
+    return [nested]
 
 
 def _row_split_loss(model, params, batch, rows):
@@ -4965,19 +5082,23 @@ def mesh_train_moe_phase(layers=MESH_MOE_LAYERS):
     return out
 
 
-def mesh_train_resume_phase():
+def mesh_train_resume_phase(written=MESH_TRAIN_GRID,
+                            restored=((1, 1), (4, 1)),
+                            label="mesh-train-resume"):
     """``[mesh-train-resume]``: qwen3-14b's smoke widths in bf16 train two
-    steps on the ``(2, 2)`` mesh and checkpoint (the logical arrays and
-    the mesh's fingerprint); loops on ``(1, 1)`` and ``(4, 1)`` restore
-    it, their gathered state bit-equal to the saved one (exact digest),
-    and each trains one more step. Small widths: ``[train]`` writes the
-    call's one large checkpoint."""
+    steps on the ``written`` mesh (``(2, 2)``, or a ``(pod, data,
+    model)`` mesh) and checkpoint (the logical arrays and the mesh's
+    fingerprint); loops on each ``restored`` mesh restore it, their
+    gathered state bit-equal to the saved one (exact digest), and each
+    trains one more step. Small widths: ``[train]`` writes the call's one
+    large checkpoint."""
     import json as _json
     import shutil
     import tempfile
 
     from repro_torch.checkpoint import step_dir
     from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.distributed.elastic import mesh_fingerprint
     from repro_torch.launch import train as launch_train
     from repro_torch.runtime.train_loop import gather_state
 
@@ -4988,35 +5109,144 @@ def mesh_train_resume_phase():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     out = {}
     try:
+        mesh = _sim_mesh(written)
         loop = launch_train.make_loop(cfg, steps=2, checkpoint_dir=tmp,
-                                      checkpoint_every=2,
-                                      mesh=_sim_mesh(MESH_TRAIN_GRID), **kw)
+                                      checkpoint_every=2, mesh=mesh, **kw)
         res = loop.run()
         saved = state_digest(*gather_state(res["params"], res["opt_state"],
                                            DEV))
         with open(os.path.join(step_dir(tmp, 2), "manifest.json")) as f:
             fingerprint = _json.load(f)["mesh"]
-        need(fingerprint == "data=2xmodel=2",
-             f"[mesh-train-resume] manifest mesh {fingerprint}")
-        for shape in ((1, 1), (4, 1)):
+        need(fingerprint == mesh_fingerprint(mesh),
+             f"[{label}] manifest mesh {fingerprint}")
+        for shape in restored:
             loop = launch_train.make_loop(cfg, steps=3, checkpoint_dir=tmp,
                                           mesh=_sim_mesh(shape), **kw)
             params, opt, start = loop._init_state()
             equal = state_digest(*gather_state(params, opt, DEV)) == saved
             _, _, m = loop.step_fn(params, opt, next(loop.dataset))
             loss = float(m["loss"])
-            log(f"[mesh-train-resume] written on (2, 2) "
-                f"({fingerprint}), restored on {shape}: step {start}, every "
-                f"logical leaf's bits equal {equal}; its next step's loss "
-                f"{loss!r}")
+            log(f"[{label}] written on {tuple(written)} ({fingerprint}), "
+                f"restored on {shape}: step {start}, every logical leaf's "
+                f"bits equal {equal}; its next step's loss {loss!r}")
             need(start == 2 and equal,
-                 f"[mesh-train-resume] {shape}: start {start}, equal {equal}")
-            need(math.isfinite(loss), f"[mesh-train-resume] loss {loss}")
-            out[f"{shape[0]}x{shape[1]}"] = dict(equal=equal, next_loss=loss)
+                 f"[{label}] {shape}: start {start}, equal {equal}")
+            need(math.isfinite(loss), f"[{label}] loss {loss}")
+            out["x".join(map(str, shape))] = dict(equal=equal,
+                                                  next_loss=loss)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     _free_device()
     return out
+
+
+# --------------------------------------------------------------------------
+# the three-axis mesh (ROADMAP A5b): pod data parallelism, the GPipe
+# pipeline over 'pod'
+# --------------------------------------------------------------------------
+
+#: the ``(pod, data, model)`` mesh ``[pod-train]`` trains on: cuda:0 × 4
+POD_TRAIN_GRID = (2, 2, 1)
+#: qwen3-14b's depth in ``[pod-train]``: its one 4-sequence microbatch
+#: (a sequence a row) peaks 57.73 GB on one device and 52.13 on the mesh
+#: at 4 layers, 61.11 / 55.52 at 5 (an H100 80GB HBM3 at 700 W); 4 keeps
+#: the phase short
+POD_TRAIN_LAYERS = 4
+#: ``[pod-train]``'s traffic: two steps of one 4-sequence microbatch, a
+#: sequence a pod × data row; the one-device run takes the same step
+POD_TRAIN_RUN = dict(steps=2, seq_len=2048, global_batch=4, microbatches=1,
+                     lr=3e-4)
+
+
+#: ``[pipeline]``: qwen3-14b's depth at full width, its stages (the
+#: ``pod`` axis of cuda:0 × 4) and microbatches of [1, 2048] hidden states
+PIPELINE_LAYERS, PIPELINE_STAGES, PIPELINE_MICRO = 8, 4, 6
+PIPELINE_SEQ = 2048
+SCORE_PAIR = ("mpmrf_filter_scores", "block_sparse_attention")
+
+
+def pipeline_phase(layers=PIPELINE_LAYERS, stages=PIPELINE_STAGES,
+                   micro=PIPELINE_MICRO):
+    """``[pipeline]``: qwen3-14b at full width, ``layers`` of 40, every
+    layer sparse (``impl="pallas"``, ``min_prune_layer`` 0: B9 then B10
+    in each), as ``stages`` GPipe stages over a ``("pod",)`` mesh of
+    ``cuda:0`` × ``stages`` (``distributed/pipeline.py``): each stage
+    ``transformer.apply_stack`` over its slab of the stacked blocks,
+    ``micro`` microbatches of ``[1, 2048, d]`` bf16 hidden states. The
+    outputs equal, bit for bit, ``apply_stack`` of the ``layers`` layers
+    on each microbatch; B9 and B10 launch layers × microbatches times in
+    the pipeline's run (counts zeroed just before it, read just after),
+    and no other kernel."""
+    import torch
+
+    from repro_torch.configs.registry import get_serve_config
+    from repro_torch.distributed.pipeline import (
+        pipeline_forward, split_layers_to_stages)
+    from repro_torch.kernels import _build
+    from repro_torch.models import LMModel
+    from repro_torch.models import transformer as tfm
+
+    base = get_serve_config("qwen3-14b")
+    cfg = dataclasses.replace(base, num_layers=layers,
+                              energon=dataclasses.replace(
+                                  base.energon, impl="pallas",
+                                  min_prune_layer=0))
+    smi = card_line("pipeline")
+    _free_device()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = LMModel(cfg, device=DEV)
+    params = model.init(seed=0)
+    block_fn = model._tfm_block_fn()
+
+    def stage_fn(slab, x):
+        return tfm.apply_stack(slab, x, None, block_fn)[0]
+
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    mb = torch.randn((micro, 1, PIPELINE_SEQ, cfg.d_model), generator=gen,
+                     device=DEV).to(model.dtype)
+    mesh = _sim_mesh((stages,), ("pod",))
+    slabs = split_layers_to_stages(params["blocks"], stages)
+    with torch.no_grad():
+        stage_fn(params["blocks"], mb[0])          # warm-up, uncounted
+        sync()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = pipeline_forward(stage_fn, slabs, mb, mesh, axis="pod")
+        sync()
+        pipe_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_build.launch_counts)
+        t0 = time.perf_counter()
+        want = torch.stack([stage_fn(params["blocks"], x) for x in mb])
+        sync()
+        seq_ms = (time.perf_counter() - t0) * 1e3
+    peak = _peak_gb()
+    equal = torch.equal(out, want)
+    n = layers * micro
+    log(f"[pipeline] {cfg.name} at full width, {layers} of "
+        f"{base.num_layers} layers as {stages} stages of "
+        f"{layers // stages} over {mesh}; {micro} microbatches of [1, "
+        f"{PIPELINE_SEQ}, {cfg.d_model}] {cfg.dtype}: outputs equal to "
+        f"apply_stack's on each microbatch, bit for bit: {equal}; "
+        f"{pipe_ms:.1f} ms (sequential apply_stack {seq_ms:.1f} ms; the "
+        f"stages share one card); peak {peak:.2f} GB [{smi}]")
+    log(f"[pipeline] launches: " + ", ".join(
+        f"{KERNELS[k]['id']} {launches[k]}" for k in KERNELS)
+        + f" (B9 / B10: {layers} layers × {micro} microbatches = {n})")
+    need(equal and bool(torch.isfinite(out).all()),
+         "[pipeline] the pipeline's outputs differ from apply_stack's")
+    need(all(launches[k] == n for k in SCORE_PAIR),
+         f"[pipeline] B9 / B10 launched {[launches[k] for k in SCORE_PAIR]}"
+         f", not {n}")
+    need(all(launches[k] == 0 for k in KERNELS if k not in SCORE_PAIR),
+         f"[pipeline] another kernel launched: {launches}")
+    need(peak <= PEAK_LIMIT_GB, f"[pipeline] peak {peak:.1f} GB")
+    del model, params, slabs, mb, out, want
+    _free_device()
+    return dict(layers=layers, of=base.num_layers, stages=stages,
+                microbatches=micro, equal=equal, ms=pipe_ms,
+                sequential_ms=seq_ms, peak_gb=peak, launches=launches,
+                card=smi)
 
 
 def profile_train_step(loop, params, opt_state, label="profile-train"):
@@ -5467,6 +5697,11 @@ def main(argv=None) -> int:
 
     from repro_torch.kernels import _build
 
+    start = time.perf_counter()
+
+    def clock(what):
+        log(f"[clock] {time.perf_counter() - start:.1f} s: {what}")
+
     smi = card_name()
     log(smi)
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -5482,6 +5717,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"[ptxas:{name}] {line.strip()}")
     ptxas = engine_ptxas()
+    clock("build")
 
     results = {name: [] for name in KERNELS}
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -5533,6 +5769,7 @@ def main(argv=None) -> int:
     mesh = dict(tp_serve=tp_serve(model, params, prompts, streams1,
                                   tp_results),
                 mesh_serve=mesh_serve(model, params, prompts, streams1))
+    clock("qwen3-14b serving phases")
 
     # full-sequence scoring on the same model object and weights
     e = model.cfg.energon
@@ -5560,6 +5797,7 @@ def main(argv=None) -> int:
     long_route = long_route_vs_scan(q, k, v, layer=layer, **blocks)
     del q, k, v
     xla_fs = xla_full(model, params, scoring["loss"])
+    clock("qwen3-14b scoring phases")
 
     # the other dense configs, once qwen3-14b is released
     del model, params
@@ -5570,18 +5808,22 @@ def main(argv=None) -> int:
     dense = dense_config_phases(dense_results, blocks)
     d96 = {name: [] for name in KERNELS}
     dense.update(phi3_phase(d96, blocks))
+    clock("the other dense configs")
 
     # the MoE family, once the dense configs are released; expert
     # parallelism on the olmoe model; then qwen3-moe at G 16
     moe_results = {name: [] for name in KERNELS}
     ep_results = {name: [] for name in SERVE_KERNELS}
     moe, moe_ep = olmoe_phase(moe_results, blocks, ep_results)
+    clock("olmoe, expert parallelism, serve-2d")
     g16 = {name: [] for name in KERNELS}
     qwen3moe = qwen3moe_phase(g16, blocks)
+    clock("qwen3-moe")
 
     # the vlm / audio and recurrent families, once qwen3-moe is released
     family_results = {name: [] for name in KERNELS}
     families = new_family_phases(family_results, blocks)
+    clock("the vlm / audio and recurrent families")
 
     # training, once the last family's model is released: no kernel has
     # a backward, so these phases launch none of B1–B11
@@ -5590,10 +5832,21 @@ def main(argv=None) -> int:
                     train_lm_200k=train_lm_phase(200_000, gated=False),
                     train_lm=train_lm_phase(),
                     pallas_refused=pallas_grad_refused())
+    clock("training")
     # training over a (2, 2) mesh of the card: no kernel runs either
     training.update(mesh_train=mesh_train_phase(),
                     mesh_train_moe=mesh_train_moe_phase(),
                     mesh_train_resume=mesh_train_resume_phase())
+    clock("training over (data, model) meshes")
+    # the three-axis mesh: pod data parallelism, then the GPipe pipeline
+    # over 'pod' (B9 / B10 in every stage)
+    training.update(
+        pod_train=mesh_train_phase(POD_TRAIN_LAYERS, POD_TRAIN_GRID,
+                                   POD_TRAIN_RUN, "pod-train"),
+        pod_train_resume=mesh_train_resume_phase(
+            (2, 2, 2), ((1, 1),), "pod-train-resume"))
+    pipeline = pipeline_phase()
+    clock("the pod mesh and the pipeline")
 
     timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -5621,6 +5874,7 @@ def main(argv=None) -> int:
             launches_families={phase: r["launches"].get(name, 0)
                                for phase, r in families.items()
                                if "launches" in r},
+            launches_pipeline=pipeline["launches"][name],
             max_abs_err=max(r["err"] for r in entries + dense_results[name]
                             + d96[name] + tp_results.get(name, [])
                             + moe_results[name] + ep_results.get(name, [])
@@ -5665,7 +5919,8 @@ def main(argv=None) -> int:
     log(json.dumps({"moe": moe, "card": smi}))
     log(json.dumps({"moe_ep": moe_ep, "qwen3moe": qwen3moe, "card": smi}))
     log(json.dumps({"families": families, "card": smi}))
-    log(json.dumps({"training": training, "card": smi}))
+    log(json.dumps({"training": training, "pipeline": pipeline,
+                    "card": smi}))
     log(json.dumps({"analysis": analysis, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Distribution layer of the port (``repro.distributed``): the sharding
-rules and the explicit layout over a ``(data, model)`` mesh, the
-collectives, gradient compression and elastic resume. The pipeline over
-a ``pod`` axis is ROADMAP A5b."""
+rules and the explicit layout over a ``(pod, data, model)`` mesh (or
+any ordered subset of those axes), the collectives, gradient
+compression, elastic resume and the GPipe pipeline over ``pod``."""
 
 from repro_torch.distributed.sharding import (  # noqa: F401
     ShardedLeaf,

@@ -1,6 +1,6 @@
 """Collectives over one mesh axis, on lists of per-device tensors.
 
-The port drives a whole ``(data, model)`` mesh from one controller
+The port drives a whole ``(pod, data, model)`` mesh from one controller
 (:class:`repro_torch.launch.mesh.Mesh`), so a collective is a function
 of the tensors its devices hold: a list in mesh order in, a list (or one
 tensor) out. Each is a ``torch.autograd.Function`` whose backward is its

@@ -5,8 +5,9 @@ Checkpoints store *logical* (unsharded, host) arrays, so resharding to
 a new topology is: build the new mesh, derive the specs from the same
 logical rules, and lay each array out by them
 (:func:`~repro_torch.distributed.sharding.shard_tree`). A job written on
-a ``(2, 2)`` mesh resumes on ``(4, 1)`` or on one device without a
-format change; only throughput changes.
+a ``(2, 2, 2)`` ``(pod, data, model)`` mesh resumes on ``(4, 1)`` or on
+one device without a format change, and the reverse; only throughput
+changes.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ def gather_params(params: Any) -> Any:
 
 
 def mesh_fingerprint(mesh) -> str:
-    """``"data=4xmodel=2"``, or ``"unsharded"`` without a mesh."""
+    """``"data=4xmodel=2"`` (``"pod=2xdata=2xmodel=2"`` with 'pod'), or
+    ``"unsharded"`` without a mesh: the reference's string."""
     if mesh is None:
         return "unsharded"
     return "x".join(f"{name}={mesh.shape[name]}" for name in mesh.axis_names)

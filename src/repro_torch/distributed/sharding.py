@@ -19,6 +19,10 @@ Expert parallelism: :func:`shard_experts` gives each model-axis device
 its experts of the MoE leaves (the reference's ``P("model", …)`` slices
 of ``w_up`` / ``w_gate`` / ``w_down``), which ``models/moe.py`` runs
 shard by shard wherever :func:`expert_shards` says the reference would.
+Under the ``"serve"`` rules profile the experts lie 2-D: experts over
+'model' × d_ff over 'data' (``P("model", None, "data")`` for up / gate,
+``P("model", "data", None)`` for down), fully resident
+(:func:`serve_expert_shards`, read by ``moe.apply_moe_serve_2d``).
 
 The training half (reference ``:26-336, 390-470``): the rule tables,
 ``MESH_MAP`` and the rules profile, :func:`logical_axes_for` and the
@@ -30,25 +34,31 @@ the port lays the tree out by hand: :func:`shard_tree` turns each leaf
 into a :class:`ShardedLeaf`, the distinct shards its spec names, each
 on the first mesh device of its replica group (an axis the spec does
 not name replicates the shard over it, and the controller holds it
-once), and :func:`gather_tree` turns it back. The train step reads a
-layer's shards through :func:`row_views`: the ZeRO all-gather over
-'data' (and, for a recurrent cell, over 'model') as collectives whose
-backward is the reduce-scatter of the gradients
+once), and :func:`gather_tree` turns it back. On a three-axis ``(pod,
+data, model)`` mesh 'pod' folds into data parallelism (:func:`data_axes`):
+the batch splits over the pod × data rows, pod major, and ZeRO still
+shards over 'data' alone, each weight held once for every pod. The
+train step reads a layer's shards through :func:`row_views`: the ZeRO
+all-gather over 'data' (and, for a recurrent cell, over 'model') as
+collectives whose backward sums every row's gradients — the pods' on
+top of the data rows', in f32 in row order — into the shards
 (:mod:`repro_torch.distributed.collectives`).
 
-A three-axis mesh (``pod``), the pipeline and the ``"serve"`` profile's
-2-D expert layout are ROADMAP A5b.
+What stays refused is the dry run's ``--mesh`` (:data:`A5B`): a walk of
+one device's share of the production meshes.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.distributed import collectives as col
+from repro_torch.launch.mesh import DATA_AXES
 
 _ACTIVE_MESH = None
 
@@ -139,7 +149,7 @@ def shard_paged_cache(cache: Dict[str, torch.Tensor], mesh,
     its rows."""
     from repro_torch.models import attention as attn
 
-    devices = mesh.devices[0]
+    devices = mesh.rows[0]
     m = len(devices)
     out = {}
     for name, leaf in cache.items():
@@ -189,26 +199,84 @@ def _shard_on(part: torch.Tensor, device: torch.device) -> torch.Tensor:
     return out
 
 
-def expert_leaf_shards(leaf, num_experts: int, devices):
+def _ff_dim(name: str) -> int:
+    """An expert leaf's d_ff dim: ``w_down [E, f, d]``'s second-to-last,
+    ``w_up`` / ``w_gate [E, d, f]``'s last (stacked or not)."""
+    return -2 if name == "w_down" else -1
+
+
+def expert_ff_shards(d_ff: int, mesh) -> int:
+    """D where the ``"serve"`` profile lays the experts' d_ff over a data
+    axis of D > 1 (``expert_ff → data``, where D divides it, as
+    :func:`param_pspec`'s guard says), else 1."""
+    if _RULES_PROFILE != "serve" or "data" not in mesh.axis_names:
+        return 1
+    d = mesh.shape["data"]
+    return d if d > 1 and d_ff % d == 0 else 1
+
+
+def expert_leaf_shards(leaf, num_experts: int, devices, name: str):
     """One layer's expert leaf ``[E, …]`` as a tuple of M shards, shard s
     holding experts ``[s·E/M, (s+1)·E/M)`` on ``devices[s]``: a tuple
-    from :func:`shard_experts` as it is, a whole leaf sliced."""
+    from :func:`shard_experts` as it is (a shard laid out 2-D over
+    'data' gathered whole over d_ff onto ``devices[s]``), a whole leaf
+    sliced."""
     m = len(devices)
     if isinstance(leaf, tuple):
         if len(leaf) != m:
             raise ValueError(f"{len(leaf)} expert shards on a model axis "
                              f"of {m}")
-        return leaf
+        return tuple(
+            torch.cat([p.to(dev) for p in part], dim=_ff_dim(name))
+            if isinstance(part, tuple) else part
+            for part, dev in zip(leaf, devices))
     per = num_experts // m
     return tuple(_shard_on(leaf[s * per:(s + 1) * per], dev)
                  for s, dev in enumerate(devices))
 
 
+def serve_expert_shards(params: Dict[str, object], num_experts: int,
+                        mesh) -> Dict[Tuple[int, int], Dict[str, object]]:
+    """One layer's experts as the ``"serve"`` profile lays them out:
+    ``(i, s)`` → the leaves mesh device ``(data i, model s)`` holds,
+    experts ``[s·E/M, (s+1)·E/M)`` × d_ff slice i of D (``P("model",
+    None, "data")`` for up / gate, ``P("model", "data", None)`` for
+    down). Each leaf may be whole (sliced here: views on its own
+    device), :func:`shard_experts`' M-tuple, or its M-tuple of D-tuples.
+    """
+    m = mesh.shape["model"]
+    d_n = mesh.shape.get("data", 1)
+    per = num_experts // m
+    out = {}
+    for i in range(d_n):
+        for s in range(m):
+            dev = mesh.device({"data": i, "model": s})
+            leaves = {}
+            for name in EXPERT_LEAVES:
+                if name not in params:
+                    continue
+                leaf = params[name]
+                part = leaf[s] if isinstance(leaf, tuple) \
+                    else leaf[s * per:(s + 1) * per]
+                if isinstance(part, tuple):
+                    part = part[i]
+                elif d_n > 1:
+                    dim = _ff_dim(name)
+                    ff = part.shape[dim] // d_n
+                    part = part.narrow(dim, i * ff, ff)
+                leaves[name] = _shard_on(part, dev)
+            out[(i, s)] = leaves
+    return out
+
+
 def shard_experts(params: Dict[str, object], mesh) -> Dict[str, object]:
     """A model's parameter tree with each MoE expert leaf ``[L, E, …]``
-    split over row 0 of ``mesh``'s model axis: a tuple of M leaves ``[L,
-    E/M, …]``, shard s on model-axis device s (views on the leaf's own
-    device, copies of the shard's experts elsewhere). The router and
+    split over ``mesh``'s model axis: a tuple of M leaves ``[L, E/M,
+    …]``, shard s on model-axis device s (views on the leaf's own
+    device, copies of the shard's experts elsewhere). Under the
+    ``"serve"`` profile on a data axis D > 1 that divides d_ff, shard s
+    is itself a tuple of D leaves, d_ff slice i on device ``(data i,
+    model s)`` (the reference's 2-D serving layout). The router and
     every other leaf stay as they are (whole, on the first device). A
     tree without MoE blocks, or a mesh on which the experts do not run
     expert-parallel, is returned as is."""
@@ -220,14 +288,25 @@ def shard_experts(params: Dict[str, object], mesh) -> Dict[str, object]:
     m = expert_shards(e, mesh)
     if m == 1:
         return params
-    devices = mesh.devices[0]
+    f_n = expert_ff_shards(moe["w_up"].shape[-1], mesh)
     per = e // m
     sharded = dict(moe)
     for name in EXPERT_LEAVES:
-        if name in moe:
-            sharded[name] = tuple(
-                _shard_on(moe[name][:, s * per:(s + 1) * per], dev)
-                for s, dev in enumerate(devices))
+        if name not in moe:
+            continue
+        shards = []
+        for s in range(m):
+            part = moe[name][:, s * per:(s + 1) * per]
+            if f_n == 1:
+                shards.append(_shard_on(part, mesh.device({"model": s})))
+                continue
+            dim = _ff_dim(name)
+            ff = part.shape[dim] // f_n
+            shards.append(tuple(
+                _shard_on(part.narrow(dim, i * ff, ff),
+                          mesh.device({"data": i, "model": s}))
+                for i in range(f_n)))
+        sharded[name] = tuple(shards)
     return dict(params, blocks=dict(blocks, moe=sharded))
 
 
@@ -294,10 +373,10 @@ MESH_MAP = {
     None: None,
 }
 
-#: what a three-axis mesh and the serve profile's 2-D experts wait for
-A5B = ("ROADMAP A5b (a named-axis mesh with 'pod', pipeline.py, "
-       "make_production_mesh, the \"serve\" profile's _apply_moe_serve_2d, "
-       "launch/dryrun.py --mesh)")
+#: what the dry run's ``--mesh`` waits for: a walk of one device's share
+#: of a production mesh, not every shard's work from one controller
+A5B = ("ROADMAP A5b item 5, the next slice (launch/dryrun.py --mesh: a walk "
+       "of one device's share of the production meshes)")
 
 # "train" ZeRO-shards weights over 'data'; "serve" keeps them resident
 # and 2D-shards the MoE expert FFNs (experts→model × d_ff→data)
@@ -370,10 +449,10 @@ def logical_axes_for(path, ndim: int) -> Tuple[Optional[str], ...]:
 
 def data_axes(mesh) -> Tuple[str, ...]:
     """Mesh axes used for data parallelism ('pod' folds into DP)."""
-    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    return tuple(a for a in DATA_AXES if a in mesh.axis_names)
 
 
-def _dp_size(mesh) -> int:
+def dp_size(mesh) -> int:
     return math.prod(mesh.shape[a] for a in data_axes(mesh))
 
 
@@ -419,7 +498,7 @@ def param_shardings(params_shapes: Any, mesh):
 def batch_pspec(leaf, mesh) -> Tuple:
     """Batch dim 0 over every DP axis when it divides, else replicated."""
     shape = _shape(leaf)
-    if len(shape) == 0 or shape[0] % _dp_size(mesh):
+    if len(shape) == 0 or shape[0] % dp_size(mesh):
         return (None,) * len(shape)
     return (_dp(mesh),) + (None,) * (len(shape) - 1)
 
@@ -434,12 +513,12 @@ def kv_cache_pspec(shape, mesh) -> Tuple:
     when divisible; 'model' prefers KV heads, else the sequence; a batch
     that does not shard spreads the sequence over 'data' too."""
     dp = _dp(mesh)
-    dp_size = _dp_size(mesh)
+    n_dp = dp_size(mesh)
     ndim = len(shape)
     spec = [None] * ndim
     batch_dim, kv_dim, seq_dim = ndim - 4, ndim - 3, ndim - 2
     has_model = "model" in mesh.axis_names
-    batch_sharded = shape[batch_dim] % dp_size == 0 and shape[batch_dim] > 1
+    batch_sharded = shape[batch_dim] % n_dp == 0 and shape[batch_dim] > 1
     if batch_sharded:
         spec[batch_dim] = dp
     if has_model and shape[kv_dim] % mesh.shape["model"] == 0:
@@ -463,7 +542,7 @@ def cache_pspec(path, leaf, mesh) -> Tuple:
     :func:`kv_cache_pspec`; ``k_scale`` ``[..., B, KV, n_kb]`` batch over
     DP; any other state its first dim that DP divides (and > 1)."""
     dp = _dp(mesh)
-    dp_size = _dp_size(mesh)
+    n_dp = dp_size(mesh)
     names = _names(path)
     shape = _shape(leaf)
     spec = [None] * len(shape)
@@ -471,11 +550,11 @@ def cache_pspec(path, leaf, mesh) -> Tuple:
         return kv_cache_pspec(shape, mesh)
     if names and names[-1] == "k_scale" and len(shape) >= 3:
         b_dim = len(shape) - 3
-        if shape[b_dim] % dp_size == 0:
+        if shape[b_dim] % n_dp == 0:
             spec[b_dim] = dp
         return tuple(spec)
     for d, size in enumerate(shape):
-        if size % dp_size == 0 and size > 1:
+        if size % n_dp == 0 and size > 1:
             spec[d] = dp
             break
     return tuple(spec)
@@ -491,22 +570,30 @@ def cache_shardings(cache_shapes: Any, mesh):
 # --------------------------------------------------------------------------
 
 
-def _axis_dim(spec, axis: str) -> Optional[int]:
-    for i, ax in enumerate(spec):
-        if ax == axis:
-            return i
-    return None
+def _entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes one spec entry names: none, one, or a tuple."""
+    if entry is None:
+        return ()
+    if isinstance(entry, str):
+        return (entry,)
+    return tuple(entry)
+
+
+def _spec_axes(spec) -> Tuple[str, ...]:
+    return tuple(a for entry in spec for a in _entry_axes(entry))
 
 
 class ShardedLeaf:
-    """One leaf laid out over a ``(data, model)`` mesh: ``shards`` maps
-    each distinct shard's index ``(i, j)`` — its data and model
-    coordinates, 0 on an axis ``spec`` does not name — to its tensor on
-    ``mesh.devices[i][j]``. ``shape`` is the logical leaf's."""
+    """One leaf laid out over a mesh: ``shards`` maps each distinct
+    shard's key — its index on every mesh axis, in ``mesh.axis_names``
+    order, 0 on an axis ``spec`` does not name — to its tensor on
+    ``mesh.device(key)``. A spec entry names an axis or a tuple of axes
+    (split over their product, the first axis major). ``shape`` is the
+    logical leaf's."""
 
     __slots__ = ("spec", "shape", "mesh", "shards")
 
-    def __init__(self, spec, shape, mesh, shards: Dict[Tuple[int, int],
+    def __init__(self, spec, shape, mesh, shards: Dict[Tuple[int, ...],
                                                        torch.Tensor]):
         self.spec = tuple(spec)
         self.shape = tuple(shape)
@@ -518,28 +605,52 @@ class ShardedLeaf:
         return len(self.shape)
 
     def data_dim(self) -> Optional[int]:
-        return _axis_dim(self.spec, "data")
+        """The dim split over data axes ('pod' / 'data'), if any."""
+        for i, entry in enumerate(self.spec):
+            if any(a in DATA_AXES for a in _entry_axes(entry)):
+                return i
+        return None
 
     def model_dim(self) -> Optional[int]:
-        return _axis_dim(self.spec, "model")
+        for i, entry in enumerate(self.spec):
+            if "model" in _entry_axes(entry):
+                return i
+        return None
 
-    def index(self, i: int, j: int) -> Tuple[int, int]:
-        """The shard that mesh device ``(i, j)`` addresses."""
-        return (i if "data" in self.spec else 0,
-                j if "model" in self.spec else 0)
+    def index(self, *coord: int) -> Tuple[int, ...]:
+        """The shard that the mesh device at ``coord`` addresses."""
+        named = _spec_axes(self.spec)
+        return tuple(c if a in named else 0
+                     for a, c in zip(self.mesh.axis_names, coord))
 
-    def slices(self, key: Tuple[int, int]) -> Tuple[slice, ...]:
+    def key(self, **axes: int) -> Tuple[int, ...]:
+        """The key with ``axes``' indices (axis name → index), 0 on the
+        rest."""
+        return tuple(axes.get(a, 0) for a in self.mesh.axis_names)
+
+    def slices(self, key: Tuple[int, ...]) -> Tuple[slice, ...]:
         """The logical slice each dim of shard ``key`` covers."""
+        at = dict(zip(self.mesh.axis_names, key))
         out = []
-        for dim, ax in enumerate(self.spec):
-            size = self.shape[dim]
-            if ax in ("data", "model"):
-                n = self.mesh.shape[ax]
-                k = key[0] if ax == "data" else key[1]
-                out.append(slice(k * size // n, (k + 1) * size // n))
-            else:
+        for dim, entry in enumerate(self.spec):
+            axes = _entry_axes(entry)
+            if not axes:
                 out.append(slice(None))
+                continue
+            size, n, k = self.shape[dim], 1, 0
+            for a in axes:
+                n *= self.mesh.shape[a]
+                k = k * self.mesh.shape[a] + at[a]
+            out.append(slice(k * size // n, (k + 1) * size // n))
         return tuple(out)
+
+    def parts(self, dim: int, **fixed: int) -> List[torch.Tensor]:
+        """The shards along ``dim`` in the order they concatenate (its
+        axes row-major), the other axes at ``fixed`` (else 0)."""
+        axes = _entry_axes(self.spec[dim])
+        return [self.shards[self.key(**dict(fixed, **dict(zip(axes, idx))))]
+                for idx in itertools.product(
+                    *(range(self.mesh.shape[a]) for a in axes))]
 
     def map(self, fn, *others: "ShardedLeaf") -> "ShardedLeaf":
         """A leaf of the same layout whose shard ``k`` is ``fn(shard,
@@ -548,10 +659,10 @@ class ShardedLeaf:
             k: fn(t, *(o.shards[k] for o in others))
             for k, t in self.shards.items()})
 
-    def device_bytes(self, i: int, j: int) -> int:
-        """The bytes mesh device ``(i, j)`` addresses (its shard, a
+    def device_bytes(self, *coord: int) -> int:
+        """The bytes the mesh device at ``coord`` addresses (its shard, a
         replicated one counted on every device of its group)."""
-        t = self.shards[self.index(i, j)]
+        t = self.shards[self.index(*coord)]
         return t.numel() * t.element_size()
 
     def __repr__(self) -> str:
@@ -560,17 +671,19 @@ class ShardedLeaf:
 
 
 def shard_leaf(x: torch.Tensor, spec, mesh) -> ShardedLeaf:
-    """``x`` (logical, any device) laid out over ``mesh`` by ``spec``."""
-    if any(ax not in (None, "data", "model") for ax in spec):
-        raise ValueError(f"spec {spec} on a (data, model) mesh: {A5B}")
-    d_n = mesh.shape["data"] if "data" in spec else 1
-    m_n = mesh.shape["model"] if "model" in spec else 1
+    """``x`` (logical, any device) laid out over ``mesh`` by ``spec``:
+    one shard per index of the axes ``spec`` names, on the device at
+    that index (0 on every other axis)."""
+    named = _spec_axes(spec)
+    if any(a not in mesh.axis_names for a in named) \
+            or len(set(named)) != len(named):
+        raise ValueError(f"spec {spec} on a mesh of axes {mesh.axis_names}")
     leaf = ShardedLeaf(spec, x.shape, mesh, {})
-    for i in range(d_n):
-        for j in range(m_n):
-            part = x[leaf.slices((i, j))]
-            dev = mesh.devices[i][j]
-            leaf.shards[(i, j)] = part.to(dev, copy=True).contiguous()
+    for key in itertools.product(*(
+            range(mesh.shape[a]) if a in named else (0,)
+            for a in mesh.axis_names)):
+        part = x[leaf.slices(key)]
+        leaf.shards[key] = part.to(mesh.device(key), copy=True).contiguous()
     return leaf
 
 
@@ -587,7 +700,7 @@ def shard_tree(tree: Any, specs: Any, mesh) -> Any:
 def gather_leaf(leaf: ShardedLeaf, device=None) -> torch.Tensor:
     """The logical tensor of ``leaf`` on ``device`` (default: the mesh's
     first device)."""
-    device = leaf.mesh.devices[0][0] if device is None else device
+    device = leaf.mesh.first_device if device is None else device
     first = next(iter(leaf.shards.values()))
     out = torch.empty(leaf.shape, dtype=first.dtype, device=device)
     for key, t in leaf.shards.items():
@@ -614,16 +727,20 @@ def sharded_leaves(tree: Any, prefix: str = ""):
         yield prefix, tree
 
 
-def device_bytes(tree: Any, mesh) -> List[List[int]]:
-    """The bytes each mesh device addresses of a sharded tree (a D × M
-    grid): what ``param_shardings`` gives each device."""
-    d_n, m_n = mesh.shape["data"], mesh.shape["model"]
-    out = [[0] * m_n for _ in range(d_n)]
-    for _, leaf in sharded_leaves(tree):
-        for i in range(d_n):
-            for j in range(m_n):
-                out[i][j] += leaf.device_bytes(i, j)
-    return out
+def device_bytes(tree: Any, mesh) -> List:
+    """The bytes each mesh device addresses of a sharded tree, nested as
+    ``mesh.devices`` (a D × M grid on a ``(data, model)`` mesh, P × D × M
+    with 'pod'): what
+    ``param_shardings`` gives each device."""
+    leaves = [leaf for _, leaf in sharded_leaves(tree)]
+
+    def grid(coord):
+        if len(coord) == len(mesh.axis_names):
+            return sum(leaf.device_bytes(*coord) for leaf in leaves)
+        axis = mesh.axis_names[len(coord)]
+        return [grid(coord + (i,)) for i in range(mesh.shape[axis])]
+
+    return grid(())
 
 
 def reckoned_bytes(shapes: Any, dtypes: Any, mesh) -> int:
@@ -635,7 +752,7 @@ def reckoned_bytes(shapes: Any, dtypes: Any, mesh) -> int:
     def add(path, shape):
         nonlocal total
         spec = param_pspec(path, shape, mesh)
-        split = math.prod(mesh.shape[a] for a in spec if a is not None)
+        split = math.prod(mesh.shape[a] for a in _spec_axes(spec))
         dtype = dtypes
         for k in path:
             dtype = dtype[k]
@@ -660,25 +777,29 @@ def unstack_sharded(leaf: ShardedLeaf) -> List[ShardedLeaf]:
 
 
 def batch_rows(batch_size: int, mesh) -> int:
-    """The data rows a batch of ``batch_size`` splits over: D where D
-    divides it (the reference's batch_pspec), else 1 — a replicated
-    batch, which every row would compute alike."""
-    d = _dp_size(mesh)
+    """The data rows a batch of ``batch_size`` splits over: the product
+    of the data axes (pod × data) where it divides the batch (the
+    reference's batch_pspec), else 1 — a replicated batch, which every
+    row would compute alike."""
+    d = dp_size(mesh)
     return d if batch_size % d == 0 and batch_size > 1 else 1
 
 
 def row_views(tree: Any, mesh, rows: Sequence[int], *, whole: bool = False,
               quantized: bool = False) -> List[Any]:
-    """Each data row's view of a sharded (sub)tree: every
-    :class:`ShardedLeaf` all-gathered over 'data' onto the row (ZeRO: a
-    layer gathers its shards before use, and the gather's backward
-    reduce-scatters the rows' gradients into the shards), or broadcast
-    to it where the spec replicates over 'data'. A leaf the spec shards
-    over 'model' becomes a tuple of M tensors, shard j on the row's
-    device j (the tensor-parallel layers split their compute there),
-    unless ``whole``, which all-gathers it over 'model' onto the row's
-    first device as well; every other leaf — and every leaf on a model
-    axis of 1 — is one tensor there.
+    """Each data row's view of a sharded (sub)tree (``rows``: indices
+    into ``mesh.rows``, pod major): every :class:`ShardedLeaf`
+    all-gathered over the data axes its spec names onto the row (ZeRO: a
+    layer gathers its shards before use, and the gather's backward sums
+    the rows' gradients — every pod's and data row's, in f32 in row
+    order — and hands each shard its slice), or broadcast to it where
+    the spec replicates over them (its backward sums the rows'
+    gradients the same way). A leaf the spec shards over 'model' becomes
+    a tuple of M tensors, shard j on the row's device j (the
+    tensor-parallel layers split their compute there), unless
+    ``whole``, which all-gathers it over 'model' onto the row's first
+    device as well; every other leaf — and every leaf on a model axis of
+    1 — is one tensor there.
     ``quantized`` gathers over 'data' with int8 codes
     (:func:`collectives.quantized_all_gather`)."""
     if isinstance(tree, dict):
@@ -691,14 +812,16 @@ def row_views(tree: Any, mesh, rows: Sequence[int], *, whole: bool = False,
     a, b = leaf.data_dim(), leaf.model_dim()
     js = range(mesh.shape["model"]) if b is not None else [0]
     gather = col.quantized_all_gather if quantized else col.all_gather
+    grid = mesh.rows
     per_j = []
     for j in js:
-        targets = [mesh.devices[r][j] for r in rows]
+        targets = [grid[r][j] for r in rows]
+        fixed = {"model": j} if b is not None else {}
         if a is not None:
-            parts = [leaf.shards[(d, j)] for d in range(mesh.shape["data"])]
-            per_j.append(gather(parts, a, targets))
+            per_j.append(gather(leaf.parts(a, **fixed), a, targets))
         else:
-            per_j.append(col.broadcast(leaf.shards[(0, j)], targets))
+            per_j.append(col.broadcast(leaf.shards[leaf.key(**fixed)],
+                                       targets))
     out = []
     for i, r in enumerate(rows):
         if b is None or len(per_j) == 1:
@@ -706,7 +829,7 @@ def row_views(tree: Any, mesh, rows: Sequence[int], *, whole: bool = False,
             continue
         shards = tuple(p[i] for p in per_j)
         if whole:
-            out.append(col.all_gather(shards, b, [mesh.devices[r][0]])[0])
+            out.append(col.all_gather(shards, b, [grid[r][0]])[0])
         else:
             out.append(shards)
     return out

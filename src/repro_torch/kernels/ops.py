@@ -97,7 +97,7 @@ def _over_kv_shards(core, q, pools, replicated, telemetry, **kw):
                 "(repro_torch.distributed.sharding.active_mesh)")
         out, stats = core(q, *pools, *replicated, **kw)
         return (out, stats) if telemetry else out
-    devices = mesh.devices[0]
+    devices = mesh.rows[0]
     m = len(devices)
     if any(len(p) != m for p, sh in zip(pools, sharded) if sh):
         raise ValueError(f"pool shards do not match the mesh's {m} "

@@ -18,10 +18,11 @@ that the step allocated. ``fits`` holds arguments + temp against one
 80 GB card, and ``roofline`` the H100 roofline (its memory term from
 ``analysis.memory_model``, as the reference's tables take it).
 
-The production meshes (16×16, 2×16×16), ``--mesh single|multi`` (each
-device's share from ``distributed/sharding.py``'s specs), the
-``"serve"`` rules profile and ``_apply_moe_serve_2d`` are ROADMAP A5b:
-``--mesh`` is refused, naming it.
+``--mesh single|multi`` (a walk over the production meshes, 16×16 and
+2×16×16 of ``launch/mesh.py::make_production_mesh``) is refused, naming
+the next slice: the port's mesh step runs every shard's work from one
+controller, so a walk of it on a 16×16 mesh would repeat each op for
+256 shards; it needs a walk of one device's share.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-14b --shape train_4k
@@ -244,13 +245,13 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=None)
     ap.add_argument("--mesh", default=None, choices=("single", "multi"),
-                    help="the production meshes: ROADMAP A5b, refused")
+                    help="the production meshes: refused, the next slice")
     args = ap.parse_args(argv)
     if args.mesh is not None:
         from repro_torch.distributed.sharding import A5B
 
-        raise SystemExit(f"--mesh {args.mesh}: the production meshes are "
-                         f"{A5B}")
+        raise SystemExit(f"--mesh {args.mesh}: a dry run over a production "
+                         f"mesh is {A5B}")
     out = args.out or os.path.normpath(os.path.join(ARTIFACT_DIR, MESH_NAME))
 
     if args.all:

@@ -41,12 +41,17 @@ import re
 import time
 
 
-def _parse_mesh(spec: str):
-    m = re.fullmatch(r"(\d+)x(\d+)", spec.strip().lower())
+def _parse_mesh(spec: str, pod: bool = False):
+    """``DxM`` → ``(D, M)``; with ``pod`` also ``PxDxM`` → ``(P, D, M)``
+    (the train CLI's three-axis mesh). The serve CLI takes ``DxM`` only,
+    as the reference's does: its engines are TP-only replicas."""
+    form = r"(\d+)x(\d+)(?:x(\d+))?" if pod else r"(\d+)x(\d+)"
+    m = re.fullmatch(form, spec.strip().lower())
     if m is None:
-        raise SystemExit(f"--mesh wants DxM (e.g. 2x2), got {spec!r}; a "
-                         f"three-axis (pod) mesh is ROADMAP A5b")
-    return int(m.group(1)), int(m.group(2))
+        want = ("DxM or PxDxM (e.g. 2x2, 2x2x2)" if pod else
+                "DxM (e.g. 2x2): the serve CLI takes (data, model) meshes")
+        raise SystemExit(f"--mesh wants {want}, got {spec!r}")
+    return tuple(int(g) for g in m.groups() if g is not None)
 
 
 def mesh_devices(args, device) -> list:
@@ -62,21 +67,24 @@ def mesh_devices(args, device) -> list:
     return [device]
 
 
-def _mesh(args, device):
+def _mesh(args, device, pod: bool = False):
     """The ``--mesh`` mesh over the host's devices of ``device``'s type
-    (or ``--simulate-devices`` entries of ``device``), or None."""
+    (or ``--simulate-devices`` entries of ``device``), or None; ``pod``
+    admits a three-axis ``PxDxM`` (``("pod", "data", "model")``)."""
     if args.mesh is None:
         return None
+    import math
+
     from repro_torch.launch.mesh import make_mesh
 
-    shape = _parse_mesh(args.mesh)
-    need = shape[0] * shape[1]
+    shape = _parse_mesh(args.mesh, pod)
+    need = math.prod(shape)
     devices = mesh_devices(args, device)
     if len(devices) < need:
         raise SystemExit(
             f"--mesh {args.mesh} needs {need} devices, have {len(devices)} "
             f"(try --simulate-devices {need})")
-    return make_mesh(shape, ("data", "model"), devices)
+    return make_mesh(shape, None, devices)
 
 
 def main(argv=None):
@@ -205,7 +213,7 @@ def main(argv=None):
         d, m = mesh.shape.values()
         print(f"[serve] mesh {d}x{m} (data x model) over "
               f"{len(mesh.physical_devices)} physical "
-              f"{mesh.devices[0][0].type} device(s)"
+              f"{mesh.first_device.type} device(s)"
               + (f", {d} engine replicas" if replicated else "")
               + f"; steps {engines[0].graph_mode}")
     engine.capture_graphs()      # before the clock: no request waits

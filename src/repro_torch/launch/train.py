@@ -20,10 +20,13 @@ entries of ``--device`` (``cuda:0`` × 4 simulates four on one card,
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b \
         --smoke --device cpu --mesh 2x2 --simulate-devices 4
 
+``--mesh PxDxM`` trains over a ``(pod, data, model)`` mesh: the batch
+splits over the P·D data rows (pod major), ZeRO over 'data' alone.
+
 The reference sets ``LIBTPU_INIT_ARGS`` (XLA's latency-hiding scheduler,
 async collectives) before JAX starts; the port's single controller runs
-a mesh's rows one after another, so it has no counterpart. A
-three-axis mesh (``pod``) is ROADMAP A5b. ``--grad-compression``
+a mesh's rows one after another, so it has no counterpart.
+``--grad-compression``
 carries the int8 error-feedback state in the optimizer, as the
 reference's launcher does. A config with ``impl="pallas"`` is refused
 by its first step: the CUDA kernels have no backward.
@@ -70,7 +73,7 @@ def make_loop(cfg, *, steps: int, seq_len: int, global_batch: int,
 
 
 def train_mesh(args):
-    """The run's mesh: ``--mesh DxM`` (the serve CLI's), else
+    """The run's mesh: ``--mesh DxM`` or ``PxDxM``, else
     ``--model-axis M`` over the devices (the host's of ``--device``'s
     type, or ``--simulate-devices`` entries of it) when there is more
     than one; None on one device."""
@@ -80,7 +83,7 @@ def train_mesh(args):
 
     device = resolve_device(args.device)
     if args.mesh is not None:
-        return serve._mesh(args, device)
+        return serve._mesh(args, device, pod=True)
     devices = serve.mesh_devices(args, device)
     if len(devices) == 1 and args.model_axis == 1:
         return None
@@ -108,8 +111,9 @@ def main(argv=None):
     ap.add_argument("--grad-compression", action="store_true")
     ap.add_argument("--model-axis", type=int, default=1,
                     help="the mesh's model axis M (D = devices // M)")
-    ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help="train over a (data, model) mesh, e.g. 2x2")
+    ap.add_argument("--mesh", default=None, metavar="[Px]DxM",
+                    help="train over a (data, model) mesh, e.g. 2x2, or a "
+                         "(pod, data, model) mesh, e.g. 2x2x2")
     ap.add_argument("--simulate-devices", type=int, default=None,
                     metavar="N", help="the mesh's devices are N entries of "
                     "the one --device (simulates N devices)")
@@ -131,7 +135,7 @@ def main(argv=None):
     span = (f"loss {hist[0]['loss']:.3f} -> {hist[-1]['loss']:.3f}"
             if hist else "no step logged")
     where = (f"{loop.model.device}" if mesh is None else
-             f"a {mesh.shape['data']}x{mesh.shape['model']} mesh of "
+             f"a {'x'.join(map(str, mesh.shape.values()))} mesh of "
              f"{', '.join(map(str, mesh.physical_devices))}")
     print(f"[train] {cfg.name} on {where}: "
           f"{result['final_step']} steps, "

@@ -235,7 +235,7 @@ class LMModel:
         back gathered on the mesh's first device."""
         if mesh is not None:
             rows, logits, aux, _ = self._mesh_forward(params, batch, mesh)
-            dev = mesh.devices[0][0]
+            dev = mesh.first_device
             whole = [torch.cat([s.to(dev) for s in lg], dim=-1)
                      if isinstance(lg, tuple) else lg.to(dev)
                      for lg in logits]
@@ -331,12 +331,12 @@ class LMModel:
                        "tokens": n_tokens}
 
     # ------------------------------------------------------------------
-    # training over a (data, model) mesh
+    # training over a (data, model) or (pod, data, model) mesh
     # ------------------------------------------------------------------
 
     def _mesh_loss(self, params, batch, mesh):
         rows, logits, aux, split = self._mesh_forward(params, batch, mesh)
-        dev = mesh.devices[0][0]
+        dev = mesh.first_device
         targets = split(batch["targets"])
         masks = (split(batch["mask"]) if batch.get("mask") is not None
                  else [None] * len(rows))
@@ -355,8 +355,9 @@ class LMModel:
 
     def _mesh_forward(self, params, batch, mesh):
         """The stack over ``mesh`` for a sharded ``params``: the batch
-        splits over the data rows (:func:`~repro_torch.distributed.
-        sharding.batch_rows`; row r's rows on its first device), every
+        splits over the data rows (pod × data, pod major:
+        :func:`~repro_torch.distributed.sharding.batch_rows`; row r's
+        rows on ``mesh.rows[r][0]``), every
         layer reads its weights through ``row_views`` (the ZeRO gather
         over 'data', and the model-axis shards the tensor-parallel
         layers split over), and the rows run one after another. Returns
@@ -372,7 +373,7 @@ class LMModel:
 
         def split(t):
             t = torch.as_tensor(t)
-            return [t[r * per:(r + 1) * per].to(mesh.devices[r][0])
+            return [t[r * per:(r + 1) * per].to(mesh.rows[r][0])
                     for r in rows]
 
         if key == "embeddings":
@@ -381,7 +382,7 @@ class LMModel:
             embed = shd.row_views({"embed": params["embed"]}, mesh, rows)
             x_rows = [self._embed(e, tok)
                       for e, tok in zip(embed, split(batch[key]))]
-        aux = torch.zeros((), dtype=torch.float32, device=mesh.devices[0][0])
+        aux = torch.zeros((), dtype=torch.float32, device=mesh.first_device)
         if cfg.family in TRANSFORMER_FAMILIES:
             fn = tfm.remat_fn(self._mesh_block_fn(mesh, rows), cfg.remat)
             windows = self.layer_windows()

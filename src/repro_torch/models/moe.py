@@ -28,8 +28,17 @@ its own tokens with the capacity of its ``t_local = B/D · n`` rows
 (the train step's :func:`~repro_torch.distributed.sharding.row_views`,
 int8 on the wire under ``quantized_weight_gather``), and the aux loss
 and drop fraction are means over the rows (the reference's ``pmean``).
-The active-mesh dispatch (:func:`apply_moe`) keeps to ``(1, M)`` meshes;
-the ``"serve"`` rules profile's ``_apply_moe_serve_2d`` is ROADMAP A5b.
+On a ``(pod, data, model)`` mesh the rows are the pod × data rows, pod
+major, each with the capacity of its ``B/(P·D) · n`` tokens.
+
+Under the ``"serve"`` rules profile a call of at most 4096 tokens takes
+:func:`apply_moe_serve_2d` (the reference's ``_apply_moe_serve_2d``):
+the experts lie experts → 'model' × d_ff → 'data', fully resident; every
+device routes every token with the replicated f32 router into its
+``[E/M, C, d]`` buffer, runs its d_ff slice of its experts (the
+down-projection a partial over d_ff in the layer's dtype) and combines
+in f32, and one f32 sum over the whole mesh assembles the output,
+rounded once.
 """
 
 from __future__ import annotations
@@ -176,22 +185,22 @@ def apply_moe(params, x: torch.Tensor, cfg: MoEConfig, metrics: bool = True
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x ``[B, n, d]`` → (out ``[B, n, d]``, ``{"moe_aux_loss",
     "moe_drop_fraction"}``), op for op the reference's ``apply_moe``:
-    :func:`apply_moe_sharded` where the active mesh's model axis is > 1
-    and divides the experts, else the single-device
-    ``_apply_moe_reference``. ``metrics=False`` skips the metrics (an
-    empty dict; the serve steps discard them, and the reference's jit
-    drops their ops)."""
+    where the active mesh's model axis is > 1 and divides the experts,
+    :func:`apply_moe_serve_2d` under the ``"serve"`` rules profile for at
+    most ``SERVE_2D_TOKENS`` tokens, else :func:`apply_moe_sharded`;
+    elsewhere the single-device ``_apply_moe_reference``.
+    ``metrics=False`` skips the metrics (an empty dict; the serve steps
+    discard them, and the reference's jit drops their ops)."""
     mesh = shd.get_active_mesh()
-    if mesh is not None and shd.get_rules_profile() == "serve" \
-            and shd.expert_shards(cfg.num_experts, mesh) > 1:
-        raise NotImplementedError(
-            f"the \"serve\" rules profile's _apply_moe_serve_2d is "
-            f"{shd.A5B}")
     if shd.expert_shards(cfg.num_experts, mesh) > 1:
-        if mesh.shape.get("data", 1) > 1:
+        if shd.get_rules_profile() == "serve":
+            if x.shape[0] * x.shape[1] <= SERVE_2D_TOKENS:
+                return apply_moe_serve_2d(params, x, cfg, mesh,
+                                          metrics=metrics)
+        elif shd.dp_size(mesh) > 1:
             raise ValueError(
-                f"an MoE call on an active mesh with data axis "
-                f"{mesh.shape['data']}: the active mesh serves on (1, M); "
+                f"an MoE call on an active mesh of {shd.dp_size(mesh)} data "
+                f"rows: the active mesh serves on (1, M); "
                 f"the data axis — per-row capacity, the ZeRO all-gathers of "
                 f"the experts and the int8 _quantized_all_gather — is the "
                 f"train step's (runtime/train_loop.make_train_step(mesh=…)) "
@@ -258,7 +267,7 @@ def _moe_row(params, x: torch.Tensor, cfg: MoEConfig, devices,
     m = len(devices)
     e, d = cfg.num_experts, x.shape[-1]
     e_local = e // m
-    shards = {name: shd.expert_leaf_shards(params[name], e, devices)
+    shards = {name: shd.expert_leaf_shards(params[name], e, devices, name)
               for name in shd.EXPERT_LEAVES if name in params}
     batch, n, _ = x.shape
     xt = x.reshape(batch * n, d)
@@ -297,15 +306,15 @@ def _row_mean(values, device) -> torch.Tensor:
 def moe_rows(row_params, x_rows, cfg: MoEConfig, mesh, rows,
              metrics: bool = True):
     """The reference's ``_apply_moe_sharded`` over the data rows
-    ``rows`` of a ``(D, M)`` mesh: row r's tokens ``x_rows[i]`` [B/D, n,
-    d] on its devices with ``row_params[i]`` (its experts as M-tuples,
+    ``rows`` of a mesh (``mesh.rows``: pod × data, pod major): row r's
+    tokens ``x_rows[i]`` [B/(P·D), n, d] on its devices with ``row_params[i]`` (its experts as M-tuples,
     already gathered over 'data', or whole leaves, sliced here).
     Returns ``(out_rows, metrics)``, ``moe_aux_loss`` and
     ``moe_drop_fraction`` the means over the rows."""
     outs, aux, kept = [], [], []
     for i, r in enumerate(rows):
         out, a, k = _moe_row(row_params[i], x_rows[i], cfg,
-                             mesh.devices[r], metrics)
+                             mesh.rows[r], metrics)
         outs.append(out)
         aux.append(a)
         kept.append(k)
@@ -319,10 +328,10 @@ def moe_rows(row_params, x_rows, cfg: MoEConfig, mesh, rows,
 def apply_moe_sharded(params, x: torch.Tensor, cfg: MoEConfig, mesh,
                       metrics: bool = True
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The reference's ``_apply_moe_sharded`` on a ``(D, M)`` mesh whose
-    model axis divides the experts, for whole parameters and the whole
-    ``x [B, n, d]``: the batch splits over the D data rows where D
-    divides it (else one row computes it, as every replicated row
+    """The reference's ``_apply_moe_sharded`` on a mesh whose model axis
+    divides the experts, for whole parameters and the whole ``x [B, n,
+    d]``: the batch splits over the data rows (pod × data) where their
+    count divides it (else one row computes it, as every replicated row
     would), each row routing its own tokens with their capacity
     (:func:`moe_rows`), and the rows' outputs come back concatenated on
     x's device. The expert leaves are whole ``[E, …]`` leaves (sliced
@@ -333,14 +342,85 @@ def apply_moe_sharded(params, x: torch.Tensor, cfg: MoEConfig, mesh,
     order."""
     n_rows = shd.batch_rows(x.shape[0], mesh)
     if n_rows == 1:
-        out, aux, kept = _moe_row(params, x, cfg, mesh.devices[0], metrics)
+        out, aux, kept = _moe_row(params, x, cfg, mesh.rows[0], metrics)
         if not metrics:
             return out, {}
         return out, {"moe_aux_loss": aux, "moe_drop_fraction": 1.0 - kept}
     per = x.shape[0] // n_rows
     rows = list(range(n_rows))
-    x_rows = [x[r * per:(r + 1) * per].to(mesh.devices[r][0]) for r in rows]
+    x_rows = [x[r * per:(r + 1) * per].to(mesh.rows[r][0]) for r in rows]
     outs, met = moe_rows([params] * n_rows, x_rows, cfg, mesh, rows,
                          metrics)
     out = torch.cat([o.to(x.device) for o in outs], dim=0)
     return out, met
+
+
+#: the most tokens a ``"serve"``-profile call sends through
+#: :func:`apply_moe_serve_2d` (the reference's decode-sized bound)
+SERVE_2D_TOKENS = 4096
+
+
+def apply_moe_serve_2d(params, x: torch.Tensor, cfg: MoEConfig, mesh,
+                       metrics: bool = True
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's ``_apply_moe_serve_2d`` on a ``(data, model)``
+    mesh (D × M) whose model axis divides the experts and whose data
+    axis divides d_ff: device ``(i, s)`` holds experts ``[s·E/M,
+    (s+1)·E/M)`` × d_ff slice i
+    (:func:`~repro_torch.distributed.sharding.serve_expert_shards`: whole
+    leaves, ``shard_experts``' tuples), and every device sees every token
+    (the reference gathers them over the data axes where the batch
+    divides them, and replicates them otherwise: the same rows either
+    way). The tokens are routed once with the replicated f32 router —
+    the capacity ``max(1, int(T·K/E · cf))`` of all T tokens — and
+    device ``(i, s)`` dispatches the assignments shard s keeps into its
+    ``[E/M, C, d]`` buffer, runs its slice of its experts (the
+    down-projection a partial over d_ff in x's dtype) and combines its
+    K slots in f32 (:func:`_experts_combine`). One f32 sum over the
+    whole mesh, in ``(data, model)`` row-major order, assembles the
+    partials (the reference's ``psum`` over ``("model", "data")``); the
+    result rounds once to x's dtype. ``moe_aux_loss`` is the
+    single-device loss and ``moe_drop_fraction`` 1 − Σ_s mean(keep_s),
+    summed in shard order.
+
+    No host sync and no data-dependent shape: a serve step through this
+    layer replays from a CUDA graph. A 'pod' axis > 1 is refused: the
+    reference's psum over ``("model", "pod", "data")`` adds every pod's
+    copy of the partials (its d_ff lies over 'data' alone)."""
+    if mesh.shape.get("pod", 1) > 1:
+        raise ValueError(
+            f"_apply_moe_serve_2d on a mesh with pod axis "
+            f"{mesh.shape['pod']}: its psum over ('model', 'pod', 'data') "
+            f"would add each pod's copy of the partials (ROADMAP §C)")
+    e, m = cfg.num_experts, mesh.shape["model"]
+    d_n = mesh.shape.get("data", 1)
+    if e % m or cfg.d_ff % d_n:
+        raise ValueError(
+            f"the 2-D expert layout needs the model axis {m} to divide the "
+            f"{e} experts and the data axis {d_n} to divide d_ff {cfg.d_ff}")
+    e_local = e // m
+    batch, n, d = x.shape
+    xt = x.reshape(batch * n, d)
+    probs, top_p, top_e, flat_pos, keep, cap = route(params, xt, cfg)
+    flat_e = top_e.reshape(-1)
+    shards = shd.serve_expert_shards(params, e, mesh)
+    keys = sorted(shards)                       # (data, model) row-major
+    devices = [mesh.device({"data": i, "model": s}) for i, s in keys]
+    xts = col.broadcast(xt, devices)
+    weights = col.broadcast(top_p.reshape(-1), devices)
+    routes = [shard_route(flat_e, flat_pos, keep, s, e_local)
+              for s in range(m)]
+    partials = []
+    for k, ((i, s), dev) in enumerate(zip(keys, devices)):
+        safe_e, safe_pos, keep_s = routes[s]
+        partials.append(_experts_combine(
+            shards[(i, s)], xts[k], safe_e.to(dev), safe_pos.to(dev),
+            keep_s.to(dev), weights[k], e_local, cap, cfg.activation))
+    out = col.all_reduce(partials, x.device).to(x.dtype).reshape(batch, n, d)
+    if not metrics:
+        return out, {}
+    kept = routes[0][2].float().mean()
+    for _, _, keep_s in routes[1:]:
+        kept = kept + keep_s.float().mean()
+    return out, {"moe_aux_loss": _aux_loss(probs, top_e, cfg),
+                 "moe_drop_fraction": 1.0 - kept}

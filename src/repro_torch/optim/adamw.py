@@ -13,11 +13,12 @@ and moment, and casting the whole gradient tree to f32 at once (as the
 reference's first line does) would add 4 bytes per parameter. The
 arithmetic per element is the reference's.
 
-A tree laid out over a ``(data, model)`` mesh holds
+A tree laid out over a mesh (``(data, model)``, or with 'pod') holds
 :class:`~repro_torch.distributed.sharding.ShardedLeaf` leaves: the
 moments mirror their parameters' shards (ZeRO), gradients arrive in the
 same layout, and :func:`update` runs shard by shard. The global norm
-sums every logical element once (a replicated shard is held once); the
+sums every logical element once (a replicated shard is held once, on
+pod 0 of a pod mesh, so no pod replica counts twice); the
 factored second moment's ``row`` / ``col`` means run over the whole
 logical axis (the shards' partial sums added in f32), and weight decay
 follows the logical leaf's rank.
@@ -113,7 +114,7 @@ def _zeros(p, dtype=_F32, shape=None):
 def _sharded_zeros(p: ShardedLeaf, spec, shape) -> ShardedLeaf:
     """Zeros of ``shape`` laid out by ``spec`` on ``p``'s mesh."""
     return shard_leaf(torch.zeros(shape, dtype=_F32,
-                                  device=p.mesh.devices[0][0]), spec, p.mesh)
+                                  device=p.mesh.first_device), spec, p.mesh)
 
 
 def _init_nu(p, cfg: AdamWConfig):

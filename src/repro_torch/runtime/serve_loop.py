@@ -392,7 +392,7 @@ def make_prefill_step(model, *, device: DeviceLike = None, mesh=None):
 
 
 def _make_step(model, method: str, device: DeviceLike, mesh):
-    dev = resolve_device(device) if mesh is None else mesh.devices[0][0]
+    dev = resolve_device(device) if mesh is None else mesh.first_device
     graphed = dev.type == "cuda" and (
         mesh is None or len(mesh.physical_devices) == 1)
     step = GraphedStep(model, method, dev) if graphed else getattr(
@@ -504,7 +504,7 @@ class ServeLoop:
         self.device = resolve_device(device)
         cards = 1
         if mesh is not None:
-            primary = mesh.devices[0][0]
+            primary = mesh.first_device
             if device is not None and indexed_device(self.device) != primary:
                 raise ValueError(f"a mesh engine runs on its mesh's first "
                                  f"device {primary}, not {self.device}")
@@ -673,7 +673,7 @@ class ServeLoop:
         the replica axis, one engine per row."""
         if not self.paged:
             raise ValueError("mesh serving requires the paged cache")
-        if "data" in mesh.axis_names and mesh.shape["data"] > 1:
+        if shd.dp_size(mesh) > 1:
             raise ValueError(
                 "ServeLoop takes a TP-only mesh (data axis == 1); use "
                 "ReplicatedServeLoop to span the data axis")

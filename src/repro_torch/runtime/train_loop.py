@@ -9,14 +9,14 @@ buffers to the jitted step to the same end). `TrainLoop` wires in
 checkpointing (async, auto-resume with the data state), preemption
 handling, straggler monitoring, retry and the loss history.
 
-With ``mesh`` (a ``(data, model)``
+With ``mesh`` (a ``(data, model)`` or ``(pod, data, model)``
 :class:`~repro_torch.launch.mesh.Mesh`) the step is the reference's
 sharded step: the parameters are laid out by ``param_shardings`` (ZeRO
-over 'data', tensor parallelism over 'model') as
+over 'data', tensor parallelism over 'model', replicated over 'pod') as
 :class:`~repro_torch.distributed.sharding.ShardedLeaf` s, the AdamW
-moments mirror them, each data row takes its rows of every microbatch,
-the gradients reduce-scatter into the shards, and the update runs shard
-by shard. Checkpoints hold the gathered logical arrays and the mesh's
+moments mirror them, each data row (pod × data, pod major) takes its
+rows of every microbatch, every row's gradients sum into the shards, and
+the update runs shard by shard. Checkpoints hold the gathered logical arrays and the mesh's
 fingerprint, so a run resumes on any mesh.
 """
 
@@ -112,7 +112,7 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, mesh=None,
     and ``lr``. The forward and backward write nothing, so a failure
     there can be retried; a failure inside the in-place update raises
     :class:`StepFailure`, which is not retried."""
-    device = model.device if mesh is None else mesh.devices[0][0]
+    device = model.device if mesh is None else mesh.first_device
 
     def loss_fn(params, batch):
         return model.loss(params, batch, mesh=mesh)
@@ -197,7 +197,7 @@ class TrainLoop:
                 policy=self.cfg.retry,
             )
             synchronize(self.model.device if self.mesh is None
-                        else self.mesh.devices[0][0])
+                        else self.mesh.first_device)
             dt = time.perf_counter() - t0
             straggler = self.monitor.record(dt)
             step += 1

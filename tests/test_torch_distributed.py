@@ -15,12 +15,21 @@ resuming a mesh run on another mesh, on the CPU, against the reference.
 * A ``TrainLoop`` on a ``(2, 2)`` mesh writes its checkpoint with the
   logical arrays and the mesh's fingerprint; loops on ``(1, 1)``, ``(4,
   1)`` and one device restore bit-equal logical state from it, and the
-  resumed mesh run's next steps equal the uninterrupted run's.
+  resumed mesh run's next steps equal the uninterrupted run's. The same
+  across ``(2, 2, 2)`` ``(pod, data, model)`` ↔ ``(1, 1)`` / ``(4, 1)``,
+  with the reference's fingerprint strings; a pod mesh's loop equals
+  the ``(4, 2)`` loop.
+* The reference's GPipe case (``tests/test_distributed.py``) and
+  ``_apply_moe_serve_2d`` on ``(2, 2)`` / ``(1, 4)`` in f32 and bf16,
+  run in the same 4-device subprocess as the telescoping run, against
+  the port's ``pipeline_forward`` and ``apply_moe_serve_2d``; the
+  port's pipeline over a smoke qwen3 stack ≡ ``apply_stack``.
 * ``python -m repro_torch.launch.train --smoke --device cpu --mesh 2x2
   --simulate-devices 4`` runs, and ``--model-axis 2`` with four
   simulated devices trains on a ``(2, 2)`` mesh.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -59,16 +68,34 @@ def _gradient():
     return np.random.default_rng(0).normal(size=(128,)).astype(np.float32)
 
 
+#: the 2-D expert layer's cases: (dtype, batch, mesh shape); batch 4
+#: divides the data axis (the reference gathers the tokens), batch 1
+#: does not (it replicates them)
+SERVE_2D_CASES = [(dt, b, shape) for dt in ("float32", "bfloat16")
+                  for b in (4, 1) for shape in ((2, 2), (1, 4))]
+SERVE_2D_LAYER = dict(num_experts=8, experts_per_token=2, d_model=32,
+                      d_ff=16, capacity_factor=1.25)
+
+
 @pytest.fixture(scope="module")
-def telescoping_ref():
-    """The reference's telescoping run on a (4,) data mesh: each step's
-    compressed sum."""
+def ref4(tmp_path_factory):
+    """The reference on four host devices, in one subprocess: the
+    telescoping run on a (4,) data mesh (each step's compressed sum),
+    ``tests/test_distributed.py``'s GPipe case on a ``(4,)`` pod mesh
+    with numpy weights, and ``_apply_moe_serve_2d`` (``apply_moe`` under
+    the ``"serve"`` profile) on ``(2, 2)`` and ``(1, 4)`` meshes."""
+    out = tmp_path_factory.mktemp("ref4") / "ref4.npz"
     prog = textwrap.dedent(f"""
-        import os, json
+        import os
         os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
         import numpy as np, jax, jax.numpy as jnp
         from repro.distributed import compression as comp
+        from repro.distributed import sharding as shd
+        from repro.distributed.pipeline import (
+            pipeline_forward, split_layers_to_stages)
         from repro.launch.mesh import make_mesh_compat
+        from repro.models import moe as M
+        arrays = {{}}
         mesh = make_mesh_compat((4,), ("data",))
         g = jnp.asarray(np.random.default_rng(0).normal(size=(128,))
                         .astype(np.float32))
@@ -77,16 +104,62 @@ def telescoping_ref():
         for _ in range({STEPS}):
             s, (err,) = comp.compressed_psum_shard_map(
                 (g,), (err,), mesh, ("data",))
-            sums.append(np.asarray(s[0]).tolist())
-        print(json.dumps({{"sums": sums}}))
+            sums.append(np.asarray(s[0]))
+        arrays["telescope"] = np.stack(sums)
+
+        rng = np.random.default_rng(7)
+        L, d = 8, 16
+        ws = (rng.normal(size=(L, d, d)) * d ** -0.5).astype(np.float32)
+        mb = rng.normal(size=(6, 3, d)).astype(np.float32)
+        def stage_fn(params, x):
+            y, _ = jax.lax.scan(lambda c, w: (jnp.tanh(c @ w), None), x,
+                                params)
+            return y
+        out = pipeline_forward(stage_fn, split_layers_to_stages(
+            jnp.asarray(ws), 4), jnp.asarray(mb),
+            make_mesh_compat((4,), ("pod",)), axis="pod")
+        arrays.update({{"gpipe/ws": ws, "gpipe/mb": mb,
+                        "gpipe/out": np.asarray(out)}})
+
+        cfg = M.MoEConfig(**{SERVE_2D_LAYER!r})
+        e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+        rng = np.random.default_rng(8)
+        p = {{"router": rng.normal(size=(d, e)) * d ** -0.5,
+              "w_up": rng.normal(size=(e, d, f)) * d ** -0.5,
+              "w_gate": rng.normal(size=(e, d, f)) * d ** -0.5,
+              "w_down": rng.normal(size=(e, f, d)) * f ** -0.5}}
+        p = {{k: v.astype(np.float32) for k, v in p.items()}}
+        arrays.update({{"moe/p/" + k: v for k, v in p.items()}})
+        for b in (4, 1):
+            arrays[f"moe/x{{b}}"] = rng.normal(size=(b, 8, d)).astype(
+                np.float32)
+        for dt, b, shape in {SERVE_2D_CASES!r}:
+            jp = {{k: jnp.asarray(v) if k == "router"
+                   else jnp.asarray(v).astype(dt) for k, v in p.items()}}
+            shd.set_rules_profile("serve")
+            shd.set_active_mesh(make_mesh_compat(shape, ("data", "model")))
+            o, met = jax.jit(lambda p, x: M.apply_moe(p, x, cfg))(
+                jp, jnp.asarray(arrays[f"moe/x{{b}}"]).astype(dt))
+            shd.set_active_mesh(None)
+            shd.set_rules_profile("train")
+            key = f"moe/{{dt}}/{{b}}/{{shape[0]}}x{{shape[1]}}"
+            arrays[key + "/out"] = np.asarray(o.astype(jnp.float32))
+            arrays[key + "/aux"] = np.asarray(met["moe_aux_loss"])
+            arrays[key + "/drop"] = np.asarray(met["moe_drop_fraction"])
+        np.savez({str(out)!r}, **arrays)
+        print("done")
         """)
     env = dict(os.environ, PYTHONPATH=SRC)
     env.pop("XLA_FLAGS", None)
     run = subprocess.run([sys.executable, "-c", prog], capture_output=True,
                          text=True, env=env, timeout=600)
     assert run.returncode == 0, run.stderr[-2000:]
-    return np.asarray(json.loads(run.stdout.strip().splitlines()[-1])["sums"],
-                      np.float32)
+    return dict(np.load(out))
+
+
+@pytest.fixture(scope="module")
+def telescoping_ref(ref4):
+    return ref4["telescope"]
 
 
 def test_compress_equals_the_reference():
@@ -222,3 +295,256 @@ def test_the_train_launcher_runs_on_a_simulated_mesh(capsys):
                          "--global-batch", "4"])
     assert result["final_step"] == 2
     assert "on a 2x2 mesh of cpu: 2 steps" in capsys.readouterr().out
+
+
+# --------------------------------------------------------------------------
+# the (pod, data, model) mesh: fingerprints, elastic resume, checkpoints
+# --------------------------------------------------------------------------
+
+
+class _RefPodMesh(_RefMesh):
+    def __init__(self, shape):
+        super().__init__(shape)
+        self.axis_names = ("pod", "data", "model")
+
+
+def pod_mesh(p, d, m):
+    return make_mesh((p, d, m), devices=["cpu"] * (p * d * m))
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 2), (2, 1, 4), (1, 2, 1)])
+def test_pod_mesh_elastic_round_trip_and_fingerprints(shape):
+    params = {"w": np.random.default_rng(1).normal(size=(8, 4)).astype(
+        np.float32), "blocks": {"mlp": {"w_up": np.arange(
+            2 * 8 * 8, dtype=np.float32).reshape(2, 8, 8)}}}
+    mesh = pod_mesh(*shape)
+    placed = elastic.reshard_params(params, mesh)
+    up = placed["blocks"]["mlp"]["w_up"]
+    assert up.spec == (None, "data", "model")
+    # replicated over 'pod': each shard once, on pod 0's devices
+    assert sorted(up.shards) == [(0, i, j) for i in range(shape[1])
+                                 for j in range(shape[2])]
+    back = elastic.gather_params(placed)
+    np.testing.assert_array_equal(back["blocks"]["mlp"]["w_up"],
+                                  params["blocks"]["mlp"]["w_up"])
+    np.testing.assert_array_equal(back["w"], params["w"])
+    fp = elastic.mesh_fingerprint(mesh)
+    assert fp == jelastic.mesh_fingerprint(_RefPodMesh(shape))
+    assert fp == "pod={}xdata={}xmodel={}".format(*shape)
+    for old in ("data=2xmodel=2", fp, "unsharded"):
+        assert elastic.validate_elastic_resume(back, old, mesh) == \
+            jelastic.validate_elastic_resume(back, old, _RefPodMesh(shape))
+
+
+@pytest.mark.parametrize("written,restored", [
+    ((2, 2, 2), (1, 1)), ((2, 2, 2), (4, 1)), ((1, 1), (2, 2, 2)),
+    ((4, 1), (2, 2, 2))], ids=["222-to-11", "222-to-41", "11-to-222",
+                               "41-to-222"])
+def test_a_pod_mesh_checkpoint_resumes_bit_equal(tmp_path, written,
+                                                 restored):
+    """A checkpoint written on a ``(2, 2, 2)`` mesh restores bit-equal on
+    ``(1, 1)`` and ``(4, 1)``, and the reverse; the manifest holds the
+    writer's fingerprint."""
+    def mesh_of(shape):
+        return pod_mesh(*shape) if len(shape) == 3 else cpu_mesh(*shape)
+
+    first = _loop(2, mesh_of(written), str(tmp_path), every=2).run()
+    with open(os.path.join(step_dir(str(tmp_path), 2), "manifest.json")) as f:
+        assert json.load(f)["mesh"] == elastic.mesh_fingerprint(
+            mesh_of(written))
+    saved = _logical(_loop(2, mesh_of(written)), first["params"],
+                     first["opt_state"])
+    loop = _loop(4, mesh_of(restored), str(tmp_path))
+    params, opt, start = loop._init_state()
+    assert start == 2 and loop.dataset.state == {"step": 2}
+    got = _logical(loop, params, opt)
+    assert [k for k, _ in got] == [k for k, _ in saved]
+    for (key, a), (_, b) in zip(got, saved):
+        assert torch.equal(a, b), key
+
+
+def test_pod_mesh_train_loop_equals_the_data_mesh_loop():
+    """The same loop on ``(2, 2, 2)`` and on ``(4, 2)``: both split each
+    microbatch over four data rows, and the pod axis only renames two of
+    them, so the losses agree to the last bit of their f32 sums' order
+    (rtol 1e-6)."""
+    pod = _loop(3, pod_mesh(2, 2, 2)).run()
+    flat = _loop(3, cpu_mesh(4, 2)).run()
+    np.testing.assert_allclose([h["loss"] for h in pod["history"]],
+                               [h["loss"] for h in flat["history"]],
+                               rtol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# the GPipe pipeline over 'pod'
+# --------------------------------------------------------------------------
+
+
+def _tanh_stage(params, x):
+    for w in params:
+        x = torch.tanh(x @ w)
+    return x
+
+
+def test_gpipe_equals_the_reference(ref4):
+    """``tests/test_distributed.py``'s case (L 8, d 16, 4 stages, 6
+    microbatches of 3) with the same numpy weights: the port's
+    ``pipeline_forward`` on a ``(4,)`` pod mesh of ``cpu`` equals the
+    reference's within that test's bound (1e-5: XLA's f32 tanh and dot
+    against torch's), and its own sequential stack bit for bit."""
+    from repro_torch.distributed.pipeline import (
+        pipeline_forward, split_layers_to_stages)
+    from repro_torch.launch.mesh import make_mesh as mk
+
+    ws, mb = t(ref4["gpipe/ws"]), t(ref4["gpipe/mb"])
+    mesh = mk((4,), ("pod",), ["cpu"] * 4)
+    assert mesh.shape == {"pod": 4}
+    stages = split_layers_to_stages(ws, 4)
+    assert stages.shape == (4, 2, 16, 16)
+    out = pipeline_forward(_tanh_stage, stages, mb, mesh, axis="pod")
+    assert out.shape == mb.shape
+    np.testing.assert_allclose(out.numpy(), ref4["gpipe/out"], atol=1e-5,
+                               rtol=0)
+    seq = torch.stack([_tanh_stage(ws, x) for x in mb])
+    assert torch.equal(out, seq)
+
+
+def test_split_layers_refuses_an_indivisible_stack():
+    from repro_torch.distributed.pipeline import split_layers_to_stages
+
+    tree = {"a": torch.zeros(6, 2), "b": (torch.zeros(6),)}
+    got = split_layers_to_stages(tree, 3)
+    assert got["a"].shape == (3, 2, 2) and got["b"][0].shape == (3, 2)
+    with pytest.raises(ValueError, match="6 layers not divisible by 4"):
+        split_layers_to_stages(tree, 4)
+
+
+def test_pipeline_runs_the_ports_stack_as_apply_stack():
+    """A smoke qwen3 stack of 4 layers (``impl="pallas"`` from layer 0:
+    the plain B9 / B10 on the CPU) as 2 stages over a ``(2,)`` pod mesh,
+    3 microbatches of ``[1, 32]`` hidden states: each stage
+    ``transformer.apply_stack`` over its slab of the stacked blocks, the
+    outputs bit for bit ``apply_stack`` of the 4 layers on each
+    microbatch."""
+    from repro_torch.distributed.pipeline import (
+        pipeline_forward, split_layers_to_stages)
+    from repro_torch.launch.mesh import make_mesh as mk
+    from repro_torch.models import transformer as tfm
+
+    cfg = registry.get_smoke_config("qwen3-14b")
+    cfg = dataclasses.replace(cfg, num_layers=4, energon=dataclasses.replace(
+        cfg.energon, impl="pallas", min_prune_layer=0, query_block=16,
+        key_block=16))
+    model = LMModel(cfg, device="cpu")
+    params = model.init(seed=4)
+    block_fn = model._tfm_block_fn()
+
+    def stage_fn(slab, x):
+        return tfm.apply_stack(slab, x, None, block_fn)[0]
+
+    gen = torch.Generator().manual_seed(0)
+    mb = torch.randn((3, 1, 32, cfg.d_model), generator=gen)
+    with torch.no_grad():
+        out = pipeline_forward(stage_fn, split_layers_to_stages(
+            params["blocks"], 2), mb, mk((2,), ("pod",), ["cpu"] * 2))
+        want = torch.stack([stage_fn(params["blocks"], x) for x in mb])
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, want)
+
+
+# --------------------------------------------------------------------------
+# the "serve" profile's 2-D experts
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,batch,shape", SERVE_2D_CASES,
+                         ids=[f"{d}-b{b}-{s[0]}x{s[1]}"
+                              for d, b, s in SERVE_2D_CASES])
+def test_serve_2d_moe_equals_the_reference(ref4, dtype, batch, shape):
+    """``apply_moe`` under the ``"serve"`` profile on a ``(2, 2)`` /
+    ``(1, 4)`` mesh of ``cpu`` takes ``apply_moe_serve_2d`` and equals
+    the reference's ``_apply_moe_serve_2d``: in bf16 bit for bit; in f32
+    within 1e-5 (XLA's f32 dot and torch's differ in the last bits of
+    each partial, so the f32 sum's order over the mesh cannot be read
+    off: ROADMAP §C); the aux loss within 1e-6 relative, the drop
+    fraction exactly."""
+    from repro_torch.models import moe
+
+    tdt = getattr(torch, dtype)
+    cfg = moe.MoEConfig(**SERVE_2D_LAYER)
+    p = {k: t(ref4["moe/p/" + k]) for k in ("router", "w_up", "w_gate",
+                                             "w_down")}
+    p = {k: v if k == "router" else v.to(tdt) for k, v in p.items()}
+    x = t(ref4[f"moe/x{batch}"]).to(tdt)
+    key = f"moe/{dtype}/{batch}/{shape[0]}x{shape[1]}"
+    calls = []
+    real = moe.apply_moe_serve_2d
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    shd.set_rules_profile("serve")
+    moe.apply_moe_serve_2d = spy
+    try:
+        with shd.active_mesh(cpu_mesh(*shape)):
+            out, met = moe.apply_moe(p, x, cfg)
+    finally:
+        moe.apply_moe_serve_2d = real
+        shd.set_rules_profile("train")
+    assert calls == [1] and out.dtype == tdt and out.shape == x.shape
+    want = t(ref4[key + "/out"])
+    if dtype == "bfloat16":
+        assert torch.equal(out.float(), want)
+    else:
+        np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-5,
+                                   rtol=0)
+    np.testing.assert_allclose(float(met["moe_aux_loss"]),
+                               float(ref4[key + "/aux"]), rtol=1e-6)
+    assert float(met["moe_drop_fraction"]) == float(ref4[key + "/drop"])
+
+
+def test_serve_2d_layout_and_refusals():
+    """``shard_experts`` under the serve profile lays the experts out
+    2-D on ``(2, 2)`` (M tuples of D d_ff slices, ``P("model", None,
+    "data")`` for up / gate, ``P("model", "data", None)`` for down) and
+    the layer on that layout equals the layer on whole leaves bit for
+    bit; past 4096 tokens the serve profile takes the expert-parallel
+    path; a pod axis > 1 is refused."""
+    from repro_torch.models import moe
+
+    cfg = moe.MoEConfig(**SERVE_2D_LAYER)
+    params = moe.init_moe(cfg, torch.Generator().manual_seed(0), "cpu")
+    stacked = {k: v[None] for k, v in params.items()}
+    mesh = cpu_mesh(2, 2)
+    x = torch.randn(2, 8, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    shd.set_rules_profile("serve")
+    try:
+        tree = shd.shard_experts({"blocks": {"moe": stacked}}, mesh)
+        lay = tree["blocks"]["moe"]
+        assert lay["router"] is stacked["router"]
+        assert len(lay["w_up"]) == 2 and len(lay["w_up"][0]) == 2
+        assert torch.equal(lay["w_up"][1][0][0], params["w_up"][4:, :, :8])
+        assert torch.equal(lay["w_down"][0][1][0], params["w_down"][:4, 8:])
+        layer = {k: (tuple(tuple(p[0] for p in s) for s in v)
+                     if isinstance(v, tuple) else v[0])
+                 for k, v in lay.items()}
+        with shd.active_mesh(mesh):
+            got, _ = moe.apply_moe(layer, x, cfg)
+            want, _ = moe.apply_moe(params, x, cfg)
+            assert torch.equal(got, want)
+            big = torch.zeros(1, moe.SERVE_2D_TOKENS + 1, cfg.d_model)
+            seen = []
+            real = moe.apply_moe_sharded
+            moe.apply_moe_sharded = lambda *a, **kw: seen.append(1) or real(
+                *a, **kw)
+            try:
+                moe.apply_moe(params, big, cfg)
+            finally:
+                moe.apply_moe_sharded = real
+            assert seen == [1]
+        with pytest.raises(ValueError, match="pod"):
+            moe.apply_moe_serve_2d(params, x, cfg, pod_mesh(2, 1, 2))
+    finally:
+        shd.set_rules_profile("train")

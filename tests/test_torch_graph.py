@@ -16,7 +16,8 @@ in ``test_torch_cuda.py``).
   the oracle); nothing reads the scratch; a leaf without it is refused
   where the write would reach past it.
 * The same over an MoE step on the expert-parallel path (experts and
-  pool split over a ``(1, 2)`` mesh).
+  pool split over a ``(1, 2)`` mesh), and on the ``"serve"`` profile's
+  2-D path (``apply_moe_serve_2d``) on that mesh.
 * The same over a head-sharded pool (a tensor-parallel mesh), whose step
   gives the whole pool's logits and rows.
 * A step on idle inputs, as warm-up and capture run it, leaves the cache
@@ -217,6 +218,49 @@ def test_expert_parallel_serve_steps_make_no_host_sync(method):
     with shd.active_mesh(mesh), HostSyncGuard() as guard:
         logits, _ = getattr(model, method)(ep, sharded, inputs, idx)
     assert guard.seen == []
+    assert torch.isfinite(logits).all()
+    torch.testing.assert_close(logits, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["decode_step", "prefill"])
+def test_serve_profile_2d_moe_steps_make_no_host_sync(method):
+    """The same guard over an MoE step under the ``"serve"`` rules
+    profile on a ``(1, 2)`` mesh of the CPU, as ``ServeLoop`` runs it:
+    every layer's MoE through ``apply_moe_serve_2d`` (routing once, each
+    device's dispatch, d_ff slice and combine, one f32 sum), no host
+    sync; its logits finite and, in fp32, within 1e-5 of the
+    single-device step's."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+
+    model = LMModel(get_serve_config("olmoe-1b-7b", smoke=True),
+                    device="cpu")
+    params = model.init(seed=0)
+    cache, pre, zero, dec, index = _filled(model, params, paged=True)
+    mesh = make_mesh((1, 2), devices=["cpu", "cpu"])
+    sharded = shd.shard_paged_cache(cache, mesh, 16)
+    inputs, idx = (dec, index) if method == "decode_step" else (pre, zero)
+    ref, _ = getattr(model, method)(params, cache, inputs, idx)
+    calls = []
+    real = moe.apply_moe_serve_2d
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    shd.set_rules_profile("serve")
+    moe.apply_moe_serve_2d = spy
+    try:
+        two_d = shd.shard_experts(params, mesh)
+        assert isinstance(two_d["blocks"]["moe"]["w_up"], tuple)
+        with shd.active_mesh(mesh), HostSyncGuard() as guard:
+            logits, _ = getattr(model, method)(two_d, sharded, inputs, idx)
+    finally:
+        moe.apply_moe_serve_2d = real
+        shd.set_rules_profile("train")
+    assert guard.seen == []
+    assert len(calls) == model.cfg.num_layers
     assert torch.isfinite(logits).all()
     torch.testing.assert_close(logits, ref, atol=1e-5, rtol=1e-5)
 

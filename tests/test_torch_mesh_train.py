@@ -19,6 +19,10 @@ host devices (``--xla_force_host_platform_device_count=8``, as
   ``make_train_step(mesh=…)``, with and without
   ``quantized_weight_gather``: loss, gradient norm and the updated
   parameters;
+* phi3's and olmoe's (exact and int8 gathers) loss and gradients on a
+  ``(pod, data, model)`` = ``(2, 2, 2)`` mesh, the same params and
+  batches: the batch over the four pod × data rows, ZeRO over 'data'
+  alone, every row's gradient summed;
 * ``_quantized_all_gather`` over 'data' (f32 and bf16, either gather
   axis): the port's int8 gather equals it bit for bit, so its codes and
   scales are the reference's.
@@ -116,9 +120,25 @@ loss, grads = jax.jit(jax.value_and_grad(loss_fn),
                       in_shardings=(p_sh, b_sh))(
     jax.device_put(params, p_sh), jax.device_put(b, b_sh))
 shd.set_active_mesh(None)
+# the same loss and gradients on a (pod, data, model) = (2, 2, 2) mesh
+pod_mesh = make_mesh_compat((2, 2, 2), ("pod", "data", "model"))
+
+
+def pod_grads(loss_fn, params, b):
+    shd.set_active_mesh(pod_mesh)
+    p_sh = shd.param_shardings(params, pod_mesh)
+    b_sh = shd.batch_shardings(b, pod_mesh)
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn),
+                          in_shardings=(p_sh, b_sh))(
+        jax.device_put(params, p_sh), jax.device_put(b, b_sh))
+    shd.set_active_mesh(None)
+    return {"pod_loss": np.asarray(loss), **flat(grads, "pod_grads/")}
+
+
 np.savez(os.path.join(out, "phi3.npz"), loss=np.asarray(loss),
          single=np.asarray(single), **flat(params, "params/"),
-         **flat(grads, "grads/"), **{"batch/" + k: v for k, v in b.items()})
+         **flat(grads, "grads/"), **{"batch/" + k: v for k, v in b.items()},
+         **pod_grads(loss_fn, params, b))
 
 # the MoE layer on (2, 4)
 mesh = make_mesh_compat((2, 4), ("data", "model"))
@@ -153,7 +173,8 @@ for q in (False, True):
     np.savez(os.path.join(out, f"olmoe_q{int(q)}.npz"),
              loss=np.asarray(m["loss"]), grad_norm=np.asarray(m["grad_norm"]),
              **flat(params, "params/"), **flat(new, "new/"),
-             **{"batch/" + k: v for k, v in b.items()})
+             **{"batch/" + k: v for k, v in b.items()},
+             **pod_grads(lambda p, bb: model.loss(p, bb)[0], params, b))
 
 # _quantized_all_gather over 'data'
 arrays = {}
@@ -240,6 +261,36 @@ def test_dense_mesh_loss_and_grads_equal_the_reference_mesh_step(ref):
                                rtol=1e-5, atol=1e-5)
     want = {k[len("grads/"):]: v for k, v in arrays.items()
             if k.startswith("grads/")}
+    _assert_grads_close(grads, want)
+
+
+def pod_mesh():
+    return make_mesh((2, 2, 2), devices=["cpu"] * 8)
+
+
+@pytest.mark.parametrize("case", ["phi3", "olmoe_q0", "olmoe_q1"],
+                         ids=["phi3", "olmoe-exact", "olmoe-int8"])
+def test_pod_mesh_loss_and_grads_equal_the_reference(ref, case):
+    """phi3 and olmoe (exact and int8 expert gathers) on a ``(pod, data,
+    model)`` = ``(2, 2, 2)`` mesh: the batch over the four pod × data
+    rows (pod major), ZeRO over 'data' alone, each weight's gradient the
+    sum of every row's; loss and gradients the reference's."""
+    arrays = ref[case]
+    arch = "phi3-mini-3.8b" if case == "phi3" else "olmoe-1b-7b"
+    cfg = _rho1(registry.get_smoke_config(arch))
+    if case != "phi3":
+        cfg = dataclasses.replace(cfg,
+                                  moe_quantized_gather=case == "olmoe_q1")
+    model = LMModel(cfg, device="cpu")
+    params = convert_params(_tree(arrays, "params/"), model)
+    mesh = pod_mesh()
+    assert mesh.shape == {"pod": 2, "data": 2, "model": 2}
+    placed = shd.shard_tree(params, shd.param_shardings(params, mesh), mesh)
+    loss, grads = _grads(model, placed, _tree(arrays, "batch/"), mesh)
+    np.testing.assert_allclose(float(loss), float(arrays["pod_loss"]),
+                               rtol=1e-5)
+    want = {k[len("pod_grads/"):]: v for k, v in arrays.items()
+            if k.startswith("pod_grads/")}
     _assert_grads_close(grads, want)
 
 

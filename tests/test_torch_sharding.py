@@ -14,11 +14,19 @@ reference's rules, on the CPU.
   device addressing the bytes ``param_shardings`` gives it;
   ``row_views`` hands a data row the ZeRO-gathered weights, model-axis
   shards as tuples.
-* The refusals that stay: a ``pod`` axis or a three-axis mesh,
-  ``pipeline.py``, the ``"serve"`` profile's ``_apply_moe_serve_2d``,
-  ``launch/dryrun.py --mesh`` and ``launch/train.py --mesh DxMxK``,
-  each naming ROADMAP A5b.
+* Three-axis ``(pod, data, model)`` meshes: the specs on them (the
+  batch over ``("pod", "data")``), the grid and its pod-major data rows,
+  a dim split over a tuple of axes, a row's ZeRO gather and its
+  gradient sum over every pod and data row, and the production meshes
+  (``make_production_mesh``) against the reference's.
+* ``split_layers_to_stages`` and the ``"serve"`` profile's
+  ``apply_moe_serve_2d`` against the reference's on one device (their
+  multi-device cases run in ``test_torch_distributed.py``'s subprocess).
+* The one refusal that stays: ``launch/dryrun.py --mesh``, naming the
+  next slice; ``launch/train.py --mesh 2x2x2`` trains.
 """
+
+import math
 
 import jax
 import numpy as np
@@ -203,48 +211,222 @@ def test_row_views_gather_over_data_and_keep_model_shards():
     assert torch.equal(whole["mlp"]["w_down"], w.T)
 
 
-def test_three_axes_and_pod_are_refused_naming_a5b():
-    with pytest.raises(ValueError, match="A5b"):
-        Mesh([["cpu"]], ("pod", "data", "model"))
-    with pytest.raises(ValueError, match="A5b"):
-        Mesh([["cpu"]], ("pod", "model"))
-    with pytest.raises(ValueError, match="A5b"):
-        make_mesh((2, 2, 2), devices=["cpu"] * 8)
-    with pytest.raises(ValueError, match="A5b"):
-        shd.shard_leaf(torch.zeros(4), (("pod", "data"),), _cpu_mesh(1, 1))
+class StubPodMesh:
+    """A three-axis mesh as the rules read it."""
+
+    axis_names = ("pod", "data", "model")
+
+    def __init__(self, p, d, m):
+        self.shape = {"pod": p, "data": d, "model": m}
 
 
-def test_pipeline_is_refused_naming_a5b():
+POD_SHAPES = [(2, 2, 2), (2, 4, 1), (2, 1, 4)]
+
+
+@pytest.mark.parametrize("shape", POD_SHAPES, ids=lambda s: "x".join(
+    map(str, s)))
+def test_three_axis_specs_and_layout_equal_the_reference(trees, shape):
+    """On ``(pod, data, model)`` meshes: every arch's param specs (ZeRO
+    over 'data' alone), the batch specs over ``("pod", "data")`` and the
+    cache specs equal the reference's; a port ``Mesh`` with 'pod' holds
+    its grid row-major, its data rows pod major, and ``shard_leaf``
+    splits a dim over a tuple of axes and gathers it back bit for bit."""
+    stub = StubPodMesh(*shape)
+    for arch, (jmodel, jshapes, _, meta, _) in trees.items():
+        want = _ref_specs(jshapes, lambda p, leaf: jshd.param_pspec(
+            p, leaf, stub))
+        assert _flat(shd.param_shardings(meta, stub)) == want, arch
+        for b in (8, 2):
+            jcache = jax.eval_shape(lambda: jmodel.init_cache(b, 64))
+            want = _ref_specs(jcache, lambda p, leaf: jshd.cache_pspec(
+                p, leaf, stub))
+            got = {"/".join(str(k.key) for k in path): shd.cache_pspec(
+                tuple(str(k.key) for k in path), leaf.shape, stub)
+                for path, leaf in jax.tree_util.tree_leaves_with_path(
+                    jcache)}
+            assert got == want, (arch, b)
+    for dims in [(8, 64), (6, 64), (1, 64)]:
+        leaf = jax.ShapeDtypeStruct(dims, np.float32)
+        assert shd.batch_pspec(dims, stub) == tuple(
+            jshd.batch_pspec(leaf, stub)), dims
+    assert shd.data_axes(stub) == jshd.data_axes(stub) == ("pod", "data")
+    p, d, m = shape
+    mesh = make_mesh(shape, devices=["cpu"] * (p * d * m))
+    assert mesh.axis_names == ("pod", "data", "model")
+    assert mesh.shape == {"pod": p, "data": d, "model": m}
+    assert len(mesh.devices) == p and len(mesh.devices[0]) == d \
+        and len(mesh.devices[0][0]) == m
+    assert len(mesh.rows) == p * d and mesh.row_coord(d) == {"pod": 1,
+                                                             "data": 0}
+    assert mesh.submesh((1, 0)).shape == {"pod": 1, "data": 1, "model": m}
+    x = torch.arange(8 * 4, dtype=torch.float32).reshape(8, 4)
+    leaf = shd.shard_leaf(x, (("pod", "data"), "model" if m <= 4 else None),
+                          mesh)
+    assert len(leaf.shards) == p * d * (m if m <= 4 else 1)
+    assert torch.equal(leaf.shards[(1, 0, 0)],
+                       x[d * (8 // (p * d)):(d + 1) * (8 // (p * d)),
+                         :4 // m])
+    assert torch.equal(shd.gather_leaf(leaf), x)
+    with pytest.raises(ValueError, match="ordered subset"):
+        Mesh([["cpu"]], ("model", "data"))
+    with pytest.raises(ValueError, match="axes"):
+        shd.shard_leaf(x, ("pod", None), _cpu_mesh(1, 1))
+
+
+def test_a_pod_mesh_row_sees_the_data_gather():
+    """``row_views`` on a ``(2, 2, 2)`` mesh: each of the four pod × data
+    rows gathers the ZeRO shards (held once, on pod 0) whole over
+    'data', model shards as tuples; the gather's backward sums every
+    row's gradient into the shards, and the global norm of those
+    gradients counts no pod replica twice."""
+    mesh = make_mesh((2, 2, 2), devices=["cpu"] * 8)
+    w = torch.arange(8 * 6, dtype=torch.float32).reshape(8, 6)
+    tree = {"mlp": {"w_up": w}}
+    placed = shd.shard_tree(tree, shd.param_shardings(tree, mesh), mesh)
+    up = placed["mlp"]["w_up"]
+    assert up.spec == ("data", "model")
+    assert sorted(up.shards) == [(0, i, j) for i in range(2)
+                                 for j in range(2)]
+    shards = {k: v.requires_grad_() for k, v in up.shards.items()}
+    views = shd.row_views(placed, mesh, [0, 1, 2, 3])
+    total = 0
+    for r, view in enumerate(views):
+        parts = view["mlp"]["w_up"]
+        assert torch.equal(torch.cat(parts, dim=1), w)
+        total = total + sum(((r + 1) * q).sum() for q in parts)
+    total.backward()
+    for key, shard in shards.items():
+        assert torch.equal(shard.grad, torch.full_like(shard, 10.0)), key
+    # AdamW's global norm counts each logical element once, not once a pod
+    grads = {"w": up.map(lambda t: t.grad)}
+    assert float(adamw.global_norm(grads)) == float(
+        torch.full((8, 6), 10.0).norm())
+    # 8 × 6 f32 over data 2 × model 2: 48 bytes a device, pod 1's too
+    assert shd.device_bytes(placed, mesh) == [[[48] * 2] * 2] * 2
+
+
+def test_production_meshes_equal_the_reference():
+    """``make_production_mesh`` over ``cpu`` × 256 / × 512: the
+    reference's axes and shapes (its ``make_mesh_compat`` call, read
+    without building a jax mesh), and a host with fewer devices
+    refused, never padded."""
+    from repro.launch import mesh as jmesh
+    from repro_torch.launch.mesh import make_production_mesh
+
+    seen = []
+    real = jmesh.make_mesh_compat
+    jmesh.make_mesh_compat = lambda shape, axes: seen.append(
+        (tuple(shape), tuple(axes)))
+    try:
+        jmesh.make_production_mesh()
+        jmesh.make_production_mesh(multi_pod=True)
+    finally:
+        jmesh.make_mesh_compat = real
+    for multi, (shape, axes) in zip((False, True), seen):
+        n = math.prod(shape)
+        mesh = make_production_mesh(multi_pod=multi, devices=["cpu"] * n)
+        assert mesh.axis_names == axes
+        assert tuple(mesh.shape.values()) == shape
+        assert len(mesh.rows) == n // 16 and len(mesh.rows[0]) == 16
+        with pytest.raises(ValueError, match=f"needs {n} devices"):
+            make_production_mesh(multi_pod=multi, devices=["cpu"] * (n - 1))
+    assert make_production_mesh(devices=["cpu"] * 512).shape == {
+        "data": 16, "model": 16}
+
+
+def test_split_layers_to_stages_equals_the_reference():
+    """``split_layers_to_stages`` on a stacked tree: the reference's
+    reshape, leaf for leaf, and its refusal of an L that S does not
+    divide."""
+    from repro.distributed import pipeline as jpipe
     from repro_torch.distributed import pipeline
 
-    with pytest.raises(NotImplementedError, match="A5b"):
-        pipeline.pipeline_forward(lambda p, x: x, None, None, None)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        pipeline.split_layers_to_stages(None, 4)
+    rng = np.random.default_rng(0)
+    tree = {"w": rng.normal(size=(8, 3, 2)).astype(np.float32),
+            "b": {"scale": rng.normal(size=(8, 5)).astype(np.float32)}}
+    want = jpipe.split_layers_to_stages(tree, 4)
+    got = pipeline.split_layers_to_stages(
+        {"w": torch.from_numpy(tree["w"]),
+         "b": {"scale": torch.from_numpy(tree["b"]["scale"])}}, 4)
+    np.testing.assert_array_equal(got["w"].numpy(), np.asarray(want["w"]))
+    np.testing.assert_array_equal(got["b"]["scale"].numpy(),
+                                  np.asarray(want["b"]["scale"]))
+    for mod in (jpipe, pipeline):
+        with pytest.raises(ValueError, match="not divisible"):
+            mod.split_layers_to_stages({"w": tree["w"][:6]} if mod is jpipe
+                                       else {"w": torch.zeros(6, 2)}, 4)
 
 
-def test_serve_profile_moe_is_refused_naming_a5b():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_serve_profile_moe_on_one_device_equals_the_reference(dtype):
+    """``apply_moe_serve_2d`` on a ``(1, 1)`` mesh against the
+    reference's ``_apply_moe_serve_2d`` on its one host device (the
+    multi-device cases run in ``test_torch_distributed.py``'s
+    subprocess): bf16 bit for bit, f32 within 1e-5."""
+    import jax.numpy as jnp
+
+    from repro.launch.mesh import make_mesh_compat
+    from repro.models import moe as jmoe
     from repro_torch.models import moe
 
     cfg = moe.MoEConfig(num_experts=8, experts_per_token=2, d_model=16,
                         d_ff=8)
-    params = moe.init_moe(cfg, torch.Generator().manual_seed(0), "cpu")
-    x = torch.randn(2, 4, 16)
-    shd.set_rules_profile("serve")
+    jcfg = jmoe.MoEConfig(num_experts=8, experts_per_token=2, d_model=16,
+                          d_ff=8)
+    rng = np.random.default_rng(3)
+    p = {"router": rng.normal(size=(16, 8)) * 0.25,
+         "w_up": rng.normal(size=(8, 16, 8)) * 0.25,
+         "w_gate": rng.normal(size=(8, 16, 8)) * 0.25,
+         "w_down": rng.normal(size=(8, 8, 16)) * 0.35}
+    p = {k: v.astype(np.float32) for k, v in p.items()}
+    x = rng.normal(size=(2, 4, 16)).astype(np.float32)
+    jp = {k: jnp.asarray(v) if k == "router" else jnp.asarray(v).astype(
+        dtype) for k, v in p.items()}
+    jshd.set_rules_profile("serve")
     try:
-        with shd.active_mesh(_cpu_mesh(1, 2)):
-            with pytest.raises(NotImplementedError, match="A5b"):
-                moe.apply_moe(params, x, cfg)
+        want, jmet = jmoe._apply_moe_serve_2d(
+            jp, jnp.asarray(x).astype(dtype), jcfg,
+            make_mesh_compat((1, 1), ("data", "model")))
     finally:
-        shd.set_rules_profile("train")
+        jshd.set_rules_profile("train")
+    tdt = getattr(torch, dtype)
+    tp = {k: torch.from_numpy(v) if k == "router"
+          else torch.from_numpy(v).to(tdt) for k, v in p.items()}
+    got, met = moe.apply_moe_serve_2d(tp, torch.from_numpy(x).to(tdt), cfg,
+                                      _cpu_mesh(1, 1))
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(got.float().numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(float(met["moe_aux_loss"]),
+                               float(jmet["moe_aux_loss"]), rtol=1e-6)
+    assert float(met["moe_drop_fraction"]) == float(
+        jmet["moe_drop_fraction"])
 
 
 def test_dryrun_and_train_meshes_are_refused_naming_a5b():
-    from repro_torch.launch import dryrun, train
+    from repro_torch.launch import dryrun
 
     for name in ("single", "multi"):
-        with pytest.raises(SystemExit, match="A5b"):
+        with pytest.raises(SystemExit, match="A5b item 5, the next slice"):
             dryrun.main(["--mesh", name])
-    with pytest.raises(SystemExit, match="A5b"):
+
+
+def test_the_train_launcher_trains_on_a_pod_mesh(capsys):
+    """``--mesh 2x2x2 --simulate-devices 8`` trains a few smoke steps on
+    a ``(pod, data, model)`` mesh."""
+    from repro_torch.launch import train
+
+    result = train.main(["--arch", "qwen3-14b", "--smoke", "--device", "cpu",
+                         "--mesh", "2x2x2", "--simulate-devices", "8",
+                         "--steps", "3", "--seq-len", "16",
+                         "--global-batch", "8"])
+    assert result["final_step"] == 3
+    assert "on a 2x2x2 mesh of cpu: 3 steps" in capsys.readouterr().out
+    up = result["params"]["blocks"]["mlp"]["w_up"]
+    assert isinstance(up, shd.ShardedLeaf) and up.mesh.shape == {
+        "pod": 2, "data": 2, "model": 2}
+    with pytest.raises(SystemExit, match="PxDxM"):
         train.main(["--arch", "qwen3-14b", "--smoke", "--device", "cpu",
-                    "--mesh", "2x2x2", "--simulate-devices", "8"])
+                    "--mesh", "2x2x2x2"])
