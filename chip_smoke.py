@@ -3810,9 +3810,9 @@ def ep_layer_check(model, params, inputs, layer, meshes=MOE_EP_MESHES,
             single, smet = moe_lib.apply_moe(p, x, mcfg)
             seen = {}
 
-            def spy(partials, dtype, device):
+            def spy(partials, dtype, device, share=None):
                 seen["partials"] = [q.clone() for q in partials]
-                seen["out"] = real(partials, dtype, device)
+                seen["out"] = real(partials, dtype, device, share)
                 return seen["out"]
 
             moe_lib.cross_shard_sum = spy
@@ -5629,6 +5629,366 @@ ENGINE_KERNELS = {
 }
 
 
+#: [mesh-decode] / [dryrun-mesh]: qwen3-14b's serve config at published
+#: widths cut to this depth (layers 0–1 dense, 2–3 sparse)
+MESH_DECODE_LAYERS = 4
+MESH_DECODE_SLOTS = 8
+MESH_DECODE_PROMPT = 2048
+#: cache rows: the prompt and the steps, whole decode key blocks in each
+#: of the 16 sequence parts of (1, 16) (3072 / 16 = 3 blocks of 64)
+MESH_DECODE_ROWS = 3072
+MESH_DECODE_STEPS = 4
+#: max |Δ logit| / max |logit| of the mesh's decode against one device's
+#: (bf16: the row-parallel partials are summed in f32 in shard order and
+#: rounded once, the split cache's partials merged by log-sum-exp)
+MESH_DECODE_GATE = 2e-2
+#: (label, mesh, impl): heads over 'model' with B5/B6 on each shard's
+#: heads; KV 8 over a model axis of 16 splits the sequence (the fused
+#: route gathers the parts); the same split on the block path
+MESH_DECODE_RUNS = (("2x2", (2, 2), "pallas"), ("1x16", (1, 16), "pallas"),
+                    ("1x16-block", (1, 16), "mpmrf_block"))
+
+
+def _decode_on(model, params, cache, tokens, ci, mesh=None):
+    """``MESH_DECODE_STEPS`` decode steps of ``tokens [steps, B, 1]`` from
+    ``ci``: the logits of each step (a mesh's assembled), the cache
+    updated in place."""
+    out = []
+    for step in range(tokens.shape[0]):
+        logits, _ = model.decode_step(params, cache, {"tokens": tokens[step]},
+                                      ci + step, mesh=mesh)
+        out.append(model.mesh_logits(logits) if mesh is not None
+                   else logits)
+    return out
+
+
+def mesh_decode_phase():
+    """``[mesh-decode]``: ``LMModel.decode_step(mesh=)`` on qwen3-14b's
+    serve config (``impl="pallas"``, the contiguous cache) at published
+    widths, ``MESH_DECODE_LAYERS`` deep: ``MESH_DECODE_SLOTS`` × 2048
+    tokens prefilled on one device, the cache laid out by
+    ``cache_shardings`` on each of ``MESH_DECODE_RUNS``' meshes of the
+    card, and ``MESH_DECODE_STEPS`` steps decoded on the mesh and on one
+    device from the same cache. Gates: the logits within
+    ``MESH_DECODE_GATE`` of max |logit|; on (2, 2) B5 / B6 launched rows ×
+    model shards × sparse layers a step; the split selection's block
+    tables, and the split row path's token keep mask, equal the
+    single-device selection's on the same (bf16) q — equal q codes —
+    over a layer of the prefilled cache cut into 16 parts. Returns ``(out, keep)``: ``keep`` the (2, 2) run's trees for
+    ``[dryrun-mesh]``."""
+    import torch
+
+    from repro_torch.configs.registry import get_serve_config
+    from repro_torch.core import filtering as flt
+    from repro_torch.core.energon_attention import (
+        _decode_block_plan, _decode_valid_mask, _row_keep_over_parts,
+        decode_block_table_parts,
+    )
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import _build
+    from repro_torch.models import LMModel
+
+    label = "mesh-decode"
+    smi = card_line(label)
+    t0 = time.perf_counter()
+    full = get_serve_config("qwen3-14b")
+    cfg = dataclasses.replace(full, num_layers=MESH_DECODE_LAYERS)
+    model = LMModel(cfg, device=DEV)
+    params = model.init(7)
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    b = MESH_DECODE_SLOTS
+    prompt = torch.randint(1, cfg.vocab_size - 1, (b, MESH_DECODE_PROMPT),
+                           generator=gen, device=DEV)
+    tokens = torch.randint(1, cfg.vocab_size - 1, (MESH_DECODE_STEPS, b, 1),
+                           generator=gen, device=DEV).to(torch.int32)
+    base = model.init_cache(b, MESH_DECODE_ROWS)
+    ci = torch.full((b,), 0, dtype=torch.int32, device=DEV)
+    # chunks of 256: G·C × rows within the contiguous prefill's
+    # chunk_threshold
+    for c in range(0, MESH_DECODE_PROMPT, 256):
+        model.prefill(params, base, {"tokens": prompt[:, c:c + 256]}, ci)
+        ci = ci + prompt[:, c:c + 256].shape[1]
+    sparse = cfg.num_layers - cfg.energon.min_prune_layer
+    log(f"[{label}] {cfg.name} serve config (impl {cfg.energon.impl}, "
+        f"contiguous cache) at published widths, {cfg.num_layers} of "
+        f"{full.num_layers} layers ({sparse} sparse): {b} slots × "
+        f"{MESH_DECODE_PROMPT} tokens prefilled on one device, "
+        f"{MESH_DECODE_ROWS} cache rows, {MESH_DECODE_STEPS} decode steps")
+    out = dict(layers=cfg.num_layers, of=full.num_layers, slots=b,
+               prompt=MESH_DECODE_PROMPT, steps=MESH_DECODE_STEPS,
+               card=smi, runs={})
+    keep = None
+    for name, grid, impl in MESH_DECODE_RUNS:
+        m = LMModel(dataclasses.replace(cfg, energon=dataclasses.replace(
+            cfg.energon, impl=impl)), device=DEV)
+        mesh = _sim_mesh(grid)
+        single = m.init_cache(b, MESH_DECODE_ROWS)
+        for k in single:
+            single[k].copy_(base[k])
+        sp = shd.shard_tree(params, shd.param_shardings(params, mesh), mesh)
+        sc = m.shard_cache(base, mesh)
+        lay = shd.CacheLayout(sc["k"])
+        want = _decode_on(m, params, single, tokens, ci)
+        _build.reset_launch_counts()
+        got = _decode_on(m, sp, sc, tokens, ci, mesh)
+        sync()
+        launches = {k: v for k, v in _build.launch_counts.items() if v}
+        errs = [float((g.float() - w.float()).abs().max()
+                      / w.float().abs().max()) for g, w in zip(got, want)]
+        run = dict(mesh=list(grid), impl=impl, errs=errs,
+                   launches=launches, heads=lay.heads, parts=lay.parts,
+                   seq_axes=list(lay.seq_axes))
+        log(f"[{label}] {name} ({impl}): cache KV heads in {lay.heads} "
+            f"shard(s), sequence in {lay.parts} part(s) over "
+            f"{lay.seq_axes or '-'}; max|Δ logit| / max|logit| by step "
+            f"{', '.join(f'{e:.3e}' for e in errs)} (gate "
+            f"{MESH_DECODE_GATE}); kernel launches {launches} [{smi}]")
+        need(all(e <= MESH_DECODE_GATE for e in errs),
+             f"[{label}] {name}: logits off by {errs}")
+        need(all(math.isfinite(e) for e in errs), f"[{label}] {name}: {errs}")
+        if name == "2x2":
+            each = (len(mesh.rows) * mesh.shape["model"] * sparse
+                    * MESH_DECODE_STEPS)
+            for kern in ("mpmrf_decode_filter_scores",
+                         "decode_gather_attention"):
+                need(launches.get(kern) == each,
+                     f"[{label}] {name}: {kern} launched "
+                     f"{launches.get(kern)} times, want rows × shards × "
+                     f"sparse layers × steps = {each}")
+            keep = dict(model=m, params=params, sp=sp, sc=sc, mesh=mesh,
+                        tokens=tokens, ci=ci + MESH_DECODE_STEPS)
+        else:
+            del sp, sc
+        out["runs"][name] = run
+        del single
+        _free_device()
+    # the split selection against one device's, over layer 2 of the
+    # prefilled cache in 16 parts, on the same q (bf16: equal codes)
+    layer = cfg.energon.min_prune_layer
+    k = base["k"][layer]
+    q = torch.randn((b, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
+                     cfg.head_dim), generator=gen, device=DEV).to(k.dtype)
+    bcfg = dataclasses.replace(cfg.energon, impl="mpmrf_block")
+    _, _, live, mcfg = _decode_block_plan(bcfg, k.shape[-2], ci)
+    valid = _decode_valid_mask(q, k.shape[-2], ci, None)
+    one = flt.mpmrf_decode_block_select(q, k, mcfg, valid, ci,
+                                        live_budget=live)
+    split = decode_block_table_parts(
+        q, {s: {"k": p} for s, p in enumerate(k.chunk(16, dim=-2))}, 16,
+        ci, bcfg, axes=("model",))
+    same = bool(torch.equal(split[0], one.block_indices)
+                and torch.equal(split[1], one.block_valid))
+    log(f"[{label}] layer {layer}'s survivor tables, 16 sequence parts vs "
+        f"one device, the same q (q codes equal on every row): "
+        f"{'equal' if same else 'DIFFERENT'} ({tuple(one.block_indices.shape)})")
+    need(same, f"[{label}] the split selection's tables differ")
+    rcfg = dataclasses.replace(cfg.energon, impl="mpmrf_row")
+    one_keep = flt.mpmrf_row_select(q, k, rcfg.mpmrf("row"), valid).keep_mask
+    split_keep = _row_keep_over_parts(
+        q, {s: {"k": p} for s, p in enumerate(k.chunk(16, dim=-2))}, 16,
+        ci, rcfg, ("model",))
+    row_same = bool(torch.equal(split_keep, one_keep))
+    log(f"[{label}] layer {layer}'s row-path keep mask, 16 sequence parts "
+        f"vs one device, the same q: "
+        f"{'equal' if row_same else 'DIFFERENT'} "
+        f"({int(one_keep.sum())} of {one_keep.numel()} kept)")
+    need(row_same, f"[{label}] the split row path's keep mask differs")
+    out.update(tables_equal=same, row_keep_equal=row_same,
+               seconds=time.perf_counter() - t0)
+    del base, k, q
+    return out, keep
+
+
+def _arg_bytes_at(trees, mesh, coord) -> int:
+    """The bytes mesh device ``coord`` holds of sharded ``trees``
+    (``device_bytes`` at that coordinate)."""
+    from repro_torch.distributed import sharding as shd
+
+    total = 0
+    for tree in trees:
+        grid = shd.device_bytes(tree, mesh)
+        for i in coord:
+            grid = grid[i]
+        total += grid
+    return total
+
+
+def dryrun_mesh_phase(keep):
+    """``[dryrun-mesh]``: the dry run's share walks (``launch/dryrun.py
+    --mesh``) held against the card. On ``[mesh-decode]``'s (2, 2) decode
+    and on ``[pod-train]``'s (2, 2, 1) train step (4 layers, one 4 × 2048
+    microbatch): the four shares walked on meta add up exactly to the
+    card's one-controller walk of the whole step in FLOPs and kernel
+    launches, and each share's argument bytes equal ``device_bytes`` of
+    the card's sharded trees at its coordinate (and the batch's slice).
+    The share of coordinate 0 run on the card under the walk equals its
+    meta walk exactly (FLOPs, traffic, launches, peak live bytes), and
+    its measured peak (``max_memory_allocated`` less what was allocated
+    before) is within ``PEAK_RATIO`` of the walk's temp. Then qwen3-14b's
+    decode_32k on the 16×16 and 2×16×16 production meshes, walked on
+    the host: per-chip args, temp, ``fits`` and the roofline's dominant
+    term (predicted from the data sheet)."""
+    import torch
+
+    from repro_torch.analysis import compute_costs
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.configs.base import DECODE_32K
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.models import LMModel
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import make_train_step, shard_state
+
+    label = "dryrun-mesh"
+    smi = card_line(label)
+    t0 = time.perf_counter()
+    out = dict(card=smi)
+
+    def meta_mesh(grid):
+        from repro_torch.launch.mesh import make_mesh
+
+        return make_mesh(grid, devices=["meta"] * math.prod(grid))
+
+    def held(name, cfg, shape, grid, whole, trees, batch, extra=0):
+        mesh = meta_mesh(grid)
+        shares = [dryrun.lower_cell(cfg.name, shape, mesh=mesh, coord=c,
+                                    cfg=cfg, microbatches=1)
+                  for c in mesh.coords()]
+        flops = sum(a["parsed"]["flops_per_chip"] for a in shares)
+        launches = {}
+        for a in shares:
+            for k, v in a["kernel_launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        card_mesh = _sim_mesh(grid)
+        args = [a["memory_analysis"]["argument_size_in_bytes"]
+                for a in shares]
+        want = []
+        for c in card_mesh.coords():
+            share = card_mesh.share(c)
+            want.append(_arg_bytes_at(trees, card_mesh, c) + extra
+                        + shd.share_bytes(shd.share_batch(batch, share)))
+        log(f"[{label}] {name}: Σ of the {len(shares)} shares' FLOPs "
+            f"{flops:.6e} vs the card's whole walk {whole.flops:.6e}; "
+            f"launches {launches} vs {whole.launches}; share args "
+            f"{args} vs device_bytes {want}; each share walk "
+            f"{shares[0]['compile_seconds']:.2f} s [{smi}]")
+        need(flops == whole.flops, f"[{label}] {name}: FLOPs {flops} vs "
+             f"{whole.flops}")
+        need(launches == {k: v for k, v in whole.launches.items() if v},
+             f"[{label}] {name}: launches {launches} vs {whole.launches}")
+        need(args == want, f"[{label}] {name}: args {args} vs {want}")
+        return dict(share_flops=flops, whole_flops=whole.flops,
+                    launches=launches, args=args,
+                    share_walk_s=shares[0]["compile_seconds"]), shares[0]
+
+    # the (2, 2) decode of [mesh-decode]
+    m, mesh = keep["model"], keep["mesh"]
+    cfg = m.cfg
+    b = MESH_DECODE_SLOTS
+    inputs = {"tokens": keep["tokens"][0]}
+    ci = keep["ci"]
+    shape = ShapeConfig("decode_mesh", MESH_DECODE_ROWS, b, "decode")
+    whole = compute_costs(lambda: m.decode_step(keep["sp"], keep["sc"],
+                                                inputs, ci, mesh=mesh))
+    out["decode"], meta0 = held(
+        "decode (2, 2)", cfg, shape, (2, 2), whole, [keep["sp"], keep["sc"]],
+        {"tokens": inputs["tokens"], "cache_index": ci})
+    share = mesh.share((0, 0))
+    s_sp, s_sc = shd.share_of(keep["sp"], share), shd.share_of(keep["sc"],
+                                                              share)
+
+    def share_step():
+        return m.decode_step(s_sp, s_sc, inputs, ci, mesh=share)
+
+    card0 = compute_costs(share_step)
+    same = dict(
+        flops=card0.flops == meta0["parsed"]["flops_per_chip"],
+        traffic=card0.traffic_bytes == meta0["parsed"]["traffic_bytes_per_chip"],
+        launches=card0.launches == meta0["kernel_launches"],
+        peak=card0.peak_live_bytes
+        == meta0["memory_analysis"]["temp_size_in_bytes"])
+    measured = measure_peak(share_step, 0)
+    temp = meta0["memory_analysis"]["temp_size_in_bytes"]
+    ratio = temp / max(measured["measured_gb"] * 1e9, 1.0)
+    log(f"[{label}] share (0, 0) on the card under the walk vs on meta: "
+        f"{same} (FLOPs {card0.flops:.6e}, traffic "
+        f"{card0.traffic_bytes:.6e} B, launches {card0.launches}, peak "
+        f"{card0.peak_live_bytes} B); measured peak "
+        f"{measured['measured_gb']:.4f} GB (max_memory_allocated − "
+        f"allocated before) vs the walk's temp {temp / 1e9:.4f} GB: ratio "
+        f"{ratio:.4f} (gate {PEAK_RATIO[0]}–{PEAK_RATIO[1]}) [{smi}]")
+    need(all(same.values()), f"[{label}] share (0, 0): card vs meta {same}")
+    need(PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1],
+         f"[{label}] share (0, 0): temp / measured {ratio:.4f}")
+    out["share0"] = dict(same, measured=measured, temp=temp, ratio=ratio)
+    del s_sp, s_sc, whole
+    keep.clear()
+    _free_device()
+
+    # [pod-train]'s (2, 2, 1) train step
+    full = get_config("qwen3-14b")
+    tcfg = dataclasses.replace(full, num_layers=POD_TRAIN_LAYERS)
+    tshape = ShapeConfig("train_pod", POD_TRAIN_RUN["seq_len"],
+                         POD_TRAIN_RUN["global_batch"], "train")
+    tm = LMModel(tcfg, device=DEV)
+    opt_cfg = dryrun.optimizer_config(tcfg)
+    pmesh = _sim_mesh(POD_TRAIN_GRID)
+    params = tm.init(3)
+    sp, so = shard_state(params, adamw.init(params, opt_cfg), pmesh)
+    del params
+    _free_device()
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    toks = torch.randint(1, tcfg.vocab_size - 1,
+                         (tshape.global_batch, tshape.seq_len + 1),
+                         generator=gen, device=DEV)
+    batch = {"inputs": toks[:, :-1].to(torch.int32),
+             "targets": toks[:, 1:].to(torch.int32)}
+    step = make_train_step(tm, opt_cfg, mesh=pmesh, num_microbatches=1)
+    # the rows of the one-controller step share each layer's checkpoint,
+    # so its early stop would spare only the last row's tail of the
+    # recompute: both walks recompute whole layers here
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
+    with set_checkpoint_early_stop(False):
+        twhole = compute_costs(step, sp, so, batch)
+        out["train"], _ = held(
+            "train (2, 2, 1)", tcfg, tshape, POD_TRAIN_GRID, twhole,
+            [sp, {"mu": so.mu, "nu": so.nu}],
+            {"inputs": batch["inputs"], "targets": batch["targets"]},
+            extra=so.step.numel() * so.step.element_size())  # replicated
+    del sp, so, step, twhole
+    _free_device()
+
+    # the production meshes, walked on the host
+    for name in ("single", "multi"):
+        art = dryrun.lower_cell("qwen3-14b", DECODE_32K,
+                                mesh=dryrun.production_mesh(name),
+                                mesh_name=name)
+        mem, roof = art["memory_analysis"], art["roofline"]
+        log(f"[{label}] qwen3-14b decode_32k on {name} ({art['chips']} "
+            f"chips, predicted from the H100 data sheet): args "
+            f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, temp "
+            f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB per chip, fits "
+            f"{art['fits']['fits']}, {roof['dominant']}-bound "
+            f"{roof['bound_time_s'] * 1e3:.3f} ms (compute "
+            f"{roof['compute_s'] * 1e3:.3f}, memory "
+            f"{roof['memory_s'] * 1e3:.3f}, collective "
+            f"{roof['collective_s'] * 1e3:.3f} ms), collectives "
+            f"{art['parsed']['collective_bytes_per_chip']}, walk "
+            f"{art['compile_seconds']:.1f} s")
+        out[name] = dict(args=mem["argument_size_in_bytes"],
+                         temp=mem["temp_size_in_bytes"],
+                         fits=art["fits"]["fits"],
+                         dominant=roof["dominant"],
+                         bound_ms=roof["bound_time_s"] * 1e3,
+                         collective_bytes=art["parsed"][
+                             "collective_bytes_per_chip"],
+                         walk_s=art["compile_seconds"])
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def engine_ptxas():
     """Registers and spill bytes of each instantiation of the tile engine
     (B2/B6, B4/B8 per head dim and layout, B10, B11 per head dim) and of
@@ -5847,6 +6207,11 @@ def main(argv=None) -> int:
             (2, 2, 2), ((1, 1),), "pod-train-resume"))
     pipeline = pipeline_phase()
     clock("the pod mesh and the pipeline")
+    # decode over meshes of the card (B5 / B6 on each head shard), then
+    # the dry run's share walks held against the card
+    mesh_decode, keep = mesh_decode_phase()
+    dryrun_mesh = dryrun_mesh_phase(keep)
+    clock("the mesh decode and the dry run over meshes")
 
     timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -5875,6 +6240,9 @@ def main(argv=None) -> int:
                                for phase, r in families.items()
                                if "launches" in r},
             launches_pipeline=pipeline["launches"][name],
+            launches_mesh_decode={
+                run: r["launches"].get(name, 0)
+                for run, r in mesh_decode["runs"].items()},
             max_abs_err=max(r["err"] for r in entries + dense_results[name]
                             + d96[name] + tp_results.get(name, [])
                             + moe_results[name] + ep_results.get(name, [])
@@ -5922,6 +6290,8 @@ def main(argv=None) -> int:
     log(json.dumps({"training": training, "pipeline": pipeline,
                     "card": smi}))
     log(json.dumps({"analysis": analysis, "card": smi}))
+    log(json.dumps({"mesh_decode": mesh_decode, "dryrun_mesh": dryrun_mesh,
+                    "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,10 +12,17 @@ call under a ``TorchDispatchMode`` and prices every op as it runs:
   (an in-place op reads and writes its target). Views and bare
   allocations (``empty*``) launch nothing and move nothing. Each eager
   op is its own kernel, so this is the unfused traffic.
-* **Collectives** — copies between two distinct non-CPU devices
-  (``collective_bytes["copy"]``); 0 on any mesh of one card, kept so
-  that the roofline reads the reference's fields. A host upload is
-  traffic, not a collective.
+* **Collectives** — each call of :mod:`repro_torch.distributed.
+  collectives` priced as its XLA counterpart (``hlo_costs``' rule: the
+  operands' bytes on every device it runs on) under the reference's
+  type names (``all-gather``, ``reduce-scatter``, ``all-reduce``) in
+  ``collective_bytes`` and by the mesh axes it runs over in
+  ``collective_bytes_by_axis``; its operand and output bytes join the
+  traffic, as the reference's parser adds them, and the ops it runs are
+  not priced again (their outputs' storages count toward the peak). A
+  share's collectives (``Mesh.share``) price the walked device alone.
+  ``"copy"`` keeps the copies between two distinct non-CPU devices made
+  outside a collective; a host upload is traffic, not a collective.
 * **Kernels** — each launch of B1–B11 is priced once from its shapes
   (``repro_torch.analysis.kernel_traffic``'s shape-only mode: its bytes
   into the traffic, its operations into the FLOPs), and no op of the
@@ -56,6 +63,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 from repro_torch.analysis import kernel_traffic as kt
+from repro_torch.distributed import collectives as col
 from repro_torch.kernels import _build
 
 #: the CUDA caching allocator's block size: every allocation rounds up
@@ -88,7 +96,12 @@ class Costs:
     )
     collective_ops: List[Tuple[str, str, float, float]] = dataclasses.field(
         default_factory=list
-    )  # (kind, op, bytes, multiplier)
+    )  # (kind, op or axes, bytes, multiplier)
+    #: collective bytes by the mesh axes they run over (``"data"``,
+    #: ``"model"``, ``"pod+data"``, …)
+    collective_bytes_by_axis: Dict[str, float] = dataclasses.field(
+        default_factory=dict
+    )
     peak_live_bytes: int = 0
     #: bytes of the result's tensor leaves whose storages the call made
     output_bytes: int = 0
@@ -393,6 +406,30 @@ class _Walk(TorchDispatchMode):
                                       + nbytes)
         c.collective_ops.append(("copy", str(func), nbytes, 1.0))
 
+    # --- collectives ------------------------------------------------------
+
+    def collective(self, kind: str, axes, nbytes: float, traffic: float,
+                   fn: Callable):
+        """``collectives.price_hook``: run ``fn`` unpriced, note its
+        outputs' storages, and record the collective's price."""
+        self.inside += 1
+        try:
+            out = fn()
+        finally:
+            self.inside -= 1
+        self._note_new([t for t in tree_flatten(out)[0]
+                        if isinstance(t, torch.Tensor)])
+        if nbytes:
+            c = self.costs
+            c.collective_bytes[kind] = c.collective_bytes.get(kind, 0.0) \
+                + nbytes
+            axis = "+".join(axes) or "none"
+            c.collective_bytes_by_axis[axis] = (
+                c.collective_bytes_by_axis.get(axis, 0.0) + nbytes)
+            c.collective_ops.append((kind, axis, nbytes, 1.0))
+            self._add(kind, traffic, 0.0)
+        return out
+
     # --- kernels ----------------------------------------------------------
 
     def kernel(self, name: str, kernel: Callable, args, kw):
@@ -429,24 +466,48 @@ def compute_costs(fn: Callable, *args, **kwargs) -> Costs:
     if _build.cost_hook is not None:
         raise RuntimeError("an op-cost walk is already running")
     walk = _Walk()
-    walk._note_foreign([t for t in tree_flatten((args, kwargs))[0]
-                        if isinstance(t, torch.Tensor)])
+    walk._note_foreign(_all_tensors((args, kwargs)))
     _build.cost_hook = walk.kernel
+    col.price_hook = walk.collective
     t0 = time.perf_counter()
     try:
         with walk:
             result = fn(*args, **kwargs)
         walk.costs.output_bytes = sum(
-            _nbytes(t) for t in tree_flatten(result)[0]
-            if isinstance(t, torch.Tensor)
-            and t.untyped_storage()._cdata in walk._mine)
+            _nbytes(t) for t in _all_tensors(result)
+            if t.untyped_storage()._cdata in walk._mine)
         del result
     finally:
         _build.cost_hook = None
+        col.price_hook = None
     walk.costs.seconds = time.perf_counter() - t0
     for fin in list(walk._mine.values()) + list(walk._foreign.values()):
         fin.detach()
     return walk.costs
+
+
+def _all_tensors(tree: Any) -> List[torch.Tensor]:
+    """Every tensor in ``tree``: nested dicts, lists and tuples (model-axis
+    ``Shards`` and ``AdamWState`` too), and the shards of
+    ``ShardedLeaf`` s."""
+    from repro_torch.distributed.sharding import ShardedLeaf
+
+    out: List[torch.Tensor] = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif isinstance(x, ShardedLeaf):
+            out.extend(x.shards.values())
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    walk(tree)
+    return out
 
 
 def meta_like(tree: Any) -> Any:

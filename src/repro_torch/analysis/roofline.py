@@ -6,9 +6,14 @@ of ``repro.analysis.roofline``, divided by the H100's rates).
     collective_term = per_card_collective_bytes / NVLink bandwidth
 
 The costs come from ``repro_torch.analysis.op_costs``'s walk of one
-card's program, so they are already per card. ``raw_*`` fields are
-kept for the reference's artifact shape; the port has no compiled
-module whose own cost analysis would fill them.
+card's program — on a production mesh, one device's share of it
+(``launch/dryrun.py --mesh``) — so they are already per card, over
+``chips`` cards; ``collective_breakdown`` keeps the collective bytes by
+the reference's type names. The collective term divides by NVLink's
+450 GB/s: where a mesh axis spans more than one 8-card node it is a
+lower bound. ``raw_*`` fields are kept for the reference's artifact
+shape; the port has no compiled module whose own cost analysis would
+fill them.
 """
 
 from __future__ import annotations

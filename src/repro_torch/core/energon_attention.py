@@ -848,3 +848,286 @@ def energon_decode_attention(
     res = flt.mpmrf_row_select(q, k_cache, cfg.mpmrf("row"), valid)
     return ret(spa.decode_sparse_attention(q, k_cache, v_cache,
                                            res.keep_mask, scale))
+
+
+# --------------------------------------------------------------------------
+# decode over a cache split along the sequence (a mesh's cache_pspec)
+# --------------------------------------------------------------------------
+
+
+def _part_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                keep: torch.Tensor, scale: float):
+    """One part's flash statistics in f32: ``(Σ exp(s − m)·V, m, Σ exp(s −
+    m))`` over the keys ``keep`` admits (m NEG_INF where none)."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    scores = torch.where(keep, scores, spa.NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.where(keep, torch.exp(scores - m), 0.0)
+    return torch.matmul(e, v.float()), m, e.sum(dim=-1, keepdim=True)
+
+
+def _block_part_stats(q, k, v, block_indices, block_valid, cache_length,
+                      bk: int, first_block: int, window, scale: float):
+    """:func:`_part_stats` over the survivor blocks one part holds: the
+    table's global block ids in ``[first_block, first_block + n_kb_s)``,
+    their key positions placed as the single-device gather places
+    them."""
+    *lead, _, d = q.shape
+    n_kb = k.shape[-2] // bk
+    idx = block_indices[..., 0, :].long()                 # [..., B]
+    local = idx - first_block
+    mine = (local >= 0) & (local < n_kb)
+    at = local.clamp(0, n_kb - 1)[..., None, None].expand(
+        *idx.shape, bk, d)
+    kg = torch.take_along_dim(k.reshape(*lead, n_kb, bk, d), at, dim=-3)
+    vg = torch.take_along_dim(v.reshape(*lead, n_kb, bk, d), at, dim=-3)
+    scores = torch.einsum("...qd,...jkd->...qjk", q.float(),
+                          kg.float()) * scale             # [..., n_q, B, bk]
+    kpos = idx[..., None, :, None] * bk + torch.arange(bk, device=q.device)
+    cl = cache_length.reshape((cache_length.shape[0],)
+                              + (1,) * (kpos.dim() - 1))
+    keep = ((kpos < cl) & (block_valid[..., 0, :][..., None, :, None] > 0)
+            & mine[..., None, :, None])
+    if window is not None and window > 0:
+        keep = keep & (kpos >= cl - window)
+    flat = (*scores.shape[:-2], -1)
+    keep = keep.expand(scores.shape).reshape(flat)
+    scores = torch.where(keep, scores.reshape(flat), spa.NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.where(keep, torch.exp(scores - m), 0.0)
+    out = torch.einsum("...qjk,...jkd->...qd",
+                       e.reshape(scores.shape[:-1] + (kg.shape[-3], bk)),
+                       vg.float())
+    return out, m, e.sum(dim=-1, keepdim=True)
+
+
+def _parts_share(parts, count: int):
+    """A share's place among the ``count`` parts (``collectives.
+    share_of``'s ``(n, k)``) where ``parts`` holds its own one, else
+    None."""
+    return None if len(parts) == count else (count, next(iter(parts)))
+
+
+def _merge_parts(stats, device, axes, dtype, share) -> torch.Tensor:
+    """The parts' ``(out, m, l)`` gathered over ``axes`` and merged by
+    log-sum-exp in f32, in part order, rounded once to ``dtype``."""
+    from repro_torch.distributed import collectives as col
+
+    gathered = [col.all_gather([s[None] for s in part], 0, [device],
+                               axes=axes, share=share)[0]
+                for part in zip(*stats)]
+    outs, maxes, sums = gathered
+    top = maxes.amax(dim=0)
+    num = den = None
+    for i in range(outs.shape[0]):
+        corr = torch.exp(maxes[i] - top)
+        num = outs[i] * corr if num is None else num + outs[i] * corr
+        den = sums[i] * corr if den is None else den + sums[i] * corr
+    return (num / torch.clamp(den, min=1e-30)).to(dtype)
+
+
+def energon_decode_attention_parts(
+    q: torch.Tensor,
+    parts: Dict[int, Dict[str, torch.Tensor]],
+    count: int,
+    cache_length: torch.Tensor,
+    cfg: EnergonConfig,
+    *,
+    axes: Tuple[str, ...],
+    k_scale: Optional[torch.Tensor] = None,
+    layer_index: int = 10**9,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """:func:`energon_decode_attention` over a contiguous cache split
+    along the sequence into ``count`` equal parts over the mesh ``axes``
+    (``distributed.sharding.kv_cache_pspec``'s 'model', 'data' or
+    ``("data", "model")``). ``parts`` maps a part's index to its leaves
+    ``{"k", "v"[, "codes", "scale"]}`` ``[B, KV, n_k / count, d]`` on its
+    device (its block scales ``[B, KV, n_kb / count]``); the whole
+    mesh's program holds every part, a share (``Mesh.share``) its own.
+    ``k_scale`` is the whole ``[B, KV, n_kb]`` plane (the cache's spec
+    keeps it whole along the sequence). q ``[B, KV, G, d]`` on the row's
+    device; returns ``[B, KV, G, d]`` there.
+
+    * The dense prefix layers (and ``dense``, and ρ ≤ 1 off the block
+      path): each part's f32 flash statistics over its valid keys.
+    * The block path (``mpmrf_block`` / ``pallas`` off the fused
+      kernels): each part scores its own key blocks
+      (:func:`~repro_torch.core.filtering.decode_round_block_scores`), the
+      rounds' block scores ``[B, KV, 1, n_kb / count]`` are all-gathered
+      over ``axes``, every part selects the same global blocks by the
+      reference's rules (Eq. 3, the tiers, the stable lower-index-first
+      ties), and attends over the selected blocks it holds.
+    * The row path (``mpmrf_row``, and the block path's fallback): the
+      whole cache's per-head int16 scale from the parts' ``max |k|``
+      all-gathered (exact), each part's round score planes ``[B, KV, G,
+      n_k / count]`` all-gathered over ``axes``, Alg. 2's Eq. 3 rounds
+      over the whole row — the single device's keep mask, bit for bit
+      —, and each part attends over the keys it holds that survive.
+    * The partials merge by log-sum-exp in f32 in part order and round
+      once (the last bits differ from one softmax over the whole cache:
+      ROADMAP §C).
+    * The fused kernels (B5 → selection → B6), and parts that cut key
+      blocks, gather the parts over ``axes`` first — as GSPMD
+      replicates a custom call's operands — and run the whole cache's
+      call.
+    """
+    from repro_torch.distributed import collectives as col
+
+    any_part = next(iter(parts.values()))
+    n_s = any_part["k"].shape[-2]
+    n_k = n_s * count
+    dev, dtype = q.device, any_part["v"].dtype
+    share = _parts_share(parts, count)
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+
+    def valid_of(s, on):
+        kpos = s * n_s + torch.arange(n_s, device=on)[None, :]
+        cl = cache_length.to(on)[:, None]
+        ok = kpos < cl
+        if window is not None and window > 0:
+            ok = ok & (kpos >= cl - window)
+        return ok[:, None, None, :]
+
+    def gathered(name):
+        order = sorted(parts)
+        return col.all_gather([parts[s][name] for s in order], -2, [dev],
+                              axes=axes, share=share)[0]
+
+    def whole(planes: bool):
+        """The whole cache's call over the parts gathered onto q's
+        device."""
+        return energon_decode_attention(
+            q, gathered("k"), gathered("v"), cache_length, cfg,
+            layer_index=layer_index, window=window, scale=scale,
+            filter_cache=({"codes": gathered("codes"), "scale": k_scale}
+                          if planes else None))
+
+    def merged(keep_of):
+        """Each part's flash statistics over the keys ``keep_of(s, on)``
+        admits, merged."""
+        stats = []
+        for s in sorted(parts):
+            p = parts[s]
+            on = p["k"].device
+            stats.append(_part_stats(q.to(on), p["k"], p["v"],
+                                     keep_of(s, on), scale))
+        return _merge_parts([tuple(t.to(dev) for t in st) for st in stats],
+                            dev, axes, dtype, share)
+
+    def dense_parts():
+        return merged(valid_of)
+
+    if layer_index < cfg.min_prune_layer or cfg.impl == "dense":
+        return dense_parts()
+    bk = cfg.decode_key_block
+    if (cfg.impl in ("mpmrf_block", "pallas") and bk > 0 and n_k % bk == 0
+            and n_k // bk > 1):
+        planes = "codes" in any_part and k_scale is not None
+        if _fused_decode_engaged(cfg, planes, window) or n_s % bk:
+            # the fused kernels, or parts that cut key blocks
+            return whole(planes)
+        res = _select_over_parts(q, parts, count, cache_length, cfg, axes,
+                                 window)
+        stats = []
+        for s in sorted(parts):
+            p = parts[s]
+            on = p["k"].device
+            st = _block_part_stats(
+                q.to(on), p["k"], p["v"], res.block_indices.to(on),
+                res.block_valid.to(on), cache_length.to(on), bk,
+                s * (n_s // bk), window, scale)
+            stats.append(tuple(t.to(dev) for t in st))
+        return _merge_parts(stats, dev, axes, dtype, share)
+    if cfg.pruning_ratio <= 1.0:
+        return dense_parts()
+    keep = _row_keep_over_parts(q, parts, count, cache_length, cfg, axes,
+                                window)                 # the row path
+    return merged(lambda s, on: keep[..., s * n_s:(s + 1) * n_s].to(on))
+
+
+def _row_keep_over_parts(q, parts, count: int, cache_length,
+                         cfg: EnergonConfig, axes, window=None
+                         ) -> torch.Tensor:
+    """The split row path's token keep mask ``[B, KV, G, n_k]`` on q's
+    device: the whole cache's per-head ``max |k|`` (the parts' maxima
+    all-gathered over ``axes``; a max is exact in any order), each part's
+    keys quantized with it and scored on their own
+    (:func:`~repro_torch.core.filtering.row_round_scores`), the rounds'
+    planes all-gathered, and the whole row's Eq. 3 rounds there
+    (:func:`~repro_torch.core.filtering.row_select_from_rounds`)."""
+    from repro_torch.distributed import collectives as col
+
+    share = _parts_share(parts, count)
+    mcfg = cfg.mpmrf("row")
+    dev = q.device
+    order = sorted(parts)
+    n_k = parts[order[0]]["k"].shape[-2] * count
+
+    def gather(pieces, dim):
+        return col.all_gather(pieces, dim, [dev], axes=axes, share=share)[0]
+
+    amax = gather([parts[s]["k"].float().abs().amax(
+        dim=(-2, -1), keepdim=True).to(dev) for s in order], -1)
+    amax = amax.amax(dim=-1, keepdim=True)
+    per_part = []
+    for s in order:
+        k = parts[s]["k"]
+        on = k.device
+        k16 = qlib.quantize_int16(k, axis=(-2, -1), absmax=amax.to(on))
+        per_part.append(flt.row_round_scores(
+            qlib.quantize_int16(q.to(on), axis=-1), k16, mcfg))
+    planes = [gather([pp[r].to(dev) for pp in per_part], -1)
+              for r in range(len(per_part[0]))]
+    valid = _decode_valid_mask(q, n_k, cache_length.to(dev), window)
+    return flt.row_select_from_rounds(
+        planes, mcfg, valid.expand(q.shape[:-1] + (n_k,))).keep_mask
+
+
+def _select_over_parts(q, parts, count: int, cache_length,
+                       cfg: EnergonConfig, axes, window=None
+                       ) -> flt.FilterResult:
+    """The split block path's selection: each part scores its own key
+    blocks (from its resident planes where it has them), the rounds'
+    block scores are all-gathered over ``axes`` onto q's device, and the
+    whole cache's rules select there."""
+    from repro_torch.distributed import collectives as col
+
+    bk = cfg.decode_key_block
+    n_k = next(iter(parts.values()))["k"].shape[-2] * count
+    share = _parts_share(parts, count)
+    _, _, live_budget, mcfg = _decode_block_plan(cfg, n_k, cache_length)
+    per_part = []
+    for s in sorted(parts):
+        p = parts[s]
+        on = p["k"].device
+        n_s = p["k"].shape[-2]
+        kpos = s * n_s + torch.arange(n_s, device=on)[None, :]
+        cl = cache_length.to(on)[:, None]
+        valid = kpos < cl
+        if window is not None and window > 0:
+            valid = valid & (kpos >= cl - window)
+        k_quant = None
+        if "codes" in p and "scale" in p:
+            k_quant = qlib.blockwise_quantized_view(p["codes"], p["scale"],
+                                                    bk)
+        per_part.append(flt.decode_round_block_scores(
+            q.to(on), None if k_quant is not None else p["k"], mcfg,
+            valid[:, None, None, :], k_quant=k_quant))
+    rounds = [tuple(col.all_gather([pp[r][i].to(q.device) for pp in per_part],
+                                   -1, [q.device], axes=axes, share=share)[0]
+                    for i in range(2))
+              for r in range(len(per_part[0]))]
+    return flt.decode_block_select_from_rounds(rounds, mcfg, cache_length,
+                                               live_budget=live_budget)
+
+
+def decode_block_table_parts(q, parts, count, cache_length,
+                             cfg: EnergonConfig, *, axes):
+    """The survivor table ``(block_indices, block_valid)`` the split
+    block path of :func:`energon_decode_attention_parts` selects, for the
+    tests and the card's check against the single-device selection."""
+    res = _select_over_parts(q, parts, count, cache_length, cfg, axes)
+    return res.block_indices, res.block_valid

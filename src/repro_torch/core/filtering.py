@@ -20,7 +20,7 @@ Parity with the reference rests on three orderings:
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -292,16 +292,32 @@ def _round_score_planes(q16, k16, cfg: MPMRFConfig):
                 q16.plane_scale(bits), k16.plane_scale(bits))
 
 
-def _multi_round_scores(q16, k16, cfg: MPMRFConfig, valid: torch.Tensor):
-    """Alg. 2's R rounds on token scores: returns ``(keep, final-round
-    scores)``; ``valid`` (causality / padding) can only shrink."""
+def row_round_scores(q16, k16, cfg: MPMRFConfig) -> List[torch.Tensor]:
+    """The R rounds' token-score planes ``[..., n_q, n_k]`` of int16 q
+    and k. Each key's score reads its own row and the scales alone, so a
+    cache split along the sequence, quantized with the whole cache's
+    per-head scale, scores each part on its own and the parts' planes
+    concatenate to the whole cache's, bit for bit."""
+    return list(_round_score_planes(q16, k16, cfg))
+
+
+def row_select_from_rounds(planes: Sequence[torch.Tensor], cfg: MPMRFConfig,
+                           valid: torch.Tensor) -> FilterResult:
+    """Alg. 2's R rounds of Eq. 3 over the rounds' token-score planes
+    (:func:`row_round_scores`), ``valid`` (causality / padding, the
+    planes' shape) only shrinking, then ``keep_first``: the token-level
+    ``keep_mask``."""
     keep = valid
     scores = None
-    for alpha, scores in zip(cfg.alphas, _round_score_planes(q16, k16, cfg)):
+    for alpha, scores in zip(cfg.alphas, planes):
         if not cfg.keep_all:
             # ">=" so a constant row keeps its max (θ == max)
             keep = keep & (scores >= eq3_threshold(scores, alpha, keep))
-    return keep, scores
+    if cfg.keep_first:
+        first = torch.zeros_like(keep)
+        first[..., 0] = True
+        keep = keep | (first & valid)
+    return FilterResult(keep_mask=keep, block_indices=None, scores=scores)
 
 
 def mpmrf_row_select(
@@ -320,12 +336,8 @@ def mpmrf_row_select(
     shape = q.shape[:-1] + (n_k,)
     valid = (torch.ones(shape, dtype=torch.bool, device=q.device)
              if valid is None else valid.expand(shape))
-    keep, scores = _multi_round_scores(q16, k16, cfg, valid)
-    if cfg.keep_first:
-        first = torch.zeros_like(keep)
-        first[..., 0] = True
-        keep = keep | (first & valid)
-    return FilterResult(keep_mask=keep, block_indices=None, scores=scores)
+    return row_select_from_rounds(_round_score_planes(q16, k16, cfg), cfg,
+                                  valid)
 
 
 def pool_block_scores(
@@ -398,9 +410,27 @@ def mpmrf_decode_block_select(
     selection), Eq. 3 per round, then the exact-budget
     :func:`decode_block_tier_select`. Returns the survivor table
     ``[..., 1, budget]``."""
-    bk = cfg.key_block
     if cfg.block_budget is None:
         raise ValueError("decode block selection needs cfg.block_budget")
+    return decode_block_select_from_rounds(
+        decode_round_block_scores(q, k_cache, cfg, valid, k_quant), cfg,
+        cache_length, live_budget=live_budget, with_stats=with_stats)
+
+
+def decode_round_block_scores(
+    q: torch.Tensor,
+    k_cache: Optional[torch.Tensor],
+    cfg: MPMRFConfig,
+    valid: torch.Tensor,
+    k_quant=None,
+) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The R rounds' pooled decode block scores and validity, ``(scores,
+    valid)`` ``[..., 1, n_kb]`` per round, over the keys given: k
+    quantized per ``cfg.key_block`` rows (or the resident ``k_quant``
+    view). Each block's score reads its own rows alone, so a cache split
+    over the sequence in whole blocks scores each part on its own and
+    the parts' scores concatenate to the whole cache's, bit for bit."""
+    bk = cfg.key_block
     if k_cache is None and k_quant is None:
         raise ValueError("need k_cache or a resident k_quant view")
     n_q = q.shape[-2]
@@ -412,10 +442,23 @@ def mpmrf_decode_block_select(
     if k_quant is None:
         codes, scales = qlib.quantize_int16_blocks(k_cache, bk)
         k_quant = qlib.blockwise_quantized_view(codes, scales, bk)
+    return [pool_block_scores(tok_scores, n_q, bk, valid)
+            for tok_scores in _round_score_planes(q16, k_quant, cfg)]
+
+
+def decode_block_select_from_rounds(
+    rounds: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    cfg: MPMRFConfig,
+    cache_length: torch.Tensor,
+    live_budget: Optional[torch.Tensor] = None,
+    with_stats: bool = False,
+) -> FilterResult:
+    """Eq. 3 per round over the rounds' block scores
+    (:func:`decode_round_block_scores`), then the exact-budget
+    :func:`decode_block_tier_select`."""
+    bk = cfg.key_block
     blk_keep = blk_scores = blk_valid = None
-    for alpha, tok_scores in zip(cfg.alphas,
-                                 _round_score_planes(q16, k_quant, cfg)):
-        blk_scores, blk_valid = pool_block_scores(tok_scores, n_q, bk, valid)
+    for alpha, (blk_scores, blk_valid) in zip(cfg.alphas, rounds):
         if blk_keep is None:
             blk_keep = blk_valid
         if not cfg.keep_all:

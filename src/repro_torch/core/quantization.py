@@ -67,15 +67,17 @@ class QuantizedTensor:
 
 
 def quantize_int16(
-    x: torch.Tensor, axis: Axes = -1, eps: float = 1e-8
+    x: torch.Tensor, axis: Axes = -1, eps: float = 1e-8,
+    absmax: Optional[torch.Tensor] = None,
 ) -> QuantizedTensor:
     """Symmetric int16 quantization with a per-slice absmax scale over
-    ``axis`` (kept as size-1 dims; ``None`` → one per-tensor scale)."""
+    ``axis`` (kept as size-1 dims; ``None`` → one per-tensor scale).
+    ``absmax``: the slices' ``max |x|`` where ``x`` is a part of them (a
+    cache split along the sequence: the whole cache's maxima)."""
     x = x.float()
-    if axis is None:
-        absmax = x.abs().amax()
-    else:
-        absmax = x.abs().amax(dim=axis, keepdim=True)
+    if absmax is None:
+        absmax = (x.abs().amax() if axis is None
+                  else x.abs().amax(dim=axis, keepdim=True))
     scale = torch.clamp(absmax, min=eps) * INV_INT16_LEVELS
     codes = torch.clamp(
         torch.round(x / scale), -INT16_LEVELS, INT16_LEVELS

@@ -44,8 +44,14 @@ collectives whose backward sums every row's gradients — the pods' on
 top of the data rows', in f32 in row order — into the shards
 (:mod:`repro_torch.distributed.collectives`).
 
-What stays refused is the dry run's ``--mesh`` (:data:`A5B`): a walk of
-one device's share of the production meshes.
+One device's share (``Mesh.share``, the dry run's ``--mesh``): the
+same specs cut to one coordinate — :func:`share_tree` /
+:func:`share_batch` / :func:`shard_cache` build the shards that device
+holds, and nothing else (a 16 × 16 mesh's leaf is one tensor, not 256),
+:func:`share_of` takes them out of a whole mesh's tree, and
+:func:`row_views` of a share gathers with the priced stand-in
+collectives (:mod:`repro_torch.distributed.collectives`), a model-axis
+leaf keeping its logical shard index (``collectives.Shards``).
 """
 
 from __future__ import annotations
@@ -242,8 +248,10 @@ def serve_expert_shards(params: Dict[str, object], num_experts: int,
     experts ``[s·E/M, (s+1)·E/M)`` × d_ff slice i of D (``P("model",
     None, "data")`` for up / gate, ``P("model", "data", None)`` for
     down). Each leaf may be whole (sliced here: views on its own
-    device), :func:`shard_experts`' M-tuple, or its M-tuple of D-tuples.
-    """
+    device), :func:`shard_experts`' M-tuple, its M-tuple of D-tuples,
+    or a :class:`ShardedLeaf` laid out by the serve profile's specs (a
+    pod mesh's pod 0; a share's own ``(i, s)`` alone). On a pod mesh
+    the devices are pod 0's: the pods hold replicas."""
     m = mesh.shape["model"]
     d_n = mesh.shape.get("data", 1)
     per = num_experts // m
@@ -256,6 +264,11 @@ def serve_expert_shards(params: Dict[str, object], num_experts: int,
                 if name not in params:
                     continue
                 leaf = params[name]
+                if isinstance(leaf, ShardedLeaf):
+                    key = leaf.key(data=i, model=s)
+                    if key in leaf.shards:      # a share holds its own
+                        leaves[name] = leaf.shards[key]
+                    continue
                 part = leaf[s] if isinstance(leaf, tuple) \
                     else leaf[s * per:(s + 1) * per]
                 if isinstance(part, tuple):
@@ -265,7 +278,8 @@ def serve_expert_shards(params: Dict[str, object], num_experts: int,
                     ff = part.shape[dim] // d_n
                     part = part.narrow(dim, i * ff, ff)
                 leaves[name] = _shard_on(part, dev)
-            out[(i, s)] = leaves
+            if leaves:
+                out[(i, s)] = leaves
     return out
 
 
@@ -372,11 +386,6 @@ MESH_MAP = {
     "expert_ff": None,      # serve profile: → "data" (2D expert TP)
     None: None,
 }
-
-#: what the dry run's ``--mesh`` waits for: a walk of one device's share
-#: of a production mesh, not every shard's work from one controller
-A5B = ("ROADMAP A5b item 5, the next slice (launch/dryrun.py --mesh: a walk "
-       "of one device's share of the production meshes)")
 
 # "train" ZeRO-shards weights over 'data'; "serve" keeps them resident
 # and 2D-shards the MoE expert FFNs (experts→model × d_ff→data)
@@ -697,6 +706,165 @@ def shard_tree(tree: Any, specs: Any, mesh) -> Any:
     return shard_leaf(tree, specs, mesh)
 
 
+def _coord_tuple(mesh) -> Tuple[int, ...]:
+    return tuple(mesh.coord[a] for a in mesh.axis_names)
+
+
+def share_leaf(x: torch.Tensor, spec, mesh) -> ShardedLeaf:
+    """``x`` (logical, any device — a meta tensor costs nothing) laid out
+    by ``spec`` over the share ``mesh``: a :class:`ShardedLeaf` holding
+    the one shard the share's device addresses, on that device (empty
+    where ``x`` or the device is meta)."""
+    leaf = ShardedLeaf(spec, x.shape, mesh, {})
+    key = leaf.index(*_coord_tuple(mesh))
+    part = x[leaf.slices(key)]
+    dev = mesh.first_device
+    if "meta" in (part.device.type, dev.type):
+        leaf.shards[key] = torch.empty(part.shape, dtype=part.dtype,
+                                       device=dev)
+    else:
+        leaf.shards[key] = part.to(dev, copy=True).contiguous()
+    return leaf
+
+
+def share_tree(tree: Any, specs: Any, mesh) -> Any:
+    """:func:`shard_tree` cut to the share ``mesh``: each leaf's one
+    shard (:func:`share_leaf`)."""
+    if isinstance(tree, dict):
+        return {k: share_tree(v, specs[k], mesh) for k, v in tree.items()}
+    return share_leaf(tree, specs, mesh)
+
+
+def share_of(tree: Any, mesh) -> Any:
+    """A whole mesh's sharded tree (:func:`shard_tree`, or a sharded
+    cache) cut to the share ``mesh`` of it: each :class:`ShardedLeaf`
+    keeps the shard ``mesh.coord`` addresses (the same tensor, no copy);
+    other leaves are kept."""
+    if isinstance(tree, dict):
+        return {k: share_of(v, mesh) for k, v in tree.items()}
+    if isinstance(tree, ShardedLeaf):
+        key = tree.index(*_coord_tuple(mesh))
+        return ShardedLeaf(tree.spec, tree.shape, mesh,
+                           {key: tree.shards[key]})
+    return tree
+
+
+def share_batch(batch: Dict[str, torch.Tensor], mesh
+                ) -> Dict[str, torch.Tensor]:
+    """The share's slice of each batch leaf by :func:`batch_pspec` (the
+    whole leaf where the batch replicates)."""
+    return {k: next(iter(share_leaf(v, batch_pspec(v, mesh),
+                                    mesh).shards.values()))
+            for k, v in batch.items()}
+
+
+def share_bytes(tree: Any) -> int:
+    """The bytes of every shard a tree's :class:`ShardedLeaf` s hold (a
+    share's: its device's), plus its plain tensors'."""
+    if isinstance(tree, dict):
+        return sum(share_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(share_bytes(v) for v in tree)
+    if isinstance(tree, ShardedLeaf):
+        return sum(t.numel() * t.element_size()
+                   for t in tree.shards.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+def shard_cache(cache: Any, mesh, scratch: Optional[Dict[str, int]] = None
+                ) -> Any:
+    """A stacked decode cache (``LMModel.init_cache``: leaves ``[L, …]``)
+    laid out by :func:`cache_shardings` over ``mesh`` — or, for a share,
+    its one shard of each leaf —, every shard allocated as a cache leaf
+    (``attention.stacked_leaf``, with ``scratch`` elements by leaf name
+    after each layer: the K/V writes need them) and filled from the
+    logical leaf (left zero where it is meta)."""
+    from repro_torch.models import attention as attn
+
+    specs = cache_shardings(cache, mesh)
+    scratch = scratch or {}
+
+    def one(path, leaf):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        out = ShardedLeaf(spec, leaf.shape, mesh, {})
+        keys = ([out.index(*_coord_tuple(mesh))] if mesh.coord is not None
+                else itertools.product(*(
+                    range(mesh.shape[a]) if a in _spec_axes(spec) else (0,)
+                    for a in mesh.axis_names)))
+        for key in keys:
+            sl = out.slices(key)
+            part = leaf[sl]
+            t = attn.stacked_leaf(part.shape[0], tuple(part.shape[1:]),
+                                  part.dtype, mesh.device(key),
+                                  scratch.get(path[-1], 0))
+            if "meta" not in (t.device.type, part.device.type):
+                t.copy_(part)
+            out.shards[key] = t
+        return out
+
+    return _map_with_path(one, cache)
+
+
+class CacheLayout:
+    """How :func:`kv_cache_pspec` splits an attention cache leaf ``[…, B,
+    KV, n, hd]``: its batch over the data axes (``batch_axes``, empty
+    where the batch replicates), its KV heads into ``heads`` shards over
+    ``head_axes``, its sequence into ``parts`` over ``seq_axes`` (each
+    row-major)."""
+
+    def __init__(self, leaf: ShardedLeaf):
+        nd = leaf.ndim
+        spec = leaf.spec
+        self.leaf = leaf
+        self.batch_axes = _entry_axes(spec[nd - 4])
+        self.head_axes = _entry_axes(spec[nd - 3])
+        self.seq_axes = _entry_axes(spec[nd - 2])
+        shape = leaf.mesh.shape
+        self.heads = math.prod(shape[a] for a in self.head_axes)
+        self.parts = math.prod(shape[a] for a in self.seq_axes)
+
+    def _key(self, fixed, j, s):
+        at = dict(fixed)
+        for axes, k in ((self.head_axes, j), (self.seq_axes, s)):
+            for a in reversed(axes):
+                k, at[a] = divmod(k, self.leaf.mesh.shape[a])
+        return self.leaf.key(**at)
+
+    def row_keys(self, row: int) -> Dict[Tuple[int, int], Tuple[int, ...]]:
+        """Data row ``row``'s pieces: ``(j, s)`` → shard key. A share
+        holds the one its coordinate addresses."""
+        mesh = self.leaf.mesh
+        if mesh.coord is not None:
+            key = self.leaf.index(*_coord_tuple(mesh))
+            at = dict(zip(mesh.axis_names, key))
+
+            def flat(axes):
+                k = 0
+                for a in axes:
+                    k = k * mesh.shape[a] + at[a]
+                return k
+
+            return {(flat(self.head_axes), flat(self.seq_axes)): key}
+        fixed = {a: mesh.row_coord(row)[a] for a in self.batch_axes}
+        return {(j, s): self._key(fixed, j, s)
+                for j in range(self.heads) for s in range(self.parts)}
+
+
+def row_shard(leaf: ShardedLeaf, row: int) -> torch.Tensor:
+    """The shard of a leaf split (at most) over its batch's data axes that
+    data row ``row`` holds (a share's own)."""
+    mesh = leaf.mesh
+    if mesh.coord is not None:
+        return leaf.shards[leaf.index(*_coord_tuple(mesh))]
+    coord = mesh.row_coord(row)
+    return leaf.shards[leaf.key(**{a: coord[a] for a in _spec_axes(
+        leaf.spec) if a in coord})]
+
+
 def gather_leaf(leaf: ShardedLeaf, device=None) -> torch.Tensor:
     """The logical tensor of ``leaf`` on ``device`` (default: the mesh's
     first device)."""
@@ -810,29 +978,59 @@ def row_views(tree: Any, mesh, rows: Sequence[int], *, whole: bool = False,
                 for i in range(len(rows))]
     leaf = tree
     a, b = leaf.data_dim(), leaf.model_dim()
-    js = range(mesh.shape["model"]) if b is not None else [0]
     gather = col.quantized_all_gather if quantized else col.all_gather
+    if mesh.coord is not None:
+        return [_share_view(leaf, mesh, a, b, whole, gather)] * len(rows)
+    js = range(mesh.shape["model"]) if b is not None else [0]
     grid = mesh.rows
     per_j = []
     for j in js:
         targets = [grid[r][j] for r in rows]
         fixed = {"model": j} if b is not None else {}
         if a is not None:
-            per_j.append(gather(leaf.parts(a, **fixed), a, targets))
+            per_j.append(gather(leaf.parts(a, **fixed), a, targets,
+                                axes=_entry_axes(leaf.spec[a])))
         else:
             per_j.append(col.broadcast(leaf.shards[leaf.key(**fixed)],
-                                       targets))
+                                       targets, axes=mesh.data_axes))
     out = []
     for i, r in enumerate(rows):
         if b is None or len(per_j) == 1:
             out.append(per_j[0][i])
             continue
-        shards = tuple(p[i] for p in per_j)
+        shards = col.Shards(p[i] for p in per_j)
         if whole:
-            out.append(col.all_gather(shards, b, [grid[r][0]])[0])
+            out.append(col.all_gather(shards, b, [grid[r][0]],
+                                      axes=("model",))[0])
         else:
             out.append(shards)
     return out
+
+
+def _share_view(leaf: ShardedLeaf, mesh, a, b, whole: bool, gather):
+    """:func:`row_views` of one leaf in a share: the local shard gathered
+    over the data axes its spec names (priced stand-ins), the gradient
+    summed over the data axes it replicates over, and over 'model' the
+    share's one shard as :class:`~repro_torch.distributed.collectives.
+    Shards` (its logical index kept) — or, ``whole``, gathered."""
+    dev = mesh.first_device
+    t = leaf.shards[leaf.index(*_coord_tuple(mesh))]
+    if a is not None:
+        axes = _entry_axes(leaf.spec[a])
+        t = gather([t], a, [dev], axes=axes,
+                   share=col.share_of(mesh, axes))[0]
+    rest = tuple(x for x in mesh.data_axes
+                 if x not in _spec_axes(leaf.spec))
+    if rest:
+        t = col.broadcast(t, [dev], axes=rest,
+                          share=col.share_of(mesh, rest))[0]
+    if b is None or mesh.shape["model"] == 1:
+        return t
+    if whole:
+        return col.all_gather([t], b, [dev], axes=("model",),
+                              share=col.share_of(mesh, ("model",)))[0]
+    return col.Shards((t,), start=mesh.coord["model"],
+                      total=mesh.shape["model"])
 
 
 # --------------------------------------------------------------------------

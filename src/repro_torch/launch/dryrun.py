@@ -18,21 +18,46 @@ that the step allocated. ``fits`` holds arguments + temp against one
 80 GB card, and ``roofline`` the H100 roofline (its memory term from
 ``analysis.memory_model``, as the reference's tables take it).
 
-``--mesh single|multi`` (a walk over the production meshes, 16×16 and
-2×16×16 of ``launch/mesh.py::make_production_mesh``) is refused, naming
-the next slice: the port's mesh step runs every shard's work from one
-controller, so a walk of it on a 16×16 mesh would repeat each op for
-256 shards; it needs a walk of one device's share.
+``--mesh single|multi`` walks the production meshes of
+``launch/mesh.py::make_production_mesh`` (16×16 = 256 cards over
+``("data", "model")``, 2×16×16 = 512 over ``("pod", "data", "model")``),
+built on the meta device, under the reference's rules profile
+(``"serve"`` for an MoE's prefill and decode, else ``"train"``). The
+port's mesh program runs every shard's work from one controller, so a
+walk of the whole mesh would repeat each op for every shard; the walk
+is of **one device's share** instead (``Mesh.share``): the same
+program handed a mesh whose rows hold one row of one device, its
+parameters, AdamW state and cache the shards that device holds
+(``distributed/sharding.py::share_tree`` / ``shard_cache``: one tensor
+a leaf), the batch logical and cut by the program to its row, each
+model-axis leaf keeping its logical shard index, and every collective
+priced — the operand bytes XLA's parser would count on that device,
+under the reference's type names and the axes it runs over — and
+replaced by a stand-in of its output. Where the layout is even every
+device's share costs the same, so the walk of coordinate 0 (``--coord``
+another) stands for every card: FLOPs, traffic, collective bytes and
+temp are per card, ``argument_size_in_bytes`` the shards' bytes (the
+reference's per-device ``memory_analysis``), ``fits`` one 80 GB card,
+and the roofline's terms are over the mesh's cards. A prefill step
+takes the last position alone through the vocabulary-sharded head
+(the reference's ``logits_sharding``); nothing gathers the logits.
+Every number is **predicted** from the H100 80GB HBM3 data sheet: the
+collective term divides by NVLink's 450 GB/s, a lower bound where an
+axis of 16 spans more than one 8-card node (``collective_bytes_by_axis``
+keeps the bytes by axis for a model of the links).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-14b --shape train_4k
-    python -m repro_torch.launch.dryrun --all    # every cell, a subprocess each
+    python -m repro_torch.launch.dryrun --arch qwen3-14b --shape decode_32k \
+        --mesh single [--coord 0,0]
+    python -m repro_torch.launch.dryrun --all [--mesh multi]   # a subprocess a cell
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -49,6 +74,8 @@ from repro_torch.analysis import (
 from repro_torch.configs import ShapeConfig, shapes_for_arch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import ARCH_NAMES, get_config
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import LMModel
 from repro_torch.optim import adamw
 from repro_torch.runtime.train_loop import make_train_step
@@ -152,26 +179,130 @@ def step_for(model: LMModel, shape: ShapeConfig, *,
     return model.decode_step, (params, cache, batch, cache_index)
 
 
-def lower_cell(arch: str, shape: ShapeConfig, *,
+def rules_profile(cfg: ModelConfig, shape: ShapeConfig) -> str:
+    """The reference's rules profile of a cell: MoE inference cells use
+    the serving layout (2-D experts, resident weights), the rest the
+    training one (ZeRO over 'data')."""
+    return ("serve" if shape.kind in ("prefill", "decode")
+            and cfg.family == "moe" else "train")
+
+
+def production_mesh(mesh_name: str, device="meta"):
+    """The 16×16 (``single``) or 2×16×16 (``multi``) mesh, every
+    position ``device``."""
+    return make_production_mesh(multi_pod=(mesh_name == "multi"),
+                                devices=[device] * 512)
+
+
+def share_step_for(model: LMModel, shape: ShapeConfig, mesh, share, *,
+                   microbatches: int):
+    """``(fn, args, arg_bytes)``: the cell's step over ``mesh`` run as
+    device ``share.coord``'s share (``share`` its ``Mesh.share``), its
+    arguments — the parameters', AdamW state's and cache's shards on the
+    share's device, the batch logical — and the bytes that device holds
+    of them (the reference's per-device ``argument_size_in_bytes``)."""
+    cfg = model.cfg
+    params = model.init()
+    sp = shd.share_tree(params, shd.param_shardings(params, mesh), share)
+    del params
+    batch = input_specs(cfg, shape, model.device)
+    # the leaves the step reads (jit prunes an unused argument: a
+    # prefill's targets), each by batch_pspec
+    read = {k: v for k, v in batch.items()
+            if shape.kind != "prefill" or k != "targets"}
+    arg_bytes = (shd.share_bytes(sp)
+                 + shd.share_bytes(shd.share_batch(read, share)))
+    if shape.kind == "train":
+        opt_cfg = optimizer_config(cfg)
+        opt_state = adamw.init(sp, opt_cfg)
+        arg_bytes += shd.share_bytes([opt_state.step, opt_state.mu,
+                                      opt_state.nu])
+        return (make_train_step(model, opt_cfg, mesh=share,
+                                num_microbatches=microbatches),
+                (sp, opt_state, batch), arg_bytes)
+    if shape.kind == "prefill":
+        def prefill_step(params, batch):
+            _, logits, _, _ = model._mesh_forward(params, batch, share,
+                                                  last_only=True)
+            return logits
+
+        return prefill_step, (sp, batch), arg_bytes
+    cache = model.shard_cache(
+        model.init_cache(shape.global_batch, shape.seq_len), share)
+    cache_index = torch.zeros((shape.global_batch,), dtype=torch.int32,
+                              device=model.device)
+    # cache_index lies as the batch does (the reference leaves its
+    # sharding to XLA, which splits it with the batch where it can)
+    arg_bytes += shd.share_bytes(cache) + shd.share_bytes(
+        shd.share_batch({"cache_index": cache_index}, share))
+
+    def decode_step(params, cache, batch, cache_index):
+        return model.decode_step(params, cache, batch, cache_index,
+                                 mesh=share)
+
+    return decode_step, (sp, cache, batch, cache_index), arg_bytes
+
+
+def share_argument_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                         coord=None) -> int:
+    """The bytes device ``coord`` (default the origin) of ``mesh`` holds
+    of the cell's arguments — the reference's per-device
+    ``argument_size_in_bytes`` —, reckoned on the meta device from the
+    specs without walking the step."""
+    prev = shd.get_rules_profile()
+    shd.set_rules_profile(rules_profile(cfg, shape))
+    try:
+        model = LMModel(cfg, device="meta")
+        return share_step_for(
+            model, shape, mesh, mesh.share(coord or (), device="meta"),
+            microbatches=1)[2]
+    finally:
+        shd.set_rules_profile(prev)
+
+
+def lower_cell(arch: str, shape: ShapeConfig, *, mesh=None,
+               mesh_name: Optional[str] = None, coord=None,
                cfg: Optional[ModelConfig] = None,
                microbatches: Optional[int] = None) -> Dict[str, Any]:
     """Walk one cell on the meta device; ``cfg`` (default the arch's
-    shipped config) and ``microbatches`` override the cell's."""
+    shipped config) and ``microbatches`` override the cell's. With
+    ``mesh`` (a mesh of meta devices, e.g. :func:`production_mesh`)
+    the walk is of device ``coord``'s share (default the origin) under
+    the cell's :func:`rules_profile`."""
     cfg = cfg or get_config(arch)
     model = LMModel(cfg, device="meta")
-    num_mb = (microbatches or microbatches_for(arch, None, shape.global_batch)
+    num_mb = (microbatches or microbatches_for(arch, mesh, shape.global_batch)
               if shape.kind == "train" else 1)
-    fn, args = step_for(model, shape, microbatches=num_mb)
-    costs = compute_costs(fn, *args)
-    arg_bytes = leaf_bytes(args)
+    prev = shd.get_rules_profile()
+    extra: Dict[str, Any] = {}
+    try:
+        if mesh is None:
+            chips, shards, name = 1, 1, MESH_NAME
+            fn, args = step_for(model, shape, microbatches=num_mb)
+            arg_bytes = leaf_bytes(args)
+        else:
+            shd.set_rules_profile(rules_profile(cfg, shape))
+            share = mesh.share(coord or (), device="meta")
+            chips = math.prod(mesh.shape.values())
+            shards = mesh.shape.get("model", 1)
+            name = mesh_name or "x".join(str(v) for v in mesh.shape.values())
+            fn, args, arg_bytes = share_step_for(model, shape, mesh, share,
+                                                 microbatches=num_mb)
+            extra = dict(rules_profile=rules_profile(cfg, shape),
+                         coord=share.coord, mesh_shape=dict(mesh.shape))
+        costs = compute_costs(fn, *args)
+    finally:
+        shd.set_rules_profile(prev)
+    if mesh is not None:
+        extra["collective_bytes_by_axis"] = costs.collective_bytes_by_axis
     temp = costs.peak_live_bytes
     flops = model_flops(cfg, shape)
     analytic = hbm_traffic_bytes(
-        cfg, shape, chips=1, model_shards=1, num_microbatches=num_mb,
+        cfg, shape, chips=chips, model_shards=shards, num_microbatches=num_mb,
         opt_factored=(shape.kind == "train"
                       and optimizer_config(cfg).factored_second_moment))
     report = build_report(
-        arch=arch, shape=shape.name, mesh_name=MESH_NAME, chips=1,
+        arch=arch, shape=shape.name, mesh_name=name, chips=chips,
         parsed_flops=costs.flops, parsed_traffic_bytes=costs.traffic_bytes,
         parsed_collective_bytes=costs.collective_bytes, model_flops=flops,
         peak_memory_bytes=arg_bytes + temp,
@@ -180,8 +311,8 @@ def lower_cell(arch: str, shape: ShapeConfig, *,
         "arch": arch,
         "shape": shape.name,
         "kind": shape.kind,
-        "mesh": MESH_NAME,
-        "chips": 1,
+        "mesh": name,
+        "chips": chips,
         "compile_seconds": costs.seconds,
         "cost_analysis": {},
         "memory_analysis": {
@@ -203,30 +334,38 @@ def lower_cell(arch: str, shape: ShapeConfig, *,
         "model_flops": flops,
         "params": param_counts(cfg)["total"],
         "microbatches": num_mb,
+        **extra,
         "kernel_launches": costs.launches,
         "num_ops": costs.num_ops,
         "roofline": report.to_dict(),
     }
 
 
-def run_cell(arch: str, shape_name: str, out_dir: str) -> str:
+def run_cell(arch: str, shape_name: str, out_dir: str,
+             mesh_name: Optional[str] = None, coord=None) -> str:
     shape = next(s for s in shapes_for_arch(arch) if s.name == shape_name)
-    artifact = lower_cell(arch, shape)
+    if mesh_name is None:
+        artifact = lower_cell(arch, shape)
+    else:
+        artifact = lower_cell(arch, shape, mesh=production_mesh(mesh_name),
+                              mesh_name=mesh_name, coord=coord)
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"{arch}__{shape_name}.json")
     with open(path, "w") as f:
         json.dump(artifact, f, indent=1)
     mem = artifact["memory_analysis"]
     roof = artifact["roofline"]
+    coll = sum(artifact["parsed"]["collective_bytes_per_chip"].values())
     print(
-        f"[dryrun] {MESH_NAME}/{arch}/{shape_name}: "
+        f"[dryrun] {artifact['mesh']}/{arch}/{shape_name}: "
         f"{artifact['params'] / 1e9:.3f} B params, walk "
         f"{artifact['compile_seconds']:.1f}s, {artifact['num_ops']} ops, "
-        f"flops {artifact['parsed']['flops_per_chip']:.3e}, args "
+        f"flops/chip {artifact['parsed']['flops_per_chip']:.3e}, coll "
+        f"{coll / 1e9:.3f} GB/chip, args "
         f"{mem['argument_size_in_bytes'] / 1e9:.2f} GB, temp "
         f"{mem['temp_size_in_bytes'] / 1e9:.2f} GB "
-        f"({'fits' if artifact['fits']['fits'] else 'does not fit'} one "
-        f"card), {roof['dominant']}-bound "
+        f"per chip ({'fits' if artifact['fits']['fits'] else 'does not fit'}"
+        f" one card), {roof['dominant']}-bound "
         f"{roof['bound_time_s'] * 1e3:.1f} ms"
     )
     return path
@@ -238,6 +377,10 @@ def all_cells():
             yield arch, shape.name
 
 
+def _coord(text: Optional[str]):
+    return None if not text else tuple(int(c) for c in text.split(","))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_NAMES)
@@ -245,14 +388,14 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=None)
     ap.add_argument("--mesh", default=None, choices=("single", "multi"),
-                    help="the production meshes: refused, the next slice")
+                    help="walk one device's share of a production mesh "
+                    "(16x16 or 2x16x16) instead of one card")
+    ap.add_argument("--coord", default=None,
+                    help="the share's coordinate, one index per mesh axis "
+                    "(default the origin), e.g. 3,5")
     args = ap.parse_args(argv)
-    if args.mesh is not None:
-        from repro_torch.distributed.sharding import A5B
-
-        raise SystemExit(f"--mesh {args.mesh}: a dry run over a production "
-                         f"mesh is {A5B}")
-    out = args.out or os.path.normpath(os.path.join(ARTIFACT_DIR, MESH_NAME))
+    name = args.mesh or MESH_NAME
+    out = args.out or os.path.normpath(os.path.join(ARTIFACT_DIR, name))
 
     if args.all:
         failures = []
@@ -263,6 +406,8 @@ def main(argv=None):
                 continue
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                    "--arch", arch, "--shape", shape_name, "--out", out]
+            if args.mesh:
+                cmd += ["--mesh", args.mesh]
             r = subprocess.run(cmd, capture_output=False)
             if r.returncode != 0:
                 failures.append((arch, shape_name))
@@ -274,7 +419,7 @@ def main(argv=None):
 
     assert args.arch and args.shape, "--arch/--shape or --all required"
     try:
-        run_cell(args.arch, args.shape, out)
+        run_cell(args.arch, args.shape, out, args.mesh, _coord(args.coord))
     except Exception:
         traceback.print_exc()
         sys.exit(1)

@@ -22,6 +22,14 @@ the port's own: ``torch.distributed.DeviceMesh`` needs one process per
 device and a process group, and the reference serves from a single
 controller.
 
+A *share* (:meth:`Mesh.share`) is one device's share of a mesh: the
+same axes and sizes, every position of the grid naming the one device
+the share runs on (``meta`` for a dry run, or a card), and
+:attr:`Mesh.rows` one row of that one device. The one-controller mesh
+program handed a share runs one coordinate's work: the data row and the
+model shard of ``coord``, with every collective priced and replaced by
+a stand-in of its output (:mod:`repro_torch.distributed.collectives`).
+
 Building a mesh touches no device state beyond naming the devices, so
 importing this module never initializes CUDA.
 """
@@ -78,6 +86,10 @@ class Mesh:
     as the reference's ``jax.sharding.Mesh.devices`` array. ``shape``
     (a dict, axis name → size) reads as the reference's."""
 
+    #: the coordinate a share (:meth:`share`) runs, axis → index; None
+    #: for a whole mesh
+    coord: Optional[Dict[str, int]] = None
+
     def __init__(self, devices: Sequence, axis_names=("data", "model")):
         names = tuple(axis_names)
         if not names or names != tuple(a for a in AXES if a in names) \
@@ -121,6 +133,8 @@ class Mesh:
     def rows(self) -> Tuple[Tuple[torch.device, ...], ...]:
         """Each data row's model-axis devices (a row of one device
         without a 'model' axis), rows flattened pod major."""
+        if self.coord is not None:              # a share: its one device
+            return ((self.first_device,),)
         n_rows = math.prod(self.shape[a] for a in self.data_axes)
         m = self.shape.get("model", 1)
         return tuple(
@@ -143,6 +157,42 @@ class Mesh:
             grid = (grid,)
         return Mesh(grid, self.axis_names)
 
+    def share(self, coord: Union[Sequence[int], Dict[str, int]] = (),
+              device=None) -> "Mesh":
+        """Device ``coord``'s share of this mesh (one index per axis, or
+        a dict of axis → index, axes it leaves out at 0): a mesh of the
+        same axes and sizes whose every position names ``device``
+        (default the device at ``coord``), with ``coord`` set and
+        :attr:`rows` one row of that one device. A model-axis leaf of a
+        share keeps its logical shard index (``collectives.Shards``)."""
+        if not isinstance(coord, dict):
+            coord = dict(zip(self.axis_names, coord))
+        coord = {a: int(coord.get(a, 0)) for a in self.axis_names}
+        for a, i in coord.items():
+            if not 0 <= i < self.shape[a]:
+                raise ValueError(f"coordinate {coord} outside the mesh "
+                                 f"{self.shape}")
+        dev = (self.device(coord) if device is None
+               else indexed_device(device))
+
+        def fill(dims):
+            return dev if not dims else [fill(dims[1:])
+                                         for _ in range(dims[0])]
+
+        out = Mesh(fill(tuple(self.shape.values())), self.axis_names)
+        out.coord = coord
+        return out
+
+    @property
+    def share_row(self) -> int:
+        """A share's flat data row (pod major), 0 for a whole mesh."""
+        if self.coord is None:
+            return 0
+        r = 0
+        for a in self.data_axes:
+            r = r * self.shape[a] + self.coord[a]
+        return r
+
     def coords(self):
         """Every device coordinate, row-major."""
         return itertools.product(*(range(self.shape[a])
@@ -156,6 +206,9 @@ class Mesh:
     def __repr__(self) -> str:
         dims = "x".join(str(v) for v in self.shape.values())
         names = ", ".join(str(d) for d in self.physical_devices)
+        if self.coord is not None:
+            return (f"Mesh({dims} {self.axis_names}: the share of "
+                    f"{self.coord} on {names})")
         return f"Mesh({dims} {self.axis_names} over {names})"
 
 

@@ -53,6 +53,7 @@ from repro_torch.core import (
     energon_paged_prefill_attention,
 )
 from repro_torch.core import quantization as qlib
+from repro_torch.core.energon_attention import energon_decode_attention_parts
 from repro_torch.distributed import collectives as col
 from repro_torch.models import layers as L
 from repro_torch.runtime import paged_cache as pgc
@@ -161,7 +162,8 @@ def _attention_block_tp(params, x: torch.Tensor, energon: EnergonConfig, *,
     :func:`energon_attention` on them; the shards' ``wo`` partials (in
     x's dtype) add over 'model' in f32, rounded once."""
     devices = [w.device for w in params["wq"]]
-    m = len(devices)
+    m = col.shard_total(params["wq"])          # shards over 'model'
+    first = col.shard_start(params["wq"])      # a share's own index
     batch, n, _ = x.shape
     per, groups = num_heads // m, num_heads // num_kv_heads
     positions = torch.arange(n, device=x.device)[None, :]
@@ -169,10 +171,11 @@ def _attention_block_tp(params, x: torch.Tensor, energon: EnergonConfig, *,
     if use_qk_norm:
         k = L.rmsnorm(params["k_norm"], k)
     k = L.apply_rope(k, positions, rope_theta)
-    xs = col.broadcast(x, devices)
-    ks = col.broadcast(k.transpose(1, 2), devices)      # [B, KV, n, hd]
-    vs = col.broadcast(v.transpose(1, 2), devices)
-    q_norms = (col.broadcast(params["q_norm"]["scale"], devices)
+    over = dict(axes=("model",), share=col.shards_share(params["wq"]))
+    xs = col.broadcast(x, devices, **over)
+    ks = col.broadcast(k.transpose(1, 2), devices, **over)  # [B, KV, n, hd]
+    vs = col.broadcast(v.transpose(1, 2), devices, **over)
+    q_norms = (col.broadcast(params["q_norm"]["scale"], devices, **over)
                if use_qk_norm else None)
     parts = []
     for j, dev in enumerate(devices):
@@ -180,7 +183,8 @@ def _attention_block_tp(params, x: torch.Tensor, energon: EnergonConfig, *,
         if use_qk_norm:
             q = L.rmsnorm({"scale": q_norms[j]}, q)
         q = L.apply_rope(q, torch.arange(n, device=dev)[None, :], rope_theta)
-        heads = torch.arange(j * per, (j + 1) * per, device=dev) // groups
+        jj = first + j
+        heads = torch.arange(jj * per, (jj + 1) * per, device=dev) // groups
         out = energon_attention(
             q.transpose(1, 2), ks[j].index_select(1, heads),
             vs[j].index_select(1, heads), energon, causal=True,
@@ -188,7 +192,7 @@ def _attention_block_tp(params, x: torch.Tensor, energon: EnergonConfig, *,
         wo = params["wo"][j]
         out = out.transpose(1, 2).reshape(batch, n, -1)
         parts.append(out @ wo.reshape(-1, wo.shape[-1]))
-    return col.all_reduce(parts, x.device)
+    return col.all_reduce(parts, x.device, **over)
 
 
 def init_kv_cache(
@@ -692,3 +696,168 @@ def paged_decode_attention_block(
         layer_index=layer_index, window=window, telemetry=telemetry,
     )
     return _unfold_with_stats(out, params, num_heads, 1, telemetry)
+
+
+# --------------------------------------------------------------------------
+# decode over a mesh: the cache laid out by distributed/sharding's
+# cache_pspec (heads over 'model', or the sequence split)
+# --------------------------------------------------------------------------
+
+
+def _head_shard(w, j: int, per: int, dim: int) -> torch.Tensor:
+    """Head shard ``j`` of a weight: the entry of its model-axis shards
+    (``collectives.Shards``) whose logical index is j, or a whole
+    weight's ``per`` heads along ``dim``."""
+    if isinstance(w, tuple):
+        return w[j - col.shard_start(w)]
+    return w.narrow(dim, j * per, per)
+
+
+def _whole_heads(w, dim: int, device) -> torch.Tensor:
+    """A weight with every head: model-axis shards gathered over 'model'
+    onto ``device`` (a priced stand-in in a share)."""
+    if not isinstance(w, tuple):
+        return w
+    return col.all_gather(list(w), dim, [device], axes=("model",),
+                          share=col.shards_share(w))[0]
+
+
+def _refresh_part_block(part: Dict[str, torch.Tensor],
+                        scale: torch.Tensor, pos: torch.Tensor,
+                        block: int) -> None:
+    """:func:`_refresh_filter_block` on one sequence part of the cache:
+    the block each slot's append at part-local ``pos [B]`` touched is
+    re-quantized where the append lands in this part, and left as it is
+    elsewhere (another part holds it); ``scale`` the part's block
+    scales."""
+    k = part["k"]
+    batch, kv, n_s, hd = k.shape
+    n_kb = n_s // block
+    rows = torch.arange(batch, device=k.device)
+    inside = (pos >= 0) & (pos < n_s)
+    blk = torch.clamp(pos.long(), 0, n_s - 1) // block
+    codes = part["k_codes"].view(batch, kv, n_kb, block, hd)
+    new_codes, new_scale = qlib.quantize_int16_blocks(
+        k.view(batch, kv, n_kb, block, hd)[rows, :, blk], block)
+    codes[rows, :, blk] = torch.where(inside[:, None, None, None],
+                                      new_codes, codes[rows, :, blk])
+    scale[rows, :, blk] = torch.where(inside[:, None], new_scale[..., 0],
+                                      scale[rows, :, blk])
+
+
+def _decode_heads(params, x: torch.Tensor, parts, count: int, seq_axes,
+                  k_scale: Optional[torch.Tensor], cache_index: torch.Tensor,
+                  energon: EnergonConfig, *, num_heads: int,
+                  num_kv_heads: int, rope_theta: float, use_qk_norm: bool,
+                  window, layer_index: int) -> torch.Tensor:
+    """One head group's decode step over its cache parts (``count`` along
+    the sequence): a whole cache takes :func:`decode_attention_block`; a
+    split one writes each part's rows where the append lands, refreshes
+    its planes there, and attends through
+    :func:`~repro_torch.core.energon_attention.
+    energon_decode_attention_parts`."""
+    if count == 1:
+        part = parts[0]
+        on = part["k"].device
+        cache = {"k": part["k"], "v": part["v"]}
+        copied = None
+        if "k_codes" in part:
+            cache["k_codes"] = part["k_codes"]
+            cache["k_scale"] = copied = k_scale.to(on)
+        write = cache_write_plan(cache_index.to(on)[:, None],
+                                 part["k"].shape[-2], num_kv_heads)
+        y = decode_attention_block(
+            params, x.to(on), cache, cache_index.to(on), write, energon,
+            num_heads=num_heads, num_kv_heads=num_kv_heads,
+            rope_theta=rope_theta, use_qk_norm=use_qk_norm, window=window,
+            layer_index=layer_index)
+        if copied is not None and copied is not k_scale:
+            k_scale.copy_(copied)
+        return y.to(x.device)
+    positions = cache_index[:, None]
+    q, k, v = _project_qkv(params, x, positions, use_qk_norm, rope_theta)
+    hd = k.shape[-1]
+    n_s = next(iter(parts.values()))["k"].shape[-2]
+    bk = energon.decode_key_block
+    attend = {}
+    for s in sorted(parts):
+        part = parts[s]
+        on = part["k"].device
+        local = positions.to(on) - s * n_s
+        write = cache_write_plan(local, n_s, num_kv_heads)
+        for name, new in (("k", k), ("v", v)):
+            _rows_with_scratch(part[name], hd)[write.rows] = (
+                new.reshape(-1, num_kv_heads, hd).to(on, part[name].dtype))
+        attend[s] = {"k": part["k"], "v": part["v"]}
+        if "k_codes" in part:
+            sl = k_scale[..., s * (n_s // bk):(s + 1) * (n_s // bk)]
+            _refresh_part_block(part, sl, local[:, 0], bk)
+            attend[s].update(codes=part["k_codes"], scale=sl)
+    out = energon_decode_attention_parts(
+        _fold_groups(q, num_heads, num_kv_heads), attend, count,
+        cache_index + 1, energon, axes=seq_axes,
+        k_scale=k_scale if "k_codes" in next(iter(parts.values())) else None,
+        layer_index=layer_index, window=window)
+    return _unfold_heads_out(out, params, num_heads, 1)
+
+
+def mesh_decode_attention_block(
+    params, x: torch.Tensor, pieces, layout, k_scale,
+    cache_index: torch.Tensor, energon: EnergonConfig, *, num_heads: int,
+    num_kv_heads: int, rope_theta: float = 10000.0,
+    use_qk_norm: bool = False, window: Optional[int] = None,
+    layer_index: int = 10**9,
+) -> torch.Tensor:
+    """One-token decode over a data row's cache on a mesh. x ``[b, 1,
+    d]`` on the row's first device; ``params`` the row's attention view
+    (``wq`` / ``wo`` model-axis shards where the specs split the heads,
+    ``wk`` / ``wv`` whole); ``pieces`` ``{(j, s): {"k", "v"[,
+    "k_codes"]}}`` the row's cache leaves of this layer — KV-head shard j
+    of ``layout.heads``, sequence part s of ``layout.parts`` (a share
+    holds its own piece) —, ``k_scale`` the row's ``[b, KV, n_kb]``
+    scales (whole: the cache's spec splits only their batch);
+    ``cache_index [b]``.
+
+    Over KV-head shards each shard runs its heads whole — its query
+    heads (the specs split ``wq`` / ``wo`` alike, so shard j holds the
+    query heads of its KV heads), its slice of the replicated ``wk`` /
+    ``wv`` — and the shards' ``wo`` partials add over 'model' in f32,
+    rounded once. Over sequence parts the query heads are whole (``wq``
+    / ``wo`` gathered over 'model' where split) and the parts attend
+    together (:func:`_decode_heads`). Returns ``[b, 1, d]``."""
+    heads = layout.heads
+    if heads == 1:
+        dev = x.device
+        p = dict(params, wq=_whole_heads(params["wq"], 1, dev),
+                 wo=_whole_heads(params["wo"], 0, dev))
+        return _decode_heads(
+            p, x, {s: pc for (_, s), pc in pieces.items()}, layout.parts,
+            layout.seq_axes, k_scale, cache_index, energon,
+            num_heads=num_heads, num_kv_heads=num_kv_heads,
+            rope_theta=rope_theta, use_qk_norm=use_qk_norm, window=window,
+            layer_index=layer_index)
+    kvp, hp = num_kv_heads // heads, num_heads // heads
+    js = sorted({j for j, _ in pieces})
+    devices = [pieces[(j, min(s for jj, s in pieces if jj == j))]["k"].device
+               for j in js]
+    # a share holds its own KV-head shard alone
+    share = None if len(js) == heads else (heads, js[0])
+    xs = col.broadcast(x, devices, axes=layout.head_axes, share=share)
+    partials = []
+    for i, j in enumerate(js):
+        p = {"wq": _head_shard(params["wq"], j, hp, 1),
+             "wk": params["wk"].narrow(1, j * kvp, kvp),
+             "wv": params["wv"].narrow(1, j * kvp, kvp),
+             "wo": _head_shard(params["wo"], j, hp, 0)}
+        for name in ("q_norm", "k_norm"):
+            if name in params:
+                p[name] = params[name]
+        partials.append(_decode_heads(
+            p, xs[i], {s: pc for (jj, s), pc in pieces.items() if jj == j},
+            layout.parts, layout.seq_axes,
+            None if k_scale is None else k_scale.narrow(-2, j * kvp, kvp),
+            cache_index, energon, num_heads=hp, num_kv_heads=kvp,
+            rope_theta=rope_theta, use_qk_norm=use_qk_norm, window=window,
+            layer_index=layer_index).to(x.device))
+    return col.all_reduce(partials, x.device, axes=layout.head_axes,
+                          share=share)

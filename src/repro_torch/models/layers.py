@@ -155,6 +155,12 @@ def _devices(shards) -> list:
     return [t.device for t in shards]
 
 
+def _like(shards, items) -> col.Shards:
+    """``items`` as model-axis shards with ``shards``' logical indices."""
+    return col.Shards(items, start=col.shard_start(shards),
+                      total=col.shard_total(shards))
+
+
 def apply_mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
     """SwiGLU (:func:`silu`), GeGLU or plain GELU MLP (:func:`gelu`'s
     tanh form). With M-tuple weights (a mesh row's view): shard j runs
@@ -164,10 +170,11 @@ def apply_mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
     if not isinstance(params["w_up"], tuple):
         return _mlp(params, x, activation)
     devices = _devices(params["w_up"])
-    xs = col.broadcast(x, devices)
+    share = col.shards_share(params["w_up"])
+    xs = col.broadcast(x, devices, axes=("model",), share=share)
     parts = [_mlp({k: w[j] for k, w in params.items()}, xs[j], activation)
              for j in range(len(devices))]
-    return col.all_reduce(parts, x.device)
+    return col.all_reduce(parts, x.device, axes=("model",), share=share)
 
 
 def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
@@ -180,12 +187,14 @@ def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
         return table[tokens.long()]
     per = table[0].shape[0]
     parts = []
-    for j, shard in enumerate(table):
+    for i, shard in enumerate(table):
+        j = col.shard_start(table) + i          # the logical vocab shard
         local = tokens.long().to(shard.device) - j * per
         ok = (local >= 0) & (local < per)
         rows = shard[local.clamp(0, per - 1)]
         parts.append(rows.masked_fill(~ok[..., None], 0))
-    return col.all_reduce(parts, tokens.device)
+    return col.all_reduce(parts, tokens.device, axes=("model",),
+                          share=col.shards_share(table))
 
 
 def lm_logits(params, x: torch.Tensor):
@@ -196,8 +205,9 @@ def lm_logits(params, x: torch.Tensor):
     w = params["w"]
     if not isinstance(w, tuple):
         return x.float() @ w.float()
-    xs = col.broadcast(x, _devices(w))
-    return tuple(xj.float() @ wj.float() for xj, wj in zip(xs, w))
+    xs = col.broadcast(x, _devices(w), axes=("model",),
+                       share=col.shards_share(w))
+    return _like(w, (xj.float() @ wj.float() for xj, wj in zip(xs, w)))
 
 
 def tied_lm_logits(embed_params, x: torch.Tensor):
@@ -207,8 +217,10 @@ def tied_lm_logits(embed_params, x: torch.Tensor):
     table = embed_params["table"]
     if not isinstance(table, tuple):
         return x.float() @ table.float().T
-    xs = col.broadcast(x, _devices(table))
-    return tuple(xj.float() @ tj.float().T for xj, tj in zip(xs, table))
+    xs = col.broadcast(x, _devices(table), axes=("model",),
+                       share=col.shards_share(table))
+    return _like(table, (xj.float() @ tj.float().T
+                         for xj, tj in zip(xs, table)))
 
 
 def token_nll(logits, labels: torch.Tensor) -> torch.Tensor:
@@ -231,14 +243,17 @@ def token_nll(logits, labels: torch.Tensor) -> torch.Tensor:
     tops = [top.to(d) for d in devices]
     sums = [torch.exp(part - t[..., None]).sum(dim=-1)
             for part, t in zip(logits, tops)]
-    logz = top + torch.log(col.all_reduce(sums, dev))
+    share = col.shards_share(logits)
+    logz = top + torch.log(col.all_reduce(sums, dev, axes=("model",),
+                                          share=share))
     golds = []
-    for j, part in enumerate(logits):
+    for i, part in enumerate(logits):
+        j = col.shard_start(logits) + i         # the logical vocab shard
         local = labels.long().to(part.device) - j * per
         ok = (local >= 0) & (local < per)
         g = torch.gather(part, -1, local.clamp(0, per - 1)[..., None])[..., 0]
         golds.append(g.masked_fill(~ok, 0.0))
-    return logz - col.all_reduce(golds, dev)
+    return logz - col.all_reduce(golds, dev, axes=("model",), share=share)
 
 
 def softmax_cross_entropy(

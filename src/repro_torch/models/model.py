@@ -38,6 +38,7 @@ reference's functional signatures.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -349,11 +350,12 @@ class LMModel:
                  else torch.as_tensor(mask).float().sum().to(dev))
         total = torch.clamp(torch.as_tensor(count, dtype=torch.float32,
                                             device=dev), min=1.0)
-        ce = col.all_reduce(sums, dev) / total
+        ce = col.all_reduce(sums, dev, axes=mesh.data_axes,
+                            share=col.share_of(mesh, mesh.data_axes)) / total
         loss = ce + aux
         return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": total}
 
-    def _mesh_forward(self, params, batch, mesh):
+    def _mesh_forward(self, params, batch, mesh, last_only: bool = False):
         """The stack over ``mesh`` for a sharded ``params``: the batch
         splits over the data rows (pod × data, pod major:
         :func:`~repro_torch.distributed.sharding.batch_rows`; row r's
@@ -363,19 +365,14 @@ class LMModel:
         layers split over), and the rows run one after another. Returns
         ``(rows, logits per row — an M-tuple of vocab shards where the
         head is vocab-sharded —, aux on the first device, split)``:
-        ``split(t)`` cuts a batch tensor into the rows' parts."""
+        ``split(t)`` cuts a batch tensor into the rows' parts.
+        ``last_only`` takes the last position alone through the head (a
+        serving prefill's logits). A share (``Mesh.share``) runs its own
+        row and model shard: the batch stays logical, it cuts its rows."""
         cfg = self.cfg
         key = "embeddings" if (cfg.uses_embeddings_input
                                and "embeddings" in batch) else "inputs"
-        n_rows = shd.batch_rows(batch[key].shape[0], mesh)
-        rows = list(range(n_rows))
-        per = batch[key].shape[0] // n_rows
-
-        def split(t):
-            t = torch.as_tensor(t)
-            return [t[r * per:(r + 1) * per].to(mesh.rows[r][0])
-                    for r in rows]
-
+        rows, n_rows, split, _ = self._mesh_rows(batch[key].shape[0], mesh)
         if key == "embeddings":
             x_rows = [e.to(self.dtype) for e in split(batch[key])]
         else:
@@ -384,7 +381,9 @@ class LMModel:
                       for e, tok in zip(embed, split(batch[key]))]
         aux = torch.zeros((), dtype=torch.float32, device=mesh.first_device)
         if cfg.family in TRANSFORMER_FAMILIES:
-            fn = tfm.remat_fn(self._mesh_block_fn(mesh, rows), cfg.remat)
+            fn = tfm.remat_fn(self._mesh_block_fn(
+                mesh, rows, n_rows, batch[key].numel() // (
+                    cfg.d_model if key == "embeddings" else 1)), cfg.remat)
             windows = self.layer_windows()
             prefix = cfg.energon.min_prune_layer
             for i, layer in enumerate(tfm.unstack(params["blocks"])):
@@ -402,13 +401,84 @@ class LMModel:
                 else params["lm_head"]}
         logits = []
         for view, x in zip(shd.row_views(head, mesh, rows), x_rows):
+            if last_only:
+                x = x[:, -1:]
             x = L.apply_norm(cfg.norm, view["final_norm"], x)
             logits.append(L.tied_lm_logits(view["head"], x)
                           if cfg.tie_embeddings
                           else L.lm_logits(view["head"], x))
         return rows, logits, aux, split
 
-    def _mesh_block_fn(self, mesh, rows):
+    def _mesh_rows(self, batch_size: int, mesh):
+        """``(rows, n_rows, split, slots)`` of a mesh call over a logical
+        batch of ``batch_size``: the batch splits over the ``n_rows``
+        data rows (:func:`~repro_torch.distributed.sharding.batch_rows`);
+        ``rows`` index ``mesh.rows`` — every row, or a share's one —,
+        ``slots`` say which slice of the batch each of them takes, and
+        ``split(t)`` gives each its slice of a logical batch tensor on
+        its first device (a share cuts its own)."""
+        n_rows = shd.batch_rows(batch_size, mesh)
+        per = batch_size // n_rows
+        if mesh.coord is None:
+            rows = list(range(n_rows))
+            slots = rows
+        else:
+            rows = [0]
+            slots = [mesh.share_row if n_rows > 1 else 0]
+
+        def split(t):
+            t = torch.as_tensor(t)
+            return [t[s * per:(s + 1) * per].to(mesh.rows[r][0])
+                    for r, s in zip(rows, slots)]
+
+        return rows, n_rows, split, slots
+
+    def _mesh_moe(self, layer_moe, h_in, mesh, rows, n_rows: int,
+                  tokens: int):
+        """The MoE FFN of one layer over the rows' ``h_in``: ``(outs,
+        aux)``. Under the ``"serve"`` profile for at most
+        ``moe.SERVE_2D_TOKENS`` tokens — ``tokens``, the logical batch's,
+        however the rows split it — the 2-D expert layer over every row's
+        tokens (:func:`moe.apply_moe_serve_2d` on the experts' 2-D
+        shards); else, where the experts divide over 'model', each row
+        expert-parallel with its own capacity (:func:`moe.moe_rows`,
+        int8 ZeRO gathers under ``quantized_weight_gather``); else the
+        reference's single-device MoE over every row's tokens at once
+        (its capacity the whole batch's, as GSPMD computes it)."""
+        moe_cfg = self._moe_cfg()
+        dev = h_in[0].device
+        per = h_in[0].shape[0]
+
+        def whole():
+            if n_rows == 1:
+                return h_in[0]
+            return col.all_gather(
+                h_in, 0, [dev], axes=mesh.data_axes,
+                share=col.share_of(mesh, mesh.data_axes))[0]
+
+        def back(out):
+            return [out[i * per:(i + 1) * per].to(h.device)
+                    for i, h in enumerate(h_in)]
+
+        if shd.expert_shards(moe_cfg.num_experts, mesh) > 1:
+            if (shd.get_rules_profile() == "serve"
+                    and tokens <= moe_lib.SERVE_2D_TOKENS):
+                router = shd.row_views({"router": layer_moe["router"]},
+                                       mesh, rows[:1])[0]["router"]
+                params = dict(layer_moe, router=router)
+                out, met = moe_lib.apply_moe_serve_2d(params, whole(),
+                                                      moe_cfg, mesh)
+                return back(out), met["moe_aux_loss"]
+            experts = shd.row_views(
+                layer_moe, mesh, rows,
+                quantized=moe_cfg.quantized_weight_gather)
+            outs, met = moe_lib.moe_rows(experts, h_in, moe_cfg, mesh, rows)
+            return outs, met["moe_aux_loss"]
+        view = shd.row_views(layer_moe, mesh, rows[:1])[0]
+        out, met = moe_lib.apply_moe(view, whole(), moe_cfg)
+        return back(out), met["moe_aux_loss"]
+
+    def _mesh_block_fn(self, mesh, rows, n_rows: int = 1, tokens: int = 0):
         """One decoder layer over the rows: ``(layer shards, x_rows,
         window, layer_idx) -> (x_rows, aux)``. Attention and the MLP run
         per row with the model axis splitting heads and columns; an MoE
@@ -436,21 +506,9 @@ class LMModel:
                 mlp = shd.row_views(layer["mlp"], mesh, rows)
                 outs = [L.apply_mlp(v, h, cfg.activation)
                         for v, h in zip(mlp, h_in)]
-            elif shd.expert_shards(moe_cfg.num_experts, mesh) > 1:
-                experts = shd.row_views(
-                    layer["moe"], mesh, rows,
-                    quantized=moe_cfg.quantized_weight_gather)
-                outs, met = moe_lib.moe_rows(experts, h_in, moe_cfg, mesh,
-                                             rows)
-                aux = met["moe_aux_loss"]
             else:
-                view = shd.row_views(layer["moe"], mesh, rows[:1])[0]
-                dev = h_in[0].device
-                whole = col.all_gather(h_in, 0, [dev])[0]
-                out, met = moe_lib.apply_moe(view, whole, moe_cfg)
-                outs = [o.to(h.device) for o, h in
-                        zip(out.split(h_in[0].shape[0]), h_in)]
-                aux = met["moe_aux_loss"]
+                outs, aux = self._mesh_moe(layer["moe"], h_in, mesh, rows,
+                                           n_rows, tokens)
             return [x + o for x, o in zip(xs, outs)], aux
 
         return block_fn
@@ -779,7 +837,8 @@ class LMModel:
 
     @torch.no_grad()
     def decode_step(self, params, cache, inputs: Dict[str, torch.Tensor],
-                    cache_index: torch.Tensor, telemetry: bool = False):
+                    cache_index: torch.Tensor, telemetry: bool = False,
+                    mesh=None):
         """One-token decode: ``inputs['tokens'] [B, 1]`` (a vlm / audio
         model reads ``inputs['embeddings'] [B, 1, d_model]`` instead
         where given); ``cache_index [B]`` current lengths. With
@@ -794,7 +853,22 @@ class LMModel:
         ``telemetry`` also the int32 ``[L, B, 4]`` stats, as
         :meth:`prefill` — ``[0, B, 4]`` for a recurrent family, as the
         reference reports (its attention, if any, lives inside the group
-        scans)."""
+        scans).
+
+        With ``mesh`` — ``params`` laid out by ``param_shardings``
+        (:func:`~repro_torch.distributed.sharding.shard_tree`), ``cache``
+        by ``cache_shardings`` (:meth:`shard_cache`), ``inputs`` and
+        ``cache_index`` logical — the step runs over the mesh as the
+        reference's decode under an active mesh: :meth:`_mesh_decode`.
+        It returns ``(logits, cache)`` with the logits as the mesh holds
+        them, each data row's (vocab shards where the head splits the
+        vocabulary): :meth:`mesh_logits` assembles them. No
+        ``telemetry`` there."""
+        if mesh is not None:
+            if telemetry:
+                raise ValueError("decode_step over a mesh has no telemetry")
+            return self._mesh_decode(params, cache, inputs, cache_index,
+                                     mesh), cache
         cfg, moe_cfg = self.cfg, self._moe_cfg()
         x = self._embed_in(params, inputs, "tokens")
         cache_index = cache_index.to(torch.int32)
@@ -878,6 +952,238 @@ class LMModel:
             x = x + h
             _advance_state(st, new, active)
         return x
+
+
+    # ------------------------------------------------------------------
+    # decode over a mesh
+    # ------------------------------------------------------------------
+
+    def shard_cache(self, cache, mesh):
+        """:meth:`init_cache`'s cache laid out by ``cache_shardings`` over
+        ``mesh`` — a share: the shards its device holds —, each shard a
+        cache leaf with the write scratch after each layer."""
+        return shd.shard_cache(cache, mesh,
+                               attn_lib.contiguous_scratch(self.cfg.head_dim))
+
+    @staticmethod
+    def mesh_logits(logits, device=None) -> torch.Tensor:
+        """:meth:`decode_step` ``(mesh=)``'s logits as one ``[B, 1, V]``
+        tensor on ``device`` (default the first row's): each row's vocab
+        shards concatenated, the rows after one another."""
+        first = logits[0][0] if isinstance(logits[0], tuple) else logits[0]
+        device = first.device if device is None else device
+        return torch.cat([torch.cat([t.to(device) for t in lg], dim=-1)
+                          if isinstance(lg, tuple) else lg.to(device)
+                          for lg in logits], dim=0)
+
+    def _mesh_decode(self, params, cache, inputs, cache_index, mesh):
+        """One-token decode over ``mesh``, the reference's decode under an
+        active mesh: the batch over the data rows where they divide it
+        (else one row decodes it, as each replicated row would), every
+        layer's weights through ``row_views`` (the ZeRO gather over
+        'data' under the ``"train"`` profile; the heads, MLP columns and
+        vocabulary over 'model'), each row's attention over the cache
+        pieces it holds (:func:`attention.mesh_decode_attention_block`),
+        an MoE layer by :meth:`_mesh_moe` (the 2-D experts under
+        ``"serve"``). A recurrent family's state goes by ``cache_pspec``'s
+        first-DP-dim rule, each cell's weights gathered whole per row as
+        in training (:func:`_state_layer`). Returns each row's logits."""
+        cfg = self.cfg
+        key = "embeddings" if (cfg.uses_embeddings_input
+                               and "embeddings" in inputs) else "tokens"
+        batch = inputs[key].shape[0]
+        rows, n_rows, split, slots = self._mesh_rows(batch, mesh)
+        if key == "embeddings":
+            x_rows = [e.to(self.dtype) for e in split(inputs[key])]
+        else:
+            embed = shd.row_views({"embed": params["embed"]}, mesh, rows)
+            x_rows = [self._embed(e, tok)
+                      for e, tok in zip(embed, split(inputs[key]))]
+        ci = [c.to(torch.int32) for c in split(cache_index)]
+        run = dict(mesh=mesh, rows=rows, n_rows=n_rows, tokens=batch, ci=ci,
+                   per=batch // n_rows, slots=slots)
+        if cfg.family in TRANSFORMER_FAMILIES:
+            windows = self.layer_windows()
+            prefix = cfg.energon.min_prune_layer
+            for i, layer in enumerate(tfm.unstack(params["blocks"])):
+                kw = self._attn_kwargs(0 if i < prefix else prefix,
+                                       None if windows is None
+                                       else windows[i])
+                x_rows = self._mesh_decode_layer(layer, x_rows, cache, (i,),
+                                                 kw, run)
+        elif cfg.family == "ssm":
+            x_rows = self._mesh_decode_xlstm(params, cache, x_rows, run)
+        else:
+            x_rows = self._mesh_decode_hybrid(params, cache, x_rows, run)
+        head = {"final_norm": params["final_norm"],
+                "head": params["embed"] if cfg.tie_embeddings
+                else params["lm_head"]}
+        logits = []
+        for view, x in zip(shd.row_views(head, mesh, rows), x_rows):
+            x = L.apply_norm(cfg.norm, view["final_norm"], x)
+            logits.append(L.tied_lm_logits(view["head"], x)
+                          if cfg.tie_embeddings
+                          else L.lm_logits(view["head"], x))
+        return logits
+
+    def _mesh_decode_layer(self, layer, x_rows, cache, idx, kw, run):
+        """One decoder layer's decode over the rows: attention over each
+        row's pieces of ``cache`` (the stacked K/V leaves' layer
+        ``idx``), then the MLP or the MoE."""
+        cfg, mesh, rows = self.cfg, run["mesh"], run["rows"]
+        lay = shd.CacheLayout(cache["k"])
+        names = [n for n in ("k", "v", "k_codes") if n in cache]
+        views = shd.row_views(
+            {k: layer[k] for k in ("norm_attn", "attn", "norm_mlp")},
+            mesh, rows)
+        xs, h_in = [], []
+        for r, view, x, ci in zip(rows, views, x_rows, run["ci"]):
+            pieces = {jk: {n: cache[n].shards[key][idx] for n in names}
+                      for jk, key in lay.row_keys(r).items()}
+            k_scale = (shd.row_shard(cache["k_scale"], r)[idx]
+                       if "k_scale" in cache else None)
+            x = x + attn_lib.mesh_decode_attention_block(
+                view["attn"], L.apply_norm(cfg.norm, view["norm_attn"], x),
+                pieces, lay, k_scale, ci, cfg.energon, **kw)
+            xs.append(x)
+            h_in.append(L.apply_norm(cfg.norm, view["norm_mlp"], x))
+        if "moe" in layer:
+            outs, _ = self._mesh_moe(layer["moe"], h_in, mesh, rows,
+                                     run["n_rows"], run["tokens"])
+        else:
+            mlp = shd.row_views(layer["mlp"], mesh, rows)
+            outs = [L.apply_mlp(v, h, cfg.activation)
+                    for v, h in zip(mlp, h_in)]
+        return [x + o for x, o in zip(xs, outs)]
+
+    def _mesh_cell_step(self, p, states, step, x_rows, idx, run):
+        """One recurrent layer's decode over the rows: the cell's weights
+        gathered whole onto each row, its state ``states`` (the cache's
+        leaves of this kind) at layer ``idx`` read by
+        :func:`_state_layer`, advanced in place and handed back."""
+        cfg, mesh = self.cfg, run["mesh"]
+        views = shd.row_views(p, mesh, run["rows"], whole=True)
+        out = []
+        for r, slot, v, x in zip(run["rows"], run["slots"], views, x_rows):
+            st, backs = {}, []
+            for name, leaf in states.items():
+                st[name], back = _state_layer(leaf, idx, mesh, r, slot,
+                                              run["per"])
+                if back is not None:
+                    backs.append((name, back))
+            h, new = step(v["cell"], L.apply_norm(cfg.norm, v["norm"], x),
+                          st)
+            _advance_state(st, new, None)
+            for name, back in backs:
+                back(st[name])
+            out.append(x + h)
+        return out
+
+    def _mesh_decode_xlstm(self, params, cache, x_rows, run):
+        cfg = self.cfg
+        m_per, groups = self._xlstm_layout()
+        for g in range(groups):
+            for j in range(m_per + 1):      # m_per mLSTM layers, 1 sLSTM
+                key = "mlstm" if j < m_per else "slstm"
+                fn = ssm_lib.mlstm_step if j < m_per else ssm_lib.slstm_step
+                idx = (g, j) if j < m_per else (g,)
+                x_rows = self._mesh_cell_step(
+                    _layer_of(params[key], idx), cache[key],
+                    lambda c, x, st, fn=fn: fn(c, x, st, cfg.num_heads),
+                    x_rows, idx, run)
+        return x_rows
+
+    def _mesh_decode_hybrid(self, params, cache, x_rows, run):
+        cfg = self.cfg
+        kw = self._attn_kwargs(SHARED_LAYER, None)
+
+        def mamba(c, x, st):
+            return ssm_lib.mamba2_step(c, x, st, cfg.ssm_state,
+                                       cfg.ssm_head_dim)
+
+        for where, p in self._mamba_layers(params):
+            if p is None:      # the shared block over group g's cache
+                x_rows = self._mesh_decode_layer(
+                    params["shared"], x_rows, cache["shared_attn"],
+                    where[1:], kw, run)
+            else:
+                x_rows = self._mesh_cell_step(p, cache[where[0]], mamba,
+                                              x_rows, where[1:], run)
+        return x_rows
+
+
+def _layer_of(tree, idx):
+    """Layer ``idx`` (lead indices) of a sharded stacked tree: each
+    :class:`ShardedLeaf` shard indexed (views), the spec and shape less
+    the lead dims (never sharded: ``logical_axes_for`` maps them to
+    None)."""
+    if isinstance(tree, dict):
+        return {k: _layer_of(v, idx) for k, v in tree.items()}
+    n = len(idx)
+    return shd.ShardedLeaf(tree.spec[n:], tree.shape[n:], tree.mesh,
+                           {k: t[idx] for k, t in tree.shards.items()})
+
+
+def _state_layer(leaf, idx, mesh, row: int, slot: int, per: int):
+    """Data row ``row``'s view of one layer ``idx`` (its stacked lead
+    indices) of a recurrent-state :class:`ShardedLeaf` laid out by
+    ``cache_pspec`` (its first dim the data axes divide): ``(state
+    [per, …], write_back)``, the rows ``slot · per …`` of the layer's
+    batch. Where the layout splits the layer axis, the batch (as the rows
+    do) or nothing, the state is a view into the shard that holds it
+    (``write_back`` None: in-place writes land); where it splits a state
+    dim, the parts are all-gathered over the data axes and
+    ``write_back(new)`` hands each part its slice. A share reads the
+    shards it holds, and a stand-in (priced) of a layer another device
+    holds."""
+    d = leaf.data_dim()
+    lead = len(idx)
+    axes = shd._entry_axes(leaf.spec[d]) if d is not None else ()
+    n = math.prod(mesh.shape[a] for a in axes)
+    part = leaf.shape[d] // n if d is not None else 0
+
+    def key_of(k):
+        at = {}
+        for a in reversed(axes):
+            k, at[a] = divmod(k, mesh.shape[a])
+        return leaf.key(**at)
+
+    def rows_of(t):
+        return t.narrow(0, slot * per, per)
+
+    if d is None:
+        return rows_of(next(iter(leaf.shards.values()))[idx]), None
+    if d < lead:                                   # the layer axis
+        k, local = divmod(idx[d], part)
+        key = key_of(k)
+        idx_l = idx[:d] + (local,) + idx[d + 1:]
+        if key in leaf.shards:
+            return rows_of(leaf.shards[key][idx_l]), None
+        shape = leaf.shape[lead:]
+        t = next(iter(leaf.shards.values()))
+        stand = col.all_gather(
+            [torch.empty((1,) + tuple(shape), dtype=t.dtype,
+                         device=t.device)], 0, [t.device], axes=axes,
+            share=col.share_of(mesh, axes))[0][0]
+        return rows_of(stand), None
+    if d == lead and n == shd.dp_size(mesh) and per * n == leaf.shape[d]:
+        return shd.row_shard(leaf, row)[idx], None  # the batch, as the rows
+    dim = d - lead          # a state dim: the batch replicates (one row)
+    if mesh.coord is not None:                       # a share's part
+        mine = next(iter(leaf.shards.values()))[idx]
+        share = col.share_of(mesh, axes)
+        k = share[1] if share else 0
+        whole = col.all_gather([mine], dim, [mine.device], axes=axes,
+                               share=share)[0]
+        return whole, lambda new: mine.copy_(new.narrow(dim, k * part,
+                                                        part))
+    parts = [leaf.shards[key_of(k)][idx] for k in range(n)]
+    whole = col.all_gather(parts, dim, [mesh.rows[row][0]], axes=axes)[0]
+
+    def write_back(new):
+        for k, p in enumerate(parts):
+            p.copy_(new.narrow(dim, k * part, part).to(p.device))
+    return whole, write_back
 
 
 def _advance_state(state: Dict[str, torch.Tensor],

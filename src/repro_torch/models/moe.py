@@ -244,14 +244,16 @@ def shard_route(flat_e: torch.Tensor, flat_pos: torch.Tensor,
     return safe_e, safe_pos, keep_s
 
 
-def cross_shard_sum(partials, dtype: torch.dtype,
-                    device: torch.device) -> torch.Tensor:
+def cross_shard_sum(partials, dtype: torch.dtype, device: torch.device,
+                    share=None) -> torch.Tensor:
     """The shards' partial outputs (each in the layer's dtype) added in
     f32 in shard order on ``device`` and rounded once to ``dtype``: what
     the reference's ``psum`` over 'model' gives on XLA's CPU, bf16
     partials included (not a chain of bf16 adds) —
-    :func:`collectives.all_reduce`."""
-    return col.all_reduce([p.to(dtype) for p in partials], device)
+    :func:`collectives.all_reduce` (``share`` a share's place on
+    'model')."""
+    return col.all_reduce([p.to(dtype) for p in partials], device,
+                          axes=("model",), share=share)
 
 
 def _moe_row(params, x: torch.Tensor, cfg: MoEConfig, devices,
@@ -264,7 +266,10 @@ def _moe_row(params, x: torch.Tensor, cfg: MoEConfig, devices,
     in :func:`cross_shard_sum` (f32 in shard order, rounded once; its
     backward broadcasts). Returns ``(out, aux, kept)``: kept =
     Σ_s mean(keep_s) in shard order (None, None without metrics)."""
-    m = len(devices)
+    up = params["w_up"]
+    m = col.shard_total(up) if isinstance(up, tuple) else len(devices)
+    first = col.shard_start(up) if isinstance(up, tuple) else 0
+    share = col.shards_share(up) if isinstance(up, tuple) else None
     e, d = cfg.num_experts, x.shape[-1]
     e_local = e // m
     shards = {name: shd.expert_leaf_shards(params[name], e, devices, name)
@@ -273,20 +278,22 @@ def _moe_row(params, x: torch.Tensor, cfg: MoEConfig, devices,
     xt = x.reshape(batch * n, d)
     probs, top_p, top_e, flat_pos, keep, cap = route(params, xt, cfg)
     flat_e = top_e.reshape(-1)
-    xts = col.broadcast(xt, devices)
-    weights = col.broadcast(top_p.reshape(-1), devices)
+    xts = col.broadcast(xt, devices, axes=("model",), share=share)
+    weights = col.broadcast(top_p.reshape(-1), devices, axes=("model",),
+                            share=share)
     partials, kept = [], []
-    for s, dev in enumerate(devices):
-        safe_e, safe_pos, keep_s = shard_route(flat_e, flat_pos, keep, s,
-                                               e_local)
-        p_s = {name: leaves[s] for name, leaves in shards.items()}
+    for i, dev in enumerate(devices):
+        safe_e, safe_pos, keep_s = shard_route(flat_e, flat_pos, keep,
+                                               first + i, e_local)
+        p_s = {name: leaves[i] for name, leaves in shards.items()}
         part = _experts_combine(
-            p_s, xts[s], safe_e.to(dev), safe_pos.to(dev), keep_s.to(dev),
-            weights[s], e_local, cap, cfg.activation)
+            p_s, xts[i], safe_e.to(dev), safe_pos.to(dev), keep_s.to(dev),
+            weights[i], e_local, cap, cfg.activation)
         partials.append(part.to(x.dtype))
         if metrics:
             kept.append(keep_s.float().mean())
-    out = cross_shard_sum(partials, x.dtype, x.device).reshape(batch, n, d)
+    out = cross_shard_sum(partials, x.dtype, x.device,
+                          share).reshape(batch, n, d)
     if not metrics:
         return out, None, None
     total = kept[0]
@@ -295,12 +302,14 @@ def _moe_row(params, x: torch.Tensor, cfg: MoEConfig, devices,
     return out, _aux_loss(probs, top_e, cfg), total
 
 
-def _row_mean(values, device) -> torch.Tensor:
+def _row_mean(values, device, mesh) -> torch.Tensor:
     """The rows' scalars averaged: summed in f32 in row order on
     ``device`` over their count (the reference's ``pmean`` over the data
     axes)."""
-    return col.all_reduce([v.reshape(()) for v in values], device) \
-        / len(values)
+    axes = shd.data_axes(mesh)
+    return col.all_reduce([v.reshape(()) for v in values], device,
+                          axes=axes, share=col.share_of(mesh, axes)
+                          ) / len(values)
 
 
 def moe_rows(row_params, x_rows, cfg: MoEConfig, mesh, rows,
@@ -321,8 +330,8 @@ def moe_rows(row_params, x_rows, cfg: MoEConfig, mesh, rows,
     if not metrics:
         return outs, {}
     dev = x_rows[0].device
-    return outs, {"moe_aux_loss": _row_mean(aux, dev),
-                  "moe_drop_fraction": 1.0 - _row_mean(kept, dev)}
+    return outs, {"moe_aux_loss": _row_mean(aux, dev, mesh),
+                  "moe_drop_fraction": 1.0 - _row_mean(kept, dev, mesh)}
 
 
 def apply_moe_sharded(params, x: torch.Tensor, cfg: MoEConfig, mesh,
@@ -384,14 +393,13 @@ def apply_moe_serve_2d(params, x: torch.Tensor, cfg: MoEConfig, mesh,
     summed in shard order.
 
     No host sync and no data-dependent shape: a serve step through this
-    layer replays from a CUDA graph. A 'pod' axis > 1 is refused: the
-    reference's psum over ``("model", "pod", "data")`` adds every pod's
-    copy of the partials (its d_ff lies over 'data' alone)."""
-    if mesh.shape.get("pod", 1) > 1:
-        raise ValueError(
-            f"_apply_moe_serve_2d on a mesh with pod axis "
-            f"{mesh.shape['pod']}: its psum over ('model', 'pod', 'data') "
-            f"would add each pod's copy of the partials (ROADMAP §C)")
+    layer replays from a CUDA graph. On a 'pod' axis > 1 the pods are
+    replicas: each sums its own ``(model, data)`` partials, so the layer
+    equals the one-pod layer bit for bit (the reference's psum over
+    ``("model", "pod", "data")`` adds every pod's copy — ROADMAP §C),
+    and the one controller computes pod 0's. In a share
+    (``Mesh.share``) the device ``(data, model)`` of its coordinate runs
+    its slice alone, and the sum is its priced stand-in."""
     e, m = cfg.num_experts, mesh.shape["model"]
     d_n = mesh.shape.get("data", 1)
     if e % m or cfg.d_ff % d_n:
@@ -406,21 +414,27 @@ def apply_moe_serve_2d(params, x: torch.Tensor, cfg: MoEConfig, mesh,
     shards = shd.serve_expert_shards(params, e, mesh)
     keys = sorted(shards)                       # (data, model) row-major
     devices = [mesh.device({"data": i, "model": s}) for i, s in keys]
-    xts = col.broadcast(xt, devices)
-    weights = col.broadcast(top_p.reshape(-1), devices)
-    routes = [shard_route(flat_e, flat_pos, keep, s, e_local)
-              for s in range(m)]
+    axes = tuple(a for a in ("data", "model") if a in mesh.axis_names)
+    share = col.share_of(mesh, axes)
+    xts = col.broadcast(xt, devices, axes=axes, share=share)
+    weights = col.broadcast(top_p.reshape(-1), devices, axes=axes,
+                            share=share)
+    routes = {s: shard_route(flat_e, flat_pos, keep, s, e_local)
+              for s in sorted({s for _, s in keys})}
     partials = []
     for k, ((i, s), dev) in enumerate(zip(keys, devices)):
         safe_e, safe_pos, keep_s = routes[s]
         partials.append(_experts_combine(
             shards[(i, s)], xts[k], safe_e.to(dev), safe_pos.to(dev),
             keep_s.to(dev), weights[k], e_local, cap, cfg.activation))
-    out = col.all_reduce(partials, x.device).to(x.dtype).reshape(batch, n, d)
+    out = col.all_reduce(partials, x.device, axes=axes[::-1],
+                         share=share).to(
+        x.dtype).reshape(batch, n, d)
     if not metrics:
         return out, {}
-    kept = routes[0][2].float().mean()
-    for _, _, keep_s in routes[1:]:
-        kept = kept + keep_s.float().mean()
+    kept = None
+    for _, _, keep_s in routes.values():
+        part = keep_s.float().mean()
+        kept = part if kept is None else kept + part
     return out, {"moe_aux_loss": _aux_loss(probs, top_e, cfg),
                  "moe_drop_fraction": 1.0 - kept}

@@ -32,7 +32,10 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import ShardedLeaf, shard_leaf
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.sharding import (
+    ShardedLeaf, share_leaf, shard_leaf, _spec_axes,
+)
 
 _F32 = torch.float32
 
@@ -112,9 +115,11 @@ def _zeros(p, dtype=_F32, shape=None):
 
 
 def _sharded_zeros(p: ShardedLeaf, spec, shape) -> ShardedLeaf:
-    """Zeros of ``shape`` laid out by ``spec`` on ``p``'s mesh."""
-    return shard_leaf(torch.zeros(shape, dtype=_F32,
-                                  device=p.mesh.first_device), spec, p.mesh)
+    """Zeros of ``shape`` laid out by ``spec`` on ``p``'s mesh (a
+    share's: its one shard)."""
+    place = shard_leaf if p.mesh.coord is None else share_leaf
+    return place(torch.zeros(shape, dtype=_F32,
+                             device=p.mesh.first_device), spec, p.mesh)
 
 
 def _init_nu(p, cfg: AdamWConfig):
@@ -155,7 +160,15 @@ def global_norm(tree: Any) -> torch.Tensor:
     parts = [t for _, x in tree_leaves(tree) for t in _tensors(x)]
     dev = parts[0].device
     sums = [x.to(_F32, copy=True).square_().sum().to(dev) for x in parts]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+    total = torch.sum(torch.stack(sums))
+    mesh = next((x.mesh for _, x in tree_leaves(tree)
+                 if isinstance(x, ShardedLeaf)), None)
+    if mesh is not None and mesh.coord is not None:
+        # a share's shards: the other devices' sums, all-reduced
+        axes = mesh.axis_names
+        total = col.all_reduce([total], dev, axes=axes,
+                               share=col.share_of(mesh, axes))
+    return torch.sqrt(total)
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -240,6 +253,11 @@ def _update_factored_sharded(p: ShardedLeaf, g: ShardedLeaf,
         g2 = g32_of(k).square_()
         row_sum[sl[:-1]] += g2.sum(dim=-1).to(dev)
         col_sum[sl[:-2] + sl[-1:]] += g2.sum(dim=-2).to(dev)
+    if p.mesh.coord is not None:    # a share: the other shards' sums
+        axes = _spec_axes(p.spec)
+        share = col.share_of(p.mesh, axes)
+        row_sum = col.all_reduce([row_sum], dev, axes=axes, share=share)
+        col_sum = col.all_reduce([col_sum], dev, axes=axes, share=share)
     stats = {}
     for name, total, n in (("row", row_sum, c_n), ("col", col_sum, r_n)):
         stat = gather_leaf(v[name], dev)

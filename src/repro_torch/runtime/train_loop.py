@@ -106,7 +106,10 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, mesh=None,
     step; ``batch`` leaves (numpy or tensors) go to the model's device,
     or with ``mesh`` to the mesh's first device, whence the model hands
     each data row its rows (params and state then sharded:
-    :func:`shard_state`).
+    :func:`shard_state`). With a share of a mesh (``Mesh.share``:
+    params and state its shards, the batch logical) the step is that
+    device's: its rows, its shards' update, the collectives priced
+    stand-ins (the dry run's ``--mesh``).
     Metrics: the loss's (``loss``, ``ce``, ``aux``, ``tokens`` of the
     last microbatch, then ``loss`` the microbatches' mean), ``grad_norm``
     and ``lr``. The forward and backward write nothing, so a failure

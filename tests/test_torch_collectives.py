@@ -34,7 +34,7 @@ def _parts(n=3, shape=(4, 5), dtype=torch.float64, seed=0):
 @pytest.mark.parametrize("dim", [0, 1])
 def test_all_gather_is_cat_and_its_backward_reduce_scatters(dim):
     parts = _parts()
-    outs = col.all_gather(parts, dim, [CPU, CPU])
+    outs = col.all_gather(parts, dim, [CPU, CPU], axes=("data",))
     want = torch.cat([p.detach() for p in parts], dim=dim)
     assert all(torch.equal(o, want) for o in outs)
     g = [torch.randn_like(o) for o in outs]
@@ -43,13 +43,14 @@ def test_all_gather_is_cat_and_its_backward_reduce_scatters(dim):
     for p, piece in zip(parts, total.split(4 if dim == 0 else 5, dim=dim)):
         assert torch.equal(p.grad, piece)
     assert torch.autograd.gradcheck(
-        lambda *ps: tuple(col.all_gather(ps, dim, [CPU, CPU])),
+        lambda *ps: tuple(col.all_gather(ps, dim, [CPU, CPU],
+                                         axes=("data",))),
         tuple(_parts()))
 
 
 def test_reduce_scatter_is_a_split_sum_and_its_backward_gathers():
     parts = _parts(n=2, shape=(6, 3))
-    outs = col.reduce_scatter(parts, 0)
+    outs = col.reduce_scatter(parts, 0, axes=("data",))
     total = parts[0].detach() + parts[1].detach()
     assert [torch.equal(o, w) for o, w in zip(outs, total.split(3))] == [
         True, True]
@@ -58,24 +59,24 @@ def test_reduce_scatter_is_a_split_sum_and_its_backward_gathers():
     for p in parts:
         assert torch.equal(p.grad, torch.cat(g))
     assert torch.autograd.gradcheck(
-        lambda *ps: tuple(col.reduce_scatter(ps, 0)),
+        lambda *ps: tuple(col.reduce_scatter(ps, 0, axes=("data",))),
         tuple(_parts(n=2, shape=(6, 3))))
 
 
 def test_all_reduce_is_the_sum_and_its_backward_broadcasts():
     parts = _parts()
-    out = col.all_reduce(parts)
+    out = col.all_reduce(parts, axes=("model",))
     assert torch.equal(out, parts[0] + parts[1] + parts[2])
     g = torch.randn_like(out)
     out.backward(g)
     assert all(torch.equal(p.grad, g) for p in parts)
-    assert torch.autograd.gradcheck(lambda *ps: col.all_reduce(ps),
-                                    tuple(_parts()))
+    assert torch.autograd.gradcheck(
+        lambda *ps: col.all_reduce(ps, axes=("model",)), tuple(_parts()))
 
 
 def test_broadcast_is_copies_and_its_backward_sums():
     x = _parts(n=1)[0]
-    outs = col.broadcast(x, [CPU, CPU, CPU])
+    outs = col.broadcast(x, [CPU, CPU, CPU], axes=("model",))
     assert all(torch.equal(o, x) for o in outs)
     # a copy onto the device it lives on is a view, not memory
     assert all(o.data_ptr() == x.data_ptr() for o in outs)
@@ -83,7 +84,8 @@ def test_broadcast_is_copies_and_its_backward_sums():
     torch.autograd.backward(outs, g)
     assert torch.equal(x.grad, g[0] + g[1] + g[2])
     assert torch.autograd.gradcheck(
-        lambda y: tuple(col.broadcast(y, [CPU, CPU])), (_parts(n=1)[0],))
+        lambda y: tuple(col.broadcast(y, [CPU, CPU], axes=("model",))),
+        (_parts(n=1)[0],))
 
 
 def test_bf16_sums_run_in_f32_and_round_once():
@@ -94,10 +96,11 @@ def test_bf16_sums_run_in_f32_and_round_once():
     once = (parts[0].float() + parts[1].float() + parts[2].float()).to(
         torch.bfloat16)
     assert not torch.equal(chained, once)
-    assert torch.equal(col.all_reduce(parts), once)
-    assert torch.equal(torch.cat(col.reduce_scatter(parts, 0)), once)
+    assert torch.equal(col.all_reduce(parts, axes=("model",)), once)
+    assert torch.equal(
+        torch.cat(col.reduce_scatter(parts, 0, axes=("data",))), once)
     x = torch.zeros(3, dtype=torch.bfloat16, requires_grad=True)
-    outs = col.broadcast(x, [CPU] * 3)
+    outs = col.broadcast(x, [CPU] * 3, axes=("model",))
     torch.autograd.backward(outs, parts)
     assert torch.equal(x.grad, once)
 
@@ -107,7 +110,8 @@ def test_bf16_sums_run_in_f32_and_round_once():
 def test_quantized_all_gather_codes_scales_and_exact_gradient(dtype, dim):
     parts = [p.detach().to(dtype).requires_grad_()
              for p in _parts(n=2, shape=(6, 8), dtype=torch.float32)]
-    outs = col.quantized_all_gather(parts, dim, [CPU, CPU])
+    outs = col.quantized_all_gather(parts, dim, [CPU, CPU],
+                                    axes=("data",))
     pieces = []
     for p in parts:
         codes, scale = col.quantize_rows(p.detach(), dim)

@@ -510,7 +510,8 @@ def test_serve_2d_layout_and_refusals():
     "data")`` for up / gate, ``P("model", "data", None)`` for down) and
     the layer on that layout equals the layer on whole leaves bit for
     bit; past 4096 tokens the serve profile takes the expert-parallel
-    path; a pod axis > 1 is refused."""
+    path; on a pod axis > 1 each pod sums its own partials (the pods are
+    replicas), so the layer equals the one-pod layer bit for bit."""
     from repro_torch.models import moe
 
     cfg = moe.MoEConfig(**SERVE_2D_LAYER)
@@ -544,7 +545,10 @@ def test_serve_2d_layout_and_refusals():
             finally:
                 moe.apply_moe_sharded = real
             assert seen == [1]
-        with pytest.raises(ValueError, match="pod"):
-            moe.apply_moe_serve_2d(params, x, cfg, pod_mesh(2, 1, 2))
+        one_pod, _ = moe.apply_moe_serve_2d(params, x, cfg,
+                                            pod_mesh(1, 1, 2))
+        two_pods, _ = moe.apply_moe_serve_2d(params, x, cfg,
+                                             pod_mesh(2, 1, 2))
+        assert torch.equal(two_pods, one_pod)
     finally:
         shd.set_rules_profile("train")

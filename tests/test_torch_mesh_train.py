@@ -337,7 +337,8 @@ def test_int8_gather_equals_the_reference_bit_for_bit(ref, dtype, axis):
     arrays = ref["qag"]
     w = t(arrays[f"{dtype}/{axis}/w"]).to(getattr(torch, dtype))
     parts = list(w.chunk(2, dim=axis))
-    got = col.quantized_all_gather(parts, axis, [torch.device("cpu")])[0]
+    got = col.quantized_all_gather(parts, axis, [torch.device("cpu")],
+                                   axes=("data",))[0]
     assert torch.equal(got.float(), t(arrays[f"{dtype}/{axis}/g"]))
 
 

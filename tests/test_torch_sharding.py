@@ -22,10 +22,11 @@ reference's rules, on the CPU.
 * ``split_layers_to_stages`` and the ``"serve"`` profile's
   ``apply_moe_serve_2d`` against the reference's on one device (their
   multi-device cases run in ``test_torch_distributed.py``'s subprocess).
-* The one refusal that stays: ``launch/dryrun.py --mesh``, naming the
-  next slice; ``launch/train.py --mesh 2x2x2`` trains.
+* ``launch/dryrun.py --mesh single`` walks one device's share of the
+  production mesh; ``launch/train.py --mesh 2x2x2`` trains.
 """
 
+import json
 import math
 
 import jax
@@ -405,12 +406,33 @@ def test_serve_profile_moe_on_one_device_equals_the_reference(dtype):
         jmet["moe_drop_fraction"])
 
 
-def test_dryrun_and_train_meshes_are_refused_naming_a5b():
+def test_dryrun_mesh_single_writes_the_reference_artifact(tmp_path):
+    """The dry run's ``--mesh single``: ``main`` walks one device's share
+    of the 16 × 16 production mesh on the meta device and writes the
+    reference's artifact keys with ``chips`` 256 and ``mesh`` "single"
+    (qwen3-14b's decode_32k, ≈ 10 s), its argument bytes the share's
+    reckoning from ``param_pspec`` / ``cache_pspec``."""
+    from repro_torch.configs import shapes_for_arch
+    from repro_torch.configs.registry import get_config
     from repro_torch.launch import dryrun
 
-    for name in ("single", "multi"):
-        with pytest.raises(SystemExit, match="A5b item 5, the next slice"):
-            dryrun.main(["--mesh", name])
+    dryrun.main(["--arch", "qwen3-14b", "--shape", "decode_32k", "--mesh",
+                 "single", "--out", str(tmp_path)])
+    with open(tmp_path / "qwen3-14b__decode_32k.json") as f:
+        art = json.load(f)
+    assert {"arch", "shape", "kind", "mesh", "chips", "compile_seconds",
+            "cost_analysis", "memory_analysis", "parsed",
+            "model_flops"} <= set(art)
+    assert art["mesh"] == "single" and art["chips"] == 256
+    assert art["coord"] == {"data": 0, "model": 0}
+    assert set(art["parsed"]["collective_bytes_per_chip"]) <= {
+        "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+        "collective-permute"}
+    shape = next(x for x in shapes_for_arch("qwen3-14b")
+                 if x.name == "decode_32k")
+    assert art["memory_analysis"]["argument_size_in_bytes"] == (
+        dryrun.share_argument_bytes(get_config("qwen3-14b"), shape,
+                                    dryrun.production_mesh("single")))
 
 
 def test_the_train_launcher_trains_on_a_pod_mesh(capsys):
