@@ -339,9 +339,9 @@ within 70 GB and the card's name and power limit on a line of its own:
     a graphed and an eager engine (``[zamba2-eager]``: equal streams);
     ``loss`` over 2 × 2048 (B9 / B10 13 each) and B9–B11 on the first
     shared block's q/k/v.
-26. ``[xlstm-…]``: xlstm-1.3b at published widths and full depth (48
-    layers in 6 groups of 7 mLSTM + 1 sLSTM, d 2048, 4 heads: mLSTM
-    heads of 1024; impl dense): the same traffic and eager pair,
+26. ``[xlstm-…]``: xlstm-1.3b at published widths cut to 16 of its 48
+    layers (2 of its 6 groups of 7 mLSTM + 1 sLSTM, d 2048, 4 heads:
+    mLSTM heads of 1024; impl dense): the same traffic and eager pair,
     ``loss`` over 1 × 2048 (not profiled); no kernel launched at all (an
     attention path taken by mistake would launch one);
     ``[profile-decode-xlstm]``.
@@ -397,6 +397,21 @@ none of B1–B11):
     1)`` and ``(4, 1)``: every logical leaf bit-equal (exact digest), and
     a further step each (qwen3-14b's smoke widths in bf16).
 
+33. ``[mesh-uneven]``: qwen3-14b's serve config at published widths cut
+    to ``MESH_UNEVEN_LAYERS`` on a ``(1, 16)`` mesh of the card, its 40
+    query heads split over 'model' as GSPMD splits them (3 a shard:
+    shards 0–13 hold heads, 14–15 none): ``apply`` within
+    ``MESH_DECODE_GATE`` of one device's logits, ``loss`` within
+    ``MESH_LOSS_RTOL``, B9 / B10 launched sparse layers × 14 (and no
+    other kernel); then one train step's loss and gradients (f32,
+    ρ 1) on the same mesh and on an even ``(1, 8)`` one against one
+    device's: the loss at ``tests/test_torch_mesh_train.py``'s rtol,
+    every gradient leaf within ``MESH_UNEVEN_GRAD_NORM`` in norm.
+34. ``[serve-decode]``: ``repro_torch.serve_decode.main()`` on the card
+    (the reference's ``examples/serve_decode.py``): 24 of 24 drained,
+    the peak within 20 pages, ρ_eff in (0, 1], a preemption and prefix
+    hits; its counters and the Chrome trace's event count.
+
 The line before last is a JSON object listing each kernel's launches
 (B1–B4 in phase 4, B5–B8 in phase 8, B9–B11 in phase 15; those of
 phases 17–19 beside them), error and
@@ -406,7 +421,7 @@ score's layer 2; ``random`` holds phase 2's, 7's or 10's; ``d96`` phase
 phase 9f's shard; ``g16`` phase 22's at G 16; ``launches_mesh`` the
 launches of phases 9f and 9g; ``launches_moe`` phase 20's,
 ``launches_moe_ep`` phase 21's, ``launches_qwen3moe`` phase 22's,
-``launches_families`` phases 23–26)
+``launches_families`` phases 23–26, ``launches_mesh_uneven`` phase 33)
 and each time over its bound (``ms_over_bound``); the mesh phases, the
 eager/graphed drains, the
 scoring results (with the ptxas report), the unpaged serve and the paged
@@ -4204,13 +4219,15 @@ FAMILY_PHASES = (
     ("llava-next-34b", LLAVA_LAYERS,
      dict(n_req=4, prompt_len=2048, max_len=4096), dict(n_seq=2)),
 )
-#: [zamba2-…] / [xlstm-…]: (arch, scored sequences); the requests
-#: admitted together by one sequential wave and their prompt length
-#: (max_len 1024: the shared block's planes resident); the profiled
-#: drain's prompt length and the eager-vs-graphed pair's traffic (an
-#: eager step launches each of its 4000–9000 kernels from the host: on
-#: an H100 a wave of 511 eager zamba2 steps took ≈ 2 min)
-RECURRENT_PHASES = (("zamba2-7b", 2), ("xlstm-1.3b", 1))
+#: [zamba2-…] / [xlstm-…]: (arch, scored sequences, depth or None for
+#: the full depth); the requests admitted together by one sequential
+#: wave and their prompt length (max_len 1024: the shared block's planes
+#: resident); the profiled drain's prompt length and the eager-vs-graphed
+#: pair's traffic (an eager step launches each of its 4000–9000 kernels
+#: from the host: on an H100 a wave of 511 eager zamba2 steps took ≈ 2
+#: min). xlstm-1.3b (no kernel) runs 2 of its 6 groups of 7 mLSTM + 1
+#: sLSTM layers, to keep the whole script near 900 s
+RECURRENT_PHASES = (("zamba2-7b", 2, None), ("xlstm-1.3b", 1, 16))
 RECURRENT_REQUESTS, RECURRENT_PROMPT, RECURRENT_MAX_LEN = 4, 512, 1024
 RECURRENT_PROFILE_PROMPT = 128
 RECURRENT_EAGER = dict(prompt_len=64, new_tokens=16)
@@ -4425,9 +4442,10 @@ def shared_block_case(engine, captured, chunk=128):
         pk=e.key_block, bq=e.query_block, ratio=e.pruning_ratio)
 
 
-def recurrent_phase(arch, n_seq, results, blocks):
+def recurrent_phase(arch, n_seq, results, blocks, layers=None):
     """``[zamba2-…]`` / ``[xlstm-…]``: a recurrent model at published
-    widths and full depth (random bf16 weights from seed 0; the Mamba2
+    widths and full depth, or ``layers`` deep (random bf16 weights from
+    seed 0; the Mamba2
     ``a_log`` / ``dt_bias`` / ``d_skip`` f32), served from the contiguous
     cache through sequential admission waves: RECURRENT_REQUESTS prompts
     of RECURRENT_PROMPT tokens admitted together (one wave of
@@ -4454,6 +4472,8 @@ def recurrent_phase(arch, n_seq, results, blocks):
     short = arch.split("-")[0]
     label = f"{short}-serve"
     cfg = get_serve_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     card = card_line(short)
     peaks = {}
     t0 = time.perf_counter()
@@ -4468,7 +4488,10 @@ def recurrent_phase(arch, n_seq, results, blocks):
     need(not model.supports_prefill and not model.supports_paged,
          f"{arch} is not served by sequential waves")
     _, fused, _ = layer_paths(model)
-    log(f"[{label}] {cfg.name} ({cfg.family}): {cfg.num_layers} layers, "
+    depth = "" if layers is None else (
+        f" of {get_serve_config(arch).num_layers}")
+    log(f"[{label}] {cfg.name} ({cfg.family}): {cfg.num_layers}{depth} "
+        f"layers, "
         f"d_model {cfg.d_model}, {cfg.num_heads} heads, vocab "
         f"{cfg.vocab_size}, impl {cfg.energon.impl!r}; {n_params / 1e9:.3f} "
         f"B parameters ({n_bytes / 1e9:.2f} GB), init "
@@ -4574,8 +4597,8 @@ def new_family_phases(results, blocks):
     for arch, layers, serve_kw, score_kw in FAMILY_PHASES:
         out.update(family_phase(arch, layers, serve_kw, score_kw, results,
                                 blocks))
-    for arch, n_seq in RECURRENT_PHASES:
-        out.update(recurrent_phase(arch, n_seq, results, blocks))
+    for arch, n_seq, layers in RECURRENT_PHASES:
+        out.update(recurrent_phase(arch, n_seq, results, blocks, layers))
     return out
 
 
@@ -5989,6 +6012,242 @@ def dryrun_mesh_phase(keep):
     return out
 
 
+#: [mesh-uneven]: qwen3-14b's serve config at published widths cut to this
+#: depth (layers 0–1 dense, 2–3 sparse) on a (1, 16) mesh of the card: 40
+#: query heads over 16 split as GSPMD splits them, ⌈40/16⌉ = 3 a shard,
+#: so shards 0–13 hold heads (the last of them one) and 14–15 none
+MESH_UNEVEN_LAYERS = 4
+MESH_UNEVEN_GRID = (1, 16)
+MESH_UNEVEN_BATCH, MESH_UNEVEN_SEQ = 2, 2048
+#: the train step's loss and gradients: qwen3-14b's training config at
+#: published widths in f32 at ρ 1 (no kernel runs under grad), this deep
+#: (layer 2 on the block path), 1 × 256 tokens. The loss at
+#: tests/test_torch_mesh_train.py's rtol 1e-5. Its elementwise gradient
+#: tolerance (rtol 1e-4, atol 1e-6 × the leaf's largest) is set for the
+#: smoke widths' short sums: at published widths (sums of 5120–17408
+#: terms) the same f32 graph summed in other orders passes it by up to
+#: ≈ 2× on a few hundred of 10^8 elements, on an even split as on the
+#: uneven one, so the count is printed and each leaf is gated on
+#: ‖Δ‖ / ‖ref‖ (≈ 2e-6 measured; a head or shard misplaced is O(0.1))
+MESH_UNEVEN_GRAD_LAYERS = 3
+MESH_UNEVEN_GRAD_SEQ = 256
+MESH_UNEVEN_LOSS_RTOL = 1e-5
+MESH_UNEVEN_GRAD_TOL = (1e-4, 1e-6)
+MESH_UNEVEN_GRAD_NORM = 1e-5
+
+
+def xla_decode_ticks(impls=("mpmrf_block", "mpmrf_row"), ticks=4):
+    """``[xla-ticks:<impl>]``: device kernels and ms a decode tick on the
+    XLA selection paths (no CUDA kernel of the port runs there), for a
+    one-off over two trees' ``src`` (``PYTHONPATH``): qwen3-14b's serve
+    config at published widths and depth, random weights (seed 0), a
+    graphed paged engine per impl in turn, ``profile_decode``'s 8 slots
+    of 512-token prompts (a 256-token system prompt) and ``ticks``
+    greedy ticks under the profiler."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_serve_config
+    from repro_torch.models import LMModel
+    from repro_torch.runtime import ServeLoop
+
+    model = LMModel(get_serve_config("qwen3-14b"), device=DEV)
+    params = model.init(0)
+    system = np.random.default_rng(0).integers(
+        1, model.cfg.vocab_size - 1, size=SYSTEM_LEN).tolist()
+    out = {}
+    for impl in impls:
+        engine = ServeLoop(_with_impl(model, impl), params, batch_slots=8,
+                           max_len=1024, eos_token=-1, prefill_chunk=128,
+                           device=DEV)
+        engine.capture_graphs()
+        out[impl] = profile_decode(engine, system, prompt_len=512,
+                                   ticks=ticks, label=f"xla-ticks:{impl}")
+        _release(engine)
+        del engine
+    return out
+
+
+def mesh_uneven_phase():
+    """``[mesh-uneven]``: ``LMModel.apply`` / ``loss`` on a ``(1, 16)``
+    mesh of the card with qwen3-14b's 40 heads, which do not divide 16:
+    ``wq`` / ``wo`` stay replicated (``param_pspec``) and shard j takes
+    heads ``[3j, min(3j + 3, 40))``. Gates: the logits within
+    ``MESH_DECODE_GATE`` of max |logit| of one device's and the loss
+    within ``MESH_LOSS_RTOL``; B9 / B10 launched once per sparse layer
+    per shard that holds heads (2 × 14), B11 once per dense layer per
+    such shard; then one train step's loss and gradients (f32, ρ 1) on
+    the same mesh against one device's at the CPU test's tolerances."""
+    import torch
+
+    from repro_torch.configs.registry import get_config, get_serve_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import _build
+    from repro_torch.models import LMModel
+    from repro_torch.optim import adamw
+
+    label = "mesh-uneven"
+    smi = card_line(label)
+    t0 = time.perf_counter()
+    full = get_serve_config("qwen3-14b")
+    cfg = dataclasses.replace(full, num_layers=MESH_UNEVEN_LAYERS)
+    mesh = _sim_mesh(MESH_UNEVEN_GRID)
+    m = mesh.shape["model"]
+    per = -(-cfg.num_heads // m)
+    holding = -(-cfg.num_heads // per)
+    sparse = cfg.num_layers - cfg.energon.min_prune_layer
+    model = LMModel(cfg, device=DEV)
+    params = model.init(9)
+    gen = torch.Generator(device=DEV).manual_seed(41)
+    b, n = MESH_UNEVEN_BATCH, MESH_UNEVEN_SEQ
+    tok = torch.randint(1, cfg.vocab_size - 1, (b, n + 1), generator=gen,
+                        device=DEV)
+    batch = {"inputs": tok[:, :-1], "targets": tok[:, 1:]}
+    sp = shd.shard_tree(params, shd.param_shardings(params, mesh), mesh)
+    need(sp["blocks"]["attn"]["wq"].model_dim() is None,
+         f"[{label}] wq is not replicated over 'model'")
+    log(f"[{label}] {cfg.name} serve config (impl {cfg.energon.impl}, "
+        f"{cfg.dtype}) at published widths, {cfg.num_layers} of "
+        f"{full.num_layers} layers ({sparse} sparse), {b} × {n} tokens; "
+        f"{cfg.num_heads} heads over a model axis of {m}: {per} a shard, "
+        f"{holding} shards hold heads")
+    with torch.no_grad():
+        want = model.apply(params, {"inputs": batch["inputs"]})[0]
+        got = model.apply(sp, {"inputs": batch["inputs"]}, mesh)[0]
+        err = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        del got, want
+        one, _ = model.loss(params, batch)
+        _build.reset_launch_counts()
+        many, _ = model.loss(sp, batch, mesh=mesh)
+        sync()
+        launches = {k: v for k, v in _build.launch_counts.items() if v}
+    rel = abs(float(many) - float(one)) / abs(float(one))
+    log(f"[{label}] max|Δ logit| / max|logit| {err:.3e} (gate "
+        f"{MESH_DECODE_GATE}); loss mesh {float(many)!r} vs one device "
+        f"{float(one)!r}, |Δ|/|ref| {rel:.2e} (gate {MESH_LOSS_RTOL}); "
+        f"the mesh loss's kernel launches {launches} [{smi}]")
+    need(math.isfinite(err) and err <= MESH_DECODE_GATE,
+         f"[{label}] logits off by {err}")
+    need(rel <= MESH_LOSS_RTOL, f"[{label}] loss {many} vs {one}")
+    for kern in ("mpmrf_filter_scores", "block_sparse_attention"):
+        need(launches.get(kern) == sparse * holding,
+             f"[{label}] {kern} launched {launches.get(kern)} times, want "
+             f"{sparse} sparse layers × {holding} shards")
+    need(set(launches) == {"mpmrf_filter_scores", "block_sparse_attention"},
+         f"[{label}] other kernels launched: {launches}")
+    out = dict(layers=cfg.num_layers, of=full.num_layers, grid=list(
+        MESH_UNEVEN_GRID), heads_per_shard=per, shards_with_heads=holding,
+        logit_err=err, loss_rel=rel, launches=launches, card=smi)
+    del sp, params, model
+    _free_device()
+
+    # one train step's loss and gradients, f32 at ρ 1
+    train = get_config("qwen3-14b")
+    gcfg = dataclasses.replace(
+        train, num_layers=MESH_UNEVEN_GRAD_LAYERS, dtype="float32",
+        remat="none", energon=dataclasses.replace(train.energon,
+                                                  pruning_ratio=1.0))
+    model = LMModel(gcfg, device=DEV)
+    params = model.init(10)
+    tok = torch.randint(1, gcfg.vocab_size - 1,
+                        (1, MESH_UNEVEN_GRAD_SEQ + 1), generator=gen,
+                        device=DEV)
+    batch = {"inputs": tok[:, :-1], "targets": tok[:, 1:]}
+
+    def grads(p, mesh=None):
+        loss, g, _ = adamw.accumulate_gradients(
+            lambda q, bb: model.loss(q, bb, mesh=mesh), p, batch, 1)
+        return float(loss), g
+
+    l1, g1 = grads(params)
+    rtol, share = MESH_UNEVEN_GRAD_TOL
+    steps = {}
+    # the uneven split, then an even one (40 heads over 8) for scale: the
+    # same f32 graph summed in other orders either way
+    for name, grid in (("1x16", MESH_UNEVEN_GRID), ("1x8", (1, 8))):
+        on = _sim_mesh(grid)
+        sp = shd.shard_tree(params, shd.param_shardings(params, on), on)
+        l2, g2 = grads(sp, on)
+        got = dict(adamw.tree_leaves(shd.gather_tree(g2, DEV)))
+        del g2, sp
+        leaves = {}
+        for path, w in adamw.tree_leaves(g1):
+            d = (got[path] - w).abs()
+            bound = rtol * w.abs() + share * float(w.abs().max()) + 1e-30
+            leaves[path] = dict(norm=float(d.norm() / w.norm()),
+                                of_bound=float((d / bound).max()),
+                                past=int((d > bound).sum()), n=d.numel())
+        del got
+        norm = max(v["norm"] for v in leaves.values())
+        past = sum(v["past"] for v in leaves.values())
+        total = sum(v["n"] for v in leaves.values())
+        lrel = abs(l2 - l1) / abs(l1)
+        log(f"[{label}] one train step on {name} ({gcfg.dtype}, "
+            f"{gcfg.energon.impl} at ρ {gcfg.energon.pruning_ratio}, "
+            f"{gcfg.num_layers} layers, 1 × {MESH_UNEVEN_GRAD_SEQ} tokens): "
+            f"loss {l2!r} vs one device {l1!r}, |Δ|/|ref| {lrel:.2e} (gate "
+            f"{MESH_UNEVEN_LOSS_RTOL}); gradients ‖Δ‖ / ‖ref‖ ≤ {norm:.3e} "
+            f"on every leaf (gate {MESH_UNEVEN_GRAD_NORM}); {past} of "
+            f"{total} elements past the CPU test's rtol {rtol} + atol "
+            f"{share} × max, at most "
+            f"{max(v['of_bound'] for v in leaves.values()):.3f} of it "
+            f"[{smi}]")
+        for path, v in leaves.items():
+            log(f"[{label}]   {name} {path}: ‖Δ‖/‖ref‖ {v['norm']:.3e}, "
+                f"max of bound {v['of_bound']:.3f}, {v['past']} of {v['n']} "
+                f"past")
+        need(lrel <= MESH_UNEVEN_LOSS_RTOL,
+             f"[{label}] {name} step loss {l2} vs {l1}")
+        need(norm <= MESH_UNEVEN_GRAD_NORM,
+             f"[{label}] {name} gradients off: {leaves}")
+        steps[name] = dict(loss_rel=lrel, grad_norm_rel=norm,
+                           past=past, elements=total)
+    out.update(steps=steps, seconds=time.perf_counter() - t0)
+    del g1, params, model
+    _free_device()
+    return out
+
+
+def serve_decode_phase():
+    """``[serve-decode]``: ``repro_torch.serve_decode.main()`` on the card
+    — the reference example's oversubscribed paged pool (8 slots, 20
+    pages), prefix cache, mixed greedy / stochastic traffic, ρ_eff
+    telemetry and Chrome trace — gated on the example's own asserts: 24
+    of 24 drained, the peak within 20 pages, ρ_eff in (0, 1], at least
+    one preemption and a prefix hit-rate above 0."""
+    from repro_torch import serve_decode
+
+    label = "serve-decode"
+    smi = card_line(label)
+    t0 = time.perf_counter()
+    res = serve_decode.main(device=DEV,
+                            log=lambda line: log(f"[{label}] {line}"))
+    m, obs = res["engine"].metrics, res["obs"]
+    rho = obs.sparsity.snapshot()["decode"]["rho_eff"]
+    with open("serve_trace.json") as f:
+        events = len(json.load(f)["traceEvents"])
+    out = dict(requests=len(res["done"]),
+               tokens=sum(len(r.tokens_out) for r in res["done"]),
+               preemptions=m.preemptions, peak_pages=m.peak_pages_in_use,
+               ticks=m.ticks, prefill_calls=m.prefill_dispatches,
+               decode_calls=m.decode_dispatches,
+               prefix_hit_rate=m.prefix_hit_rate,
+               pages_shared=m.pages_shared,
+               prefill_tokens_skipped=m.prefill_tokens_skipped,
+               cow_clones=m.cow_clones, rho_eff_decode=rho,
+               trace_events=len(obs.trace), chrome_events=events,
+               decode_tok_s=m.decode_tokens_per_sec,
+               seconds=time.perf_counter() - t0, card=smi)
+    log(f"[{label}] {json.dumps(out)}")
+    need(out["requests"] == serve_decode.N_REQUESTS,
+         f"[{label}] {out['requests']} drained")
+    need(m.peak_pages_in_use <= 20, f"[{label}] peak {m.peak_pages_in_use}")
+    need(rho is not None and 0.0 < rho <= 1.0, f"[{label}] rho_eff {rho}")
+    need(m.preemptions >= 1, f"[{label}] no preemption")
+    need(m.prefix_hit_rate > 0.0, f"[{label}] no prefix hit")
+    return out
+
+
 def engine_ptxas():
     """Registers and spill bytes of each instantiation of the tile engine
     (B2/B6, B4/B8 per head dim and layout, B10, B11 per head dim) and of
@@ -6212,6 +6471,11 @@ def main(argv=None) -> int:
     mesh_decode, keep = mesh_decode_phase()
     dryrun_mesh = dryrun_mesh_phase(keep)
     clock("the mesh decode and the dry run over meshes")
+    # heads that do not divide 'model' (B9–B11 per head shard), then the
+    # reference's serving example
+    mesh_uneven = mesh_uneven_phase()
+    serve_decode = serve_decode_phase()
+    clock("uneven heads over 'model' and the serving example")
 
     timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -6243,6 +6507,7 @@ def main(argv=None) -> int:
             launches_mesh_decode={
                 run: r["launches"].get(name, 0)
                 for run, r in mesh_decode["runs"].items()},
+            launches_mesh_uneven=mesh_uneven["launches"].get(name, 0),
             max_abs_err=max(r["err"] for r in entries + dense_results[name]
                             + d96[name] + tp_results.get(name, [])
                             + moe_results[name] + ep_results.get(name, [])
@@ -6292,6 +6557,8 @@ def main(argv=None) -> int:
     log(json.dumps({"analysis": analysis, "card": smi}))
     log(json.dumps({"mesh_decode": mesh_decode, "dryrun_mesh": dryrun_mesh,
                     "card": smi}))
+    log(json.dumps({"mesh_uneven": mesh_uneven,
+                    "serve_decode": serve_decode, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -78,14 +78,17 @@ def eq3_threshold(
 
 @dataclasses.dataclass(frozen=True)
 class FilterResult:
-    """Output of MP-MRF block selection.
+    """Output of MP-MRF selection.
 
-    ``keep_mask`` bool ``[..., n_qb, n_kb]``; ``block_indices`` /
-    ``block_valid`` int32 ``[..., B]`` survivor table; ``scores`` the
-    final round's block scores; ``sel_tier`` (3 pinned, 2 Eq. 3
-    survivor, 1 budget fill, 0 unused) and ``live_mask`` only for
-    ``with_stats`` callers. (The reference's per-round survivor
-    fractions feed offline benchmarks only and are not ported.)
+    ``keep_mask`` bool ``[..., n_q, n_k]`` (row) or ``[..., n_qb, n_kb]``
+    (block); ``block_indices`` / ``block_valid`` int32 ``[..., B]``
+    survivor table; ``scores`` the final round's scores; ``sel_tier`` (3
+    pinned, 2 Eq. 3 survivor, 1 budget fill, 0 unused) and
+    ``live_mask`` only for ``with_stats`` callers. ``round_keep`` holds
+    each round's survivors before the safeguards and ``round_valid`` the
+    validity they are counted against, from which
+    :attr:`survivor_fraction` is computed when it is read (so a
+    selection that nobody asks it of launches nothing for it).
     """
 
     keep_mask: torch.Tensor
@@ -94,6 +97,20 @@ class FilterResult:
     block_valid: Optional[torch.Tensor] = None
     sel_tier: Optional[torch.Tensor] = None
     live_mask: Optional[torch.Tensor] = None
+    round_keep: Tuple[torch.Tensor, ...] = ()
+    round_valid: Optional[torch.Tensor] = None
+
+    @property
+    def survivor_fraction(self) -> torch.Tensor:
+        """The paper's per-round pruning ratio: ``[R, ...]`` surviving ÷
+        valid keys (or blocks) of each row after each round, the
+        denominator ``max(Σ valid, 1)`` (f32, as the reference's int32
+        true division). Empty (``scores[..., :0]``) where the selection
+        kept no rounds: the fused ops', as in the reference."""
+        if self.round_valid is None:
+            return self.scores[..., :0]
+        denom = torch.clamp(self.round_valid.sum(dim=-1), min=1)
+        return torch.stack([m.sum(dim=-1) / denom for m in self.round_keep])
 
 
 def top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -130,10 +147,12 @@ def prefill_block_select_from_planes(
     n_qb, n_kb = round_scores[-1].shape[-2:]
     blk_keep = blk_valid
     blk_scores = None
+    per_round = []
     for alpha, blk_scores in zip(cfg.alphas, round_scores):
         if not cfg.keep_all:
             theta = eq3_threshold(blk_scores, alpha, blk_keep)
             blk_keep = blk_keep & (blk_scores >= theta)
+        per_round.append(blk_keep)
 
     pinned_mask = torch.zeros_like(blk_valid)
     if cfg.keep_first:
@@ -177,6 +196,8 @@ def prefill_block_select_from_planes(
         block_valid=block_valid,
         sel_tier=sel_tier,
         live_mask=blk_valid if with_stats else None,
+        round_keep=tuple(per_round),
+        round_valid=blk_valid,
     )
 
 
@@ -309,15 +330,18 @@ def row_select_from_rounds(planes: Sequence[torch.Tensor], cfg: MPMRFConfig,
     ``keep_mask``."""
     keep = valid
     scores = None
+    per_round = []
     for alpha, scores in zip(cfg.alphas, planes):
         if not cfg.keep_all:
             # ">=" so a constant row keeps its max (θ == max)
             keep = keep & (scores >= eq3_threshold(scores, alpha, keep))
+        per_round.append(keep)
     if cfg.keep_first:
         first = torch.zeros_like(keep)
         first[..., 0] = True
         keep = keep | (first & valid)
-    return FilterResult(keep_mask=keep, block_indices=None, scores=scores)
+    return FilterResult(keep_mask=keep, block_indices=None, scores=scores,
+                        round_keep=tuple(per_round), round_valid=valid)
 
 
 def mpmrf_row_select(
@@ -458,12 +482,14 @@ def decode_block_select_from_rounds(
     :func:`decode_block_tier_select`."""
     bk = cfg.key_block
     blk_keep = blk_scores = blk_valid = None
+    per_round = []
     for alpha, (blk_scores, blk_valid) in zip(cfg.alphas, rounds):
         if blk_keep is None:
             blk_keep = blk_valid
         if not cfg.keep_all:
             blk_keep = blk_keep & (
                 blk_scores >= eq3_threshold(blk_scores, alpha, blk_keep))
+        per_round.append(blk_keep)
     batch = cache_length.shape[0]
     tail = (1,) * (blk_scores.dim() - 2)
     newest = ((cache_length - 1) // bk).reshape((batch,) + tail)
@@ -481,6 +507,8 @@ def decode_block_select_from_rounds(
         block_valid=block_valid,
         sel_tier=out[2] if with_stats else None,
         live_mask=blk_valid if with_stats else None,
+        round_keep=tuple(per_round),
+        round_valid=blk_valid,
     )
 
 

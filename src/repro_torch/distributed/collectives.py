@@ -347,6 +347,48 @@ def broadcast(x: torch.Tensor, devices: Sequence[torch.device], *, axes,
                                  share is not None, x))
 
 
+class _Slices(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim: int, bounds, devices, axes, x):
+        ctx.dim, ctx.bounds, ctx.axes = dim, bounds, axes
+        ctx.device, ctx.dtype, ctx.shape = x.device, x.dtype, x.shape
+        ctx.nbytes = _nbytes(x)
+        return tuple(_on(x.narrow(dim, lo, n), d)
+                     for (lo, n), d in zip(bounds, devices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        present = [(b, g) for b, g in zip(ctx.bounds, grads)
+                   if g is not None]
+        if not present:
+            return (None,) * 5
+
+        def run():
+            wide = torch.promote_types(ctx.dtype, _F32)
+            out = torch.zeros(ctx.shape, dtype=wide, device=ctx.device)
+            for (lo, n), g in present:
+                out.narrow(ctx.dim, lo, n).add_(g.to(ctx.device, wide))
+            return out.to(ctx.dtype)
+
+        nbytes = _grad_bytes([g for _, g in present])
+        return (None,) * 4 + (_priced("all-gather", ctx.axes, nbytes,
+                                      nbytes + ctx.nbytes, run),)
+
+
+def slices(x: torch.Tensor, dim: int, bounds: Sequence[Tuple[int, int]],
+           devices: Sequence[torch.device], *, axes) -> List[torch.Tensor]:
+    """Each device's slice ``(start, length)`` along ``dim`` of ``x``, a
+    leaf replicated over ``axes`` (every device holds it, so the slice
+    is free; a view where the device is x's). Backward: the slices'
+    gradients placed back at their offsets, overlaps summed in f32 in
+    order and rounded once — priced as the all-gather of the slices'
+    gradients over ``axes`` that GSPMD gives a replicated leaf whose
+    use is split (operand bytes: each slice's gradient on its device; a
+    share passes its one slice)."""
+    return list(_Slices.apply(dim, tuple(bounds), tuple(devices),
+                              tuple(axes), x))
+
+
 # --------------------------------------------------------------------------
 # int8 weight gather (the reference's _quantized_all_gather)
 # --------------------------------------------------------------------------

@@ -1007,6 +1007,40 @@ def row_views(tree: Any, mesh, rows: Sequence[int], *, whole: bool = False,
     return out
 
 
+def uneven_head_views(attn: Dict[str, Any], mesh, row: int,
+                      num_heads: int) -> Dict[str, Any]:
+    """A row's attention view with the query heads split over 'model' as
+    GSPMD splits them where the model axis M does not divide them: ``wq``
+    and ``wo`` arrive whole (replicated over 'model', as ``param_pspec``
+    keeps them) and shard j takes heads ``[j·c, min((j+1)·c, H))``, c =
+    ⌈H/M⌉, of the replicated leaves — ``wq [d, H, hd]`` and the matching
+    rows of ``wo [H, hd, d]`` — on the row's device j, as
+    :class:`~repro_torch.distributed.collectives.Shards` (a share's one;
+    :func:`~repro_torch.distributed.collectives.slices`, whose backward
+    gathers the slices' gradients). A shard past the last head holds
+    none. ``attn`` is returned as it is
+    where the heads divide M, M is 1 or ``wq`` is sharded already."""
+    m = mesh.shape.get("model", 1)
+    if m == 1 or num_heads % m == 0 or isinstance(attn["wq"], tuple):
+        return attn
+    per = -(-num_heads // m)
+    if mesh.coord is None:
+        js, devices = list(range(m)), list(mesh.rows[row])
+    else:
+        js, devices = [mesh.coord["model"]], [mesh.first_device]
+    bounds = []
+    for j in js:
+        lo = min(j * per, num_heads)
+        bounds.append((lo, min((j + 1) * per, num_heads) - lo))
+
+    def split(w: torch.Tensor, dim: int):
+        return col.Shards(col.slices(w, dim, bounds, devices,
+                                     axes=("model",)),
+                          start=js[0], total=m)
+
+    return dict(attn, wq=split(attn["wq"], -2), wo=split(attn["wo"], -3))
+
+
 def _share_view(leaf: ShardedLeaf, mesh, a, b, whole: bool, gather):
     """:func:`row_views` of one leaf in a share: the local shard gathered
     over the data axes its spec names (priced stand-ins), the gradient

@@ -155,40 +155,73 @@ def _attention_block_tp(params, x: torch.Tensor, energon: EnergonConfig, *,
                         use_qk_norm: bool, window: Optional[int],
                         layer_index: int) -> torch.Tensor:
     """:func:`attention_block` with the query heads over 'model' (the
-    reference's head-sharded q/k/v constraints and row-parallel ``wo``):
-    K/V are projected whole on x's device (``kv_heads`` → None), and
-    shard j, on its device, projects its H/M query heads, reads the KV
-    heads of their groups (head h reads h // G) and runs
+    reference's head-sharded q/k/v constraints, ``allow_uneven``, and
+    row-parallel ``wo``). Shard j, on its device, projects its query
+    heads ``[j·c, j·c + h_j)`` — c = ⌈H/M⌉, h_j its ``wq`` shard's heads:
+    H/M each where M divides H, else the
+    :func:`~repro_torch.distributed.sharding.uneven_head_views` split,
+    where a shard past the last head holds none and launches nothing —,
+    reads the KV heads of their groups (head h reads h // G) and runs
     :func:`energon_attention` on them; the shards' ``wo`` partials (in
-    x's dtype) add over 'model' in f32, rounded once."""
+    x's dtype, zeros for a shard without heads) add over 'model' in f32
+    in shard order, rounded once. K/V (``kv_heads`` → None: ``wk`` /
+    ``wv`` whole on every shard) are projected whole on x's device where
+    M divides H; where it does not, each shard projects the KV heads its
+    query heads read, as GSPMD's padded split projects its device's."""
     devices = [w.device for w in params["wq"]]
     m = col.shard_total(params["wq"])          # shards over 'model'
     first = col.shard_start(params["wq"])      # a share's own index
-    batch, n, _ = x.shape
-    per, groups = num_heads // m, num_heads // num_kv_heads
-    positions = torch.arange(n, device=x.device)[None, :]
-    k, v = _project(x, params["wk"]), _project(x, params["wv"])
-    if use_qk_norm:
-        k = L.rmsnorm(params["k_norm"], k)
-    k = L.apply_rope(k, positions, rope_theta)
+    batch, n, d_model = x.shape
+    per, groups = -(-num_heads // m), num_heads // num_kv_heads
     over = dict(axes=("model",), share=col.shards_share(params["wq"]))
     xs = col.broadcast(x, devices, **over)
-    ks = col.broadcast(k.transpose(1, 2), devices, **over)  # [B, KV, n, hd]
-    vs = col.broadcast(v.transpose(1, 2), devices, **over)
-    q_norms = (col.broadcast(params["q_norm"]["scale"], devices, **over)
-               if use_qk_norm else None)
+    uneven = num_heads % m != 0
+    norm_keys = (("q_norm", "k_norm") if uneven else ("q_norm",)) \
+        if use_qk_norm else ()
+    norms = {key: col.broadcast(params[key]["scale"], devices, **over)
+             for key in norm_keys}
+    if uneven:
+        # shard j's KV heads: those its query heads read (h // G)
+        kv = []
+        for j, w in enumerate(params["wq"]):
+            h0, hj = (first + j) * per, w.shape[-2]
+            lo = min(h0 // groups, num_kv_heads)
+            kv.append((lo, (h0 + hj - 1) // groups + 1 - lo if hj else 0))
+        wks = col.slices(params["wk"], -2, kv, devices, axes=("model",))
+        wvs = col.slices(params["wv"], -2, kv, devices, axes=("model",))
+    else:
+        positions = torch.arange(n, device=x.device)[None, :]
+        k, v = _project(x, params["wk"]), _project(x, params["wv"])
+        if use_qk_norm:
+            k = L.rmsnorm(params["k_norm"], k)
+        k = L.apply_rope(k, positions, rope_theta)
+        ks = col.broadcast(k.transpose(1, 2), devices, **over)
+        vs = col.broadcast(v.transpose(1, 2), devices, **over)
     parts = []
     for j, dev in enumerate(devices):
+        h0, hj = (first + j) * per, params["wq"][j].shape[-2]
+        if hj == 0:
+            parts.append(torch.zeros((batch, n, d_model), dtype=x.dtype,
+                                     device=dev))
+            continue
+        positions = torch.arange(n, device=dev)[None, :]
         q = _project(xs[j], params["wq"][j])
         if use_qk_norm:
-            q = L.rmsnorm({"scale": q_norms[j]}, q)
-        q = L.apply_rope(q, torch.arange(n, device=dev)[None, :], rope_theta)
-        jj = first + j
-        heads = torch.arange(jj * per, (jj + 1) * per, device=dev) // groups
+            q = L.rmsnorm({"scale": norms["q_norm"][j]}, q)
+        q = L.apply_rope(q, positions, rope_theta)
+        heads = torch.arange(h0, h0 + hj, device=dev) // groups
+        if uneven:
+            k, v = _project(xs[j], wks[j]), _project(xs[j], wvs[j])
+            if use_qk_norm:
+                k = L.rmsnorm({"scale": norms["k_norm"][j]}, k)
+            k = L.apply_rope(k, positions, rope_theta).transpose(1, 2)
+            v, heads = v.transpose(1, 2), heads - kv[j][0]
+        else:
+            k, v = ks[j], vs[j]
         out = energon_attention(
-            q.transpose(1, 2), ks[j].index_select(1, heads),
-            vs[j].index_select(1, heads), energon, causal=True,
-            window=window, layer_index=layer_index)
+            q.transpose(1, 2), k.index_select(1, heads),
+            v.index_select(1, heads), energon, causal=True, window=window,
+            layer_index=layer_index)
         wo = params["wo"][j]
         out = out.transpose(1, 2).reshape(batch, n, -1)
         parts.append(out @ wo.reshape(-1, wo.shape[-1]))

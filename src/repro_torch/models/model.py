@@ -486,7 +486,9 @@ class LMModel:
         row's capacity (:func:`moe.moe_rows`, int8 ZeRO gathers under
         ``quantized_weight_gather``), any other the reference's
         single-device MoE over every row's tokens at once (its capacity
-        the whole batch's, as GSPMD computes it)."""
+        the whole batch's, as GSPMD computes it). Query heads that do not
+        divide 'model' split over it as GSPMD splits them
+        (:func:`~repro_torch.distributed.sharding.uneven_head_views`)."""
         cfg, moe_cfg = self.cfg, self._moe_cfg()
 
         def block_fn(layer, x_rows, window, layer_idx):
@@ -495,10 +497,12 @@ class LMModel:
                 {k: layer[k] for k in ("norm_attn", "attn", "norm_mlp")},
                 mesh, rows)
             xs, h_in = [], []
-            for view, x in zip(views, x_rows):
+            for r, view, x in zip(rows, views, x_rows):
+                attn = shd.uneven_head_views(view["attn"], mesh, r,
+                                             cfg.num_heads)
                 x = x + attn_lib.attention_block(
-                    view["attn"], L.apply_norm(cfg.norm, view["norm_attn"],
-                                               x), cfg.energon, **kw)
+                    attn, L.apply_norm(cfg.norm, view["norm_attn"], x),
+                    cfg.energon, **kw)
                 xs.append(x)
                 h_in.append(L.apply_norm(cfg.norm, view["norm_mlp"], x))
             aux = None

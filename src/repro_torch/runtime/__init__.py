@@ -1,7 +1,7 @@
 """Runtime of the port: page pool, admission queue, serving engine,
-replicated engines, fault tolerance and the training loop. (The
-reference's ``sample_tokens`` has no counterpart: the port draws by
-request from ``sampling_seed``.)"""
+replicated engines, fault tolerance and the training loop. The
+reference's ``sample_tokens`` is ``ServeLoop._sample`` over
+:mod:`repro_torch.core.prng`'s Threefry streams."""
 
 from repro_torch.runtime.fault_tolerance import (
     FaultInjector,

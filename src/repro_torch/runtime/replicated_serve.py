@@ -16,10 +16,11 @@ placement concern only:
   queue rejects the request, the request spills to the least loaded
   replica (lowest id on ties). A fixed trace places identically on
   every run.
-* **Streams are placement-invariant.** Every replica draws a request's
-  samples from the seed, its uid and its count of samples
-  (:func:`~repro_torch.runtime.serve_loop.sampling_seed`), so a
-  request's stream does not depend on which replica ran it; with each
+* **Streams are placement-invariant.** Every replica holds the same
+  base key (the reference's ``rng=PRNGKey(seed)``) and draws a
+  request's samples from ``fold_in(base, uid)`` split once a sample
+  (:mod:`repro_torch.core.prng`), so a request's stream does not depend
+  on which replica ran it; with each
   engine's own contracts (preempted ≡ ample, shared ≡ unshared, TP ≡
   single device) it equals the stream of a single-device engine.
 * **Metrics merge, not mix.** :meth:`ReplicatedServeLoop.merged_metrics`
@@ -101,7 +102,7 @@ class ReplicatedServeLoop:
             raise ValueError("need mesh or replicas >= 1")
         self.mesh = mesh
         self.n_replicas = replicas
-        # every replica shares the seed: streams draw by uid, so
+        # every replica shares the base key: streams fold by uid, so
         # placement cannot perturb them
         self.engines: List[ServeLoop] = [
             ServeLoop(

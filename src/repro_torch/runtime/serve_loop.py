@@ -25,12 +25,14 @@ shared page pool (default) or the contiguous per-slot cache
   chunk covering every mid-prefill slot, then the decode step over
   decode-state slots. ``scheduler="sync"`` runs a whole admission wave
   inline. Both give the same per-uid streams.
-* **Sampling**: greedy, or temperature sampling from a counter-based
-  per-request generator seeded from ``(seed, uid, tokens sampled so
-  far)`` — independent of batch neighbours and of preemption, which is
-  what makes hybrid ≡ sync and preempted ≡ ample-pool hold in-port.
-  (The reference's ``jax.random`` streams are not reproduced; greedy
-  streams are what compares across the two packages.)
+* **Sampling**: greedy, or temperature sampling from the reference's
+  per-request ``jax.random`` stream (:mod:`repro_torch.core.prng`): a
+  slot's key at admission is ``split``ⁿ``(fold_in(PRNGKey(seed),
+  uid))[0]``, n the tokens the request has sampled, and each sample
+  splits it (``[0]`` kept, ``[1]`` drawn by ``categorical``). A stream
+  depends on ``(seed, uid, tokens sampled so far)`` alone — not on
+  batch neighbours or preemption, which is what makes hybrid ≡ sync and
+  preempted ≡ ample-pool hold — and equals the reference's.
 * **Metrics**: prefill and decode tok/s, queue wait, TTFT and
   inter-token latency percentiles — raw (``itl``) and decode-attributed
   (``itl_decode``: the gap less the engine's prefill time between the
@@ -89,6 +91,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.energon_attention import serving_faults
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.distributed import sharding as shd
@@ -365,13 +368,6 @@ class EngineMetrics:
         return s
 
 
-def sampling_seed(seed: int, uid: int, n_sampled: int) -> int:
-    """Counter-based seed of request ``uid``'s ``n_sampled``-th draw."""
-    h = (seed * 0x9E3779B1 + uid) & 0xFFFFFFFFFFFF
-    h = (h * 0x85EBCA77 + n_sampled) & 0xFFFFFFFFFFFF
-    return h ^ (h >> 17)
-
-
 def make_serve_step(model, *, device: DeviceLike = None, mesh=None):
     """The one-token decode step as one dispatch: the port of the
     reference's ``make_serve_step`` (a jitted ``decode_step`` that
@@ -577,6 +573,8 @@ class ServeLoop:
         self.max_len = rows
         self.eos = eos_token
         self.seed = seed
+        #: the reference's ``rng=PRNGKey(seed)``
+        self._base_key = prng.prng_key(seed)
         self.prefill_chunk = max(1, min(prefill_chunk, max_len))
         cfg = model.cfg
         # per (slot, KV head) row, so a head shard's launches (B·KV/M
@@ -623,6 +621,8 @@ class ServeLoop:
             self._install_mesh(mesh)
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self._temps = np.zeros((batch_slots,), np.float32)
+        #: each slot's sampling key (two uint32 words)
+        self._keys = np.zeros((batch_slots, 2), np.int64)
         self._lengths = np.zeros((batch_slots,), np.int64)
         self._slot_order: List[Optional[int]] = [None] * batch_slots
         self._admit_seq = itertools.count()
@@ -894,25 +894,33 @@ class ServeLoop:
     def _sample(self, logits: torch.Tensor, mask: np.ndarray,
                 stats: Optional[torch.Tensor] = None):
         """Sample one token for each ``mask`` slot from ``logits [B, V]``:
-        argmax at temperature ≤ 0, else a draw from the slot's request
-        stream. Returns host ``(tokens, finite, stats)``: ``finite[b]``
-        is False where slot b's logits hold a NaN/Inf (the quarantine
-        signal), and ``stats`` (telemetry) rides the same copy."""
+        argmax at temperature ≤ 0, else the reference's ``_sample_wave``
+        draw — the slot's key splits, ``[0]`` stays and ``[1]`` draws
+        ``categorical(logits / max(temp, 1e-6))`` — vectorised over the
+        sampling slots on the logits' device (one upload of their keys,
+        temperatures and rows; none when every slot is greedy). Returns
+        host ``(tokens, finite, stats)``: ``finite[b]`` is False where
+        slot b's logits hold a NaN/Inf (the quarantine signal), and
+        ``stats`` (telemetry) rides the same copy."""
         toks = torch.argmax(logits, dim=-1)
         finite = torch.isfinite(logits).all(dim=-1)
-        for i in np.nonzero(mask)[0]:
-            temp = float(self._temps[i])
-            if temp <= 0.0:
-                continue
-            req = self.slots[i]
-            gen = torch.Generator(device=self.device).manual_seed(
-                sampling_seed(self.seed, req.uid, len(req.tokens_out))
-            )
+        drawing = [i for i in np.nonzero(mask)[0] if self._temps[i] > 0.0]
+        if drawing:
+            kept, drawn = prng.split_keys(self._keys[drawing])
+            self._keys[drawing] = kept
+            temps = self._temps[drawing].view(np.int32).astype(np.int64)
+            host = np.concatenate(
+                [drawn, temps[:, None], np.asarray(drawing)[:, None]], 1)
+            packed = torch.from_numpy(host).to(logits.device)
+            rows = packed[:, 3]
+            t = packed[:, 2].to(torch.int32).view(torch.float32)
             # a non-finite row draws from zeros instead (its slot is
             # quarantined and the token dropped): the draw must not fail
-            row = torch.where(finite[i], logits[i].float(), 0.0)
-            probs = torch.softmax(row / max(temp, 1e-6), -1)
-            toks[i] = torch.multinomial(probs, 1, generator=gen)[0]
+            scaled = torch.where(finite[rows, None],
+                                 logits.index_select(0, rows).float(), 0.0)
+            scaled = scaled / torch.clamp(t, min=1e-6)[:, None]
+            toks = toks.index_copy(0, rows,
+                                   prng.categorical(packed[:, :2], scaled))
         parts = [toks.to(torch.int64), finite.to(torch.int64)]
         if stats is not None:
             parts.append(stats.reshape(-1).to(torch.int64))
@@ -1028,6 +1036,8 @@ class ServeLoop:
         if req._t_admit is None:
             req._t_admit = now
         self._temps[i] = req.temperature
+        self._keys[i] = prng.request_key(self._base_key, req.uid,
+                                         len(req.tokens_out))
         self._lengths[i] = 0
         if resumed:
             if seq_tokens:

@@ -11,6 +11,11 @@ host devices (``--xla_force_host_platform_device_count=8``, as
   ``(4, 2)`` mesh. The port's mesh loss and gradients (ZeRO over 'data',
   heads / MLP columns / vocabulary over 'model') equal them, and its
   one-device loss too;
+* qwen3-14b's smoke config with 6 query heads on ``(2, 4)``, heads
+  that do not divide 'model' (``mpmrf_row`` at ρ = 1): GSPMD pads them
+  and splits their compute; the port's shard j takes heads ``[2j,
+  min(2j + 2, 6))`` of the replicated ``wq`` / ``wo`` (shard 3 none),
+  and its mesh loss and gradients equal the reference's;
 * the MoE layer of ``test_sharded_moe_equals_reference`` on ``(2, 4)``
   (capacity factor 8, and 1.25 where assignments drop): the port's
   ``apply_moe_sharded`` with a data axis equals the reference's output,
@@ -58,6 +63,7 @@ from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import LMModel
+from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe
 from repro_torch.optim import AdamWConfig, adamw
 from repro_torch.runtime.train_loop import (
@@ -142,6 +148,23 @@ np.savez(os.path.join(out, "phi3.npz"), loss=np.asarray(loss),
 
 # the MoE layer on (2, 4)
 mesh = make_mesh_compat((2, 4), ("data", "model"))
+
+# qwen3-14b's smoke config with 6 query heads (uneven over 4): the jitted
+# loss and gradients on (2, 4), GSPMD padding and splitting the heads
+cfg = rho1(dataclasses.replace(get_smoke_config("qwen3-14b"), num_heads=6))
+model = LMModel(cfg)
+params = jax.jit(model.init)(jax.random.PRNGKey(0))
+b = batch(cfg, 8, 32, 3)
+loss_fn = lambda p, bb: model.loss(p, bb)[0]
+shd.set_active_mesh(mesh)
+p_sh, b_sh = shd.param_shardings(params, mesh), shd.batch_shardings(b, mesh)
+loss, grads = jax.jit(jax.value_and_grad(loss_fn),
+                      in_shardings=(p_sh, b_sh))(
+    jax.device_put(params, p_sh), jax.device_put(b, b_sh))
+shd.set_active_mesh(None)
+np.savez(os.path.join(out, "qwen3_h6.npz"), loss=np.asarray(loss),
+         **flat(params, "params/"), **flat(grads, "grads/"),
+         **{"batch/" + k: v for k, v in b.items()})
 arrays = {}
 for cap in (8.0, 1.25):
     mcfg = M.MoEConfig(num_experts=8, experts_per_token=2, d_model=32,
@@ -259,6 +282,36 @@ def test_dense_mesh_loss_and_grads_equal_the_reference_mesh_step(ref):
     np.testing.assert_allclose(model.apply(placed, inputs, mesh)[0].numpy(),
                                model.apply(params, inputs)[0].numpy(),
                                rtol=1e-5, atol=1e-5)
+    want = {k[len("grads/"):]: v for k, v in arrays.items()
+            if k.startswith("grads/")}
+    _assert_grads_close(grads, want)
+
+
+def test_uneven_heads_mesh_loss_and_grads_equal_the_reference(
+        ref, monkeypatch):
+    """6 heads over a model axis of 4: each shard attends over at most
+    ⌈6/4⌉ = 2 heads (the fourth over none), and the loss and gradients
+    equal GSPMD's padded split."""
+    arrays = ref["qwen3_h6"]
+    cfg = _rho1(dataclasses.replace(registry.get_smoke_config("qwen3-14b"),
+                                    num_heads=6))
+    model = LMModel(cfg, device="cpu")
+    params = convert_params(_tree(arrays, "params/"), model)
+    batch = _tree(arrays, "batch/")
+    mesh = cpu_mesh(2, 4)
+    placed = shd.shard_tree(params, shd.param_shardings(params, mesh), mesh)
+    heads = []
+    real = attn_lib.energon_attention
+
+    def counted(q, *args, **kwargs):
+        heads.append(q.shape[1])
+        return real(q, *args, **kwargs)
+
+    monkeypatch.setattr(attn_lib, "energon_attention", counted)
+    loss, grads = _grads(model, placed, batch, mesh)
+    # per layer and data row, shards 0–2 attend over two heads each
+    assert heads == [2] * (3 * cfg.num_layers * 2)
+    np.testing.assert_allclose(float(loss), float(arrays["loss"]), rtol=1e-5)
     want = {k[len("grads/"):]: v for k, v in arrays.items()
             if k.startswith("grads/")}
     _assert_grads_close(grads, want)
