@@ -1,0 +1,9 @@
+"""Share of the traced scoring calls' span in which no operation ran on
+the device (from the profiler's trace)."""
+
+
+def read(run):
+    t = run.tracer
+    if run.kind != "score" or t is None or not t.done or not t.busy_s:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)

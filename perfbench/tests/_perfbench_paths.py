@@ -1,0 +1,10 @@
+"""Put the checkout's root and ``src/`` on the import path (the tests run
+from any directory)."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT), str(ROOT / "src")):
+    if p not in sys.path:
+        sys.path.insert(0, p)
